@@ -67,16 +67,17 @@ ATTN_IMPLS = ("flash_scan", "dense")
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """The serve path's fields of the JAX ``ParallelConfig``, with its
-    defaults. ``attn_impl="flash_scan"`` (the JAX default, which runs the
-    flash kernels on the Pallas backends) is not ported yet and raises in
-    ``make_serve_engine``; the port's engine defaults to ``"dense"``.
+    defaults. ``attn_impl="flash_scan"`` (the default here and in the JAX
+    package) runs the flash-attention kernels, as the JAX package does on
+    its Pallas backends; ``"dense"`` runs the materialised oracle.
 
     ``scan_layers`` and ``remat`` take any of their values and change
     nothing that serving computes, in the JAX package as here: ``remat``
     acts only under a gradient, and ``scan_layers`` only sets how XLA
     compiles the layer stack (the port always runs a Python loop).
-    ``attn_block_q``/``attn_block_k`` are the flash kernels' tile sizes;
-    ``make_serve_engine`` rejects any value but 0 until those kernels land.
+    ``attn_block_q``/``attn_block_k`` are the TPU kernels' tile sizes; the
+    card's kernels choose their own tiles, so ``make_serve_engine`` rejects
+    any value but 0.
     """
     scan_layers: bool = True
     remat: str = "block"             # none|block|full
@@ -97,9 +98,9 @@ class ServeConfig:
     scheduler admits queued requests into free slots and evicts finished
     ones. The flash-tile, paged-cache, chunked-prefill, preemption and
     speculative fields exist so a config reads the same as in the JAX
-    package; this slice serves the ring cache with dense attention, and
-    ``make_serve_engine`` raises on any of them set to other than its
-    default.
+    package; the port serves the ring cache, its flash kernels choose
+    their own tiles, and ``make_serve_engine`` raises on any of these
+    fields set to other than its default.
     """
     max_batch: int = 8               # decode-batch slots (ring cache rows)
     max_len: int = 256               # cache cells per slot (ring capacity)

@@ -1,11 +1,19 @@
 """Grouped-query attention with RoPE and the ring KV cache.
 
 The PyTorch counterpart of ``repro/models/attention.py`` for the serve
-path with ``attn_impl="dense"``: attention materialises the (B, H, Sq, Sk)
-scores in f32 (the JAX package's oracle path, a plain product on the card
-as it is a plain product for XLA). ``attn_impl="flash_scan"``, which the
-JAX package runs through its flash-attention kernels, arrives with the
-flash kernels in the next slice and raises until then.
+path. Two implementations, selected by ``attn_impl``:
+
+* ``flash_scan`` (the default, as in the JAX package) — the flash-attention
+  kernels of ``kernels/flash_attention``: ``flash_fwd_lse`` for prefill and
+  ``decode_attention`` for every decode step over the ring cache, GQA
+  native (KV heads stay folded). On the card these are the CUDA kernels;
+  on the CPU their plain versions. This is the branch the JAX package
+  takes on its Pallas backends; its XLA-only ``flash_scan_attention``
+  (a ``lax.scan`` for prompts past 2048) has no counterpart here, since
+  the port has no XLA backend.
+* ``dense`` — materialises the (B, H, Sq, Sk) scores in f32 after
+  expanding the KV heads (the JAX package's oracle path, a plain product
+  on the card as it is a plain product for XLA).
 
 All projections route through ``quant_linear``, so SwitchBack applies to
 Q/K/V/out.
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precision import QuantPolicy, quant_linear
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models import params as PRM
 from repro_torch.models.common import apply_rope, apply_rope_cached
 
@@ -40,14 +49,6 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, S_max, n_kv, hd)
     v: torch.Tensor          # (B, S_max, n_kv, hd)
     length: torch.Tensor     # (B,) int32
-
-
-def _require_dense(impl: str):
-    if impl != "dense":
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet: the flash-attention "
-            "kernels (flash_fwd, decode_fwd) arrive with port slice 2; use "
-            "ParallelConfig(attn_impl='dense')")
 
 
 def qkv_project(x: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
@@ -95,10 +96,12 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def _core_attention(q, k, v, *, causal: bool, impl: str = "dense"):
-    """q (B, Sq, H, hd); k, v (B, Sk, KV, hd). The dense branch of the JAX
-    package's dispatch: expand KV heads, then dense attention."""
-    _require_dense(impl)
+def _core_attention(q, k, v, *, causal: bool, impl: str = "flash_scan"):
+    """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) with KV heads folded. The JAX
+    package's dispatch: anything but ``"dense"`` runs the flash kernel, which
+    consumes GQA natively; ``"dense"`` expands KV heads for the oracle."""
+    if impl != "dense":
+        return FA.flash_fwd_lse(q, k, v, causal=causal)[0]
     n_heads = q.shape[2]
     return dense_attention(q, _expand_kv(k, n_heads), _expand_kv(v, n_heads),
                            causal=causal)
@@ -112,15 +115,17 @@ def _out_proj(o: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
 
 def attention_decode_step(x: torch.Tensor, cache: KVCache, p: dict, cfg,
                           policy: QuantPolicy, *, rope_cache=None,
-                          impl: str = "dense") -> torch.Tensor:
+                          impl: str = "flash_scan") -> torch.Tensor:
     """One-token decode: x (B, 1, D); slot b holds ``cache.length[b]`` past
     tokens. Writes the new K/V at ``length % S_max`` in place, attends over
     ``min(length + 1, S_max)`` cells and advances every slot's length by
     one (in place). RoPE is applied at write time with the absolute
     position, so a wrapped cache needs no per-cell positions.
     ``rope_cache=(cos, sin)``: rows pre-gathered for this step's positions.
-    Returns the attention output (B, 1, D)."""
-    _require_dense(impl)
+    Under ``flash_scan`` the re-attend is the decode kernel over the cache
+    in its storage layout (a slot walks only its live tiles); ``dense``
+    expands the whole cache and masks it. Returns the attention output
+    (B, 1, D)."""
     B = x.shape[0]
     S_max = cache.k.shape[1]
     q, k, v = qkv_project(x, p, cfg, policy)
@@ -135,17 +140,20 @@ def attention_decode_step(x: torch.Tensor, cache: KVCache, p: dict, cfg,
     write_at = cache.length.long() % S_max                 # ring write position
     cache.k[rows, write_at] = k[:, 0].to(cache.k.dtype)
     cache.v[rows, write_at] = v[:, 0].to(cache.v.dtype)
-    valid = torch.clamp(cache.length + 1, max=S_max)       # (B,)
-    o = dense_attention(q, _expand_kv(cache.k, cfg.n_heads),
-                        _expand_kv(cache.v, cfg.n_heads), causal=False,
-                        kv_len=valid[:, None, None, None])
+    valid = torch.clamp(cache.length + 1, max=S_max)       # (B,) int32
+    if impl != "dense":
+        o = FA.decode_attention(q, cache.k, cache.v, valid)
+    else:
+        o = dense_attention(q, _expand_kv(cache.k, cfg.n_heads),
+                            _expand_kv(cache.v, cfg.n_heads), causal=False,
+                            kv_len=valid[:, None, None, None])
     cache.length.add_(1)
     return _out_proj(o, p, cfg, policy)
 
 
 def attention_prefill(x: torch.Tensor, cache: KVCache, p: dict, cfg,
                       policy: QuantPolicy, *, admit: torch.Tensor,
-                      rope_cache=None, impl: str = "dense") -> torch.Tensor:
+                      rope_cache=None, impl: str = "flash_scan") -> torch.Tensor:
     """Full-prompt causal attention that also seeds the serve cache.
 
     x: (B, S, D) prompts padded to S (S <= S_max); ``admit``: (B,) bool —

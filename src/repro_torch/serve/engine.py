@@ -14,12 +14,14 @@ The PyTorch counterpart of ``repro/serve/engine.py`` in ring mode:
 
 With ``quant_mode="int8_switchback"`` every transformer linear runs the
 SwitchBack int8 forward through the CUDA kernels of
-``kernels/switchback``. There is no jit, no mesh and no donation: each
-step runs eagerly on the engine's device.
+``kernels/switchback``, and with the default ``attn_impl="flash_scan"``
+attention runs the flash kernels of ``kernels/flash_attention`` (prefill
+and decode). There is no jit, no mesh and no donation: each step runs
+eagerly on the engine's device.
 
-Not in this slice (raising ``NotImplementedError``): the paged cache,
-chunked prefill, preemption and speculative decoding, the flight
-recorder, and ``attn_impl="flash_scan"`` (the flash kernels, next slice).
+Not ported yet (raising ``NotImplementedError``): the paged cache,
+chunked prefill, preemption and speculative decoding, and the flight
+recorder.
 """
 from __future__ import annotations
 
@@ -346,14 +348,14 @@ class ServeEngine:
 
 
 def _only_defaults(cfg, names, why: str):
-    """Raise on a field of a later slice set to other than its default,
-    rather than ignore it."""
+    """Raise on a field the port does not take set to other than its
+    default, rather than ignore it."""
     defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
     for name in names:
         if getattr(cfg, name) != defaults[name]:
             raise NotImplementedError(
                 f"{type(cfg).__name__}.{name}={getattr(cfg, name)!r}: {why}; "
-                f"this slice takes only the default {defaults[name]!r}")
+                f"the port takes only the default {defaults[name]!r}")
 
 
 def make_serve_engine(model, serve_cfg: ServeConfig, *,
@@ -367,21 +369,20 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
     one this raises unless ``device="cpu"`` is asked for. ``policy``
     defaults to ``serve_cfg.quant_mode``.
 
-    ``parallel`` defaults to ``ParallelConfig(remat="none",
-    attn_impl="dense")``. The JAX engine defaults to ``flash_scan``, which
-    on its Pallas backends runs the flash-attention kernels; those kernels
-    are the next slice of the port, and until they land asking for
-    ``flash_scan`` raises rather than quietly computing plain attention
-    where the JAX package would run a kernel. The JAX default returns with
-    that slice.
+    ``parallel`` defaults to ``ParallelConfig(remat="none")``, whose
+    ``attn_impl="flash_scan"`` runs the flash-attention kernels, as the
+    JAX engine's default does on its Pallas backends. The TPU kernels'
+    tile sizes (``attn_block_q``/``attn_block_k``) raise: the card's
+    kernels choose their own.
     """
     from repro_torch.models import build
     if isinstance(model, str):
         from repro_torch.configs import get_config
         model = get_config(model)
     bundle = model if hasattr(model, "param_specs") else build(model)
-    parallel = parallel or ParallelConfig(remat="none", attn_impl="dense")
-    flash_tiles = "flash-attention tile sizes: the flash kernels arrive with port slice 2"
+    parallel = parallel or ParallelConfig(remat="none")
+    flash_tiles = ("the TPU flash kernels' tile sizes: the card's flash kernels "
+                   "choose their own tiles")
     _only_defaults(parallel, ("attn_block_q", "attn_block_k"), flash_tiles)
     _only_defaults(serve_cfg, ("attn_block_q", "attn_block_k"), flash_tiles)
     _only_defaults(serve_cfg, ("block_size", "num_blocks", "prefix_cache"),
@@ -390,11 +391,6 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
                    "speculative-decoding settings: not ported yet")
     if parallel.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {parallel.attn_impl!r} not in {ATTN_IMPLS}")
-    if parallel.attn_impl != "dense":
-        raise NotImplementedError(
-            "attn_impl='flash_scan' runs the flash-attention kernels "
-            "(flash_fwd, decode_fwd), which arrive with port slice 2; use "
-            "ParallelConfig(attn_impl='dense')")
     if serve_cfg.cache_mode not in ("ring", "paged"):
         raise ValueError(f"cache_mode {serve_cfg.cache_mode!r} not in "
                          "('ring', 'paged')")

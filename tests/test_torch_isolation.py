@@ -5,7 +5,7 @@
 * No source file of the port, nor ``chip_smoke.py``, names ``jax``,
   ``jaxlib`` or ``repro`` in an import.
 * On a host without a card, the entry points refuse to run unless the CPU
-  is asked for; the paths this slice does not port raise
+  is asked for; the paths the port does not take raise
   ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs import get_reduced_config
 from repro_torch.configs.base import ParallelConfig, ServeConfig
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.switchback import ops as KOPS
 from repro_torch.models import build
 from repro_torch.models import params as PRM
@@ -109,7 +110,7 @@ def test_kernel_wrappers_have_no_backend_switch():
     """Dispatch is by device only: no wrapper takes a backend argument, so
     a CUDA tensor cannot be sent to the plain version."""
     import inspect
-    for fn in KOPS.KERNELS:
+    for fn in (*KOPS.KERNELS, *FA.KERNELS.values()):
         assert "backend" not in inspect.signature(fn).parameters
     assert "backend" not in {f.name for f in dataclasses.fields(QuantPolicy)}
 
@@ -119,7 +120,7 @@ def test_kernel_wrappers_have_no_backend_switch():
     dict(serve=dict(spec_mode="ngram")),
     dict(serve=dict(prefill_chunk_tokens=8)),
     dict(serve=dict(preemption="recompute")),
-    dict(parallel=ParallelConfig(attn_impl="flash_scan")),
+    dict(parallel=ParallelConfig(attn_block_k=128)),
     dict(parallel=ParallelConfig(attn_impl="dense", attn_block_q=64)),
     dict(serve=dict(attn_block_k=128)),
     dict(serve=dict(block_size=32)),

@@ -6,8 +6,12 @@ tokens come from a seeded numpy generator. Two configs: the reduced
 smollm-360m, whose linears all contract over at most 2048 (the fused
 SwitchBack kernel), and the same with ``d_ff = 2304``, whose ``w_down``
 crosses ``FUSED_MAX_CONTRACT`` and takes the two-step row-quantize +
-int8 matmul path. The JAX side runs ``QuantPolicy("int8_switchback")``
-with ``ParallelConfig(remat="none", attn_impl="dense")``.
+int8 matmul path. Two attention implementations: ``dense``, where the
+JAX side runs ``QuantPolicy("int8_switchback")`` (XLA) with
+``ParallelConfig(remat="none", attn_impl="dense")``; and ``flash_scan``,
+the port's default, where the JAX side runs its Pallas kernels in
+interpret mode (``backend="pallas_interpret"``: the SwitchBack and the
+flash-attention kernels) and the port the plain versions of its kernels.
 
 Tolerances (relative to the largest |logit|). The JAX side is jitted as
 the engine jits it; by default XLA may keep bf16 intermediates in f32
@@ -23,6 +27,11 @@ op by op, never does. So the JAX side is compiled twice:
   lands on the other side of a bf16 or int8 rounding than the port's
   (measured up to 4.8e-2 over these inputs; the JAX package's own int8
   parity tests allow 1.6e-2 for one such rounding).
+
+The flash_scan cases hold to the same bounds (measured 5.2e-7 in f32; 0
+and 2e-5 in bf16 without excess precision; 4.8e-2 with it): the port's
+one full softmax and the JAX package's online softmax differ in the
+order of their sums only.
 
 Greedy ``generate`` tokens (f32 compute, where no rounding flip can
 decide an argmax) must be identical, and so must the stats-row keys. The CLI (``python -m repro_torch.launch.serve``) runs once in a
@@ -69,6 +78,15 @@ DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bflo
 CASES = {("f32", False): 1e-5, ("bf16", False): 1e-3, ("bf16", True): 1e-1}
 JPAR = JParallel(mesh_shape=(1, 1), remat="none", attn_impl="dense")
 PAR = ParallelConfig(remat="none", attn_impl="dense")
+# attn_impl -> (JAX parallel config, JAX kernel backend, port parallel config).
+# flash_scan: the JAX package runs its flash kernels only on the Pallas
+# backends, so its side interprets the Pallas kernels (SwitchBack and
+# flash); the port runs its default, the flash wrappers' plain versions.
+IMPLS = {
+    "dense": (JPAR, "xla", PAR),
+    "flash_scan": (JParallel(mesh_shape=(1, 1), remat="none", attn_impl="flash_scan"),
+                   "pallas_interpret", ParallelConfig(remat="none")),
+}
 
 _PARAMS: dict = {}
 
@@ -116,22 +134,17 @@ def test_from_numpy_tree_keeps_names_shapes_values():
                                            is_leaf=lambda s: hasattr(s, "init")))
 
 
-@pytest.mark.parametrize("dt,excess", list(CASES))
-@pytest.mark.parametrize("which", list(CONFIGS))
-def test_prefill_and_decode_match_jax(which, dt, excess):
-    """serve_prefill over padded prompts (one slot not admitted), then 3
-    decode steps, on both packages: logits at every valid position, the
-    cache lengths and the written K/V."""
+def _prefill_and_decode(which, dt, excess, impl, tol):
     jcfg, tcfg, jp, tp = _setup(which)
     jdt, tdt = DTYPES[dt]
-    tol = CASES[dt, excess]
-    jpol = JPolicy("int8_switchback", compute_dtype=jdt)
+    jpar, backend, par = IMPLS[impl]
+    jpol = JPolicy("int8_switchback", compute_dtype=jdt, backend=backend)
     tpol = QuantPolicy("int8_switchback", compute_dtype=tdt)
     opts = {"xla_allow_excess_precision": excess}
     j_prefill = jax.jit(functools.partial(JTF.serve_prefill, cfg=jcfg, policy=jpol,
-                                          parallel=JPAR), compiler_options=opts)
+                                          parallel=jpar), compiler_options=opts)
     j_decode = jax.jit(functools.partial(JTF.decode_step, cfg=jcfg, policy=jpol,
-                                         parallel=JPAR), compiler_options=opts)
+                                         parallel=jpar), compiler_options=opts)
     rng = np.random.default_rng(7)
     B, S, S_max = 3, 8, 16
     toks = rng.integers(0, jcfg.vocab_size, size=(B, S)).astype(np.int32)
@@ -144,7 +157,7 @@ def test_prefill_and_decode_match_jax(which, dt, excess):
     with torch.inference_mode():
         tlg, tst = TTF.serve_prefill(tp, tst, torch.from_numpy(toks).long(),
                                      torch.from_numpy(lens), torch.from_numpy(admit),
-                                     tcfg, tpol, PAR)
+                                     tcfg, tpol, par)
     for b in np.flatnonzero(admit):
         assert _rel(_np(tlg[b, :lens[b]]), jlg[b, :lens[b]]) <= tol
     for _ in range(3):
@@ -152,7 +165,7 @@ def test_prefill_and_decode_match_jax(which, dt, excess):
         jlg, jst = j_decode(jp, jst, jnp.asarray(step))
         with torch.inference_mode():
             tlg, tst = TTF.decode_step(tp, tst, torch.from_numpy(step).long(),
-                                       tcfg, tpol, PAR)
+                                       tcfg, tpol, par)
         assert _rel(_np(tlg), jlg) <= tol
     jc, tc = jst["pos0"], tst["pos0"]
     np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
@@ -160,25 +173,43 @@ def test_prefill_and_decode_match_jax(which, dt, excess):
     assert _rel(_np(tc.v), jc.v) <= tol
 
 
-def _engines(which, **kw):
-    """Both packages' engines, int8_switchback with f32 compute."""
+@pytest.mark.parametrize("dt,excess", list(CASES))
+@pytest.mark.parametrize("which", list(CONFIGS))
+def test_prefill_and_decode_match_jax(which, dt, excess):
+    """serve_prefill over padded prompts (one slot not admitted), then 3
+    decode steps, on both packages with dense attention: logits at every
+    valid position, the cache lengths and the written K/V."""
+    _prefill_and_decode(which, dt, excess, "dense", CASES[dt, excess])
+
+
+@pytest.mark.parametrize("dt,excess", list(CASES))
+@pytest.mark.parametrize("which", list(CONFIGS))
+def test_flash_prefill_and_decode_match_jax(which, dt, excess):
+    """The same with ``attn_impl="flash_scan"``: the JAX package's flash and
+    SwitchBack Pallas kernels (interpret mode) against the port's default
+    path on the CPU."""
+    _prefill_and_decode(which, dt, excess, "flash_scan", CASES[dt, excess])
+
+
+def _engines(which, impl="dense", **kw):
+    """Both packages' engines, int8_switchback with f32 compute. The port's
+    engine runs its default parallel config under ``flash_scan``."""
     jcfg, tcfg, jp, tp = _setup(which)
+    jpar, backend, par = IMPLS[impl]
     jeng = jax_engine(jax_build(jcfg), JServe(quant_mode="int8_switchback", **kw),
-                      make_test_mesh((1, 1)), parallel=JPAR,
-                      policy=JPolicy("int8_switchback", compute_dtype=jnp.float32))
+                      make_test_mesh((1, 1)), parallel=jpar,
+                      policy=JPolicy("int8_switchback", compute_dtype=jnp.float32,
+                                     backend=backend))
     teng = make_serve_engine(build(tcfg), ServeConfig(quant_mode="int8_switchback", **kw),
+                             parallel=None if impl == "flash_scan" else par,
                              policy=QuantPolicy("int8_switchback",
                                                 compute_dtype=torch.float32),
                              device="cpu")
     return jeng, teng, jp, tp, jcfg
 
 
-@pytest.mark.parametrize("which", list(CONFIGS))
-def test_generate_greedy_tokens_match_jax(which):
-    """5 requests through 2 slots (eviction and slot reuse; prompt lengths
-    across two prefill buckets), greedy: identical tokens and identical
-    stats-row keys."""
-    jeng, teng, jp, tp, cfg = _engines(which, max_batch=2, max_len=32)
+def _greedy_tokens_match(which, impl):
+    jeng, teng, jp, tp, cfg = _engines(which, impl, max_batch=2, max_len=32)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
                for n in (6, 11, 3, 9, 5)]
@@ -190,16 +221,40 @@ def test_generate_greedy_tokens_match_jax(which):
         assert ts[k] == js[k], k
 
 
-def test_rollover_ring_wrap_matches_jax():
-    """rollover: sequences run past max_len, so the ring write wraps at
-    ``length % max_len`` and RoPE is computed per call; tokens identical."""
-    jeng, teng, jp, tp, cfg = _engines("fused", max_batch=2, max_len=8,
+@pytest.mark.parametrize("which", list(CONFIGS))
+def test_generate_greedy_tokens_match_jax(which):
+    """5 requests through 2 slots (eviction and slot reuse; prompt lengths
+    across two prefill buckets), greedy, dense attention: identical tokens
+    and identical stats-row keys."""
+    _greedy_tokens_match(which, "dense")
+
+
+@pytest.mark.parametrize("which", list(CONFIGS))
+def test_flash_generate_greedy_tokens_match_jax(which):
+    """The same with ``attn_impl="flash_scan"`` (the port's default engine)."""
+    _greedy_tokens_match(which, "flash_scan")
+
+
+def _rollover_tokens_match(impl):
+    jeng, teng, jp, tp, cfg = _engines("fused", impl, max_batch=2, max_len=8,
                                        rollover=True)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (5, 7)]
     jg, _ = jeng.generate(jp, prompts, max_new_tokens=12)
     tg, _ = teng.generate(tp, prompts, max_new_tokens=12)
     assert [list(map(int, g)) for g in jg] == tg and all(len(g) == 12 for g in tg)
+
+
+def test_rollover_ring_wrap_matches_jax():
+    """rollover: sequences run past max_len, so the ring write wraps at
+    ``length % max_len`` and RoPE is computed per call; tokens identical."""
+    _rollover_tokens_match("dense")
+
+
+def test_flash_rollover_ring_wrap_matches_jax():
+    """The same through the decode kernel: a wrapped slot attends over its
+    whole window (kv_len = max_len)."""
+    _rollover_tokens_match("flash_scan")
 
 
 def test_sampling_depends_on_seed_uid_and_step_only():
