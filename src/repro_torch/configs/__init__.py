@@ -7,7 +7,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (ModelConfig, ParallelConfig,  # noqa: F401
-                                      ServeConfig)
+                                      ServeConfig, TrainConfig)
 
 ALL_ARCHS = ("smollm-360m",)
 

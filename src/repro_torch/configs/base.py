@@ -1,14 +1,16 @@
-"""Config dataclasses for the serving path.
+"""Config dataclasses for the train and serve paths.
 
 Copies of the JAX package's ``repro/configs/base.py`` (the port imports
-nothing of ``repro``), cut to what this slice reads:
+nothing of ``repro``), cut to what the port reads:
 
 * ``ModelConfig`` — the whole dataclass, so the configs read the same;
   the mixture-of-experts, SSM, enc-dec and frontend fields are carried but
   their model families are not ported yet (``models.model_zoo`` raises).
-* ``ParallelConfig`` — only the fields the serve path reads. Sharding,
-  meshes and scan-over-layers do not exist in the port: layers run as a
-  Python loop over the stacked group dimension on one card.
+* ``ParallelConfig`` — only the fields the train and serve paths read.
+  Sharding, meshes and scan-over-layers do not exist in the port: layers
+  run as a Python loop over the stacked group dimension on one card.
+* ``TrainConfig`` — the JAX fields and defaults, minus ``kernel_backend``
+  (the port dispatches on the device of its tensors).
 * ``ServeConfig`` — the engine knobs, minus the JAX ``kernel_backend``:
   the port dispatches on the device of its tensors instead.
 """
@@ -66,18 +68,18 @@ ATTN_IMPLS = ("flash_scan", "dense")
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The serve path's fields of the JAX ``ParallelConfig``, with its
-    defaults. ``attn_impl="flash_scan"`` (the default here and in the JAX
-    package) runs the flash-attention kernels, as the JAX package does on
-    its Pallas backends; ``"dense"`` runs the materialised oracle.
+    """The train and serve paths' fields of the JAX ``ParallelConfig``,
+    with its defaults. ``attn_impl="flash_scan"`` (the default here and in
+    the JAX package) runs the flash-attention kernels, as the JAX package
+    does on its Pallas backends; ``"dense"`` runs the materialised oracle.
 
-    ``scan_layers`` and ``remat`` take any of their values and change
-    nothing that serving computes, in the JAX package as here: ``remat``
-    acts only under a gradient, and ``scan_layers`` only sets how XLA
-    compiles the layer stack (the port always runs a Python loop).
-    ``attn_block_q``/``attn_block_k`` are the TPU kernels' tile sizes; the
-    card's kernels choose their own tiles, so ``make_serve_engine`` rejects
-    any value but 0.
+    ``scan_layers`` only sets how XLA compiles the layer stack (the port
+    always runs a Python loop) and takes any value. ``remat`` acts only
+    under a gradient: serving takes any value, training only ``"none"``
+    (``"block"``/``"full"`` raise until activation recomputation is
+    ported). ``attn_block_q``/``attn_block_k`` are the TPU kernels' tile
+    sizes; the card's kernels choose their own tiles, so the engine and
+    the trainer reject any value but 0.
     """
     scan_layers: bool = True
     remat: str = "block"             # none|block|full
@@ -88,6 +90,32 @@ class ParallelConfig:
     def __post_init__(self):
         if self.remat not in ("none", "block", "full"):
             raise ValueError(f"remat {self.remat!r} not in ('none', 'block', 'full')")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX ``TrainConfig`` that the port reads, with the
+    same defaults. ``optimizer``: stable_adamw | adamw (adafactor raises
+    until it is ported); ``loss_scaler``: none | fixed_tensor | dynamic;
+    ``quant_mode``: a ``core.precision`` mode (the unported ones raise when
+    the policy is built). Left out until something reads them: the
+    fp8_mixed tile fields (with the fp8 modes), ``checkpoint_every`` /
+    ``keep_checkpoints`` (with ``checkpoint/manager.py``), and ``seed``,
+    ``global_batch`` and ``seq_len``, which the JAX package does not read
+    either (the caller seeds the parameters; the batch sets its shape)."""
+    optimizer: str = "stable_adamw"
+    learning_rate: float = 2e-3
+    warmup_steps: int = 5000
+    total_steps: int = 20000
+    weight_decay: float = 0.2
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip_norm: float = 0.0      # 0 = off (paper default: no grad clip)
+    loss_scaler: str = "none"        # none|fixed_tensor|dynamic
+    quant_mode: str = "bf16"         # precision policy for all linears
+    microbatch_steps: int = 1        # gradient accumulation
+    quant_health_metrics: bool = True  # quantized modes: per-group device
+    # health scalars (telemetry/health.py) ride the metrics dict
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,12 @@
 
 The PyTorch counterpart of ``repro/core/precision.py``. Every linear goes
 through ``quant_linear``; ``QuantPolicy.mode`` picks the plain 16-bit
-product (``bf16``, the paper's baseline) or the SwitchBack int8 forward
-(``int8_switchback``, alias ``int8``). The JAX package's other modes
-raise ``NotImplementedError`` until their slice is ported.
+product (``bf16``, the paper's baseline) or the SwitchBack int8 linear
+(``int8_switchback``, alias ``int8``). Both are differentiable, and both
+take the f32 master weight and cast it inside their autograd function, so
+the weight gradient reaches the master in f32, unrounded (a cast outside
+would round it to the compute dtype on the way back). The JAX package's
+other modes raise ``NotImplementedError`` until their slice is ported.
 
 There is no kernel-backend field: the SwitchBack ops dispatch on the
 device of their tensors (plain PyTorch on the CPU, CUDA kernels on the
@@ -65,22 +68,48 @@ class QuantPolicy:
 BF16 = QuantPolicy("bf16")
 
 
+class Dense16Matmul(torch.autograd.Function):
+    """The plain product of the 16-bit modes, ``f(x2d, w, cd) -> y2d``:
+    x and the master w cast to ``cd``, f32 accumulation, y rounded to
+    ``cd``; Ẋ = Ẏ Wᵀ in ``cd``, Ẇ = Xᵀ Ẏ accumulated and returned in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, cd):
+        xc, wc = x.to(cd), w.to(cd)
+        ctx.save_for_backward(xc, wc)
+        return xc @ wc
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        g = g.to(xc.dtype)
+        dx = g @ wc.t() if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = (SB.wgrad_16bit(xc, g) if xc.dtype == torch.bfloat16
+                  else xc.float().t() @ g.float())
+        return dx, dw, None
+
+
 def quant_linear(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor | None = None, *,
                  policy: QuantPolicy = BF16) -> torch.Tensor:
     """The single entry point for every linear layer.
 
-    ``x``: (..., n) activations; ``w``: (n, m) weights as the layer
-    prepared them (``params.use_weight`` casts to the compute dtype).
-    The JAX package widens ``w`` to f32 before quantizing; that widening
-    is exact, so the kernel reads the compute-dtype weight directly and
-    quantizes the same values.
+    ``x``: (..., n) activations; ``w``: (n, m) the f32 master weight (the
+    layers hand it over uncast). The JAX package casts ``w`` to the
+    compute dtype and, for the int8 modes, widens it to f32 before
+    quantizing; the widening is exact, so the kernel quantizes the
+    compute-dtype weight directly and sees the same values.
     """
-    if policy.is_quantized:
-        return SB.switchback_linear(x.to(policy.compute_dtype), w, b,
-                                    variant=_SB_VARIANT[policy.mode])
     cd = policy.compute_dtype
-    y = torch.matmul(x.to(cd), w.to(cd))
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    if policy.is_quantized:
+        return SB.switchback_linear(x.to(cd), w, b,
+                                    variant=_SB_VARIANT[policy.mode],
+                                    compute_dtype=cd)
+    y = Dense16Matmul.apply(x.reshape(-1, n), w, cd).reshape(*lead, w.shape[-1])
     if b is not None:
         y = y + b.to(y.dtype)
     return y

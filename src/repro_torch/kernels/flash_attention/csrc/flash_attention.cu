@@ -1,14 +1,23 @@
-// Flash-attention forward kernels for Hopper (sm_90a), bound through a plain
-// C interface (loaded with ctypes by kernels/flash_attention/build.py).
+// Flash-attention kernels for Hopper (sm_90a), forward and backward, bound
+// through a plain C interface (loaded with ctypes by
+// kernels/flash_attention/build.py).
 //
-// Two kernels, each replacing one Pallas TPU kernel of the JAX package:
+// Four kernels, each replacing one Pallas TPU kernel of the JAX package:
 //
-//   flash_fwd   <- repro/kernels/flash_attention/flash_attention.py:flash_fwd
-//                  (_fwd_kernel): causal or full softmax attention, o and the
-//                  per-row logsumexp, for prefill
-//   decode_fwd  <- repro/kernels/flash_attention/flash_attention.py:decode_fwd
-//                  (_decode_kernel): one query per slot against the ring KV
-//                  cache, per-slot valid lengths, for every decode step
+//   flash_fwd      <- repro/kernels/flash_attention/flash_attention.py:flash_fwd
+//                     (_fwd_kernel): causal or full softmax attention, o and
+//                     the per-row logsumexp, for prefill and training
+//   decode_fwd     <- repro/kernels/flash_attention/flash_attention.py:decode_fwd
+//                     (_decode_kernel): one query per slot against the ring
+//                     KV cache, per-slot valid lengths, for every decode step
+//   flash_bwd_dq   <- repro/kernels/flash_attention/flash_attention.py:flash_bwd_dq
+//                     (_bwd_dq_kernel): dq, recomputing p from (q, k, lse)
+//   flash_bwd_dkv  <- repro/kernels/flash_attention/flash_attention.py:flash_bwd_dkv
+//                     (_bwd_dkv_kernel): dk and dv, summed over each KV
+//                     head's query group
+//
+// The two backward kernels and their design are described where they
+// start, below decode_fwd.
 //
 // What they compute (the plain versions are kernels/flash_attention/ref.py):
 // scores s = (q * scale) . k in f32, q scaled in f32 before the product as
@@ -457,6 +466,343 @@ cudaError_t fwd_by_hd(const void* q, const void* k, const void* v, void* o, floa
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (training): recompute-style, as the TPU kernels and the plain
+// version (ref.py flash_bwd_dq / flash_bwd_dkv) compute it. With s the
+// forward's scores (the same (q * scale) . k in f32, the same masking with
+// MASK_VALUE, so exp(MASK - lse) is exactly 0) and lse the forward's
+// logsumexp:
+//   p = exp(s - lse),  dp = do . v,  ds = p * (dp - di),
+//   dq = scale * sum_j ds_j k_j,  dk = scale * sum_r ds_r q_r,
+//   dv = sum_r p_r do_r,
+// with di = sum_d o * do computed by the wrapper in f32, outside the
+// kernels, as the JAX package does. Outputs are f32; the autograd function
+// casts them once to the input types.
+//
+// No floating-point atomics: every output element is written by one thread,
+// which sums its terms in one fixed order (key tiles in order, keys in order
+// for dq; query rows in order for dk and dv), so two launches on the same
+// inputs give bit-identical results.
+//
+// What bounds them on an H100: at the training path's shapes (8 x 256
+// tokens, 15 query heads over 5 KV heads, hd 64) each moves a few MB and
+// does about 2.5x the forward's matmul work, far under the tensor cores'
+// rate: the bound is bytes, the real cost is latency and the CUDA cores'
+// f32 FMA rate. mma/wgmma on bf16 (which would round p and ds to bf16) and
+// TMA are later work.
+// ---------------------------------------------------------------------------
+constexpr int kBwdWarps = 4;
+constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;   // flattened q rows per block
+
+// Stage `n_stage` rows of flattened (position, head-in-group) rows starting
+// at r0 of one (batch, KV head) into shared memory as f32, pitch hd:
+// `dst_scaled` (if not null) takes x * scale rounded once (the forward's
+// scaled q), `dst` the value itself. Rows past n_rows are zero.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, float* dst_scaled, const T* src, int b,
+                                           int hk, int r0, int n_stage, int n_rows, int group,
+                                           int Sq, int H, int hd, float scale) {
+  for (int e = threadIdx.x; e < n_stage * hd; e += blockDim.x) {
+    const int rr = e / hd, d = e - rr * hd, r = r0 + rr;
+    float x = 0.f;
+    if (r < n_rows) {
+      const int pos = r / group, h = hk * group + r % group;
+      x = to_f32(src[(static_cast<long long>(b) * Sq + pos) * H * hd + static_cast<long long>(h) * hd + d]);
+    }
+    if (dst) dst[e] = x;
+    if (dst_scaled) dst_scaled[e] = __fmul_rn(x, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq: grid (ceil(Sq * group / 16), KV, B), 128 threads. As
+// flash_fwd, a block owns 16 flattened (position, head-in-group) rows of one
+// KV head, so each K/V tile it stages serves the whole query group, and
+// walks the live key tiles (causal diagonal and kv_valid) in order. A warp
+// owns four rows; for the scores and ds a lane owns one key of the tile,
+// for the dq accumulator dims lane + 32 i.
+// ---------------------------------------------------------------------------
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ di, float* __restrict__ dq, int Sq, int Sk, int H,
+                    int KV, int hd, int kv_valid, int causal, float scale) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                            // [kBwdRows][hd], scaled
+  float* do_s = q_s + kBwdRows * hd;            // [kBwdRows][hd]
+  float* k_s = do_s + kBwdRows * hd;            // [kTile][hd + 1]
+  float* v_s = k_s + kTile * (hd + 1);          // [kTile][hd + 1]
+  const int group = H / KV;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int n_rows = Sq * group;
+  const int r0 = blockIdx.x * kBwdRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long kv_row = static_cast<long long>(KV) * hd;
+  const T* kb = k + static_cast<long long>(b) * Sk * kv_row + static_cast<long long>(hk) * hd;
+  const T* vb = v + static_cast<long long>(b) * Sk * kv_row + static_cast<long long>(hk) * hd;
+
+  stage_rows(static_cast<float*>(nullptr), q_s, q, b, hk, r0, kBwdRows, n_rows, group, Sq, H, hd,
+             scale);
+  stage_rows(do_s, static_cast<float*>(nullptr), dout, b, hk, r0, kBwdRows, n_rows, group, Sq,
+             H, hd, scale);
+
+  int q_row[kRowsPerWarp], pos[kRowsPerWarp];
+  float row_lse[kRowsPerWarp], row_di[kRowsPerWarp], acc[kRowsPerWarp][DPL];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    q_row[i] = warp * kRowsPerWarp + i;
+    const int r = r0 + q_row[i];
+    pos[i] = r / group;
+    row_lse[i] = 0.f;
+    row_di[i] = 0.f;
+    if (r < n_rows) {
+      const long long at = (static_cast<long long>(b) * H + hk * group + r % group) * Sq + pos[i];
+      row_lse[i] = lse[at];
+      row_di[i] = di[at];
+    }
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
+  }
+  int n_live = min(kv_valid, Sk);
+  if (causal) n_live = min(n_live, (min(r0 + kBwdRows, n_rows) - 1) / group + 1);
+  const int n_tiles = (n_live + kTile - 1) / kTile;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int j0 = kt * kTile, n = min(kTile, n_live - j0);
+    __syncthreads();                            // previous tile fully used
+    stage_tile(k_s, hd + 1, kb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
+    stage_tile(v_s, hd + 1, vb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
+    __syncthreads();
+    float s[kRowsPerWarp], dp[kRowsPerWarp];
+    scores(s, q_s, q_row, kRowsPerWarp, k_s, hd);
+    scores(dp, do_s, q_row, kRowsPerWarp, v_s, hd);
+    const int key = j0 + lane;
+    float ds[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      if (key >= n_live || (causal && key > pos[i])) s[i] = kMask;
+      const float p = expf(s[i] - row_lse[i]);
+      ds[i] = p * (dp[i] - row_di[i]);
+    }
+    for (int j = 0; j < n; ++j) {
+      float kj[DPL];
+#pragma unroll
+      for (int t = 0; t < DPL; ++t) {
+        const int d = lane + 32 * t;
+        kj[t] = d < hd ? k_s[j * (hd + 1) + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float dsj = __shfl_sync(kFull, ds[i], j);
+#pragma unroll
+        for (int t = 0; t < DPL; ++t) acc[i][t] = fmaf(dsj, kj[t], acc[i][t]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = r0 + q_row[i];
+    if (r >= n_rows) continue;
+    const int h = hk * group + r % group;
+    float* drow = dq + (static_cast<long long>(b) * Sq + pos[i]) * H * hd + static_cast<long long>(h) * hd;
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) {
+      const int d = lane + 32 * t;
+      if (d < hd) drow[d] = __fmul_rn(scale, acc[i][t]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dkv: grid (ceil(Sk / 32), KV, B), 128 threads. A block owns one
+// tile of 32 keys of one KV head and walks every query row that can see
+// them -- all query positions (from the tile's first key on, when causal)
+// and, inside the block, every query head of the KV head's group -- in
+// chunks of 16 flattened rows, as the TPU kernel walks its Q tiles and
+// group loop. Per chunk: stage q (scaled and not), do, lse and di; each
+// warp computes p and ds of its four rows for the 32 keys (a lane = a key)
+// into shared memory; then each thread accumulates dk and dv for one key
+// (lane) and the dims warp + 4 i over the chunk's rows in order. dk, dv land
+// in (B, Sk, KV, hd): the group sum is free. Keys at or past kv_valid see
+// p = 0, so their dk and dv are 0, as in the TPU kernel.
+// ---------------------------------------------------------------------------
+template <typename T, int DPT>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ di, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, int H, int KV, int hd,
+                     int kv_valid, int causal, float scale) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                            // [kBwdRows][hd]
+  float* qs_s = q_s + kBwdRows * hd;            // [kBwdRows][hd], scaled
+  float* do_s = qs_s + kBwdRows * hd;           // [kBwdRows][hd]
+  float* k_s = do_s + kBwdRows * hd;            // [kTile][hd + 1]
+  float* v_s = k_s + kTile * (hd + 1);          // [kTile][hd + 1]
+  float* p_s = v_s + kTile * (hd + 1);          // [kBwdRows][kTile]
+  float* ds_s = p_s + kBwdRows * kTile;         // [kBwdRows][kTile]
+  __shared__ float st_lse[kBwdRows], st_di[kBwdRows];
+  const int group = H / KV;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int j0 = blockIdx.x * kTile;
+  const int n_rows = Sq * group;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long kv_row = static_cast<long long>(KV) * hd;
+  const int n_live = min(kv_valid, Sk);
+  const int n = max(0, min(kTile, n_live - j0));       // live keys of this tile
+
+  float acc_k[DPT], acc_v[DPT];
+#pragma unroll
+  for (int t = 0; t < DPT; ++t) acc_k[t] = acc_v[t] = 0.f;
+
+  if (n > 0) {
+    const T* kb = k + (static_cast<long long>(b) * Sk + j0) * kv_row + static_cast<long long>(hk) * hd;
+    const T* vb = v + (static_cast<long long>(b) * Sk + j0) * kv_row + static_cast<long long>(hk) * hd;
+    stage_tile(k_s, hd + 1, kb, kv_row, n, hd, tid, blockDim.x);
+    stage_tile(v_s, hd + 1, vb, kv_row, n, hd, tid, blockDim.x);
+    // causal: query positions before the tile's first key see none of it
+    const int row_start = causal ? min(j0, Sq) * group : 0;
+    const int key = j0 + lane;
+    int q_row[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) q_row[i] = warp * kRowsPerWarp + i;
+
+    for (int r0 = row_start; r0 < n_rows; r0 += kBwdRows) {
+      __syncthreads();                          // previous chunk fully used
+      stage_rows(q_s, qs_s, q, b, hk, r0, kBwdRows, n_rows, group, Sq, H, hd, scale);
+      stage_rows(do_s, static_cast<float*>(nullptr), dout, b, hk, r0, kBwdRows, n_rows, group,
+                 Sq, H, hd, scale);
+      if (tid < kBwdRows) {
+        const int r = r0 + tid;
+        float l = 0.f, dd = 0.f;
+        if (r < n_rows) {
+          const long long at = (static_cast<long long>(b) * H + hk * group + r % group) * Sq + r / group;
+          l = lse[at];
+          dd = di[at];
+        }
+        st_lse[tid] = l;
+        st_di[tid] = dd;
+      }
+      __syncthreads();
+      float s[kRowsPerWarp], dp[kRowsPerWarp];
+      scores(s, qs_s, q_row, kRowsPerWarp, k_s, hd);
+      scores(dp, do_s, q_row, kRowsPerWarp, v_s, hd);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = r0 + q_row[i];
+        if (key >= n_live || (causal && key > r / group)) s[i] = kMask;
+        // rows past n_rows carry do = 0, lse = di = 0: their p is finite
+        // and their ds and p . do are 0; p is zeroed too so dv sees 0
+        const float p = r < n_rows ? expf(s[i] - st_lse[q_row[i]]) : 0.f;
+        p_s[q_row[i] * kTile + lane] = p;
+        ds_s[q_row[i] * kTile + lane] = p * (dp[i] - st_di[q_row[i]]);
+      }
+      __syncthreads();
+      const int rows = min(kBwdRows, n_rows - r0);
+      for (int rr = 0; rr < rows; ++rr) {
+        const float p = p_s[rr * kTile + lane], ds = ds_s[rr * kTile + lane];
+#pragma unroll
+        for (int t = 0; t < DPT; ++t) {
+          const int d = warp + kBwdWarps * t;
+          if (d < hd) {
+            acc_v[t] = fmaf(p, do_s[rr * hd + d], acc_v[t]);
+            acc_k[t] = fmaf(ds, q_s[rr * hd + d], acc_k[t]);
+          }
+        }
+      }
+    }
+  }
+
+  const int key = j0 + lane;
+  if (key < Sk) {
+    const long long at = (static_cast<long long>(b) * Sk + key) * kv_row + static_cast<long long>(hk) * hd;
+#pragma unroll
+    for (int t = 0; t < DPT; ++t) {
+      const int d = warp + kBwdWarps * t;
+      if (d < hd) {
+        dk[at + d] = __fmul_rn(scale, acc_k[t]);
+        dv[at + d] = acc_v[t];
+      }
+    }
+  }
+}
+
+size_t bwd_dq_smem(int hd) {
+  return sizeof(float) * (2 * kBwdRows * hd + 2 * kTile * (hd + 1));
+}
+
+size_t bwd_dkv_smem(int hd) {
+  return sizeof(float) * (3 * kBwdRows * hd + 2 * kTile * (hd + 1) + 2 * kBwdRows * kTile);
+}
+
+// Above 48 KB of dynamic shared memory a kernel must opt in, once, up to
+// what the card allows a block.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int DPL>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* di, float* dq, int B, int Sq, int Sk,
+                          int H, int KV, int hd, int kv_valid, int causal, float scale,
+                          cudaStream_t st) {
+  const size_t smem = bwd_dq_smem(hd);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, DPL>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq * (H / KV) + kBwdRows - 1) / kBwdRows, KV, B);
+  flash_bwd_dq_kernel<T, DPL><<<grid, kBwdWarps * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, di, dq, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int DPT>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* di, float* dk, float* dv, int B,
+                           int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
+                           float scale, cudaStream_t st) {
+  const size_t smem = bwd_dkv_smem(hd);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, DPT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + kTile - 1) / kTile, KV, B);
+  flash_bwd_dkv_kernel<T, DPT><<<grid, kBwdWarps * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, di, dk, dv, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_dq_by_hd(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* di, float* dq, int B, int Sq, int Sk,
+                         int H, int KV, int hd, int kv_valid, int causal, float scale,
+                         cudaStream_t st) {
+  switch ((hd + 31) / 32) {
+    case 1: return launch_bwd_dq<T, 1>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+    case 2: return launch_bwd_dq<T, 2>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+    case 3: return launch_bwd_dq<T, 3>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+    default: return launch_bwd_dq<T, 4>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  }
+}
+
+template <typename T>
+cudaError_t bwd_dkv_by_hd(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* di, float* dk, float* dv, int B,
+                          int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
+                          float scale, cudaStream_t st) {
+  // dims per thread: ceil(hd / 4) over the block's four warps
+  switch ((hd + 31) / 32) {
+    case 1: return launch_bwd_dkv<T, 8>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+    case 2: return launch_bwd_dkv<T, 16>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+    case 3: return launch_bwd_dkv<T, 24>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+    default: return launch_bwd_dkv<T, 32>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -494,6 +840,40 @@ int fa_decode_fwd(const void* q, const void* k, const void* v, const void* kv_le
     err = decode_by_hd<float, __nv_bfloat16>(q, k, v, lens, o, B, S, H, KV, hd, scale, st);
   else
     err = decode_by_hd<float, float>(q, k, v, lens, o, B, S, H, KV, hd, scale, st);
+  return static_cast<int>(err);
+}
+
+// q, do (B, Sq, H, hd), k/v (B, Sk, KV, hd), all bf16 (bf16 != 0) or all
+// f32; lse, di (B, H, Sq) f32; dq (B, Sq, H, hd) f32. Same limits as
+// fa_flash_fwd (checked by the wrapper).
+int fa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* di, void* dq, int bf16, int B, int Sq, int Sk,
+                    int H, int KV, int hd, int kv_valid, int causal, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  float* out = static_cast<float*>(dq);
+  const cudaError_t err =
+      bf16 ? bwd_dq_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+           : bwd_dq_by_hd<float>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  return static_cast<int>(err);
+}
+
+// As fa_flash_bwd_dq; dk, dv (B, Sk, KV, hd) f32, every element written.
+int fa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* di, void* dk, void* dv, int bf16, int B, int Sq,
+                     int Sk, int H, int KV, int hd, int kv_valid, int causal, float scale,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sk == 0) return static_cast<int>(cudaGetLastError());
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  float* ok = static_cast<float*>(dk);
+  float* ov = static_cast<float*>(dv);
+  const cudaError_t err =
+      bf16 ? bwd_dkv_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+           : bwd_dkv_by_hd<float>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
   return static_cast<int>(err);
 }
 

@@ -1,4 +1,5 @@
-"""Public wrappers for the flash-attention kernels: dispatch by device.
+"""Public wrappers for the flash-attention kernels: dispatch by device,
+and the differentiable ``flash_attention`` for training.
 
 Model layout, as the JAX package's ``repro/kernels/flash_attention/ops.py``
 speaks it: q (B, Sq, H, hd), k/v (B, Sk, KV, hd) with H a multiple of KV
@@ -50,6 +51,13 @@ def _check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise ValueError(f"head dim {hd} not in [1, {MAX_HEAD_DIM}]")
 
 
+def _kv_valid(kv_valid, Sk: int) -> int:
+    kv_valid = Sk if kv_valid is None else int(kv_valid)
+    if not 1 <= kv_valid <= Sk:
+        raise ValueError(f"kv_valid {kv_valid} not in [1, Sk={Sk}]")
+    return kv_valid
+
+
 def _lib():
     from repro_torch.kernels.flash_attention.build import load
     return load()
@@ -69,9 +77,7 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_heads(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    kv_valid = Sk if kv_valid is None else int(kv_valid)
-    if not 1 <= kv_valid <= Sk:
-        raise ValueError(f"kv_valid {kv_valid} not in [1, Sk={Sk}]")
+    kv_valid = _kv_valid(kv_valid, Sk)
     scale = softmax_scale(hd)
     if _b.on_cpu(q, k, v):
         return _ref.mha_fwd(q, k, v, causal=causal, kv_valid=kv_valid, scale=scale)
@@ -120,8 +126,102 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def _check_bwd(q, k, v, do, lse, di):
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        _b.need(t, name, _FLOAT_TYPES, 4)
+    if not (q.dtype == k.dtype == v.dtype == do.dtype):
+        raise TypeError(f"q, k, v, do dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
+    _check_heads(q, k, v)
+    B, Sq, H, _ = q.shape
+    for t, name in ((lse, "lse"), (di, "di")):
+        _b.need(t, name, (torch.float32,), 3)
+        if tuple(t.shape) != (B, H, Sq):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(B, H, Sq)}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
+                 kv_valid: Optional[int] = None) -> torch.Tensor:
+    """dq of softmax attention, recomputing p from (q, k, lse): q, do
+    (B, Sq, H, hd), k/v (B, Sk, KV, hd), all f32 or all bf16; lse (the
+    forward's) and di = sum_d o * do, both (B, H, Sq) f32. Returns dq
+    (B, Sq, H, hd) f32."""
+    _check_bwd(q, k, v, do, lse, di)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kv_valid = _kv_valid(kv_valid, Sk)
+    scale = softmax_scale(hd)
+    if _b.on_cpu(q, k, v, do, lse, di):
+        return _ref.flash_bwd_dq(q, k, v, do, lse, di, causal=causal,
+                                 kv_valid=kv_valid, scale=scale)
+    dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    _b.launch(_lib().fa_flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+              int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, kv_valid,
+              int(bool(causal)), scale, _b.stream(q))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
+                  kv_valid: Optional[int] = None):
+    """dk and dv of softmax attention, summed over each KV head's query
+    group: same inputs as :func:`flash_bwd_dq`; returns (dk, dv), each
+    (B, Sk, KV, hd) f32. Keys at or past ``kv_valid`` get 0."""
+    _check_bwd(q, k, v, do, lse, di)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kv_valid = _kv_valid(kv_valid, Sk)
+    scale = softmax_scale(hd)
+    if _b.on_cpu(q, k, v, do, lse, di):
+        return _ref.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal,
+                                  kv_valid=kv_valid, scale=scale)
+    dk = torch.empty((B, Sk, KV, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _b.launch(_lib().fa_flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd,
+              kv_valid, int(bool(causal)), scale, _b.stream(q))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``make_flash_attention`` custom VJP: the forward
+    kernel saves (q, k, v, o, lse); the backward computes di in f32 outside
+    the kernels (``_bwd_impl``), runs the two backward kernels and casts
+    dq, dk, dv once from f32 to the input dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = _ref.attention_di(o, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, di, causal=ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, causal=ctx.causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """Differentiable softmax attention, model layout: q (B, Sq, H, hd),
+    k/v (B, Sk, KV, hd) with KV heads folded; returns o like q. Gradients
+    flow to q, k and v through the backward kernels."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 bool(causal))
+
+
 # kernel name (the TPU kernel each replaces) -> its wrapper
-KERNELS = {"flash_fwd": flash_fwd_lse, "decode_fwd": decode_attention}
+KERNELS = {"flash_fwd": flash_fwd_lse, "decode_fwd": decode_attention,
+           "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
 for _k in KERNELS.values():
     _k.launches = 0
 

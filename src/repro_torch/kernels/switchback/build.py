@@ -17,6 +17,8 @@ SIGNATURES = (
     ("sb_tensor_quantize", (P, I, I64, P, I, P, P, P)),
     ("sb_fused_switchback_fwd", (P, I, P, P, P, I, I, I, P)),
     ("sb_int8_matmul_dequant", (P, P, P, P, I, I, I, I, P)),
+    ("sb_fused_switchback_dgrad", (P, I, P, P, P, I, I, I, P)),
+    ("sb_int8_matmul_dequant_t", (P, P, P, P, I, I, I, I, P)),
 )
 
 

@@ -1,14 +1,26 @@
-// SwitchBack int8 forward kernels for Hopper (sm_90a), bound through a plain
-// C interface (loaded with ctypes by kernels/switchback/build.py).
+// SwitchBack int8 kernels for Hopper (sm_90a), forward and input gradient,
+// bound through a plain C interface (loaded with ctypes by
+// kernels/switchback/build.py).
 //
-// Four kernels, each replacing one Pallas TPU kernel of the JAX package:
+// Six entry points, each replacing one Pallas TPU kernel (or one form of it)
+// of the JAX package:
 //
-//   row_quantize          <- repro/kernels/switchback/switchback.py:row_quantize
-//   tensor_quantize       <- repro/kernels/switchback/switchback.py:tensor_quantize
-//   fused_switchback_fwd  <- repro/kernels/switchback/switchback.py:fused_switchback_fwd
-//   int8_matmul_dequant   <- repro/kernels/switchback/switchback.py:int8_matmul_dequant
-//                            (forward form: row_scale epilogue, no col_scale,
-//                            no transpose_w)
+//   row_quantize            <- repro/kernels/switchback/switchback.py:row_quantize
+//   tensor_quantize         <- repro/kernels/switchback/switchback.py:tensor_quantize
+//   fused_switchback_fwd    <- repro/kernels/switchback/switchback.py:fused_switchback_fwd
+//   int8_matmul_dequant     <- repro/kernels/switchback/switchback.py:int8_matmul_dequant
+//                              (forward form: row_scale epilogue, no col_scale)
+//   fused_switchback_dgrad  <- repro/kernels/switchback/switchback.py:fused_switchback_dgrad
+//   int8_matmul_dequant_t   <- the same int8_matmul_dequant, transpose_w=True
+//                              (the two-step dgrad of layers whose output
+//                              width is above 2048)
+//
+// The two dgrad forms are the forward kernels with the W tile read the
+// other way (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m]
+// contracts over W's second, contiguous dim, so W (N, M) row-major is
+// already K-major for __dp4a and each W tile is staged with plain row
+// reads; no w_q^T is written anywhere, as on the TPU, where dot_general
+// contracts over any dim pair.
 //
 // Numerics copy the reference operation by operation, so every output is
 // bitwise equal to the plain versions in ref.py:
@@ -161,13 +173,26 @@ struct Tiles {
   alignas(16) int8_t ws[BN][LDS];
 };
 
-template <int BM, int BN>
+// Stage the W tile of output columns [col0, col0 + BN) and contraction
+// indices [k0, k0 + BK) as ws[n][kk]. TW = false: w_q is (K, M), read
+// along M (coalesced) and written transposed. TW = true: w_q is (M, K) --
+// the forward's (N, M) weight seen from the dgrad, whose output columns
+// are W's rows -- read along K, which is already the order ws wants.
+template <bool TW, int BM, int BN>
 __device__ __forceinline__ void load_w_tile(const int8_t* __restrict__ w_q, int K, int M,
                                             int k0, int col0, Tiles<BM, BN>& t) {
-  for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
-    const int kk = idx / BN, n = idx % BN;
-    const int k = k0 + kk, c = col0 + n;
-    t.ws[n][kk] = (k < K && c < M) ? w_q[static_cast<size_t>(k) * M + c] : int8_t(0);
+  if (TW) {
+    for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
+      const int n = idx / BK, kk = idx % BK;
+      const int k = k0 + kk, c = col0 + n;
+      t.ws[n][kk] = (k < K && c < M) ? w_q[static_cast<size_t>(c) * K + k] : int8_t(0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
+      const int kk = idx / BN, n = idx % BN;
+      const int k = k0 + kk, c = col0 + n;
+      t.ws[n][kk] = (k < K && c < M) ? w_q[static_cast<size_t>(k) * M + c] : int8_t(0);
+    }
   }
 }
 
@@ -191,13 +216,22 @@ __device__ __forceinline__ void dot_tile(const Tiles<BM, BN>& t, int (&acc)[BM /
 // ---------------------------------------------------------------------------
 // fused_switchback_fwd: x (B, K) float/bf16, w_q (K, M) int8, s_w (1,) f32
 //   -> y (B, M) = (x_q . w_q) * (absmax_row * (s_w / 127^2))   (paper Eq. 3)
+// fused_switchback_dgrad (TW): g (B, K) float/bf16, w_q (M, K) int8 -- the
+//   forward's (N, M) weight, here with K = the layer's output width and M =
+//   its input width -- -> dx (B, M) = (g_q . w_q^T) * (absmax_row * (s_w /
+//   127^2)), the same arithmetic on the other contraction.
 //
-// X is row-quantized inside the kernel: the block first takes the absmax
-// of each of its BM rows over the whole K, then quantizes each X tile as it
-// stages it into shared memory. X never goes to device memory as int8 and
-// no state (B, 1) is written.
+// X (or the output gradient) is row-quantized inside the kernel: the block
+// first takes the absmax of each of its BM rows over the whole K, then
+// quantizes each tile as it stages it into shared memory. It never goes to
+// device memory as int8 and no state (B, 1) is written.
+//
+// What bounds the dgrad on an H100: at the training path's 2048 rows the
+// int8 operations, 2 * B * K * M over 1,979 TOPS (a few us per linear);
+// this __dp4a kernel on the CUDA cores sits far above that, as the forward
+// does at prefill. mma/wgmma int8 on the tensor cores is the later change.
 // ---------------------------------------------------------------------------
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool TW>
 __global__ void __launch_bounds__(kThreads)
 fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
                  const float* __restrict__ s_w, T* __restrict__ y, int B, int K, int M) {
@@ -229,7 +263,7 @@ fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
                         ? quantize(to_f32(x[static_cast<size_t>(row) * K + k]), inv[r])
                         : int8_t(0);
     }
-    load_w_tile<BM, BN>(w_q, K, M, k0, col0, t);
+    load_w_tile<TW, BM, BN>(w_q, K, M, k0, col0, t);
     __syncthreads();
     dot_tile<BM, BN>(t, acc);
     __syncthreads();
@@ -254,8 +288,9 @@ fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
 // ---------------------------------------------------------------------------
 // int8_matmul_dequant: x_q (B, K) int8, w_q (K, M) int8, row_scale (B,) f32
 //   -> y (B, M) = f32(x_q . w_q) * row_scale[b]
+// int8_matmul_dequant_t (TW): w_q (M, K) int8 -> y = f32(x_q . w_q^T) * row_scale[b]
 // ---------------------------------------------------------------------------
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool TW>
 __global__ void __launch_bounds__(kThreads)
 int8_matmul_dequant_kernel(const int8_t* __restrict__ x_q, const int8_t* __restrict__ w_q,
                            const float* __restrict__ row_scale, T* __restrict__ y,
@@ -269,7 +304,7 @@ int8_matmul_dequant_kernel(const int8_t* __restrict__ x_q, const int8_t* __restr
       const int row = row0 + r, k = k0 + kk;
       t.xs[r][kk] = (row < B && k < K) ? x_q[static_cast<size_t>(row) * K + k] : int8_t(0);
     }
-    load_w_tile<BM, BN>(w_q, K, M, k0, col0, t);
+    load_w_tile<TW, BM, BN>(w_q, K, M, k0, col0, t);
     __syncthreads();
     dot_tile<BM, BN>(t, acc);
     __syncthreads();
@@ -294,7 +329,7 @@ int8_matmul_dequant_kernel(const int8_t* __restrict__ x_q, const int8_t* __restr
 // prefill takes square 64 x 64 tiles.
 constexpr int kSmallRows = 16;
 
-template <typename T>
+template <typename T, bool TW>
 void launch_fused(const void* x, const void* w_q, const void* s_w, void* y, int B, int K, int M,
                   cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
@@ -303,14 +338,14 @@ void launch_fused(const void* x, const void* w_q, const void* s_w, void* y, int 
   T* yp = static_cast<T*>(y);
   if (B <= kSmallRows) {
     dim3 grid((M + 31) / 32, (B + 15) / 16);
-    fused_fwd_kernel<T, 16, 32><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
+    fused_fwd_kernel<T, 16, 32, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
   } else {
     dim3 grid((M + 63) / 64, (B + 63) / 64);
-    fused_fwd_kernel<T, 64, 64><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
+    fused_fwd_kernel<T, 64, 64, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
   }
 }
 
-template <typename T>
+template <typename T, bool TW>
 void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, void* y, int B, int K,
                    int M, cudaStream_t st) {
   const int8_t* xp = static_cast<const int8_t*>(x_q);
@@ -319,10 +354,10 @@ void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, void
   T* yp = static_cast<T*>(y);
   if (B <= kSmallRows) {
     dim3 grid((M + 31) / 32, (B + 15) / 16);
-    int8_matmul_dequant_kernel<T, 16, 32><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
+    int8_matmul_dequant_kernel<T, 16, 32, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
   } else {
     dim3 grid((M + 63) / 64, (B + 63) / 64);
-    int8_matmul_dequant_kernel<T, 64, 64><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
+    int8_matmul_dequant_kernel<T, 64, 64, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
   }
 }
 
@@ -372,9 +407,9 @@ int sb_fused_switchback_fwd(const void* x, int bf16, const void* w_q, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0 && M > 0) {
     if (bf16)
-      launch_fused<__nv_bfloat16>(x, w_q, s_w, y, B, K, M, st);
+      launch_fused<__nv_bfloat16, false>(x, w_q, s_w, y, B, K, M, st);
     else
-      launch_fused<float>(x, w_q, s_w, y, B, K, M, st);
+      launch_fused<float, false>(x, w_q, s_w, y, B, K, M, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -384,9 +419,37 @@ int sb_int8_matmul_dequant(const void* x_q, const void* w_q, const void* row_sca
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0 && M > 0) {
     if (bf16)
-      launch_matmul<__nv_bfloat16>(x_q, w_q, row_scale, y, B, K, M, st);
+      launch_matmul<__nv_bfloat16, false>(x_q, w_q, row_scale, y, B, K, M, st);
     else
-      launch_matmul<float>(x_q, w_q, row_scale, y, B, K, M, st);
+      launch_matmul<float, false>(x_q, w_q, row_scale, y, B, K, M, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (B, K) float/bf16, w_q (N, K) int8 (the forward's weight; K is its
+// output width), s_w (1,) f32 -> dx (B, N) in g's type.
+int sb_fused_switchback_dgrad(const void* g, int bf16, const void* w_q, const void* s_w,
+                              void* dx, int B, int K, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0 && N > 0) {
+    if (bf16)
+      launch_fused<__nv_bfloat16, true>(g, w_q, s_w, dx, B, K, N, st);
+    else
+      launch_fused<float, true>(g, w_q, s_w, dx, B, K, N, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x_q (B, K) int8, w_q (M, K) int8, row_scale (B,) f32 -> y (B, M) =
+// f32(x_q . w_q^T) * row_scale[b].
+int sb_int8_matmul_dequant_t(const void* x_q, const void* w_q, const void* row_scale, void* y,
+                             int bf16, int B, int K, int M, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0 && M > 0) {
+    if (bf16)
+      launch_matmul<__nv_bfloat16, true>(x_q, w_q, row_scale, y, B, K, M, st);
+    else
+      launch_matmul<float, true>(x_q, w_q, row_scale, y, B, K, M, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""Public wrappers for the SwitchBack kernels: dispatch by device.
+"""Public wrappers for the SwitchBack kernels, forward and input gradient:
+dispatch by device.
 
 A tensor on the CPU goes to the plain version in ``ref.py``. A tensor on
 the card goes to the hand-written CUDA kernel (``csrc/switchback.cu``),
@@ -118,8 +119,61 @@ def int8_matmul_dequant(x_q: torch.Tensor, w_q: torch.Tensor,
     return y
 
 
+def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
+                           s_w: torch.Tensor) -> torch.Tensor:
+    """Input gradient with the row-quantize of g fused into the int8
+    matmul: g (B, M) f32/bf16, w_q (N, M) int8 as the forward quantized it,
+    s_w (1, 1) f32 -> dx (B, N) = s_g * s_w / 127^2 * (q(g) . w_q^T), in
+    g's dtype. The contraction runs over w_q's second dim (no transpose)."""
+    _b.need(g, "g", _FLOAT_TYPES, 2)
+    _b.need(w_q, "w_q", (torch.int8,), 2)
+    if w_q.shape[1] != g.shape[1]:
+        raise ValueError(f"w_q {tuple(w_q.shape)} does not contract with M={g.shape[1]}")
+    _b.need(s_w, "s_w", (torch.float32,), 2)
+    if s_w.numel() != 1:
+        raise ValueError(f"s_w must hold one value, got shape {tuple(s_w.shape)}")
+    if _b.on_cpu(g, w_q, s_w):
+        return _ref.fused_switchback_dgrad(g, w_q, s_w)
+    B, M = g.shape
+    N = w_q.shape[0]
+    dx = torch.empty((B, N), dtype=g.dtype, device=g.device)
+    _b.launch(_lib().sb_fused_switchback_dgrad, g.data_ptr(),
+              int(g.dtype == torch.bfloat16), w_q.data_ptr(),
+              s_w.data_ptr(), dx.data_ptr(), B, M, N, _b.stream(g))
+    fused_switchback_dgrad.launches += 1
+    return dx
+
+
+def int8_matmul_dequant_t(x_q: torch.Tensor, w_q: torch.Tensor,
+                          row_scale: torch.Tensor, *,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The JAX package's ``int8_matmul_dequant(..., transpose_w=True)``:
+    x_q (B, K) int8, w_q (M, K) int8, row_scale (B, 1) f32 ->
+    y (B, M) = row_scale * (x_q . w_q^T), int32 accumulation. The two-step
+    dgrad of a layer whose output width is above ``FUSED_MAX_CONTRACT``."""
+    _b.need(x_q, "x_q", (torch.int8,), 2)
+    _b.need(w_q, "w_q", (torch.int8,), 2)
+    B, K = x_q.shape
+    if w_q.shape[1] != K:
+        raise ValueError(f"w_q {tuple(w_q.shape)} does not contract with K={K}")
+    _b.need(row_scale, "row_scale", (torch.float32,), 2)
+    if tuple(row_scale.shape) != (B, 1):
+        raise ValueError(f"row_scale {tuple(row_scale.shape)} != {(B, 1)}")
+    if out_dtype not in _FLOAT_TYPES:
+        raise TypeError(f"out_dtype {out_dtype} not in {_FLOAT_TYPES}")
+    if _b.on_cpu(x_q, w_q, row_scale):
+        return _ref.int8_matmul_dequant_t(x_q, w_q, row_scale, out_dtype=out_dtype)
+    M = w_q.shape[0]
+    y = torch.empty((B, M), dtype=out_dtype, device=x_q.device)
+    _b.launch(_lib().sb_int8_matmul_dequant_t, x_q.data_ptr(), w_q.data_ptr(),
+              row_scale.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16),
+              B, K, M, _b.stream(x_q))
+    int8_matmul_dequant_t.launches += 1
+    return y
+
+
 KERNELS = (tensor_quantize, fused_switchback_fwd, row_quantize,
-           int8_matmul_dequant)
+           int8_matmul_dequant, fused_switchback_dgrad, int8_matmul_dequant_t)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -40,9 +40,26 @@ def int8_matmul_dequant(x_q: torch.Tensor, w_q: torch.Tensor,
     return (acc * row_scale).to(out_dtype)
 
 
+def int8_matmul_dequant_t(x_q: torch.Tensor, w_q: torch.Tensor,
+                          row_scale: torch.Tensor, *,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The ``transpose_w`` form: w_q (M, K), y = f32(x_q . w_q^T) * row_scale."""
+    acc = (x_q.double() @ w_q.double().t()).float()
+    return (acc * row_scale).to(out_dtype)
+
+
 def fused_switchback_fwd(x: torch.Tensor, w_q: torch.Tensor,
                          s_w: torch.Tensor) -> torch.Tensor:
     """Row-quantize x, int8 product, dequantize; the output has x's dtype."""
     x_q, s_x = row_quantize(x)
     scale = s_x * div(s_w.reshape(()), QMAX * QMAX)
     return int8_matmul_dequant(x_q, w_q, scale, out_dtype=x.dtype)
+
+
+def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
+                           s_w: torch.Tensor) -> torch.Tensor:
+    """Input gradient: row-quantize g (B, M), contract with the forward's
+    w_q (N, M) over M, dequantize; the output has g's dtype."""
+    g_q, s_g = row_quantize(g)
+    scale = s_g * div(s_w.reshape(()), QMAX * QMAX)
+    return int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=g.dtype)

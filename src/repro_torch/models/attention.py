@@ -1,12 +1,14 @@
 """Grouped-query attention with RoPE and the ring KV cache.
 
-The PyTorch counterpart of ``repro/models/attention.py`` for the serve
-path. Two implementations, selected by ``attn_impl``:
+The PyTorch counterpart of ``repro/models/attention.py`` for the train
+and serve paths. Two implementations, selected by ``attn_impl``:
 
 * ``flash_scan`` (the default, as in the JAX package) — the flash-attention
-  kernels of ``kernels/flash_attention``: ``flash_fwd_lse`` for prefill and
-  ``decode_attention`` for every decode step over the ring cache, GQA
-  native (KV heads stay folded). On the card these are the CUDA kernels;
+  kernels of ``kernels/flash_attention``: the differentiable
+  ``flash_attention`` (``flash_fwd``, and ``flash_bwd_dq``/``flash_bwd_dkv``
+  under a gradient) for training and prefill, and ``decode_attention``
+  for every decode step over the ring cache, GQA native (KV heads stay
+  folded). On the card these are the CUDA kernels;
   on the CPU their plain versions. This is the branch the JAX package
   takes on its Pallas backends; its XLA-only ``flash_scan_attention``
   (a ``lax.scan`` for prompts past 2048) has no counterpart here, since
@@ -55,10 +57,11 @@ def qkv_project(x: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
     """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,KV,hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cd = policy.compute_dtype
-    wq = PRM.use_weight(p["wq"], ("embed", "heads"), cd)
-    wk = PRM.use_weight(p["wk"], ("embed", "kv_heads"), cd)
-    wv = PRM.use_weight(p["wv"], ("embed", "kv_heads"), cd)
+    # master weights, uncast: quant_linear casts them inside its autograd
+    # function (the weight gradient stays f32)
+    wq = PRM.use_weight(p["wq"], ("embed", "heads"))
+    wk = PRM.use_weight(p["wk"], ("embed", "kv_heads"))
+    wv = PRM.use_weight(p["wv"], ("embed", "kv_heads"))
     q = quant_linear(x, wq, policy=policy).reshape(B, S, H, hd)
     k = quant_linear(x, wk, policy=policy).reshape(B, S, KV, hd)
     v = quant_linear(x, wv, policy=policy).reshape(B, S, KV, hd)
@@ -99,9 +102,10 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _core_attention(q, k, v, *, causal: bool, impl: str = "flash_scan"):
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) with KV heads folded. The JAX
     package's dispatch: anything but ``"dense"`` runs the flash kernel, which
-    consumes GQA natively; ``"dense"`` expands KV heads for the oracle."""
+    consumes GQA natively (and is differentiable through the backward
+    kernels); ``"dense"`` expands KV heads for the oracle."""
     if impl != "dense":
-        return FA.flash_fwd_lse(q, k, v, causal=causal)[0]
+        return FA.flash_attention(q, k, v, causal=causal)
     n_heads = q.shape[2]
     return dense_attention(q, _expand_kv(k, n_heads), _expand_kv(v, n_heads),
                            causal=causal)
@@ -109,8 +113,21 @@ def _core_attention(q, k, v, *, causal: bool, impl: str = "flash_scan"):
 
 def _out_proj(o: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
     B, S = o.shape[:2]
-    wo = PRM.use_weight(p["wo"], ("heads", "embed"), policy.compute_dtype)
+    wo = PRM.use_weight(p["wo"], ("heads", "embed"))
     return quant_linear(o.reshape(B, S, cfg.n_heads * cfg.hd), wo, policy=policy)
+
+
+def attention_block(x: torch.Tensor, p: dict, cfg, policy: QuantPolicy, *,
+                    positions: torch.Tensor, causal: bool = True,
+                    impl: str = "flash_scan") -> torch.Tensor:
+    """Full self-attention sub-block with no cache, the training path:
+    QKV projection -> RoPE -> attention -> output projection. x (B, S, D),
+    positions (S,) or (B, S)."""
+    q, k, v = qkv_project(x, p, cfg, policy)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = _core_attention(q, k, v, causal=causal, impl=impl)
+    return _out_proj(o, p, cfg, policy)
 
 
 def attention_decode_step(x: torch.Tensor, cache: KVCache, p: dict, cfg,

@@ -90,3 +90,15 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor
     but an elementwise cast commutes with a gather, so the values are the
     same and only the gathered rows are converted."""
     return emb[tokens].to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy with an f32 log-softmax (stable under bf16
+    logits), as ``repro/models/common.py`` computes it."""
+    lf = logits.float()
+    if softcap:
+        lf = softcap * torch.tanh(lf / softcap)
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - picked)

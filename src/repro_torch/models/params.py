@@ -28,10 +28,34 @@ class ParamSpec:
         assert len(self.shape) == len(self.logical), (self.shape, self.logical)
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more dict trees of the same shape."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_paths(tree, prefix: str = ""):
+    """(path, leaf) pairs in sorted key order, the order ``jax.tree``
+    flattens dicts in (sums over leaves add in the same order); ``path``
+    is JAX's ``keystr`` form, ``['blocks']['pos0']['attn']['wq']``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{prefix}[{k!r}]")
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_unflatten(like, by_path: dict, prefix: str = ""):
+    """A tree shaped like ``like`` whose leaves come from ``by_path``
+    (keyed as ``tree_paths`` names them)."""
+    if isinstance(like, dict):
+        return {k: tree_unflatten(v, by_path, f"{prefix}[{k!r}]") for k, v in like.items()}
+    return by_path[prefix]
 
 
 def resolve_device(device) -> torch.device:
@@ -87,7 +111,9 @@ def from_numpy_tree(tree, device="cuda"):
 
 def use_weight(w: torch.Tensor, logical: Tuple[Optional[str], ...] = (),
                dtype=None) -> torch.Tensor:
-    """Prepare a weight for a matmul: cast to the compute dtype. The JAX
-    package also pins its sharding here; the port has none. ``logical`` is
-    kept so call sites read as in the JAX package."""
+    """Prepare a weight for a matmul: cast to ``dtype`` when one is given.
+    The JAX package also pins its sharding here; the port has none.
+    ``logical`` is kept so call sites read as in the JAX package. Linear
+    layers pass no dtype: ``quant_linear`` casts the master weight inside
+    its autograd function, so the weight gradient stays f32."""
     return w if dtype is None else w.to(dtype)

@@ -1,18 +1,21 @@
-"""Decoder-only LM for serving: parameter specs, prefill and decode.
+"""Decoder-only LM: parameter specs, training forward and loss, prefill
+and decode.
 
 The PyTorch counterpart of ``repro/models/transformer.py`` for dense
 all-attention stacks (smollm-360m). The parameter tree keeps the JAX
 package's layout: ``blocks["pos{i}"]`` holds each position-in-period's
 parameters stacked over the ``n_groups`` dimension. Where the JAX package
 scans over that dimension, the port runs a Python loop and takes group
-``g``'s parameters and cache as views (``tree[g]``).
+``g``'s parameters and cache as views (``tree[g]``; in training one
+``unbind`` per leaf, whose backward stacks the groups' gradients once).
 
 Serve states are updated in place: ``serve_prefill`` and ``decode_step``
 write keys, values and lengths into the cache tensors they are given and
 return the same state object.
 
-Training (``forward``/``loss_fn``) comes with the training slice; MoE,
-SSM, hybrid and multimodal stacks with their own slices.
+Training runs with ``remat="none"`` only: ``"block"``/``"full"``
+(activation recomputation) raise until they are ported. MoE, SSM, hybrid
+and multimodal stacks come with their own slices.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.core.layer_scale import apply_layer_scale
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.models import attention as ATT
 from repro_torch.models import params as PRM
-from repro_torch.models.common import apply_norm, embed_tokens
+from repro_torch.models.common import apply_norm, cross_entropy_loss, embed_tokens
 from repro_torch.models.mlp import mlp_block
 from repro_torch.models.params import ParamSpec
 
@@ -151,6 +154,55 @@ def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
     h2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
     m = mlp_block(h2, lp["mlp"], cfg, policy)
     return x + apply_layer_scale(lp.get("gamma2"), m)
+
+
+def _train_layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
+                       policy: QuantPolicy, parallel: ParallelConfig, *,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """One layer with no cache (the JAX ``_layer_apply`` with state None)."""
+    h = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
+    a = ATT.attention_block(h, lp["attn"], cfg, policy, positions=positions,
+                            impl=parallel.attn_impl)
+    x = x + apply_layer_scale(lp.get("gamma1"), a)
+    h2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
+    m = mlp_block(h2, lp["mlp"], cfg, policy)
+    return x + apply_layer_scale(lp.get("gamma2"), m)
+
+
+def require_no_remat(parallel: ParallelConfig):
+    if parallel.remat != "none":
+        raise NotImplementedError(
+            f"remat={parallel.remat!r} is not ported yet: training runs with "
+            "remat='none' (activation recomputation is queued, ROADMAP.md "
+            "Queue 1); full-width smollm-360m fits the card without it")
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            policy: QuantPolicy, parallel: ParallelConfig):
+    """Training forward over the whole sequence: tokens (B, S) ->
+    (logits (B, S, V), aux loss, a zero for dense stacks)."""
+    require_dense(cfg, "forward")
+    require_no_remat(parallel)
+    x = embed_input(params, tokens, cfg, policy)
+    positions = torch.arange(x.shape[1], device=x.device)
+    layers = {key: PRM.tree_map(lambda t: t.unbind(0), blk)
+              for key, blk in params["blocks"].items()}
+    for g in range(n_groups(cfg)):
+        for i in range(period(cfg)):
+            lp = PRM.tree_map(lambda views: views[g], layers[f"pos{i}"])
+            x = _train_layer_apply(x, lp, cfg, policy, parallel, positions=positions)
+    logits = lm_head(params, x, cfg, policy)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            policy: QuantPolicy, parallel: ParallelConfig,
+            aux_weight: float = 0.01):
+    """(loss, {"ce", "moe_aux"}): mean next-token cross-entropy of
+    ``batch["tokens"]`` against ``batch["labels"]``, both (B, S)."""
+    logits, aux = forward(params, batch["tokens"], cfg, policy, parallel)
+    ce = cross_entropy_loss(logits, batch["labels"], cfg.logit_softcap)
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 def embed_input(params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -201,7 +201,12 @@ def test_cpu_tensors_never_count_launches():
     k = torch.randn(2, 5, 2, 16)
     FA.flash_fwd_lse(q, k, k, causal=True)
     FA.decode_attention(q[:, :1].contiguous(), k, k, torch.tensor([3, 5], dtype=torch.int32))
-    assert FA.launch_counts() == {"flash_fwd": 0, "decode_fwd": 0}
+    o, lse = FA.flash_fwd_lse(q, k, k, causal=True)
+    di = FREF.attention_di(o, q)
+    FA.flash_bwd_dq(q, k, k, q, lse, di, causal=True)
+    FA.flash_bwd_dkv(q, k, k, q, lse, di, causal=True)
+    assert FA.launch_counts() == {"flash_fwd": 0, "decode_fwd": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0}
 
 
 def test_wrappers_have_no_backend_switch():

@@ -100,6 +100,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                           "--n-requests", "1", "--new-tokens", "1"],
                          capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--steps", "1"],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
     # and chip_smoke.py prints no result without a card
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=300)
@@ -147,3 +150,50 @@ def test_unported_model_families_raise():
                               moe=MoEConfig(n_experts=4, top_k=2))
     with pytest.raises(NotImplementedError):
         build(cfg)
+
+
+def _train_parts(cfg):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train import make_train_setup
+    tc = TrainConfig(quant_mode="int8_switchback")
+    return (build(cfg), tc, *make_train_setup(tc))
+
+
+@pytest.mark.parametrize("remat", ["block", "full"])
+def test_training_needs_remat_none(remat):
+    from repro_torch.train import make_train_step
+    bundle, tc, opt, scaler = _train_parts(get_reduced_config("smollm-360m"))
+    with pytest.raises(NotImplementedError, match="remat"):
+        make_train_step(bundle, QuantPolicy("int8_switchback"), ParallelConfig(remat=remat),
+                        tc, opt, scaler)
+
+
+@pytest.mark.parametrize("kw", [dict(checkpoint_dir="ckpt"), dict(fault_plan=[]),
+                                dict(telemetry=object())])
+def test_unported_trainer_options_raise(kw):
+    from repro_torch.train import Trainer
+    with pytest.raises(NotImplementedError):
+        Trainer(lambda s, b: (s, {}), None, **kw)
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "test"], ["--devices", "8"], ["--fsdp"],
+                                  ["--pure-dp"], ["--supervise"], ["--fault-plan", "[]"],
+                                  ["--ckpt-dir", "ckpt"], ["--telemetry", "run.jsonl"],
+                                  ["--kernel-backend", "pallas"], ["--profile-steps", "1:2"]])
+def test_unported_train_flags_raise(flag):
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError):
+        train.main(["--device", "cpu", "--steps", "1", *flag])
+
+
+def test_unported_training_options_raise():
+    from repro_torch.core import switchback as SB
+    from repro_torch.optim import make_optimizer
+    from repro_torch.telemetry.health import quant_health
+    with pytest.raises(NotImplementedError):
+        make_optimizer("adafactor", 1e-3)
+    with pytest.raises(NotImplementedError):
+        SB.switchback_linear(torch.zeros(2, 4), torch.zeros(4, 3), variant="switchback_m")
+    with pytest.raises(NotImplementedError):
+        quant_health({}, {}, dataclasses.replace(_train_parts(
+            get_reduced_config("smollm-360m"))[1], quant_mode="fp8_mixed"))
