@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-9-12, 8):
+9-17, 8, 18):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the TF32 flags (both left False);
@@ -18,14 +18,15 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
    one) in bf16 and f32: prefill at 8 slots, Sq in {32, 64, 96, 128},
    causal and full, and Sk > Sq with kv_valid < Sk; decode at S_max in
    {96, 256} with slot lengths 1, 2, 127, 128, 129, 200 and S_max in one
-   batch. At the training path's shapes: the int8 dgrad pair
-   (``fused_switchback_dgrad``, ``int8_matmul_dequant_t``) bit-equal at
-   2048, 8 and 1000 rows over every linear's widths; ``flash_bwd_dq`` /
-   ``flash_bwd_dkv`` within a stated tolerance of ``ref.mha_bwd`` at 8
-   sequences of 64, 200 and 256 tokens, causal and full, kv_valid < Sk,
-   bf16 and f32; each of the four run twice must give the same bits. A
-   control fault (KV head h % KV instead of h // group) must read at
-   least 10x outside each flash tolerance;
+   batch. At the training path's shapes (``compare_linear_kernels``,
+   ``compare_flash_train``): every SwitchBack kernel of the tensor-wise
+   modes, forward and dgrad, bit-equal at 2048, 8 and 1000 rows over
+   every linear's widths; ``flash_fwd``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` within stated tolerances of their plain versions at
+   8 sequences of 64, 200 and 256 tokens, causal and full, kv_valid < Sk,
+   bf16 and f32; each run twice must give the same bits. A control fault
+   (KV head h % KV instead of h // group) must read at least 10x outside
+   each flash tolerance;
 4. serve: full-width smollm-360m (32 layers, d 960, vocab 49152; random
    weights from a seeded torch.Generator) through the ring-cache
    ``ServeEngine`` with ``quant_mode="int8_switchback"`` and the engine's
@@ -73,9 +74,43 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     parameters' per-leaf mean difference within stated tolerances, the control fault (KV heads tiled) outside;
 12. train-step profile: wall time, device time and idle share, CUDA
     launches and device time by kernel (torch.profiler), tokens trained
-    per second.
+    per second;
+13. CLIP kernels vs plain: every SwitchBack kernel of the four modes
+    (the fused forward and dgrad, ``row_quantize`` with
+    ``int8_matmul_dequant`` and its transposed form, ``tensor_quantize``,
+    ``col_quantize`` and the colscale matmul in both orientations)
+    bit-equal to its plain version at the shapes phase 15 gives it (every
+    weight of both towers, batch 32: 4,128 vision rows, 8,192 patch rows
+    at K = 588, 2,464 text rows), ties and an all-zero row, each run twice
+    with the same bits;
+14. the flash kernels at CLIP's attention shapes, vision (32, 129, 16, 80)
+    with no mask and text (32, 77, 16, 64) causal, forward and both
+    backward kernels, bf16 and f32, within the tolerances of phase 3; the
+    control faults (lanes past 64 dropped at hd 80, the mask dropped at
+    hd 64) at least 10x outside;
+15. CLIP train (the paper's own model): full-width ViT-H/14 (0.99 B
+    parameters, random weights from a seeded torch.Generator) through
+    ``make_train_setup``, ``make_train_step`` and ``Trainer`` in each of
+    ``int8_switchback`` (zero-init layer-scale), ``int8_switchback_m``,
+    ``int8_switchback_q`` and ``int8_llm``: SyntheticCLIP batches of 32
+    pairs at 224 px, patch dropout 0.5, StableAdamW; a warm-up step, then
+    3 timed steps with every launch counter zeroed just before and read
+    just after, each exactly the count worked out from the layer shapes
+    (``clip_launches_per_step``); every loss finite; peak memory; one
+    step profiled;
+16. one CLIP train step at 2 + 2 layers and full width, kernels vs plain,
+    in each int8 mode: under flash_scan from three seeds within stated
+    tolerances, the control fault (the positional embedding read one row
+    off) outside; under dense bit-equal;
+17. CLIP card vs CPU: 3 train steps at 2 + 2 layers and full width from
+    three seeds, which take the two column-wise modes in turn, the same
+    fault outside;
+18. timing of the CLIP kernels: one vision layer's calls at 4,128 rows,
+    beside their bound, plain version and ``torch._int_mm`` + scale.
 
-The line before the last holds ``{"kernels": [...]}``; the last line is
+Each phase prints its seconds (``[time]``), and all of them together
+before the result. The line before the last holds ``{"kernels": [...]}``;
+the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits 1 and prints no result.
 """
@@ -85,6 +120,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -108,6 +144,8 @@ FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SOURCE = {"tensor_quantize": SB_SOURCE, "fused_switchback_fwd": SB_SOURCE,
           "row_quantize": SB_SOURCE, "int8_matmul_dequant": SB_SOURCE,
           "fused_switchback_dgrad": SB_SOURCE, "int8_matmul_dequant_t": SB_SOURCE,
+          "col_quantize": SB_SOURCE, "int8_matmul_dequant_colscale": SB_SOURCE,
+          "int8_matmul_dequant_colscale_t": SB_SOURCE,
           "flash_fwd": FA_SOURCE, "decode_fwd": FA_SOURCE,
           "flash_bwd_dq": FA_SOURCE, "flash_bwd_dkv": FA_SOURCE}
 REPLACES = {
@@ -117,13 +155,16 @@ REPLACES = {
     "int8_matmul_dequant": "src/repro/kernels/switchback/switchback.py:197",
     "fused_switchback_dgrad": "src/repro/kernels/switchback/switchback.py:315",
     "int8_matmul_dequant_t": "src/repro/kernels/switchback/switchback.py:197",
+    "col_quantize": "src/repro/kernels/switchback/switchback.py:83",
+    "int8_matmul_dequant_colscale": "src/repro/kernels/switchback/switchback.py:176",
+    "int8_matmul_dequant_colscale_t": "src/repro/kernels/switchback/switchback.py:176",
     "flash_fwd": "src/repro/kernels/flash_attention/flash_attention.py:123",
     "decode_fwd": "src/repro/kernels/flash_attention/flash_attention.py:384",
     "flash_bwd_dq": "src/repro/kernels/flash_attention/flash_attention.py:216",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention/flash_attention.py:302",
 }
 # the SwitchBack wrappers, forward and input gradient (kernels/switchback/ops.py)
-SB_KERNELS = ("tensor_quantize", "fused_switchback_fwd", "row_quantize",
+SB_KERNELS = ("tensor_quantize", "fused_switchback_fwd", "row_quantize", "col_quantize",
               "int8_matmul_dequant", "fused_switchback_dgrad", "int8_matmul_dequant_t")
 # launches per layer per model call (prefill or decode step): every
 # linear quantizes its weight; wq, wk, wv, wo, w_up, w_gate contract over
@@ -425,6 +466,23 @@ def bound(bytes_, int8_ops=0.0, f32_ops=0.0, bf16_ops=0.0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def time_work(torch, KOPS, REF, sets, work, what):
+    """Each entry of ``work`` (name: (calls, call(set, ops module), library
+    call or None, bytes, int8 ops, f32 ops)) over ``sets``: the kernels'
+    and the plain versions' device ms by CUDA-graph replay, the library
+    call's, the kernels' eager ms, and the bound; ``what(calls)`` names
+    the work timed."""
+    out, n = {}, len(sets)
+    for name, (calls, call, library, bytes_, i8, f32) in work.items():
+        out[name] = dict(
+            ms=graph_ms(torch, lambda i: call(sets[i], KOPS), n),
+            plain_ms=graph_ms(torch, lambda i: call(sets[i], REF), n),
+            library_ms=graph_ms(torch, lambda i: library(sets[i]), n) if library else None,
+            eager_ms=eager_ms(torch, lambda i: call(sets[i], KOPS), n),
+            bound=bound(bytes_, int8_ops=i8, f32_ops=f32), calls=calls, work=what(calls))
+    return out
+
+
 def time_kernels(torch, KOPS, REF, cfg, dev, seed, R):
     """One layer's calls of each kernel at ``R`` rows (the calls one decode
     step (R=8) or one prefill (R=1024) makes per layer): the kernel, its
@@ -479,17 +537,10 @@ def time_kernels(torch, KOPS, REF, cfg, dev, seed, R):
             1, lambda s, op: op.int8_matmul_dequant(s["x_q"], s["qs"]["w_down"][0], s["scale"]),
             int_mm, R * K + K * M + R * 4 + R * M * 2, 2 * R * K * M, 0),
     }
-    out = {}
-    for name, (calls, call, library, bytes_, i8, f32) in work.items():
-        r = dict(calls=calls, bound=bound(bytes_, int8_ops=i8, f32_ops=f32))
-        r["ms"] = graph_ms(torch, lambda i: call(sets[i], KOPS), n_sets)
-        r["plain_ms"] = graph_ms(torch, lambda i: call(sets[i], REF), n_sets)
-        r["library_ms"] = (graph_ms(torch, lambda i: library(sets[i]), n_sets)
-                           if library else None)
-        r["eager_ms"] = eager_ms(torch, lambda i: call(sets[i], KOPS), n_sets)
-        if library:
+    out = time_work(torch, KOPS, REF, sets, work, lambda c: f"one layer's {c} call(s) at {R} rows")
+    for name, r in out.items():
+        if r["library_ms"] is not None:
             r["library_rows"] = R + pad
-        out[name] = r
     return out
 
 
@@ -868,12 +919,30 @@ KERNEL_GROUPS = ("row_quantize", "absmax_partial", "cast_tensorwise", "fused_fwd
                  "int8_matmul_dequant", "flash_fwd", "decode_fwd")
 
 
+def kernel_times(torch, fn, n):
+    """{CUDA kernel: (device ms, launches) per step} of one ``fn()`` that
+    runs ``n`` steps, from torch.profiler recording the card's activity
+    only (the host's operator events cost seconds to record and are not
+    read)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
+            by_kernel[e.key] = (us / n / 1e3, e.count / n)
+    return by_kernel
+
+
 def decode_profile(torch, M, cfg, eng, params, prompts):
     """Wall time and wrapper launches of one full-batch decode step over 10
     steps, and the device time and CUDA launches by kernel over 5
     (torch.profiler). Also returns the batch's cache lengths at the end."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     impl = eng.parallel.attn_impl
     B = eng.serve_cfg.max_batch
@@ -896,18 +965,14 @@ def decode_profile(torch, M, cfg, eng, params, prompts):
         check(per_step[k] == want,
               f"{impl}: {k}: {per_step[k]} launches per decode step, expected {want}")
 
-    n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            lg, cache = eng.decode(params, cache, cur)
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
-            by_kernel[e.key] = (us / n_prof / 1e3, e.count / n_prof)
+    box = [cache]
+
+    def steps(n=5):
+        for _ in range(n):
+            box[0] = eng.decode(params, box[0], cur)[1]
+
+    by_kernel = kernel_times(torch, steps, 5)
+    cache = box[0]
     dev_ms = sum(v[0] for v in by_kernel.values())
     groups = {}
     for key, (ms, cnt) in by_kernel.items():
@@ -933,21 +998,41 @@ def decode_profile(torch, M, cfg, eng, params, prompts):
 
 
 # ---------------------------------------------------------------------------
-# phases 3b-3c: the training path's kernels against their plain versions
+# phases 3b and 13: a training path's SwitchBack kernels against their plain
+# versions, at that path's shapes
 # ---------------------------------------------------------------------------
 
-def compare_train_kernels(torch, M, cfg, dev, seed):
-    """The int8 dgrad pair, bitwise against its plain versions at the train
-    path's shapes: 2048 rows and the ragged 8 and 1000, g (R, M) against
-    the forward's w_q (N, M) for every linear's (M, N) (fused below 2048,
-    row_quantize + the transposed matmul for w_up and w_gate's M = 2560),
-    bf16 and f32, exact half-way ties and an all-zero row; each kernel run
-    twice on the same inputs must give the same bits. Returns the largest
-    |kernel - plain| per kernel and the number of comparisons."""
+COLSCALE_KERNELS = ("int8_matmul_dequant_colscale", "int8_matmul_dequant_colscale_t")
+
+
+def smollm_train_shapes(cfg):
+    """Phase 3b's table: one layer's seven linears ``{name: (K, M, needs
+    Ẋ)}`` at 2,048 rows and the ragged 8 and 1,000, bf16 and f32, exact
+    half-way ties in the weights at 8 rows; tensor-wise modes only."""
+    lin = {k: (K, Mw, True) for k, (K, Mw) in path_shapes(cfg).items()}
+    dts = ("bfloat16", "float32")
+    return [("smollm", R, dts, R == 8, False, lin) for R in (TRAIN_ROWS, 8, 1000)]
+
+
+def compare_linear_kernels(torch, M, table, dev, seed):
+    """Every SwitchBack kernel a training path runs, bit-equal to its plain
+    version at the path's shapes. ``table``: (tower, rows, dtypes, ties in
+    the weights, column-wise modes too, ``{linear: (K, M, needs Ẋ)}``).
+    Per linear: ``tensor_quantize(W)``; per dtype the forward both ways the
+    modes take it (fused when K <= FUSED_MAX_CONTRACT, and ``row_quantize``
+    + ``int8_matmul_dequant`` at every K, as ``int8_switchback_m`` does)
+    and the dgrad (fused when M <= FUSED_MAX_CONTRACT, else
+    ``row_quantize`` + ``int8_matmul_dequant_t``); column-wise also
+    ``col_quantize(W)``, ``row_quantize(W)``, the colscale forward and the
+    transposed colscale dgrad. Inputs hold exact half-way ties and an
+    all-zero row. Each kernel run twice on the same inputs must give the
+    same bits. Returns the largest |kernel - plain| per kernel and the
+    number of comparisons."""
     KOPS, REF = M.KOPS, M.REF
-    gen = torch.Generator(device=dev).manual_seed(seed + 13)
-    worst = {"fused_switchback_dgrad": 0.0, "int8_matmul_dequant_t": 0.0, "row_quantize": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = dict.fromkeys(SB_KERNELS + COLSCALE_KERNELS, 0.0)
     n = 0
+    fused_max = KOPS.FUSED_MAX_CONTRACT
 
     def same(name, fn, ref, what):
         nonlocal n
@@ -959,27 +1044,60 @@ def compare_train_kernels(torch, M, cfg, dev, seed):
         check(torch.equal(got, again), f"{name} {what}: two launches differ")
         n += 1
 
-    D, FF = cfg.d_model, cfg.d_ff
-    KVd = cfg.n_kv_heads * cfg.hd
-    # (name, (M, N)): the dgrad contracts over the layer's output width M
-    fused = {"wq": (D, D), "wk": (KVd, D), "wo": (D, D), "w_down": (D, FF)}
-    for R in (TRAIN_ROWS, 8, 1000):
-        for dt in (torch.bfloat16, torch.float32):
-            for lin, (Mw, N) in fused.items():
-                w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, N, Mw, dev, ties=R == 8))
+    def quantized(name, t, what):
+        """The kernel's (int8, scale) of ``t``, each bit-equal to plain."""
+        fn = getattr(KOPS, name)
+        ref = getattr(REF, name)(t)
+        for i in (0, 1):
+            same(name, lambda: fn(t)[i], ref[i], f"{what} {'state' if i else 'int8'}")
+        return fn(t)
+
+    for tower, R, dts, ties, colwise, linears in table:
+        for lin, (K, Mw, dx) in linears.items():
+            what = f"{tower} {lin} {K}x{Mw}"
+            w = weight(torch, gen, K, Mw, dev, ties)
+            w_q, s_w = quantized("tensor_quantize", w, what)
+            if colwise:
+                c_q, c_s = quantized("col_quantize", w, what)
+                w_n, s_n = quantized("row_quantize", w, f"{what} W per input unit")
+            for dt in (getattr(torch, d) for d in dts):
+                at = f"{what} R={R} {dt}"
+                x = activations(torch, gen, R, K, dev, dt)
+                if K <= fused_max:
+                    same("fused_switchback_fwd", lambda: KOPS.fused_switchback_fwd(x, w_q, s_w),
+                         REF.fused_switchback_fwd(x, w_q, s_w), at)
+                x_q, s_x = quantized("row_quantize", x, f"{at} X")
+                scale = s_x * REF.div(s_w, 127.0 * 127.0)
+                same("int8_matmul_dequant",
+                     lambda: KOPS.int8_matmul_dequant(x_q, w_q, scale, out_dtype=dt),
+                     REF.int8_matmul_dequant(x_q, w_q, scale, out_dtype=dt), at)
+                if colwise:
+                    row = REF.div(s_x, 127.0 * 127.0)
+                    same("int8_matmul_dequant_colscale",
+                         lambda: KOPS.int8_matmul_dequant(x_q, c_q, row, col_scale=c_s,
+                                                          out_dtype=dt),
+                         REF.int8_matmul_dequant(x_q, c_q, row, col_scale=c_s, out_dtype=dt), at)
+                if not dx:                        # the patch embedding: data input
+                    continue
                 g = activations(torch, gen, R, Mw, dev, dt)
-                same("fused_switchback_dgrad", lambda: KOPS.fused_switchback_dgrad(g, w_q, s_w),
-                     REF.fused_switchback_dgrad(g, w_q, s_w), f"{lin} R={R} {dt}")
-            w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, D, FF, dev))     # w_up (D, FF)
-            g = activations(torch, gen, R, FF, dev, dt)
-            g_q, s_g = KOPS.row_quantize(g)
-            rq, rs = REF.row_quantize(g)
-            same("row_quantize", lambda: KOPS.row_quantize(g)[0], rq, f"dgrad R={R} {dt}")
-            same("row_quantize", lambda: KOPS.row_quantize(g)[1], rs, f"dgrad state R={R} {dt}")
-            scale = s_g * REF.div(s_w, 127.0 * 127.0)
-            same("int8_matmul_dequant_t",
-                 lambda: KOPS.int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=dt),
-                 REF.int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=dt), f"w_up R={R} {dt}")
+                if Mw <= fused_max:
+                    same("fused_switchback_dgrad",
+                         lambda: KOPS.fused_switchback_dgrad(g, w_q, s_w),
+                         REF.fused_switchback_dgrad(g, w_q, s_w), f"{at} dgrad")
+                g_q, s_g = quantized("row_quantize", g, f"{at} Ẏ")
+                if Mw > fused_max:
+                    scale = s_g * REF.div(s_w, 127.0 * 127.0)
+                    same("int8_matmul_dequant_t",
+                         lambda: KOPS.int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=dt),
+                         REF.int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=dt),
+                         f"{at} dgrad")
+                if colwise:
+                    row, col = REF.div(s_g, 127.0 * 127.0), s_n.reshape(1, -1)
+                    same("int8_matmul_dequant_colscale_t",
+                         lambda: KOPS.int8_matmul_dequant_t(g_q, w_n, row, col_scale=col,
+                                                            out_dtype=dt),
+                         REF.int8_matmul_dequant_t(g_q, w_n, row, col_scale=col, out_dtype=dt),
+                         f"{at} dgrad")
     torch.cuda.synchronize()
     return worst, n
 
@@ -991,62 +1109,105 @@ def kv_grads_by_modulo(dk_heads, n_kv):
     return dk_heads.reshape(B, S, H // n_kv, n_kv, hd).sum(dim=2)
 
 
-def compare_flash_bwd(torch, M, cfg, dev, seed):
-    """flash_bwd_dq / flash_bwd_dkv against the plain ``ref.mha_bwd`` on the
-    same (q, k, v, do) and the kernel forward's o and lse, bf16 and f32, 8
-    sequences of 64, 200 and 256 tokens, causal and full, and kv_valid <
-    Sk; within FLASH_BWD_TOL of max|grad|. Each kernel run twice must give
-    the same bits, and the control fault (the plain backward with KV head
-    h % KV) must read FAULT_MARGIN x outside the tolerance."""
-    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+def gqa_fault(H, KV):
+    """The control fault of the GQA shapes: K/V head h % KV instead of
+    h // group, its dk/dv summed back onto the KV heads the same way."""
+    def fault(q, k, v, causal):
+        return (q, kv_heads_by_modulo(k, H), kv_heads_by_modulo(v, H), causal,
+                lambda dq, dk, dv: (dq, kv_grads_by_modulo(dk, KV), kv_grads_by_modulo(dv, KV)))
+    return fault
+
+
+def lanes_fault(q, k, v, causal):
+    """A control fault at hd > 64: the head dims past 64 dropped."""
+    fq, fk, fv = (t.clone() for t in (q, k, v))
+    for t in (fq, fk, fv):
+        t[..., 64:] = 0
+    return fq, fk, fv, causal, lambda *g: g
+
+
+def mask_fault(q, k, v, causal):
+    """A control fault: the causal mask dropped (or added)."""
+    return q, k, v, not causal, lambda *g: g
+
+
+def smollm_flash_cases(cfg):
+    """Phase 3c's table: (tower, B, Sq, kv_valid, H, KV, hd, causal, fault):
+    8 sequences of 64, 200 and 256 tokens, causal and full, and 256 with
+    kv_valid 200; smollm's 15 query heads over 5 KV heads of 64."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    scale = M.FA.softmax_scale(hd)
+    fault = gqa_fault(H, KV)
+    cases = [(S, S, c) for S in (64, 200, TRAIN_SEQ) for c in (True, False)]
+    cases += [(TRAIN_SEQ, 200, c) for c in (True, False)]
+    return [("smollm", TRAIN_BATCH, S, kv, H, KV, hd, c, fault) for S, kv, c in cases]
+
+
+def compare_flash_train(torch, M, cases, dev, seed):
+    """The flash kernels a training path runs against their plain versions
+    at its attention shapes (``cases``, see ``smollm_flash_cases``), bf16
+    and f32: ``flash_fwd`` (o within FLASH_O_TOL of max|o|, lse within
+    FLASH_LSE_TOL), ``flash_bwd_dq`` / ``flash_bwd_dkv`` (f32, within
+    FLASH_BWD_TOL of max|grad|, from the kernel forward's o and lse against
+    ``ref.mha_bwd``). Each backward kernel run twice must give the same
+    bits, keys past kv_valid get no gradient, and each case's control fault
+    (the plain versions on faulty inputs) must read FAULT_MARGIN x outside
+    every tolerance. Returns the readings per kernel and the number of
+    comparisons."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     out = {k: dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf)
-           for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     n = 0
+
+    def record(name, got, want, fault, tol, what):
+        nonlocal n
+        r = out[name]
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} {what}: bad output")
+        err = rel_err(torch, got, want)
+        r["max_rel_err"] = max(r["max_rel_err"], err)
+        r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(torch, got, want))
+        check(err <= tol, f"{name} {what}: kernel vs plain {err:g} > {tol:g}")
+        f = rel_err(torch, got, fault) / tol
+        r["fault_over_tol"] = min(r["fault_over_tol"], f)
+        check(f >= FAULT_MARGIN, f"{name} {what}: the control fault reads only {f:g} x the "
+              "tolerance")
+        n += 1
 
     def rand(*shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
-    cases = [(S, S, c) for S in (64, 200, TRAIN_SEQ) for c in (True, False)]
-    cases += [(TRAIN_SEQ, 200, c) for c in (True, False)]
     for dt in (torch.bfloat16, torch.float32):
-        tol = FLASH_BWD_TOL[str(dt).replace("torch.", "")]
-        for S, kv_valid, causal in cases:
-            B = TRAIN_BATCH
+        key = str(dt).replace("torch.", "")
+        for tower, B, S, kv_valid, H, KV, hd, causal, fault in cases:
+            scale = M.FA.softmax_scale(hd)
             q, do = rand(B, S, H, hd, dt=dt), rand(B, S, H, hd, dt=dt)
             k, v = rand(B, S, KV, hd, dt=dt), rand(B, S, KV, hd, dt=dt)
             kw = dict(causal=causal, kv_valid=kv_valid)
+            what = f"{tower} B{B} S{S} kv_valid{kv_valid} H{H}/{KV} hd{hd} causal={causal} {dt}"
             o, lse = M.FA.flash_fwd_lse(q, k, v, **kw)
+            ro, rlse = M.FREF.mha_fwd(q, k, v, scale=scale, **kw)
+            fq, fk, fv, fcausal, back = fault(q, k, v, causal)
+            fo, flse = M.FREF.mha_fwd(fq, fk, fv, causal=fcausal, kv_valid=kv_valid, scale=scale)
+            record("flash_fwd", o, ro, fo, FLASH_O_TOL[key], what)
+            e = float((lse - rlse).abs().max())
+            check(e <= FLASH_LSE_TOL, f"flash_fwd {what}: lse off by {e:g}")
             di = M.FREF.attention_di(o, do)
             dq = M.FA.flash_bwd_dq(q, k, v, do, lse, di, **kw)
             dk, dv = M.FA.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
             check(torch.equal(dq, M.FA.flash_bwd_dq(q, k, v, do, lse, di, **kw)),
-                  f"flash_bwd_dq S{S} {dt}: two launches differ")
+                  f"flash_bwd_dq {what}: two launches differ")
             check(all(torch.equal(a, b) for a, b in
                       zip((dk, dv), M.FA.flash_bwd_dkv(q, k, v, do, lse, di, **kw))),
-                  f"flash_bwd_dkv S{S} {dt}: two launches differ")
+                  f"flash_bwd_dkv {what}: two launches differ")
+            check(all(t.dtype == torch.float32 for t in (dq, dk, dv)),
+                  f"flash backward {what}: gradients not f32")
             rdq, rdk, rdv = M.FREF.mha_bwd(q, k, v, o, lse, do, scale=scale, **kw)
-            fdq, fdk, fdv = M.FREF.mha_bwd(q, kv_heads_by_modulo(k, H),
-                                           kv_heads_by_modulo(v, H), o, lse, do,
-                                           scale=scale, **kw)
-            fdk, fdv = kv_grads_by_modulo(fdk, KV), kv_grads_by_modulo(fdv, KV)
-            what = f"B{B} S{S} kv_valid{kv_valid} causal={causal} {dt}"
-            for name, pairs in (("flash_bwd_dq", ((dq, rdq, fdq),)),
-                                ("flash_bwd_dkv", ((dk, rdk, fdk), (dv, rdv, fdv)))):
-                r = out[name]
-                for got, want, fault in pairs:
-                    check(got.dtype == torch.float32 and got.shape == want.shape
-                          and bool(torch.isfinite(got).all()), f"{name} {what}: bad output")
-                    err = rel_err(torch, got, want)
-                    r["max_rel_err"] = max(r["max_rel_err"], err)
-                    r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(torch, got, want))
-                    check(err <= tol, f"{name} {what}: kernel vs plain {err:g} > {tol:g}")
-                    f = rel_err(torch, got, fault) / tol
-                    r["fault_over_tol"] = min(r["fault_over_tol"], f)
-                    check(f >= FAULT_MARGIN, f"{name} {what}: the control fault reads only "
-                          f"{f:g} x the tolerance")
-                    n += 1
+            fdq, fdk, fdv = back(*M.FREF.mha_bwd(fq, fk, fv, fo, flse, do, causal=fcausal,
+                                                 kv_valid=kv_valid, scale=scale))
+            btol = FLASH_BWD_TOL[key]
+            record("flash_bwd_dq", dq, rdq, fdq, btol, what)
+            record("flash_bwd_dkv", dk, rdk, fdk, btol, what)
+            record("flash_bwd_dkv", dv, rdv, fdv, btol, what)
             check(float(dk[:, kv_valid:].abs().sum()) == 0.0 == float(dv[:, kv_valid:].abs().sum()),
                   f"flash_bwd_dkv {what}: keys past kv_valid got a gradient")
     torch.cuda.synchronize()
@@ -1057,19 +1218,19 @@ def compare_flash_bwd(torch, M, cfg, dev, seed):
 # phases 9-12: the training path
 # ---------------------------------------------------------------------------
 
-def train_parts(torch, cfg, dev, *, compute_dtype=None, impl="flash_scan", steps=100):
+def train_parts(torch, cfg, dev, *, mode="int8_switchback", compute_dtype=None,
+                impl="flash_scan", steps=100, lr=2e-3, warmup=4):
     """(bundle, policy, parallel, TrainConfig, train_step, opt, scaler) of
-    the path: int8_switchback, StableAdamW (warm-up 4, cosine over
+    a training path: StableAdamW (warm-up ``warmup``, cosine over
     ``steps``), no loss scaling, remat "none"."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.core.precision import QuantPolicy
     from repro_torch.models import build
     from repro_torch.train import make_train_setup, make_train_step
     bundle = build(cfg)
-    policy = QuantPolicy("int8_switchback", compute_dtype=compute_dtype or torch.bfloat16)
+    policy = QuantPolicy(mode, compute_dtype=compute_dtype or torch.bfloat16)
     parallel = ParallelConfig(remat="none", attn_impl=impl)
-    tc = TrainConfig(learning_rate=2e-3, warmup_steps=4, total_steps=steps,
-                     quant_mode="int8_switchback")
+    tc = TrainConfig(learning_rate=lr, warmup_steps=warmup, total_steps=steps, quant_mode=mode)
     opt, scaler = make_train_setup(tc)
     step = make_train_step(bundle, policy, parallel, tc, opt, scaler)
     return bundle, policy, parallel, tc, step, opt, scaler
@@ -1128,22 +1289,26 @@ def train(torch, M, cfg, dev, seed, timed_steps=6):
     return trainer, batches, counts, res
 
 
-def grad_errs(torch, got, want):
+def grad_errs(torch, got, want, skip=()):
     """(loss relative error, worst per-leaf max |diff| / max|want|, worst
     per-leaf mean |diff| / max|want|, the leaf of that mean) between two
-    (loss, grads) pairs."""
+    (loss, grads) pairs; leaves whose path holds a pattern of ``skip`` are
+    left out."""
     (gg, gl), (wg, wl) = got[:2], want[:2]
     loss = abs(float(gl) - float(wl)) / abs(float(wl))
-    return (loss, *tree_errs(gg, wg))
+    return (loss, *tree_errs(gg, wg, skip))
 
 
-def tree_errs(got, want):
+def tree_errs(got, want, skip=()):
     """Worst per-leaf (max, mean) |got - want| over the leaf's max|want|,
-    and the path of the leaf with the worst mean."""
+    and the path of the leaf with the worst mean; leaves whose path holds
+    a pattern of ``skip`` are left out."""
     from repro_torch.models.params import tree_paths
     mx = mean = 0.0
     worst = ""
     for (path, a), b in zip(tree_paths(got), (leaf for _, leaf in tree_paths(want))):
+        if any(p in path for p in skip):
+            continue
         a, b = a.double(), b.double()
         top = float(b.abs().max()) or 1.0
         mx = max(mx, float((a - b).abs().max()) / top)
@@ -1173,8 +1338,36 @@ def check_seeds(seed, offset):
 # three seeds on an H100, rounded to one digit (readings in PERF.md,
 # Findings): sound up to 2.1e-5 / 3.7e-2 / 4.4e-3, the fault at
 # least 1.4e-3 / 1.5 / 2.4e-1. Under dense every sound reading was 0.
-STEP_TOL = {"flash_scan": {"float32": (2e-4, 2e-1, 3e-2), "bfloat16": (2e-4, 2e-1, 3e-2)},
-            "dense": {"float32": (1e-6, 1e-5, 1e-6)}}
+STEP_KEYS = ("loss_rel_err", "grad_max_rel_err", "grad_mean_rel_err")
+STEP_TOL = {"flash_scan": dict(zip(STEP_KEYS, (2e-4, 2e-1, 3e-2))),
+            "dense": dict(zip(STEP_KEYS, (1e-6, 1e-5, 1e-6)))}
+
+
+def step_reading(torch, kern, plain, fault, skip=()):
+    """One whole-step case's readings, (loss, grads) with the kernels and
+    under the control fault each against the plain versions' (leaves whose
+    path holds a pattern of ``skip`` left out), and whether the kernels'
+    loss and gradients are finite."""
+    from repro_torch.models import params as PRM
+    errs, f_errs = grad_errs(torch, kern, plain, skip), grad_errs(torch, fault, plain, skip)
+    r = dict(loss=float(kern[1]), loss_plain=float(plain[1]), **dict(zip(STEP_KEYS, errs)),
+             worst_mean_leaf=errs[3], **{"fault_" + k: v for k, v in zip(STEP_KEYS, f_errs)})
+    finite = math.isfinite(float(kern[1])) and all(
+        bool(torch.isfinite(g).all()) for g in PRM.tree_leaves(kern[0]))
+    return r, finite
+
+
+def check_readings(tag, res, finite):
+    """Each reading within its ``tolerance`` and its control fault outside
+    (at least one of its keys over the limit); called after all are
+    printed."""
+    for name, r in res.items():
+        tol = r["tolerance"]
+        check(finite[name], f"{tag} {name}: non-finite loss or gradient")
+        check(all(r[k] <= t for k, t in tol.items()),
+              f"{tag} {name}: kernels vs plain outside {tol}: {r}")
+        check(any(r["fault_" + k] > t for k, t in tol.items()),
+              f"{tag} {name}: the control fault lies within {tol}, which so could not see it: {r}")
 
 
 def whole_step(torch, M, cfg, dev, seed, params32, batch):
@@ -1217,31 +1410,12 @@ def whole_step(torch, M, cfg, dev, seed, params32, batch):
                 fault_patch = [(M.FREF, "_expand_heads", kv_heads_by_modulo)]
             with swapped(fault_patch):
                 fault = run()
-        errs = grad_errs(torch, kern, plain)
-        f_errs = grad_errs(torch, fault, plain)
-        res[name] = dict(loss=float(kern[1]), loss_plain=float(plain[1]),
-                         loss_rel_err=errs[0], grad_max_rel_err=errs[1],
-                         grad_mean_rel_err=errs[2], worst_mean_leaf=errs[3],
-                         tolerance=STEP_TOL[impl][str(cd).replace("torch.", "")],
-                         fault=("dw rounded through bf16" if impl == "dense"
-                                else "KV head h % KV"),
-                         fault_loss_rel_err=f_errs[0], fault_grad_max_rel_err=f_errs[1],
-                         fault_grad_mean_rel_err=f_errs[2])
-        finite[name] = math.isfinite(float(kern[1])) and all(
-            bool(torch.isfinite(g).all()) for g in PRM.tree_leaves(kern[0]))
+        res[name], finite[name] = step_reading(torch, kern, plain, fault)
+        res[name].update(tolerance=STEP_TOL[impl],
+                         fault="dw rounded through bf16" if impl == "dense" else "KV head h % KV")
         del kern, plain, fault
     print("[whole step]", json.dumps(res))
-    for name, r in res.items():
-        tol = r["tolerance"]
-        errs = (r["loss_rel_err"], r["grad_max_rel_err"], r["grad_mean_rel_err"])
-        f_errs = (r["fault_loss_rel_err"], r["fault_grad_max_rel_err"],
-                  r["fault_grad_mean_rel_err"])
-        check(finite[name], f"whole step {name}: non-finite loss or gradient")
-        check(all(e <= t for e, t in zip(errs, tol)),
-              f"whole step {name}: kernels vs plain {errs} > {tol}")
-        check(any(e > t for e, t in zip(f_errs, tol)),
-              f"whole step {name}: the control fault ({f_errs}) lies within {tol}, "
-              "which so could not see it")
+    check_readings("whole step", res, finite)
     return res
 
 
@@ -1266,52 +1440,81 @@ def param_specs_of(cfg):
 CARD_CPU_TOL = {"loss_rel_err": 4e-4, "param_mean_rel_err": 1e-3}
 
 
-def card_vs_cpu(torch, M, cfg, dev, seed, steps=3):
-    """The same 3 train steps at full width and 2 layers on the card and on
-    the CPU from the same parameters and batches, from CHECK_SEEDS seeds;
-    the control fault (KV heads tiled) on the CPU must land outside the
-    tolerance on each. Every reading is printed before any is checked."""
-    from repro_torch.models import params as PRM
-    from repro_torch.train import init_train_state
-    small = dataclasses.replace(cfg, n_layers=2)
+def smollm_check_path(torch, M, cfg):
+    """Phase 11's path: smollm at 2 layers in int8_switchback, BigramLM
+    batches of 4 x 64, the control fault the KV heads tiled."""
+    return types.SimpleNamespace(
+        tag="card vs cpu", small=dataclasses.replace(cfg, n_layers=2),
+        modes=("int8_switchback",), seed_offset=5, tol=CARD_CPU_TOL, opt={},
+        batches=lambda n, where, s: bigram_batches(torch, n, 4, 64, where, s),
+        keeps=lambda n, s: None, fault="KV heads tiled (CPU)", fault_where="cpu",
+        fault_context=lambda: tiled_kv_heads(M), fault_params=lambda t: t,
+        fault_back=lambda t: t)
 
-    def run(where, p_cpu, batches_cpu, fault=False):
-        bundle, policy, parallel, tc, step, opt, scaler = train_parts(torch, small, where)
-        params = PRM.tree_map(lambda t: t.clone().to(where), p_cpu)
-        state = init_train_state(params, opt, scaler)
+
+def card_vs_cpu(torch, M, path, dev, seed, steps=3):
+    """The same ``steps`` train steps at full width and reduced depth on the
+    card and on the CPU from the same parameters, batches and (CLIP) kept
+    patches, from CHECK_SEEDS seeds, the seeds taking ``path.modes`` in
+    turn; the control fault, run on ``path.fault_where`` (the card when
+    None: a fault in the parameters shows on either device, one patched
+    into the plain versions only on the CPU), must land outside the
+    tolerance against the CPU on each. Leaves that start at zero (biases) are left out of the parameter
+    reading: Adam moves an element whose gradient is about 0 by +-lr either
+    way in a sound run, so such a leaf's max is a few lr and its reading
+    noise. Every reading is printed before any is checked."""
+    from repro_torch.models import params as PRM
+    from repro_torch.train import init_train_state, make_train_step
+
+    def run(where, mode, p_cpu, batches_cpu, keeps, fault=False):
+        bundle, policy, parallel, tc, step, opt, scaler = train_parts(
+            torch, path.small, where, mode=mode, **path.opt)
+        if keeps is not None:       # the same kept patches on both devices
+            feed = iter(keeps)
+            step = make_train_step(
+                dataclasses.replace(bundle, patch_keep=lambda g: next(feed).to(where)),
+                policy, parallel, tc, opt, scaler)
+        p0 = path.fault_params(p_cpu) if fault else p_cpu
+        state = init_train_state(PRM.tree_map(lambda t: t.clone().to(where), p0), opt, scaler)
         losses = []
-        with (tiled_kv_heads(M) if fault else contextlib.nullcontext()):
+        with (path.fault_context() if fault else contextlib.nullcontext()):
             for b in batches_cpu:
                 state, m = step(state, {k: v.to(where) for k, v in b.items()})
                 losses.append(float(m["loss"]))
-        return losses, PRM.tree_map(lambda t: t.cpu(), state.params)
+        params = PRM.tree_map(lambda t: t.cpu(), state.params)
+        return losses, path.fault_back(params) if fault else params
 
-    def errs(a, b):
-        mx, mean, leaf = tree_errs(a[1], b[1])
+    def errs(a, b, p0):
+        zero = tuple(p for p, t in PRM.tree_paths(p0) if not bool(t.abs().max() > 0))
+        mx, mean, leaf = tree_errs(a[1], b[1], zero)
         return dict(loss_rel_err=max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0])),
                     param_max_rel_err=mx, param_mean_rel_err=mean, worst_mean_leaf=leaf)
 
     res = {}
-    for s in check_seeds(seed, 5):
-        p_cpu = PRM.init_params(param_specs_of(small), s, device="cpu")
-        batches_cpu = bigram_batches(torch, steps, 4, 64, "cpu", s)
-        card, cpu = run(dev, p_cpu, batches_cpu), run("cpu", p_cpu, batches_cpu)
-        fault = run("cpu", p_cpu, batches_cpu, fault=True)
-        res[f"seed{s}"] = dict(losses_card=card[0], losses_cpu=cpu[0], losses_fault=fault[0],
-                               **errs(card, cpu), fault="KV heads tiled (CPU)",
-                               **{"fault_" + k: v for k, v in errs(fault, cpu).items()})
-    print("[card vs cpu]", json.dumps(dict(tolerance=CARD_CPU_TOL, **res)))
+    for j, s in enumerate(check_seeds(seed, path.seed_offset)):
+        mode = path.modes[j % len(path.modes)]
+        p_cpu = PRM.init_params(param_specs_of(path.small), s, device="cpu")
+        batches, keeps = path.batches(steps, "cpu", s), path.keeps(steps, s)
+        card = run(dev, mode, p_cpu, batches, keeps)
+        cpu = run("cpu", mode, p_cpu, batches, keeps)
+        fault = run(path.fault_where or dev, mode, p_cpu, batches, keeps, fault=True)
+        res[f"{mode}_seed{s}"] = dict(
+            losses_card=card[0], losses_cpu=cpu[0], losses_fault=fault[0],
+            **errs(card, cpu, p_cpu), fault=path.fault,
+            **{"fault_" + k: v for k, v in errs(fault, cpu, p_cpu).items()})
+    print(f"[{path.tag}]", json.dumps(dict(tolerance=path.tol, **res)))
     for name, r in res.items():
         check(all(math.isfinite(x) for x in r["losses_card"]),
-              f"card vs CPU {name}: non-finite loss on the card")
-        check(all(r[k] <= t for k, t in CARD_CPU_TOL.items()),
-              f"card vs CPU {name}: {r} outside {CARD_CPU_TOL}")
-        check(all(r["fault_" + k] > t for k, t in CARD_CPU_TOL.items()),
-              f"card vs CPU {name}: the control fault lies within {CARD_CPU_TOL}: {r}")
+              f"{path.tag} {name}: non-finite loss on the card")
+        check(all(r[k] <= t for k, t in path.tol.items()),
+              f"{path.tag} {name}: {r} outside {path.tol}")
+        check(all(r["fault_" + k] > t for k, t in path.tol.items()),
+              f"{path.tag} {name}: the control fault lies within {path.tol}: {r}")
     return res
 
 
 TRAIN_KERNEL_GROUPS = (
+    ("col_quantize", "", "col_quantize"),
     ("fused_fwd_kernel", "true>", "fused_switchback_dgrad"),
     ("fused_fwd_kernel", "", "fused_switchback_fwd"),
     ("int8_matmul_dequant_kernel", "true>", "int8_matmul_dequant_t"),
@@ -1334,11 +1537,11 @@ TORCH_KERNEL_GROUPS = (
 )
 
 
-def train_profile(torch, M, trainer, batches, n_steps=3):
+def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="train profile"):
     """One train step's wall time (over ``n_steps``, ending in a
     synchronize), then its device time, CUDA launches and the device time
-    by kernel family from torch.profiler over another ``n_steps``."""
-    from torch.profiler import ProfilerActivity, profile
+    by kernel family from torch.profiler over another ``n_steps``. ``rows``:
+    tokens (or image-text pairs) a step trains, for the rate."""
     start = int(trainer.state.step)
     data = lambda i: batches[(i - start) % len(batches)]
     torch.cuda.synchronize()
@@ -1346,16 +1549,7 @@ def train_profile(torch, M, trainer, batches, n_steps=3):
     trainer.run(data, n_steps)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) / n_steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run(data, n_steps)
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
-            by_kernel[e.key] = (us / n_steps / 1e3, e.count / n_steps)
+    by_kernel = kernel_times(torch, lambda: trainer.run(data, n_steps), n_steps)
     dev_ms = sum(v[0] for v in by_kernel.values())
     groups = {}
     for key, (ms, cnt) in by_kernel.items():
@@ -1369,7 +1563,7 @@ def train_profile(torch, M, trainer, batches, n_steps=3):
         a[0] += ms
         a[1] += cnt
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    res = dict(step_ms=step_ms, tokens_per_s=TRAIN_ROWS / step_ms * 1e3,
+    res = dict(step_ms=step_ms, tokens_per_s=rows / step_ms * 1e3,
                device_ms_per_step=dev_ms,
                cuda_launches_per_step=sum(v[1] for v in by_kernel.values()),
                device_idle_share=(max(0.0, 1 - dev_ms / step_ms) if dev_ms else None),
@@ -1377,8 +1571,8 @@ def train_profile(torch, M, trainer, batches, n_steps=3):
                        sorted(groups.items(), key=lambda kv: -kv[1][0])},
                top=[{"kernel": k[:90], "ms": v[0], "launches": v[1]} for k, v in top])
     if not dev_ms:
-        print("[train profile] torch.profiler saw no device time; step wall time only")
-    print("[train profile]", json.dumps(res))
+        print(f"[{tag}] torch.profiler saw no device time; step wall time only")
+    print(f"[{tag}]", json.dumps(res))
     return res
 
 
@@ -1418,7 +1612,6 @@ def time_train_kernels(torch, M, cfg, dev, seed):
     check(torch.equal(int_mm(g_q, w_q, sc), KOPS.int8_matmul_dequant_t(g_q, w_q, sc)),
           "torch._int_mm yardstick disagrees with int8_matmul_dequant_t")
     out = {}
-    nset = len(sets)
     # name: (calls, call(set, ops module), library call, bytes, int8 ops, f32 ops)
     work = {
         "fused_switchback_dgrad": (
@@ -1431,14 +1624,8 @@ def time_train_kernels(torch, M, cfg, dev, seed):
             sum(R * m + m * n + R * 4 + R * n * 2 for m, n in two),
             sum(2 * R * m * n for m, n in two), 0),
     }
-    for name, (calls, call, library, bytes_, i8, f32) in work.items():
-        out[name] = dict(
-            ms=graph_ms(torch, lambda i: call(sets[i], KOPS), nset),
-            plain_ms=graph_ms(torch, lambda i: call(sets[i], REF), nset),
-            library_ms=graph_ms(torch, lambda i: library(sets[i]), nset) if library else None,
-            eager_ms=eager_ms(torch, lambda i: call(sets[i], KOPS), nset),
-            bound=bound(bytes_, int8_ops=i8, f32_ops=f32), calls=calls,
-            work=f"one layer's {calls} call(s) at {R} rows")
+    out.update(time_work(torch, KOPS, REF, sets, work,
+                         lambda c: f"one layer's {c} call(s) at {R} rows"))
     del sets
 
     # the flash backward pair at one layer's shape: 8 x 256, causal, bf16
@@ -1485,6 +1672,376 @@ def time_train_kernels(torch, M, cfg, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 13-18: CLIP ViT-H/14, the paper's own model, in the four int8 modes
+# ---------------------------------------------------------------------------
+
+CLIP_MODES = ("int8_switchback", "int8_switchback_m", "int8_switchback_q", "int8_llm")
+# the CLIP training path: SyntheticCLIP batches of 32 image-text pairs at
+# 224 px, patch dropout 0.5 (129 vision tokens with the CLS), 77 text tokens
+CLIP_BATCH = 32
+CLIP_STEPS = 3            # timed steps per mode, after one warm-up step
+# the 2 + 2 layer comparisons of phases 16 and 17: batch (pairs)
+CHECK_BATCH, CPU_BATCH = 8, 4
+
+
+def clip_linears(cfg):
+    """(K, M, needs Ẋ) of every SwitchBack linear of one CLIP train step:
+    the patch embedding (its input is data: no Ẋ), then each vision and
+    text layer's wq, wk, wv, wo (W, W), w_up (W, FF) and w_down (FF, W)."""
+    out = [(3 * cfg.patch_size ** 2, cfg.vision_width, False)]
+    for L, W, FF in ((cfg.vision_layers, cfg.vision_width, cfg.vision_ff),
+                     (cfg.text_layers, cfg.text_width, cfg.text_ff)):
+        out += ([(W, W, True)] * 4 + [(W, FF, True), (FF, W, True)]) * L
+    return out
+
+
+def clip_launches_per_step(cfg, mode, fused_max):
+    """Each wrapper's launches in one CLIP train step, worked out from the
+    layer shapes and the variant's kernel path (``core/switchback.py``):
+
+    * int8_switchback: tensor_quantize(W); forward fused when K <= 2048,
+      else row_quantize + int8_matmul_dequant; dgrad fused when M <= 2048,
+      else row_quantize + int8_matmul_dequant_t;
+    * int8_switchback_m: row_quantize(X), tensor_quantize(W),
+      int8_matmul_dequant (never fused); the same dgrad;
+    * int8_switchback_q / int8_llm: row_quantize(X), col_quantize(W), the
+      colscale matmul; dgrad row_quantize(Ẏ), row_quantize(W), the
+      transposed colscale matmul;
+    * each layer of both towers: flash_fwd, flash_bwd_dq, flash_bwd_dkv."""
+    c = dict.fromkeys(("tensor_quantize", "fused_switchback_fwd", "row_quantize",
+                       "col_quantize", "int8_matmul_dequant", "int8_matmul_dequant_colscale",
+                       "fused_switchback_dgrad", "int8_matmul_dequant_t",
+                       "int8_matmul_dequant_colscale_t", "flash_fwd", "decode_fwd",
+                       "flash_bwd_dq", "flash_bwd_dkv"), 0)
+    colwise = mode in ("int8_switchback_q", "int8_llm")
+    for K, Mw, dx in clip_linears(cfg):
+        if colwise:
+            for k in ("row_quantize", "col_quantize", "int8_matmul_dequant_colscale"):
+                c[k] += 1
+        elif mode == "int8_switchback_m":
+            for k in ("row_quantize", "tensor_quantize", "int8_matmul_dequant"):
+                c[k] += 1
+        else:
+            c["tensor_quantize"] += 1
+            if K <= fused_max:
+                c["fused_switchback_fwd"] += 1
+            else:
+                c["row_quantize"] += 1
+                c["int8_matmul_dequant"] += 1
+        if not dx:
+            continue
+        if colwise:
+            c["row_quantize"] += 2
+            c["int8_matmul_dequant_colscale_t"] += 1
+        elif Mw <= fused_max:
+            c["fused_switchback_dgrad"] += 1
+        else:
+            c["row_quantize"] += 1
+            c["int8_matmul_dequant_t"] += 1
+    layers = cfg.vision_layers + cfg.text_layers
+    c.update(flash_fwd=layers, flash_bwd_dq=layers, flash_bwd_dkv=layers)
+    return c
+
+
+# the CLIP path's optimizer settings (``train_parts``): lr 1e-3, warm-up 2
+CLIP_OPT = dict(lr=1e-3, warmup=2)
+
+
+def clip_batches(torch, cfg, n, batch, dev, seed):
+    """``n`` SyntheticCLIP batches (32 latent classes) on ``dev``."""
+    from repro_torch.data import SyntheticCLIP
+    data = SyntheticCLIP(cfg.image_size, cfg.text_ctx, cfg.text_vocab, n_classes=32, seed=seed)
+    out = []
+    for _ in range(n):
+        b = data.batch(batch)
+        out.append({"images": torch.from_numpy(b["images"]).to(dev),
+                    "texts": torch.from_numpy(b["texts"]).to(device=dev, dtype=torch.long)})
+    return out
+
+
+def clip_shapes(cfg):
+    """Phase 13's table (see ``compare_linear_kernels``): per tower the
+    rows of the main path (phase 15) at CLIP_BATCH, 4,128 vision (129
+    tokens after patch dropout), 8,192 patches for the patch embedding
+    (before dropout; no Ẋ) and 2,464 text, and ``{name: (K, M, needs Ẋ)}``;
+    bf16 as the path runs, the vision tower in f32 too; all four modes."""
+    from repro_torch.models.clip import n_kept_patches
+    W, FF, Wt, FFt = cfg.vision_width, cfg.vision_ff, cfg.text_width, cfg.text_ff
+    bf, both = ("bfloat16",), ("bfloat16", "float32")
+    return [
+        ("vision", CLIP_BATCH * (n_kept_patches(cfg) + 1), both, True, True,
+         {"w_qkvo": (W, W, True), "w_up": (W, FF, True), "w_down": (FF, W, True)}),
+        ("patch_embed", CLIP_BATCH * cfg.n_patches, bf, True, True,
+         {"patch_embed": (3 * cfg.patch_size ** 2, W, False)}),
+        ("text", CLIP_BATCH * cfg.text_ctx, bf, True, True,
+         {"w_qkvo": (Wt, Wt, True), "w_up": (Wt, FFt, True), "w_down": (FFt, Wt, True)}),
+    ]
+
+
+def clip_flash_cases(cfg):
+    """Phase 14's table (see ``smollm_flash_cases``): the vision tower's
+    (32, 129, 16, 80) with no mask, its control fault the lanes past 64
+    dropped, and the text tower's (32, 77, 16, 64) causal, its fault the
+    mask dropped; no GQA."""
+    from repro_torch.models.clip import n_kept_patches
+    Sv, Hv, Ht = n_kept_patches(cfg) + 1, cfg.vision_heads, cfg.text_heads
+    return [("vision", CLIP_BATCH, Sv, Sv, Hv, Hv, cfg.vision_width // Hv, False, lanes_fault),
+            ("text", CLIP_BATCH, cfg.text_ctx, cfg.text_ctx, Ht, Ht, cfg.text_width // Ht, True,
+             mask_fault)]
+
+
+def clip_train(torch, M, cfg, dev, seed):
+    """Phase 15: full-width CLIP ViT-H/14 through ``make_train_setup``,
+    ``make_train_step`` and ``Trainer`` in each of the four int8 modes
+    (``int8_switchback`` with zero-init layer-scale, the paper's recipe):
+    a warm-up step, then CLIP_STEPS timed steps with every launch counter
+    zeroed just before and read just after, each exactly
+    ``clip_launches_per_step`` x the steps; every loss finite; peak memory
+    over the timed steps; then one step profiled. Returns per mode the
+    readings and the counts."""
+    from repro_torch.models import params as PRM
+    from repro_torch.train import Trainer, init_train_state, loss_and_grads
+    res, counts_by_mode = {}, {}
+    for mode in CLIP_MODES:
+        c = dataclasses.replace(cfg, layer_scale_init=0.0) if mode == "int8_switchback" else cfg
+        bundle, policy, parallel, tc, step, opt, scaler = train_parts(torch, c, dev, mode=mode,
+                                                                     **CLIP_OPT)
+        t = time.perf_counter()
+        params = PRM.init_params(bundle.param_specs, seed, device=dev)
+        state = init_train_state(params, opt, scaler, seed=seed)
+        batches = clip_batches(torch, c, 1 + CLIP_STEPS, CLIP_BATCH, dev, seed)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in _leaves(params))
+        setup_s = time.perf_counter() - t
+        del params
+        trainer = Trainer(step, state, log_every=1000)
+        trainer.run(lambda i: batches[i], 1)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(M)
+        t = time.perf_counter()
+        trainer.run(lambda i: batches[i], CLIP_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts(M)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in trainer.history]
+        check(len(losses) == 1 + CLIP_STEPS and all(math.isfinite(x) for x in losses),
+              f"CLIP {mode}: non-finite or missing losses {losses}")
+        want = clip_launches_per_step(c, mode, M.KOPS.FUSED_MAX_CONTRACT)
+        for k, per in want.items():
+            check(per == 0 or counts[k] > 0, f"CLIP {mode}: {k} never launched")
+            check(counts[k] == per * CLIP_STEPS,
+                  f"CLIP {mode}: {k}: {counts[k]} launches in {CLIP_STEPS} steps, expected "
+                  f"{per * CLIP_STEPS} ({per} per step)")
+        prof = train_profile(torch, M, trainer, batches[1:], n_steps=1, rows=CLIP_BATCH,
+                             tag=f"clip profile {mode}")
+        # activation memory: the peak of one forward and backward (the
+        # gradients included) above what the trainer holds, without the
+        # optimizer's copies, which set the step's peak in every mode
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = loss_and_grads(bundle, policy, parallel, trainer.state.params, batches[1],
+                               patch_keep=bundle.patch_keep(trainer.state.rng))
+        torch.cuda.synchronize()
+        fwd_bwd = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del grads
+        res[mode] = dict(layer_scale_init=c.layer_scale_init, n_params=n_params,
+                         setup_s=setup_s, step_ms=wall / CLIP_STEPS * 1e3,
+                         pairs_per_s=CLIP_STEPS * CLIP_BATCH / wall, losses=losses,
+                         grad_norms=[h["grad_norm"] for h in trainer.history],
+                         peak_memory_gib=peak, fwd_bwd_peak_gib_above_state=fwd_bwd,
+                         launches_per_step={k: v / CLIP_STEPS for k, v in counts.items()},
+                         profile={k: prof[k] for k in ("step_ms", "device_ms_per_step",
+                                                       "device_idle_share",
+                                                       "cuda_launches_per_step", "groups")})
+        counts_by_mode[mode] = counts
+        print(f"[clip train] {mode}: " + json.dumps({k: v for k, v in res[mode].items()
+                                                     if k != "profile"}))
+        del trainer, state, batches, step, opt
+        gc.collect()                 # the autograd graph's cycles hold card memory
+        torch.cuda.empty_cache()
+    print("[clip train] peak memory GiB (step; one forward and backward above the state): "
+          + json.dumps({m: [r["peak_memory_gib"], r["fwd_bwd_peak_gib_above_state"]]
+                        for m, r in res.items()}))
+    return res, counts_by_mode
+
+
+def rolled_pos_embed(torch, tree, shift=-1):
+    """The control fault of phases 16-17, a one-character slip: the vision
+    tower reads its positional embedding one row off (the CLS takes row 1,
+    patch i row i + 2, the last patch row 0). ``shift=1`` turns a
+    parameter or gradient tree of the faulty run back into the sound
+    run's row order, so every leaf is compared with its own."""
+    pos = tree["visual"]["pos_embed"]
+    return dict(tree, visual=dict(tree["visual"],
+                                  pos_embed=torch.roll(pos, shift, dims=1).contiguous()))
+
+
+# one CLIP train step at 2 + 2 layers (full width), kernels against plain
+# versions under flash_scan in bf16: per-leaf max and mean |diff| of the
+# gradient relative to the leaf's max. Each limit is the geometric mean of
+# the worst sound reading and the smallest reading of the control fault
+# (the positional embedding read one row off) over three seeds on an H100,
+# one digit (the rule of phase 10; readings in PERF.md): max 1.22e-1
+# against 1.36, mean 2.10e-2 against 1.91e-1. The loss is printed, not
+# bounded: at random weights it sits at chance (ln 8), and the sound
+# readings (up to 6.2e-4) overlap the fault's (from 3.5e-4). Two leaves are
+# printed apart, not read per leaf: the key bias, whose exact gradient is 0
+# (softmax ignores a per-query constant), and the 0-d logit_scale, whose
+# gradient at chance is a sum that nearly cancels (sound readings up to
+# 1.0e-1 of its own size). Under dense every kernel on the path is
+# bit-equal to its plain version, so the step is.
+CLIP_STEP_TOL = {"grad_max_rel_err": 4e-1, "grad_mean_rel_err": 6e-2}
+CLIP_NOISE_LEAVES = ("['attn']['bk']", "['logit_scale']")
+
+
+def clip_whole_step(torch, M, cfg, dev, seed):
+    """Phase 16: one train step's loss and gradients at 2 + 2 layers and
+    full width, kernels against their plain versions swapped in, in each
+    int8 mode from CHECK_SEEDS seeds (layer_scale_init None: with γ = 0
+    every block linear's Ẏ is exactly 0 at step 0), within CLIP_STEP_TOL;
+    the control fault (``rolled_pos_embed``, plain) outside. Under dense
+    attention, one seed per mode, bit-equal. Every reading is printed
+    before any is checked."""
+    from repro_torch.models import params as PRM
+    from repro_torch.models.clip import patch_keep_sampler
+    from repro_torch.train import loss_and_grads
+    small = dataclasses.replace(cfg, vision_layers=2, text_layers=2)
+    draw = patch_keep_sampler(small)
+    res, bitwise, finite = {}, {}, {}
+    for s in check_seeds(seed, 7):
+        params = PRM.init_params(param_specs_of(small), s, device=dev)
+        fault_params = rolled_pos_embed(torch, params)
+        batch = clip_batches(torch, small, 1, CHECK_BATCH, dev, s)[0]
+        keep = draw(torch.Generator(device=dev).manual_seed(s))
+        for mode in CLIP_MODES:
+            name = f"{mode}_seed{s}"
+            bundle, policy, parallel, *_ = train_parts(torch, small, dev, mode=mode, **CLIP_OPT)
+            run = lambda p: loss_and_grads(bundle, policy, parallel, p, batch, patch_keep=keep)
+            kern = run(params)
+            with plain_ops(M, flash=True):
+                plain, fault = run(params), run(fault_params)
+            fault = (rolled_pos_embed(torch, fault[0], 1), *fault[1:])
+            res[name], finite[name] = step_reading(torch, kern, plain, fault, CLIP_NOISE_LEAVES)
+            res[name].update(tolerance=CLIP_STEP_TOL, fault="pos_embed rolled",
+                             logit_scale_grad=[float(g[0]["logit_scale"]) for g in (kern, plain)])
+            if s == check_seeds(seed, 7)[0]:
+                b_bundle, b_policy, b_parallel, *_ = train_parts(
+                    torch, small, dev, mode=mode, impl="dense", **CLIP_OPT)
+                dense = lambda: loss_and_grads(b_bundle, b_policy, b_parallel, params, batch,
+                                               patch_keep=keep)
+                dk = dense()
+                with plain_ops(M, flash=False):
+                    dp = dense()
+                bitwise[mode] = bool(torch.equal(dk[1], dp[1])) and all(
+                    torch.equal(a, b) for a, b in zip(PRM.tree_leaves(dk[0]),
+                                                      PRM.tree_leaves(dp[0])))
+            del kern, plain, fault
+    print("[clip whole step]", json.dumps(dict(dense_bitwise=bitwise, **res)))
+    for mode, ok in bitwise.items():
+        check(ok, f"CLIP whole step {mode}, dense: kernels != plain")
+    check_readings("CLIP whole step", res, finite)
+    return res
+
+
+# card against CPU (``card_vs_cpu``) at 2 + 2 layers and full width:
+# (loss relative per step, the final parameters' worst per-leaf mean |diff|
+# over the leaf's max, the leaves that start at zero left out). The
+# parameters' per-leaf max is printed, not bounded (sound up to 5.4e-2,
+# the fault from 5.6e-2). Limits by the rule of phase 10 over three seeds
+# and both modes on an H100, the fault then run on the CPU (readings in
+# PERF.md): loss 3.0e-3 against 7.5e-2, parameter mean 1.15e-3 against
+# 1.19e-2.
+CLIP_CARD_CPU_TOL = {"loss_rel_err": 1e-2, "param_mean_rel_err": 4e-3}
+
+
+def clip_check_path(torch, cfg):
+    """Phase 17's path: CLIP at 2 + 2 layers in the modes that run the new
+    kernels (the seeds take them in turn), SyntheticCLIP batches of
+    CPU_BATCH pairs with each step's kept patches drawn beforehand, the
+    control fault the positional embedding read one row off, on the card
+    (one CPU run per seed fewer)."""
+    from repro_torch.models.clip import patch_keep_sampler
+    small = dataclasses.replace(cfg, vision_layers=2, text_layers=2)
+    draw = patch_keep_sampler(small)
+    return types.SimpleNamespace(
+        tag="clip card vs cpu", small=small, modes=("int8_switchback_q", "int8_llm"),
+        seed_offset=11, tol=CLIP_CARD_CPU_TOL, opt=CLIP_OPT,
+        batches=lambda n, where, s: clip_batches(torch, small, n, CPU_BATCH, where, s),
+        keeps=lambda n, s: [draw(torch.Generator().manual_seed(s + i)) for i in range(n)],
+        fault="pos_embed rolled (card)", fault_where=None, fault_context=contextlib.nullcontext,
+        fault_params=lambda t: rolled_pos_embed(torch, t),
+        fault_back=lambda t: rolled_pos_embed(torch, t, 1))
+
+
+def time_clip_kernels(torch, M, cfg, dev, seed):
+    """Phase 18: the new kernels at CLIP's shapes, one vision layer's calls
+    of the column-wise modes at batch 32 (4,128 rows): col_quantize of the
+    six weights, the colscale forward of the six linears and their
+    transposed colscale dgrad; each with its plain version, the library
+    yardstick (``torch._int_mm`` plus the rank-1 scale) for the matmuls,
+    and the bound."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    _, R, _, _, _, shapes = clip_shapes(cfg)[0]                         # the vision tower
+    lin = [shapes[k][:2] for k in ("w_qkvo",) * 4 + ("w_up", "w_down")]    # (K, M)
+
+    def one_set():
+        s = {"w": [], "fwd": [], "dgrad": []}
+        for K, Mw in lin:
+            w = weight(torch, gen, K, Mw, dev)
+            w_q, s_w = KOPS.col_quantize(w)
+            x_q, s_x = KOPS.row_quantize(activations(torch, gen, R, K, dev))
+            g_q, s_g = KOPS.row_quantize(activations(torch, gen, R, Mw, dev))
+            w_n, s_n = KOPS.row_quantize(w)
+            s["w"].append(w)
+            s["fwd"].append((x_q, w_q, REF.div(s_x, 127.0 * 127.0), s_w))
+            s["dgrad"].append((g_q, w_n, REF.div(s_g, 127.0 * 127.0), s_n.reshape(1, -1)))
+        return s
+
+    per_set = sum(3 * K * Mw + 2 * R * (K + Mw) for K, Mw in lin)
+    sets = [one_set() for _ in range(max(2, int(120e6 // per_set) + 1))]
+    torch.cuda.synchronize()
+
+    def int_mm(x_q, w_q, row, col):
+        return (torch._int_mm(x_q, w_q).float() * (row * col)).to(torch.bfloat16)
+
+    def int_mm_t(g_q, w_n, row, col):
+        return (torch._int_mm(g_q, w_n.t()).float() * (row * col)).to(torch.bfloat16)
+
+    a, b = sets[0]["fwd"][4], sets[0]["dgrad"][4]
+    check(torch.equal(int_mm(*a), KOPS.int8_matmul_dequant(a[0], a[1], a[2], col_scale=a[3])),
+          "torch._int_mm yardstick disagrees with the colscale int8_matmul_dequant")
+    check(torch.equal(int_mm_t(*b), KOPS.int8_matmul_dequant_t(b[0], b[1], b[2], col_scale=b[3])),
+          "torch._int_mm yardstick disagrees with the colscale int8_matmul_dequant_t")
+    n_w = sum(K * Mw for K, Mw in lin)
+    work = {
+        # name: (calls, call(set, ops module), library call, bytes, int8 ops, f32 ops)
+        "col_quantize": (len(lin), lambda s, op: [op.col_quantize(w) for w in s["w"]], None,
+                         n_w * 2 + n_w + sum(4 * Mw for _, Mw in lin), 0, 4 * n_w),
+        "int8_matmul_dequant_colscale": (
+            len(lin),
+            lambda s, op: [op.int8_matmul_dequant(x, w, r, col_scale=c) for x, w, r, c in s["fwd"]],
+            lambda s: [int_mm(*t) for t in s["fwd"]],
+            sum(R * K + K * Mw + 4 * R + 4 * Mw + 2 * R * Mw for K, Mw in lin),
+            sum(2 * R * K * Mw for K, Mw in lin), sum(2 * R * Mw for _, Mw in lin)),
+        "int8_matmul_dequant_colscale_t": (
+            len(lin), lambda s, op: [op.int8_matmul_dequant_t(g, w, r, col_scale=c)
+                           for g, w, r, c in s["dgrad"]],
+            lambda s: [int_mm_t(*t) for t in s["dgrad"]],
+            sum(R * Mw + K * Mw + 4 * R + 4 * K + 2 * R * K for K, Mw in lin),
+            sum(2 * R * K * Mw for K, Mw in lin), sum(2 * R * K for K, _ in lin)),
+    }
+    out = time_work(torch, KOPS, REF, sets, work,
+                    lambda c: f"one vision layer's {c} calls at {R} rows (batch {CLIP_BATCH})")
+    del sets
+    print("[timing] clip kernels:", json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1525,14 +2082,24 @@ def main(argv=None) -> int:
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     # 2. build: one nvcc per source, started together
-    t = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = {lib: pool.submit(mod.build) for lib, mod in
-                  (("switchback", KB), ("flash_attention", FB))}
-        built = {lib: f.result() for lib, f in builds.items()}
-    KB.load()
-    FB.load()
-    print(f"[build] both libraries in {time.perf_counter() - t:.1f} s")
+    secs = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        """Seconds of the phase ``name`` into ``secs``, printed as it ends."""
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        print(f"[time] {name}: {secs[name]:.1f} s", flush=True)
+
+    with timed("2 build"):
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            builds = {lib: pool.submit(mod.build) for lib, mod in
+                      (("switchback", KB), ("flash_attention", FB))}
+            built = {lib: f.result() for lib, f in builds.items()}
+        KB.load()
+        FB.load()
     for lib, (lib_path, log) in built.items():
         print(f"[build] {os.path.relpath(lib_path, ROOT)}")
         for line in log.splitlines():
@@ -1541,61 +2108,101 @@ def main(argv=None) -> int:
 
     cfg = get_config("smollm-360m")
     # 3. kernels vs plain
-    worst, n_cmp = compare_kernels(torch, KOPS, REF, cfg, dev, args.seed)
-    print(f"[kernels] {n_cmp} SwitchBack comparisons bit-equal; max |kernel - plain| "
-          + json.dumps(worst))
-    flash_worst, n_flash = compare_flash(torch, M, cfg, dev, args.seed)
-    print(f"[kernels] {n_flash} flash comparisons within o {json.dumps(FLASH_O_TOL)} of "
-          f"max|o|, lse {FLASH_LSE_TOL:g}; control fault >= {FAULT_MARGIN:g}x the "
-          "tolerance: " + json.dumps(flash_worst))
-    dgrad_worst, n_dgrad = compare_train_kernels(torch, M, cfg, dev, args.seed)
-    print(f"[kernels] {n_dgrad} dgrad comparisons bit-equal and bit-identical over two "
-          "launches; max |kernel - plain| " + json.dumps(dgrad_worst))
-    bwd_worst, n_bwd = compare_flash_bwd(torch, M, cfg, dev, args.seed)
-    print(f"[kernels] {n_bwd} flash backward comparisons within {json.dumps(FLASH_BWD_TOL)} "
-          f"of max|grad|, bit-identical over two launches; control fault >= "
-          f"{FAULT_MARGIN:g}x the tolerance: " + json.dumps(bwd_worst))
+    with timed("3 kernels vs plain"):
+        worst, n_cmp = compare_kernels(torch, KOPS, REF, cfg, dev, args.seed)
+        print(f"[kernels] {n_cmp} SwitchBack comparisons bit-equal; max |kernel - plain| "
+              + json.dumps(worst))
+        flash_worst, n_flash = compare_flash(torch, M, cfg, dev, args.seed)
+        print(f"[kernels] {n_flash} flash comparisons within o {json.dumps(FLASH_O_TOL)} of "
+              f"max|o|, lse {FLASH_LSE_TOL:g}; control fault >= {FAULT_MARGIN:g}x the "
+              "tolerance: " + json.dumps(flash_worst))
+        train_worst, n_train = compare_linear_kernels(torch, M, smollm_train_shapes(cfg), dev,
+                                                      args.seed + 13)
+        print(f"[kernels] {n_train} train-path SwitchBack comparisons bit-equal and "
+              "bit-identical over two launches; max |kernel - plain| " + json.dumps(train_worst))
+        bwd_worst, n_bwd = compare_flash_train(torch, M, smollm_flash_cases(cfg), dev,
+                                               args.seed + 17)
+        print(f"[kernels] {n_bwd} train-path flash comparisons within o "
+              f"{json.dumps(FLASH_O_TOL)}, backward {json.dumps(FLASH_BWD_TOL)} of max|grad|, "
+              f"bit-identical over two launches; control fault >= {FAULT_MARGIN:g}x the "
+              "tolerance: " + json.dumps(bwd_worst))
 
     # 4. serve (the main path)
-    eng, params, prompts, stats, counts = serve(torch, M, cfg, dev, args.seed)
-    engines = {"flash_scan": eng, "dense": make_serve_engine(
-        "smollm-360m", eng.serve_cfg, parallel=ParallelConfig(remat="none", attn_impl="dense"),
-        device=dev)}
-    # 5. whole model, kernels vs plain
-    whole_model(torch, M, engines, params, prompts)
-    # 6. reference
-    reference(torch, M, cfg, dev, args.seed)
+    with timed("4-6 serve, whole model, reference"):
+        eng, params, prompts, stats, counts = serve(torch, M, cfg, dev, args.seed)
+        engines = {"flash_scan": eng, "dense": make_serve_engine(
+            "smollm-360m", eng.serve_cfg,
+            parallel=ParallelConfig(remat="none", attn_impl="dense"), device=dev)}
+        # 5. whole model, kernels vs plain
+        whole_model(torch, M, engines, params, prompts)
+        # 6. reference
+        reference(torch, M, cfg, dev, args.seed)
     # 7. decode profile, the two attention paths in turns on the same card
-    profs = {"flash_scan": [], "dense": []}
-    for impl in ("flash_scan", "dense", "dense", "flash_scan"):
-        p, lengths = decode_profile(torch, M, cfg, engines[impl], params, prompts)
-        profs[impl].append(p)
-        if impl == "flash_scan":
-            served_lens = lengths
-    prof = profs["flash_scan"][0]
+    with timed("7 decode profile"):
+        profs = {"flash_scan": [], "dense": []}
+        for impl in ("flash_scan", "dense", "dense", "flash_scan"):
+            p, lengths = decode_profile(torch, M, cfg, engines[impl], params, prompts)
+            profs[impl].append(p)
+            if impl == "flash_scan":
+                served_lens = lengths
+        prof = profs["flash_scan"][0]
     del eng, engines, params
     torch.cuda.empty_cache()
 
     # 9. train (the training path): full width through Trainer
-    trainer, batches, train_counts, train_res = train(torch, M, cfg, dev, args.seed)
+    with timed("9 train"):
+        trainer, batches, train_counts, train_res = train(torch, M, cfg, dev, args.seed)
     # 10. one train step, kernels vs plain
-    whole_step(torch, M, cfg, dev, args.seed, trainer.state.params, batches[0])
+    with timed("10 whole step"):
+        whole_step(torch, M, cfg, dev, args.seed, trainer.state.params, batches[0])
     # 11. card vs CPU, 3 steps at full width and 2 layers
-    card_vs_cpu(torch, M, cfg, dev, args.seed)
+    with timed("11 card vs cpu"):
+        card_vs_cpu(torch, M, smollm_check_path(torch, M, cfg), dev, args.seed)
     # 12. train-step profile
-    train_prof = train_profile(torch, M, trainer, batches)
+    with timed("12 train profile"):
+        train_prof = train_profile(torch, M, trainer, batches)
     del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13-17. CLIP ViT-H/14 (the paper's own model) in the four int8 modes
+    clip_cfg = get_config("clip-vit-huge")
+    with timed("13-14 CLIP kernels vs plain"):
+        clip_worst, n_clip = compare_linear_kernels(torch, M, clip_shapes(clip_cfg), dev,
+                                                    args.seed + 23)
+        print(f"[kernels] {n_clip} SwitchBack comparisons at CLIP's shapes (every kernel of the "
+              "four modes) bit-equal and bit-identical over two launches; max |kernel - plain| "
+              + json.dumps(clip_worst))
+        clip_flash, n_clip_flash = compare_flash_train(torch, M, clip_flash_cases(clip_cfg), dev,
+                                                       args.seed + 29)
+        print(f"[kernels] {n_clip_flash} flash comparisons at CLIP's shapes within o "
+              f"{json.dumps(FLASH_O_TOL)}, backward {json.dumps(FLASH_BWD_TOL)}; control fault "
+              f">= {FAULT_MARGIN:g}x the tolerance: " + json.dumps(clip_flash))
+    with timed("15 CLIP train"):
+        clip_res, clip_counts = clip_train(torch, M, clip_cfg, dev, args.seed)
+    with timed("16 CLIP whole step"):
+        clip_whole_step(torch, M, clip_cfg, dev, args.seed)
+    with timed("17 CLIP card vs cpu"):
+        card_vs_cpu(torch, M, clip_check_path(torch, clip_cfg), dev, args.seed)
     torch.cuda.empty_cache()
 
     # 8. timing
-    rows = {}
-    for R in (PREFILL_ROWS, DECODE_ROWS):
-        rows[R] = time_kernels(torch, KOPS, REF, cfg, dev, args.seed, R)
-    flash_t = time_flash(torch, M, cfg, dev, args.seed, served_lens)
-    print("[timing] flash:", json.dumps(flash_t))
-    train_t = time_train_kernels(torch, M, cfg, dev, args.seed)
+    with timed("8 timing"):
+        rows = {}
+        for R in (PREFILL_ROWS, DECODE_ROWS):
+            rows[R] = time_kernels(torch, KOPS, REF, cfg, dev, args.seed, R)
+        flash_t = time_flash(torch, M, cfg, dev, args.seed, served_lens)
+        print("[timing] flash:", json.dumps(flash_t))
+        train_t = time_train_kernels(torch, M, cfg, dev, args.seed)
+    with timed("18 CLIP timing"):
+        clip_t = time_clip_kernels(torch, M, clip_cfg, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
+    # each kernel's largest |kernel - plain| over every phase that held it
+    readings = (worst, train_worst, clip_worst,
+                *({k: v["max_abs_err"] for k, v in d.items()}
+                  for d in (flash_worst, bwd_worst, clip_flash)))
+    max_err = {k: max(d.get(k, 0.0) for d in readings) for k in SOURCE}
 
     def entry(name, r, err):
         """A serve-path kernel: ``launches`` from the serve run; its train
@@ -1624,7 +2231,7 @@ def main(argv=None) -> int:
     def entries(R):
         out = []
         for name, r in rows[R].items():
-            e = entry(name, r, worst[name])
+            e = entry(name, r, max_err[name])
             e.update(rows=R, work=f"one layer's {r['calls']} call(s) at {R} rows")
             if "library_rows" in r:
                 e["library_rows"] = r["library_rows"]
@@ -1633,10 +2240,9 @@ def main(argv=None) -> int:
 
     full = flash_t["decode_fwd_full"]
     flash_entries = [
-        dict(entry("flash_fwd", flash_t["flash_fwd"], flash_worst["flash_fwd"]["max_abs_err"]),
+        dict(entry("flash_fwd", flash_t["flash_fwd"], max_err["flash_fwd"]),
              library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)"),
-        dict(entry("decode_fwd", flash_t["decode_fwd_served"],
-                   flash_worst["decode_fwd"]["max_abs_err"]),
+        dict(entry("decode_fwd", flash_t["decode_fwd_served"], max_err["decode_fwd"]),
              library="scaled_dot_product_attention(attn_mask=key mask, enable_gqa=True)",
              full_window=dict(ms=full["ms"], plain_ms=full["plain_ms"],
                               bound_ms=full["bound"][0], library_ms=full["library_ms"],
@@ -1647,20 +2253,40 @@ def main(argv=None) -> int:
           + json.dumps({impl: {key: [p[key] for p in ps] for key in (
               "step_ms", "device_ms_per_step", "device_idle_share", "cuda_launches_per_step")}
               for impl, ps in profs.items()}))
-    train_entries = [
-        train_entry("fused_switchback_dgrad", dgrad_worst["fused_switchback_dgrad"]),
-        train_entry("int8_matmul_dequant_t", dgrad_worst["int8_matmul_dequant_t"]),
-        train_entry("flash_bwd_dq", bwd_worst["flash_bwd_dq"]["max_abs_err"]),
-        train_entry("flash_bwd_dkv", bwd_worst["flash_bwd_dkv"]["max_abs_err"]),
-    ]
+    train_entries = [train_entry(k, max_err[k]) for k in (
+        "fused_switchback_dgrad", "int8_matmul_dequant_t", "flash_bwd_dq", "flash_bwd_dkv")]
+    def clip_entry(name):
+        """A kernel of the CLIP path only: ``launches`` summed over the four
+        modes' timed runs (CLIP_STEPS steps each), per step by mode beside."""
+        r = clip_t[name]
+        b_ms, b_by = r["bound"]
+        return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+                    launches=sum(c[name] for c in clip_counts.values()),
+                    launches_per_clip_step={m: c[name] / CLIP_STEPS
+                                            for m, c in clip_counts.items()},
+                    max_abs_err=max_err[name], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
+                    eager_ms=r["eager_ms"], calls_timed=r["calls"], work=r["work"],
+                    **({"library": "torch._int_mm + rank-1 scale"} if r["library_ms"] else {}))
+
+    clip_entries = [clip_entry(k) for k in ("col_quantize", "int8_matmul_dequant_colscale",
+                                            "int8_matmul_dequant_colscale_t")]
+    print("[clip train] step: " + json.dumps({
+        m: {**{k: r[k] for k in ("step_ms", "pairs_per_s", "peak_memory_gib")},
+            **{k: r["profile"][k] for k in ("device_ms_per_step", "device_idle_share",
+                                            "cuda_launches_per_step")}}
+        for m, r in clip_res.items()}))
     print("[train] step: " + json.dumps({
         "step_ms_trainer": train_res["step_ms"], "tokens_per_s_trainer": train_res["tokens_per_s"],
         **{k: train_prof[k] for k in ("step_ms", "tokens_per_s", "device_ms_per_step",
                                       "device_idle_share", "cuda_launches_per_step")}}))
+    print("[time] phases (s): " + json.dumps(secs))
     print(f"[done] {calls} model calls on the serve path, "
-          f"{len(train_res['losses'])} train steps; total {time.perf_counter() - t_start:.1f} s")
+          f"{len(train_res['losses'])} train steps, {len(CLIP_MODES)} x "
+          f"{1 + CLIP_STEPS} CLIP train steps; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries}))
+    print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
+                      + clip_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,18 +1,21 @@
 """Architecture registry of the port. ``get_config(name)`` returns the
 full-size config, ``get_reduced_config(name)`` the shrunken one the CPU
-tests use. Only smollm-360m is ported so far; the JAX package's other
-architectures join as their model families are ported."""
+tests use. Ported so far: smollm-360m and the paper's own CLIP ViT-H/14;
+the JAX package's other architectures join as their model families are
+ported."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ModelConfig, ParallelConfig,  # noqa: F401
-                                      ServeConfig, TrainConfig)
+from repro_torch.configs.base import (CLIPConfig, ModelConfig,  # noqa: F401
+                                      ParallelConfig, ServeConfig, TrainConfig)
 
-ALL_ARCHS = ("smollm-360m",)
+PAPER_ARCH = "clip-vit-huge"
+ALL_ARCHS = ("smollm-360m", PAPER_ARCH)
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
+    "clip-vit-huge": "clip_vit_huge",
 }
 
 
@@ -23,9 +26,9 @@ def _module(name: str):
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str):
     return _module(name).CONFIG
 
 
-def get_reduced_config(name: str) -> ModelConfig:
+def get_reduced_config(name: str):
     return _module(name).REDUCED

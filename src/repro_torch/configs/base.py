@@ -6,6 +6,7 @@ nothing of ``repro``), cut to what the port reads:
 * ``ModelConfig`` — the whole dataclass, so the configs read the same;
   the mixture-of-experts, SSM, enc-dec and frontend fields are carried but
   their model families are not ported yet (``models.model_zoo`` raises).
+* ``CLIPConfig`` — the whole dataclass (the paper's own two-tower model).
 * ``ParallelConfig`` — only the fields the train and serve paths read.
   Sharding, meshes and scan-over-layers do not exist in the port: layers
   run as a Python loop over the stacked group dimension on one card.
@@ -61,6 +62,35 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Two-tower CLIP (the paper's own model)."""
+    name: str
+    image_size: int = 224
+    patch_size: int = 14
+    vision_layers: int = 32
+    vision_width: int = 1280
+    vision_heads: int = 16
+    vision_ff: int = 5120
+    text_layers: int = 24
+    text_width: int = 1024
+    text_heads: int = 16
+    text_ff: int = 4096
+    text_vocab: int = 49408
+    text_ctx: int = 77
+    embed_dim: int = 1024
+    patch_dropout: float = 0.5       # paper §2.2.2
+    layer_scale_init: Optional[float] = None
+    post_embed_norm: bool = True     # paper §3.2: LN after patch embedding
+    logit_scale_init: float = 2.659  # ln(1/0.07)
+    logit_scale_max: float = 4.6052  # ln(100), clipped per §3.2
+    family: str = "clip"
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
 
 
 ATTN_IMPLS = ("flash_scan", "dense")

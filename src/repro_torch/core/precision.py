@@ -2,12 +2,19 @@
 
 The PyTorch counterpart of ``repro/core/precision.py``. Every linear goes
 through ``quant_linear``; ``QuantPolicy.mode`` picks the plain 16-bit
-product (``bf16``, the paper's baseline) or the SwitchBack int8 linear
-(``int8_switchback``, alias ``int8``). Both are differentiable, and both
-take the f32 master weight and cast it inside their autograd function, so
-the weight gradient reaches the master in f32, unrounded (a cast outside
-would round it to the compute dtype on the way back). The JAX package's
-other modes raise ``NotImplementedError`` until their slice is ported.
+product (``bf16``, the paper's baseline) or a SwitchBack int8 linear:
+``int8_switchback`` (alias ``int8``, Alg. 1), ``int8_switchback_m``
+(Alg. 3), ``int8_switchback_q`` (Alg. 4) or ``int8_llm`` (the LLM.int8()
+baseline). All are differentiable. Each autograd function casts the
+weight to the compute dtype itself and returns its gradient in f32;
+torch casts that gradient to the dtype of the weight it was handed. The
+model's layers hand over the weight already cast to the compute dtype
+(``use_weight(..., dtype)``, as the JAX layers do), so the weight
+gradient is rounded through bf16 on its way back to the f32 master,
+exactly as ``jax.grad`` rounds it in the JAX package; called directly
+with an f32 weight, ``quant_linear`` returns an unrounded f32 gradient,
+as the JAX ``quant_linear`` does. The fp8 modes raise
+``NotImplementedError`` until their slice is ported.
 
 There is no kernel-backend field: the SwitchBack ops dispatch on the
 device of their tensors (plain PyTorch on the CPU, CUDA kernels on the
@@ -28,11 +35,15 @@ MODES = (
     "int8_llm",
     "fp8_sim", "fp8_switchback", "fp8", "fp8_mixed",
 )
-PORTED_MODES = ("bf16", "int8", "int8_switchback")
+PORTED_MODES = ("bf16", "int8", "int8_switchback", "int8_switchback_m",
+                "int8_switchback_q", "int8_llm")
 
 _SB_VARIANT = {
     "int8": "switchback",            # alias: the knob spans int8|fp8|mixed
     "int8_switchback": "switchback",
+    "int8_switchback_m": "switchback_m",
+    "int8_switchback_q": "switchback_q",
+    "int8_llm": "llm_int8",
 }
 
 
@@ -56,9 +67,9 @@ class QuantPolicy:
             raise ValueError(f"mode {self.mode!r} not in {MODES}")
         if self.mode not in PORTED_MODES:
             raise NotImplementedError(
-                f"quant mode {self.mode!r} is not ported yet: this slice "
-                f"serves {PORTED_MODES}; the other int8 variants and the fp8 "
-                "modes come with later slices (ROADMAP.md Queue 2)")
+                f"quant mode {self.mode!r} is not ported yet: the port runs "
+                f"{PORTED_MODES}; the fp8 modes come with a later slice "
+                "(ROADMAP.md Queue 1)")
 
     @property
     def is_quantized(self) -> bool:
@@ -96,11 +107,12 @@ def quant_linear(x: torch.Tensor, w: torch.Tensor,
                  policy: QuantPolicy = BF16) -> torch.Tensor:
     """The single entry point for every linear layer.
 
-    ``x``: (..., n) activations; ``w``: (n, m) the f32 master weight (the
-    layers hand it over uncast). The JAX package casts ``w`` to the
-    compute dtype and, for the int8 modes, widens it to f32 before
-    quantizing; the widening is exact, so the kernel quantizes the
-    compute-dtype weight directly and sees the same values.
+    ``x``: (..., n) activations; ``w``: (n, m) the weight, which the
+    model's layers hand over cast to the compute dtype (``use_weight``).
+    Ẇ comes back in w's dtype. The JAX package widens the weight to f32
+    before the int8 modes quantize it; the widening is exact, so the
+    kernels quantize the compute-dtype weight directly and see the same
+    values.
     """
     cd = policy.compute_dtype
     n = x.shape[-1]

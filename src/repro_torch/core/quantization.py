@@ -1,10 +1,12 @@
-"""int8 quantizers of the paper, Eq. (1) row-wise and Eq. (2) tensor-wise.
+"""int8 quantizers of the paper: Eq. (1) row-wise, Eq. (2) tensor-wise
+and the column-wise weight state of Eq. (4).
 
 The PyTorch counterpart of ``repro/core/quantization.py`` (int8 part only;
 the fp8 quantizers come with the fp8 slice). Each quantizer returns
 ``(q, state)`` with ``state`` the absmax saved for dequantization:
-``(..., rows, 1)`` row-wise, a scalar tensor-wise. int8 maps
-``x -> round(x * (127 / absmax))``, round half to even.
+``(..., rows, 1)`` row-wise, ``(..., 1, cols)`` column-wise, a scalar
+tensor-wise. int8 maps ``x -> round(x * (127 / absmax))``, round half to
+even.
 """
 from __future__ import annotations
 
@@ -42,6 +44,14 @@ def quantize_rowwise(x: torch.Tensor):
     return q, state
 
 
+def quantize_columnwise(x: torch.Tensor):
+    """Column-wise int8 (SwitchBackQ / LLM.int8 weights, and LLM.int8's
+    weight-gradient operands): one scale per column of the last two dims."""
+    state = _absmax(x, dim=-2)
+    q = torch.round(x.float() * div(INT8_QMAX, state)).to(torch.int8)
+    return q, state
+
+
 def quantize_tensorwise(x: torch.Tensor):
     """Tensor-wise int8, Eq. (2): one scale for the whole tensor."""
     state = _absmax(x)
@@ -51,6 +61,8 @@ def quantize_tensorwise(x: torch.Tensor):
 
 def dequantize_rowwise(q: torch.Tensor, state: torch.Tensor,
                        dtype=torch.float32) -> torch.Tensor:
+    """q * (state / 127), the division tensor by tensor, then rounded once
+    to ``dtype`` (SwitchBackM's backward, Alg. 3)."""
     return (q.float() * div(state, INT8_QMAX)).to(dtype)
 
 

@@ -1,22 +1,41 @@
 """SwitchBack: a linear layer for int8 quantized training (paper §2.2).
 
-The PyTorch counterpart of ``repro/core/switchback.py``, ``switchback``
-variant (Alg. 1): row-wise int8 X and Ẏ, tensor-wise int8 W, three
-matmuls:
+The PyTorch counterpart of ``repro/core/switchback.py``, int8 variants,
+on the JAX package's kernel path (``make_switchback_matmul`` with a
+Pallas backend). Three matmuls:
 
-    forward:     Y = X W       int8 (Eq. 3), fused quantize when K <= 2048
-    input grad:  Ẋ = Ẏ Wᵀ      int8, reusing the forward's (w_q, s_w),
-                               contracted over W's second dim
+    forward:     Y = X W       int8
+    input grad:  Ẋ = Ẏ Wᵀ      int8, contracted over W's second dim
     weight grad: Ẇ = Xᵀ Ẏ      16-bit inputs, f32 accumulation (the
-                               "switch back": its inner dim is batch*seq)
+                               "switch back": its inner dim is batch*seq),
+                               or int8 for the LLM.int8() baseline
 
-``SwitchBackMatmul`` is the JAX package's ``make_switchback_matmul``
-custom VJP as a ``torch.autograd.Function``. It takes the f32 master
-weight and casts it to the compute dtype inside ``forward``, so the f32
-weight gradient it returns reaches the master unrounded: torch casts a
-``Function``'s gradient to its input's dtype, and a bf16 input would round
-it. The other seven variants (switchback_m / _q, llm_int8, the fp8
-family) raise until their slices.
+Variants:
+
+* ``switchback``   (Alg. 1): row-wise X and Ẏ, tensor-wise W (Eq. 3);
+  the forward fuses the X quantize when K <= 2048, the dgrad the Ẏ
+  quantize when the output width is <= 2048; residuals (x, w_q, s_w).
+* ``switchback_m`` (Alg. 3): the same quantizers, always two-step
+  (row-quantize, then the int8 matmul); it saves only the int8 X with its
+  state and dequantizes X to bf16 in the backward.
+* ``switchback_q`` (Alg. 4): row-wise X, column-wise W (Eq. 4), the
+  rank-1 ``row ⊗ col`` epilogue; the dgrad row-quantizes Ẏ and W (per
+  input unit n) and contracts with the transposed colscale matmul. It
+  re-quantizes W in the backward from the saved compute-dtype W.
+* ``llm_int8``: ``switchback_q`` with an int8 weight gradient too
+  (``wgrad_int8``), the paper's failing baseline.
+
+The caller forms ``row_scale = s_x / 127²`` (``Q.div``) and passes the
+weight's column state as ``col_scale``: the JAX kernel path's order,
+``(s_x / 127²) * s_w``. (The JAX package's XLA path multiplies
+``s_x * (s_w / 127²)`` instead, one rounding apart.)
+
+``SwitchBackMatmul`` is the custom VJP as a ``torch.autograd.Function``.
+It takes the weight as the layer hands it over and casts it to the
+compute dtype inside ``forward`` (a no-op when the layer's ``use_weight``
+already cast it, as the model's layers do); the weight gradient it
+returns is f32, and torch casts it to the dtype of the weight it was
+given. The fp8 variants raise until their slice.
 
 W is stored (n_in, m_out), as in the JAX package.
 """
@@ -27,7 +46,7 @@ import torch
 from repro_torch.core import quantization as Q
 from repro_torch.kernels.switchback import ops as KOPS
 
-VARIANTS = ("switchback",)
+VARIANTS = ("switchback", "switchback_m", "switchback_q", "llm_int8")
 
 _I2 = Q.INT8_QMAX * Q.INT8_QMAX
 
@@ -71,24 +90,89 @@ def wgrad_16bit(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return xb.float().t() @ gb.float()
 
 
+def _int8_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """aᵀ b for int8 a (R, n) and b (R, m), exact in int32: the contraction
+    over the batch·seq rows of LLM.int8's weight gradient. The JAX package
+    leaves it to XLA's dot_general, so this is a library product too: on
+    the card ``torch._int_mm`` (which wants more than 16 output rows and
+    multiples of 8 elsewhere: the zero rows and columns it pads with add
+    nothing to the sum), on the CPU a float64 product (exact while
+    |sum| < 2^53, i.e. for fewer than 5e11 rows)."""
+    R, n = a.shape
+    m = b.shape[1]
+    if not a.is_cuda:
+        return (a.double().t() @ b.double()).to(torch.int32)
+    pr, pn, pm = (-R) % 8, max(0, 17 - n), (-m) % 8
+    at = torch.nn.functional.pad(a, (0, pn, 0, pr)).t().contiguous()
+    bp = torch.nn.functional.pad(b, (0, pm, 0, pr))
+    return torch._int_mm(at, bp)[:n, :m]
+
+
+def wgrad_int8(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """LLM.int8()'s weight gradient (``_wgrad_int8``): X and Ẏ quantized
+    per column (per n and per m), Ẇ[n, m] = Σ_b X_q[b, n] Ẏ_q[b, m] in
+    int32, dequantized by ``s_xᵀ * (s_g / 127²)``. The matmul SwitchBack
+    refuses to quantize: its inner dim is batch·seq (App. C)."""
+    x_q, s_x = Q.quantize_columnwise(x)            # (b, n), (1, n)
+    g_q, s_g = Q.quantize_columnwise(g)            # (b, m), (1, m)
+    acc = _int8_tn(x_q, g_q)                       # (n, m)
+    return acc.float() * (s_x.t() * Q.div(s_g, _I2))
+
+
 class SwitchBackMatmul(torch.autograd.Function):
-    """``f(x2d, w, compute_dtype) -> y2d``: x2d (b, n) in the compute
-    dtype, w (n, m) the master weight. Residuals (x, w_q, s_w), as the
-    JAX package saves them; Ẋ in x's dtype, Ẇ in f32."""
+    """``f(x2d, w, compute_dtype, variant) -> y2d``: x2d (b, n) in the
+    compute dtype, w (n, m) the weight as the layer hands it over. Ẋ in
+    x's dtype, Ẇ in f32 (see the module docstring for the residuals each
+    variant keeps)."""
 
     @staticmethod
-    def forward(ctx, x, w, compute_dtype):
-        y, w_q, s_w = _kfwd_rowwise_tensorwise(x, w.to(compute_dtype))
-        ctx.save_for_backward(x, w_q, s_w)
+    def forward(ctx, x, w, compute_dtype, variant):
+        ctx.variant = variant
+        wc = w.to(compute_dtype)
+        if variant == "switchback":
+            y, w_q, s_w = _kfwd_rowwise_tensorwise(x, wc)
+            ctx.save_for_backward(x, w_q, s_w)
+        elif variant == "switchback_m":
+            x_q, s_x = KOPS.row_quantize(x)
+            w_q, s_w = KOPS.tensor_quantize(wc)
+            y = KOPS.int8_matmul_dequant(x_q, w_q, s_x * Q.div(s_w, _I2), out_dtype=x.dtype)
+            ctx.save_for_backward(x_q, s_x, w_q, s_w)       # int8 residuals only
+        else:                                               # switchback_q, llm_int8
+            x_q, s_x = KOPS.row_quantize(x)
+            w_q, s_w = KOPS.col_quantize(wc)                # (n, m), (1, m)
+            y = KOPS.int8_matmul_dequant(x_q, w_q, Q.div(s_x, _I2), col_scale=s_w,
+                                         out_dtype=x.dtype)
+            ctx.save_for_backward(x, wc)                    # re-quantize W in bwd
         return y
 
     @staticmethod
     def backward(ctx, g):
-        x, w_q, s_w = ctx.saved_tensors
         g = g.contiguous()
-        dx = _kdgrad_tensorwise(g, w_q, s_w) if ctx.needs_input_grad[0] else None
-        dw = wgrad_16bit(x, g) if ctx.needs_input_grad[1] else None
-        return dx, dw, None
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        dx = dw = None
+        if ctx.variant in ("switchback", "switchback_m"):
+            if ctx.variant == "switchback":
+                x, w_q, s_w = ctx.saved_tensors
+            else:
+                x_q, s_x, w_q, s_w = ctx.saved_tensors
+                x = Q.dequantize_rowwise(x_q, s_x, torch.bfloat16)   # Alg. 3
+            if need_dx:
+                dx = _kdgrad_tensorwise(g, w_q, s_w)
+            if need_dw:
+                dw = wgrad_16bit(x, g)
+            return dx, dw, None, None
+        x, wc = ctx.saved_tensors
+        if need_dx:
+            # the column state (1, m) of W sits on the dgrad's contracted
+            # dim, so W is row-quantized along n instead (Alg. 4) and its
+            # (n, 1) state becomes the dgrad's column scale
+            g_q, s_g = KOPS.row_quantize(g)
+            w_q_n, s_w_n = KOPS.row_quantize(wc)
+            dx = KOPS.int8_matmul_dequant_t(g_q, w_q_n, Q.div(s_g, _I2),
+                                            col_scale=s_w_n.reshape(1, -1), out_dtype=g.dtype)
+        if need_dw:
+            dw = (wgrad_int8 if ctx.variant == "llm_int8" else wgrad_16bit)(x, g)
+        return dx, dw, None, None
 
 
 def switchback_linear(x: torch.Tensor, w: torch.Tensor,
@@ -98,17 +182,17 @@ def switchback_linear(x: torch.Tensor, w: torch.Tensor,
     """SwitchBack linear on ``x`` (..., n) with ``w`` (n, m): leading dims
     flatten into rows (one row-wise scale per token) and are restored.
     ``w`` is cast to ``compute_dtype`` (default: x's dtype) inside the
-    autograd function, so a master weight keeps an f32 gradient. The
-    output has x's dtype."""
+    autograd function; Ẇ comes back in w's dtype. The output has x's
+    dtype."""
     if variant not in VARIANTS:
         raise NotImplementedError(
             f"SwitchBack variant {variant!r} is not ported yet: the port runs "
-            f"{VARIANTS}; the other variants follow with their slices "
+            f"{VARIANTS}; the fp8 variants follow with their slice "
             "(ROADMAP.md Queue 1)")
     n = x.shape[-1]
     lead = x.shape[:-1]
     y2 = SwitchBackMatmul.apply(x.reshape(-1, n).contiguous(), w,
-                                compute_dtype or x.dtype)
+                                compute_dtype or x.dtype, variant)
     y = y2.reshape(*lead, w.shape[-1])
     if b is not None:
         y = y + b.to(y.dtype)

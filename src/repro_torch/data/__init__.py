@@ -1,2 +1,2 @@
 """Synthetic training data (copies of ``repro/data``)."""
-from repro_torch.data.synthetic import BigramLM  # noqa: F401
+from repro_torch.data.synthetic import BigramLM, SyntheticCLIP  # noqa: F401

@@ -2,18 +2,21 @@
 // bound through a plain C interface (loaded with ctypes by
 // kernels/switchback/build.py).
 //
-// Six entry points, each replacing one Pallas TPU kernel (or one form of it)
-// of the JAX package:
+// Seven entry points, each replacing one Pallas TPU kernel (or one form of
+// it) of the JAX package:
 //
 //   row_quantize            <- repro/kernels/switchback/switchback.py:row_quantize
+//   col_quantize            <- repro/kernels/switchback/switchback.py:col_quantize
 //   tensor_quantize         <- repro/kernels/switchback/switchback.py:tensor_quantize
 //   fused_switchback_fwd    <- repro/kernels/switchback/switchback.py:fused_switchback_fwd
 //   int8_matmul_dequant     <- repro/kernels/switchback/switchback.py:int8_matmul_dequant
-//                              (forward form: row_scale epilogue, no col_scale)
+//                              (row_scale epilogue, or with col_scale the
+//                              rank-1 row x col epilogue of the colscale branch)
 //   fused_switchback_dgrad  <- repro/kernels/switchback/switchback.py:fused_switchback_dgrad
-//   int8_matmul_dequant_t   <- the same int8_matmul_dequant, transpose_w=True
-//                              (the two-step dgrad of layers whose output
-//                              width is above 2048)
+//   int8_matmul_dequant_t   <- the same int8_matmul_dequant, transpose_w=True,
+//                              either epilogue (the two-step dgrad of layers
+//                              whose output width is above 2048, and the
+//                              dgrad of the column-wise variants)
 //
 // The two dgrad forms are the forward kernels with the W tile read the
 // other way (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m]
@@ -29,7 +32,9 @@
 //     nor FMA contraction can change them), round half to even
 //     (__float2int_rn); absmax floors at 1e-12.
 //   * epilogue: y = f32(acc) * (s_x * (s_w / 16129)), rounded once to the
-//     output type (__float2bfloat16_rn for bf16).
+//     output type (__float2bfloat16_rn for bf16); with a column scale
+//     y = f32(acc) * (row[b] * col[m]), the rank-1 product rounded once,
+//     then the multiply.
 //   * the int8 dot accumulates exactly in int32 (__dp4a), so the order of
 //     the sum does not matter.
 //
@@ -103,6 +108,49 @@ row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   const float scale = __fdiv_rn(kQmax, absmax);
   for (int k = threadIdx.x; k < K; k += blockDim.x) q[base + k] = quantize(to_f32(x[base + k]), scale);
   if (threadIdx.x == 0) s[blockIdx.x] = absmax;
+}
+
+// ---------------------------------------------------------------------------
+// col_quantize: x (R, C) -> q (R, C) int8, s (C,) f32   (paper Eq. 4, the
+// per-output-unit weight scales of SwitchBackQ and LLM.int8)
+//
+// Bound by bytes (read x twice, the second time mostly from L2; write q).
+// The TPU kernel gives each grid step whole columns so the column absmax
+// stays in one VMEM block. Here a block owns 32 adjacent columns, one per
+// lane, and its 8 warps split the rows: a warp reads 32 consecutive
+// elements of one row per step (coalesced along the contiguous dim),
+// each thread keeps its column's partial max, and the 8 partials meet in
+// shared memory (a max, so their order does not matter). Then each thread
+// quantizes its column's share of the rows. Ragged column edges are
+// masked, nothing is padded.
+// ---------------------------------------------------------------------------
+constexpr int kColTile = 32;
+constexpr int kColRowSplit = kThreads / kColTile;   // 8 warps over the rows
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+col_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+                    int R, int C) {
+  __shared__ float part[kColRowSplit][kColTile];
+  const int lane = threadIdx.x % kColTile, split = threadIdx.x / kColTile;
+  const int c = blockIdx.x * kColTile + lane;
+  float m = 0.f;
+  if (c < C)
+    for (int r = split; r < R; r += kColRowSplit)
+      m = fmaxf(m, fabsf(to_f32(x[static_cast<size_t>(r) * C + c])));
+  part[split][lane] = m;
+  __syncthreads();
+  m = 0.f;
+#pragma unroll
+  for (int i = 0; i < kColRowSplit; ++i) m = fmaxf(m, part[i][lane]);
+  if (c >= C) return;
+  const float absmax = fmaxf(m, kEps);
+  const float scale = __fdiv_rn(kQmax, absmax);
+  for (int r = split; r < R; r += kColRowSplit) {
+    const size_t i = static_cast<size_t>(r) * C + c;
+    q[i] = quantize(to_f32(x[i]), scale);
+  }
+  if (split == 0) s[c] = absmax;
 }
 
 // ---------------------------------------------------------------------------
@@ -289,11 +337,19 @@ fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
 // int8_matmul_dequant: x_q (B, K) int8, w_q (K, M) int8, row_scale (B,) f32
 //   -> y (B, M) = f32(x_q . w_q) * row_scale[b]
 // int8_matmul_dequant_t (TW): w_q (M, K) int8 -> y = f32(x_q . w_q^T) * row_scale[b]
+// With col_scale (M,) f32 (not null), either orientation: the colscale
+// branch of the TPU kernel, y = f32(acc) * (row_scale[b] * col_scale[m]),
+// the per-output-column weight state of paper Eq. 4 (forward: W's column
+// scales; the dgrad of SwitchBackQ / LLM.int8: the per-row scales of the
+// row-quantized W, which index the dgrad's output columns). The epilogue
+// reads one col_scale value per output column of the tile; the GEMM is
+// the same __dp4a loop, so it is bound as the row-scale form is.
 // ---------------------------------------------------------------------------
 template <typename T, int BM, int BN, bool TW>
 __global__ void __launch_bounds__(kThreads)
 int8_matmul_dequant_kernel(const int8_t* __restrict__ x_q, const int8_t* __restrict__ w_q,
-                           const float* __restrict__ row_scale, T* __restrict__ y,
+                           const float* __restrict__ row_scale,
+                           const float* __restrict__ col_scale, T* __restrict__ y,
                            int B, int K, int M) {
   __shared__ Tiles<BM, BN> t;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
@@ -315,12 +371,13 @@ int8_matmul_dequant_kernel(const int8_t* __restrict__ x_q, const int8_t* __restr
   for (int i = 0; i < BM / 16; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= B) continue;
-    const float scale = row_scale[row];
+    const float rs = row_scale[row];
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) {
       const int col = col0 + tx + 16 * j;
-      if (col < M)
-        y[static_cast<size_t>(row) * M + col] = from_f32<T>(__fmul_rn(__int2float_rn(acc[i][j]), scale));
+      if (col >= M) continue;
+      const float scale = col_scale ? __fmul_rn(rs, col_scale[col]) : rs;
+      y[static_cast<size_t>(row) * M + col] = from_f32<T>(__fmul_rn(__int2float_rn(acc[i][j]), scale));
     }
   }
 }
@@ -346,18 +403,19 @@ void launch_fused(const void* x, const void* w_q, const void* s_w, void* y, int 
 }
 
 template <typename T, bool TW>
-void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, void* y, int B, int K,
-                   int M, cudaStream_t st) {
+void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, const void* col_scale,
+                   void* y, int B, int K, int M, cudaStream_t st) {
   const int8_t* xp = static_cast<const int8_t*>(x_q);
   const int8_t* wp = static_cast<const int8_t*>(w_q);
   const float* sp = static_cast<const float*>(row_scale);
+  const float* cp = static_cast<const float*>(col_scale);
   T* yp = static_cast<T*>(y);
   if (B <= kSmallRows) {
     dim3 grid((M + 31) / 32, (B + 15) / 16);
-    int8_matmul_dequant_kernel<T, 16, 32, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
+    int8_matmul_dequant_kernel<T, 16, 32, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, cp, yp, B, K, M);
   } else {
     dim3 grid((M + 63) / 64, (B + 63) / 64);
-    int8_matmul_dequant_kernel<T, 64, 64, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
+    int8_matmul_dequant_kernel<T, 64, 64, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, cp, yp, B, K, M);
   }
 }
 
@@ -378,6 +436,20 @@ int sb_row_quantize(const void* x, int bf16, void* q, void* s, int B, int K, voi
     else
       row_quantize_kernel<float><<<B, kThreads, 0, st>>>(
           static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sb_col_quantize(const void* x, int bf16, void* q, void* s, int R, int C, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R > 0 && C > 0) {
+    const int blocks = (C + kColTile - 1) / kColTile;
+    if (bf16)
+      col_quantize_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), R, C);
+    else
+      col_quantize_kernel<float><<<blocks, kThreads, 0, st>>>(
+          static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), R, C);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -414,14 +486,16 @@ int sb_fused_switchback_fwd(const void* x, int bf16, const void* w_q, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-int sb_int8_matmul_dequant(const void* x_q, const void* w_q, const void* row_scale, void* y,
-                           int bf16, int B, int K, int M, void* stream) {
+// col_scale (M,) f32, or null for the row-scale epilogue alone.
+int sb_int8_matmul_dequant(const void* x_q, const void* w_q, const void* row_scale,
+                           const void* col_scale, void* y, int bf16, int B, int K, int M,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0 && M > 0) {
     if (bf16)
-      launch_matmul<__nv_bfloat16, false>(x_q, w_q, row_scale, y, B, K, M, st);
+      launch_matmul<__nv_bfloat16, false>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
     else
-      launch_matmul<float, false>(x_q, w_q, row_scale, y, B, K, M, st);
+      launch_matmul<float, false>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -440,16 +514,17 @@ int sb_fused_switchback_dgrad(const void* g, int bf16, const void* w_q, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// x_q (B, K) int8, w_q (M, K) int8, row_scale (B,) f32 -> y (B, M) =
-// f32(x_q . w_q^T) * row_scale[b].
-int sb_int8_matmul_dequant_t(const void* x_q, const void* w_q, const void* row_scale, void* y,
-                             int bf16, int B, int K, int M, void* stream) {
+// x_q (B, K) int8, w_q (M, K) int8, row_scale (B,) f32, col_scale (M,) f32
+// or null -> y (B, M) = f32(x_q . w_q^T) * row_scale[b] [* col_scale[m]].
+int sb_int8_matmul_dequant_t(const void* x_q, const void* w_q, const void* row_scale,
+                             const void* col_scale, void* y, int bf16, int B, int K, int M,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0 && M > 0) {
     if (bf16)
-      launch_matmul<__nv_bfloat16, true>(x_q, w_q, row_scale, y, B, K, M, st);
+      launch_matmul<__nv_bfloat16, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
     else
-      launch_matmul<float, true>(x_q, w_q, row_scale, y, B, K, M, st);
+      launch_matmul<float, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

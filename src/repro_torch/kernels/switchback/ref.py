@@ -26,26 +26,37 @@ def row_quantize(x: torch.Tensor):
     return Q.quantize_rowwise(x)
 
 
+def col_quantize(x: torch.Tensor):
+    """x (R, C) -> (q int8 (R, C), state f32 (1, C)): one scale per column."""
+    return Q.quantize_columnwise(x)
+
+
 def tensor_quantize(x: torch.Tensor):
     """x (R, C) -> (q int8 (R, C), state f32 (1, 1))."""
     q, state = Q.quantize_tensorwise(x)
     return q, state.reshape(1, 1)
 
 
+def _dequant(acc: torch.Tensor, row_scale, col_scale, out_dtype) -> torch.Tensor:
+    """f32(acc) * row_scale, or with a column scale f32(acc) * (row_scale *
+    col_scale): the rank-1 product rounded once, then the multiply."""
+    scale = row_scale if col_scale is None else row_scale * col_scale
+    return (acc.float() * scale).to(out_dtype)
+
+
 def int8_matmul_dequant(x_q: torch.Tensor, w_q: torch.Tensor,
-                        row_scale: torch.Tensor, *,
+                        row_scale: torch.Tensor, *, col_scale=None,
                         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = f32(x_q . w_q) * row_scale, rounded to ``out_dtype``."""
-    acc = (x_q.double() @ w_q.double()).float()
-    return (acc * row_scale).to(out_dtype)
+    """y = f32(x_q . w_q) * row_scale [* col_scale], rounded to ``out_dtype``."""
+    return _dequant(x_q.double() @ w_q.double(), row_scale, col_scale, out_dtype)
 
 
 def int8_matmul_dequant_t(x_q: torch.Tensor, w_q: torch.Tensor,
-                          row_scale: torch.Tensor, *,
+                          row_scale: torch.Tensor, *, col_scale=None,
                           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The ``transpose_w`` form: w_q (M, K), y = f32(x_q . w_q^T) * row_scale."""
-    acc = (x_q.double() @ w_q.double().t()).float()
-    return (acc * row_scale).to(out_dtype)
+    """The ``transpose_w`` form: w_q (M, K), y = f32(x_q . w_q^T) *
+    row_scale [* col_scale]."""
+    return _dequant(x_q.double() @ w_q.double().t(), row_scale, col_scale, out_dtype)
 
 
 def fused_switchback_fwd(x: torch.Tensor, w_q: torch.Tensor,

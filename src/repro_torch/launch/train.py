@@ -1,7 +1,8 @@
 """Training launcher: the port of ``repro/launch/train.py`` on one card.
 
-Like the JAX launcher it trains the arch's reduced config on ``BigramLM``
-batches, with random weights, through ``make_train_setup``,
+Like the JAX launcher it trains the arch's reduced config on synthetic
+batches (``BigramLM``; ``SyntheticCLIP`` for ``--arch clip-vit-huge``),
+with random weights, through ``make_train_setup``,
 ``make_train_step`` and ``Trainer``, and prints the per-step log, the
 final loss and the stability report. ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions) is new. Training runs with
@@ -13,6 +14,8 @@ device of its tensors).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 20 --quant-mode int8_switchback --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
+        --steps 3 --batch 4 --quant-mode int8_llm --device cpu
 """
 from __future__ import annotations
 
@@ -21,9 +24,9 @@ import argparse
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_reduced_config
-from repro_torch.configs.base import ParallelConfig, TrainConfig
+from repro_torch.configs.base import CLIPConfig, ParallelConfig, TrainConfig
 from repro_torch.core.precision import QuantPolicy
-from repro_torch.data import BigramLM
+from repro_torch.data import BigramLM, SyntheticCLIP
 from repro_torch.models import build
 from repro_torch.models import params as PRM
 from repro_torch.train import Trainer, init_train_state, make_train_setup, make_train_step
@@ -46,8 +49,17 @@ UNPORTED = {
 
 
 def make_data(cfg, batch: int, seq: int, device):
-    """Step -> BigramLM batch on ``device`` (the same stream as the JAX
-    launcher's for the same vocabulary and seed)."""
+    """Step -> batch on ``device``, the same stream as the JAX launcher's
+    for the same config: SyntheticCLIP image-text pairs (32 classes, no
+    class ids) for a CLIPConfig, else BigramLM tokens."""
+    if isinstance(cfg, CLIPConfig):
+        c = SyntheticCLIP(cfg.image_size, cfg.text_ctx, cfg.text_vocab, n_classes=32)
+
+        def clip_fn(i):
+            b = c.batch(batch)
+            return {"images": torch.from_numpy(b["images"]).to(device),
+                    "texts": torch.from_numpy(b["texts"]).to(device=device, dtype=torch.long)}
+        return clip_fn
     d = BigramLM(cfg.vocab_size, temperature=0.2)
 
     def fn(i):
@@ -95,7 +107,7 @@ def main(argv=None):
     opt, scaler = make_train_setup(tc)
     step = make_train_step(bundle, policy, par, tc, opt, scaler)
     params = PRM.init_params(bundle.param_specs, args.seed, device=dev)
-    state = init_train_state(params, opt, scaler)
+    state = init_train_state(params, opt, scaler, seed=args.seed)
     n_params = sum(p.numel() for p in PRM.tree_leaves(params))
     print(f"[train] {cfg.name} on {dev}: {n_params / 1e6:.2f} M params, quant_mode "
           f"{args.quant_mode}, attn_impl {args.attn_impl}, {args.optimizer}, "

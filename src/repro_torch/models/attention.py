@@ -57,11 +57,10 @@ def qkv_project(x: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
     """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,KV,hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    # master weights, uncast: quant_linear casts them inside its autograd
-    # function (the weight gradient stays f32)
-    wq = PRM.use_weight(p["wq"], ("embed", "heads"))
-    wk = PRM.use_weight(p["wk"], ("embed", "kv_heads"))
-    wv = PRM.use_weight(p["wv"], ("embed", "kv_heads"))
+    cd = policy.compute_dtype
+    wq = PRM.use_weight(p["wq"], ("embed", "heads"), cd)
+    wk = PRM.use_weight(p["wk"], ("embed", "kv_heads"), cd)
+    wv = PRM.use_weight(p["wv"], ("embed", "kv_heads"), cd)
     q = quant_linear(x, wq, policy=policy).reshape(B, S, H, hd)
     k = quant_linear(x, wk, policy=policy).reshape(B, S, KV, hd)
     v = quant_linear(x, wv, policy=policy).reshape(B, S, KV, hd)
@@ -113,7 +112,7 @@ def _core_attention(q, k, v, *, causal: bool, impl: str = "flash_scan"):
 
 def _out_proj(o: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
     B, S = o.shape[:2]
-    wo = PRM.use_weight(p["wo"], ("heads", "embed"))
+    wo = PRM.use_weight(p["wo"], ("heads", "embed"), policy.compute_dtype)
     return quant_linear(o.reshape(B, S, cfg.n_heads * cfg.hd), wo, policy=policy)
 
 

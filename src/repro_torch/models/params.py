@@ -113,7 +113,9 @@ def use_weight(w: torch.Tensor, logical: Tuple[Optional[str], ...] = (),
                dtype=None) -> torch.Tensor:
     """Prepare a weight for a matmul: cast to ``dtype`` when one is given.
     The JAX package also pins its sharding here; the port has none.
-    ``logical`` is kept so call sites read as in the JAX package. Linear
-    layers pass no dtype: ``quant_linear`` casts the master weight inside
-    its autograd function, so the weight gradient stays f32."""
+    ``logical`` is kept so call sites read as in the JAX package. The
+    layers pass the compute dtype exactly where the JAX layers do, so the
+    f32 weight gradient of ``quant_linear`` is cast to that dtype and
+    widened back on its way to the f32 master: rounded through bf16, as
+    ``jax.grad`` rounds it in the JAX package."""
     return w if dtype is None else w.to(dtype)

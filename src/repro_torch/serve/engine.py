@@ -380,6 +380,7 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
         from repro_torch.configs import get_config
         model = get_config(model)
     bundle = model if hasattr(model, "param_specs") else build(model)
+    TF.require_dense(bundle.cfg, "make_serve_engine")   # CLIP trains only, as in JAX
     parallel = parallel or ParallelConfig(remat="none")
     flash_tiles = ("the TPU flash kernels' tile sizes: the card's flash kernels "
                    "choose their own tiles")

@@ -9,7 +9,11 @@ The port of ``repro/train/train_step.py``:
 * global-norm clipping (the paper's comparison intervention, Fig. 10);
 * StableAdamW / AdamW through the Optimizer protocol;
 * per-tensor RMS_t and the int8 quant-health scalars in the metrics, with
-  the JAX package's keys.
+  the JAX package's keys;
+* patch dropout (CLIP): the state carries a ``torch.Generator`` where the
+  JAX state carries a PRNG key; each loss call draws its kept-patch
+  indices from it (``bundle.patch_keep``) where the JAX step splits the
+  key and hands ``patch_drop_rng`` to the loss.
 
 The gradient comes from ``torch.autograd.grad`` through leaves that share
 the master weights' storage; the optimizer then returns new tensors under
@@ -37,6 +41,7 @@ class TrainState(NamedTuple):
     opt_state: Any
     scaler_state: Any
     step: torch.Tensor           # 0-d int32 on the parameters' device
+    rng: torch.Generator         # on the parameters' device; patch dropout
 
 
 def make_train_setup(train_cfg: TrainConfig):
@@ -52,12 +57,13 @@ def make_train_setup(train_cfg: TrainConfig):
     return opt, make_scaler(train_cfg.loss_scaler)
 
 
-def init_train_state(params, opt, scaler) -> TrainState:
-    """The JAX state less its PRNG key, which only CLIP's patch dropout
-    reads (the CLIP towers are not ported yet)."""
+def init_train_state(params, opt, scaler, seed: int = 0) -> TrainState:
+    """The JAX state, with a ``torch.Generator`` seeded by ``seed`` in
+    place of ``PRNGKey(seed)``."""
     dev = tree_leaves(params)[0].device
     return TrainState(params, opt.init(params), scaler.init(dev),
-                      torch.zeros((), dtype=torch.int32, device=dev))
+                      torch.zeros((), dtype=torch.int32, device=dev),
+                      torch.Generator(device=dev).manual_seed(seed))
 
 
 def _split_microbatches(batch: Dict, n: int) -> list:
@@ -68,15 +74,16 @@ def _split_microbatches(batch: Dict, n: int) -> list:
 
 
 def loss_and_grads(bundle, policy: QuantPolicy, parallel: ParallelConfig, params,
-                   batch: Dict, scale: Callable = lambda loss: loss):
+                   batch: Dict, scale: Callable = lambda loss: loss, **loss_kw):
     """(gradient tree of ``scale(loss)``, loss, metrics) for one batch, by
     autograd through leaves that share the parameters' storage; the
-    gradients of f32 master weights are f32."""
+    gradients of f32 master weights are f32. ``loss_kw`` goes to the
+    bundle's loss (``patch_keep`` for CLIP)."""
     paths = [p for p, _ in tree_paths(params)]
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = bundle.loss_fn(tree_unflatten(params, dict(zip(paths, leaves))),
-                                       batch, policy, parallel)
+                                       batch, policy, parallel, **loss_kw)
         grads = torch.autograd.grad(scale(loss), leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return (tree_unflatten(params, dict(zip(paths, grads))), loss.detach(),
@@ -93,20 +100,21 @@ def make_train_step(bundle, policy: QuantPolicy, parallel: ParallelConfig,
             "kernels choose their own tiles (leave them 0)")
     n_micro = max(1, train_cfg.microbatch_steps)
 
-    def grads_of(params, mb, scaler_state):
-        return loss_and_grads(bundle, policy, parallel, params, mb,
-                              scale=lambda loss: scaler.scale(loss, scaler_state))
+    def grads_of(state, mb):
+        kw = {} if bundle.patch_keep is None else {"patch_keep": bundle.patch_keep(state.rng)}
+        return loss_and_grads(bundle, policy, parallel, state.params, mb,
+                              scale=lambda loss: scaler.scale(loss, state.scaler_state), **kw)
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: Dict):
         if n_micro == 1:
-            grads, loss, metrics = grads_of(state.params, batch, state.scaler_state)
+            grads, loss, metrics = grads_of(state, batch)
         else:
             g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
             l_acc = torch.zeros((), dtype=torch.float32, device=state.step.device)
             mb_metrics = []
             for mb in _split_microbatches(batch, n_micro):
-                g, l, m = grads_of(state.params, mb, state.scaler_state)
+                g, l, m = grads_of(state, mb)
                 g_acc = tree_map(torch.add, g_acc, g)
                 l_acc = l_acc + l
                 mb_metrics.append(m)
@@ -132,6 +140,6 @@ def make_train_step(bundle, policy: QuantPolicy, parallel: ParallelConfig,
         out.update(health.quant_health(state.params, grads, train_cfg))
         if "rms" in aux:                       # per-tensor RMS_t (Fig. 9)
             out["rms"] = aux["rms"]
-        return TrainState(params, opt_state, scaler_state, state.step + 1), out
+        return TrainState(params, opt_state, scaler_state, state.step + 1, state.rng), out
 
     return train_step

@@ -39,8 +39,9 @@ def _unported(what: str, item: str):
 
 
 def fetch_metrics(window: List[Dict]) -> List[Dict]:
-    """Every 0-d tensor of a window of metrics dicts (including the RMS_t
-    tree) as host floats, in one device-to-host transfer."""
+    """Every tensor of a window of metrics dicts (including the RMS_t tree)
+    on the host, in one device-to-host transfer: a 0-d tensor as a float,
+    a vector (CLIP's per-layer ``feature_stats``) as a list of floats."""
     def flat(tree, keys=()):
         if isinstance(tree, dict):
             for k, v in tree.items():
@@ -52,8 +53,12 @@ def fetch_metrics(window: List[Dict]) -> List[Dict]:
     out: List[Dict] = [{} for _ in window]
     if not items:
         return out
-    values = torch.stack([t.detach().float().reshape(()) for _, _, t in items]).tolist()
-    for (i, keys, _), v in zip(items, values):
+    values = torch.cat([t.detach().float().reshape(-1) for _, _, t in items]).tolist()
+    at = 0
+    for i, keys, t in items:
+        n = t.numel()
+        v = values[at] if t.dim() == 0 else values[at:at + n]
+        at += n
         d = out[i]
         for k in keys[:-1]:
             d = d.setdefault(k, {})

@@ -101,6 +101,51 @@ def test_cuda_dgrad_kernels_match_plain(B, M, N, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(1280, 1280), (588, 1280), (5120, 1280), (1024, 4096),
+                                 (37, 70)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_col_quantize_matches_plain(R, C, dt):
+    """The CLIP weights' shapes (patch_embed's 588 rows included), a ragged
+    one, an all-zero column and a column of half-way ties."""
+    dev = _card()
+    rng = np.random.default_rng(R * C)
+    w = rng.standard_normal((R, C)).astype(np.float32) / R ** 0.5
+    w[:, 0] = 0.0
+    w[:16, 1] = (2 * np.arange(16) - 15) / 256.0
+    w[16, 1] = 127.0 / 128.0
+    w = torch.from_numpy(w).to(dev, torch.bfloat16).to(dt)
+    q, s = TOPS.col_quantize(w)
+    rq, rs = TREF.col_quantize(w)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert torch.equal(TOPS.col_quantize(w)[0], q)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", [(4128, 1280, 1280), (4128, 1280, 5120), (2464, 4096, 1024),
+                                   (8, 588, 1280), (37, 130, 70)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_colscale_matmul_matches_plain(B, K, M, dt):
+    """The rank-1 epilogue in both orientations, bit-equal to its plain
+    version: the forward (w_q (K, M), W's column state) and the dgrad
+    (w_q (M, K) row-quantized, its state transposed)."""
+    dev = _card()
+    rng = np.random.default_rng(B + K + M)
+    x = _activations(rng, B, K).to(dev)
+    w = torch.from_numpy(rng.standard_normal((K, M)).astype(np.float32)).to(dev, torch.bfloat16)
+    x_q, s_x = TOPS.row_quantize(x)
+    row = TREF.div(s_x, 16129.0)
+    w_q, s_w = TOPS.col_quantize(w)
+    assert torch.equal(TOPS.int8_matmul_dequant(x_q, w_q, row, col_scale=s_w, out_dtype=dt),
+                       TREF.int8_matmul_dequant(x_q, w_q, row, col_scale=s_w, out_dtype=dt))
+    w_n, s_n = TOPS.row_quantize(w.t().contiguous())                 # (M, K), (M, 1)
+    col = s_n.reshape(1, -1)
+    assert torch.equal(TOPS.int8_matmul_dequant_t(x_q, w_n, row, col_scale=col, out_dtype=dt),
+                       TREF.int8_matmul_dequant_t(x_q, w_n, row, col_scale=col, out_dtype=dt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels():
     dev = _card()
     TOPS.reset_launch_counts()
@@ -112,12 +157,17 @@ def test_cuda_tensors_launch_the_kernels():
     g = torch.randn(4, 32, device=dev, dtype=torch.bfloat16)
     TOPS.fused_switchback_dgrad(g, w_q, s_w)
     TOPS.int8_matmul_dequant_t(x_q[:, :32].contiguous(), w_q, s_x)
+    w_c, s_c = TOPS.col_quantize(torch.randn(64, 32, device=dev))
+    TOPS.int8_matmul_dequant(x_q, w_c, s_x, col_scale=s_c)
+    TOPS.int8_matmul_dequant_t(x_q[:, :32].contiguous(), w_q, s_x,
+                               col_scale=s_x.reshape(1, -1)[:, :4].repeat(1, 16))
     torch.cuda.synchronize()
     counts = TOPS.launch_counts()
     assert counts == {k: 1 for k in counts}
     assert set(counts) == {"tensor_quantize", "fused_switchback_fwd", "row_quantize",
-                           "int8_matmul_dequant", "fused_switchback_dgrad",
-                           "int8_matmul_dequant_t"}
+                           "col_quantize", "int8_matmul_dequant",
+                           "int8_matmul_dequant_colscale", "fused_switchback_dgrad",
+                           "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t"}
     with pytest.raises(ValueError):                 # mixed devices
         TOPS.fused_switchback_fwd(x, w_q.cpu(), s_w)
 

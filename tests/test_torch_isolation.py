@@ -131,7 +131,7 @@ def test_kernel_wrappers_have_no_backend_switch():
     dict(serve=dict(prefix_cache=False)),
     dict(serve=dict(spec_k=2)),
     dict(serve=dict(spec_min_ngram=1)),
-    dict(policy="int8_switchback_q"),
+    dict(policy="fp8_mixed"),
     dict(policy="fp8"),
 ])
 def test_unported_paths_raise(bad):
@@ -193,7 +193,7 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError):
         make_optimizer("adafactor", 1e-3)
     with pytest.raises(NotImplementedError):
-        SB.switchback_linear(torch.zeros(2, 4), torch.zeros(4, 3), variant="switchback_m")
+        SB.switchback_linear(torch.zeros(2, 4), torch.zeros(4, 3), variant="fp8")
     with pytest.raises(NotImplementedError):
         quant_health({}, {}, dataclasses.replace(_train_parts(
             get_reduced_config("smollm-360m"))[1], quant_mode="fp8_mixed"))

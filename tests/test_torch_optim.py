@@ -62,9 +62,15 @@ def test_optimizer_steps_match_jax(name):
     """Eight steps on identical gradients; at step 5 the gradient jumps
     30x, so StableAdamW's update clipping fires (RMS_t > 1 divides the lr)
     and AdamW's does not exist. Params, both moments, RMS_t and the lr
-    are compared after every step."""
+    are compared after every step. The tree holds a 0-d leaf, as CLIP's
+    ``logit_scale``, whose RMS_t is its own |update ratio|."""
     rng = np.random.default_rng(0)
-    params = _tree(rng)
+
+    def tree(scale=1.0):
+        return dict(_tree(rng, scale),
+                    logit_scale=np.asarray(rng.standard_normal() * scale, np.float32))
+
+    params = tree()
     sched_t = TOPT.warmup_cosine(1e-2, 3, 8)
     sched_j = JOPT.warmup_cosine(1e-2, 3, 8)
     opt_t = TOPT.make_optimizer(name, sched_t, weight_decay=0.1)
@@ -73,7 +79,7 @@ def test_optimizer_steps_match_jax(name):
     st, sj = opt_t.init(pt), opt_j.init(pj)
     fired = False
     for step in range(8):
-        g = _tree(rng, scale=30.0 if step == 5 else 1.0)
+        g = tree(scale=30.0 if step == 5 else 1.0)
         pt, st, aux_t = opt_t.update(pt, st, _torch(g))
         pj, sj, aux_j = opt_j.update(pj, sj, _jax(g))
         _close(pt, pj)

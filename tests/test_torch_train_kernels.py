@@ -17,8 +17,10 @@ its XLA reference on the same inputs, made from a seeded numpy generator:
   summed in another order; measured 0) against ``jax.vjp`` of
   ``repro.core.switchback.switchback_linear``, on the fused dgrad and on
   the two-step dgrad past 2048;
-* Ẇ reaches the f32 master weight unrounded: a check that fails if it
-  were rounded through bf16 on the way.
+* ``quant_linear`` handed the f32 weight returns Ẇ unrounded (a check
+  that fails if it were rounded through bf16 on the way), and handed the
+  bf16 weight the layers give it (``use_weight``), Ẇ rounded through bf16
+  once, as the JAX model path rounds it.
 
 The CUDA kernels run only on the card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold them against these plain versions there.
@@ -298,20 +300,32 @@ def test_weight_grad_reaches_the_f32_master_unrounded(mode):
 
 
 def test_jax_model_path_rounds_dw_through_bf16():
-    """Where the port departs from the JAX package on purpose. The JAX
-    layers cast the master weight to bf16 (``use_weight``) before
-    ``quant_linear`` widens it to f32 for the custom VJP, so jax.grad
-    rounds Ẇ through bf16 on its way back to the f32 master (and in the
-    ``bf16`` mode the dot's transpose returns a bf16 Ẇ). The port keeps Ẇ
-    in f32, the paper's 16-bit inputs with an f32 weight gradient. Both
-    sides hold the same bf16 products; they differ by that one rounding."""
+    """Both model paths round Ẇ through bf16. The JAX layers cast the
+    master weight to bf16 (``use_weight``) before ``quant_linear`` widens
+    it to f32 for the custom VJP, so jax.grad rounds Ẇ through bf16 on its
+    way back to the f32 master (in the ``bf16`` mode the dot's transpose
+    returns a bf16 Ẇ too). The port's layers cast the same way
+    (``use_weight(w, logical, compute_dtype)``): torch casts the autograd
+    function's f32 Ẇ to the bf16 weight's dtype, and the cast's backward
+    widens it. Both equal the exact sum rounded once to bf16."""
+    from repro_torch.models import params as PRM
     x, w, g, exact = _dw_case()
+    once = torch.from_numpy(exact).float().bfloat16().double().numpy()
     for mode in ("int8_switchback", "bf16"):
         def loss(w32):
             y = jquant_linear(jnp.asarray(x, jnp.bfloat16), w32.astype(jnp.bfloat16),
                               policy=JPolicy(mode))
             return jnp.sum(y.astype(jnp.float32) * jnp.asarray(g))
         jdw = np.asarray(jax.grad(loss)(jnp.asarray(w)), np.float64)
-        as_bf16 = torch.from_numpy(jdw).float().bfloat16().double().numpy()
-        np.testing.assert_array_equal(jdw, as_bf16)
-        assert np.abs(jdw - exact).max() / np.abs(exact).max() > 100 * DW_TOL
+        tw = torch.from_numpy(w).requires_grad_()
+        y = quant_linear(torch.from_numpy(x).to(torch.bfloat16),
+                         PRM.use_weight(tw, ("embed", "mlp"), torch.bfloat16),
+                         policy=QuantPolicy(mode))
+        y.backward(torch.from_numpy(g).to(torch.bfloat16))
+        assert tw.grad.dtype == torch.float32
+        tdw = tw.grad.double().numpy()
+        for dw in (jdw, tdw):
+            np.testing.assert_array_equal(dw, torch.from_numpy(dw).float().bfloat16()
+                                          .double().numpy())
+            assert np.abs(dw - exact).max() / np.abs(exact).max() > 100 * DW_TOL
+        np.testing.assert_array_equal(tdw, once)
