@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-9-17, 8, 18):
+9-17, 19, 20, 8, 18, 23, 21, 22):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the TF32 flags (both left False);
-2. build: compile both kernel libraries from this checkout with nvcc, in
-   parallel (``csrc/switchback.cu``, ``csrc/flash_attention.cu``);
+2. build: compile the three kernel libraries from this checkout with nvcc,
+   in parallel (``csrc/switchback.cu``, ``csrc/flash_attention.cu``,
+   ``csrc/fp8_matmul.cu``);
 3. kernels vs plain: each SwitchBack kernel bit-equal to its plain PyTorch
    version at the serve path's shapes (decode rows 8, prefill rows 1024,
    K in {960, 2560}, M in {320, 960, 2560}, exact half-way ties and an
@@ -106,7 +107,27 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     three seeds, which take the two column-wise modes in turn, the same
     fault outside;
 18. timing of the CLIP kernels: one vision layer's calls at 4,128 rows,
-    beside their bound, plain version and ``torch._int_mm`` + scale.
+    beside their bound, plain version and ``torch._int_mm`` + scale;
+19. fp8 kernels vs plain at every CLIP main-path shape (phase 13's table,
+    both formats): ``row_quantize``, ``tensor_quantize``,
+    ``block_quantize`` and ``fp8_matmul_dequant`` in both orientations
+    bit-equal; ``fp8_mixed_matmul`` in both within MIXED_TOL (stated before
+    its first card run), with outlier tiles so that both branches run and
+    its control fault (the fallback dropped) outside; fp8 ties, an
+    all-zero row and an all-zero tile; each run twice with the same bits;
+20. CLIP fp8 train: as phase 15 in ``fp8_sim`` (zero-init layer-scale,
+    the paper's recipe), ``fp8``, ``fp8_mixed`` and ``fp8_switchback``;
+    every launch counter (the seven fp8 kernel forms included) exactly its
+    worked-out count;
+21. one CLIP step at 2 + 2 layers and full width, kernels vs plain, in
+    ``fp8`` and ``fp8_mixed`` from three seeds (as phase 16): under dense
+    bit-equal, under flash_scan within CLIP_FP8_STEP_TOL, the fault
+    outside;
+22. CLIP fp8 card vs CPU: 3 steps at 2 + 2 layers, ``fp8`` and
+    ``fp8_mixed`` in turn across three seeds (as phase 17);
+23. timing of the fp8 kernels: one vision layer's calls at 4,128 rows
+    beside their bound (the matmuls' operations at the fp8 peak), plain
+    version and ``torch._scaled_mm`` with row-wise scales.
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -132,22 +153,30 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (dense): HBM bandwidth, int8 and bf16
+# H100 SXM published peaks (dense): HBM bandwidth, int8, fp8 and bf16
 # tensor-core ops, f32 ops outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+FP8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 
 SB_SOURCE = "src/repro_torch/kernels/switchback/csrc/switchback.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+F8_SOURCE = "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu"
+# the fp8 wrappers' launch-count keys (kernels/fp8_matmul/ops.py)
+FP8_KERNELS = ("fp8_row_quantize", "fp8_tensor_quantize", "fp8_block_quantize",
+               "fp8_matmul_dequant", "fp8_matmul_dequant_t", "fp8_mixed_matmul",
+               "fp8_mixed_matmul_t")
+F8_PY = "src/repro/kernels/fp8_matmul/fp8_matmul.py"
 SOURCE = {"tensor_quantize": SB_SOURCE, "fused_switchback_fwd": SB_SOURCE,
           "row_quantize": SB_SOURCE, "int8_matmul_dequant": SB_SOURCE,
           "fused_switchback_dgrad": SB_SOURCE, "int8_matmul_dequant_t": SB_SOURCE,
           "col_quantize": SB_SOURCE, "int8_matmul_dequant_colscale": SB_SOURCE,
           "int8_matmul_dequant_colscale_t": SB_SOURCE,
           "flash_fwd": FA_SOURCE, "decode_fwd": FA_SOURCE,
-          "flash_bwd_dq": FA_SOURCE, "flash_bwd_dkv": FA_SOURCE}
+          "flash_bwd_dq": FA_SOURCE, "flash_bwd_dkv": FA_SOURCE,
+          **dict.fromkeys(FP8_KERNELS, F8_SOURCE)}
 REPLACES = {
     "tensor_quantize": "src/repro/kernels/switchback/switchback.py:124",
     "fused_switchback_fwd": "src/repro/kernels/switchback/switchback.py:269",
@@ -162,6 +191,10 @@ REPLACES = {
     "decode_fwd": "src/repro/kernels/flash_attention/flash_attention.py:384",
     "flash_bwd_dq": "src/repro/kernels/flash_attention/flash_attention.py:216",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention/flash_attention.py:302",
+    "fp8_row_quantize": F8_PY + ":47", "fp8_tensor_quantize": F8_PY + ":86",
+    "fp8_block_quantize": F8_PY + ":128", "fp8_matmul_dequant": F8_PY + ":176",
+    "fp8_matmul_dequant_t": F8_PY + ":176", "fp8_mixed_matmul": F8_PY + ":258",
+    "fp8_mixed_matmul_t": F8_PY + ":258",
 }
 # the SwitchBack wrappers, forward and input gradient (kernels/switchback/ops.py)
 SB_KERNELS = ("tensor_quantize", "fused_switchback_fwd", "row_quantize", "col_quantize",
@@ -459,9 +492,11 @@ def eager_ms(torch, fn, n_sets, iters=30):
     return t0.elapsed_time(t1) / iters
 
 
-def bound(bytes_, int8_ops=0.0, f32_ops=0.0, bf16_ops=0.0):
+def bound(bytes_, int8_ops=0.0, f32_ops=0.0, bf16_ops=0.0, fp8_ops=0.0):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the peak of their type."""
     t_bytes = bytes_ / HBM_BYTES_PER_S
-    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+    t_ops = (int8_ops / INT8_OPS_PER_S + fp8_ops / FP8_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
              + f32_ops / F32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -640,12 +675,13 @@ SERVED_FLASH_TOL = (1e-1, 1.5e-2)
 
 
 def launch_counts(M) -> dict:
-    return {**M.KOPS.launch_counts(), **M.FA.launch_counts()}
+    return {**M.KOPS.launch_counts(), **M.FA.launch_counts(), **M.F8.launch_counts()}
 
 
 def reset_launch_counts(M):
     M.KOPS.reset_launch_counts()
     M.FA.reset_launch_counts()
+    M.F8.reset_launch_counts()
 
 
 def expected_launches(cfg, prefill_calls: int, decode_steps: int, impl: str) -> dict:
@@ -744,8 +780,9 @@ def plain_ops(M, flash: bool):
     """Send the model's kernel calls to their plain versions, for the
     whole-model kernels-vs-plain checks only (the package has no such
     switch: its wrappers launch the kernel on a CUDA tensor or raise): the
-    six SwitchBack kernels, and with ``flash`` the four flash kernels."""
+    SwitchBack and fp8 kernels, and with ``flash`` the four flash kernels."""
     patches = [(M.KOPS, name, getattr(M.REF, name)) for name in SB_KERNELS]
+    patches += [(M.F8, name, fn) for name, fn in plain_fp8(M).items()]
     if flash:
         patches += [(M.FA, "flash_fwd_lse", plain_flash_fwd(M)),
                     (M.FA, "decode_attention", plain_decode(M)),
@@ -1514,13 +1551,20 @@ def card_vs_cpu(torch, M, path, dev, seed, steps=3):
 
 
 TRAIN_KERNEL_GROUPS = (
+    ("fp8_mixed_matmul", "true>", "fp8_mixed_matmul_t"),
+    ("fp8_mixed_matmul", "", "fp8_mixed_matmul"),
+    ("fp8_matmul_dequant", "true>", "fp8_matmul_dequant_t"),
+    ("fp8_matmul_dequant", "", "fp8_matmul_dequant"),
+    ("block_quantize", "", "fp8_block_quantize"),
+    ("row_quantize", "unsigned char", "fp8_row_quantize"),
+    ("cast_tensorwise", "unsigned char", "fp8_tensor_quantize (cast pass)"),
     ("col_quantize", "", "col_quantize"),
     ("fused_fwd_kernel", "true>", "fused_switchback_dgrad"),
     ("fused_fwd_kernel", "", "fused_switchback_fwd"),
     ("int8_matmul_dequant_kernel", "true>", "int8_matmul_dequant_t"),
     ("int8_matmul_dequant_kernel", "", "int8_matmul_dequant"),
     ("row_quantize", "", "row_quantize"),
-    ("absmax_partial", "", "tensor_quantize"),
+    ("absmax_partial", "", "tensor_quantize pass 1 (int8 or fp8)"),
     ("cast_tensorwise", "", "tensor_quantize"),
     ("flash_bwd_dq", "", "flash_bwd_dq"),
     ("flash_bwd_dkv", "", "flash_bwd_dkv"),
@@ -1530,7 +1574,8 @@ TRAIN_KERNEL_GROUPS = (
 
 # PyTorch's own kernels on the train step, by family (lower-case patterns)
 TORCH_KERNEL_GROUPS = (
-    (("gemm", "nvjet", "xmma", "cutlass", "cublas"), "gemm (wgrad, lm head)"),
+    (("gemm", "nvjet", "xmma", "cutlass", "cublas"),
+     "gemm (wgrad, lm head, the simulated fp8 products)"),
     (("reduce_kernel",), "torch reductions (norms, loss, optimizer means, health)"),
     (("index",), "torch gather/scatter (embedding, loss)"),
     (("elementwise", "copy"), "torch elementwise (casts, norms, RoPE, optimizer)"),
@@ -1707,14 +1752,30 @@ def clip_launches_per_step(cfg, mode, fused_max):
     * int8_switchback_q / int8_llm: row_quantize(X), col_quantize(W), the
       colscale matmul; dgrad row_quantize(Ẏ), row_quantize(W), the
       transposed colscale matmul;
+    * fp8: fp8 tensor_quantize(W), row_quantize(X), fp8_matmul_dequant;
+      dgrad row_quantize(Ẏ), fp8_matmul_dequant_t;
+    * fp8_mixed: fp8 tensor_quantize(W), block_quantize(X),
+      fp8_mixed_matmul; dgrad block_quantize(Ẏ), fp8_mixed_matmul_t;
+    * fp8_sim / fp8_switchback: none (plain products);
     * each layer of both towers: flash_fwd, flash_bwd_dq, flash_bwd_dkv."""
     c = dict.fromkeys(("tensor_quantize", "fused_switchback_fwd", "row_quantize",
                        "col_quantize", "int8_matmul_dequant", "int8_matmul_dequant_colscale",
                        "fused_switchback_dgrad", "int8_matmul_dequant_t",
                        "int8_matmul_dequant_colscale_t", "flash_fwd", "decode_fwd",
-                       "flash_bwd_dq", "flash_bwd_dkv"), 0)
+                       "flash_bwd_dq", "flash_bwd_dkv", *FP8_KERNELS), 0)
     colwise = mode in ("int8_switchback_q", "int8_llm")
+    fp8 = {"fp8": ("fp8_row_quantize", "fp8_matmul_dequant", "fp8_matmul_dequant_t"),
+           "fp8_mixed": ("fp8_block_quantize", "fp8_mixed_matmul", "fp8_mixed_matmul_t")}
     for K, Mw, dx in clip_linears(cfg):
+        if mode in fp8:
+            quant, fwd, dgrad = fp8[mode]
+            c["fp8_tensor_quantize"] += 1
+            c[quant] += 1 + dx
+            c[fwd] += 1
+            c[dgrad] += dx
+            continue
+        if mode.startswith("fp8"):
+            continue
         if colwise:
             for k in ("row_quantize", "col_quantize", "int8_matmul_dequant_colscale"):
                 c[k] += 1
@@ -1790,10 +1851,11 @@ def clip_flash_cases(cfg):
              mask_fault)]
 
 
-def clip_train(torch, M, cfg, dev, seed):
-    """Phase 15: full-width CLIP ViT-H/14 through ``make_train_setup``,
-    ``make_train_step`` and ``Trainer`` in each of the four int8 modes
-    (``int8_switchback`` with zero-init layer-scale, the paper's recipe):
+def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
+    """Phases 15 and 20: full-width CLIP ViT-H/14 through
+    ``make_train_setup``, ``make_train_step`` and ``Trainer`` in each of
+    ``modes`` (``int8_switchback`` and ``fp8_sim`` with zero-init
+    layer-scale, the paper's recipe, the others with none):
     a warm-up step, then CLIP_STEPS timed steps with every launch counter
     zeroed just before and read just after, each exactly
     ``clip_launches_per_step`` x the steps; every loss finite; peak memory
@@ -1802,8 +1864,8 @@ def clip_train(torch, M, cfg, dev, seed):
     from repro_torch.models import params as PRM
     from repro_torch.train import Trainer, init_train_state, loss_and_grads
     res, counts_by_mode = {}, {}
-    for mode in CLIP_MODES:
-        c = dataclasses.replace(cfg, layer_scale_init=0.0) if mode == "int8_switchback" else cfg
+    for mode in modes:
+        c = dataclasses.replace(cfg, layer_scale_init=0.0) if mode in ZERO_INIT_MODES else cfg
         bundle, policy, parallel, tc, step, opt, scaler = train_parts(torch, c, dev, mode=mode,
                                                                      **CLIP_OPT)
         t = time.perf_counter()
@@ -1857,12 +1919,12 @@ def clip_train(torch, M, cfg, dev, seed):
                                                        "device_idle_share",
                                                        "cuda_launches_per_step", "groups")})
         counts_by_mode[mode] = counts
-        print(f"[clip train] {mode}: " + json.dumps({k: v for k, v in res[mode].items()
-                                                     if k != "profile"}))
+        print(f"[{tag}] {mode}: " + json.dumps({k: v for k, v in res[mode].items()
+                                                if k != "profile"}))
         del trainer, state, batches, step, opt
         gc.collect()                 # the autograd graph's cycles hold card memory
         torch.cuda.empty_cache()
-    print("[clip train] peak memory GiB (step; one forward and backward above the state): "
+    print(f"[{tag}] peak memory GiB (step; one forward and backward above the state): "
           + json.dumps({m: [r["peak_memory_gib"], r["fwd_bwd_peak_gib_above_state"]]
                         for m, r in res.items()}))
     return res, counts_by_mode
@@ -1897,11 +1959,12 @@ CLIP_STEP_TOL = {"grad_max_rel_err": 4e-1, "grad_mean_rel_err": 6e-2}
 CLIP_NOISE_LEAVES = ("['attn']['bk']", "['logit_scale']")
 
 
-def clip_whole_step(torch, M, cfg, dev, seed):
-    """Phase 16: one train step's loss and gradients at 2 + 2 layers and
-    full width, kernels against their plain versions swapped in, in each
-    int8 mode from CHECK_SEEDS seeds (layer_scale_init None: with γ = 0
-    every block linear's Ẏ is exactly 0 at step 0), within CLIP_STEP_TOL;
+def clip_whole_step(torch, M, cfg, dev, seed, modes=CLIP_MODES, tol=CLIP_STEP_TOL,
+                    tag="clip whole step"):
+    """Phases 16 and 21: one train step's loss and gradients at 2 + 2
+    layers and full width, kernels against their plain versions swapped
+    in, in each of ``modes`` from CHECK_SEEDS seeds (layer_scale_init None:
+    with γ = 0 every block linear's Ẏ is exactly 0 at step 0), within ``tol``;
     the control fault (``rolled_pos_embed``, plain) outside. Under dense
     attention, one seed per mode, bit-equal. Every reading is printed
     before any is checked."""
@@ -1916,7 +1979,7 @@ def clip_whole_step(torch, M, cfg, dev, seed):
         fault_params = rolled_pos_embed(torch, params)
         batch = clip_batches(torch, small, 1, CHECK_BATCH, dev, s)[0]
         keep = draw(torch.Generator(device=dev).manual_seed(s))
-        for mode in CLIP_MODES:
+        for mode in modes:
             name = f"{mode}_seed{s}"
             bundle, policy, parallel, *_ = train_parts(torch, small, dev, mode=mode, **CLIP_OPT)
             run = lambda p: loss_and_grads(bundle, policy, parallel, p, batch, patch_keep=keep)
@@ -1925,7 +1988,7 @@ def clip_whole_step(torch, M, cfg, dev, seed):
                 plain, fault = run(params), run(fault_params)
             fault = (rolled_pos_embed(torch, fault[0], 1), *fault[1:])
             res[name], finite[name] = step_reading(torch, kern, plain, fault, CLIP_NOISE_LEAVES)
-            res[name].update(tolerance=CLIP_STEP_TOL, fault="pos_embed rolled",
+            res[name].update(tolerance=tol, fault="pos_embed rolled",
                              logit_scale_grad=[float(g[0]["logit_scale"]) for g in (kern, plain)])
             if s == check_seeds(seed, 7)[0]:
                 b_bundle, b_policy, b_parallel, *_ = train_parts(
@@ -1939,10 +2002,10 @@ def clip_whole_step(torch, M, cfg, dev, seed):
                     torch.equal(a, b) for a, b in zip(PRM.tree_leaves(dk[0]),
                                                       PRM.tree_leaves(dp[0])))
             del kern, plain, fault
-    print("[clip whole step]", json.dumps(dict(dense_bitwise=bitwise, **res)))
+    print(f"[{tag}]", json.dumps(dict(dense_bitwise=bitwise, **res)))
     for mode, ok in bitwise.items():
-        check(ok, f"CLIP whole step {mode}, dense: kernels != plain")
-    check_readings("CLIP whole step", res, finite)
+        check(ok, f"{tag} {mode}, dense: kernels != plain")
+    check_readings(tag, res, finite)
     return res
 
 
@@ -1957,9 +2020,10 @@ def clip_whole_step(torch, M, cfg, dev, seed):
 CLIP_CARD_CPU_TOL = {"loss_rel_err": 1e-2, "param_mean_rel_err": 4e-3}
 
 
-def clip_check_path(torch, cfg):
-    """Phase 17's path: CLIP at 2 + 2 layers in the modes that run the new
-    kernels (the seeds take them in turn), SyntheticCLIP batches of
+def clip_check_path(torch, cfg, modes=("int8_switchback_q", "int8_llm"),
+                    tol=CLIP_CARD_CPU_TOL, tag="clip card vs cpu", seed_offset=11):
+    """Phases 17 and 22's path: CLIP at 2 + 2 layers in ``modes``, those
+    that run a slice's new kernels (the seeds take them in turn), SyntheticCLIP batches of
     CPU_BATCH pairs with each step's kept patches drawn beforehand, the
     control fault the positional embedding read one row off, on the card
     (one CPU run per seed fewer)."""
@@ -1967,8 +2031,7 @@ def clip_check_path(torch, cfg):
     small = dataclasses.replace(cfg, vision_layers=2, text_layers=2)
     draw = patch_keep_sampler(small)
     return types.SimpleNamespace(
-        tag="clip card vs cpu", small=small, modes=("int8_switchback_q", "int8_llm"),
-        seed_offset=11, tol=CLIP_CARD_CPU_TOL, opt=CLIP_OPT,
+        tag=tag, small=small, modes=modes, seed_offset=seed_offset, tol=tol, opt=CLIP_OPT,
         batches=lambda n, where, s: clip_batches(torch, small, n, CPU_BATCH, where, s),
         keeps=lambda n, s: [draw(torch.Generator().manual_seed(s + i)) for i in range(n)],
         fault="pos_embed rolled (card)", fault_where=None, fault_context=contextlib.nullcontext,
@@ -2042,6 +2105,304 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 19-23: CLIP ViT-H/14 in the four fp8 modes, on the fp8 kernels
+# ---------------------------------------------------------------------------
+
+CLIP_FP8_MODES = ("fp8_sim", "fp8", "fp8_mixed", "fp8_switchback")
+# the modes whose linears run the fp8 kernels (the other two are plain
+# f32 products of fp8 values, the paper's simulation)
+FP8_KERNEL_MODES = ("fp8", "fp8_mixed")
+# zero-init layer-scale, the paper's recipe: int8_switchback and fp8_sim
+ZERO_INIT_MODES = ("int8_switchback", "fp8_sim")
+# fp8_mixed_matmul kernel vs plain, stated before its first card run: each
+# tile's double sum is exact unless its products span more than about 18
+# binades, and then only that sum's rounding to f32 may differ. At most
+# this share of the outputs may differ, each by at most this many units in
+# the last place of the output type. The control fault (the fallback bits
+# dropped, every tile in fp8) changes every output of an outlier tile's
+# rows.
+MIXED_TOL = (1e-4, 1)
+_INT_VIEW = {"float32": "int32", "bfloat16": "int16"}
+
+
+def fp8_activations(torch, gen, R, K, dev, dtype, outliers):
+    """Random rows over several binades; row 1 holds exact fp8 ties at
+    scale 1 (multiples of 1/64 in [-1, 1]: the midpoints of both formats'
+    grids in [1/4, 1)), row 2 is all zero, and rows 128-255 of the first
+    128 columns an all-zero tile. With ``outliers`` rows 256-383 of the
+    first 128 columns are 40x and the last element 500: tiles that fall
+    back to bf16 in fp8_mixed."""
+    x = torch.randn((R, K), generator=gen, device=dev) * 3
+    x = x * torch.exp(torch.empty((R, 1), device=dev).uniform_(-4, 4, generator=gen))
+    x[1] = ((torch.arange(K, device=dev) % 129) - 64).float() / 64
+    x[2] = 0.0
+    if R > 256:
+        x[128:256, :128] = 0.0
+    if outliers and R > 384:
+        x[256:384, :128] *= 40.0
+        x[-1, -1] = 500.0
+    return x.to(dtype)
+
+
+def mixed_reading(torch, got, want):
+    """(share of outputs that differ, largest difference in ulps of the
+    output type)."""
+    iv = getattr(torch, _INT_VIEW[str(want.dtype).replace("torch.", "")])
+    diff = got != want
+    if not bool(diff.any()):
+        return 0.0, 0
+    ulps = (got.view(iv).long() - want.view(iv).long()).abs()
+    return float(diff.float().mean()), int(ulps[diff].max())
+
+
+def as_bits(torch, t):
+    """An fp8 tensor as its bytes (so that equality is bitwise), else itself."""
+    return t.view(torch.uint8) if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2) else t
+
+
+def compare_fp8_kernels(torch, M, table, dev, seed):
+    """Phase 19: every fp8 kernel of the fp8 and fp8_mixed modes against its
+    plain version at the shapes the main path (phase 20) gives it:
+    ``table`` as ``clip_shapes`` (every weight of both towers at batch 32:
+    4,128 vision rows, 8,192 patch rows at K = 588, 2,464 text rows). Per
+    linear: ``tensor_quantize(W)`` in E4M3; per dtype the forward
+    (``row_quantize`` E4M3 + ``fp8_matmul_dequant``; ``block_quantize`` +
+    ``fp8_mixed_matmul``) and, where the layer has an input gradient, the
+    dgrad (``row_quantize`` E5M2 + ``fp8_matmul_dequant_t``;
+    ``block_quantize`` E5M2 + ``fp8_mixed_matmul_t``). The inputs hold fp8
+    ties, an all-zero row, an all-zero tile and outlier tiles that fall back.
+    The quantizers and both forms of ``fp8_matmul_dequant`` must be
+    bit-equal, ``fp8_mixed_matmul`` within MIXED_TOL with its control fault
+    (fallback dropped) outside; each run twice gives the same bits. Returns
+    per kernel the largest |kernel - plain| (the quantizers' decoded
+    values), the mixed readings and the number of comparisons."""
+    F8, F8REF = M.F8, M.F8REF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = dict.fromkeys(FP8_KERNELS, 0.0)
+    mixed = dict(max_share=0.0, max_ulps=0, fault_min_share=math.inf, tiles=0, fallback_tiles=0)
+    n = 0
+
+    def twice(fn, what):
+        a, b = fn(), fn()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            check(torch.equal(as_bits(torch, x), as_bits(torch, y)), f"{what}: two launches differ")
+        return a
+
+    def quantized(key, name, args, what):
+        nonlocal n
+        got = twice(lambda: getattr(F8, name)(*args), f"{key} {what}")
+        want = getattr(F8REF, name)(*args)
+        for g, w, part in zip(got, want, ("fp8", "state")):
+            ok = g.dtype == w.dtype and g.shape == w.shape and torch.equal(
+                as_bits(torch, g), as_bits(torch, w))
+            worst[key] = max(worst[key], max_abs_diff(torch, g.float(), w.float()))
+            check(ok, f"{key} {what} {part}: kernel != plain")
+            n += 1
+        return got
+
+    def matmul(key, fn, plain, what):
+        nonlocal n
+        got, want = twice(fn, f"{key} {what}"), plain()
+        worst[key] = max(worst[key], max_abs_diff(torch, got, want))
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"{key} {what}: kernel != plain (max |diff| {max_abs_diff(torch, got, want):g})")
+        n += 1
+
+    def mixed_pair(key, a, fmt, w_q, s_w, tw, dt, what):
+        nonlocal n
+        a_q, s_blk = quantized("fp8_block_quantize", "block_quantize", (a, fmt), what)
+        fb = F8.fallback_mask(s_blk, 8.0)
+        fn = F8.fp8_mixed_matmul_t if tw else F8.fp8_mixed_matmul
+        got = twice(lambda: fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt), f"{key} {what}")
+        kw = dict(block_rows=128, block_cols=128, transpose_w=tw, out_dtype=dt)
+        want = F8REF.fp8_mixed_matmul(a, a_q, s_blk, fb, w_q, s_w, **kw)
+        fault = fn(a, a_q, s_blk, torch.zeros_like(fb), w_q, s_w, out_dtype=dt)
+        share, ulps = mixed_reading(torch, got, want)
+        f_share, _ = mixed_reading(torch, fault, want)
+        worst[key] = max(worst[key], max_abs_diff(torch, got, want))
+        mixed.update(max_share=max(mixed["max_share"], share),
+                     max_ulps=max(mixed["max_ulps"], ulps),
+                     fault_min_share=min(mixed["fault_min_share"], f_share),
+                     tiles=mixed["tiles"] + fb.numel(),
+                     fallback_tiles=mixed["fallback_tiles"] + int(fb.sum()))
+        check(0 < float(fb.sum()) < fb.numel(), f"{key} {what}: not both branches ran")
+        check(share <= MIXED_TOL[0] and ulps <= MIXED_TOL[1],
+              f"{key} {what}: {share:g} of outputs differ, by up to {ulps} ulps, "
+              f"outside {MIXED_TOL}")
+        check(f_share > MIXED_TOL[0], f"{key} {what}: the control fault (fallback dropped) "
+              f"reads {f_share:g}, inside {MIXED_TOL}")
+        n += 1
+
+    for tower, R, dts, _, _, linears in table:
+        for lin, (K, Mw, dx) in linears.items():
+            what = f"{tower} {lin} {K}x{Mw} R={R}"
+            w = weight(torch, gen, K, Mw, dev)
+            w_q, s_w = quantized("fp8_tensor_quantize", "tensor_quantize", (w, "e4m3"), what)
+            for dt in (getattr(torch, d) for d in dts):
+                at = f"{what} {dt}"
+                x = fp8_activations(torch, gen, R, K, dev, dt, outliers=True)
+                x_q, s_x = quantized("fp8_row_quantize", "row_quantize", (x, "e4m3"), at)
+                matmul("fp8_matmul_dequant",
+                       lambda: F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt),
+                       lambda: F8REF.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt), at)
+                mixed_pair("fp8_mixed_matmul", x, "e4m3", w_q, s_w, False, dt, at)
+                if not dx:                        # the patch embedding: data input
+                    continue
+                g = fp8_activations(torch, gen, R, Mw, dev, dt, outliers=True)
+                g_q, s_g = quantized("fp8_row_quantize", "row_quantize", (g, "e5m2"), f"{at} Ẏ")
+                matmul("fp8_matmul_dequant_t",
+                       lambda: F8.fp8_matmul_dequant_t(g_q, w_q, s_g * s_w, out_dtype=dt),
+                       lambda: F8REF.fp8_matmul_dequant(g_q, w_q, s_g * s_w, transpose_w=True,
+                                                        out_dtype=dt), f"{at} dgrad")
+                mixed_pair("fp8_mixed_matmul_t", g, "e5m2", w_q, s_w, True, dt, f"{at} dgrad")
+    torch.cuda.synchronize()
+    return worst, mixed, n
+
+
+def plain_fp8(M):
+    """The fp8 wrappers' plain versions behind the wrappers' signatures."""
+    R = M.F8REF
+    return {
+        "row_quantize": R.row_quantize, "tensor_quantize": R.tensor_quantize,
+        "block_quantize": R.block_quantize,
+        "fp8_matmul_dequant": lambda x_q, w_q, rs, *, out_dtype: R.fp8_matmul_dequant(
+            x_q, w_q, rs, out_dtype=out_dtype),
+        "fp8_matmul_dequant_t": lambda x_q, w_q, rs, *, out_dtype: R.fp8_matmul_dequant(
+            x_q, w_q, rs, transpose_w=True, out_dtype=out_dtype),
+        "fp8_mixed_matmul": lambda *a, block_rows, block_cols, out_dtype: R.fp8_mixed_matmul(
+            *a, block_rows=block_rows, block_cols=block_cols, out_dtype=out_dtype),
+        "fp8_mixed_matmul_t": lambda *a, block_rows, block_cols, out_dtype: R.fp8_mixed_matmul(
+            *a, block_rows=block_rows, block_cols=block_cols, transpose_w=True,
+            out_dtype=out_dtype),
+    }
+
+
+# the fp8 whole-step checks of phase 21 (kernels vs plain at 2 + 2 layers,
+# flash_scan), per-leaf max and mean |diff| of the gradient over the
+# leaf's max. The fp8 quantizers turn a last-bit difference of the flash
+# kernels' sums into a step of 2^-4 (E4M3) or 2^-3 (E5M2) of a value, so
+# the sound readings sit above the int8 modes'. Limits by the rule of
+# phase 10 over three seeds and both modes on an H100 (readings in
+# PERF.md): max 5.64e-1 against the fault's 1.34, mean 8.13e-2 against
+# 1.91e-1. The loss is printed, not bounded (as in phase 16). Under dense
+# attention both fp8 modes are bit-equal.
+CLIP_FP8_STEP_TOL = {"grad_max_rel_err": 9e-1, "grad_mean_rel_err": 1e-1}
+
+
+def time_fp8_kernels(torch, M, cfg, dev, seed):
+    """Phase 23: each fp8 kernel at one vision layer's calls at batch 32
+    (4,128 rows; the six linears wq, wk, wv, wo, w_up, w_down): the fp8
+    mode's tensor_quantize of the six weights, row_quantize of X (E4M3)
+    and Ẏ (E5M2), fp8_matmul_dequant and its transposed form;
+    fp8_mixed's block_quantize of X and Ẏ and both mixed forms (with the
+    fallback tiles of these inputs). Each beside its plain version, the
+    bound (bytes over 3.35 TB/s; the matmuls' operations over the fp8 peak
+    of 1,979 TFLOP/s, the fallback tiles' over the bf16 peak) and, for the
+    matmuls, ``torch._scaled_mm`` with row-wise scales (timed only; the
+    port never calls it)."""
+    F8, F8REF = M.F8, M.F8REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    _, R, _, _, _, shapes = clip_shapes(cfg)[0]
+    lin = [shapes[k][:2] for k in ("w_qkvo",) * 4 + ("w_up", "w_down")]    # (K, M)
+    bf = torch.bfloat16
+
+    def one_set():
+        s = {"w": [], "x": [], "g": [], "fwd": [], "dgrad": [], "mix": [], "mix_t": []}
+        for K, Mw in lin:
+            w = weight(torch, gen, K, Mw, dev)
+            w_q, s_w = F8.tensor_quantize(w, "e4m3")
+            x = fp8_activations(torch, gen, R, K, dev, bf, outliers=True)
+            g = fp8_activations(torch, gen, R, Mw, dev, bf, outliers=True)
+            x_q, s_x = F8.row_quantize(x, "e4m3")
+            g_q, s_g = F8.row_quantize(g, "e5m2")
+            s["w"].append(w)
+            s["x"].append(x)
+            s["g"].append(g)
+            s["fwd"].append((x_q, w_q, s_x * s_w))
+            s["dgrad"].append((g_q, w_q, s_g * s_w))
+            for key, a, fmt in (("mix", x, "e4m3"), ("mix_t", g, "e5m2")):
+                a_q, s_blk = F8.block_quantize(a, fmt)
+                s[key].append((a, a_q, s_blk, F8.fallback_mask(s_blk, 8.0), w_q, s_w))
+        return s
+
+    per_set = sum(K * Mw * 4 + R * (K + Mw) * 8 for K, Mw in lin)
+    sets = [one_set() for _ in range(max(2, int(120e6 // per_set) + 1))]
+    torch.cuda.synchronize()
+    fb_share = {key: sum(float(t[3].sum()) for t in sets[0][key]) /
+                sum(t[3].numel() for t in sets[0][key]) for key in ("mix", "mix_t")}
+
+    def scaled_mm(a_q, w_cm, row_scale, ones):
+        """torch._scaled_mm with row-wise scales: a_q (B, K) row-major, W
+        as the column-major (K, M) it wants, the row scale (B, 1) and ones
+        (1, M) for the columns, bf16 out."""
+        return torch._scaled_mm(a_q, w_cm, scale_a=row_scale, scale_b=ones, out_dtype=bf)
+
+    # the forward's (K, M) W as a column-major copy, made outside the
+    # timing; the dgrad's (N, M) W read transposed is column-major already
+    col_major = {key: [(a, w.t().contiguous().t() if key == "fwd" else w.t(), rs,
+                        torch.ones((1, w.shape[1] if key == "fwd" else w.shape[0]), device=dev))
+                       for a, w, rs in sets[0][key]] for key in ("fwd", "dgrad")}
+    library, lib_err = {}, {}
+    for key, kernel in (("fwd", F8.fp8_matmul_dequant), ("dgrad", F8.fp8_matmul_dequant_t)):
+        y, want = scaled_mm(*col_major[key][4]), kernel(*sets[0][key][4])
+        lib_err[key] = rel_err(torch, y.float(), want.float())
+        check(lib_err[key] <= 2.0 ** -6, f"torch._scaled_mm yardstick ({key}) disagrees "
+              f"with the kernel: {lib_err[key]:g}")
+        library[key] = lambda i, key=key: [scaled_mm(*t) for t in col_major[key]]
+    print("[timing] fp8 yardstick torch._scaled_mm vs kernel (relative to max|y|): "
+          + json.dumps(lib_err))
+
+    n_w = sum(K * Mw for K, Mw in lin)
+    rk = sum(R * K for K, _ in lin)
+    rm = sum(R * Mw for _, Mw in lin)
+    mac = sum(R * K * Mw for K, Mw in lin)
+    work = {
+        # name: (calls, call(set, module, plain), library call, bytes, fp8 ops, bf16 ops, f32 ops)
+        "fp8_tensor_quantize": (len(lin), lambda s, op, p: [op.tensor_quantize(w, "e4m3")
+                                                            for w in s["w"]], None,
+                                n_w * 2 + n_w + 4 * len(lin), 0, 0, 2 * n_w),
+        "fp8_row_quantize": (2 * len(lin), lambda s, op, p: [op.row_quantize(x, "e4m3")
+                                                             for x in s["x"]]
+                             + [op.row_quantize(g, "e5m2") for g in s["g"]], None,
+                             (rk + rm) * 3 + 4 * R * 2 * len(lin), 0, 0, 2 * (rk + rm)),
+        "fp8_block_quantize": (2 * len(lin), lambda s, op, p: [op.block_quantize(x, "e4m3")
+                                                               for x in s["x"]]
+                               + [op.block_quantize(g, "e5m2") for g in s["g"]], None,
+                               (rk + rm) * 3, 0, 0, 2 * (rk + rm)),
+        "fp8_matmul_dequant": (len(lin), lambda s, op, p: [p("fp8_matmul_dequant")(
+            *a, out_dtype=bf) for a in s["fwd"]], "fwd",
+            rk + n_w + 4 * R * len(lin) + 2 * rm, 2 * mac, 0, 0),
+        "fp8_matmul_dequant_t": (len(lin), lambda s, op, p: [p("fp8_matmul_dequant_t")(
+            *a, out_dtype=bf) for a in s["dgrad"]], "dgrad",
+            rm + n_w + 4 * R * len(lin) + 2 * rk, 2 * mac, 0, 0),
+        "fp8_mixed_matmul": (len(lin), lambda s, op, p: [p("fp8_mixed_matmul")(
+            *a, block_rows=128, block_cols=128, out_dtype=bf) for a in s["mix"]], "fwd",
+            rk * 3 + n_w + 2 * rm, 2 * mac * (1 - fb_share["mix"]), 2 * mac * fb_share["mix"], 0),
+        "fp8_mixed_matmul_t": (len(lin), lambda s, op, p: [p("fp8_mixed_matmul_t")(
+            *a, block_rows=128, block_cols=128, out_dtype=bf) for a in s["mix_t"]], "dgrad",
+            rm * 3 + n_w + 2 * rk, 2 * mac * (1 - fb_share["mix_t"]),
+            2 * mac * fb_share["mix_t"], 0),
+    }
+    kern = lambda name: getattr(F8, name)
+    plain = plain_fp8(M)
+    out, n = {}, len(sets)
+    for name, (calls, call, lib, bytes_, f8, b16, f32) in work.items():
+        lib_fn = library[lib] if lib else None
+        out[name] = dict(
+            ms=graph_ms(torch, lambda i: call(sets[i], F8, kern), n),
+            plain_ms=graph_ms(torch, lambda i: call(sets[i], F8REF, plain.__getitem__), n),
+            library_ms=graph_ms(torch, lib_fn, 1) if lib_fn else None,
+            library="torch._scaled_mm, row-wise scales, bf16 out" if lib_fn else None,
+            eager_ms=eager_ms(torch, lambda i: call(sets[i], F8, kern), n),
+            bound=bound(bytes_, fp8_ops=f8, bf16_ops=b16, f32_ops=f32), calls=calls,
+            work=f"one vision layer's {calls} calls at {R} rows (batch {CLIP_BATCH})")
+    out["fallback_share"] = fb_share
+    del sets
+    print("[timing] fp8 kernels:", json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2058,11 +2419,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import build as FB
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.kernels.fp8_matmul import build as F8B
+    from repro_torch.kernels.fp8_matmul import ops as F8
+    from repro_torch.kernels.fp8_matmul import ref as F8REF
     from repro_torch.kernels.switchback import build as KB
     from repro_torch.kernels.switchback import ops as KOPS
     from repro_torch.kernels.switchback import ref as REF
     from repro_torch.serve import make_serve_engine
-    M = types.SimpleNamespace(KOPS=KOPS, REF=REF, FA=FA, FREF=FREF)
+    M = types.SimpleNamespace(KOPS=KOPS, REF=REF, FA=FA, FREF=FREF, F8=F8, F8REF=F8REF)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2094,12 +2458,13 @@ def main(argv=None) -> int:
         print(f"[time] {name}: {secs[name]:.1f} s", flush=True)
 
     with timed("2 build"):
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
             builds = {lib: pool.submit(mod.build) for lib, mod in
-                      (("switchback", KB), ("flash_attention", FB))}
+                      (("switchback", KB), ("flash_attention", FB), ("fp8_matmul", F8B))}
             built = {lib: f.result() for lib, f in builds.items()}
         KB.load()
         FB.load()
+        F8B.load()
     for lib, (lib_path, log) in built.items():
         print(f"[build] {os.path.relpath(lib_path, ROOT)}")
         for line in log.splitlines():
@@ -2186,6 +2551,19 @@ def main(argv=None) -> int:
         card_vs_cpu(torch, M, clip_check_path(torch, clip_cfg), dev, args.seed)
     torch.cuda.empty_cache()
 
+    # 19-20. CLIP ViT-H/14 in the four fp8 modes, on the fp8 kernels
+    with timed("19 fp8 kernels vs plain"):
+        fp8_worst, fp8_mixed, n_fp8 = compare_fp8_kernels(torch, M, clip_shapes(clip_cfg), dev,
+                                                          args.seed + 41)
+        print(f"[kernels] {n_fp8} fp8 comparisons at CLIP's shapes: quantizers and "
+              f"fp8_matmul_dequant bit-equal, fp8_mixed_matmul within {MIXED_TOL} "
+              f"(share of outputs off, ulps), each bit-identical over two launches; "
+              f"mixed {json.dumps(fp8_mixed)}; max |kernel - plain| " + json.dumps(fp8_worst))
+    with timed("20 CLIP fp8 train"):
+        fp8_res, fp8_counts = clip_train(torch, M, clip_cfg, dev, args.seed, CLIP_FP8_MODES,
+                                         tag="clip fp8 train")
+    torch.cuda.empty_cache()
+
     # 8. timing
     with timed("8 timing"):
         rows = {}
@@ -2196,6 +2574,18 @@ def main(argv=None) -> int:
         train_t = time_train_kernels(torch, M, cfg, dev, args.seed)
     with timed("18 CLIP timing"):
         clip_t = time_clip_kernels(torch, M, clip_cfg, dev, args.seed)
+    with timed("23 fp8 timing"):
+        fp8_t = time_fp8_kernels(torch, M, clip_cfg, dev, args.seed)
+    torch.cuda.empty_cache()
+    # 21-22. the fp8 whole step, kernels vs plain, and card vs CPU
+    with timed("21 CLIP fp8 whole step"):
+        clip_whole_step(torch, M, clip_cfg, dev, args.seed, FP8_KERNEL_MODES, CLIP_FP8_STEP_TOL,
+                        tag="clip fp8 whole step")
+    with timed("22 CLIP fp8 card vs cpu"):
+        # phase 17's limits (the fp8 readings in PERF.md lie inside them)
+        card_vs_cpu(torch, M, clip_check_path(torch, clip_cfg, FP8_KERNEL_MODES,
+                                              tag="clip fp8 card vs cpu", seed_offset=13),
+                    dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
@@ -2271,22 +2661,38 @@ def main(argv=None) -> int:
 
     clip_entries = [clip_entry(k) for k in ("col_quantize", "int8_matmul_dequant_colscale",
                                             "int8_matmul_dequant_colscale_t")]
+
+    def fp8_entry(name):
+        """An fp8 kernel: ``launches`` summed over the four fp8 modes' timed
+        runs (CLIP_STEPS steps each), per step by mode beside."""
+        r = fp8_t[name]
+        b_ms, b_by = r["bound"]
+        return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+                    launches=sum(c[name] for c in fp8_counts.values()),
+                    launches_per_clip_step={m: c[name] / CLIP_STEPS
+                                            for m, c in fp8_counts.items()},
+                    max_abs_err=fp8_worst[name], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
+                    eager_ms=r["eager_ms"], calls_timed=r["calls"], work=r["work"],
+                    **({"library": r["library"]} if r["library"] else {}))
+
+    fp8_entries = [fp8_entry(k) for k in FP8_KERNELS]
     print("[clip train] step: " + json.dumps({
         m: {**{k: r[k] for k in ("step_ms", "pairs_per_s", "peak_memory_gib")},
             **{k: r["profile"][k] for k in ("device_ms_per_step", "device_idle_share",
                                             "cuda_launches_per_step")}}
-        for m, r in clip_res.items()}))
+        for m, r in {**clip_res, **fp8_res}.items()}))
     print("[train] step: " + json.dumps({
         "step_ms_trainer": train_res["step_ms"], "tokens_per_s_trainer": train_res["tokens_per_s"],
         **{k: train_prof[k] for k in ("step_ms", "tokens_per_s", "device_ms_per_step",
                                       "device_idle_share", "cuda_launches_per_step")}}))
     print("[time] phases (s): " + json.dumps(secs))
     print(f"[done] {calls} model calls on the serve path, "
-          f"{len(train_res['losses'])} train steps, {len(CLIP_MODES)} x "
+          f"{len(train_res['losses'])} train steps, {len(CLIP_MODES) + len(CLIP_FP8_MODES)} x "
           f"{1 + CLIP_STEPS} CLIP train steps; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
-                      + clip_entries}))
+                      + clip_entries + fp8_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -128,8 +128,10 @@ class TrainConfig:
     same defaults. ``optimizer``: stable_adamw | adamw (adafactor raises
     until it is ported); ``loss_scaler``: none | fixed_tensor | dynamic;
     ``quant_mode``: a ``core.precision`` mode (the unported ones raise when
-    the policy is built). Left out until something reads them: the
-    fp8_mixed tile fields (with the fp8 modes), ``checkpoint_every`` /
+    the policy is built); the ``fp8_*`` fields are ``fp8_mixed``'s tile
+    and fallback ratio (``QuantPolicy.from_train_config``, and the
+    fallback gauge of ``telemetry/health.py``). Left out until something
+    reads them: ``checkpoint_every`` /
     ``keep_checkpoints`` (with ``checkpoint/manager.py``), and ``seed``,
     ``global_batch`` and ``seq_len``, which the JAX package does not read
     either (the caller seeds the parameters; the batch sets its shape)."""
@@ -143,6 +145,9 @@ class TrainConfig:
     grad_clip_norm: float = 0.0      # 0 = off (paper default: no grad clip)
     loss_scaler: str = "none"        # none|fixed_tensor|dynamic
     quant_mode: str = "bf16"         # precision policy for all linears
+    fp8_block_rows: int = 128        # fp8_mixed: blockwise-quantization tile
+    fp8_block_cols: int = 128        # over X / Ẏ (one scale + fallback bit each)
+    fp8_fallback_ratio: float = 8.0  # tile absmax > ratio x median -> bf16
     microbatch_steps: int = 1        # gradient accumulation
     quant_health_metrics: bool = True  # quantized modes: per-group device
     # health scalars (telemetry/health.py) ride the metrics dict

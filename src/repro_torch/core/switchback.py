@@ -1,16 +1,17 @@
-"""SwitchBack: a linear layer for int8 quantized training (paper §2.2).
+"""SwitchBack: a linear layer for int8 and fp8 quantized training
+(paper §2.2).
 
-The PyTorch counterpart of ``repro/core/switchback.py``, int8 variants,
-on the JAX package's kernel path (``make_switchback_matmul`` with a
-Pallas backend). Three matmuls:
+The PyTorch counterpart of ``repro/core/switchback.py``, on the JAX
+package's kernel path (``make_switchback_matmul`` with a Pallas backend).
+Three matmuls:
 
-    forward:     Y = X W       int8
-    input grad:  Ẋ = Ẏ Wᵀ      int8, contracted over W's second dim
+    forward:     Y = X W       int8 or fp8
+    input grad:  Ẋ = Ẏ Wᵀ      int8 or fp8, contracted over W's second dim
     weight grad: Ẇ = Xᵀ Ẏ      16-bit inputs, f32 accumulation (the
                                "switch back": its inner dim is batch*seq),
-                               or int8 for the LLM.int8() baseline
+                               or int8 / fp8 for the baselines
 
-Variants:
+int8 variants:
 
 * ``switchback``   (Alg. 1): row-wise X and Ẏ, tensor-wise W (Eq. 3);
   the forward fuses the X quantize when K <= 2048, the dgrad the Ẏ
@@ -30,23 +31,60 @@ weight's column state as ``col_scale``: the JAX kernel path's order,
 ``(s_x / 127²) * s_w``. (The JAX package's XLA path multiplies
 ``s_x * (s_w / 127²)`` instead, one rounding apart.)
 
+fp8 variants (formats ``fwd_fmt`` for X and W, ``bwd_fmt`` for Ẏ; E4M3
+and E5M2 by default; scales Scalify-style, ``q = fp8(x / s)``):
+
+* ``fp8_sim``: the paper's fp8 baseline, simulated: X, W and Ẏ
+  tensor-wise fp8 values held in f32 in all three matmuls, which are f32
+  products (Ẇ from the fp8 X and Ẏ, not ``wgrad_16bit``).
+* ``fp8_switchback``: the simulation with SwitchBack's quantizers:
+  row-wise X and Ẏ, tensor-wise W, ``wgrad_16bit``.
+* ``fp8``: real fp8 execution through the fp8 kernels: row-wise X,
+  tensor-wise W, y = (x_q . w_q) * (s_x * s_w); the dgrad row-quantizes Ẏ
+  and contracts with the forward's fp8 W over its second dim;
+  ``wgrad_16bit``.
+* ``fp8_mixed``: ``fp8`` with dynamic block-level bf16 fallback: X and Ẏ
+  quantized in (block_rows x block_cols) tiles, tiles whose absmax exceeds
+  ``fallback_ratio`` x the median run in bf16 against the dequantized W.
+
+The two simulated variants are plain products, as the JAX package leaves
+them to ``dot_general`` (on the card they need TF32 off).
+
 ``SwitchBackMatmul`` is the custom VJP as a ``torch.autograd.Function``.
 It takes the weight as the layer hands it over and casts it to the
 compute dtype inside ``forward`` (a no-op when the layer's ``use_weight``
 already cast it, as the model's layers do); the weight gradient it
 returns is f32, and torch casts it to the dtype of the weight it was
-given. The fp8 variants raise until their slice.
+given.
 
 W is stored (n_in, m_out), as in the JAX package.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import quantization as Q
+from repro_torch.kernels.fp8_matmul import ops as F8OPS
 from repro_torch.kernels.switchback import ops as KOPS
 
-VARIANTS = ("switchback", "switchback_m", "switchback_q", "llm_int8")
+VARIANTS = ("switchback", "switchback_m", "switchback_q", "llm_int8",
+            "fp8_sim", "fp8_switchback", "fp8", "fp8_mixed")
+
+
+class FP8Config(NamedTuple):
+    """The fp8 variants' knobs (``make_switchback_matmul``'s): formats of
+    the forward operands and of the output gradient; ``fp8_mixed``'s tile
+    over X / Ẏ and its fallback ratio."""
+    fwd_fmt: str = "e4m3"
+    bwd_fmt: str = "e5m2"
+    block_rows: int = 128
+    block_cols: int = 128
+    fallback_ratio: float = 8.0
+
+
+FP8_DEFAULT = FP8Config()
 
 _I2 = Q.INT8_QMAX * Q.INT8_QMAX
 
@@ -119,16 +157,81 @@ def wgrad_int8(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return acc.float() * (s_x.t() * Q.div(s_g, _I2))
 
 
+def _fp8_sim_dot(a_q, s_a, b_q, s_b, out_dtype=None):
+    """(a_q . b_q) * (s_a * s_b) as an f32 product of the fp8-valued
+    operands (the simulated variants; the JAX package's ``dot_general``),
+    rounded to ``out_dtype`` when given."""
+    y = torch.mm(a_q, b_q) * (s_a * s_b)
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def _fp8_forward(ctx, x, wc, variant, f: FP8Config):
+    """The fp8 variants' forward; saves their residuals on ``ctx``."""
+    if variant == "fp8_sim":
+        x_q, s_x = Q.quantize_tensorwise_fp8(x, f.fwd_fmt)
+        w_q, s_w = Q.quantize_tensorwise_fp8(wc, f.fwd_fmt)
+        ctx.save_for_backward(x, wc)
+        return _fp8_sim_dot(x_q, s_x, w_q, s_w, x.dtype)
+    if variant == "fp8_switchback":
+        x_q, s_x = Q.quantize_rowwise_fp8(x, f.fwd_fmt)
+        w_q, s_w = Q.quantize_tensorwise_fp8(wc, f.fwd_fmt)
+        ctx.save_for_backward(x, w_q, s_w)
+        return _fp8_sim_dot(x_q, s_x, w_q, s_w, x.dtype)
+    w_q, s_w = F8OPS.tensor_quantize(wc, f.fwd_fmt)              # (n, m), (1, 1)
+    ctx.save_for_backward(x, w_q, s_w)                          # fp X + fp8 W
+    if variant == "fp8":
+        x_q, s_x = F8OPS.row_quantize(x, f.fwd_fmt)
+        return F8OPS.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=x.dtype)
+    return F8OPS.mixed(x, w_q, s_w, fmt=f.fwd_fmt, block_rows=f.block_rows,
+                       block_cols=f.block_cols, fallback_ratio=f.fallback_ratio,
+                       out_dtype=x.dtype)
+
+
+def _fp8_backward(ctx, g, need_dx, need_dw):
+    """The fp8 variants' (Ẋ, Ẇ): the dgrad in ``bwd_fmt`` against the
+    forward's W; Ẇ from ``wgrad_16bit``, or for ``fp8_sim`` the f32
+    product of the tensor-wise fp8 X and Ẏ."""
+    variant, f = ctx.variant, ctx.fp8
+    dx = dw = None
+    if variant == "fp8_sim":
+        x, wc = ctx.saved_tensors
+        g_q, s_g = Q.quantize_tensorwise_fp8(g, f.bwd_fmt)
+        if need_dx:
+            w_q, s_w = Q.quantize_tensorwise_fp8(wc, f.fwd_fmt)
+            dx = _fp8_sim_dot(g_q, s_g, w_q.t(), s_w, g.dtype)
+        if need_dw:
+            x_q, s_x = Q.quantize_tensorwise_fp8(x, f.fwd_fmt)
+            dw = _fp8_sim_dot(x_q.t(), s_x, g_q, s_g)
+        return dx, dw
+    x, w_q, s_w = ctx.saved_tensors
+    if need_dx:
+        if variant == "fp8_switchback":
+            g_q, s_g = Q.quantize_rowwise_fp8(g, f.bwd_fmt)
+            dx = _fp8_sim_dot(g_q, s_g, w_q.t(), s_w, g.dtype)
+        elif variant == "fp8":
+            g_q, s_g = F8OPS.row_quantize(g, f.bwd_fmt)
+            dx = F8OPS.fp8_matmul_dequant_t(g_q, w_q, s_g * s_w, out_dtype=g.dtype)
+        else:                                                   # fp8_mixed
+            dx = F8OPS.mixed(g, w_q, s_w, fmt=f.bwd_fmt, block_rows=f.block_rows,
+                             block_cols=f.block_cols, fallback_ratio=f.fallback_ratio,
+                             transpose_w=True, out_dtype=g.dtype)
+    if need_dw:
+        dw = wgrad_16bit(x, g)
+    return dx, dw
+
+
 class SwitchBackMatmul(torch.autograd.Function):
-    """``f(x2d, w, compute_dtype, variant) -> y2d``: x2d (b, n) in the
-    compute dtype, w (n, m) the weight as the layer hands it over. Ẋ in
-    x's dtype, Ẇ in f32 (see the module docstring for the residuals each
-    variant keeps)."""
+    """``f(x2d, w, compute_dtype, variant, fp8) -> y2d``: x2d (b, n) in the
+    compute dtype, w (n, m) the weight as the layer hands it over, ``fp8``
+    an ``FP8Config`` (read by the fp8 variants). Ẋ in x's dtype, Ẇ in f32
+    (see the module docstring for the residuals each variant keeps)."""
 
     @staticmethod
-    def forward(ctx, x, w, compute_dtype, variant):
-        ctx.variant = variant
+    def forward(ctx, x, w, compute_dtype, variant, fp8=FP8_DEFAULT):
+        ctx.variant, ctx.fp8 = variant, fp8
         wc = w.to(compute_dtype)
+        if variant.startswith("fp8"):
+            return _fp8_forward(ctx, x, wc, variant, fp8)
         if variant == "switchback":
             y, w_q, s_w = _kfwd_rowwise_tensorwise(x, wc)
             ctx.save_for_backward(x, w_q, s_w)
@@ -150,6 +253,8 @@ class SwitchBackMatmul(torch.autograd.Function):
         g = g.contiguous()
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
+        if ctx.variant.startswith("fp8"):
+            return (*_fp8_backward(ctx, g, need_dx, need_dw), None, None, None)
         if ctx.variant in ("switchback", "switchback_m"):
             if ctx.variant == "switchback":
                 x, w_q, s_w = ctx.saved_tensors
@@ -160,7 +265,7 @@ class SwitchBackMatmul(torch.autograd.Function):
                 dx = _kdgrad_tensorwise(g, w_q, s_w)
             if need_dw:
                 dw = wgrad_16bit(x, g)
-            return dx, dw, None, None
+            return dx, dw, None, None, None
         x, wc = ctx.saved_tensors
         if need_dx:
             # the column state (1, m) of W sits on the dgrad's contracted
@@ -172,27 +277,25 @@ class SwitchBackMatmul(torch.autograd.Function):
                                             col_scale=s_w_n.reshape(1, -1), out_dtype=g.dtype)
         if need_dw:
             dw = (wgrad_int8 if ctx.variant == "llm_int8" else wgrad_16bit)(x, g)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def switchback_linear(x: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor | None = None, *,
                       variant: str = "switchback",
-                      compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                      compute_dtype: torch.dtype | None = None,
+                      fp8: FP8Config = FP8_DEFAULT) -> torch.Tensor:
     """SwitchBack linear on ``x`` (..., n) with ``w`` (n, m): leading dims
     flatten into rows (one row-wise scale per token) and are restored.
     ``w`` is cast to ``compute_dtype`` (default: x's dtype) inside the
     autograd function; Ẇ comes back in w's dtype. The output has x's
-    dtype."""
+    dtype. ``fp8`` holds the fp8 variants' formats and tile knobs."""
     if variant not in VARIANTS:
-        raise NotImplementedError(
-            f"SwitchBack variant {variant!r} is not ported yet: the port runs "
-            f"{VARIANTS}; the fp8 variants follow with their slice "
-            "(ROADMAP.md Queue 1)")
+        raise ValueError(f"unknown SwitchBack variant {variant!r}; expected one of {VARIANTS}")
     n = x.shape[-1]
     lead = x.shape[:-1]
     y2 = SwitchBackMatmul.apply(x.reshape(-1, n).contiguous(), w,
-                                compute_dtype or x.dtype, variant)
+                                compute_dtype or x.dtype, variant, fp8)
     y = y2.reshape(*lead, w.shape[-1])
     if b is not None:
         y = y + b.to(y.dtype)

@@ -16,6 +16,9 @@ device of its tensors).
         --steps 20 --quant-mode int8_switchback --device cuda
     PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
         --steps 3 --batch 4 --quant-mode int8_llm --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
+        --steps 3 --batch 4 --quant-mode fp8_mixed --fp8-block 64 64 \
+        --fp8-fallback-ratio 4 --device cpu
 """
 from __future__ import annotations
 
@@ -78,6 +81,12 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--quant-mode", default="bf16")
+    ap.add_argument("--fp8-block", type=int, nargs=2, default=(128, 128),
+                    metavar=("ROWS", "COLS"),
+                    help="fp8_mixed blockwise-quantization tile shape")
+    ap.add_argument("--fp8-fallback-ratio", type=float, default=8.0,
+                    help="fp8_mixed: tile absmax > ratio x median falls "
+                         "back to bf16 (lower = more conservative)")
     ap.add_argument("--attn-impl", default="flash_scan", choices=("flash_scan", "dense"))
     ap.add_argument("--optimizer", default="stable_adamw")
     ap.add_argument("--beta2", type=float, default=0.95)
@@ -102,8 +111,11 @@ def main(argv=None):
     tc = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
                      warmup_steps=max(args.steps // 10, 1), total_steps=args.steps,
                      beta2=args.beta2, loss_scaler=args.loss_scaler,
-                     quant_mode=args.quant_mode, microbatch_steps=args.microbatch)
-    policy = QuantPolicy(tc.quant_mode)
+                     quant_mode=args.quant_mode, fp8_block_rows=args.fp8_block[0],
+                     fp8_block_cols=args.fp8_block[1],
+                     fp8_fallback_ratio=args.fp8_fallback_ratio,
+                     microbatch_steps=args.microbatch)
+    policy = QuantPolicy.from_train_config(tc)
     opt, scaler = make_train_setup(tc)
     step = make_train_step(bundle, policy, par, tc, opt, scaler)
     params = PRM.init_params(bundle.param_specs, args.seed, device=dev)
@@ -112,6 +124,9 @@ def main(argv=None):
     print(f"[train] {cfg.name} on {dev}: {n_params / 1e6:.2f} M params, quant_mode "
           f"{args.quant_mode}, attn_impl {args.attn_impl}, {args.optimizer}, "
           f"batch {args.batch} x {args.seq}, microbatch {args.microbatch}")
+    if policy.mode == "fp8_mixed":
+        print(f"[train] fp8_mixed tile {policy.fp8_block_rows} x {policy.fp8_block_cols}, "
+              f"fallback ratio {policy.fp8_fallback_ratio:g}")
 
     data_fn = make_data(cfg, args.batch, args.seq, dev)
     trainer = Trainer(step, state, log_every=10)

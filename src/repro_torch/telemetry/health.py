@@ -1,4 +1,4 @@
-"""On-device quant health scalars, the int8 part of
+"""On-device quant health scalars, the port of
 ``repro/telemetry/health.py``.
 
 ``quant_health`` runs on (params, grads) after the gradient, inside the
@@ -7,12 +7,17 @@ the metrics dict; the trainer fetches them with the loss at its flush
 points, so they add no host sync. Per layer group (embed / attn / mlp /
 other, by the first substring of the leaf path):
 
-* ``w_absmax``: max |w|, the tensor-quantize scale driver;
+* ``w_absmax`` (every quantized mode): max |w|, which sets the
+  tensor-quantize scale;
 * ``int8_sat_frac`` (int8 modes): the fraction of weight elements that
-  tensor-quantize to the clip value ±127.
-
-The fp8_mixed fallback-block fraction comes with the fp8 datapath
-(ROADMAP.md Queue 1): ``quant_health`` raises for that mode.
+  tensor-quantize to the clip value ±127;
+* ``fp8_fallback_frac`` (``fp8_mixed``): the fraction of gradient tiles
+  that the dynamic-fallback criterion (tile absmax > ratio x the median,
+  the ``fallback_mask`` the mixed kernel's caller applies to activation
+  tiles) would route to bf16, over tiles of ``fp8_block_rows`` x
+  ``fp8_block_cols`` with leading dims folded into rows. The JAX package
+  cannot tap the kernel's own activation mask inside its custom VJP, and
+  reads this gradient-tile rate as its proxy; so does the port.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.fp8_matmul.ref import block_absmax, fallback_mask
 from repro_torch.models.params import tree_paths
 
 #: ordered group patterns; the first substring match of the leaf path wins
@@ -45,6 +51,13 @@ def _grouped_leaves(tree, min_ndim: int = 2):
     return out
 
 
+def _block_absmax(x: torch.Tensor, br: int, bc: int) -> torch.Tensor:
+    """(..., C) -> (⌈R/br⌉, ⌈C/bc⌉) per-tile absmax of the array with its
+    leading dims folded into R rows (zero padding cannot raise a tile's
+    absmax; not floored, as in the JAX package)."""
+    return block_absmax(x.reshape(-1, x.shape[-1]), br, bc)
+
+
 @torch.no_grad()
 def quant_health(params, grads, train_cfg) -> Dict[str, torch.Tensor]:
     """Device-side health scalars keyed ``qh/<group>/<metric>``; empty when
@@ -53,10 +66,6 @@ def quant_health(params, grads, train_cfg) -> Dict[str, torch.Tensor]:
     mode = train_cfg.quant_mode
     if not getattr(train_cfg, "quant_health_metrics", False) or mode == "bf16":
         return {}
-    if mode == "fp8_mixed":
-        raise NotImplementedError(
-            "the fp8_mixed fallback-fraction health metric comes with the fp8 "
-            "datapath (ROADMAP.md Queue 1)")
     out: Dict[str, torch.Tensor] = {}
     int8 = mode.startswith("int8")
     for group, leaves in sorted(_grouped_leaves(params).items()):
@@ -68,4 +77,11 @@ def quant_health(params, grads, train_cfg) -> Dict[str, torch.Tensor]:
             fracs = [torch.mean((torch.abs(w.float()) > a * (126.5 / 127.0)).float())
                      for w, a in zip(leaves, absmaxes)]
             out[f"qh/{group}/int8_sat_frac"] = torch.mean(torch.stack(fracs))
+    if mode == "fp8_mixed":
+        br, bc = train_cfg.fp8_block_rows, train_cfg.fp8_block_cols
+        ratio = train_cfg.fp8_fallback_ratio
+        for group, leaves in sorted(_grouped_leaves(grads).items()):
+            fracs = [torch.mean(fallback_mask(_block_absmax(g, br, bc), ratio))
+                     for g in leaves]
+            out[f"qh/{group}/fp8_fallback_frac"] = torch.mean(torch.stack(fracs))
     return out

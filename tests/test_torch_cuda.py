@@ -15,7 +15,13 @@ the kernel takes an online one) within o 2^-7 of max|o| in bf16 (one bf16
 ulp at the largest value) and 1e-5 in f32, lse 1e-5 absolute; the two
 backward kernels within BWD_TOL of max|grad| of theirs (the same
 recomputed p, sums in another order), and bit-identical over two
-launches. A CUDA tensor must go to the kernel, never to the plain version.
+launches. The fp8 kernels (``kernels/fp8_matmul``): the three quantizers
+and ``fp8_matmul_dequant`` in both orientations bit-equal to their plain
+versions (``kernels/fp8_matmul/ref.py``); ``fp8_mixed_matmul`` within
+MIXED_TOL (each tile's double sum is exact unless its products span more
+than about 18 binades, and then only a rounding of a sum may differ): at
+most one output in 10^4 off, by at most one ulp of the output type. A
+CUDA tensor must go to the kernel, never to the plain version.
 ``chip_smoke.py`` runs the same checks inside its end-to-end run.
 """
 from __future__ import annotations
@@ -26,6 +32,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flash_attention import ref as FREF
+from repro_torch.kernels.fp8_matmul import ops as F8
+from repro_torch.kernels.fp8_matmul import ref as F8REF
 from repro_torch.kernels.switchback import ops as TOPS
 from repro_torch.kernels.switchback import ref as TREF
 
@@ -262,3 +270,102 @@ def test_cuda_tensors_launch_the_flash_kernels():
                                   "flash_bwd_dkv": 1}
     with pytest.raises(ValueError):                 # mixed devices
         FA.decode_attention(q[:, :1].contiguous(), k, k, torch.tensor([3, 8], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the fp8 kernels
+# ---------------------------------------------------------------------------
+
+# fp8_mixed_matmul kernel vs plain: the share of outputs that may differ,
+# and by how many units in the last place of the output type
+MIXED_TOL = (1e-4, 1)
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2) else t
+
+
+def _fp8_activations(gen, R, C, dev, outliers=False):
+    x = torch.randn((R, C), generator=gen, device=dev) * 3
+    x[min(2, R - 1)] = 0.0
+    if outliers:
+        x[:128, :128] *= 40.0
+        x[-1, -1] = 500.0
+    return x
+
+
+def _mixed_close(got, want):
+    """(share of outputs that differ, largest difference in ulps)."""
+    iv = _INT_VIEW[want.dtype]
+    ulps = (got.view(iv).long() - want.view(iv).long()).abs()
+    return float((got != want).float().mean()), int(ulps[got != want].max()) if (got != want).any() else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("R,C", [(4128, 1280), (1032, 5120), (8192, 588), (37, 130)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_fp8_quantizers_match_plain(R, C, fmt, dt):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(R + C)
+    x = _fp8_activations(gen, R, C, dev).to(dt)
+    for name, args in (("row_quantize", ()), ("tensor_quantize", ()),
+                       ("block_quantize", (128, 128)), ("block_quantize", (64, 32))):
+        got = getattr(F8, name)(x, fmt, *args)
+        want = getattr(F8REF, name)(x, fmt, *args)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(_bits(g), _bits(w)), (name, args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", [(4128, 1280, 1280), (1032, 1280, 5120), (1032, 5120, 1280),
+                                   (2464, 1024, 4096), (8192, 588, 1280), (37, 130, 70)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_fp8_matmuls_match_plain(B, K, M, dt):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(B + K + M)
+    w = (torch.randn((K, M), generator=gen, device=dev) / K ** 0.5).to(torch.bfloat16)
+    w_q, s_w = F8.tensor_quantize(w, "e4m3")
+    x = _fp8_activations(gen, B, K, dev, outliers=True).to(dt)
+    x_q, s_x = F8.row_quantize(x, "e4m3")
+    assert torch.equal(F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt),
+                       F8REF.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt))
+    g = _fp8_activations(gen, B, M, dev, outliers=True).to(dt)
+    g_q, s_g = F8.row_quantize(g, "e5m2")
+    assert torch.equal(F8.fp8_matmul_dequant_t(g_q, w_q, s_g * s_w, out_dtype=dt),
+                       F8REF.fp8_matmul_dequant(g_q, w_q, s_g * s_w, transpose_w=True,
+                                                out_dtype=dt))
+    for a, fmt, tw in ((x, "e4m3", False), (g, "e5m2", True)):
+        a_q, s_blk = F8.block_quantize(a, fmt)
+        fb = F8.fallback_mask(s_blk, 8.0)
+        assert B < 1024 or 0 < float(fb.sum()) < fb.numel()      # both branches run
+        fn = F8.fp8_mixed_matmul_t if tw else F8.fp8_mixed_matmul
+        got = fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt)
+        want = F8REF.fp8_mixed_matmul(a, a_q, s_blk, fb, w_q, s_w, block_rows=128,
+                                      block_cols=128, transpose_w=tw, out_dtype=dt)
+        share, ulps = _mixed_close(got, want)
+        assert share <= MIXED_TOL[0] and ulps <= MIXED_TOL[1], (tw, share, ulps)
+        assert torch.equal(got, fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_fp8_kernels():
+    dev = _card()
+    F8.reset_launch_counts()
+    x = torch.randn(64, 256, device=dev, dtype=torch.bfloat16)
+    w_q, s_w = F8.tensor_quantize(torch.randn(256, 96, device=dev), "e4m3")
+    x_q, s_x = F8.row_quantize(x, "e4m3")
+    F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w)
+    F8.fp8_matmul_dequant_t(F8.row_quantize(torch.randn(64, 96, device=dev), "e5m2")[0],
+                            w_q, s_x * s_w)
+    F8.mixed(x, w_q, s_w)
+    F8.mixed(torch.randn(64, 96, device=dev), w_q, s_w, fmt="e5m2", transpose_w=True)
+    torch.cuda.synchronize()
+    assert F8.launch_counts() == {
+        "fp8_row_quantize": 2, "fp8_tensor_quantize": 1, "fp8_block_quantize": 2,
+        "fp8_matmul_dequant": 1, "fp8_matmul_dequant_t": 1, "fp8_mixed_matmul": 1,
+        "fp8_mixed_matmul_t": 1}

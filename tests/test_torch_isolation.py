@@ -6,7 +6,9 @@
   ``jaxlib`` or ``repro`` in an import.
 * On a host without a card, the entry points refuse to run unless the CPU
   is asked for; the paths the port does not take raise
-  ``NotImplementedError``.
+  ``NotImplementedError``, and the ones a slice has brought (the fp8
+  modes) run: the serve engine in ``fp8`` and ``fp8_mixed`` gives the JAX
+  package's greedy tokens.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.configs.base import ParallelConfig, ServeConfig
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.fp8_matmul import ops as F8OPS
 from repro_torch.kernels.switchback import ops as KOPS
 from repro_torch.models import build
 from repro_torch.models import params as PRM
@@ -113,7 +116,7 @@ def test_kernel_wrappers_have_no_backend_switch():
     """Dispatch is by device only: no wrapper takes a backend argument, so
     a CUDA tensor cannot be sent to the plain version."""
     import inspect
-    for fn in (*KOPS.KERNELS, *FA.KERNELS.values()):
+    for fn in (*KOPS.KERNELS, *FA.KERNELS.values(), *F8OPS.KERNELS, F8OPS.mixed):
         assert "backend" not in inspect.signature(fn).parameters
     assert "backend" not in {f.name for f in dataclasses.fields(QuantPolicy)}
 
@@ -131,8 +134,8 @@ def test_kernel_wrappers_have_no_backend_switch():
     dict(serve=dict(prefix_cache=False)),
     dict(serve=dict(spec_k=2)),
     dict(serve=dict(spec_min_ngram=1)),
-    dict(policy="fp8_mixed"),
-    dict(policy="fp8"),
+    dict(policy="fp16"),
+    dict(policy="fp32"),
 ])
 def test_unported_paths_raise(bad):
     cfg = get_reduced_config("smollm-360m")
@@ -142,6 +145,46 @@ def test_unported_paths_raise(bad):
         make_serve_engine(build(cfg), scfg, parallel=bad.get("parallel"),
                           policy=QuantPolicy(bad["policy"]) if "policy" in bad else None,
                           device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["fp8", "fp8_mixed"])
+def test_fp8_serve_engine_matches_jax(mode):
+    """The fp8 modes, which raised until their slice, serve: the reduced
+    smollm-360m through both packages' engines (f32 compute, dense
+    attention, the JAX package on its ``xla`` backend: the fp8 kernels'
+    reference), 4 requests through 2 slots, greedy: identical tokens and
+    stats-row keys. ``fp8_mixed`` with 4 x 32 tiles and ratio 2, so that
+    some tiles fall back."""
+    import jax
+    import numpy as np
+
+    from repro.configs import get_reduced_config as jax_reduced
+    from repro.configs.base import ParallelConfig as JParallel
+    from repro.configs.base import ServeConfig as JServe
+    from repro.core.precision import QuantPolicy as JPolicy
+    from repro.launch.mesh import make_test_mesh
+    from repro.models import build as jax_build
+    from repro.models.params import init_params as jax_init_params
+    from repro.serve import make_serve_engine as jax_engine
+    kw = dict(fp8_block_rows=4, fp8_block_cols=32, fp8_fallback_ratio=2.0) \
+        if mode == "fp8_mixed" else {}
+    jcfg, tcfg = jax_reduced("smollm-360m"), get_reduced_config("smollm-360m")
+    jp = jax_init_params(jax_build(jcfg).param_specs, jax.random.PRNGKey(0))
+    tp = PRM.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    jeng = jax_engine(jax_build(jcfg), JServe(quant_mode=mode, max_batch=2, max_len=32),
+                      make_test_mesh((1, 1)),
+                      parallel=JParallel(mesh_shape=(1, 1), remat="none", attn_impl="dense"),
+                      policy=JPolicy(mode, compute_dtype=jax.numpy.float32, **kw))
+    teng = make_serve_engine(build(tcfg), ServeConfig(quant_mode=mode, max_batch=2, max_len=32),
+                             parallel=ParallelConfig(remat="none", attn_impl="dense"),
+                             policy=QuantPolicy(mode, compute_dtype=torch.float32, **kw),
+                             device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, jcfg.vocab_size, size=n).tolist() for n in (6, 11, 3, 9)]
+    jg, js = jeng.generate(jp, prompts, max_new_tokens=5)
+    tg, ts = teng.generate(tp, prompts, max_new_tokens=5)
+    assert [list(map(int, g)) for g in jg] == tg
+    assert set(ts) == set(js) and ts["new_tokens"] == js["new_tokens"] == 20
 
 
 def test_unported_model_families_raise():
@@ -187,13 +230,20 @@ def test_unported_train_flags_raise(flag):
 
 
 def test_unported_training_options_raise():
+    """AdaFactor still raises; the fp8 paths that raised until their slice
+    now run: the fp8 SwitchBack linear forward and backward, and the
+    fp8_mixed quant-health gauge."""
     from repro_torch.core import switchback as SB
     from repro_torch.optim import make_optimizer
     from repro_torch.telemetry.health import quant_health
     with pytest.raises(NotImplementedError):
         make_optimizer("adafactor", 1e-3)
-    with pytest.raises(NotImplementedError):
-        SB.switchback_linear(torch.zeros(2, 4), torch.zeros(4, 3), variant="fp8")
-    with pytest.raises(NotImplementedError):
-        quant_health({}, {}, dataclasses.replace(_train_parts(
-            get_reduced_config("smollm-360m"))[1], quant_mode="fp8_mixed"))
+    x = torch.randn(2, 4, requires_grad=True)
+    w = torch.randn(4, 3, requires_grad=True)
+    y = SB.switchback_linear(x, w, variant="fp8")
+    dx, dw = torch.autograd.grad(y.sum(), (x, w))
+    assert y.shape == (2, 3) and bool(torch.isfinite(dx).all() and torch.isfinite(dw).all())
+    g = {"blocks": {"mlp": {"w_up": torch.randn(2, 8, 8)}}}
+    out = quant_health(g, g, dataclasses.replace(_train_parts(
+        get_reduced_config("smollm-360m"))[1], quant_mode="fp8_mixed"))
+    assert set(out) == {"qh/mlp/w_absmax", "qh/mlp/fp8_fallback_frac"}
