@@ -4,13 +4,13 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-9-17, 19, 20, 8, 18, 23, 21, 22):
+24-26, 9-17, 19, 20, 8, 18, 23, 21, 22):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the TF32 flags (both left False);
-2. build: compile the three kernel libraries from this checkout with nvcc,
+2. build: compile the four kernel libraries from this checkout with nvcc,
    in parallel (``csrc/switchback.cu``, ``csrc/flash_attention.cu``,
-   ``csrc/fp8_matmul.cu``);
+   ``csrc/fp8_matmul.cu``, ``csrc/paged_attention.cu``);
 3. kernels vs plain: each SwitchBack kernel bit-equal to its plain PyTorch
    version at the serve path's shapes (decode rows 8, prefill rows 1024,
    K in {960, 2560}, M in {320, 960, 2560}, exact half-way ties and an
@@ -127,7 +127,32 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     ``fp8_mixed`` in turn across three seeds (as phase 17);
 23. timing of the fp8 kernels: one vision layer's calls at 4,128 rows
     beside their bound (the matmuls' operations at the fp8 peak), plain
-    version and ``torch._scaled_mm`` with row-wise scales.
+    version and ``torch._scaled_mm`` with row-wise scales;
+24. paged kernels vs plain at the paged serve path's shapes (8 slots,
+    tables of 64 blocks of 16, ragged lengths 0 to 1,024, dead table
+    entries outside the pool, a dry slot): ``paged_decode_fwd`` and
+    ``paged_prefill_fwd`` (Sq in {1, 5, 128, 300}, ragged offsets off the
+    block edges) within FLASH_O_TOL of their plain versions, q in bf16 and
+    f32 over bf16 pools, two launches the same bits, the control fault
+    (table rows rotated by one) 10x outside; every prefill row bit-equal to
+    the decode kernel at kv_len = its position + 1. Then each kernel timed
+    at served shapes beside its bound, its plain version and SDPA over the
+    gathered cache (the gather timed beside it);
+25. paged serve (the paged main path): full-width smollm-360m through the
+    ``ServeEngine`` with ``cache_mode="paged"``, ``int8_switchback``, 8
+    slots of 1,024 cells in blocks of 16, ``prefill_chunk_tokens=256``: a
+    warm-up, then 32 requests sharing a 256-token system prompt with a
+    32-512-token suffix each, 64 new tokens, greedy; every launch counter
+    exactly its worked-out count (paged_decode 32 per decode step,
+    paged_prefill 32 per prefill or verify call, the SwitchBack kernels as
+    phase 4 counts them, the flash kernels 0); the stats row. The served
+    model's logits (prefill + 3 decode steps, three seeds) kernels vs plain
+    within PAGED_MODEL_TOL, the control fault (KV heads tiled) outside;
+26. the paged features at full width: a tight pool with
+    ``preemption="recompute"`` preempts and gives every request the roomy
+    pool's tokens; ``spec_mode="ngram"`` on repetitive prompts accepts
+    drafts and gives spec off's tokens; launch counts exact; a verify
+    pass's logit rows against decode steps' (printed).
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -164,6 +189,8 @@ F32_OPS_PER_S = 67e12
 SB_SOURCE = "src/repro_torch/kernels/switchback/csrc/switchback.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 F8_SOURCE = "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu"
+PA_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+PA_PY = "src/repro/kernels/paged_attention/paged_attention.py"
 # the fp8 wrappers' launch-count keys (kernels/fp8_matmul/ops.py)
 FP8_KERNELS = ("fp8_row_quantize", "fp8_tensor_quantize", "fp8_block_quantize",
                "fp8_matmul_dequant", "fp8_matmul_dequant_t", "fp8_mixed_matmul",
@@ -176,7 +203,8 @@ SOURCE = {"tensor_quantize": SB_SOURCE, "fused_switchback_fwd": SB_SOURCE,
           "int8_matmul_dequant_colscale_t": SB_SOURCE,
           "flash_fwd": FA_SOURCE, "decode_fwd": FA_SOURCE,
           "flash_bwd_dq": FA_SOURCE, "flash_bwd_dkv": FA_SOURCE,
-          **dict.fromkeys(FP8_KERNELS, F8_SOURCE)}
+          **dict.fromkeys(FP8_KERNELS, F8_SOURCE),
+          "paged_decode_fwd": PA_SOURCE, "paged_prefill_fwd": PA_SOURCE}
 REPLACES = {
     "tensor_quantize": "src/repro/kernels/switchback/switchback.py:124",
     "fused_switchback_fwd": "src/repro/kernels/switchback/switchback.py:269",
@@ -195,6 +223,7 @@ REPLACES = {
     "fp8_block_quantize": F8_PY + ":128", "fp8_matmul_dequant": F8_PY + ":176",
     "fp8_matmul_dequant_t": F8_PY + ":176", "fp8_mixed_matmul": F8_PY + ":258",
     "fp8_mixed_matmul_t": F8_PY + ":258",
+    "paged_decode_fwd": PA_PY + ":214", "paged_prefill_fwd": PA_PY + ":148",
 }
 # the SwitchBack wrappers, forward and input gradient (kernels/switchback/ops.py)
 SB_KERNELS = ("tensor_quantize", "fused_switchback_fwd", "row_quantize", "col_quantize",
@@ -675,13 +704,15 @@ SERVED_FLASH_TOL = (1e-1, 1.5e-2)
 
 
 def launch_counts(M) -> dict:
-    return {**M.KOPS.launch_counts(), **M.FA.launch_counts(), **M.F8.launch_counts()}
+    return {**M.KOPS.launch_counts(), **M.FA.launch_counts(), **M.F8.launch_counts(),
+            **M.PA.launch_counts()}
 
 
 def reset_launch_counts(M):
     M.KOPS.reset_launch_counts()
     M.FA.reset_launch_counts()
     M.F8.reset_launch_counts()
+    M.PA.reset_launch_counts()
 
 
 def expected_launches(cfg, prefill_calls: int, decode_steps: int, impl: str) -> dict:
@@ -691,6 +722,7 @@ def expected_launches(cfg, prefill_calls: int, decode_steps: int, impl: str) -> 
     for k, per in FLASH_PER_LAYER.items():
         want[k] = 0 if impl == "dense" else cfg.n_layers * (
             per["prefill"] * prefill_calls + per["decode"] * decode_steps)
+    want.update(paged_decode_fwd=0, paged_prefill_fwd=0)      # the ring cache's path
     return want
 
 
@@ -727,7 +759,7 @@ def serve(torch, M, cfg, dev, seed):
     want = expected_launches(cfg, stats["prefill_calls"], stats["decode_steps"],
                              eng.parallel.attn_impl)
     for k, n in want.items():
-        check(counts[k] > 0, f"{k} never launched on the serve path")
+        check(counts[k] > 0 or n == 0, f"{k} never launched on the serve path")
         check(counts[k] == n,
               f"{k}: {counts[k]} launches, expected {n} for {cfg.n_layers} layers x "
               f"({stats['prefill_calls']} prefill calls, {stats['decode_steps']} decode steps)")
@@ -780,7 +812,8 @@ def plain_ops(M, flash: bool):
     """Send the model's kernel calls to their plain versions, for the
     whole-model kernels-vs-plain checks only (the package has no such
     switch: its wrappers launch the kernel on a CUDA tensor or raise): the
-    SwitchBack and fp8 kernels, and with ``flash`` the four flash kernels."""
+    SwitchBack and fp8 kernels, and with ``flash`` the four flash kernels
+    and the two paged kernels."""
     patches = [(M.KOPS, name, getattr(M.REF, name)) for name in SB_KERNELS]
     patches += [(M.F8, name, fn) for name, fn in plain_fp8(M).items()]
     if flash:
@@ -788,6 +821,7 @@ def plain_ops(M, flash: bool):
                     (M.FA, "decode_attention", plain_decode(M)),
                     (M.FA, "flash_bwd_dq", plain_flash_bwd(M, "flash_bwd_dq")),
                     (M.FA, "flash_bwd_dkv", plain_flash_bwd(M, "flash_bwd_dkv"))]
+        patches += [(M.PA, name, fn) for name, fn in plain_paged(M).items()]
     return swapped(patches)
 
 
@@ -2403,6 +2437,437 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 24-26: paged serving, on the paged-attention kernels
+# ---------------------------------------------------------------------------
+
+PAGED_BS, PAGED_NB, PAGED_MAX_LEN = 16, 64, 1024
+# phase 25's workload: 32 requests, a shared 256-token system prompt and a
+# 32-512-token suffix each, 64 new tokens, greedy, 8 slots of 1,024 cells,
+# 256 tokens per engine step
+PAGED_REQUESTS, PAGED_SYSTEM, PAGED_NEW = 32, 256, 64
+PAGED_SUFFIX = (32, 512)
+PAGED_CHUNK = 256
+# phase 25's whole-model check: prompt lengths (8 slots, one prefill call)
+PAGED_CHECK_LENS = (128, 256)
+# phase 26: 8 requests of these lengths, so many new tokens each, through a
+# roomy pool and a tight one (TIGHT_SHARE of the prompts' blocks); the
+# speculative run on 8 repetitive prompts of these lengths
+PREEMPT_PROMPTS, PREEMPT_NEW, TIGHT_SHARE = (200, 400), 96, 0.6
+SPEC_PROMPTS = (64, 256)
+# the served model's logits, paged kernels vs plain (phase 25, three
+# seeds): (max, mean) |diff| over max|logit|. The two kernels sum the
+# softmax in another order than the plain versions' one softmax, as flash
+# does, and the int8 quantizers carry a last-bit difference on. Stated
+# before the first card run as phase 5's SERVED_FLASH_TOL (1e-1, 1.5e-2);
+# then set by the rule of phase 10 (the geometric mean of the worst sound
+# and the smallest control-fault reading over three seeds, one digit) from
+# the readings on an H100 (PERF.md): sound up to 4.74e-2 / 6.83e-3, the
+# fault (KV heads tiled) from 1.39 / 2.40e-1
+PAGED_MODEL_TOL = (3e-1, 4e-2)
+
+
+def paged_inputs(torch, gen, dev, cfg, B, nb=PAGED_NB, bs=PAGED_BS):
+    """bf16 K/V pools of B * nb blocks plus the trash block at the model's
+    heads, and tables (B, nb) int32: a random permutation of the blocks."""
+    N = B * nb
+    k = torch.randn((N + 1, bs, cfg.n_kv_heads, cfg.hd), generator=gen, device=dev)
+    v = torch.randn((N + 1, bs, cfg.n_kv_heads, cfg.hd), generator=gen, device=dev)
+    perm = torch.randperm(N, generator=gen, device=dev).to(torch.int32).reshape(B, nb)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), perm
+
+
+def dead_entries(torch, tables, kv_len, bs=PAGED_BS):
+    """Table entries past each slot's live blocks -> an id outside the pool
+    (the kernels never read them; the plain versions clamp them)."""
+    live = torch.div(kv_len + bs - 1, bs, rounding_mode="floor")
+    j = torch.arange(tables.shape[1], device=tables.device)[None, :]
+    return torch.where(j < live[:, None], tables, 10 ** 6).to(torch.int32).contiguous()
+
+
+def rotated_tables(torch, tables):
+    """The control fault: every table row rotated by one (logical block j
+    read from the physical block of j - 1), a one-index slip."""
+    return torch.roll(tables, 1, dims=1).contiguous()
+
+
+def plain_paged(M):
+    """The plain versions behind the wrappers' signatures."""
+    def dec(q, k, v, tables, kv_len):
+        return M.PREF.paged_decode_fwd(q, k, v, tables, kv_len,
+                                       scale=M.FA.softmax_scale(q.shape[-1]))
+
+    def pre(q, k, v, tables, q_off, kv_len):
+        return M.PREF.paged_prefill_fwd(q, k, v, tables, q_off, kv_len,
+                                        scale=M.FA.softmax_scale(q.shape[-1]))
+    return {"paged_decode_attention": dec, "paged_prefill_attention": pre}
+
+
+def compare_paged(torch, M, cfg, dev, seed):
+    """Phase 24: both paged kernels against their plain versions at the
+    served shapes (8 slots, 64 blocks of 16 per table, ragged lengths 0 to
+    1,024, dead entries outside the pool), q in bf16 and f32 over the bf16
+    pools: o within FLASH_O_TOL of max|o|, a dry slot exact zeros, two
+    launches the same bits, the control fault (rotated tables) at least
+    FAULT_MARGIN x outside. Prefill at Sq in {1, 5, 128, 300} with ragged
+    offsets off the block edges; then every prefill row bit-equal to the
+    decode kernel at kv_len = its position + 1. Returns per kernel the
+    readings, the number of comparisons and of bit-equal rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    out = {k: dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf)
+           for k in ("paged_decode_fwd", "paged_prefill_fwd")}
+    plain = plain_paged(M)
+    n = rows_equal = 0
+    B, H, hd = 8, cfg.n_heads, cfg.hd
+
+    def record(name, dt, got, want, fault, live, what):
+        nonlocal n
+        r = out[name]
+        tol = FLASH_O_TOL[str(dt).replace("torch.", "")]
+        check(got.dtype == dt and got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} {what}: bad output")
+        check(float(got[~live].abs().max()) == 0.0 if bool((~live).any()) else True,
+              f"{name} {what}: a dry slot is not exact zeros")
+        g, w, f = got[live], want[live], fault[live]
+        err = rel_err(torch, g, w)
+        r["max_rel_err"] = max(r["max_rel_err"], err)
+        r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(torch, g, w))
+        check(err <= tol, f"{name} {what}: kernel vs plain {err:g} > {tol:g}")
+        fo = rel_err(torch, g, f) / tol
+        r["fault_over_tol"] = min(r["fault_over_tol"], fo)
+        check(fo >= FAULT_MARGIN, f"{name} {what}: the control fault reads only {fo:g} x the "
+              "tolerance")
+        n += 1
+
+    k, v, tables = paged_inputs(torch, gen, dev, cfg, B)
+    for dt in (torch.bfloat16, torch.float32):
+        kv_len = torch.tensor([0, 1, 15, 16, 17, 300, 1000, 1024], dtype=torch.int32, device=dev)
+        t = dead_entries(torch, tables, kv_len)
+        q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dt)
+        o = M.PA.paged_decode_attention(q, k, v, t, kv_len)
+        check(torch.equal(o, M.PA.paged_decode_attention(q, k, v, t, kv_len)),
+              f"paged_decode_fwd {dt}: two launches differ")
+        record("paged_decode_fwd", dt, o, plain["paged_decode_attention"](q, k, v, t, kv_len),
+               plain["paged_decode_attention"](q, k, v, rotated_tables(torch, t), kv_len),
+               kv_len > 0, f"lens {kv_len.tolist()} q {dt}")
+        for Sq in (1, 5, 128, 300):
+            q_off = torch.tensor([0, 3, 16, 100, 257, 500, 700, 0], dtype=torch.int32,
+                                 device=dev)
+            kv_len = (q_off + Sq).clamp(max=PAGED_MAX_LEN).to(torch.int32)
+            kv_len[7] = 0                                  # not admitted: a dry slot
+            t = dead_entries(torch, tables, kv_len)
+            q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dt)
+            o = M.PA.paged_prefill_attention(q, k, v, t, q_off, kv_len)
+            what = f"Sq {Sq} q_off {q_off.tolist()} kv_len {kv_len.tolist()} q {dt}"
+            check(torch.equal(o, M.PA.paged_prefill_attention(q, k, v, t, q_off, kv_len)),
+                  f"paged_prefill_fwd {what}: two launches differ")
+            record("paged_prefill_fwd", dt, o,
+                   plain["paged_prefill_attention"](q, k, v, t, q_off, kv_len),
+                   plain["paged_prefill_attention"](q, k, v, rotated_tables(torch, t), q_off,
+                                                    kv_len), kv_len > 0, what)
+            for r in range(Sq):
+                lens = torch.where(kv_len > 0, (q_off + r + 1).clamp(max=PAGED_MAX_LEN),
+                                   0).to(torch.int32)
+                rows = (q_off + r < kv_len) & (kv_len > 0)
+                d = M.PA.paged_decode_attention(q[:, r:r + 1].contiguous(), k, v, t, lens)
+                check(torch.equal(d[rows], o[:, r:r + 1][rows]),
+                      f"paged_prefill_fwd {what}: row {r} differs from the decode at its "
+                      "position")
+                rows_equal += int(rows.sum())
+    torch.cuda.synchronize()
+    return out, n, rows_equal
+
+
+def time_paged(torch, M, cfg, dev, seed):
+    """Each paged kernel at served shapes, bf16: decode at 8 slots with the
+    lengths a mid-run decode step of phase 25 sees (system prompt + suffix
+    + half the new tokens), a verify pass (8 x 5 rows at those lengths) and
+    prefill chunks (8 slots x 32 rows, the first wave's share of the 256-
+    token step, and 8 x 256 after an adopted 256-token prefix). Per case:
+    the kernel, its plain version and its eager time; the library yardstick
+    SDPA (GQA, boolean mask) over K/V already gathered into dense tensors,
+    with the gather's own time beside it; and the bound: the live K/V cells
+    (each read once), q, o, the live table entries and the lengths over
+    3.35 TB/s against 4 x live (query, key) pairs x H x hd at the bf16 peak."""
+    import numpy as np
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed + 26)
+    rng = np.random.default_rng(seed + 25)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, bf = 8, torch.bfloat16
+    suffix = rng.integers(PAGED_SUFFIX[0], PAGED_SUFFIX[1] + 1, size=B)
+    served = [int(PAGED_SYSTEM + s + PAGED_NEW // 2) for s in suffix]
+    plain = plain_paged(M)
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True).transpose(1, 2)
+
+    out = {}
+    for name, Sq, q_off in (("decode", 1, [n - 1 for n in served]),
+                            ("verify", 5, [n - 1 for n in served]),
+                            ("prefill_chunk", 32, [0] * B),
+                            ("prefill_long", 256, [PAGED_SYSTEM] * B)):
+        q_off_t = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        kv_len = (q_off_t + Sq).to(torch.int32)
+        n_blk = [-(-int(x) // PAGED_BS) for x in kv_len]
+        per_set = (sum(n_blk) * PAGED_BS * KV * hd * 2 * 2 + B * Sq * H * hd * 4)
+        sets = []
+        for _ in range(max(2, int(120e6 // per_set) + 1)):
+            k, v, tables = paged_inputs(torch, gen, dev, cfg, B)
+            t = dead_entries(torch, tables, kv_len)
+            q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(bf)
+            sets.append((q, k, v, t))
+        decode = Sq == 1
+        if decode:
+            def kern(s):
+                return M.PA.paged_decode_attention(s[0], s[1], s[2], s[3], kv_len)
+
+            def plain_fn(s):
+                return plain["paged_decode_attention"](s[0], s[1], s[2], s[3], kv_len)
+        else:
+            def kern(s):
+                return M.PA.paged_prefill_attention(*s, q_off_t, kv_len)
+
+            def plain_fn(s):
+                return plain["paged_prefill_attention"](*s, q_off_t, kv_len)
+        L = PAGED_NB * PAGED_BS
+        qpos = q_off_t[:, None] + torch.arange(Sq, device=dev)[None, :]
+        kpos = torch.arange(L, device=dev)[None, None, :]
+        mask = ((kpos <= qpos[..., None]) & (kpos < kv_len[:, None, None]))[:, None]
+        gathered = [(s[0], M.PREF.gather_blocks(s[1], s[3]), M.PREF.gather_blocks(s[2], s[3]))
+                    for s in sets]
+        n_sets = len(sets)
+        ref_err = rel_err(torch, sdpa(*gathered[0], mask), kern(sets[0]))
+        check(ref_err <= 2e-2, f"SDPA yardstick disagrees with the paged {name} ({ref_err:g})")
+        live_pairs = int(sum(min(q_off[b] + r + 1, int(kv_len[b]))
+                             for b in range(B) for r in range(Sq)))
+        bytes_ = (sum(n_blk) * PAGED_BS * KV * hd * 2 * 2       # live K/V blocks
+                  + 2 * B * Sq * H * hd * 2                     # q, o
+                  + sum(n_blk) * 4 + B * 4 * (1 if decode else 2))
+        out[name] = dict(
+            ms=graph_ms(torch, lambda i: kern(sets[i]), n_sets),
+            plain_ms=graph_ms(torch, lambda i: plain_fn(sets[i]), n_sets),
+            library_ms=graph_ms(torch, lambda i: sdpa(*gathered[i], mask), n_sets),
+            gather_ms=graph_ms(torch, lambda i: (M.PREF.gather_blocks(sets[i][1], sets[i][3]),
+                                                 M.PREF.gather_blocks(sets[i][2], sets[i][3])),
+                               n_sets),
+            eager_ms=eager_ms(torch, lambda i: kern(sets[i]), n_sets),
+            bound=bound(bytes_, bf16_ops=4.0 * live_pairs * H * hd), sdpa_rel_err=ref_err,
+            calls=1, work=f"one {name} call per layer: {B} slots x {Sq} rows, q_off {q_off}, "
+                          f"kv_len {kv_len.tolist()}, bf16")
+        del sets, gathered
+    return out
+
+
+def paged_engine(torch, dev, **kw):
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import make_serve_engine
+    scfg = ServeConfig(max_batch=8, max_len=PAGED_MAX_LEN, quant_mode="int8_switchback",
+                       cache_mode="paged", block_size=PAGED_BS, **kw)
+    return make_serve_engine("smollm-360m", scfg, device=dev)
+
+
+def expected_paged_launches(cfg, stats) -> dict:
+    """Each wrapper's launches for a paged generate: the SwitchBack forward
+    kernels per layer per model call (prefill, verify or decode), the
+    paged decode kernel per layer per plain decode step, the paged prefill
+    kernel per layer per prefill or verify call; the flash kernels none."""
+    L = cfg.n_layers
+    verify = stats["spec_verify_calls"]
+    calls = stats["prefill_calls"] + stats["decode_steps"]
+    want = {k: per * L * calls for k, per in PER_LAYER.items()}
+    want.update(flash_fwd=0, decode_fwd=0,
+                paged_decode_fwd=L * (stats["decode_steps"] - verify),
+                paged_prefill_fwd=L * (stats["prefill_calls"] + verify))
+    return want
+
+
+def check_launches(counts, want, what):
+    for k, n in counts.items():
+        check(n == want.get(k, 0), f"{what}: {k}: {n} launches, expected {want.get(k, 0)}")
+    for k, n in want.items():
+        if n:
+            check(counts.get(k, 0) > 0, f"{what}: {k} never launched")
+
+
+def paged_serve(torch, M, cfg, dev, seed):
+    """Phase 25: full-width smollm-360m through the paged engine,
+    int8_switchback, chunked prefill: 32 requests sharing a 256-token
+    system prompt, 64 new tokens, greedy. Every launch counter exactly its
+    worked-out count (zeroed just before, read just after)."""
+    import numpy as np
+    t = time.perf_counter()
+    eng = paged_engine(torch, dev, prefill_chunk_tokens=PAGED_CHUNK)
+    check(eng.parallel.attn_impl == "flash_scan",
+          f"the engine's default attn_impl is {eng.parallel.attn_impl!r}")
+    params = eng.init_params(seed)
+    torch.cuda.synchronize()
+    print(f"[paged serve] engine ({eng.num_blocks} blocks of {PAGED_BS}, table width "
+          f"{eng.blocks_per_slot}) + params in {time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(seed + 25)
+    system = rng.integers(0, cfg.vocab_size, size=PAGED_SYSTEM).tolist()
+    suffix = rng.integers(PAGED_SUFFIX[0], PAGED_SUFFIX[1] + 1, size=PAGED_REQUESTS)
+    prompts = [system + rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in suffix]
+    eng.generate(params, prompts[:8], max_new_tokens=2)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(M)
+    gens, stats = eng.generate(params, prompts, max_new_tokens=PAGED_NEW)
+    counts = launch_counts(M)
+    check(len(gens) == PAGED_REQUESTS and all(len(g) == PAGED_NEW for g in gens),
+          f"not every request got {PAGED_NEW} tokens: {[len(g) for g in gens]}")
+    check(all(0 <= x < cfg.vocab_size for g in gens for x in g), "a token outside the vocabulary")
+    check_launches(counts, expected_paged_launches(cfg, stats), "paged serve")
+    check(stats["prefix_hits"] > 0 and stats["prefill_chunks"] > stats["prefill_calls"],
+          f"no prefix reuse or no chunking: {stats['prefix_hits']} hits, "
+          f"{stats['prefill_chunks']} chunks over {stats['prefill_calls']} calls")
+    print(f"[paged serve] {stats['new_tokens']} new tokens ({stats['prefill_tokens']} prefilled, "
+          f"{stats['prefill_tokens_saved']} adopted) in {stats['wall_s']:.3f} s: "
+          f"{stats['tokens_per_s']:.1f} tok/s, decode {stats['decode_tokens_per_s']:.1f} tok/s; "
+          f"ttft p50 {stats['ttft_p50_s'] * 1e3:.1f} ms p95 {stats['ttft_p95_s'] * 1e3:.1f} ms; "
+          f"itl p50 {stats['itl_p50_s'] * 1e3:.2f} ms p95 {stats['itl_p95_s'] * 1e3:.2f} ms; "
+          f"prefix hit rate {stats['prefix_hit_rate']:.3f}; {stats['prefill_chunks']} chunks "
+          f"over {stats['prefill_calls']} prefill calls, {stats['decode_steps']} decode steps; "
+          f"peak cache {stats['peak_cache_bytes'] / 2**20:.1f} MiB vs ring "
+          f"{stats['ring_equiv_cache_bytes'] / 2**20:.1f} MiB; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("[paged serve] launches:", json.dumps(counts))
+    print("[paged serve] stats:", json.dumps(stats))
+    return eng, params, stats, counts
+
+
+def paged_run_logits(eng, params, toks, lens, fed):
+    """A paged prefill over fresh tables (slot b owns blocks b * nb ...)
+    plus three decode steps fed ``fed`` (or the run's own greedy tokens):
+    the last-position logits of each call, and the tokens fed."""
+    import numpy as np
+    B, nb = eng.serve_cfg.max_batch, eng.blocks_per_slot
+    tables = np.arange(B * nb, dtype=np.int32).reshape(B, nb)
+    cache = eng.init_cache()
+    lg, cache = eng.prefill_paged(params, cache, tables, toks, np.zeros((B,), np.int32), lens,
+                                  np.ones((B,), bool))
+    steps, own = [lg[:, 0]], []
+    for i in range(3):
+        own.append(lg[:, 0].argmax(-1).cpu().numpy()[:, None])
+        lg, cache = eng.decode_paged(params, cache, tables, own[i] if fed is None else fed[i])
+        steps.append(lg[:, 0])
+    return steps, own
+
+
+def paged_whole_model(torch, M, eng, params, cfg, seed):
+    """Phase 25, the served model kernels vs plain: prefill (8 slots,
+    PAGED_CHECK_LENS tokens) plus three decode steps with the kernels and with the plain
+    versions swapped in (both paged kernels and the SwitchBack kernels, as
+    phase 5 swaps them), and the control fault (KV heads tiled) on the plain
+    path, from CHECK_SEEDS seeds: (max, mean) |diff| over max|logit| within
+    PAGED_MODEL_TOL, the fault outside. Returns the readings per seed."""
+    import numpy as np
+    res = []
+    for s in check_seeds(seed, 250):
+        rng = np.random.default_rng(s)
+        lens = rng.integers(PAGED_CHECK_LENS[0], PAGED_CHECK_LENS[1] + 1,
+                            size=eng.serve_cfg.max_batch).astype(np.int32)
+        toks = rng.integers(0, cfg.vocab_size, size=(len(lens), PAGED_CHECK_LENS[1]))
+        kern, fed = paged_run_logits(eng, params, toks, lens, None)
+        with plain_ops(M, flash=True):
+            plain, _ = paged_run_logits(eng, params, toks, lens, fed)
+            with tiled_kv_heads(M):
+                fault, _ = paged_run_logits(eng, params, toks, lens, fed)
+        check(all(bool(torch.isfinite(a).all()) for a in kern), "paged whole model: non-finite")
+        sound, bad = rel_errs(kern, plain), rel_errs(fault, plain)
+        res.append(dict(seed=s, max_rel_err=sound[0], mean_rel_err=sound[1],
+                        fault_max_rel_err=bad[0], fault_mean_rel_err=bad[1],
+                        bitwise=all(torch.equal(a, b) for a, b in zip(kern, plain))))
+    print("[paged whole model] prefill + 3 decode steps, 8 slots, "
+          f"{cfg.n_layers} layers, kernels vs plain, limit {PAGED_MODEL_TOL}: " + json.dumps(res))
+    worst = (max(r["max_rel_err"] for r in res), max(r["mean_rel_err"] for r in res))
+    fault_min = (min(r["fault_max_rel_err"] for r in res),
+                 min(r["fault_mean_rel_err"] for r in res))
+    check(worst[0] <= PAGED_MODEL_TOL[0] and worst[1] <= PAGED_MODEL_TOL[1],
+          f"paged whole model: kernels vs plain {worst} > {PAGED_MODEL_TOL}")
+    check(fault_min[0] > PAGED_MODEL_TOL[0] and fault_min[1] > PAGED_MODEL_TOL[1],
+          f"paged whole model: the control fault {fault_min} lies within {PAGED_MODEL_TOL}")
+    return res
+
+
+
+def paged_features(torch, M, cfg, dev, seed, params):
+    """Phase 26 at full width: (a) a tight pool (TIGHT_SHARE of the prompts'
+    blocks) with preemption="recompute" against a roomy one on the same
+    requests: the tight run preempts, and every request's tokens, the
+    preemptees' among them, equal the roomy run's; (b) spec_mode="ngram" on repetitive prompts against spec off:
+    drafts accepted, tokens equal, the launch counts exact; (c) what a
+    verify row and a decode step compute: the logits of a 5-row verify pass
+    against four decode steps' on the same cache, bit for bit or not
+    (printed)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 26)
+    res = {}
+    # (a) preemption
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(PREEMPT_PROMPTS[0], PREEMPT_PROMPTS[1] + 1, size=8)]
+    blocks = [-(-len(p) // PAGED_BS) for p in prompts]
+    worst = max(-(-(len(p) + PREEMPT_NEW - 1) // PAGED_BS) for p in prompts)
+    tight = max(worst, int(TIGHT_SHARE * sum(blocks)))
+    gens = {}
+    for name, nb in (("roomy", 0), ("tight", tight)):
+        eng = paged_engine(torch, dev, num_blocks=nb, preemption="recompute",
+                           prefill_chunk_tokens=PAGED_CHUNK)
+        reset_launch_counts(M)
+        gens[name], st = eng.generate(params, prompts, max_new_tokens=PREEMPT_NEW)
+        check_launches(launch_counts(M), expected_paged_launches(cfg, st), f"preemption {name}")
+        res[name] = {k: st[k] for k in ("sched_preempted", "peak_blocks_in_use", "num_blocks",
+                                        "prefill_calls", "decode_steps", "tokens_per_s")}
+    check(res["roomy"]["sched_preempted"] == 0 and res["tight"]["sched_preempted"] >= 1,
+          f"preemption: {res}")
+    differ = [i for i, (a, b) in enumerate(zip(gens["roomy"], gens["tight"])) if a != b]
+    res["requests_differing"] = differ
+    check(not differ, f"preemption: requests {differ} differ from the roomy run")
+    # (b) n-gram speculative decoding on repetitive prompts
+    pats = [rng.integers(0, cfg.vocab_size, size=int(p)).tolist() for p in rng.integers(3, 8, 8)]
+    prompts = [(p * 100)[:int(n)] for p, n in
+               zip(pats, rng.integers(SPEC_PROMPTS[0], SPEC_PROMPTS[1] + 1, size=8))]
+    for name, kw in (("spec_off", {}), ("spec_on", dict(spec_mode="ngram", spec_k=4,
+                                                        spec_min_ngram=1))):
+        eng = paged_engine(torch, dev, **kw)
+        reset_launch_counts(M)
+        gens[name], st = eng.generate(params, prompts, max_new_tokens=PAGED_NEW)
+        check_launches(launch_counts(M), expected_paged_launches(cfg, st), name)
+        res[name] = {k: st[k] for k in ("spec_drafted", "spec_accepted", "spec_verify_calls",
+                                        "tokens_per_model_pass", "decode_steps", "tokens_per_s")}
+    differ = [i for i, (a, b) in enumerate(zip(gens["spec_off"], gens["spec_on"])) if a != b]
+    res["spec_requests_differing"] = differ
+    check(res["spec_on"]["spec_accepted"] > 0, f"spec: no draft accepted {res['spec_on']}")
+    check(not differ, f"spec: requests {differ} differ from spec off")
+    # (c) a verify pass's rows against decode steps, logits bit for bit?
+    B, nb = eng.serve_cfg.max_batch, eng.blocks_per_slot
+    tables = np.arange(B * nb, dtype=np.int32).reshape(B, nb)
+    toks, lens = prompt_batch(prompts, B, SPEC_PROMPTS[1])
+    ones = np.ones((B,), bool)
+    cache = eng.init_cache()
+    lg, cache = eng.prefill_paged(params, cache, tables, toks, np.zeros((B,), np.int32), lens,
+                                  ones)
+    fed = [lg[:, 0].argmax(-1).cpu().numpy()]
+    dec = []
+    for _ in range(4):
+        lg, cache = eng.decode_paged(params, cache, tables, fed[-1][:, None])
+        dec.append(lg[:, 0])
+        fed.append(lg[:, 0].argmax(-1).cpu().numpy())
+    cache = eng.init_cache()
+    eng.prefill_paged(params, cache, tables, toks, np.zeros((B,), np.int32), lens, ones)
+    with torch.inference_mode():
+        ver, _ = eng._paged_prefill(params, cache, tables, np.stack(fed[:5], 1), lens,
+                                    lens + 5, ones, last_only=False)
+    res["verify_vs_decode"] = dict(
+        bitwise=[bool(torch.equal(ver[:, j], dec[j])) for j in range(4)],
+        max_abs_diff=[float((ver[:, j].float() - dec[j].float()).abs().max()) for j in range(4)],
+        argmax_equal=[bool(torch.equal(ver[:, j].argmax(-1), dec[j].argmax(-1)))
+                      for j in range(4)])
+    print("[paged features]", json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2422,11 +2887,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels.fp8_matmul import build as F8B
     from repro_torch.kernels.fp8_matmul import ops as F8
     from repro_torch.kernels.fp8_matmul import ref as F8REF
+    from repro_torch.kernels.paged_attention import build as PAB
+    from repro_torch.kernels.paged_attention import ops as PA
+    from repro_torch.kernels.paged_attention import ref as PREF
     from repro_torch.kernels.switchback import build as KB
     from repro_torch.kernels.switchback import ops as KOPS
     from repro_torch.kernels.switchback import ref as REF
     from repro_torch.serve import make_serve_engine
-    M = types.SimpleNamespace(KOPS=KOPS, REF=REF, FA=FA, FREF=FREF, F8=F8, F8REF=F8REF)
+    M = types.SimpleNamespace(KOPS=KOPS, REF=REF, FA=FA, FREF=FREF, F8=F8, F8REF=F8REF, PA=PA,
+                              PREF=PREF)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2458,13 +2927,13 @@ def main(argv=None) -> int:
         print(f"[time] {name}: {secs[name]:.1f} s", flush=True)
 
     with timed("2 build"):
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            builds = {lib: pool.submit(mod.build) for lib, mod in
-                      (("switchback", KB), ("flash_attention", FB), ("fp8_matmul", F8B))}
+        libs = (("switchback", KB), ("flash_attention", FB), ("fp8_matmul", F8B),
+                ("paged_attention", PAB))
+        with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+            builds = {lib: pool.submit(mod.build) for lib, mod in libs}
             built = {lib: f.result() for lib, f in builds.items()}
-        KB.load()
-        FB.load()
-        F8B.load()
+        for _, mod in libs:
+            mod.load()
     for lib, (lib_path, log) in built.items():
         print(f"[build] {os.path.relpath(lib_path, ROOT)}")
         for line in log.splitlines():
@@ -2512,6 +2981,26 @@ def main(argv=None) -> int:
                 served_lens = lengths
         prof = profs["flash_scan"][0]
     del eng, engines, params
+    torch.cuda.empty_cache()
+
+    # 24. the paged kernels vs plain, and their times
+    with timed("24 paged kernels vs plain"):
+        paged_worst, n_paged, n_rows = compare_paged(torch, M, cfg, dev, args.seed)
+        print(f"[kernels] {n_paged} paged comparisons within o {json.dumps(FLASH_O_TOL)} of "
+              f"max|o|, dry slots exact zeros, each bit-identical over two launches; control "
+              f"fault (tables rotated) >= {FAULT_MARGIN:g}x the tolerance; {n_rows} prefill "
+              "rows bit-equal to the decode kernel at their positions: " + json.dumps(paged_worst))
+        paged_t = time_paged(torch, M, cfg, dev, args.seed)
+        print("[timing] paged:", json.dumps(paged_t))
+    # 25. paged serve (the paged main path) and its served model kernels vs plain
+    with timed("25 paged serve"):
+        p_eng, p_params, p_stats, p_counts = paged_serve(torch, M, cfg, dev, args.seed)
+        paged_whole_model(torch, M, p_eng, p_params, cfg, args.seed)
+    # 26. the paged features at full width: preemption, n-gram drafts
+    with timed("26 paged features"):
+        paged_features(torch, M, cfg, dev, args.seed, p_params)
+    del p_eng, p_params
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 9. train (the training path): full width through Trainer
@@ -2677,6 +3166,33 @@ def main(argv=None) -> int:
                     **({"library": r["library"]} if r["library"] else {}))
 
     fp8_entries = [fp8_entry(k) for k in FP8_KERNELS]
+    p_decode = p_stats["decode_steps"] - p_stats["spec_verify_calls"]
+    p_calls = p_stats["prefill_calls"] + p_stats["spec_verify_calls"]
+
+    def paged_entry(name, case, per_call):
+        """A paged kernel: ``launches`` from the paged serve run (phase 25),
+        per decode step or per prefill/verify call beside; times at the
+        served shape ``case`` of phase 24, the other cases beside."""
+        r = paged_t[case]
+        b_ms, b_by = r["bound"]
+        others = {c: {k: v[k] for k in ("ms", "plain_ms", "library_ms", "gather_ms")}
+                  | {"bound_ms": v["bound"][0]} for c, v in paged_t.items() if c != case
+                  and (c == "decode") == (case == "decode")}
+        return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+                    launches=p_counts[name], **per_call,
+                    max_abs_err=paged_worst[name]["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=r["library_ms"], gather_ms=r["gather_ms"],
+                    library="scaled_dot_product_attention(attn_mask, enable_gqa) over the "
+                            "gathered cache; gather_ms the gather", eager_ms=r["eager_ms"],
+                    calls_timed=r["calls"], work=r["work"], other_shapes=others)
+
+    paged_entries = [
+        paged_entry("paged_decode_fwd", "decode",
+                    {"launches_per_decode_step": p_counts["paged_decode_fwd"] / max(p_decode, 1)}),
+        paged_entry("paged_prefill_fwd", "prefill_chunk",
+                    {"launches_per_prefill_or_verify_call":
+                     p_counts["paged_prefill_fwd"] / max(p_calls, 1)})]
     print("[clip train] step: " + json.dumps({
         m: {**{k: r[k] for k in ("step_ms", "pairs_per_s", "peak_memory_gib")},
             **{k: r["profile"][k] for k in ("device_ms_per_step", "device_idle_share",
@@ -2687,12 +3203,16 @@ def main(argv=None) -> int:
         **{k: train_prof[k] for k in ("step_ms", "tokens_per_s", "device_ms_per_step",
                                       "device_idle_share", "cuda_launches_per_step")}}))
     print("[time] phases (s): " + json.dumps(secs))
+    print("[paged serve] row: " + json.dumps({k: p_stats[k] for k in (
+        "tokens_per_s", "decode_tokens_per_s", "ttft_p50_s", "ttft_p95_s", "itl_p50_s",
+        "itl_p95_s", "prefix_hit_rate", "prefill_chunks", "prefill_calls", "decode_steps",
+        "peak_cache_bytes", "ring_equiv_cache_bytes")}))
     print(f"[done] {calls} model calls on the serve path, "
           f"{len(train_res['losses'])} train steps, {len(CLIP_MODES) + len(CLIP_FP8_MODES)} x "
           f"{1 + CLIP_STEPS} CLIP train steps; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
-                      + clip_entries + fp8_entries}))
+                      + clip_entries + fp8_entries + paged_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -157,13 +157,13 @@ class TrainConfig:
 class ServeConfig:
     """Knobs for the continuously-batched inference engine.
 
-    ``max_batch`` × ``max_len`` fixes the preallocated ring KV cache; the
-    scheduler admits queued requests into free slots and evicts finished
-    ones. The flash-tile, paged-cache, chunked-prefill, preemption and
-    speculative fields exist so a config reads the same as in the JAX
-    package; the port serves the ring cache, its flash kernels choose
-    their own tiles, and ``make_serve_engine`` raises on any of these
-    fields set to other than its default.
+    ``max_batch`` × ``max_len`` fixes the preallocated ring KV cache (or
+    the block tables' reach under ``cache_mode="paged"``); the scheduler
+    admits queued requests into free slots and evicts finished ones. The
+    fields and their meaning are the JAX package's (its comments say more);
+    the flash-tile fields exist so a config reads the same, and
+    ``make_serve_engine`` raises on them set to other than 0: the card's
+    kernels choose their own tiles.
     """
     max_batch: int = 8               # decode-batch slots (ring cache rows)
     max_len: int = 256               # cache cells per slot (ring capacity)
@@ -175,14 +175,14 @@ class ServeConfig:
     quant_mode: str = "bf16"         # precision policy for all linears
     attn_block_q: int = 0
     attn_block_k: int = 0
-    cache_mode: str = "ring"         # ring|paged (paged: a later slice)
-    block_size: int = 16
-    num_blocks: int = 0
-    prefix_cache: bool = True
-    prefill_chunk_tokens: int = 0
-    preemption: str = "off"
-    spec_mode: str = "off"           # off|ngram (ngram: a later slice)
-    spec_k: int = 4
-    spec_ngram: int = 3
-    spec_min_ngram: int = 2
+    cache_mode: str = "ring"         # ring|paged (block pool + prefix cache)
+    block_size: int = 16             # paged: tokens per physical KV block
+    num_blocks: int = 0              # paged: pool size; 0 = ring capacity
+    prefix_cache: bool = True        # paged: park finished requests' blocks
+    prefill_chunk_tokens: int = 0    # paged: per-step token budget; 0 = off
+    preemption: str = "off"          # paged: off|recompute (preempt-to-queue)
+    spec_mode: str = "off"           # off|ngram (paged, greedy only)
+    spec_k: int = 4                  # spec: max drafted tokens per slot
+    spec_ngram: int = 3              # spec: longest history n-gram matched
+    spec_min_ngram: int = 2          # spec: shortest n-gram accepted
     seed: int = 0                    # temperature>0 sampling seed

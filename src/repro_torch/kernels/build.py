@@ -1,15 +1,15 @@
 """Build, load and launch a CUDA source with a plain C interface.
 
-Each kernel family (``switchback``, ``flash_attention``) keeps one ``.cu``
-file under its ``csrc/`` and declares the signatures of its entry points;
-this module compiles it with ``nvcc`` into a shared library and loads it
-with ``ctypes`` — no PyTorch headers, no extension module, seconds per
-build. The library is built at first use into ``build/`` at the root of
+Each kernel family (``switchback``, ``flash_attention``, ``fp8_matmul``,
+``paged_attention``) keeps one ``.cu`` file under its ``csrc/`` and
+declares the signatures of its entry points; this module compiles it with
+``nvcc`` into a shared library and loads it with ``ctypes`` — no PyTorch
+headers, no extension module, seconds per build. The library is built at first use into ``build/`` at the root of
 the checkout, named by a hash of its own source and the flags, so an
 edited source never loads a stale library and editing one family never
 rebuilds another. Nothing here runs at import time: the CPU tests import
-the kernel modules on a host without ``nvcc``. The wrappers of both
-families share the device dispatch and launch helpers at the end.
+the kernel modules on a host without ``nvcc``. The wrappers of every
+family share the device dispatch and launch helpers at the end.
 """
 from __future__ import annotations
 

@@ -9,6 +9,9 @@ device of its tensors and runs on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --quant-mode int8_switchback --max-batch 4 --n-requests 8 --new-tokens 16
+    # the paged cache, chunked prefill, preemption, n-gram drafts
+    PYTHONPATH=src python -m repro_torch.launch.serve --cache-mode paged \
+        --prefill-chunk-tokens 8 --preemption recompute --spec-mode ngram
 """
 from __future__ import annotations
 
@@ -40,17 +43,32 @@ def main(argv=None):
     ap.add_argument("--attn-block-q", type=int, default=0)
     ap.add_argument("--attn-block-k", type=int, default=0)
     ap.add_argument("--cache-mode", default="ring", choices=("ring", "paged"),
-                    help="paged: not ported yet (raises)")
-    ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--num-blocks", type=int, default=0)
-    ap.add_argument("--no-prefix-cache", action="store_true")
-    ap.add_argument("--prefill-chunk-tokens", type=int, default=0)
-    ap.add_argument("--preemption", default="off", choices=("off", "recompute"))
+                    help="paged = block-pool KV cache + radix prefix cache + "
+                         "the block-table attention kernels")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged: tokens per physical KV block")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="paged: pool size; 0 = auto (ring-equivalent capacity "
+                         "max_batch*ceil(max_len/block_size))")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="paged: do not park finished requests' blocks for "
+                         "shared-prefix reuse")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                    help="paged: per-step token budget for chunked prefill; long "
+                         "prompts prefill in slices that share the step with "
+                         "decodes (0 = monolithic)")
+    ap.add_argument("--preemption", default="off", choices=("off", "recompute"),
+                    help="paged: when the block pool runs dry mid-decode, park the "
+                         "newest request's blocks to the prefix cache and requeue it")
     ap.add_argument("--spec-mode", default="off", choices=("off", "ngram"),
-                    help="ngram: not ported yet (raises)")
-    ap.add_argument("--spec-k", type=int, default=4)
-    ap.add_argument("--spec-ngram", type=int, default=3)
-    ap.add_argument("--spec-min-ngram", type=int, default=2)
+                    help="paged + greedy: n-gram speculative decoding, drafts "
+                         "verified in one paged-prefill pass")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="spec: max drafted tokens per slot per step")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="spec: longest history n-gram to match")
+    ap.add_argument("--spec-min-ngram", type=int, default=2,
+                    help="spec: shortest n-gram worth a verify pass")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -71,8 +89,11 @@ def main(argv=None):
                        spec_min_ngram=args.spec_min_ngram, seed=args.seed)
     engine = make_serve_engine(build(cfg), scfg, device=args.device)
     params = engine.init_params(args.seed)
+    cache_desc = (f"{engine.num_blocks}x{scfg.block_size} paged blocks"
+                  if scfg.cache_mode == "paged"
+                  else f"{scfg.max_batch}x{scfg.max_len} ring cache")
     print(f"[serve] {args.arch} device {engine.device} "
-          f"{args.quant_mode} — {scfg.max_batch}x{scfg.max_len} ring cache")
+          f"{args.quant_mode} — {cache_desc}")
 
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(max(args.prompt_len // 2, 1),
@@ -94,6 +115,24 @@ def main(argv=None):
           f"itl p50 {stats['itl_p50_s']*1e3:.2f}ms (decode-only; "
           f"wall p95 {stats['itl_wall_p95_s']*1e3:.2f}ms, "
           f"prefill-stall p95 {stats['prefill_stall_p95_s']*1e3:.2f}ms)")
+    if scfg.cache_mode == "paged":
+        print(f"[serve] paged: {stats['prefix_hits']}/"
+              f"{stats['prefix_lookups']} prefix hits, "
+              f"{stats['prefill_tokens_saved']} prefill tokens saved, "
+              f"peak {stats['peak_blocks_in_use']} blocks "
+              f"({stats['peak_cache_bytes']/1e6:.2f} MB vs "
+              f"{stats['ring_equiv_cache_bytes']/1e6:.2f} MB ring)")
+        if scfg.prefill_chunk_tokens or scfg.preemption != "off":
+            print(f"[serve] slo: {stats['prefill_chunks']} prefill chunks "
+                  f"over {stats['prefill_calls']} calls, "
+                  f"{stats['sched_preempted']} preemptions")
+        if scfg.spec_mode != "off":
+            print(f"[serve] spec: {stats['spec_accepted']}/"
+                  f"{stats['spec_drafted']} drafts accepted "
+                  f"({stats['spec_acceptance_rate']:.2f}) over "
+                  f"{stats['spec_verify_calls']} verify calls — "
+                  f"{stats['tokens_per_model_pass']:.2f} tokens per "
+                  f"model pass")
     print("sample:", gens[0][:12])
 
 

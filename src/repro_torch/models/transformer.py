@@ -9,9 +9,10 @@ scans over that dimension, the port runs a Python loop and takes group
 ``g``'s parameters and cache as views (``tree[g]``; in training one
 ``unbind`` per leaf, whose backward stacks the groups' gradients once).
 
-Serve states are updated in place: ``serve_prefill`` and ``decode_step``
-write keys, values and lengths into the cache tensors they are given and
-return the same state object.
+Serve states are updated in place: ``serve_prefill``, ``decode_step``,
+``paged_prefill`` and ``paged_decode_step`` write keys, values and
+lengths into the cache tensors they are given and return the same state
+object.
 
 Training runs with ``remat="none"`` only: ``"block"``/``"full"``
 (activation recomputation) raise until they are ported. MoE, SSM, hybrid
@@ -132,24 +133,37 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
                  policy: QuantPolicy, parallel: ParallelConfig, *,
-                 state: ATT.KVCache, prefill=None, rope_cache=None):
+                 state, prefill=None, rope_cache=None, paged=None):
     """One serving layer on its cache ``state`` (updated in place).
 
     ``prefill=(admit, prompt_lens)``: the attention runs
     ``attention_prefill`` and admitted slots' lengths reset to their prompt
     length; otherwise one decode step. ``rope_cache=(cos, sin)``: RoPE rows
-    gathered once per step by the engine."""
+    gathered once per step by the engine. ``paged=(tables, pref_lens)``
+    switches both modes onto the block-pool cache (``state`` is then a
+    ``PagedKVCache``): prefill runs the chunked ``attention_paged_prefill``
+    (suffix only, the resident prefix read through the table), decode
+    appends through the table; ``pref_lens`` is read in prefill only."""
+    impl = parallel.attn_impl
     h = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     if prefill is not None:
         admit, prompt_lens = prefill
-        a = ATT.attention_prefill(h, state, lp["attn"], cfg, policy,
-                                  admit=admit, rope_cache=rope_cache,
-                                  impl=parallel.attn_impl)
+        if paged is not None:
+            tables, pref_lens = paged
+            a = ATT.attention_paged_prefill(h, state, tables, lp["attn"], cfg, policy,
+                                            admit=admit, pref_lens=pref_lens,
+                                            prompt_lens=prompt_lens,
+                                            rope_cache=rope_cache, impl=impl)
+        else:
+            a = ATT.attention_prefill(h, state, lp["attn"], cfg, policy,
+                                      admit=admit, rope_cache=rope_cache, impl=impl)
         state.length.copy_(torch.where(admit, prompt_lens, state.length))
+    elif paged is not None:
+        a = ATT.attention_paged_decode_step(h, state, paged[0], lp["attn"], cfg,
+                                            policy, rope_cache=rope_cache, impl=impl)
     else:
         a = ATT.attention_decode_step(h, state, lp["attn"], cfg, policy,
-                                      rope_cache=rope_cache,
-                                      impl=parallel.attn_impl)
+                                      rope_cache=rope_cache, impl=impl)
     x = x + apply_layer_scale(lp.get("gamma1"), a)
     h2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
     m = mlp_block(h2, lp["mlp"], cfg, policy)
@@ -244,8 +258,8 @@ def init_serve_state(cfg: ModelConfig, max_batch: int, max_len: int,
 def _group(tree, g: int):
     """Group ``g``'s slice of a stacked parameter tree or serve state
     (views: writes land in the stacked tensors)."""
-    if isinstance(tree, ATT.KVCache):
-        return ATT.KVCache(tree.k[g], tree.v[g], tree.length[g])
+    if isinstance(tree, (ATT.KVCache, ATT.PagedKVCache)):
+        return type(tree)(tree.k[g], tree.v[g], tree.length[g])
     return PRM.tree_map(lambda t: t[g], tree)
 
 
@@ -291,4 +305,71 @@ def decode_step(params, states, tokens: torch.Tensor, cfg: ModelConfig,
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     rope_cache=rope_cache)
+    return lm_head(params, x, cfg, policy), states
+
+
+def init_paged_serve_state(cfg: ModelConfig, num_blocks: int, block_size: int,
+                           max_batch: int, dtype=torch.bfloat16, device="cuda"):
+    """Block-pool KV caches stacked over groups: per position-in-period a
+    ``PagedKVCache`` with k/v pools (G, num_blocks + 1, block_size,
+    n_kv_heads, hd) — the extra block at index ``num_blocks`` is the trash
+    block — and per-slot lengths (G, max_batch) int32, all zero. The
+    footprint scales with ``num_blocks`` (live tokens), not max_batch ×
+    max_len; which slot owns which block is the host-side block table."""
+    require_dense(cfg, "init_paged_serve_state")
+    P, G = period(cfg), n_groups(cfg)
+    shape = (G, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    return {f"pos{i}": ATT.PagedKVCache(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros((G, max_batch), dtype=torch.int32, device=device))
+        for i in range(P)}
+
+
+def set_serve_lengths(states, lens: torch.Tensor):
+    """Overwrite every group's per-slot lengths with ``lens`` (B,), in
+    place. The host scheduler knows how many K/V cells per slot are valid;
+    a speculative verify call commits draft K/V optimistically, and a
+    partial rejection leaves the lengths over-counting until this re-sync
+    (run lazily, before the next plain decode step reads them)."""
+    for st in states.values():
+        st.length.copy_(lens.to(st.length)[None, :].expand_as(st.length))
+    return states
+
+
+def paged_prefill(params, states, tables: torch.Tensor, tokens: torch.Tensor,
+                  pref_lens: torch.Tensor, prompt_lens: torch.Tensor,
+                  admit: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy,
+                  parallel: ParallelConfig, *, last_only: bool = False,
+                  rope_cache=None):
+    """Seed admitted slots' block-table caches from their prompt *suffixes*
+    (the part the prefix cache or an earlier chunk did not hold), in place.
+
+    tokens: (B, S) suffix tokens right-padded to a common S; pref_lens (B,)
+    resident prefix lengths; prompt_lens (B,) prefill targets; admit (B,)
+    bool; tables (B, n_blocks_per_slot) int32. Returns (logits, states):
+    logits (B, S, V), or (B, 1, V) with ``last_only`` (each slot's last
+    valid suffix position, gathered before the head)."""
+    require_dense(cfg, "paged_prefill")
+    x = embed_input(params, tokens, cfg, policy)
+    x = _run_layers(params, states, x, cfg, policy, parallel,
+                    prefill=(admit, prompt_lens), rope_cache=rope_cache,
+                    paged=(tables, pref_lens))
+    if last_only:
+        rows = torch.arange(x.shape[0], device=x.device)
+        idx = torch.clamp(prompt_lens.long() - pref_lens.long() - 1, 0, x.shape[1] - 1)
+        x = x[rows, idx][:, None]
+    return lm_head(params, x, cfg, policy), states
+
+
+def paged_decode_step(params, states, tables: torch.Tensor, tokens: torch.Tensor,
+                      cfg: ModelConfig, policy: QuantPolicy,
+                      parallel: ParallelConfig, *, rope_cache=None):
+    """One-token decode over the block-pool cache (in place). tokens (B, 1);
+    tables (B, n_blocks_per_slot) int32. Returns (logits (B, 1, V),
+    states); every slot's length advances by one, as in ``decode_step``."""
+    require_dense(cfg, "paged_decode_step")
+    x = embed_input(params, tokens, cfg, policy)
+    x = _run_layers(params, states, x, cfg, policy, parallel,
+                    rope_cache=rope_cache, paged=(tables, None))
     return lm_head(params, x, cfg, policy), states

@@ -22,6 +22,13 @@ MIXED_TOL (each tile's double sum is exact unless its products span more
 than about 18 binades, and then only a rounding of a sum may differ): at
 most one output in 10^4 off, by at most one ulp of the output type. A
 CUDA tensor must go to the kernel, never to the plain version.
+The paged-attention kernels (``kernels/paged_attention``) within O_TOL of
+their plain versions (one gather-then-dense softmax) at the paged serve
+path's shapes, with dead table entries outside the pool and a dry slot
+giving exact zeros; each prefill row bit-equal to the decode at the same
+position (the property that makes speculative verify and preemption
+recompute give a plain decode's tokens), and every kernel bit-identical
+over two launches.
 ``chip_smoke.py`` runs the same checks inside its end-to-end run.
 """
 from __future__ import annotations
@@ -34,6 +41,8 @@ from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flash_attention import ref as FREF
 from repro_torch.kernels.fp8_matmul import ops as F8
 from repro_torch.kernels.fp8_matmul import ref as F8REF
+from repro_torch.kernels.paged_attention import ops as PA
+from repro_torch.kernels.paged_attention import ref as PREF
 from repro_torch.kernels.switchback import ops as TOPS
 from repro_torch.kernels.switchback import ref as TREF
 
@@ -369,3 +378,107 @@ def test_cuda_tensors_launch_the_fp8_kernels():
         "fp8_row_quantize": 2, "fp8_tensor_quantize": 1, "fp8_block_quantize": 2,
         "fp8_matmul_dequant": 1, "fp8_matmul_dequant_t": 1, "fp8_mixed_matmul": 1,
         "fp8_mixed_matmul_t": 1}
+
+
+# ---------------------------------------------------------------------------
+# the paged-attention kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_row_sum_and_rms_norm_are_row_count_invariant():
+    """A row's sum of squares and its RMSNorm are the same bits whether it
+    rides in a decode step (8 rows), a verify pass (40) or a prefill (up to
+    8 x 4,096): what keeps spec-on and preempted tokens equal to plain
+    decode's on the card."""
+    from repro_torch.models.common import rms_norm, row_sum
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = torch.randn((8, 960), generator=gen, device=dev) * 3
+    gain = torch.randn(960, generator=gen, device=dev)
+    want_s, want_n = row_sum(base * base), rms_norm(base.bfloat16(), gain)
+    for R in (1, 5, 40, 256, 2048, 4096):
+        x = torch.randn((8, R, 960), generator=gen, device=dev) * 3
+        x[:, R // 2] = base
+        assert torch.equal(row_sum(x * x)[:, R // 2], want_s), R
+        assert torch.equal(rms_norm(x.bfloat16(), gain)[:, R // 2], want_n), R
+
+
+def _paged_inputs(dev, dt, B, nb, bs=16, seed=0):
+    """Pools of B * nb blocks (+ the trash block) at smollm-360m's heads,
+    tables a permutation of them; the plain versions clamp dead ids, the
+    kernels never read them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N = B * nb
+    k = torch.randn((N + 1, bs, 5, 64), generator=gen, device=dev).to(dt)
+    v = torch.randn((N + 1, bs, 5, 64), generator=gen, device=dev).to(dt)
+    perm = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
+    return gen, k, v, perm.reshape(B, nb)
+
+
+def _kill_dead(tables, kv_len, bs):
+    """Table entries past each slot's live blocks -> an id outside the pool."""
+    live = torch.div(kv_len + bs - 1, bs, rounding_mode="floor")
+    j = torch.arange(tables.shape[1], device=tables.device)[None, :]
+    return torch.where(j < live[:, None], tables, 10 ** 6).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_paged_decode_matches_plain(dt):
+    dev = _card()
+    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 8, 64)
+    kv_len = torch.tensor([0, 1, 15, 16, 17, 300, 1000, 1024], dtype=torch.int32, device=dev)
+    tables = _kill_dead(tables, kv_len, 16)
+    q = torch.randn((8, 1, 15, 64), generator=gen, device=dev).to(dt)
+    o = PA.paged_decode_attention(q, k, v, tables, kv_len)
+    ro = PREF.paged_decode_fwd(q, k, v, tables, kv_len, scale=FA.softmax_scale(64))
+    torch.cuda.synchronize()
+    assert o.dtype == dt and bool(torch.isfinite(o).all()) and _rel(o, ro) <= O_TOL[dt]
+    assert float(o[0].abs().max()) == 0.0                  # kv_len 0: exact zeros
+    assert torch.equal(PA.paged_decode_attention(q, k, v, tables, kv_len), o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Sq", [1, 5, 128, 300])
+def test_cuda_paged_prefill_matches_plain_and_decode(Sq, dt):
+    """Ragged offsets off block edges and a dry slot; then every row
+    bit-equal to the decode kernel at kv_len = its position + 1."""
+    dev = _card()
+    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 8, 64, seed=Sq)
+    q_off = torch.tensor([0, 3, 16, 100, 257, 500, 700, 0], dtype=torch.int32, device=dev)
+    kv_len = (q_off + Sq).clamp(max=1024).to(torch.int32)
+    kv_len[7] = 0                                          # not admitted: dry
+    tables = _kill_dead(tables, kv_len, 16)
+    q = torch.randn((8, Sq, 15, 64), generator=gen, device=dev).to(dt)
+    o = PA.paged_prefill_attention(q, k, v, tables, q_off, kv_len)
+    ro = PREF.paged_prefill_fwd(q, k, v, tables, q_off, kv_len, scale=FA.softmax_scale(64))
+    torch.cuda.synchronize()
+    live = kv_len > 0
+    assert o.dtype == dt and bool(torch.isfinite(o).all())
+    assert _rel(o[live], ro[live]) <= O_TOL[dt]
+    assert float(o[7].abs().max()) == 0.0
+    assert torch.equal(PA.paged_prefill_attention(q, k, v, tables, q_off, kv_len), o)
+    for r in range(0, Sq, max(1, Sq // 7)):
+        lens = torch.where(live, (q_off + r + 1).clamp(max=1024), 0).to(torch.int32)
+        rows = (q_off + r < kv_len) & live
+        d = PA.paged_decode_attention(q[:, r:r + 1].contiguous(), k, v, tables, lens)
+        assert torch.equal(d[rows], o[:, r:r + 1][rows]), r
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_paged_kernels():
+    dev = _card()
+    PA.reset_launch_counts()
+    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 2, 4, bs=4)
+    q = torch.randn((2, 3, 6, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device=dev)
+    PA.paged_prefill_attention(q, k[:, :, :2].contiguous(), v[:, :, :2].contiguous(),
+                               tables, lens - 3, lens)
+    PA.paged_decode_attention(q[:, :1].contiguous(), k[:, :, :2].contiguous(),
+                              v[:, :, :2].contiguous(), tables, lens)
+    torch.cuda.synchronize()
+    assert PA.launch_counts() == {"paged_decode_fwd": 1, "paged_prefill_fwd": 1}
+    with pytest.raises(ValueError, match="devices"):   # mixed devices
+        PA.paged_decode_attention(q[:, :1].contiguous(), k[:, :, :2].contiguous(),
+                                  v[:, :, :2].contiguous(), tables, lens.cpu())

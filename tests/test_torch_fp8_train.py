@@ -31,6 +31,12 @@
   max 1.7e-1, mean 2.3e-2, loss 2.5e-6). ``fp8_mixed`` runs with 16 x 32
   tiles and ratio 2, so its reduced widths hold several tiles and some
   fall back.
+* ``fp8_mixed`` at its default 128 x 128 tiles and fallback ratio, where
+  the JAX package rounds each tile's f32 dot and the port sums each tile
+  exactly and rounds once (the kernels' bit-equality on the card rests on
+  that): loss and every gradient leaf against JAX's, within limits derived
+  in the test from the yardstick, the same step of the JAX package jitted
+  with XLA's excess precision on against off (``_default_tile_jax``).
 * One train step through ``make_train_step`` per fp8 mode: loss and grad
   norm alike, and the same metric keys (the quant-health gauges, the
   ``fp8_mixed`` fallback fraction included).
@@ -92,6 +98,16 @@ CLIP_CASES = [("fp8", None, "dense"), ("fp8_mixed", None, "dense"),
 # docstring); a gradient of the wrong sign or a missing scale reads far above
 LOSS_TOL = 1e-4
 GRAD_TOL = {"dense": (5e-2, 5e-3), "flash_scan": (2.5e-1, 4e-2)}
+# fp8_mixed at its defaults (128 x 128 tiles, ratio 8). The limits are the
+# yardstick's own readings, taken in the test: the loss's relative
+# difference and the worst leaf's max and mean |diff| over max|JAX| between
+# the JAX step with excess precision on and off. When this test was
+# written they read 1.87e-2 / 2.31e-1 / 3.94e-2, and the port 1.0e-7 /
+# 7.7e-2 / 1.2e-2 (dense) and 1.0e-7 / 1.0e-1 / 1.4e-2 (flash_scan). The
+# yardstick may not exceed DEFAULT_TILE_CEILING, so that the derived limits
+# cannot grow loose unseen.
+DEFAULT_TILE_POLICY = dict(fp8_block_rows=128, fp8_block_cols=128)
+DEFAULT_TILE_CEILING = (5e-2, 5e-1, 1e-1)
 
 
 def _np(t) -> np.ndarray:
@@ -229,6 +245,72 @@ def test_clip_step_loss_and_grads_match_jax(mode, lsi, impl):
     assert not bad, (mode, bad)
     if lsi == 0.0:                          # γ = 0: the blocks' weights get no gradient
         assert not np.abs(t_flat["/visual/blocks/mlp/w_up"]).any()
+
+
+_YARDSTICK: dict = {}
+
+
+def _leaf_readings(got: dict, want: dict):
+    """Per leaf (max, mean) |got - want| over max|want|, the key bias left
+    out (its exact gradient is 0: rounding noise on both sides)."""
+    out = {}
+    for k, w in want.items():
+        if not k.endswith("/bk"):
+            top = np.abs(w).max() or 1.0
+            d = np.abs(got[k] - w)
+            out[k] = (d.max() / top, d.mean() / top)
+    return out
+
+
+def _default_tile_jax():
+    """JAX's fp8_mixed step at the default tiles, jitted with excess
+    precision off (the reference) and on (the yardstick), and the limits
+    (loss, leaf max, leaf mean) the yardstick reads."""
+    if not _YARDSTICK:
+        jcfg, _, jparams, _, batch = _setup(None)
+        jpol = JPolicy("fp8_mixed", **DEFAULT_TILE_POLICY)
+        parallel = JParallel(mesh_shape=(1, 1), remat="none")
+        sub = jax.random.split(jax.random.PRNGKey(0))[1]
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+        def jloss(p, b):
+            return JCL.clip_loss(p, b, jcfg, jpol, parallel, patch_drop_rng=sub)
+
+        for excess in (False, True):
+            (loss, _), grad = jax.jit(jax.value_and_grad(jloss, has_aux=True)).lower(
+                jparams, jb).compile(compiler_options={"xla_allow_excess_precision": excess})(
+                jparams, jb)
+            _YARDSTICK[excess] = (float(loss), _flat(grad))
+        (l_off, g_off), (l_on, g_on) = _YARDSTICK[False], _YARDSTICK[True]
+        leaves = _leaf_readings(g_on, g_off).values()
+        _YARDSTICK["limits"] = (abs(l_on - l_off) / abs(l_off), max(r[0] for r in leaves),
+                                max(r[1] for r in leaves))
+    return _YARDSTICK[False], _YARDSTICK["limits"]
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash_scan"])
+def test_clip_step_fp8_mixed_default_tiles_matches_jax(impl):
+    """fp8_mixed at 128 x 128 tiles and the default ratio: the loss and
+    every gradient leaf within the JAX-vs-JAX yardstick's readings
+    (derived in ``_default_tile_jax``), the yardstick itself under
+    DEFAULT_TILE_CEILING."""
+    jcfg, tcfg, _, np_params, batch = _setup(None)
+    (j_loss, j_flat), limits = _default_tile_jax()
+    assert all(lim <= ceil for lim, ceil in zip(limits, DEFAULT_TILE_CEILING)), limits
+    sub = jax.random.split(jax.random.PRNGKey(0))[1]
+    keep = max(1, int(jcfg.n_patches * (1 - jcfg.patch_dropout)))
+    kept = np.asarray(jax.random.permutation(sub, jcfg.n_patches)[:keep])
+    t_grad, t_loss, _ = loss_and_grads(
+        build(tcfg), QuantPolicy("fp8_mixed", **DEFAULT_TILE_POLICY),
+        ParallelConfig(remat="none", attn_impl=impl), from_numpy_tree(np_params, device="cpu"),
+        {"images": torch.from_numpy(batch["images"]), "texts": torch.from_numpy(batch["texts"])},
+        patch_keep=torch.tensor(kept))
+    t_flat = _flat(t_grad)
+    assert set(t_flat) == set(j_flat)
+    assert abs(float(t_loss) - j_loss) <= limits[0] * abs(j_loss)
+    bad = {k: r for k, r in _leaf_readings(t_flat, j_flat).items()
+           if r[0] > limits[1] or r[1] > limits[2]}
+    assert not bad, (limits, bad)
 
 
 @pytest.mark.parametrize("mode", ("fp8", "fp8_mixed", "fp8_sim", "fp8_switchback"))

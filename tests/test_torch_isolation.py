@@ -9,6 +9,9 @@
   ``NotImplementedError``, and the ones a slice has brought (the fp8
   modes) run: the serve engine in ``fp8`` and ``fp8_mixed`` gives the JAX
   package's greedy tokens.
+* ``make_serve_engine`` validates a serve config as the JAX package's
+  does: the same configs raise, with the same exception type, and the
+  same ones are accepted (the paged knobs on the ring engine among them).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.configs.base import ParallelConfig, ServeConfig
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.fp8_matmul import ops as F8OPS
+from repro_torch.kernels.paged_attention import ops as PAOPS
 from repro_torch.kernels.switchback import ops as KOPS
 from repro_torch.models import build
 from repro_torch.models import params as PRM
@@ -116,24 +120,19 @@ def test_kernel_wrappers_have_no_backend_switch():
     """Dispatch is by device only: no wrapper takes a backend argument, so
     a CUDA tensor cannot be sent to the plain version."""
     import inspect
-    for fn in (*KOPS.KERNELS, *FA.KERNELS.values(), *F8OPS.KERNELS, F8OPS.mixed):
+    for fn in (*KOPS.KERNELS, *FA.KERNELS.values(), *F8OPS.KERNELS, F8OPS.mixed,
+               *PAOPS.KERNELS.values()):
         assert "backend" not in inspect.signature(fn).parameters
     assert "backend" not in {f.name for f in dataclasses.fields(QuantPolicy)}
 
 
 @pytest.mark.parametrize("bad", [
-    dict(serve=dict(cache_mode="paged")),
     dict(serve=dict(spec_mode="ngram")),
     dict(serve=dict(prefill_chunk_tokens=8)),
     dict(serve=dict(preemption="recompute")),
     dict(parallel=ParallelConfig(attn_block_k=128)),
     dict(parallel=ParallelConfig(attn_impl="dense", attn_block_q=64)),
     dict(serve=dict(attn_block_k=128)),
-    dict(serve=dict(block_size=32)),
-    dict(serve=dict(num_blocks=64)),
-    dict(serve=dict(prefix_cache=False)),
-    dict(serve=dict(spec_k=2)),
-    dict(serve=dict(spec_min_ngram=1)),
     dict(policy="fp16"),
     dict(policy="fp32"),
 ])
@@ -145,6 +144,52 @@ def test_unported_paths_raise(bad):
         make_serve_engine(build(cfg), scfg, parallel=bad.get("parallel"),
                           policy=QuantPolicy(bad["policy"]) if "policy" in bad else None,
                           device="cpu")
+
+
+@pytest.mark.parametrize("fields", [
+    dict(cache_mode="paged", rollover=True),
+    dict(cache_mode="paged", spec_mode="ngram", spec_k=0),
+    dict(cache_mode="paged", spec_mode="ngram", spec_min_ngram=4),
+    dict(cache_mode="paged", spec_mode="ngram", spec_min_ngram=0),
+    dict(cache_mode="paged", preemption="bogus"),
+    dict(cache_mode="paged", spec_mode="medusa"),
+    dict(cache_mode="pagedd"),
+    dict(spec_mode="ngram"),
+    dict(prefill_chunk_tokens=8),
+    dict(preemption="recompute"),
+    dict(block_size=32),
+    dict(num_blocks=64),
+    dict(prefix_cache=False),
+    dict(spec_k=2),
+    dict(spec_min_ngram=1),
+    dict(cache_mode="paged", block_size=8, num_blocks=20, prefix_cache=False,
+         prefill_chunk_tokens=8, preemption="recompute", spec_mode="ngram", spec_k=2),
+], ids=lambda f: ",".join(f"{k}={v}" for k, v in f.items()))
+def test_serve_config_validation_matches_jax(fields):
+    """The port's ``make_serve_engine`` raises what the JAX package's raises
+    (paged + rollover, ring + chunked prefill, preemption or ngram:
+    NotImplementedError; a bad cache_mode, preemption or spec_mode, spec_k
+    < 1, spec_min_ngram out of range: ValueError) and accepts what it
+    accepts, the paged knobs on the ring engine included."""
+    from repro.configs import get_reduced_config as jax_reduced
+    from repro.configs.base import ServeConfig as JServe
+    from repro.launch.mesh import make_test_mesh
+    from repro.models import build as jax_build
+    from repro.serve import make_serve_engine as jax_engine
+
+    def outcome(make):
+        try:
+            make()
+        except Exception as e:                   # noqa: BLE001 - compared below
+            return type(e).__name__
+        return None
+
+    base = dict(max_batch=2, max_len=16, quant_mode="int8_switchback")
+    want = outcome(lambda: jax_engine(jax_build(jax_reduced("smollm-360m")),
+                                      JServe(**base, **fields), make_test_mesh((1, 1))))
+    got = outcome(lambda: make_serve_engine(build(get_reduced_config("smollm-360m")),
+                                            ServeConfig(**base, **fields), device="cpu"))
+    assert got == want
 
 
 @pytest.mark.parametrize("mode", ["fp8", "fp8_mixed"])
