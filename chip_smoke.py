@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 9-17, 19, 20, 8, 18, 23, 21, 22):
+24-26, 9-17, 19, 20, 8, 18, 23, 27, 21, 22):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the TF32 flags (both left False);
-2. build: compile the four kernel libraries from this checkout with nvcc,
+2. build: compile the five kernel libraries from this checkout with nvcc,
    in parallel (``csrc/switchback.cu``, ``csrc/flash_attention.cu``,
-   ``csrc/fp8_matmul.cu``, ``csrc/paged_attention.cu``);
+   ``csrc/fp8_matmul.cu``, ``csrc/paged_attention.cu``,
+   ``csrc/fp8_cast.cu``);
 3. kernels vs plain: each SwitchBack kernel bit-equal to its plain PyTorch
    version at the serve path's shapes (decode rows 8, prefill rows 1024,
    K in {960, 2560}, M in {320, 960, 2560}, exact half-way ties and an
@@ -152,7 +153,26 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     ``preemption="recompute"`` preempts and gives every request the roomy
     pool's tokens; ``spec_mode="ngram"`` on repetitive prompts accepts
     drafts and gives spec off's tokens; launch counts exact; a verify
-    pass's logit rows against decode steps' (printed).
+    pass's logit rows against decode steps' (printed);
+27. the op entry points ``wgrad_bf16`` (``kernels/switchback/ops.py``) and
+    ``fp8_cast_tensorwise`` (``kernels/fp8_cast/ops.py``), which no serve
+    or train path calls (their counters read 0 in every phase above): each
+    driven once at every shape below with the counters zeroed just before
+    and read just after, then held against its plain version, bit-equal,
+    and run again for the same bits. ``fp8_cast_tensorwise`` in both
+    formats at the JAX package's test shapes (17, 257, 512 and 1,030 rows
+    x 130) and CLIP's (X 4,128 x 1,280 and 4,128 x 5,120 bf16, W 1,280 x
+    3,840 and 1,280 x 5,120 f32), with the tensor's absmax, a larger stale
+    one and one under which values clip; fp8 ties after scaling, fp8
+    subnormals, zeros of both signs; an all-zero tensor with absmax 0; the
+    two inputs where the JAX kernel and its XLA path differ, at the
+    kernel's values. ``wgrad_bf16`` at smollm's training shapes (2,048
+    rows, and 8 and 1,000), one CLIP vision layer's four weight gradients
+    (4,128 rows), the text layer's (2,464) and the patch embedding (8,192
+    x 588 -> 1,280); also against cuBLAS (``wgrad_16bit``) within
+    WGRAD_BOUND, with the control fault (Ẏ's rows shifted by one) outside.
+    Then both timed at CLIP's shapes (and wgrad at smollm's) beside their
+    bound, plain version and library call.
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -190,6 +210,7 @@ SB_SOURCE = "src/repro_torch/kernels/switchback/csrc/switchback.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 F8_SOURCE = "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu"
 PA_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+FC_SOURCE = "src/repro_torch/kernels/fp8_cast/csrc/fp8_cast.cu"
 PA_PY = "src/repro/kernels/paged_attention/paged_attention.py"
 # the fp8 wrappers' launch-count keys (kernels/fp8_matmul/ops.py)
 FP8_KERNELS = ("fp8_row_quantize", "fp8_tensor_quantize", "fp8_block_quantize",
@@ -204,7 +225,8 @@ SOURCE = {"tensor_quantize": SB_SOURCE, "fused_switchback_fwd": SB_SOURCE,
           "flash_fwd": FA_SOURCE, "decode_fwd": FA_SOURCE,
           "flash_bwd_dq": FA_SOURCE, "flash_bwd_dkv": FA_SOURCE,
           **dict.fromkeys(FP8_KERNELS, F8_SOURCE),
-          "paged_decode_fwd": PA_SOURCE, "paged_prefill_fwd": PA_SOURCE}
+          "paged_decode_fwd": PA_SOURCE, "paged_prefill_fwd": PA_SOURCE,
+          "wgrad_bf16": SB_SOURCE, "fp8_cast_tensorwise": FC_SOURCE}
 REPLACES = {
     "tensor_quantize": "src/repro/kernels/switchback/switchback.py:124",
     "fused_switchback_fwd": "src/repro/kernels/switchback/switchback.py:269",
@@ -224,7 +246,12 @@ REPLACES = {
     "fp8_matmul_dequant_t": F8_PY + ":176", "fp8_mixed_matmul": F8_PY + ":258",
     "fp8_mixed_matmul_t": F8_PY + ":258",
     "paged_decode_fwd": PA_PY + ":214", "paged_prefill_fwd": PA_PY + ":148",
+    "wgrad_bf16": "src/repro/kernels/switchback/switchback.py:364",
+    "fp8_cast_tensorwise": "src/repro/kernels/fp8_cast/fp8_cast.py:32",
 }
+# the op entry points' kernels, which no serve or train path launches: every
+# phase that checks exact launch counts expects 0 of each
+OP_KERNELS = ("wgrad_bf16", "fp8_cast_tensorwise")
 # the SwitchBack wrappers, forward and input gradient (kernels/switchback/ops.py)
 SB_KERNELS = ("tensor_quantize", "fused_switchback_fwd", "row_quantize", "col_quantize",
               "int8_matmul_dequant", "fused_switchback_dgrad", "int8_matmul_dequant_t")
@@ -260,7 +287,7 @@ DATA_VOCAB = 8192
 TRAIN_PER_LAYER = {"tensor_quantize": 7, "fused_switchback_fwd": 6, "row_quantize": 3,
                    "int8_matmul_dequant": 1, "int8_matmul_dequant_t": 2,
                    "fused_switchback_dgrad": 5, "flash_fwd": 1, "flash_bwd_dq": 1,
-                   "flash_bwd_dkv": 1, "decode_fwd": 0}
+                   "flash_bwd_dkv": 1, "decode_fwd": 0, **dict.fromkeys(OP_KERNELS, 0)}
 # flash backward kernel vs plain, relative to max|grad|: the same
 # recomputed p on both sides, the sums over keys and query rows in another
 # order (f32 in both dtypes: bf16 inputs are exact in f32)
@@ -705,14 +732,12 @@ SERVED_FLASH_TOL = (1e-1, 1.5e-2)
 
 def launch_counts(M) -> dict:
     return {**M.KOPS.launch_counts(), **M.FA.launch_counts(), **M.F8.launch_counts(),
-            **M.PA.launch_counts()}
+            **M.PA.launch_counts(), **M.FC.launch_counts()}
 
 
 def reset_launch_counts(M):
-    M.KOPS.reset_launch_counts()
-    M.FA.reset_launch_counts()
-    M.F8.reset_launch_counts()
-    M.PA.reset_launch_counts()
+    for family in (M.KOPS, M.FA, M.F8, M.PA, M.FC):
+        family.reset_launch_counts()
 
 
 def expected_launches(cfg, prefill_calls: int, decode_steps: int, impl: str) -> dict:
@@ -723,6 +748,7 @@ def expected_launches(cfg, prefill_calls: int, decode_steps: int, impl: str) -> 
         want[k] = 0 if impl == "dense" else cfg.n_layers * (
             per["prefill"] * prefill_calls + per["decode"] * decode_steps)
     want.update(paged_decode_fwd=0, paged_prefill_fwd=0)      # the ring cache's path
+    want.update(dict.fromkeys(OP_KERNELS, 0))
     return want
 
 
@@ -1656,10 +1682,13 @@ def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="t
 
 
 def time_train_kernels(torch, M, cfg, dev, seed):
-    """The training path's new kernels at its shapes, one layer's calls:
-    the int8 dgrad pair at 2048 rows (5 fused calls, 2 transposed), the
-    flash backward pair at 8 x 256 causal bf16 (one call each); each with
-    its plain version, a library call where one exists and the bound."""
+    """The training path's kernels at its shapes, one layer's calls: the
+    int8 dgrad pair at 2048 rows (5 fused calls, 2 transposed), the flash
+    backward pair at 8 x 256 causal bf16 (one call each); each with its
+    plain version, a library call where one exists and the bound. Also the
+    two forward kernels whose library call has a train-shape yardstick:
+    ``int8_matmul_dequant`` at w_down's 2048 x 2560 -> 960 (``torch._int_mm``
+    + scale) and ``flash_fwd`` at 8 x 256 causal (SDPA)."""
     import torch.nn.functional as F
     KOPS, REF = M.KOPS, M.REF
     gen = torch.Generator(device=dev).manual_seed(seed + 19)
@@ -1678,18 +1707,27 @@ def time_train_kernels(torch, M, cfg, dev, seed):
             w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, N, Mw, dev))
             g_q, s_g = KOPS.row_quantize(activations(torch, gen, R, Mw, dev))
             s["two"].append((g_q, w_q, s_g * REF.div(s_w, 127.0 * 127.0)))
+        x_q, s_x = KOPS.row_quantize(activations(torch, gen, R, FF, dev))
+        w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, FF, D, dev))
+        s["down"] = (x_q, w_q, s_x * REF.div(s_w, 127.0 * 127.0))
         return s
 
-    per_set = sum(R * m * 2 + m * n for m, n in fused) + sum(R * m + m * n for m, n in two)
+    per_set = (sum(R * m * 2 + m * n for m, n in fused) + sum(R * m + m * n for m, n in two)
+               + R * FF + FF * D)
     sets = [one_set() for _ in range(max(2, int(120e6 // per_set) + 1))]
     torch.cuda.synchronize()
 
     def int_mm(g_q, w_q, scale):
         return (torch._int_mm(g_q, w_q.t()).float() * scale).to(torch.bfloat16)
 
+    def int_mm_fwd(x_q, w_q, scale):
+        return (torch._int_mm(x_q, w_q).float() * scale).to(torch.bfloat16)
+
     g_q, w_q, sc = sets[0]["two"][0]
     check(torch.equal(int_mm(g_q, w_q, sc), KOPS.int8_matmul_dequant_t(g_q, w_q, sc)),
           "torch._int_mm yardstick disagrees with int8_matmul_dequant_t")
+    check(torch.equal(int_mm_fwd(*sets[0]["down"]), KOPS.int8_matmul_dequant(*sets[0]["down"])),
+          "torch._int_mm yardstick disagrees with int8_matmul_dequant")
     out = {}
     # name: (calls, call(set, ops module), library call, bytes, int8 ops, f32 ops)
     work = {
@@ -1702,6 +1740,10 @@ def time_train_kernels(torch, M, cfg, dev, seed):
             lambda s: [int_mm(*a) for a in s["two"]],
             sum(R * m + m * n + R * 4 + R * n * 2 for m, n in two),
             sum(2 * R * m * n for m, n in two), 0),
+        "int8_matmul_dequant": (
+            1, lambda s, op: op.int8_matmul_dequant(*s["down"]),
+            lambda s: int_mm_fwd(*s["down"]), R * FF + FF * D + R * 4 + R * D * 2,
+            2 * R * FF * D, 0),
     }
     out.update(time_work(torch, KOPS, REF, sets, work,
                          lambda c: f"one layer's {c} call(s) at {R} rows"))
@@ -1746,6 +1788,27 @@ def time_train_kernels(torch, M, cfg, dev, seed):
             eager_ms=eager_ms(torch, lambda i: fn(*asets[i], causal=True), len(asets)),
             bound=bound(bytes_, bf16_ops=flops), calls=1,
             work=f"one layer's call: {B} x {S} tokens, causal, bf16")
+
+    # flash_fwd at the same shape beside SDPA's forward
+    def sdpa_fwd(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              enable_gqa=True).transpose(1, 2)
+
+    fwd_err = rel_err(torch, sdpa_fwd(*asets[0][:3]),
+                      M.FA.flash_fwd_lse(*asets[0][:3], causal=True)[0])
+    check(fwd_err <= 2e-2, f"SDPA yardstick disagrees with flash_fwd ({fwd_err:g})")
+    plain_fwd = plain_flash_fwd(M)
+    kern_fwd = lambda i: M.FA.flash_fwd_lse(*asets[i][:3], causal=True)
+    out["flash_fwd"] = dict(
+        ms=graph_ms(torch, kern_fwd, len(asets)),
+        plain_ms=graph_ms(torch, lambda i: plain_fwd(*asets[i][:3], causal=True), len(asets)),
+        library_ms=graph_ms(torch, lambda i: sdpa_fwd(*asets[i][:3]), len(asets)),
+        library="SDPA forward (is_causal, enable_gqa)", sdpa_rel_err=fwd_err,
+        eager_ms=eager_ms(torch, kern_fwd, len(asets)),
+        bound=bound((2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + B * H * S * 4,
+                    bf16_ops=4.0 * pairs * hd), calls=1,
+        work=f"one layer's call: {B} x {S} tokens, causal, bf16")
     print("[timing] train kernels:", json.dumps(out))
     return out
 
@@ -1796,7 +1859,7 @@ def clip_launches_per_step(cfg, mode, fused_max):
                        "col_quantize", "int8_matmul_dequant", "int8_matmul_dequant_colscale",
                        "fused_switchback_dgrad", "int8_matmul_dequant_t",
                        "int8_matmul_dequant_colscale_t", "flash_fwd", "decode_fwd",
-                       "flash_bwd_dq", "flash_bwd_dkv", *FP8_KERNELS), 0)
+                       "flash_bwd_dq", "flash_bwd_dkv", *FP8_KERNELS, *OP_KERNELS), 0)
     colwise = mode in ("int8_switchback_q", "int8_llm")
     fp8 = {"fp8": ("fp8_row_quantize", "fp8_matmul_dequant", "fp8_matmul_dequant_t"),
            "fp8_mixed": ("fp8_block_quantize", "fp8_mixed_matmul", "fp8_mixed_matmul_t")}
@@ -2679,7 +2742,8 @@ def expected_paged_launches(cfg, stats) -> dict:
     want = {k: per * L * calls for k, per in PER_LAYER.items()}
     want.update(flash_fwd=0, decode_fwd=0,
                 paged_decode_fwd=L * (stats["decode_steps"] - verify),
-                paged_prefill_fwd=L * (stats["prefill_calls"] + verify))
+                paged_prefill_fwd=L * (stats["prefill_calls"] + verify),
+                **dict.fromkeys(OP_KERNELS, 0))
     return want
 
 
@@ -2868,6 +2932,268 @@ def paged_features(torch, M, cfg, dev, seed, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 27: the op entry points wgrad_bf16 and fp8_cast_tensorwise
+# ---------------------------------------------------------------------------
+
+# wgrad_bf16 against cuBLAS: a bf16 product is exact in f32, and any order
+# of summing B such products lies within (B - 1) * 2^-24 * (|X|^T |Ẏ|) of
+# the exact sum, so two orders differ by at most
+# B * WGRAD_BOUND * (|X|^T |Ẏ|) elementwise. Ẏ's rows shifted by one (the
+# control fault) must read outside it.
+WGRAD_BOUND = 2.0 ** -23
+# the two inputs where the JAX package's Pallas kernel (the reciprocal,
+# then the product) and its XLA path (x / absmax) round to different fp8
+# values: (fmt, absmax, x, the Pallas kernel's value)
+CAST_SPLIT_CASES = (("e4m3", 3.0, 0.0556640587747097, 0.01953125),
+                    ("e5m2", 7.0, 0.00037384030292741954, 6.103515625e-05))
+
+
+def op_wgrad_shapes(cfg, clip_cfg):
+    """{set: [(B, K, M, dtype name)]} of phase 27's wgrad_bf16 calls: smollm's
+    weights at 2,048 rows (wq 960 -> 960, wk 960 -> 320, w_up 960 -> 2,560,
+    w_down 2,560 -> 960) and two of them at the ragged 8 and 1,000 rows (one
+    in f32, rounded to bf16 on entry); one CLIP vision layer's four weight
+    gradients at 4,128 rows (wq, wk, wv as one 1,280 -> 3,840 product, wo,
+    w_up, w_down), the text layer's at 2,464 and the patch embedding at
+    8,192 x 588 -> 1,280."""
+    from repro_torch.models.clip import n_kept_patches
+    D, FF = cfg.d_model, cfg.d_ff
+    KV = cfg.n_kv_heads * cfg.hd
+    smollm = [(TRAIN_ROWS, D, D), (TRAIN_ROWS, D, KV), (TRAIN_ROWS, D, FF), (TRAIN_ROWS, FF, D)]
+    ragged = [(8, D, KV), (8, FF, D), (1000, D, KV), (1000, FF, D)]
+
+    def layer(B, W, F):
+        return [(B, W, 3 * W), (B, W, W), (B, W, F), (B, F, W)]
+
+    c = clip_cfg
+    return {
+        "smollm": [(*s, "bfloat16") for s in smollm],
+        "ragged": [(*s, "float32" if i == 3 else "bfloat16") for i, s in enumerate(ragged)],
+        "clip_vision": [(*s, "bfloat16") for s in layer(
+            CLIP_BATCH * (n_kept_patches(c) + 1), c.vision_width, c.vision_ff)],
+        "clip_text": [(*s, "bfloat16") for s in layer(CLIP_BATCH * c.text_ctx, c.text_width,
+                                                      c.text_ff)],
+        "patch_embed": [(CLIP_BATCH * c.n_patches, 3 * c.patch_size ** 2, c.vision_width,
+                         "bfloat16")],
+    }
+
+
+def op_cast_shapes(clip_cfg):
+    """(R, C, dtype name) of phase 27's fp8_cast_tensorwise inputs: the JAX
+    package's test shapes (130 columns; 1,030 rows ragged against its
+    512-row blocks) in f32 and bf16, and CLIP's: the vision tower's
+    activations X (4,128 rows x 1,280 and 5,120) in bf16 and its weights W
+    (1,280 x 3,840, 1,280 x 5,120) in f32."""
+    from repro_torch.models.clip import n_kept_patches
+    c = clip_cfg
+    R = CLIP_BATCH * (n_kept_patches(c) + 1)
+    W, F = c.vision_width, c.vision_ff
+    jax_shapes = [(r, 130, dt) for r in (17, 257, 512, 1030) for dt in ("float32", "bfloat16")]
+    return jax_shapes + [(R, W, "bfloat16"), (R, F, "bfloat16"), (W, 3 * W, "float32"),
+                         (W, F, "float32")]
+
+
+def cast_input(torch, gen, R, C, fmt, dtype, dev):
+    """Random rows over several binades below 64, then: x[0, 0] = 64 (the
+    tensor's absmax, so 1/absmax = 2^-6 is exact), row 1 the fp8 ties in
+    [-1, 1] times 64 (exact ties after scaling), row 2 fp8-subnormal values
+    and ties there, times 64, row 3 zeros of both signs."""
+    from repro_torch.core.fp8 import SPECS, fp8_values
+    spec = SPECS[fmt]
+    v = torch.from_numpy(fp8_values(spec)).to(dev, torch.float64)
+    grid = torch.cat([-v.flip(0), v[1:]])
+    unit = grid[grid.abs() <= 1.0]
+    ties = (unit[:-1] + unit[1:]) / 2
+    small = torch.cat([unit, ties])
+    sub = small[small.abs() < 2.0 ** (1 - spec.bias)]
+    x = torch.randn((R, C), generator=gen, device=dev)
+    x = x * torch.exp(torch.empty((R, 1), device=dev).uniform_(-4, 0.5, generator=gen))
+    x = x.clamp(-63, 63)
+    x[1] = (ties * 64).float().repeat(-(-C // len(ties)))[:C]
+    x[2] = (sub * 64).float().repeat(-(-C // len(sub)))[:C]
+    x[3] = torch.where(torch.arange(C, device=dev) % 2 == 0, 0.0, -0.0)
+    x[0, 0] = 64.0
+    return x.to(getattr(torch, dtype))
+
+
+def drive_op_path(torch, M, cfg, clip_cfg, dev, seed):
+    """Phase 27, the path: the two op entry points called once at every case
+    (``op_wgrad_shapes``; ``op_cast_shapes`` x both formats x three
+    absmaxes, an all-zero tensor with absmax 0 per format, and
+    CAST_SPLIT_CASES), every launch counter zeroed just before and read
+    just after: each kernel exactly its number of calls, every other 0.
+    Returns the cases with their outputs and the counts."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 27)
+    wcases = []
+    for group, shapes in op_wgrad_shapes(cfg, clip_cfg).items():
+        for B, K, Mw, dt in shapes:
+            x = torch.randn((B, K), generator=gen, device=dev).to(getattr(torch, dt))
+            g = torch.randn((B, Mw), generator=gen, device=dev).to(getattr(torch, dt))
+            wcases.append(dict(group=group, shape=(B, K, Mw), dtype=dt, x=x, g=g))
+    ccases = []
+    for R, C, dt in op_cast_shapes(clip_cfg):
+        for fmt in ("e4m3", "e5m2"):
+            x = cast_input(torch, gen, R, C, fmt, dt, dev)
+            am = x.float().abs().amax()
+            for kind, absmax in (("tensor", am), ("stale", am * 3.7), ("clips", am * 2.0 ** -17)):
+                ccases.append(dict(shape=(R, C), dtype=dt, fmt=fmt, absmax_kind=kind, x=x,
+                                   absmax=absmax))
+    for fmt in ("e4m3", "e5m2"):
+        ccases.append(dict(shape=(33, 130), dtype="float32", fmt=fmt, absmax_kind="zero",
+                           x=torch.zeros((33, 130), device=dev),
+                           absmax=torch.zeros((), device=dev)))
+    for fmt, am, xv, want in CAST_SPLIT_CASES:
+        ccases.append(dict(shape=(4, 130), dtype="float32", fmt=fmt, absmax_kind="split",
+                           x=torch.full((4, 130), xv, device=dev),
+                           absmax=torch.full((), am, device=dev), want=want))
+    torch.cuda.synchronize()
+
+    reset_launch_counts(M)
+    for c in wcases:
+        c["out"] = M.KOPS.wgrad_bf16(c["x"], c["g"])
+    for c in ccases:
+        c["out"] = M.FC.fp8_cast_tensorwise(c["x"], c["absmax"], c["fmt"])
+    torch.cuda.synchronize()
+    counts = launch_counts(M)
+    check_launches(counts, {"wgrad_bf16": len(wcases), "fp8_cast_tensorwise": len(ccases)},
+                   "op entry points")
+    return wcases, ccases, counts
+
+
+def compare_op_kernels(torch, M, wcases, ccases):
+    """Phase 27, the checks on the path's outputs: each bit-equal to its
+    plain version and to a second launch; the outputs finite, of the
+    expected shape; fp8 values only (on the grid of the format, within
+    [-fmax, fmax]); the all-zero tensor gives zeros, the split inputs the
+    Pallas kernel's value. wgrad_bf16 also against cuBLAS within
+    WGRAD_BOUND, the control fault (Ẏ's rows shifted by one) outside.
+    Returns the readings."""
+    from repro_torch.core import switchback as SB
+    from repro_torch.core.fp8 import SPECS, fp8_values
+    from repro_torch.kernels.fp8_cast import ref as FCREF
+    worst = dict(wgrad_bf16=0.0, fp8_cast_tensorwise=0.0)
+    lib_ratio, fault_ratio = 0.0, math.inf
+    by_group = {}
+    for c in wcases:
+        x, g, out = c["x"], c["g"], c["out"]
+        B, K, Mw = c["shape"]
+        what = f"wgrad_bf16 {c['group']} {c['shape']} {c['dtype']}"
+        check(tuple(out.shape) == (K, Mw) and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()), f"{what}: bad output")
+        plain = M.REF.wgrad_bf16(x, g)
+        worst["wgrad_bf16"] = max(worst["wgrad_bf16"], max_abs_diff(torch, out, plain))
+        check(torch.equal(out.view(torch.int32), plain.view(torch.int32)),
+              f"{what}: kernel != plain, max |diff| {max_abs_diff(torch, out, plain):g}")
+        check(torch.equal(out.view(torch.int32), M.KOPS.wgrad_bf16(x, g).view(torch.int32)),
+              f"{what}: two launches differ")
+        xb, gb = x.to(torch.bfloat16).double(), g.to(torch.bfloat16).double()
+        bound = B * WGRAD_BOUND * (xb.abs().t() @ gb.abs())
+        lib = SB.wgrad_16bit(x, g).double()
+        diff = (out.double() - lib).abs()
+        check(bool((diff <= bound).all()), f"{what}: |kernel - cuBLAS| outside the bound, "
+              f"max ratio {float((diff / bound.clamp_min(1e-300)).max()):g}")
+        fault = (M.KOPS.wgrad_bf16(x, g.roll(1, dims=0)).double() - lib).abs()
+        check(not bool((fault <= bound).all()), f"{what}: the control fault reads inside the bound")
+        r = float((diff / bound.clamp_min(1e-300)).max())
+        f = float((fault / bound.clamp_min(1e-300)).max())
+        lib_ratio, fault_ratio = max(lib_ratio, r), min(fault_ratio, f)
+        grp = by_group.setdefault(c["group"], dict(cases=0, lib_ratio=0.0, fault_ratio=math.inf))
+        grp.update(cases=grp["cases"] + 1, lib_ratio=max(grp["lib_ratio"], r),
+                   fault_ratio=min(grp["fault_ratio"], f))
+        del bound, lib, diff, fault
+    grids = {fmt: torch.from_numpy(fp8_values(SPECS[fmt])).float().to(wcases[0]["x"].device)
+             for fmt in ("e4m3", "e5m2")}
+    for c in ccases:
+        x, absmax, fmt, out = c["x"], c["absmax"], c["fmt"], c["out"]
+        what = f"fp8_cast_tensorwise {c['shape']} {c['dtype']} {fmt} {c['absmax_kind']}"
+        check(tuple(out.shape) == tuple(x.shape) and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()), f"{what}: bad output")
+        check(bool(torch.isin(out.abs(), grids[fmt]).all()), f"{what}: values off the fp8 grid")
+        plain = FCREF.fp8_cast_tensorwise(x, absmax, fmt)
+        worst["fp8_cast_tensorwise"] = max(worst["fp8_cast_tensorwise"],
+                                           max_abs_diff(torch, out, plain))
+        check(torch.equal(out.view(torch.int32), plain.view(torch.int32)),
+              f"{what}: kernel != plain, max |diff| {max_abs_diff(torch, out, plain):g}")
+        check(torch.equal(out.view(torch.int32),
+                          M.FC.fp8_cast_tensorwise(x, absmax, fmt).view(torch.int32)),
+              f"{what}: two launches differ")
+        if c["absmax_kind"] == "zero":
+            check(not bool(out.any()), f"{what}: not all zero")
+        if c["absmax_kind"] == "clips":
+            check(float(out.abs().max()) == SPECS[fmt].max_value, f"{what}: nothing clipped")
+        if "want" in c:
+            check(bool((out == c["want"]).all()), f"{what}: not the Pallas kernel's value "
+                  f"{c['want']!r}: {float(out[0, 0])!r}")
+    res = dict(wgrad_cases=len(wcases), cast_cases=len(ccases), max_abs_err=worst,
+               wgrad_vs_cublas_max_ratio=lib_ratio, wgrad_fault_min_ratio=fault_ratio,
+               wgrad_by_group=by_group)
+    print("[op kernels]", json.dumps(res))
+    return res
+
+
+def time_op_kernels(torch, M, cfg, clip_cfg, dev, seed):
+    """Phase 27's times: ``wgrad_bf16`` at one CLIP vision layer's four
+    weight gradients (4,128 rows) and at smollm's four at 2,048 rows,
+    beside the bound (bytes, or 2 B K M operations at the bf16 tensor-core
+    peak), the plain version (the in-order loop; timed over 2 graph
+    replays, it runs B launches a product) and cuBLAS (``wgrad_16bit``,
+    timed only); ``fp8_cast_tensorwise`` (E4M3) at CLIP's four shapes
+    together and each alone, beside its bound (bytes) and plain version.
+    No single PyTorch call computes the fp8 cast (scale, clip, the grid
+    round and the widening are separate ops; a cast to the fp8 dtype rounds
+    otherwise), so its library time is none."""
+    from repro_torch.core import switchback as SB
+    from repro_torch.kernels.fp8_cast import ref as FCREF
+    gen = torch.Generator(device=dev).manual_seed(seed + 57)
+    shapes = op_wgrad_shapes(cfg, clip_cfg)
+    out = {}
+    for group in ("clip_vision", "smollm"):
+        pairs = [(torch.randn((B, K), generator=gen, device=dev).bfloat16(),
+                  torch.randn((B, Mw), generator=gen, device=dev).bfloat16())
+                 for B, K, Mw, _ in shapes[group]]
+        torch.cuda.synchronize()
+        bytes_ = sum(B * K * 2 + B * Mw * 2 + K * Mw * 4 for B, K, Mw, _ in shapes[group])
+        ops = sum(2 * B * K * Mw for B, K, Mw, _ in shapes[group])
+        out[group] = dict(
+            ms=graph_ms(torch, lambda i: [M.KOPS.wgrad_bf16(x, g) for x, g in pairs], 1),
+            plain_ms=graph_ms(torch, lambda i: [M.REF.wgrad_bf16(x, g) for x, g in pairs], 1,
+                              reps=2),
+            library_ms=graph_ms(torch, lambda i: [SB.wgrad_16bit(x, g) for x, g in pairs], 1),
+            eager_ms=eager_ms(torch, lambda i: [M.KOPS.wgrad_bf16(x, g) for x, g in pairs], 1,
+                              iters=3),
+            bound=bound(bytes_, bf16_ops=ops), calls=len(pairs),
+            work=f"{group}: {len(pairs)} calls (B, K, M) "
+                 + ", ".join(f"{B}x{K}x{Mw}" for B, K, Mw, _ in shapes[group]))
+        out[group]["tflops"] = ops / (out[group]["ms"] * 1e-3) / 1e12
+        del pairs
+    clip_shapes_ = op_cast_shapes(clip_cfg)[-4:]
+    xs = [(cast_input(torch, gen, R, C, "e4m3", dt, dev)) for R, C, dt in clip_shapes_]
+    amax = [x.float().abs().amax() for x in xs]
+    torch.cuda.synchronize()
+
+    def cast_times(idx):
+        n_bytes = sum(xs[i].numel() * (xs[i].element_size() + 4) for i in idx)
+        n = sum(xs[i].numel() for i in idx)
+        kern = lambda i: [M.FC.fp8_cast_tensorwise(xs[j], amax[j], "e4m3") for j in idx]
+        return dict(ms=graph_ms(torch, kern, 1),
+                    plain_ms=graph_ms(torch, lambda i: [FCREF.fp8_cast_tensorwise(
+                        xs[j], amax[j], "e4m3") for j in idx], 1),
+                    library_ms=None, eager_ms=eager_ms(torch, kern, 1),
+                    # per element: the product, the clip's two compares and the
+                    # subnormal branch's product, in f32
+                    bound=bound(n_bytes, f32_ops=4 * n), calls=len(idx), bytes=n_bytes)
+
+    out["cast"] = cast_times(range(len(xs)))
+    out["cast"]["work"] = "CLIP's four casts, one call each: " + ", ".join(
+        f"{R}x{C} {dt}" for R, C, dt in clip_shapes_)
+    out["cast"]["per_shape"] = {f"{R}x{C} {dt}": cast_times([i])
+                                for i, (R, C, dt) in enumerate(clip_shapes_)}
+    del xs
+    print("[timing] op kernels:", json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2884,6 +3210,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import build as FB
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as FREF
+    from repro_torch.kernels.fp8_cast import build as FCB
+    from repro_torch.kernels.fp8_cast import ops as FC
     from repro_torch.kernels.fp8_matmul import build as F8B
     from repro_torch.kernels.fp8_matmul import ops as F8
     from repro_torch.kernels.fp8_matmul import ref as F8REF
@@ -2895,7 +3223,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.switchback import ref as REF
     from repro_torch.serve import make_serve_engine
     M = types.SimpleNamespace(KOPS=KOPS, REF=REF, FA=FA, FREF=FREF, F8=F8, F8REF=F8REF, PA=PA,
-                              PREF=PREF)
+                              PREF=PREF, FC=FC)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2928,7 +3256,7 @@ def main(argv=None) -> int:
 
     with timed("2 build"):
         libs = (("switchback", KB), ("flash_attention", FB), ("fp8_matmul", F8B),
-                ("paged_attention", PAB))
+                ("paged_attention", PAB), ("fp8_cast", FCB))
         with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
             builds = {lib: pool.submit(mod.build) for lib, mod in libs}
             built = {lib: f.result() for lib, f in builds.items()}
@@ -3066,6 +3394,14 @@ def main(argv=None) -> int:
     with timed("23 fp8 timing"):
         fp8_t = time_fp8_kernels(torch, M, clip_cfg, dev, args.seed)
     torch.cuda.empty_cache()
+    # 27. the op entry points wgrad_bf16 and fp8_cast_tensorwise: the path
+    # (counted), its checks, its times
+    with timed("27 op entry points"):
+        wcases, ccases, op_counts = drive_op_path(torch, M, cfg, clip_cfg, dev, args.seed)
+        op_res = compare_op_kernels(torch, M, wcases, ccases)
+        del wcases, ccases
+        op_t = time_op_kernels(torch, M, cfg, clip_cfg, dev, args.seed)
+    torch.cuda.empty_cache()
     # 21-22. the fp8 whole step, kernels vs plain, and card vs CPU
     with timed("21 CLIP fp8 whole step"):
         clip_whole_step(torch, M, clip_cfg, dev, args.seed, FP8_KERNEL_MODES, CLIP_FP8_STEP_TOL,
@@ -3114,13 +3450,22 @@ def main(argv=None) -> int:
             e.update(rows=R, work=f"one layer's {r['calls']} call(s) at {R} rows")
             if "library_rows" in r:
                 e["library_rows"] = r["library_rows"]
+            if name == "int8_matmul_dequant":
+                e["at_train_shape"] = at_train(name)
             out.append(e)
         return out
+
+    def at_train(name):
+        """A forward kernel's reading at the training path's shape (phase 8)."""
+        r = train_t[name]
+        return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms", "work")} | {
+            "bound_ms": r["bound"][0]}
 
     full = flash_t["decode_fwd_full"]
     flash_entries = [
         dict(entry("flash_fwd", flash_t["flash_fwd"], max_err["flash_fwd"]),
-             library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)"),
+             library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+             at_train_shape=at_train("flash_fwd")),
         dict(entry("decode_fwd", flash_t["decode_fwd_served"], max_err["decode_fwd"]),
              library="scaled_dot_product_attention(attn_mask=key mask, enable_gqa=True)",
              full_window=dict(ms=full["ms"], plain_ms=full["plain_ms"],
@@ -3187,6 +3532,32 @@ def main(argv=None) -> int:
                             "gathered cache; gather_ms the gather", eager_ms=r["eager_ms"],
                     calls_timed=r["calls"], work=r["work"], other_shapes=others)
 
+    def op_entry(name, r, others):
+        """An op-entry-point kernel: ``launches`` from phase 27's run of the
+        op path; ``launches_serve_train`` over every serve and train run
+        (0, checked exactly in each)."""
+        b_ms, b_by = r["bound"]
+        elsewhere = (counts[name] + train_counts[name] + p_counts[name]
+                     + sum(c[name] for c in (*clip_counts.values(), *fp8_counts.values())))
+        return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+                    launches=op_counts[name], launches_serve_train=elsewhere,
+                    max_abs_err=op_res["max_abs_err"][name], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
+                    eager_ms=r["eager_ms"], calls_timed=r["calls"], work=r["work"], **others)
+
+    op_entries = [
+        op_entry("wgrad_bf16", op_t["clip_vision"], dict(
+            library="torch.mm(x.t(), g, out_dtype=torch.float32) (core/switchback.wgrad_16bit)",
+            tflops=op_t["clip_vision"]["tflops"],
+            other_shapes={"smollm": {k: op_t["smollm"][k] for k in (
+                "ms", "plain_ms", "library_ms", "eager_ms", "tflops", "work")}
+                | {"bound_ms": op_t["smollm"]["bound"][0]}})),
+        op_entry("fp8_cast_tensorwise", op_t["cast"], dict(
+            library="none: no single PyTorch call computes it (scale, clip, grid round and "
+                    "widening are separate ops; a cast to the fp8 dtype rounds otherwise)",
+            other_shapes={k: {kk: v[kk] for kk in ("ms", "plain_ms", "eager_ms")}
+                          | {"bound_ms": v["bound"][0]}
+                          for k, v in op_t["cast"]["per_shape"].items()}))]
     paged_entries = [
         paged_entry("paged_decode_fwd", "decode",
                     {"launches_per_decode_step": p_counts["paged_decode_fwd"] / max(p_decode, 1)}),
@@ -3212,7 +3583,7 @@ def main(argv=None) -> int:
           f"{1 + CLIP_STEPS} CLIP train steps; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
-                      + clip_entries + fp8_entries + paged_entries}))
+                      + clip_entries + fp8_entries + paged_entries + op_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

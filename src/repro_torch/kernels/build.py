@@ -1,13 +1,15 @@
 """Build, load and launch a CUDA source with a plain C interface.
 
 Each kernel family (``switchback``, ``flash_attention``, ``fp8_matmul``,
-``paged_attention``) keeps one ``.cu`` file under its ``csrc/`` and
-declares the signatures of its entry points; this module compiles it with
-``nvcc`` into a shared library and loads it with ``ctypes`` — no PyTorch
-headers, no extension module, seconds per build. The library is built at first use into ``build/`` at the root of
-the checkout, named by a hash of its own source and the flags, so an
-edited source never loads a stale library and editing one family never
-rebuilds another. Nothing here runs at import time: the CPU tests import
+``fp8_cast``, ``paged_attention``) keeps one ``.cu`` file under its
+``csrc/`` and declares the signatures of its entry points; this module
+compiles it with ``nvcc`` into a shared library and loads it with
+``ctypes`` — no PyTorch headers, no extension module, seconds per build.
+Headers the families share live in ``kernels/csrc/``. The library is
+built at first use into ``build/`` at the root of the checkout, named by
+a hash of its source, every local header it includes and the flags, so
+an edited source or header never loads a stale library and editing one
+family never rebuilds another. Nothing here runs at import time: the CPU tests import
 the kernel modules on a host without ``nvcc``. The wrappers of every
 family share the device dispatch and launch helpers at the end.
 """
@@ -17,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -48,10 +51,35 @@ def nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> list[Path]:
+    """``source`` and every local header it includes, transitively, each
+    once: the ``#include "..."`` lines, resolved from the including file's
+    directory as ``nvcc`` resolves them first (a name found there only on
+    the include path is not the checkout's, and is left out)."""
+    seen, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_text()):
+            header = (path.parent / name).resolve()
+            if header.is_file():
+                todo.append(header)
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    """Where ``source``'s library is built: named by a hash of the bytes of
+    every file ``source_files`` lists and of the flags."""
+    h = hashlib.sha256()
+    for path in source_files(source):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> tuple[Path, str]:

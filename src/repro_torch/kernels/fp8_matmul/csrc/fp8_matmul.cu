@@ -16,13 +16,11 @@
 // 15, 57344), as torch.float8_e4m3fn / torch.float8_e5m2 hold it.
 //
 // Numerics copy the plain versions (kernels/fp8_matmul/ref.py) step by step:
-//   * rounding: grid_round is the JAX package's fp8_grid_round bit for bit
-//     (clip; round half to even at the format's mantissa width by adding
-//     half an ulp, less one, plus the kept lsb, to the magnitude's bits and
-//     clearing the dropped bits; in the fp8-subnormal range the fixed step
-//     2^(1 - bias - man)). Its result lies on the fp8 grid, so encoding it
-//     as a byte is exact. The division x / absmax is one IEEE division
-//     (__fdiv_rn): neither a reciprocal nor a fast-math flag may change it.
+//   * rounding: grid_round (kernels/csrc/fp8_grid.cuh, shared with
+//     fp8_cast.cu) is the JAX package's fp8_grid_round bit for bit. Its
+//     result lies on the fp8 grid, so encoding it as a byte is exact. The
+//     division x / absmax is one IEEE division (__fdiv_rn): neither a
+//     reciprocal nor a fast-math flag may change it.
 //   * fp8_matmul_dequant: each operand lies in [-1, 1] on the fp8 grid, so
 //     E4M3 values are multiples of 2^-9 and E5M2 values of 2^-16. Every
 //     partial sum of a k-block (at most 4096 products) is then a multiple
@@ -57,23 +55,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/fp8_grid.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-12f;
 constexpr int kThreads = 256;
-
-struct Fmt {
-  int man, bias;
-  float fmax;       // largest finite value
-  float inv_step;   // 2^(bias + man - 1): 1 / the subnormal step
-  float step;       // 2^(1 - bias - man): the subnormal step
-  float min_normal; // 2^(1 - bias)
-};
-
-__device__ __forceinline__ Fmt fmt_of(int f) {
-  return f ? Fmt{2, 15, 57344.f, 65536.f, 1.52587890625e-05f, 6.103515625e-05f}
-           : Fmt{3, 7, 448.f, 512.f, 0.001953125f, 0.015625f};
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -89,22 +76,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float clip(float x, float m) { return fminf(fmaxf(x, -m), m); }
-
-// core/quantization.py fp8_grid_round, bit for bit.
-__device__ __forceinline__ float grid_round(float x, const Fmt& f) {
-  const float xf = clip(x, f.fmax);
-  const uint32_t bits = __float_as_uint(xf);
-  const uint32_t sign = bits & 0x80000000u, mag = bits & 0x7fffffffu;
-  const int shift = 23 - f.man;
-  const uint32_t lsb = (mag >> shift) & 1u;
-  const uint32_t magr = (mag + ((1u << (shift - 1)) - 1u) + lsb) & ~((1u << shift) - 1u);
-  const float pre = __uint_as_float(sign | magr);
-  // x / step is x * 2^(bias + man - 1): a power of two, exact either way
-  const float sub = __fmul_rn(rintf(__fmul_rn(xf, f.inv_step)), f.step);
-  return clip(fabsf(xf) < f.min_normal ? sub : pre, f.fmax);
 }
 
 // A value on the fp8 grid (grid_round's output) as its byte: exact.

@@ -20,6 +20,7 @@ SIGNATURES = (
     ("sb_int8_matmul_dequant", (P, P, P, P, P, I, I, I, I, P)),
     ("sb_fused_switchback_dgrad", (P, I, P, P, P, I, I, I, P)),
     ("sb_int8_matmul_dequant_t", (P, P, P, P, P, I, I, I, I, P)),
+    ("sb_wgrad_bf16", (P, P, P, I, I, I, P)),
 )
 
 

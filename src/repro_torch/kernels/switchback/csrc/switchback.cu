@@ -2,7 +2,7 @@
 // bound through a plain C interface (loaded with ctypes by
 // kernels/switchback/build.py).
 //
-// Seven entry points, each replacing one Pallas TPU kernel (or one form of
+// Eight entry points, each replacing one Pallas TPU kernel (or one form of
 // it) of the JAX package:
 //
 //   row_quantize            <- repro/kernels/switchback/switchback.py:row_quantize
@@ -17,6 +17,9 @@
 //                              either epilogue (the two-step dgrad of layers
 //                              whose output width is above 2048, and the
 //                              dgrad of the column-wise variants)
+//   wgrad_bf16              <- repro/kernels/switchback/switchback.py:wgrad_bf16
+//                              (the 16-bit weight gradient; see its section:
+//                              its numerics and its bound are its own)
 //
 // The two dgrad forms are the forward kernels with the W tile read the
 // other way (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m]
@@ -419,6 +422,114 @@ void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, cons
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// wgrad_bf16: dw (K, M) f32 = x^T g, x (B, K) and g (B, M) bf16, contracted
+// over the B rows (batch x sequence). Replaces the Pallas TPU kernel
+// wgrad_bf16 (repro/kernels/switchback/switchback.py:364, body :348), the
+// 16-bit matmul SwitchBack keeps for the weight gradient. No serve or train
+// path launches it: the training path's Ẇ is one cuBLAS GEMM
+// (core/switchback.wgrad_16bit), as the JAX package's is XLA's dot_general.
+//
+// Numerics: each output sums its B products in order, b = 0, 1, ..., B-1,
+// in f32. A bf16 x bf16 product is exact in f32 (8 + 8 significant bits),
+// so the FMA acc = fma(x, g, acc) rounds once, as the product followed by
+// the add does, and the plain version (ref.py: a loop over b of
+// acc += x_b^T g_b in f32) repeats every sum bit for bit. That holds while
+// no product falls below f32's normal range (|x g| >= 2^-126), where the
+// product itself would round. B is never split across blocks and no
+// mma/wgmma is used: their internal order of summation cannot be repeated.
+//
+// What bounds it on an H100: operations. 2 B K M of them, which at
+// bf16's tensor-core peak (989 TFLOP/s) take 164 us for one CLIP vision
+// layer's four weight gradients at 4,128 rows (1.62e11), while their bytes
+// take 35 us. This design runs on the CUDA cores, whose f32 FMA peak (67
+// TFLOP/s) puts the floor at 2.4 ms for that work: the price of a
+// reproducible order. Each block owns a 64 x 64 output tile, each of its
+// 256 threads a 4 x 4 micro-tile in registers; 32 rows of x's and g's
+// tile columns are staged at a time in shared memory as f32 (both are
+// contiguous along the tile, so the loads are coalesced, 16 bytes a thread
+// where K or M allows, and nothing is transposed), and every thread reads
+// one float4 of each per row: 16 FMAs for two shared loads, one of them a
+// broadcast. Tensor cores with a stated tolerance are a later design.
+// ---------------------------------------------------------------------------
+constexpr int kWgTile = 64;     // output tile kWgTile x kWgTile, 4 x 4 per thread
+constexpr int kWgRows = 32;     // rows of B staged per step
+
+// Rows [b0, b0 + nb) of a (B, C) bf16 operand, columns [c0, c0 + kWgTile),
+// into s as f32; columns past C read 0. 8 threads per row, 8 values each.
+__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ a, int C, int b0,
+                                           int nb, int c0, bool vec,
+                                           float (*s)[kWgTile]) {
+  const int r = threadIdx.x / 8, c = (threadIdx.x % 8) * 8;
+  if (r >= nb) return;
+  const __nv_bfloat16* src = a + static_cast<size_t>(b0 + r) * C + c0 + c;
+  float v[8];
+  if (vec && c0 + c < C) {                   // C % 8 == 0: all 8 in range
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {            // a bf16 is the high half of its f32
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c0 + c + j < C ? __bfloat162float(src[j]) : 0.f;
+  }
+  *reinterpret_cast<float4*>(&s[r][c]) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(&s[r][c + 4]) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// acc[i][j] += xs[r][4 ty + i] * gs[r][4 tx + j]: one row's products, one
+// rounding each (exact products).
+__device__ __forceinline__ void wgrad_row(const float* __restrict__ xr,
+                                          const float* __restrict__ gr, int ty, int tx,
+                                          float (&acc)[4][4]) {
+  const float4 a = *reinterpret_cast<const float4*>(xr + 4 * ty);
+  const float4 c = *reinterpret_cast<const float4*>(gr + 4 * tx);
+  const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], cv[j], acc[i][j]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                  float* __restrict__ dw, int B, int K, int M) {
+  __shared__ __align__(16) float xs[kWgRows][kWgTile];
+  __shared__ __align__(16) float gs[kWgRows][kWgTile];
+  const int k0 = blockIdx.y * kWgTile, m0 = blockIdx.x * kWgTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const bool vec_x = K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  const bool vec_g = M % 8 == 0 && (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
+  float acc[4][4] = {};
+  for (int b0 = 0; b0 < B; b0 += kWgRows) {
+    const int nb = min(kWgRows, B - b0);
+    stage_rows(x, K, b0, nb, k0, vec_x, xs);
+    stage_rows(g, M, b0, nb, m0, vec_g, gs);
+    __syncthreads();
+    if (nb == kWgRows) {
+#pragma unroll 8
+      for (int r = 0; r < kWgRows; ++r) wgrad_row(xs[r], gs[r], ty, tx, acc);
+    } else {
+      for (int r = 0; r < nb; ++r) wgrad_row(xs[r], gs[r], ty, tx, acc);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * ty + i;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + 4 * tx + j;
+      if (m < M) dw[static_cast<size_t>(k) * M + m] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -525,6 +636,19 @@ int sb_int8_matmul_dequant_t(const void* x_q, const void* w_q, const void* row_s
       launch_matmul<__nv_bfloat16, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
     else
       launch_matmul<float, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, K) bf16, g (B, M) bf16 -> dw (K, M) f32 = x^T g, each output the
+// in-order f32 sum over the B rows.
+int sb_wgrad_bf16(const void* x, const void* g, void* dw, int B, int K, int M, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > 0 && M > 0) {
+    dim3 grid((M + kWgTile - 1) / kWgTile, (K + kWgTile - 1) / kWgTile);
+    wgrad_bf16_kernel<<<grid, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
+                                                 static_cast<const __nv_bfloat16*>(g),
+                                                 static_cast<float*>(dw), B, K, M);
   }
   return static_cast<int>(cudaGetLastError());
 }

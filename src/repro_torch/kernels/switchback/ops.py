@@ -1,5 +1,5 @@
-"""Public wrappers for the SwitchBack kernels, forward and input gradient:
-dispatch by device.
+"""Public wrappers for the SwitchBack kernels, forward, input gradient and
+the 16-bit weight gradient: dispatch by device.
 
 A tensor on the CPU goes to the plain version in ``ref.py``. A tensor on
 the card goes to the hand-written CUDA kernel (``csrc/switchback.cu``),
@@ -14,6 +14,11 @@ incremented only where it launches its kernel. The two matmul wrappers
 count their column-scale form apart (``int8_matmul_dequant_colscale``,
 ``int8_matmul_dequant_colscale_t``): it is the colscale branch of the TPU
 kernel. ``launch_counts``/``reset_launch_counts`` read and zero them all.
+
+``wgrad_bf16`` is the JAX package's op entry point of the same name; no
+serve or train path calls it (the training path's Ẇ is one cuBLAS GEMM,
+``core/switchback.wgrad_16bit``, as the JAX package's is XLA's
+``dot_general``).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ _PARTIAL_ELEMS = 2048            # elements per pass-1 block before capping
 LAUNCHES = dict.fromkeys((
     "tensor_quantize", "fused_switchback_fwd", "row_quantize", "col_quantize",
     "int8_matmul_dequant", "int8_matmul_dequant_colscale", "fused_switchback_dgrad",
-    "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t"), 0)
+    "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t", "wgrad_bf16"), 0)
 
 
 def _lib():
@@ -213,8 +218,31 @@ def int8_matmul_dequant_t(x_q: torch.Tensor, w_q: torch.Tensor,
                    row_scale, col_scale, M, out_dtype)
 
 
+def wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Ẇ = xᵀ g: x (B, K) and g (B, M) of any float dtype, rounded to bf16
+    on entry as the JAX op does, -> (K, M) f32, each output the in-order
+    f32 sum of its B products."""
+    for t, name in ((x, "x"), (g, "g")):
+        if not t.is_floating_point():
+            raise TypeError(f"{name}: dtype {t.dtype} is not a float type")
+        if t.dim() != 2:
+            raise ValueError(f"{name}: expected 2 dims, got shape {tuple(t.shape)}")
+    if x.shape[0] != g.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ in rows")
+    if _b.on_cpu(x, g):
+        return _ref.wgrad_bf16(x, g)
+    xb = x.to(torch.bfloat16).contiguous()
+    gb = g.to(torch.bfloat16).contiguous()
+    (B, K), M = xb.shape, gb.shape[1]
+    dw = torch.empty((K, M), dtype=torch.float32, device=x.device)
+    _b.launch(_lib().sb_wgrad_bf16, xb.data_ptr(), gb.data_ptr(), dw.data_ptr(), B, K, M,
+              _b.stream(x))
+    LAUNCHES["wgrad_bf16"] += 1
+    return dw
+
+
 KERNELS = (tensor_quantize, fused_switchback_fwd, row_quantize, col_quantize,
-           int8_matmul_dequant, fused_switchback_dgrad, int8_matmul_dequant_t)
+           int8_matmul_dequant, fused_switchback_dgrad, int8_matmul_dequant_t, wgrad_bf16)
 
 
 def launch_counts() -> dict:

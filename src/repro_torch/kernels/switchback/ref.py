@@ -74,3 +74,16 @@ def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
     g_q, s_g = row_quantize(g)
     scale = s_g * div(s_w.reshape(()), QMAX * QMAX)
     return int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=g.dtype)
+
+
+def wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Ẇ = xᵀ g: x (B, K) and g (B, M) rounded to bf16, (K, M) in f32, each
+    output the sum of its B products in order b = 0, 1, ..., B-1. A bf16
+    product is exact in f32, so each step rounds once, as the kernel's FMA
+    does: the two agree bit for bit."""
+    xf = x.to(torch.bfloat16).float()
+    gf = g.to(torch.bfloat16).float()
+    acc = torch.zeros((xf.shape[1], gf.shape[1]), dtype=torch.float32, device=x.device)
+    for b in range(xf.shape[0]):
+        acc.addcmul_(xf[b, :, None], gf[b, None, :])
+    return acc

@@ -29,6 +29,11 @@ giving exact zeros; each prefill row bit-equal to the decode at the same
 position (the property that makes speculative verify and preemption
 recompute give a plain decode's tokens), and every kernel bit-identical
 over two launches.
+The two op-entry-point kernels: ``fp8_cast_tensorwise``
+(``kernels/fp8_cast``) bit-equal to its plain version, both formats, f32
+and bf16 inputs, a pointer off 16-byte alignment, twice the same bits;
+``wgrad_bf16`` bit-equal to its plain version (both sum the B rows in
+order) and within B · 2^-23 · (|x|ᵀ|g|) of cuBLAS (``wgrad_16bit``).
 ``chip_smoke.py`` runs the same checks inside its end-to-end run.
 """
 from __future__ import annotations
@@ -37,7 +42,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import switchback as SB
+from repro_torch.core.fp8 import SPECS, fp8_values
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.fp8_cast import ops as FC
+from repro_torch.kernels.fp8_cast import ref as FCREF
 from repro_torch.kernels.flash_attention import ref as FREF
 from repro_torch.kernels.fp8_matmul import ops as F8
 from repro_torch.kernels.fp8_matmul import ref as F8REF
@@ -178,13 +187,15 @@ def test_cuda_tensors_launch_the_kernels():
     TOPS.int8_matmul_dequant(x_q, w_c, s_x, col_scale=s_c)
     TOPS.int8_matmul_dequant_t(x_q[:, :32].contiguous(), w_q, s_x,
                                col_scale=s_x.reshape(1, -1)[:, :4].repeat(1, 16))
+    TOPS.wgrad_bf16(x, g)
     torch.cuda.synchronize()
     counts = TOPS.launch_counts()
     assert counts == {k: 1 for k in counts}
     assert set(counts) == {"tensor_quantize", "fused_switchback_fwd", "row_quantize",
                            "col_quantize", "int8_matmul_dequant",
                            "int8_matmul_dequant_colscale", "fused_switchback_dgrad",
-                           "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t"}
+                           "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t",
+                           "wgrad_bf16"}
     with pytest.raises(ValueError):                 # mixed devices
         TOPS.fused_switchback_fwd(x, w_q.cpu(), s_w)
 
@@ -482,3 +493,76 @@ def test_cuda_tensors_launch_the_paged_kernels():
     with pytest.raises(ValueError, match="devices"):   # mixed devices
         PA.paged_decode_attention(q[:, :1].contiguous(), k[:, :, :2].contiguous(),
                                   v[:, :, :2].contiguous(), tables, lens.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the op-entry-point kernels: fp8_cast_tensorwise and wgrad_bf16
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("R,C", [(17, 130), (1030, 130), (4128, 1280)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_fp8_cast_matches_plain(R, C, fmt, dt):
+    """Bit for bit, twice; the tensor's absmax (ties after scaling at
+    absmax 64), a stale one, one that clips, and x one row in (a pointer
+    off 16-byte alignment: the element-wise path)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(R + C)
+    x = (torch.randn((R + 1, C), generator=gen, device=dev) * 8).clamp(-63, 63)
+    unit = torch.from_numpy(fp8_values(SPECS[fmt])).float()
+    unit = unit[unit <= 1.0]
+    ties = ((unit[:-1] + unit[1:]) / 2 * 64)[:C - 1]          # exact ties at absmax 64
+    x[0, 0] = x[1, 0] = 64.0
+    x[1, 1:1 + len(ties)] = x[2, 1:1 + len(ties)] = ties.to(dev)
+    x = x.to(dt)
+    for xs in (x, x[1:]):
+        am = xs.float().abs().amax()
+        for absmax in (am, am * 3.7, am * 2.0 ** -17):
+            got = FC.fp8_cast_tensorwise(xs, absmax, fmt)
+            assert torch.equal(got.view(torch.int32),
+                               FCREF.fp8_cast_tensorwise(xs, absmax, fmt).view(torch.int32))
+            assert torch.equal(got.view(torch.int32),
+                               FC.fp8_cast_tensorwise(xs, absmax, fmt).view(torch.int32))
+    zero = torch.zeros((33, C), device=dev, dtype=dt)
+    assert not bool(FC.fp8_cast_tensorwise(zero, torch.zeros((), device=dev), fmt).any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", [(8, 960, 320), (37, 130, 70), (1000, 588, 1280),
+                                   (2048, 960, 2560)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_wgrad_bf16_matches_plain(B, K, M, dt):
+    """Bit for bit against the plain in-order sum, twice the same bits, and
+    within B · 2^-23 · (|x|ᵀ|g|) of cuBLAS; g's rows shifted by one (the
+    control fault) outside that bound."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(B + K + M)
+    x = torch.randn((B, K), generator=gen, device=dev).to(dt)
+    g = torch.randn((B, M), generator=gen, device=dev).to(dt)
+    got = TOPS.wgrad_bf16(x, g)
+    assert torch.equal(got.view(torch.int32), TREF.wgrad_bf16(x, g).view(torch.int32))
+    assert torch.equal(got.view(torch.int32), TOPS.wgrad_bf16(x, g).view(torch.int32))
+    xb, gb = x.to(torch.bfloat16).double(), g.to(torch.bfloat16).double()
+    bound = B * 2.0 ** -23 * (xb.abs().t() @ gb.abs())
+    assert bool(((got.double() - SB.wgrad_16bit(x, g).double()).abs() <= bound).all())
+    fault = TOPS.wgrad_bf16(x, g.roll(1, dims=0))
+    assert not bool(((fault.double() - SB.wgrad_16bit(x, g).double()).abs() <= bound).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_op_kernels():
+    dev = _card()
+    FC.reset_launch_counts()
+    TOPS.reset_launch_counts()
+    x = torch.randn(64, 96, device=dev)
+    FC.fp8_cast_tensorwise(x, x.abs().amax(), "e4m3")
+    FC.fp8_cast_tensorwise(x.bfloat16(), x.abs().amax(), "e5m2")
+    TOPS.wgrad_bf16(x, torch.randn(64, 32, device=dev))
+    torch.cuda.synchronize()
+    assert FC.launch_counts() == {"fp8_cast_tensorwise": 2}
+    assert TOPS.launch_counts()["wgrad_bf16"] == 1
+    with pytest.raises(ValueError):                 # mixed devices
+        FC.fp8_cast_tensorwise(x, torch.tensor(1.0))

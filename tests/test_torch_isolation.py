@@ -29,6 +29,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.configs.base import ParallelConfig, ServeConfig
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.fp8_cast import ops as FCOPS
 from repro_torch.kernels.fp8_matmul import ops as F8OPS
 from repro_torch.kernels.paged_attention import ops as PAOPS
 from repro_torch.kernels.switchback import ops as KOPS
@@ -49,7 +50,14 @@ def _modules():
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
 
 
+# the fp8 oracle and the op entry points' modules: the walk must reach them
+NAMED = ("repro_torch.core.fp8", "repro_torch.kernels.fp8_cast.ops",
+         "repro_torch.kernels.fp8_cast.ref", "repro_torch.kernels.fp8_cast.build",
+         "repro_torch.kernels.switchback.ops")
+
+
 def test_every_module_imports_without_jax_or_repro():
+    assert set(NAMED) <= set(_modules())
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -121,7 +129,7 @@ def test_kernel_wrappers_have_no_backend_switch():
     a CUDA tensor cannot be sent to the plain version."""
     import inspect
     for fn in (*KOPS.KERNELS, *FA.KERNELS.values(), *F8OPS.KERNELS, F8OPS.mixed,
-               *PAOPS.KERNELS.values()):
+               *PAOPS.KERNELS.values(), *FCOPS.KERNELS):
         assert "backend" not in inspect.signature(fn).parameters
     assert "backend" not in {f.name for f in dataclasses.fields(QuantPolicy)}
 
