@@ -18,10 +18,10 @@ SIGNATURES = (
     ("f8_row_quantize", (P, I, P, P, I, I, I, P)),
     ("f8_tensor_quantize", (P, I, I64, P, I, P, P, I, P)),
     ("f8_block_quantize", (P, I, P, P, I, I, I, I, I, P)),
-    ("f8_matmul_dequant", _MATMUL),
     ("f8_matmul_dequant_t", _MATMUL),
-    ("f8_mixed_matmul", _MIXED),
     ("f8_mixed_matmul_t", _MIXED),
+    ("f8_transpose_bytes", (P, P, I, I, P)),
+    ("f8_wgmma_probe", (P, P, P, I, I, P)),
 )
 
 

@@ -8,54 +8,94 @@
 //   row_quantize          <- row_quantize (:47)     fp8 per row
 //   tensor_quantize       <- tensor_quantize (:86)  fp8 per tensor, two passes
 //   block_quantize        <- block_quantize (:128)  fp8 per (br x bc) tile
-//   fp8_matmul_dequant    <- fp8_matmul_dequant (:176), both W orientations
-//   fp8_mixed_matmul      <- fp8_mixed_matmul (:258), both W orientations
+//   fp8_matmul_dequant    <- fp8_matmul_dequant (:176, body :158), both W
+//                            orientations
+//   fp8_mixed_matmul      <- fp8_mixed_matmul (:258, body :222), both W
+//                            orientations
+//
+// plus wgmma_probe, one window's chain of the GEMMs' own wgmma steps on
+// given operands, which measures how the tensor cores add (chip_smoke.py's
+// accumulator probe), and transpose_bytes, the forward's K-major copy of W.
 //
 // Storage: one byte per value in the float8_e4m3fn or float8_e5m2 encoding
 // (format 0 = E4M3: 3 mantissa bits, bias 7, max 448; format 1 = E5M2: 2,
 // 15, 57344), as torch.float8_e4m3fn / torch.float8_e5m2 hold it.
 //
-// Numerics copy the plain versions (kernels/fp8_matmul/ref.py) step by step:
-//   * rounding: grid_round (kernels/csrc/fp8_grid.cuh, shared with
-//     fp8_cast.cu) is the JAX package's fp8_grid_round bit for bit. Its
-//     result lies on the fp8 grid, so encoding it as a byte is exact. The
-//     division x / absmax is one IEEE division (__fdiv_rn): neither a
-//     reciprocal nor a fast-math flag may change it.
-//   * fp8_matmul_dequant: each operand lies in [-1, 1] on the fp8 grid, so
-//     E4M3 values are multiples of 2^-9 and E5M2 values of 2^-16. Every
-//     partial sum of a k-block (at most 4096 products) is then a multiple
-//     of 2^-25 below 2^12: exact in double. Each k-block is summed exactly
-//     in double (DFMA), rounded once to f32 (__double2float_rn) and added
-//     into the f32 accumulator in k order (__fadd_rn), as the JAX kernel
-//     adds its k-block dots. Then y = acc * row_scale, rounded once to the
-//     output type. The plain version sums each k-block with a float64
-//     product: the two agree bit for bit.
-//   * fp8_mixed_matmul: per (row tile, k tile) the clean operand
-//     q * (s_blk * s_w) in f32 against the decoded fp8 W, or, for a
-//     fallback tile, bf16(x) against bf16(w * s_w); each tile's sum in
-//     double (both operand kinds have short significands: the products are
-//     exact, and the sum is exact unless its products span more than about
-//     18 binades), rounded once to f32 and added in k order.
+// The quantizers copy the plain versions (kernels/fp8_matmul/ref.py) step
+// by step and agree with them bit for bit: grid_round
+// (kernels/csrc/fp8_grid.cuh, shared with fp8_cast.cu) is the JAX package's
+// fp8_grid_round; its result lies on the fp8 grid, so encoding it as a byte
+// is exact; x / absmax is one IEEE division (__fdiv_rn). They are bound by
+// bytes (read x, write one byte per value and the state): a block owns a
+// row or a tile, so each absmax is one block reduction; no atomics.
 //
-// What bounds them on an H100, and what this first version does about it:
-// the quantizers are bound by bytes (read x, write one byte per value and
-// the state); a block owns a row or a tile so each absmax is one block
-// reduction, and the second read of the row or tile hits L1/L2; no atomics
-// anywhere, so two launches give the same bits. The matmuls are bound by
-// operations at the training path's rows (2 B K M over the 1,979 TFLOP/s
-// fp8 tensor-core peak); these kernels run double FMAs on the CUDA cores
-// (64 per SM and clock) over 64 x 64 output tiles staged in shared memory,
-// which is what exactness costs. wgmma fp8 with an exact blocked
-// accumulation is the later change. No TMA, no wgmma.
+// The two matmuls are bound by operations (2 B K M at the 1,979 TFLOP/s fp8
+// tensor-core peak; one CLIP layer's six at 4,128 rows: 82 us) and run on
+// fp8 wgmma (kernels/csrc/wgmma.cuh):
+//   * a block owns a 128 x 128 output tile (4,128 x 1,280 is 330 blocks,
+//     2.5 waves on 132 SMs; 160 columns would fit 1,280 in 2.0 but 1,024 in
+//     worse, and 256 needs more registers than two fragments of 128 leave):
+//     two consumer warpgroups of 64 rows each, one producer warpgroup. The
+//     contraction runs in windows of at most 128 (one 128-byte row of an
+//     fp8 tile). The producer fills a ring of up to 6 shared-memory stages
+//     (as many as 227 KB hold), each an A tile (x_q, 128 rows) and a W tile
+//     (128 output columns), K-major and 128-byte swizzled, by TMA with an
+//     mbarrier per stage. fp8 wgmma reads only K-major operands: the
+//     input-gradient form's W (M, K) is K-major as it lies; for the
+//     forward's W (K, M) the wrapper first launches transpose_bytes, a
+//     K-major copy (transposing each W tile in shared memory instead put a
+//     warp's 4-byte stores on two banks and ran the forward at a third of
+//     the input gradient's rate). Rows and columns past the matrix arrive
+//     as zeros. A shape whose rows are not 16-byte aligned (K % 16) or whose
+//     scale tiles do not start on a window (bk % 128 with more than one k
+//     tile) takes the masked path of the same kernel: the producer
+//     warpgroup loads the stage itself, zero outside the window (so a scale
+//     tile of any width, 48 say, is masked inside its last k32 step).
+//   * per window each consumer runs up to four m64n128k32 wgmmas into a
+//     fresh fragment and adds it on the CUDA cores into its f32
+//     accumulator (the promotion): a wgmma step aligns its addends to the
+//     largest exponent sum, keeps 13 bits of each below it and 14
+//     significant bits of their sum (bf16: 25 and 24), not f32's 24;
+//     promoting every 128 bounds what that costs (below).
+//   * fp8_matmul_dequant: acc += fragment per window, in k order; then
+//     y = acc * row_scale, rounded once to the output type. The plain
+//     version adds exact k-block sums in f32; the windows lie inside its
+//     k-blocks.
+//   * fp8_mixed_matmul: windows start on the (row tile, k tile) grid of
+//     the scales, whose values each thread loads one tile ahead; clean rows
+//     take acc = fma(fragment, s_blk * s_w, acc) (the plain version scales
+//     each product before its exact sum: one f32 rounding per product
+//     apart); a warpgroup whose rows fall back in a tile (one bar.red.or)
+//     also builds bf16(x16) and bf16(decode(w) * s_w) in its own swizzled
+//     tiles, 64 k at a time, runs bf16 m64n128k16 wgmmas into the fragment
+//     and adds it for those rows. Rows that disagree within a warpgroup
+//     (tiles under 64 rows) run both products, each row taking its own.
+//   * no split of the contraction, no atomics: two launches give the same
+//     bits.
+// The tensor cores change the order of each window's sum and drop bits
+// inside it, so kernel and plain version agree to ref.matmul_bound, per
+// output: |y - y_plain| <= |scale| * c * 2^-t * (|a| @ |w|) + 1 ulp of the
+// output type, t the width the probe measured (fp8 13, bf16 23) and c the
+// addends and sums a window truncates (ref.ADDENDS). Inputs whose window
+// sums are exact at that width (ref.exact_entries) give the plain
+// version's bits, and kernels/fp8_matmul/wgmma_model.py (the steps'
+// truncations, the windows, the promotions in the kernels' order, in
+// plain torch) gives these kernels' bits on any input.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
+// returns cudaGetLastError() (or cudaErrorInvalidValue when a TMA
+// descriptor cannot be made); the Python wrapper raises on a non-zero code.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <algorithm>
 
 #include "../../csrc/fp8_grid.cuh"
+#include "../../csrc/wgmma.cuh"
 
 namespace {
 
@@ -64,19 +104,6 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // A value on the fp8 grid (grid_round's output) as its byte: exact.
 __device__ __forceinline__ uint8_t encode(float v, const Fmt& f) {
@@ -208,248 +235,478 @@ block_quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ q, float* _
 }
 
 // ---------------------------------------------------------------------------
-// The matmul core shared by fp8_matmul_dequant and fp8_mixed_matmul.
-//
-// A block owns a 64 x 64 output tile; 256 threads sit on a 16 x 16 grid and
-// own rows ty + 16 i and columns tx + 16 j (strided: a warp's reads of the
-// W tile are 16 consecutive doubles, its reads of the X tile two broadcast
-// addresses). Shared tiles are stored k-major, [k][row] and [k][col], their
-// row pitch padded by one double against bank conflicts when staged.
-// W is (K, M) (TW = false, read along M) or (M, K) (TW = true: the
-// forward's weight seen from the input gradient, read along K); no
-// transpose is written anywhere.
+// The fp8 GEMMs (see the note at the top).
 // ---------------------------------------------------------------------------
-constexpr int TM = 64, TN = 64, PITCH = 65;
+constexpr int BM = 128;                   // output rows of a block (two warpgroups of 64)
+constexpr int BN = 128;                   // output columns of a block
+constexpr int BK = 128;                   // the longest window: one 128-byte row of a tile
+constexpr int TILE = BM * BK;             // bytes of a stage's A or W tile (BN == BM)
+constexpr int kGemmThreads = 384;         // producer warpgroup + two consumer warpgroups
+constexpr int kMaxStages = 6;
+constexpr int kSmemMax = 232448;          // dynamic shared memory a block may use
+constexpr int kFbBytes = 64 * 128 + BN * 128;  // one consumer's bf16 A (64 x 64) and W (BN x 64)
 
-template <int BK>
-struct DTiles {
-  double xs[BK][PITCH];
-  double ws[BK][PITCH];
+struct Gemm {
+  const uint8_t* x;          // x_q (B, K) fp8, format fa
+  const uint8_t* w;          // w_q (M, K) fp8, format fw: W K-major
+  int B, K, M, fa, fw;
+  int bk, nbk;               // the contraction's tiles: mixed's scale tiles, dequant's k-blocks
+  int tma, stages;           // set by the launcher
+  const float* row_scale;    // dequant: (B,)
+  const void* x16;           // mixed: (B, K), f32 or bf16 (x16_bf16)
+  int x16_bf16;
+  const float* s_blk;        // mixed: (nbr, nbk)
+  const float* fb_blk;       // mixed: (nbr, nbk), nonzero where the tile falls back
+  const float* s_w;          // mixed: (1,)
+  int br;                    // mixed: rows of a scale tile
+  void* y;                   // (B, M), f32 or bf16 (y_bf16)
+  int y_bf16;
 };
 
-// Stage W's columns [col0, col0 + TN) at contraction indices [k0, kend) as
-// ws[kk][n] (zero outside), decoded from fp8; `wfn(v)` maps the decoded
-// value to what is stored.
-template <bool TW, int BK, typename F>
-__device__ __forceinline__ void stage_w(const uint8_t* __restrict__ w_q, const Fmt& fw, int K,
-                                        int M, int k0, int kend, int col0,
-                                        double (&ws)[BK][PITCH], F wfn) {
-  for (int idx = threadIdx.x; idx < BK * TN; idx += kThreads) {
-    int kk, n;
-    if (TW) {
-      n = idx / BK;
-      kk = idx % BK;
+struct Smem {
+  uint8_t *a, *b, *fb;
+  uint64_t *full, *empty;
+};
+
+// the stages' A and W tiles, the consumers' bf16 tiles and the barriers,
+// every tile 1,024-byte aligned
+__device__ __forceinline__ Smem carve(uint8_t* raw, int stages, bool mixed) {
+  uint8_t* p = raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+  Smem s;
+  s.a = p;
+  s.b = p + stages * TILE;
+  s.fb = s.b + stages * TILE;
+  s.full = reinterpret_cast<uint64_t*>(s.fb + (mixed ? 2 * kFbBytes : 0));
+  s.empty = s.full + kMaxStages;
+  return s;
+}
+
+size_t gemm_smem_bytes(int stages, bool mixed) {
+  return 1024 + 2 * static_cast<size_t>(stages) * TILE + (mixed ? 2 * kFbBytes : 0) +
+         2 * kMaxStages * sizeof(uint64_t);
+}
+
+// the masked path: rows [r0, r0 + 128) x contraction [k0, k1) of an (R, K)
+// K-major matrix into a swizzled tile, zeros elsewhere (one 16-byte chunk
+// of the tile per step)
+__device__ void load_rows(uint8_t* dst, const uint8_t* __restrict__ src, int R, int K, int r0,
+                          int k0, int k1, int t) {
+  for (int c = t; c < 128 * 8; c += 128) {
+    const int r = c >> 3, ch = c & 7, row = r0 + r;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (row < R) {
+      const uint8_t* p = src + static_cast<size_t>(row) * K;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int k = k0 + ch * 16 + e;
+        if (k < k1) v[e >> 2] |= static_cast<uint32_t>(p[k]) << (8 * (e & 3));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + sw128(r * 128 + ch * 16)) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// the producer warpgroup: fills stage s for each window in order, by TMA
+// from one thread (the other warps leave) or, on the masked path, by all
+// 128 threads
+__device__ void produce(const Gemm& g, const CUtensorMap* tm_a, const CUtensorMap* tm_w,
+                        const Smem& sm, int row0, int col0) {
+  const int t = threadIdx.x;
+  if (g.tma && t >= 32) return;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int kt = 0; kt < g.nbk; ++kt) {
+    const int kb = kt * g.bk, ke = min(kb + g.bk, g.K);
+    for (int k0 = kb; k0 < ke; k0 += BK) {
+      uint8_t* a = sm.a + s * TILE;
+      uint8_t* b = sm.b + s * TILE;
+      mbar_wait(&sm.empty[s], ph ^ 1u);
+      if (g.tma) {
+        if (t == 0) {
+          mbar_expect_tx(&sm.full[s], 2 * TILE);
+          tma_load_2d(a, tm_a, &sm.full[s], k0, row0);
+          tma_load_2d(b, tm_w, &sm.full[s], k0, col0);
+        }
+      } else {
+        const int k1 = min(k0 + BK, ke);
+        load_rows(a, g.x, g.B, g.K, row0, k0, k1, t);
+        load_rows(b, g.w, g.M, g.K, col0, k0, k1, t);
+        fence_proxy_async();
+        mbar_arrive(&sm.full[s]);
+      }
+      if (++s == g.stages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// element (row, k) of x16 widened to f32 (bf16 values are exact in f32)
+__device__ __forceinline__ float x16_at(const Gemm& g, size_t i) {
+  return g.x16_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(g.x16)[i])
+                    : static_cast<const float*>(g.x16)[i];
+}
+
+// fp8_mixed_matmul's fallback product of window [k0, k1) for one consumer
+// warpgroup (rows wrow0..wrow0 + 63, thread t of 128): bf16(x16) against
+// bf16(decode(w) * s_w), built 64 k at a time in the warpgroup's own
+// swizzled tiles, into `part` (overwritten)
+__device__ __forceinline__ void fallback_product(const Gemm& g, float (&part)[64], uint8_t* a16,
+                                                 const uint8_t* b8, int wrow0, int k0, int k1,
+                                                 float sw, int cw, int t) {
+  uint8_t* w16 = a16 + 64 * 128;
+  const Fmt fw = fmt_of(g.fw);
+  for (int h = 0; h < 2; ++h) {
+    const int h0 = k0 + 64 * h;
+    if (h0 >= k1) break;
+    const int h1 = min(h0 + 64, k1);
+    for (int c = t; c < 64 * 8; c += 128) {
+      const int r = c >> 3, ch = c & 7, row = wrow0 + r;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = h0 + ch * 8 + e;
+        v[e] = row < g.B && k < h1 ? x16_at(g, static_cast<size_t>(row) * g.K + k) : 0.f;
+      }
+      *reinterpret_cast<uint4*>(a16 + sw128(r * 128 + ch * 16)) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                     pack_bf16(v[6], v[7]));
+    }
+    for (int c = t; c < BN * 8; c += 128) {
+      const int n = c >> 3, ch = c & 7;
+      const uint2 q = *reinterpret_cast<const uint2*>(b8 + sw128(n * 128 + 64 * h + 8 * ch));
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = __fmul_rn(decode(static_cast<uint8_t>((e < 4 ? q.x : q.y) >> (8 * (e & 3))), fw),
+                         sw);
+      *reinterpret_cast<uint4*>(w16 + sw128(n * 128 + ch * 16)) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                     pack_bf16(v[6], v[7]));
+    }
+    fence_proxy_async();
+    named_sync(1 + cw, 128);
+    const uint64_t da = sw128_desc(smem_u32(a16)), db = sw128_desc(smem_u32(w16));
+    wgmma_fence();
+    fence_frag(part);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (h0 + 16 * j < h1)
+        wgmma_m64n128k16_bf16(part, desc_advance(da, 32 * j), desc_advance(db, 32 * j),
+                              h > 0 || j > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_frag(part);
+    named_sync(1 + cw, 128);               // the tiles are free for the next 64 k
+  }
+}
+
+// a consumer warpgroup (cw = 0 or 1): rows row0 + 64 cw .. + 63, every
+// window's fragment promoted into acc; then the epilogue
+template <bool MIXED>
+__device__ void consume(const Gemm& g, const Smem& sm, int row0, int col0, int cw) {
+  const int t = threadIdx.x - 128 * (1 + cw);
+  const int warp = t >> 5, lane = t & 31;
+  const int wrow0 = row0 + 64 * cw;
+  const int r_lo = wrow0 + 16 * warp + (lane >> 2), r_hi = r_lo + 8;
+  const float sw = MIXED ? g.s_w[0] : 1.f;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int s = 0;
+  uint32_t ph = 0;
+  // mixed: each row's tile scale and fallback flag, loaded one tile ahead
+  // of its use so that no window waits for them
+  const size_t t_lo = MIXED ? static_cast<size_t>(min(r_lo, g.B - 1) / g.br) * g.nbk : 0;
+  const size_t t_hi = MIXED ? static_cast<size_t>(min(r_hi, g.B - 1) / g.br) * g.nbk : 0;
+  float s_lo_next = 1.f, s_hi_next = 1.f, f_lo_next = 0.f, f_hi_next = 0.f;
+  if (MIXED && wrow0 < g.B && g.nbk > 0) {
+    s_lo_next = g.s_blk[t_lo];
+    s_hi_next = g.s_blk[t_hi];
+    f_lo_next = g.fb_blk[t_lo];
+    f_hi_next = g.fb_blk[t_hi];
+  }
+  for (int kt = 0; kt < g.nbk; ++kt) {
+    const int kb = kt * g.bk, ke = min(kb + g.bk, g.K);
+    bool fb_lo = false, fb_hi = false, need16 = false;
+    float sc_lo = 1.f, sc_hi = 1.f;
+    if (MIXED && wrow0 < g.B) {
+      fb_lo = f_lo_next != 0.f;
+      fb_hi = f_hi_next != 0.f;
+      // a row that falls back adds 0 * fragment (acc is never -0)
+      sc_lo = fb_lo ? 0.f : __fmul_rn(s_lo_next, sw);
+      sc_hi = fb_hi ? 0.f : __fmul_rn(s_hi_next, sw);
+      // the warpgroup runs the bf16 product when any of its rows falls back
+      need16 = sync_any(fb_lo || fb_hi, 1 + cw, 128);
+      if (kt + 1 < g.nbk) {
+        s_lo_next = g.s_blk[t_lo + kt + 1];
+        s_hi_next = g.s_blk[t_hi + kt + 1];
+        f_lo_next = g.fb_blk[t_lo + kt + 1];
+        f_hi_next = g.fb_blk[t_hi + kt + 1];
+      }
+    }
+    for (int k0 = kb; k0 < ke; k0 += BK) {
+      const int k1 = min(k0 + BK, ke), nslab = (k1 - k0 + 31) >> 5;
+      mbar_wait(&sm.full[s], ph);
+      if (wrow0 < g.B) {
+        const uint64_t da = sw128_desc(smem_u32(sm.a + s * TILE + cw * 64 * 128));
+        const uint64_t db = sw128_desc(smem_u32(sm.b + s * TILE));
+        wgmma_fence();
+        fence_frag(part);
+        wgmma_fp8_steps(part, da, db, nslab, g.fa, g.fw);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_frag(part);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (!MIXED) {
+            acc[i] = __fadd_rn(acc[i], part[i]);
+          } else {
+            acc[i] = __fmaf_rn(part[i], ((i >> 1) & 1) ? sc_hi : sc_lo, acc[i]);
+          }
+        }
+      }
+      if (need16) {
+        fallback_product(g, part, sm.fb + cw * kFbBytes, sm.b + s * TILE, wrow0, k0, k1, sw, cw,
+                         t);
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (((i >> 1) & 1) ? fb_hi : fb_lo) acc[i] = __fadd_rn(acc[i], part[i]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+      if (++s == g.stages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+  }
+  // epilogue: y = acc (* row_scale), rounded once to the output type
+  const float rs_lo = !MIXED && r_lo < g.B ? g.row_scale[r_lo] : 1.f;
+  const float rs_hi = !MIXED && r_hi < g.B ? g.row_scale[r_hi] : 1.f;
+  const bool pairs = (g.M & 1) == 0;
+  const int c_base = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const bool hi = (i >> 1) & 1;
+    const int row = hi ? r_hi : r_lo, col = c_base + 8 * (i >> 2);
+    if (row >= g.B || col >= g.M) continue;
+    float v0 = acc[i], v1 = acc[i + 1];
+    if (!MIXED) {
+      v0 = __fmul_rn(v0, hi ? rs_hi : rs_lo);
+      v1 = __fmul_rn(v1, hi ? rs_hi : rs_lo);
+    }
+    const size_t at = static_cast<size_t>(row) * g.M + col;
+    const bool both = col + 1 < g.M;
+    if (g.y_bf16) {
+      __nv_bfloat16* y = static_cast<__nv_bfloat16*>(g.y);
+      if (pairs && both) {
+        *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        y[at] = __float2bfloat16_rn(v0);
+        if (both) y[at + 1] = __float2bfloat16_rn(v1);
+      }
     } else {
-      kk = idx / TN;
-      n = idx % TN;
+      float* y = static_cast<float*>(g.y);
+      if (pairs && both) {
+        *reinterpret_cast<float2*>(y + at) = make_float2(v0, v1);
+      } else {
+        y[at] = v0;
+        if (both) y[at + 1] = v1;
+      }
     }
-    const int k = k0 + kk, c = col0 + n;
-    double v = 0.0;
-    if (k < kend && c < M)
-      v = wfn(decode(w_q[TW ? static_cast<size_t>(c) * K + k : static_cast<size_t>(k) * M + c], fw));
-    ws[kk][n] = v;
+  }
+}
+
+template <bool MIXED>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+fp8_gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUtensorMap tm_w,
+                const Gemm g) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem sm = carve(smem_raw, g.stages, MIXED);
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  if (threadIdx.x == 0) {
+    // full: the TMA bytes and their issuer's arrival, or the 128 producer
+    // threads' arrivals on the masked path; empty: the 8 consumer warps
+    for (int i = 0; i < g.stages; ++i) {
+      mbar_init(&sm.full[i], g.tma ? 1u : 128u);
+      mbar_init(&sm.empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // 128 x 56 + 256 x 224 registers = 384 x 168, the launch's allocation
+  if (threadIdx.x < 128) {
+    regs_dec<56>();
+    produce(g, &tm_a, &tm_w, sm, row0, col0);
+  } else {
+    regs_inc<224>();
+    consume<MIXED>(g, sm, row0, col0, threadIdx.x / 128 - 1);
+  }
+}
+
+// cuTensorMapEncodeTiled (libcuda's), looked up through the runtime so that
+// nothing more is linked
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// the TMA map of a row-major (rows, cols) byte matrix in 128-byte-swizzled
+// boxes of 128 x 128 (a stage tile)
+bool tma_map(CUtensorMap* m, const void* p, int rows, int cols) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128, 128}, steps[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <bool MIXED>
+int launch_gemm(Gemm g, cudaStream_t st) {
+  if (g.B <= 0 || g.M <= 0) return static_cast<int>(cudaGetLastError());
+  // the TMA path: 16-byte row pitches and windows on 128-column boundaries
+  g.tma = g.K > 0 && g.K % 16 == 0 && aligned16(g.x) && aligned16(g.w) &&
+          (g.nbk == 1 || g.bk % BK == 0);
+  CUtensorMap ma, mw;
+  memset(&ma, 0, sizeof(ma));
+  memset(&mw, 0, sizeof(mw));
+  if (g.tma && !(tma_map(&ma, g.x, g.B, g.K) && tma_map(&mw, g.w, g.M, g.K)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t fixed = gemm_smem_bytes(0, MIXED), per = gemm_smem_bytes(1, MIXED) - fixed;
+  g.stages = static_cast<int>(std::min<size_t>(kMaxStages, (kSmemMax - fixed) / per));
+  const size_t bytes = gemm_smem_bytes(g.stages, MIXED);
+  cudaFuncSetAttribute(fp8_gemm_kernel<MIXED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(bytes));
+  dim3 grid((g.M + BN - 1) / BN, (g.B + BM - 1) / BM);
+  fp8_gemm_kernel<MIXED><<<grid, kGemmThreads, bytes, st>>>(ma, mw, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Gemm gemm_args(const void* x_q, int fx, const void* w_q, int fw, void* y, int y_bf16, int B,
+               int K, int M, int bk) {
+  Gemm g;
+  memset(&g, 0, sizeof(g));
+  g.x = static_cast<const uint8_t*>(x_q);
+  g.w = static_cast<const uint8_t*>(w_q);
+  g.B = B;
+  g.K = K;
+  g.M = M;
+  g.fa = fx;
+  g.fw = fw;
+  g.bk = bk > 0 ? bk : 1;
+  g.nbk = (K + g.bk - 1) / g.bk;
+  g.y = y;
+  g.y_bf16 = y_bf16;
+  return g;
+}
+
+// the forward's W (R = K, C = M) as the K-major (C, R) bytes the GEMMs read:
+// 128 x 128 byte tiles through shared memory, 4-byte words where the rows
+// allow (bound by bytes: W read once, written once)
+__global__ void __launch_bounds__(256)
+transpose_bytes_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int R, int C) {
+  __shared__ uint8_t tile[128][132];
+  const int r0 = blockIdx.y * 128, c0 = blockIdx.x * 128;
+  const bool words_in = (C & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 3u) == 0;
+  const bool words_out = (R & 3) == 0 && (reinterpret_cast<uintptr_t>(dst) & 3u) == 0;
+  for (int i = threadIdx.x; i < 128 * 32; i += 256) {
+    const int r = i >> 5, row = r0 + r, col = c0 + 4 * (i & 31);
+    uint32_t v = 0u;
+    if (row < R) {
+      const uint8_t* p = src + static_cast<size_t>(row) * C + col;
+      if (words_in && col < C) {
+        v = *reinterpret_cast<const uint32_t*>(p);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < C) v |= static_cast<uint32_t>(p[e]) << (8 * e);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(&tile[r][4 * (i & 31)]) = v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 128 * 32; i += 256) {
+    const int c = i >> 5, w = i & 31, orow = c0 + c, ocol = r0 + 4 * w;
+    if (orow >= C) continue;
+    const uint32_t v = static_cast<uint32_t>(tile[4 * w][c]) |
+                       (static_cast<uint32_t>(tile[4 * w + 1][c]) << 8) |
+                       (static_cast<uint32_t>(tile[4 * w + 2][c]) << 16) |
+                       (static_cast<uint32_t>(tile[4 * w + 3][c]) << 24);
+    uint8_t* p = dst + static_cast<size_t>(orow) * R + ocol;
+    if (words_out && ocol < R) {
+      *reinterpret_cast<uint32_t*>(p) = v;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (ocol + e < R) p[e] = static_cast<uint8_t>(v >> (8 * e));
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// fp8_matmul_dequant: x_q (B, K) fp8 (format fx), w_q (K, M) or (M, K)
-// fp8 (format fw), row_scale (B,) f32 -> y (B, M) = acc * row_scale[b],
-// acc the f32 sum over k-blocks of width bk of each block's exact sum.
+// wgmma_probe: one warpgroup runs the GEMMs' own instruction chain on given
+// operands: d (64 x 128 f32) = a . b^T, a 64 rows and b 128 rows of 128
+// bytes, both K-major and swizzled as a stage tile. Mode 0: E4M3 x E4M3,
+// `steps` chained m64n128k32 steps (wgmma_fp8_steps, one window of the
+// GEMM); 1: E5M2 x E4M3; 2: bf16 x bf16, `steps` chained m64n128k16 steps
+// of 64-value rows (as fallback_product). Constructed operands show how
+// wide the tensor cores add (chip_smoke.py).
 // ---------------------------------------------------------------------------
-constexpr int BK_DQ = 32;
-
-template <typename T, bool TW>
-__global__ void __launch_bounds__(kThreads)
-fp8_matmul_dequant_kernel(const uint8_t* __restrict__ x_q, int fx, const uint8_t* __restrict__ w_q,
-                          int fw, const float* __restrict__ row_scale, T* __restrict__ y, int B,
-                          int K, int M, int bk) {
-  __shared__ DTiles<BK_DQ> t;
-  const Fmt fxf = fmt_of(fx), fwf = fmt_of(fw);
-  const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4] = {};
-  for (int kb = 0; kb < K; kb += bk) {
-    const int kend = min(kb + bk, K);
-    double d[4][4] = {};
-    for (int k0 = kb; k0 < kend; k0 += BK_DQ) {
-      for (int idx = threadIdx.x; idx < TM * BK_DQ; idx += kThreads) {
-        const int r = idx / BK_DQ, kk = idx % BK_DQ;
-        const int row = row0 + r, k = k0 + kk;
-        t.xs[kk][r] = (row < B && k < kend)
-                          ? static_cast<double>(decode(x_q[static_cast<size_t>(row) * K + k], fxf))
-                          : 0.0;
-      }
-      stage_w<TW, BK_DQ>(w_q, fwf, K, M, k0, kend, col0, t.ws,
-                         [](float v) { return static_cast<double>(v); });
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < BK_DQ; ++kk) {
-        double a[4], b[4];
+__global__ void __launch_bounds__(128)
+wgmma_probe_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                   float* __restrict__ d, int mode, int steps) {
+  __shared__ uint8_t raw[1024 + 192 * 128];
+  uint8_t* sa = raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+  uint8_t* sb = sa + 64 * 128;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  for (int i = t; i < 64 * 128; i += 128) sa[sw128(i)] = a[i];
+  for (int i = t; i < 128 * 128; i += 128) sb[sw128(i)] = b[i];
+  fence_proxy_async();
+  __syncthreads();
+  float f[64];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = t.xs[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = t.ws[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) d[i][j] = __fma_rn(a[i], b[j], d[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], __double2float_rn(d[i][j]));
+  for (int i = 0; i < 64; ++i) f[i] = 0.f;
+  const uint64_t da = sw128_desc(smem_u32(sa)), db = sw128_desc(smem_u32(sb));
+  wgmma_fence();
+  fence_frag(f);
+  if (mode < 2) {
+    wgmma_fp8_steps(f, da, db, steps, mode, 0);
+  } else {
+    for (int j = 0; j < steps; ++j)
+      wgmma_m64n128k16_bf16(f, desc_advance(da, 32 * j), desc_advance(db, 32 * j), j > 0);
   }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_frag(f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= B) continue;
-    const float rs = row_scale[row];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < M) y[static_cast<size_t>(row) * M + col] = from_f32<T>(__fmul_rn(acc[i][j], rs));
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp8_mixed_matmul: x16 (B, K) f32/bf16 (the unquantized operand), x_q
-// (B, K) fp8 (format fx) with per-tile scale s_blk and fallback mask fb_blk
-// (nbr, nbk) over tiles of br rows x bk columns, w_q (K, M) or (M, K) fp8
-// (format fw) with tensor scale s_w (1,) -> y (B, M) in the output type.
-// Rows of one block may lie in different row tiles, so both forms of each W
-// element are staged (the decoded value and bf16(value * s_w)) and each
-// thread picks, per row, the one its row's tile takes.
-// ---------------------------------------------------------------------------
-constexpr int BK_MX = 16;
-
-template <typename Tin, typename Tout, bool TW>
-__global__ void __launch_bounds__(kThreads)
-fp8_mixed_matmul_kernel(const Tin* __restrict__ x16, const uint8_t* __restrict__ x_q, int fx,
-                        const float* __restrict__ s_blk, const float* __restrict__ fb_blk,
-                        const uint8_t* __restrict__ w_q, int fw, const float* __restrict__ s_w,
-                        Tout* __restrict__ y, int B, int K, int M, int br, int bk) {
-  __shared__ DTiles<BK_MX> t;
-  __shared__ double w16s[BK_MX][PITCH];
-  __shared__ int fb_row[TM];
-  __shared__ float sc_row[TM];
-  const Fmt fxf = fmt_of(fx), fwf = fmt_of(fw);
-  const float sw = s_w[0];
-  const int nbk = (K + bk - 1) / bk;
-  const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4] = {};
-  for (int kt = 0; kt < nbk; ++kt) {
-    const int kb = kt * bk, kend = min(kb + bk, K);
-    if (threadIdx.x < TM) {
-      const int row = row0 + threadIdx.x;
-      const size_t tile = static_cast<size_t>(min(row, B - 1) / br) * nbk + kt;
-      fb_row[threadIdx.x] = fb_blk[tile] != 0.f;
-      sc_row[threadIdx.x] = __fmul_rn(s_blk[tile], sw);
-    }
-    __syncthreads();
-    bool fb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) fb[i] = fb_row[ty + 16 * i];
-    double d[4][4] = {};
-    for (int k0 = kb; k0 < kend; k0 += BK_MX) {
-      for (int idx = threadIdx.x; idx < TM * BK_MX; idx += kThreads) {
-        const int r = idx / BK_MX, kk = idx % BK_MX;
-        const int row = row0 + r, k = k0 + kk;
-        double v = 0.0;
-        if (row < B && k < kend) {
-          const size_t at = static_cast<size_t>(row) * K + k;
-          v = fb_row[r] ? bf16_round(to_f32(x16[at])) : __fmul_rn(decode(x_q[at], fxf), sc_row[r]);
-        }
-        t.xs[kk][r] = v;
-      }
-      stage_w<TW, BK_MX>(w_q, fwf, K, M, k0, kend, col0, t.ws,
-                         [](float v) { return static_cast<double>(v); });
-      stage_w<TW, BK_MX>(w_q, fwf, K, M, k0, kend, col0, w16s,
-                         [sw](float v) { return static_cast<double>(bf16_round(__fmul_rn(v, sw))); });
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < BK_MX; ++kk) {
-        double a[4], b8[4], b16[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = t.xs[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b8[j] = t.ws[kk][tx + 16 * j];
-          b16[j] = w16s[kk][tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) d[i][j] = __fma_rn(a[i], fb[i] ? b16[j] : b8[j], d[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], __double2float_rn(d[i][j]));
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < M) y[static_cast<size_t>(row) * M + col] = from_f32<Tout>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, bool TW>
-void launch_dequant(const void* x_q, int fx, const void* w_q, int fw, const void* row_scale,
-                    void* y, int B, int K, int M, int bk, cudaStream_t st) {
-  dim3 grid((M + TN - 1) / TN, (B + TM - 1) / TM);
-  fp8_matmul_dequant_kernel<T, TW><<<grid, kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(x_q), fx, static_cast<const uint8_t*>(w_q), fw,
-      static_cast<const float*>(row_scale), static_cast<T*>(y), B, K, M, bk);
-}
-
-template <typename Tin, typename Tout, bool TW>
-void launch_mixed(const void* x16, const void* x_q, int fx, const void* s_blk, const void* fb_blk,
-                  const void* w_q, int fw, const void* s_w, void* y, int B, int K, int M, int br,
-                  int bk, cudaStream_t st) {
-  dim3 grid((M + TN - 1) / TN, (B + TM - 1) / TM);
-  fp8_mixed_matmul_kernel<Tin, Tout, TW><<<grid, kThreads, 0, st>>>(
-      static_cast<const Tin*>(x16), static_cast<const uint8_t*>(x_q), fx,
-      static_cast<const float*>(s_blk), static_cast<const float*>(fb_blk),
-      static_cast<const uint8_t*>(w_q), fw, static_cast<const float*>(s_w), static_cast<Tout*>(y),
-      B, K, M, br, bk);
-}
-
-template <bool TW>
-void dispatch_dequant(const void* x_q, int fx, const void* w_q, int fw, const void* row_scale,
-                      void* y, int bf16, int B, int K, int M, int bk, cudaStream_t st) {
-  if (bf16)
-    launch_dequant<__nv_bfloat16, TW>(x_q, fx, w_q, fw, row_scale, y, B, K, M, bk, st);
-  else
-    launch_dequant<float, TW>(x_q, fx, w_q, fw, row_scale, y, B, K, M, bk, st);
-}
-
-template <bool TW>
-void dispatch_mixed(const void* x16, int bf16_in, const void* x_q, int fx, const void* s_blk,
-                    const void* fb_blk, const void* w_q, int fw, const void* s_w, void* y,
-                    int bf16_out, int B, int K, int M, int br, int bk, cudaStream_t st) {
-  if (bf16_in && bf16_out)
-    launch_mixed<__nv_bfloat16, __nv_bfloat16, TW>(x16, x_q, fx, s_blk, fb_blk, w_q, fw, s_w, y,
-                                                   B, K, M, br, bk, st);
-  else if (bf16_in)
-    launch_mixed<__nv_bfloat16, float, TW>(x16, x_q, fx, s_blk, fb_blk, w_q, fw, s_w, y, B, K, M,
-                                           br, bk, st);
-  else if (bf16_out)
-    launch_mixed<float, __nv_bfloat16, TW>(x16, x_q, fx, s_blk, fb_blk, w_q, fw, s_w, y, B, K, M,
-                                           br, bk, st);
-  else
-    launch_mixed<float, float, TW>(x16, x_q, fx, s_blk, fb_blk, w_q, fw, s_w, y, B, K, M, br, bk,
-                                   st);
+  for (int i = 0; i < 64; ++i)
+    d[(16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * (lane & 3) +
+      (i & 1)] = f[i];
 }
 
 }  // namespace
@@ -516,42 +773,49 @@ int f8_block_quantize(const void* x, int bf16, void* q, void* s, int R, int C, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// x_q (B, K), w_q (K, M), row_scale (B,) -> y (B, M); k-blocks of bk.
-int f8_matmul_dequant(const void* x_q, int fx, const void* w_q, int fw, const void* row_scale,
-                      void* y, int bf16, int B, int K, int M, int bk, void* stream) {
-  if (B > 0 && M > 0)
-    dispatch_dequant<false>(x_q, fx, w_q, fw, row_scale, y, bf16, B, K, M, bk,
-                            static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same with w_q (M, K), contracted over its second dim.
+// x_q (B, K), w_q (M, K), row_scale (B,) -> y (B, M) = (x_q . w_q^T) * row_scale;
+// bk: the plain version's k-block (a multiple of 128, or K), which the
+// windows respect. The forward (W (K, M)) comes here with the wrapper's
+// K-major copy of W.
 int f8_matmul_dequant_t(const void* x_q, int fx, const void* w_q, int fw, const void* row_scale,
                         void* y, int bf16, int B, int K, int M, int bk, void* stream) {
-  if (B > 0 && M > 0)
-    dispatch_dequant<true>(x_q, fx, w_q, fw, row_scale, y, bf16, B, K, M, bk,
-                           static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  Gemm g = gemm_args(x_q, fx, w_q, fw, y, bf16, B, K, M, bk);
+  g.row_scale = static_cast<const float*>(row_scale);
+  return launch_gemm<false>(g, static_cast<cudaStream_t>(stream));
 }
 
 // x16 (B, K), x_q (B, K), s_blk and fb_blk (ceil(B / br), ceil(K / bk)),
-// w_q (K, M), s_w (1,) -> y (B, M).
-int f8_mixed_matmul(const void* x16, int bf16_in, const void* x_q, int fx, const void* s_blk,
-                    const void* fb_blk, const void* w_q, int fw, const void* s_w, void* y,
-                    int bf16_out, int B, int K, int M, int br, int bk, void* stream) {
-  if (B > 0 && M > 0)
-    dispatch_mixed<false>(x16, bf16_in, x_q, fx, s_blk, fb_blk, w_q, fw, s_w, y, bf16_out, B, K,
-                          M, br, bk, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same with w_q (M, K), contracted over its second dim.
+// w_q (M, K), s_w (1,) -> y (B, M); the forward, as above, with the
+// wrapper's K-major copy of W.
 int f8_mixed_matmul_t(const void* x16, int bf16_in, const void* x_q, int fx, const void* s_blk,
                       const void* fb_blk, const void* w_q, int fw, const void* s_w, void* y,
                       int bf16_out, int B, int K, int M, int br, int bk, void* stream) {
-  if (B > 0 && M > 0)
-    dispatch_mixed<true>(x16, bf16_in, x_q, fx, s_blk, fb_blk, w_q, fw, s_w, y, bf16_out, B, K, M,
-                         br, bk, static_cast<cudaStream_t>(stream));
+  Gemm g = gemm_args(x_q, fx, w_q, fw, y, bf16_out, B, K, M, bk);
+  g.x16 = x16;
+  g.x16_bf16 = bf16_in;
+  g.s_blk = static_cast<const float*>(s_blk);
+  g.fb_blk = static_cast<const float*>(fb_blk);
+  g.s_w = static_cast<const float*>(s_w);
+  g.br = br > 0 ? br : 1;
+  return launch_gemm<true>(g, static_cast<cudaStream_t>(stream));
+}
+
+// src (R, C) bytes -> dst (C, R): the forward's W made K-major.
+int f8_transpose_bytes(const void* src, void* dst, int R, int C, void* stream) {
+  if (R > 0 && C > 0) {
+    dim3 grid((C + 127) / 128, (R + 127) / 128);
+    transpose_bytes_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), R, C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a (64, 128) and b (128, 128) bytes, d (64, 128) f32, all on the card;
+// steps 1-4
+int f8_wgmma_probe(const void* a, const void* b, void* d, int mode, int steps, void* stream) {
+  wgmma_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<float*>(d),
+      mode, steps);
   return static_cast<int>(cudaGetLastError());
 }
 

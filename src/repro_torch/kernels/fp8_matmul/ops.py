@@ -9,7 +9,11 @@ fallback when the build or a launch fails.
 fp8 tensors are ``torch.float8_e4m3fn`` or ``torch.float8_e5m2``; a
 matmul reads each operand's format from its dtype. The kernels mask their
 ragged edges themselves, so nothing is padded here; the states keep the
-tile grid of the JAX package's zero-padded arrays. ``fp8_matmul_dequant``
+tile grid of the JAX package's zero-padded arrays. The matmul kernels run
+on fp8 wgmma, which reads W K-major only: the ``_t`` forms' W (M, K) is,
+and the forward's W (K, M) goes to the same kernel as a K-major copy that
+the wrapper makes first with the ``transpose_bytes`` kernel (``_k_major``;
+its time is part of the wrapper's, its launches count apart). ``fp8_matmul_dequant``
 accumulates over the k-blocks of ``ref.choose_blocks`` (the JAX package's
 split), in both the kernel and the plain version. ``fallback_mask`` is a
 plain op on the tiny tile state on either device, not a kernel; ``mixed``
@@ -41,7 +45,7 @@ fallback_mask = _ref.fallback_mask
 
 LAUNCHES = dict.fromkeys((
     "fp8_row_quantize", "fp8_tensor_quantize", "fp8_block_quantize", "fp8_matmul_dequant",
-    "fp8_matmul_dequant_t", "fp8_mixed_matmul", "fp8_mixed_matmul_t"), 0)
+    "fp8_matmul_dequant_t", "fp8_mixed_matmul", "fp8_mixed_matmul_t", "fp8_transpose_bytes"), 0)
 
 
 def _lib():
@@ -124,6 +128,25 @@ def _check_matmul(x_q, w_q, transpose_w: bool, out_dtype):
     return B, K, w_q.shape[0] if transpose_w else w_q.shape[1]
 
 
+def transpose_bytes(w_q: torch.Tensor) -> torch.Tensor:
+    """The forward's W (K, M) fp8 as the (M, K) K-major bytes (uint8) that
+    the matmul kernels read."""
+    _b.need(w_q, "w_q", _FP8_TYPES, 2)
+    if _b.on_cpu(w_q):
+        return w_q.view(torch.uint8).t().contiguous()
+    K, M = w_q.shape
+    w_t = torch.empty((M, K), dtype=torch.uint8, device=w_q.device)
+    _b.launch(_lib().f8_transpose_bytes, w_q.data_ptr(), w_t.data_ptr(), K, M, _b.stream(w_q))
+    LAUNCHES["fp8_transpose_bytes"] += 1
+    return w_t
+
+
+def _k_major(w_q, transpose_w: bool) -> torch.Tensor:
+    """W as the (M, K) K-major bytes the matmul kernels read: the ``_t``
+    forms' as it lies, the forward's (K, M) through ``transpose_bytes``."""
+    return w_q if transpose_w else transpose_bytes(w_q)
+
+
 def _dequant(x_q, w_q, row_scale, transpose_w: bool, out_dtype):
     B, K, M = _check_matmul(x_q, w_q, transpose_w, out_dtype)
     _b.need(row_scale, "row_scale", (torch.float32,), 2)
@@ -132,13 +155,12 @@ def _dequant(x_q, w_q, row_scale, transpose_w: bool, out_dtype):
     if _b.on_cpu(x_q, w_q, row_scale):
         return _ref.fp8_matmul_dequant(x_q, w_q, row_scale, transpose_w=transpose_w,
                                        out_dtype=out_dtype)
-    name = "fp8_matmul_dequant_t" if transpose_w else "fp8_matmul_dequant"
     y = torch.empty((B, M), dtype=out_dtype, device=x_q.device)
-    _b.launch(getattr(_lib(), "f8" + name[3:]), x_q.data_ptr(), _FMT_CODE[x_q.dtype],
-              w_q.data_ptr(), _FMT_CODE[w_q.dtype], row_scale.data_ptr(), y.data_ptr(),
-              int(out_dtype == torch.bfloat16), B, K, M, _ref.block_k(B, K, M),
-              _b.stream(x_q))
-    LAUNCHES[name] += 1
+    w_k = _k_major(w_q, transpose_w)
+    _b.launch(_lib().f8_matmul_dequant_t, x_q.data_ptr(), _FMT_CODE[x_q.dtype], w_k.data_ptr(),
+              _FMT_CODE[w_q.dtype], row_scale.data_ptr(), y.data_ptr(),
+              int(out_dtype == torch.bfloat16), B, K, M, _ref.block_k(B, K, M), _b.stream(x_q))
+    LAUNCHES["fp8_matmul_dequant_t" if transpose_w else "fp8_matmul_dequant"] += 1
     return y
 
 
@@ -175,13 +197,13 @@ def _mixed(x16, x_q, s_blk, fb_blk, w_q, s_w, block_rows, block_cols, transpose_
         return _ref.fp8_mixed_matmul(x16, x_q, s_blk, fb_blk, w_q, s_w, block_rows=block_rows,
                                      block_cols=block_cols, transpose_w=transpose_w,
                                      out_dtype=out_dtype)
-    name = "fp8_mixed_matmul_t" if transpose_w else "fp8_mixed_matmul"
     y = torch.empty((B, M), dtype=out_dtype, device=x_q.device)
-    _b.launch(getattr(_lib(), "f8" + name[3:]), x16.data_ptr(), _bf16(x16), x_q.data_ptr(),
-              _FMT_CODE[x_q.dtype], s_blk.data_ptr(), fb_blk.data_ptr(), w_q.data_ptr(),
+    w_k = _k_major(w_q, transpose_w)
+    _b.launch(_lib().f8_mixed_matmul_t, x16.data_ptr(), _bf16(x16), x_q.data_ptr(),
+              _FMT_CODE[x_q.dtype], s_blk.data_ptr(), fb_blk.data_ptr(), w_k.data_ptr(),
               _FMT_CODE[w_q.dtype], s_w.data_ptr(), y.data_ptr(),
               int(out_dtype == torch.bfloat16), B, K, M, br, bk, _b.stream(x_q))
-    LAUNCHES[name] += 1
+    LAUNCHES["fp8_mixed_matmul_t" if transpose_w else "fp8_mixed_matmul"] += 1
     return y
 
 
@@ -219,7 +241,7 @@ def mixed(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, *, fmt: str = "
 
 
 KERNELS = (row_quantize, tensor_quantize, block_quantize, fp8_matmul_dequant,
-           fp8_matmul_dequant_t, fp8_mixed_matmul, fp8_mixed_matmul_t)
+           fp8_matmul_dequant_t, fp8_mixed_matmul, fp8_mixed_matmul_t, transpose_bytes)
 
 
 def launch_counts() -> dict:

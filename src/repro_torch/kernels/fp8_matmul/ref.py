@@ -18,15 +18,15 @@ same inputs.
   values are multiples of 2^-9 and E5M2 values of 2^-16, and every
   partial sum of a k-block of at most 4096 products is a multiple of
   2^-25 below 2^12, well inside float64's 53 bits) and is rounded once to
-  f32, as the CUDA kernel does. The two agree bit for bit; the JAX
-  package's in-block f32 dot follows XLA's order, so port and JAX agree
-  to a stated tolerance.
+  f32. The JAX package's in-block f32 dot follows XLA's order, so port
+  and JAX agree to a stated tolerance; the CUDA kernel (tensor cores) to
+  ``matmul_bound``.
 * ``fp8_mixed_matmul``: per (row tile, k tile): clean tiles
   ``(q * (s_blk * s_w)) . w_q``, fallback tiles ``bf16(x) . bf16(w_q *
   s_w)``, each tile's sum in float64 and rounded once to f32, then added
   in k order. Both the f32 scaled operand and the bf16 operands have short
   significands, so a tile's float64 sum is exact unless its products span
-  more than about 18 binades; the CUDA kernel takes the same steps.
+  more than about 18 binades.
 * ``fallback_mask``: ``state > ratio * median(state)`` with the JAX
   median (the mean of the two middle values of an even count;
   ``torch.median`` returns the lower one).
@@ -34,6 +34,11 @@ same inputs.
 W is (K, M), or (M, K) for the ``transpose_w`` (``_t``) forms, which
 contract over W's second dim (the input gradient, against the forward's
 fp8 W).
+
+The CUDA matmuls run on the tensor cores (fp8 and bf16 wgmma), which add
+each window's products in another order and to a width short of f32, so
+kernel and plain version agree to ``matmul_bound`` per output, not bit for
+bit; inputs whose window sums are exact at that width give the same bits.
 """
 from __future__ import annotations
 
@@ -193,3 +198,96 @@ def fp8_mixed_matmul(x16: torch.Tensor, x_q: torch.Tensor, s_blk: torch.Tensor,
     for kt, (d8, d16) in enumerate(zip(clean, fallback)):
         acc = acc + torch.where(fb_rows[:, kt:kt + 1], d16, d8)
     return acc.to(out_dtype)
+
+
+# How far the tensor-core kernels may lie from these plain versions
+# (``matmul_bound``). How a wgmma step adds (``wgmma_model.py``, fitted to
+# an H100's outputs; chip_smoke.py's accumulator probe measures the widths):
+# its addends (the step's products and, after a window's first step, the
+# fragment it accumulates into) are aligned to E, the largest of the
+# products' exponent sums and the fragment's exponent, and each truncated
+# toward zero to a multiple of 2^(E - t) (fp8 t 13; bf16 25); their sum is
+# then truncated to t bits below its own leading bit (fp8 13; bf16 23, f32).
+# 2^E is at most the largest addend's magnitude, a subnormal operand
+# counted as its format's least normal value (``_mag``), so each addend and
+# each step's sum loses less than 2^-ACC_BITS of the window's sum of
+# magnitudes (ACC_BITS the narrower width of each kind). A window promoted
+# into f32 is off by less than ADDENDS 2^-ACC_BITS times that sum: fp8's
+# k32 steps truncate 128 products, 3 fragments and 4 sums, bf16's k16
+# steps 128 products, 7 fragments and 8 sums. F32_SLACK covers the f32
+# roundings both sides add (the windows' and the k-blocks' additions, at
+# most 256 at 2^-24 each, and fp8_mixed's scaled operand, one rounding per
+# product).
+ACC_BITS = {"fp8": 13, "bf16": 23}
+WINDOW = 128
+ADDENDS = {"fp8": WINDOW + 3 + 4, "bf16": WINDOW + 7 + 8}
+F32_SLACK = 2.0 ** -16
+# the least normal value of each operand format
+MIN_NORMAL = {torch.float8_e4m3fn: 2.0 ** -6, torch.float8_e5m2: 2.0 ** -14,
+              torch.bfloat16: 2.0 ** -126}
+
+
+def _coef(kind: str) -> float:
+    return ADDENDS[kind] * 2.0 ** -ACC_BITS[kind] + F32_SLACK
+
+
+def _mag(t: torch.Tensor) -> torch.Tensor:
+    """|t| in float64, a nonzero subnormal raised to its format's least
+    normal value (the magnitude a wgmma step aligns it by)."""
+    a, m = t.double().abs(), MIN_NORMAL[t.dtype]
+    return torch.where((a > 0) & (a < m), m, a)
+
+
+def ulp(y: torch.Tensor, dtype) -> torch.Tensor:
+    """One unit in the last place of ``dtype`` at |y| (float64), the
+    subnormal spacing below the normal range."""
+    bits = {torch.float32: 24, torch.bfloat16: 8}[dtype]
+    a = y.double().abs().clamp_min(torch.finfo(dtype).tiny)
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - bits)
+
+
+def matmul_bound(y_plain: torch.Tensor, x_q: torch.Tensor, w_q: torch.Tensor,
+                 row_scale: torch.Tensor | None = None, *, transpose_w: bool = False,
+                 x16: torch.Tensor | None = None, s_blk: torch.Tensor | None = None,
+                 fb_blk: torch.Tensor | None = None, s_w: torch.Tensor | None = None,
+                 block_rows: int = 128, block_cols: int = 128) -> torch.Tensor:
+    """Per output (float64, y_plain's shape), the most a CUDA matmul's
+    output may differ from the plain version's ``y_plain`` on the same
+    inputs. ``fp8_matmul_dequant`` (``row_scale`` given): |row_scale| *
+    c * 2^-t * (|x_q| @ |w_q|) + 1 ulp of the output type. ``fp8_mixed_matmul``
+    (``x16``, ``s_blk``, ``fb_blk``, ``s_w`` given): the same sum over the
+    tiles, clean tiles |x_q * s_blk * s_w| @ |w_q| at the fp8 width,
+    fallback tiles |bf16(x16)| @ |bf16(w_q * s_w)| at the bf16 width; c
+    2^-t is ``_coef``: ADDENDS 2^-ACC_BITS + F32_SLACK; |.| of an operand
+    is ``_mag``."""
+    B, K = x_q.shape
+    w8 = _mag(w_q)
+    w8 = w8.t() if transpose_w else w8
+    if s_blk is None:
+        terms = _coef("fp8") * (_mag(x_q) @ w8) * row_scale.double().abs()
+    else:
+        br, bk, _, _ = tile_grid(B, K, block_rows, block_cols)
+        sw = s_w.reshape(())
+        fb = expand_tiles(fb_blk, B, K, br, bk) != 0
+        a8 = _mag(x_q) * expand_tiles(s_blk.double() * sw.double(), B, K, br, bk).abs()
+        a16 = _mag(x16.to(torch.bfloat16))
+        w16 = _mag((w_q.float() * sw).to(torch.bfloat16))
+        w16 = w16.t() if transpose_w else w16
+        terms = (_coef("fp8") * (torch.where(fb, 0.0, a8) @ w8)
+                 + _coef("bf16") * (torch.where(fb, a16, 0.0) @ w16))
+    return terms + ulp(y_plain.double().abs() + terms, y_plain.dtype)
+
+
+# Entries on which the tensor cores' window sums are exact: the product of
+# two is a multiple of 2^-6 of magnitude at most 1, so a window of WINDOW
+# products sums under 2^(-6 + ACC_BITS["fp8"] + 1) in |.| and no addend
+# loses a bit; the f32 sums over K <= 2^17 are exact too. The kernels give
+# these plain versions' bits on them (chip_smoke.py phase 19, the cuda
+# tests), which catches indexing and layout faults a tolerance would hide.
+EXACT_ENTRIES = (0.0, 0.125, 0.25, 0.5, 1.0)
+
+
+def exact_entries(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """f32 entries drawn uniformly from +-EXACT_ENTRIES."""
+    vals = torch.tensor(EXACT_ENTRIES + tuple(-v for v in EXACT_ENTRIES[1:]), device=device)
+    return vals[torch.randint(len(vals), shape, generator=generator, device=device)]

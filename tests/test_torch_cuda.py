@@ -16,12 +16,13 @@ ulp at the largest value) and 1e-5 in f32, lse 1e-5 absolute; the two
 backward kernels within BWD_TOL of max|grad| of theirs (the same
 recomputed p, sums in another order), and bit-identical over two
 launches. The fp8 kernels (``kernels/fp8_matmul``): the three quantizers
-and ``fp8_matmul_dequant`` in both orientations bit-equal to their plain
-versions (``kernels/fp8_matmul/ref.py``); ``fp8_mixed_matmul`` within
-MIXED_TOL (each tile's double sum is exact unless its products span more
-than about 18 binades, and then only a rounding of a sum may differ): at
-most one output in 10^4 off, by at most one ulp of the output type. A
-CUDA tensor must go to the kernel, never to the plain version.
+bit-equal to their plain versions (``kernels/fp8_matmul/ref.py``);
+``fp8_matmul_dequant`` and ``fp8_mixed_matmul`` in both orientations (fp8
+wgmma, whose sums keep 13 bits below their largest addend) within
+``ref.matmul_bound`` of theirs per output, bit-identical over two
+launches, and bit-equal on ``ref.exact_entries`` inputs, where every
+window sum is exact at that width. A CUDA tensor must go to the kernel,
+never to the plain version.
 The paged-attention kernels (``kernels/paged_attention``) within O_TOL of
 their plain versions (one gather-then-dense softmax) at the paged serve
 path's shapes, with dead table entries outside the pool and a dry slot
@@ -50,6 +51,7 @@ from repro_torch.kernels.fp8_cast import ref as FCREF
 from repro_torch.kernels.flash_attention import ref as FREF
 from repro_torch.kernels.fp8_matmul import ops as F8
 from repro_torch.kernels.fp8_matmul import ref as F8REF
+from repro_torch.kernels.fp8_matmul import wgmma_model as F8TC
 from repro_torch.kernels.paged_attention import ops as PA
 from repro_torch.kernels.paged_attention import ref as PREF
 from repro_torch.kernels.switchback import ops as TOPS
@@ -296,12 +298,6 @@ def test_cuda_tensors_launch_the_flash_kernels():
 # the fp8 kernels
 # ---------------------------------------------------------------------------
 
-# fp8_mixed_matmul kernel vs plain: the share of outputs that may differ,
-# and by how many units in the last place of the output type
-MIXED_TOL = (1e-4, 1)
-_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-
-
 def _bits(t):
     return t.view(torch.uint8) if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2) else t
 
@@ -315,11 +311,10 @@ def _fp8_activations(gen, R, C, dev, outliers=False):
     return x
 
 
-def _mixed_close(got, want):
-    """(share of outputs that differ, largest difference in ulps)."""
-    iv = _INT_VIEW[want.dtype]
-    ulps = (got.view(iv).long() - want.view(iv).long()).abs()
-    return float((got != want).float().mean()), int(ulps[got != want].max()) if (got != want).any() else 0
+def _within_bound(got, want, bnd) -> float:
+    """The largest |got - want| as a share of matmul_bound (at most 1)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return float(((got.double() - want.double()).abs() / bnd).max())
 
 
 @pytest.mark.cuda
@@ -351,24 +346,69 @@ def test_cuda_fp8_matmuls_match_plain(B, K, M, dt):
     w_q, s_w = F8.tensor_quantize(w, "e4m3")
     x = _fp8_activations(gen, B, K, dev, outliers=True).to(dt)
     x_q, s_x = F8.row_quantize(x, "e4m3")
-    assert torch.equal(F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt),
-                       F8REF.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt))
+    rows = torch.tensor(F8TC.check_rows(B), device=dev)
+    y = F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt)
+    want = F8REF.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt)
+    assert _within_bound(y, want, F8REF.matmul_bound(want, x_q, w_q, s_x * s_w)) <= 1.0
+    assert torch.equal(y[rows], F8TC.dequant_rows(x_q, w_q, s_x * s_w, rows, out_dtype=dt))
+    assert torch.equal(y, F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=dt))
     g = _fp8_activations(gen, B, M, dev, outliers=True).to(dt)
     g_q, s_g = F8.row_quantize(g, "e5m2")
-    assert torch.equal(F8.fp8_matmul_dequant_t(g_q, w_q, s_g * s_w, out_dtype=dt),
-                       F8REF.fp8_matmul_dequant(g_q, w_q, s_g * s_w, transpose_w=True,
-                                                out_dtype=dt))
+    y = F8.fp8_matmul_dequant_t(g_q, w_q, s_g * s_w, out_dtype=dt)
+    want = F8REF.fp8_matmul_dequant(g_q, w_q, s_g * s_w, transpose_w=True, out_dtype=dt)
+    bnd = F8REF.matmul_bound(want, g_q, w_q, s_g * s_w, transpose_w=True)
+    assert _within_bound(y, want, bnd) <= 1.0
+    assert torch.equal(y[rows], F8TC.dequant_rows(g_q, w_q, s_g * s_w, rows, transpose_w=True,
+                                                  out_dtype=dt))
+    assert torch.equal(y, F8.fp8_matmul_dequant_t(g_q, w_q, s_g * s_w, out_dtype=dt))
     for a, fmt, tw in ((x, "e4m3", False), (g, "e5m2", True)):
         a_q, s_blk = F8.block_quantize(a, fmt)
         fb = F8.fallback_mask(s_blk, 8.0)
         assert B < 1024 or 0 < float(fb.sum()) < fb.numel()      # both branches run
         fn = F8.fp8_mixed_matmul_t if tw else F8.fp8_mixed_matmul
         got = fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt)
-        want = F8REF.fp8_mixed_matmul(a, a_q, s_blk, fb, w_q, s_w, block_rows=128,
-                                      block_cols=128, transpose_w=tw, out_dtype=dt)
-        share, ulps = _mixed_close(got, want)
-        assert share <= MIXED_TOL[0] and ulps <= MIXED_TOL[1], (tw, share, ulps)
+        kw = dict(block_rows=128, block_cols=128, transpose_w=tw)
+        want = F8REF.fp8_mixed_matmul(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt, **kw)
+        bnd = F8REF.matmul_bound(want, a_q, w_q, x16=a, s_blk=s_blk, fb_blk=fb, s_w=s_w, **kw)
+        assert _within_bound(got, want, bnd) <= 1.0, tw
+        assert torch.equal(got[rows], F8TC.mixed_rows(a, a_q, s_blk, fb, w_q, s_w, rows,
+                                                      out_dtype=dt, **kw)), tw
         assert torch.equal(got, fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", [(4128, 1280, 1280), (1032, 5120, 1280), (2464, 1024, 4096),
+                                   (8192, 588, 1280), (37, 130, 70), (300, 640, 384)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("tiles", [(128, 128), (16, 32), (64, 48)], ids=["128x128", "16x32",
+                                                                          "64x48"])
+def test_cuda_fp8_matmuls_exact_entries_bitwise(B, K, M, dt, tiles):
+    """On entries whose window sums are exact at the tensor cores' width,
+    all four forms give their plain versions' bits: ragged shapes, the
+    masked load path (K = 588, 130), scale tiles under a window and off
+    its 32-column steps (16 x 32, 64 x 48), a checkerboard of fallback
+    tiles, E4M3 forward and E5M2 input gradient."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3 * B + K)
+    br, bc = tiles
+    w_q, s_w = F8.tensor_quantize(F8REF.exact_entries((K, M), gen, dev) * 0.125, "e4m3")
+    for shape, fmt, tw in (((B, K), "e4m3", False), ((B, M), "e5m2", True)):
+        a = F8REF.exact_entries(shape, gen, dev).to(dt)
+        a_q, s_a = F8.row_quantize(a, fmt)
+        fn = F8.fp8_matmul_dequant_t if tw else F8.fp8_matmul_dequant
+        assert torch.equal(fn(a_q, w_q, s_a * s_w, out_dtype=dt),
+                           F8REF.fp8_matmul_dequant(a_q, w_q, s_a * s_w, transpose_w=tw,
+                                                    out_dtype=dt)), tw
+        b_q, s_blk = F8.block_quantize(a, fmt, br, bc)
+        i = torch.arange(s_blk.shape[0], device=dev)[:, None]
+        j = torch.arange(s_blk.shape[1], device=dev)[None, :]
+        fb = ((i + j) % 2 == 1).float()
+        fn = F8.fp8_mixed_matmul_t if tw else F8.fp8_mixed_matmul
+        got = fn(a, b_q, s_blk, fb, w_q, s_w, block_rows=br, block_cols=bc, out_dtype=dt)
+        want = F8REF.fp8_mixed_matmul(a, b_q, s_blk, fb, w_q, s_w, block_rows=br, block_cols=bc,
+                                      transpose_w=tw, out_dtype=dt)
+        assert torch.equal(got, want), (tw, float((got.float() - want.float()).abs().max()))
     torch.cuda.synchronize()
 
 
@@ -388,7 +428,21 @@ def test_cuda_tensors_launch_the_fp8_kernels():
     assert F8.launch_counts() == {
         "fp8_row_quantize": 2, "fp8_tensor_quantize": 1, "fp8_block_quantize": 2,
         "fp8_matmul_dequant": 1, "fp8_matmul_dequant_t": 1, "fp8_mixed_matmul": 1,
-        "fp8_mixed_matmul_t": 1}
+        "fp8_mixed_matmul_t": 1, "fp8_transpose_bytes": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,M", [(1280, 3840), (5120, 1280), (588, 1280), (130, 70), (37, 5)])
+def test_cuda_transpose_bytes_matches_plain(K, M):
+    """The forward's K-major copy of W, byte for byte, at CLIP's weight
+    shapes and ragged ones (rows and columns off the 4-byte words)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(K + M)
+    w_q, _ = F8.tensor_quantize(torch.randn((K, M), generator=gen, device=dev), "e4m3")
+    F8.reset_launch_counts()
+    got = F8.transpose_bytes(w_q)
+    assert F8.launch_counts()["fp8_transpose_bytes"] == 1
+    assert got.dtype == torch.uint8 and torch.equal(got, w_q.view(torch.uint8).t().contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -331,7 +331,8 @@ def test_fp8_wrappers_check_and_count_no_cpu_launch():
     assert all(v == 0 for v in F8.launch_counts().values())
     assert set(F8.launch_counts()) == {
         "fp8_row_quantize", "fp8_tensor_quantize", "fp8_block_quantize", "fp8_matmul_dequant",
-        "fp8_matmul_dequant_t", "fp8_mixed_matmul", "fp8_mixed_matmul_t"}
+        "fp8_matmul_dequant_t", "fp8_mixed_matmul", "fp8_mixed_matmul_t",
+        "fp8_transpose_bytes"}
     with pytest.raises(ValueError, match="unknown fp8 format"):
         F8.row_quantize(x, "e3m4")
     with pytest.raises(ValueError, match="does not contract"):

@@ -246,10 +246,12 @@ def test_grid_round_has_one_definition_shared_by_both_fp8_sources():
 
 
 def test_editing_a_header_renames_the_libraries_that_include_it(tmp_path):
-    """In a copy of the kernel sources: an edit of the shared header changes
-    the library name of both sources that include it; an edit of one
-    source changes its own name only."""
-    for rel in (*FP8_SOURCES, HEADER, "switchback/csrc/switchback.cu"):
+    """In a copy of the kernel sources and the shared headers: an edit of
+    the shared fp8 header changes the library name of both sources that
+    include it; an edit of one source changes its own name only."""
+    headers = [p.relative_to(KERNELS_DIR).as_posix()
+               for p in (KERNELS_DIR / "csrc").glob("*.cuh")]
+    for rel in (*FP8_SOURCES, *headers, "switchback/csrc/switchback.cu"):
         (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(KERNELS_DIR / rel, tmp_path / rel)
     names = lambda: {rel: KB.library_path(tmp_path / rel).name
