@@ -170,8 +170,11 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     ``fp8_cast_tensorwise`` (``kernels/fp8_cast/ops.py``), which no serve
     or train path calls (their counters read 0 in every phase above): each
     driven once at every shape below with the counters zeroed just before
-    and read just after, then held against its plain version, bit-equal,
-    and run again for the same bits. ``fp8_cast_tensorwise`` in both
+    and read just after, then run again for the same bits and held against
+    its plain version: ``fp8_cast_tensorwise`` bit-equal; ``wgrad_bf16``
+    (bf16 wgmma) within ``REF.wgrad_bound``, bit-equal on exactly summable
+    inputs at the same shape and bit-equal to the tensor-core model
+    (``F8TC.wgrad_rows``) at ``F8TC.check_rows``. ``fp8_cast_tensorwise`` in both
     formats at the JAX package's test shapes (17, 257, 512 and 1,030 rows
     x 130) and CLIP's (X 4,128 x 1,280 and 4,128 x 5,120 bf16, W 1,280 x
     3,840 and 1,280 x 5,120 f32), with the tensor's absmax, a larger stale
@@ -182,12 +185,14 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     rows, and 8 and 1,000), one CLIP vision layer's four weight gradients
     (4,128 rows), the text layer's (2,464) and the patch embedding (8,192
     x 588 -> 1,280); also against cuBLAS (``wgrad_16bit``) within
-    WGRAD_BOUND, with the control fault (Ẏ's rows shifted by one) outside.
+    WGRAD_BOUND, with the control fault (Ẏ's rows shifted by one) outside
+    it and outside ``REF.wgrad_bound``.
     Then both timed at CLIP's shapes (and wgrad at smollm's) beside their
     bound, plain version and library call;
 28. the accumulator probe, before phase 19: one window of each form the
-    fp8 matmuls issue (E4M3 x E4M3 and E5M2 x E4M3 m64n128k32, bf16
-    m64n128k16), chained over up to four steps as the GEMMs chain them, on
+    fp8 matmuls and wgrad_bf16 issue (E4M3 x E4M3 and E5M2 x E4M3
+    m64n128k32, bf16 m64n128k16 with K-major operands and with MN-major
+    ones, wgrad_bf16's), chained over up to four steps as the GEMMs chain them, on
     constructed operands against the exact sums: how many bits below the
     largest addend each keeps, in a step and into the fragment, whether it
     truncates or rounds, whether small addends are dropped one by one,
@@ -2564,7 +2569,8 @@ CLIP_FP8_STEP_TOL = {"grad_norm_rel_err": 8e-1, "grad_median_norm_rel_err": 4e-1
 # chains them, on constructed operands, against the exact sum
 PROBE_FORMS = {"fp8": (("e4m3.e4m3 m64n128k32", 0, "e4m3", "e4m3"),
                        ("e5m2.e4m3 m64n128k32", 1, "e5m2", "e4m3")),
-               "bf16": (("bf16.bf16 m64n128k16", 2, "bf16", "bf16"),)}
+               "bf16": (("bf16.bf16 m64n128k16", 2, "bf16", "bf16"),
+                        ("bf16.bf16 m64n128k16 MN-major", 3, "bf16", "bf16"))}
 PROBE_DEPTH = 40
 
 
@@ -2588,7 +2594,7 @@ def probe_sum(torch, M, dev, form, products, values, pairs=None):
     compute the same sum."""
     from repro_torch.kernels import build as KB
     name, mode, fa, fb = form
-    kk = 16 if mode == 2 else 32
+    kk = 16 if mode >= 2 else 32
 
     def ok(x, fmt):
         if fmt == "bf16":
@@ -2623,12 +2629,13 @@ def probe_sum(torch, M, dev, form, products, values, pairs=None):
     got = d.cpu().double()
     check(bool((got == got[0, 0]).all()), f"probe {name}: rows or columns disagree")
     n = steps * kk
-    model = M.F8TC.window_sum(a8[:1, :n], b8[:1, :n], "bf16" if mode == 2 else "fp8")
+    model = M.F8TC.window_sum(a8[:1, :n], b8[:1, :n], "bf16" if mode >= 2 else "fp8")
     return float(got[0, 0]), math.fsum(x * y for x, y in pairs), float(model[0, 0])
 
 
 def accumulator_probe(torch, M, dev):
-    """How each wgmma form the fp8 matmuls issue adds, on constructed
+    """How each wgmma form the fp8 matmuls and wgrad_bf16 issue adds (bf16
+    read K-major and, as wgrad_bf16 reads it, MN-major), on constructed
     operands: ``t`` is the largest d for which big + big 2^-d is exact for
     every smaller d, as two products of one step and with big the fragment
     a first step left (the width a step's sum keeps); ``t_addend`` the
@@ -2648,8 +2655,8 @@ def accumulator_probe(torch, M, dev):
     for kind, forms in PROBE_FORMS.items():
         for form in forms:
             name, mode = form[:2]
-            kk = 16 if mode == 2 else 32
-            big = 1.0 if mode == 2 else 2.0 ** 16
+            kk = 16 if mode >= 2 else 32
+            big = 1.0 if mode >= 2 else 2.0 ** 16
 
             def run(prods, pairs=None, key=""):
                 got, exact, model = probe_sum(torch, M, dev, form, prods, values, pairs)
@@ -2680,7 +2687,7 @@ def accumulator_probe(torch, M, dev):
             carry = {0: ([(240.0, 240.0), (2.0, 1.0), (2.0, 1.0)], 57600.0, 4.0),
                      1: ([(224.0, 240.0), (2.0, 1.0), (2.0, 1.0)], 53760.0, 4.0),
                      2: ([(1.9921875, 1.9921875)] + [(2.0 ** -25, 1.0)] * 15,
-                         1.9921875 ** 2, 2.0 ** -22)}[mode]
+                         1.9921875 ** 2, 2.0 ** -22)}[min(mode, 2)]
             for key, prods, base, unit, pairs in (
                     ("plus_0.75_unit", [big, 0.75 * u], big, u, None),
                     ("minus_0.5_unit", [big, -0.5 * u], big, u, None),
@@ -2693,7 +2700,7 @@ def accumulator_probe(torch, M, dev):
                 got, want = run(prods, pairs, key)
                 r[key] = dict(got_minus_base_in_units=(got - base) / unit,
                               exact_minus_base_in_units=(want - base) / unit)
-            tiny = {0: [2.0 ** -18], 1: [2.0 ** -25], 2: [2.0 ** -133]}[mode]
+            tiny = {0: [2.0 ** -18], 1: [2.0 ** -25], 2: [2.0 ** -133]}[min(mode, 2)]
             for key, prods in (("smallest_product", tiny), ("smallest_products_sum", tiny * kk)):
                 got, want = run(prods, key=key)
                 r[key] = dict(got=got, exact=want)
@@ -3277,10 +3284,14 @@ def paged_features(torch, M, cfg, dev, seed, params):
 # ---------------------------------------------------------------------------
 
 # wgrad_bf16 against cuBLAS: a bf16 product is exact in f32, and any order
-# of summing B such products lies within (B - 1) * 2^-24 * (|X|^T |Ẏ|) of
-# the exact sum, so two orders differ by at most
-# B * WGRAD_BOUND * (|X|^T |Ẏ|) elementwise. Ẏ's rows shifted by one (the
-# control fault) must read outside it.
+# of summing B such products in f32 lies within (B - 1) * 2^-24 *
+# (|X|^T |Ẏ|) of the exact sum, so two orders differ by at most
+# B * WGRAD_BOUND * (|X|^T |Ẏ|) elementwise. The kernel's tensor-core
+# windows truncate inside each window (REF.wgrad_bound counts it: (71 +
+# (windows - 1) / 2) 2^-23 against the exact sum at worst), and cuBLAS sums
+# on the tensor cores too; the limit stays as the cross-check against an
+# independent implementation (the readings, far inside it, in PERF.md). Ẏ's
+# rows shifted by one (the control fault) must read outside it.
 WGRAD_BOUND = 2.0 ** -23
 # the two inputs where the JAX package's Pallas kernel (the reciprocal,
 # then the product) and its XLA path (x / absmax) round to different fp8
@@ -3401,47 +3412,74 @@ def drive_op_path(torch, M, cfg, clip_cfg, dev, seed):
     return wcases, ccases, counts
 
 
-def compare_op_kernels(torch, M, wcases, ccases):
-    """Phase 27, the checks on the path's outputs: each bit-equal to its
-    plain version and to a second launch; the outputs finite, of the
-    expected shape; fp8 values only (on the grid of the format, within
-    [-fmax, fmax]); the all-zero tensor gives zeros, the split inputs the
-    Pallas kernel's value. wgrad_bf16 also against cuBLAS within
-    WGRAD_BOUND, the control fault (Ẏ's rows shifted by one) outside.
-    Returns the readings."""
+def compare_op_kernels(torch, M, wcases, ccases, seed):
+    """Phase 27, the checks on the path's outputs: each run again for the
+    same bits; the outputs finite, of the expected shape. fp8_cast_tensorwise
+    bit-equal to its plain version; fp8 values only (on the grid of the
+    format, within [-fmax, fmax]); the all-zero tensor gives zeros, the
+    split inputs the Pallas kernel's value. wgrad_bf16, on bf16 wgmma, whose
+    windows sum in another order than the plain in-order loop: within
+    ``REF.wgrad_bound`` of it per output, bit-equal to it on exactly
+    summable inputs (``F8REF.exact_entries``) at the same shape, and
+    bit-equal to ``F8TC.wgrad_rows`` (the tensor cores' steps chained as
+    the kernel chains them) at ``F8TC.check_rows``; against cuBLAS within
+    WGRAD_BOUND; the control fault (Ẏ's rows shifted by one) outside both
+    bounds. Returns the readings."""
     from repro_torch.core import switchback as SB
     from repro_torch.core.fp8 import SPECS, fp8_values
     from repro_torch.kernels.fp8_cast import ref as FCREF
     worst = dict(wgrad_bf16=0.0, fp8_cast_tensorwise=0.0)
     lib_ratio, fault_ratio = 0.0, math.inf
+    bound_share, fault_share, model_outputs = 0.0, math.inf, 0
     by_group = {}
+    gen = torch.Generator(device=wcases[0]["x"].device).manual_seed(seed + 127)
     for c in wcases:
         x, g, out = c["x"], c["g"], c["out"]
         B, K, Mw = c["shape"]
         what = f"wgrad_bf16 {c['group']} {c['shape']} {c['dtype']}"
         check(tuple(out.shape) == (K, Mw) and out.dtype == torch.float32
               and bool(torch.isfinite(out).all()), f"{what}: bad output")
-        plain = M.REF.wgrad_bf16(x, g)
-        worst["wgrad_bf16"] = max(worst["wgrad_bf16"], max_abs_diff(torch, out, plain))
-        check(torch.equal(out.view(torch.int32), plain.view(torch.int32)),
-              f"{what}: kernel != plain, max |diff| {max_abs_diff(torch, out, plain):g}")
         check(torch.equal(out.view(torch.int32), M.KOPS.wgrad_bf16(x, g).view(torch.int32)),
               f"{what}: two launches differ")
+        plain = M.REF.wgrad_bf16(x, g)
+        worst["wgrad_bf16"] = max(worst["wgrad_bf16"], max_abs_diff(torch, out, plain))
+        wb = M.REF.wgrad_bound(plain, x, g)
+        share = float(((out.double() - plain.double()).abs() / wb).max())
+        check(share <= 1.0, f"{what}: |kernel - plain| {share:g} x REF.wgrad_bound")
+        rows = torch.tensor(M.F8TC.check_rows(K), device=x.device)
+        model = M.F8TC.wgrad_rows(x, g, rows)
+        off = int((out[rows].view(torch.int32) != model.view(torch.int32)).sum())
+        check(off == 0, f"{what}: {off} of {model.numel()} check-row outputs off the "
+              "tensor-core model (F8TC.wgrad_rows)")
+        model_outputs += model.numel()
+        xe = M.F8REF.exact_entries((B, K), gen, x.device)
+        ge = M.F8REF.exact_entries((B, Mw), gen, x.device)
+        exact = M.KOPS.wgrad_bf16(xe, ge)
+        check(torch.equal(exact.view(torch.int32), M.REF.wgrad_bf16(xe, ge).view(torch.int32)),
+              f"{what}: kernel != plain on exact entries")
+        del xe, ge, exact, model
         xb, gb = x.to(torch.bfloat16).double(), g.to(torch.bfloat16).double()
         bound = B * WGRAD_BOUND * (xb.abs().t() @ gb.abs())
         lib = SB.wgrad_16bit(x, g).double()
         diff = (out.double() - lib).abs()
         check(bool((diff <= bound).all()), f"{what}: |kernel - cuBLAS| outside the bound, "
               f"max ratio {float((diff / bound.clamp_min(1e-300)).max()):g}")
-        fault = (M.KOPS.wgrad_bf16(x, g.roll(1, dims=0)).double() - lib).abs()
+        shifted = M.KOPS.wgrad_bf16(x, g.roll(1, dims=0)).double()
+        fault = (shifted - lib).abs()
         check(not bool((fault <= bound).all()), f"{what}: the control fault reads inside the bound")
+        fs = float(((shifted - plain.double()).abs() / wb).max())
+        check(fs > 1.0, f"{what}: the control fault reads inside REF.wgrad_bound ({fs:g})")
         r = float((diff / bound.clamp_min(1e-300)).max())
         f = float((fault / bound.clamp_min(1e-300)).max())
         lib_ratio, fault_ratio = max(lib_ratio, r), min(fault_ratio, f)
-        grp = by_group.setdefault(c["group"], dict(cases=0, lib_ratio=0.0, fault_ratio=math.inf))
+        bound_share, fault_share = max(bound_share, share), min(fault_share, fs)
+        grp = by_group.setdefault(c["group"], dict(cases=0, lib_ratio=0.0, fault_ratio=math.inf,
+                                                   bound_share=0.0, fault_share=math.inf))
         grp.update(cases=grp["cases"] + 1, lib_ratio=max(grp["lib_ratio"], r),
-                   fault_ratio=min(grp["fault_ratio"], f))
-        del bound, lib, diff, fault
+                   fault_ratio=min(grp["fault_ratio"], f),
+                   bound_share=max(grp["bound_share"], share),
+                   fault_share=min(grp["fault_share"], fs))
+        del bound, lib, diff, fault, shifted, wb, plain
     grids = {fmt: torch.from_numpy(fp8_values(SPECS[fmt])).float().to(wcases[0]["x"].device)
              for fmt in ("e4m3", "e5m2")}
     for c in ccases:
@@ -3466,6 +3504,8 @@ def compare_op_kernels(torch, M, wcases, ccases):
             check(bool((out == c["want"]).all()), f"{what}: not the Pallas kernel's value "
                   f"{c['want']!r}: {float(out[0, 0])!r}")
     res = dict(wgrad_cases=len(wcases), cast_cases=len(ccases), max_abs_err=worst,
+               wgrad_bound_share=bound_share, wgrad_fault_bound_share=fault_share,
+               wgrad_model_outputs=model_outputs,
                wgrad_vs_cublas_max_ratio=lib_ratio, wgrad_fault_min_ratio=fault_ratio,
                wgrad_by_group=by_group)
     print("[op kernels]", json.dumps(res))
@@ -3745,7 +3785,7 @@ def main(argv=None) -> int:
     # (counted), its checks, its times
     with timed("27 op entry points"):
         wcases, ccases, op_counts = drive_op_path(torch, M, cfg, clip_cfg, dev, args.seed)
-        op_res = compare_op_kernels(torch, M, wcases, ccases)
+        op_res = compare_op_kernels(torch, M, wcases, ccases, args.seed)
         del wcases, ccases
         op_t = time_op_kernels(torch, M, cfg, clip_cfg, dev, args.seed)
     torch.cuda.empty_cache()
@@ -3903,6 +3943,8 @@ def main(argv=None) -> int:
         op_entry("wgrad_bf16", op_t["clip_vision"], dict(
             library="torch.mm(x.t(), g, out_dtype=torch.float32) (core/switchback.wgrad_16bit)",
             tflops=op_t["clip_vision"]["tflops"],
+            wgrad_bound_share=op_res["wgrad_bound_share"],
+            fault_wgrad_bound_share=op_res["wgrad_fault_bound_share"],
             other_shapes={"smollm": {k: op_t["smollm"][k] for k in (
                 "ms", "plain_ms", "library_ms", "eager_ms", "tflops", "work")}
                 | {"bound_ms": op_t["smollm"]["bound"][0]}})),

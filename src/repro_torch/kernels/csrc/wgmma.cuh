@@ -1,24 +1,26 @@
 // Hopper (sm_90a) building blocks for hand-written GEMM kernels: shared
-// memory addresses, mbarriers, TMA tile loads, the 128-byte swizzle, wgmma
-// shared-memory descriptors and the wgmma instructions themselves, used by
-// kernels/fp8_matmul/csrc/fp8_matmul.cu (the fp8 GEMMs and the accumulator
-// probe). Nothing here launches anything.
+// memory addresses, mbarriers, TMA tile loads (and the host's TMA maps), the
+// 128-byte swizzle, wgmma shared-memory descriptors and the wgmma
+// instructions themselves, used by kernels/fp8_matmul/csrc/fp8_matmul.cu (the
+// fp8 GEMMs and the accumulator probe) and kernels/switchback/csrc/
+// switchback.cu (wgrad_bf16). Nothing here launches anything.
 //
-// The layout every operand tile takes in shared memory: K-major rows of 128
-// bytes (128 fp8 or 64 bf16 values of the contraction), rows in groups of 8
-// (1,024 bytes), each row's eight 16-byte chunks permuted by the 128-byte
-// swizzle, chunk c of row r stored at chunk c ^ (r % 8). TMA writes it with
-// CU_TENSOR_MAP_SWIZZLE_128B into a 1,024-byte-aligned buffer; code that
-// writes a tile itself places byte `off = r * 128 + b` at sw128(off). A wgmma
-// reads such a tile through sw128_desc(address of the tile + 32 * step): one
-// k32 step of fp8 (or k16 of bf16) is 32 bytes of each row.
-//
-// The accumulator fragment of a m64nN wgmma (f32, N / 2 values a thread):
-// value i of thread t (warp w = t / 32 of the warpgroup, lane l) holds row
-// 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2.
-//
-// kernels/build.py hashes this header into the name of every library whose
-// source includes it.
+// Two layouts an operand tile takes in shared memory, both 128-byte rows in
+// groups of 8 (1,024 bytes), each row's eight 16-byte chunks permuted by the
+// 128-byte swizzle, chunk c of row r stored at chunk c ^ (r % 8). TMA writes
+// them with CU_TENSOR_MAP_SWIZZLE_128B into a 1,024-byte-aligned buffer; code
+// that writes a tile itself places byte `off = r * 128 + b` at sw128(off).
+//   * K-major (the fp8 GEMMs, the "TN" form): a row is 128 bytes of the
+//     contraction (128 fp8 or 64 bf16 values) of one row of A or B. A wgmma
+//     reads it through sw128_desc(address of the tile + 32 * step): one k32
+//     step of fp8 (or k16 of bf16) is 32 bytes of each row.
+//   * MN-major (bf16 only; wgrad_bf16, whose operands both contract over
+//     their outer dimension): a row is 64 consecutive bf16 values of A's M
+//     or B's N dimension at one k, one row per k, so an atom of 64 values x
+//     8 k is 1,024 bytes; a wider M or N is several such column blocks,
+//     `block_bytes` apart. A wgmma with tnspA = tnspB = 1 reads it through
+//     sw128_mn_desc(address + 2,048 * step, block_bytes): one k16 step is 16
+//     rows.
 #pragma once
 
 #include <cuda.h>
@@ -82,6 +84,45 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// cuTensorMapEncodeTiled (libcuda's), looked up through the runtime so that
+// nothing more is linked
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// the TMA map of a row-major (rows, cols) matrix of `elem` bytes a value in
+// 128-byte-swizzled boxes of box_cols (box_cols * elem <= 128) x box_rows;
+// false when the driver refuses it (the row pitch must be a multiple of 16
+// bytes and p 16-byte aligned)
+inline bool tma_map_2d(CUtensorMap* m, const void* p, CUtensorMapDataType type, int elem,
+                       int rows, int cols, int box_cols, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return enc(m, type, 2, const_cast<void*>(p), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
 // shared-memory writes of the generic proxy (plain stores) made visible to
 // the async proxy (wgmma operand reads)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -124,6 +165,17 @@ __device__ __forceinline__ void regs_inc() {
 // 1 = 128-byte swizzle (bits 62-63)
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// descriptor of a 128-byte-swizzled MN-major bf16 tile at shared address
+// `addr` (see the top): leading offset = the bytes between two 64-value
+// column blocks along M or N (bits 16-29), stride 1,024 bytes between groups
+// of 8 k rows (bits 32-45), layout 1 = 128-byte swizzle; a k16 step further
+// is desc_advance(desc, 2048)
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr, uint32_t block_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((block_bytes >> 4) & 0x3FFFu) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -262,6 +314,9 @@ __device__ __forceinline__ void wgmma_m64n128k32_e5m2_e5m2(float (&d)[64], uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// bf16: TRANS 0 reads both operands K-major (the form above), 1 both
+// MN-major (tnspA = tnspB = 1, sw128_mn_desc tiles)
+template <int TRANS = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db,
                                                       int scale_d) {
   asm volatile(
@@ -274,7 +329,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -286,7 +341,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS));
 }
 
 // fp8 formats 0 = E4M3, 1 = E5M2: the m64n128k32 step for (FA, FB)

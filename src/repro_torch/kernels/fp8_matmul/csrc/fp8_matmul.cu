@@ -13,9 +13,10 @@
 //   fp8_mixed_matmul      <- fp8_mixed_matmul (:258, body :222), both W
 //                            orientations
 //
-// plus wgmma_probe, one window's chain of the GEMMs' own wgmma steps on
-// given operands, which measures how the tensor cores add (chip_smoke.py's
-// accumulator probe), and transpose_bytes, the forward's K-major copy of W.
+// plus wgmma_probe, one window's chain of the GEMMs' own wgmma steps (or of
+// wgrad_bf16's transposed bf16 form) on given operands, which measures how
+// the tensor cores add (chip_smoke.py's accumulator probe), and
+// transpose_bytes, the forward's K-major copy of W.
 //
 // Storage: one byte per value in the float8_e4m3fn or float8_e5m2 encoding
 // (format 0 = E4M3: 3 mantissa bits, bias 7, max 448; format 1 = E5M2: 2,
@@ -551,40 +552,11 @@ fp8_gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ cons
   }
 }
 
-// cuTensorMapEncodeTiled (libcuda's), looked up through the runtime so that
-// nothing more is linked
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // the TMA map of a row-major (rows, cols) byte matrix in 128-byte-swizzled
 // boxes of 128 x 128 (a stage tile)
 bool tma_map(CUtensorMap* m, const void* p, int rows, int cols) {
-  const EncodeTiled enc = encoder();
-  if (!enc) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {128, 128}, steps[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box, steps,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma_map_2d(m, p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, cols, 128, 128);
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <bool MIXED>
 int launch_gemm(Gemm g, cudaStream_t st) {
@@ -674,8 +646,10 @@ transpose_bytes_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ ds
 // bytes, both K-major and swizzled as a stage tile. Mode 0: E4M3 x E4M3,
 // `steps` chained m64n128k32 steps (wgmma_fp8_steps, one window of the
 // GEMM); 1: E5M2 x E4M3; 2: bf16 x bf16, `steps` chained m64n128k16 steps
-// of 64-value rows (as fallback_product). Constructed operands show how
-// wide the tensor cores add (chip_smoke.py).
+// of 64-value rows (as fallback_product); 3: the same bf16 values laid out
+// MN-major (a and b transposed in shared memory, b in two 64-column blocks)
+// through the transposed m64n128k16 form, as wgrad_bf16 issues it.
+// Constructed operands show how wide the tensor cores add (chip_smoke.py).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(128)
 wgmma_probe_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
@@ -684,8 +658,22 @@ wgmma_probe_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   uint8_t* sa = raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
   uint8_t* sb = sa + 64 * 128;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  for (int i = t; i < 64 * 128; i += 128) sa[sw128(i)] = a[i];
-  for (int i = t; i < 128 * 128; i += 128) sb[sw128(i)] = b[i];
+  if (mode < 3) {
+    for (int i = t; i < 64 * 128; i += 128) sa[sw128(i)] = a[i];
+    for (int i = t; i < 128 * 128; i += 128) sb[sw128(i)] = b[i];
+  } else {                       // bf16 (row, k) -> row k of its 64-column block
+    const uint16_t* a16 = reinterpret_cast<const uint16_t*>(a);
+    const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+    for (int i = t; i < 64 * 64; i += 128) {
+      const int r = i >> 6, k = i & 63;
+      *reinterpret_cast<uint16_t*>(sa + sw128(k * 128 + 2 * r)) = a16[i];
+    }
+    for (int i = t; i < 128 * 64; i += 128) {
+      const int r = i >> 6, k = i & 63;
+      *reinterpret_cast<uint16_t*>(sb + 64 * 128 * (r >> 6) + sw128(k * 128 + 2 * (r & 63))) =
+          b16[i];
+    }
+  }
   fence_proxy_async();
   __syncthreads();
   float f[64];
@@ -696,9 +684,14 @@ wgmma_probe_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   fence_frag(f);
   if (mode < 2) {
     wgmma_fp8_steps(f, da, db, steps, mode, 0);
-  } else {
+  } else if (mode == 2) {
     for (int j = 0; j < steps; ++j)
       wgmma_m64n128k16_bf16(f, desc_advance(da, 32 * j), desc_advance(db, 32 * j), j > 0);
+  } else {
+    const uint64_t ta = sw128_mn_desc(smem_u32(sa), 64 * 128);
+    const uint64_t tb = sw128_mn_desc(smem_u32(sb), 64 * 128);
+    for (int j = 0; j < steps; ++j)
+      wgmma_m64n128k16_bf16<1>(f, desc_advance(ta, 2048 * j), desc_advance(tb, 2048 * j), j > 0);
   }
   wgmma_commit();
   wgmma_wait0();
@@ -811,7 +804,7 @@ int f8_transpose_bytes(const void* src, void* dst, int R, int C, void* stream) {
 }
 
 // a (64, 128) and b (128, 128) bytes, d (64, 128) f32, all on the card;
-// steps 1-4
+// steps 1-4, mode 0-3 (wgmma_probe_kernel)
 int f8_wgmma_probe(const void* a, const void* b, void* d, int mode, int steps, void* stream) {
   wgmma_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<float*>(d),

@@ -24,16 +24,20 @@ there by chip_smoke.py's accumulator probe and phase 19:
   output type.
 
 ``dequant_rows`` and ``mixed_rows`` compute the kernels' outputs for the
-chosen rows that way, step by step. They form every product, so they are
-slow and meant for checks at a few rows: on the card the kernels give
-their bits (chip_smoke.py phase 19, the cuda tests), which holds the
-kernels' arithmetic where ``ref.matmul_bound``, a worst case, is loose.
+chosen rows that way, step by step, and ``wgrad_rows`` those of
+``kernels/switchback``'s ``wgrad_bf16`` (bf16 steps that read both
+operands MN-major; the probe reads that form too). They form every
+product, so they are slow and meant for checks at a few rows: on the card
+the kernels give their bits (chip_smoke.py phases 19 and 27, the cuda
+tests), which holds the kernels' arithmetic where ``ref.matmul_bound`` and
+``switchback.ref.wgrad_bound``, worst cases, are loose.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.fp8_matmul import ref as _ref
+from repro_torch.kernels.switchback.ref import WGRAD_WINDOW
 
 # products per wgmma step; the bits an addend keeps below the step's
 # alignment exponent, and the sum below its own leading bit
@@ -162,6 +166,21 @@ def mixed_rows(x16: torch.Tensor, x_q: torch.Tensor, s_blk: torch.Tensor, fb_blk
             if len(back):
                 acc[back] = acc[back] + _window(a16[back], w16, ea16[back], ew16, k0, k1, "bf16")
     return acc.to(out_dtype)
+
+
+def wgrad_rows(x: torch.Tensor, g: torch.Tensor, rows) -> torch.Tensor:
+    """Rows ``rows`` of what the CUDA ``wgrad_bf16`` gives: dw = xᵀ g,
+    x (B, K) and g (B, M) rounded to bf16, as (len(rows), M) f32: each
+    window of ``WGRAD_WINDOW`` rows of B one chain of bf16 steps into a
+    fresh fragment, the fragments added into an f32 accumulator in B
+    order."""
+    a, ea = _operand(x.to(torch.bfloat16)[:, rows].t())
+    w, ew = _operand(g.to(torch.bfloat16).t())
+    B = x.shape[0]
+    acc = torch.zeros((a.shape[0], w.shape[0]), dtype=torch.float32, device=a.device)
+    for k0 in range(0, B, WGRAD_WINDOW):
+        acc = acc + _window(a, w, ea, ew, k0, min(k0 + WGRAD_WINDOW, B), "bf16")
+    return acc
 
 
 def check_rows(R: int, n: int = 32) -> list[int]:

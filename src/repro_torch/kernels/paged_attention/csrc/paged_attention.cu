@@ -20,50 +20,68 @@
 // MASK_VALUE = -0.7 * FLT_MAX and no weight. An online softmax keeps a
 // running max m, sum l and unnormalised output acc in f32 per query row;
 // o = acc / l_safe (l_safe = 1 where l == 0, so a slot with kv_len == 0
-// gives exact zeros), rounded once to the output type. IEEE f32
-// throughout: expf, __fdiv_rn and explicit __fmaf_rn/__fmul_rn, no
+// gives exact zeros), rounded once to the output type. IEEE f32 on the CUDA
+// cores: expf, __fdiv_rn and explicit __fmaf_rn/__fadd_rn, no
 // --use_fast_math.
 //
 // Layouts are the model's, read through the kernels' own offsets (no
-// transposes, no gathers, no padding): q, o (B, S, H, hd) (decode S = 1);
-// the pools (N + 1, bs, KV, hd), block N the engine's trash block; tables
-// (B, nb) int32; q_off, kv_len (B,) int32. GQA is native: query head h
-// reads KV head h / (H / KV), and a block works on one KV head, so each
+// transposes, no gathers, no padding in memory): q, o (B, S, H, hd) (decode
+// S = 1); the pools (N + 1, bs, KV, hd), block N the engine's trash block;
+// tables (B, nb) int32; q_off, kv_len (B,) int32. GQA is native: query head
+// h reads KV head h / (H / KV), and a block works on one KV head, so each
 // K/V block it stages serves every query head of the group.
 //
 // What bounds them on this card: bytes. Each slot's live K/V blocks are
-// read once per (KV head, query tile), and the scores are a few MFLOP per
-// call, far below the tensor cores; at the serve path's shapes (8 slots,
-// up to 1,024 live cells, 5 KV heads of 64) a decode step moves about 5 MB
-// of K/V, 1.6 us at 3.35 TB/s. The real cost is latency and occupancy:
-// a decode grid has 8 x 5 = 40 blocks for 132 SMs, and a block walks its
-// slot's blocks in order. Splitting the key axis across blocks is later
-// work. What the design does:
-//   * A block owns one (slot, KV head) and, for prefill, 16 rows of the
-//     flattened (position, head-in-group) row space. It reads its own
-//     block table and kv_len (no scalar prefetch on this card) and walks
-//     logical blocks j < cdiv(live, bs) only, where live is kv_len and,
-//     for prefill, also the tile's causal horizon q_off + last row + 1.
-//     Blocks past that are neither read nor computed, and their table
-//     entries are never read (with kv_len == 0 not even tables[b, 0],
-//     which the TPU kernel's index map reads). Live ids are clamped into
-//     the pool, as JAX's gather clamps them.
-//   * Whole blocks, up to 64 keys a round, are staged in shared memory in
-//     the pool's own type, double-buffered: the next round's cp.async
-//     copies (16 bytes each, all independent) land while the block
-//     computes on this one. Each staged block serves every query head of
-//     the GQA group (3 for smollm-360m).
-//   * A warp owns one query row, so a decode block has one warp per query
-//     head of the group and a prefill block 16.
+// read once per (KV head, 64-row tile), and the scores are a few GFLOP per
+// call at most; at the serve path's shapes (8 slots, up to 1,024 live
+// cells, 5 KV heads of 64) a decode step moves about 5 MB of K/V, 1.6 us at
+// 3.35 TB/s. The real cost is instruction issue and latency, so the
+// products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out),
+// a warp per 16-row tile, not as f32 FMA chains a warp per query row.
+// Decode, one tile per (slot, KV head), is bound by that tile's chain of
+// dependent steps per chunk (40 blocks for 132 SMs); splitting the key
+// axis across blocks is later work. The design:
+//   * A block owns one (slot, KV head) and 4 warps: for prefill 64 rows of
+//     the flattened (position, head-in-group) row space, 16 a warp; for
+//     decode the group's query heads are warp 0's tile (the other warps
+//     help stage). It reads its own block table and kv_len (no scalar
+//     prefetch on this card) and walks logical blocks j < cdiv(live, bs)
+//     only, where live is kv_len and, for prefill, also the tile's causal
+//     horizon q_off + last row + 1. Blocks past that are neither read nor
+//     computed, and their table entries are never read (with kv_len == 0
+//     not even tables[b, 0], which the TPU kernel's index map reads). Live
+//     ids are clamped into the pool, as JAX's gather clamps them.
+//   * Whole blocks, up to 64 keys a round, are staged in shared memory as
+//     bf16, double-buffered: the next round's cp.async copies (16 bytes
+//     each; a thread keeps one 16-byte column and walks the keys, no
+//     division per copy) land while the block computes on this one. An
+//     f32 pool is split on the way in (plain loads) into three bf16
+//     planes, hi + mid + lo.
+//   * Per 16-key chunk of a round a warp computes S = Q~ K^T (hd / 16 k16
+//     steps a term, ldmatrix from the staged K), the online-softmax update
+//     on the S fragment (each row's 16 scores live in the 4 lanes of a quad:
+//     max and sum over the quad in a fixed tree), then the chunk's P~ V
+//     (ldmatrix.trans from the staged V) into a fresh fragment, which
+//     acc = fma(acc, alpha, fragment) adds on the CUDA cores.
+//   * Operands not exact in bf16 are split into bf16 terms: q * scale takes
+//     one term when q is bf16 and scale a power of two (exact), else three
+//     (hi + mid + lo: all 24 bits of the f32 value); P two (hi + lo, within
+//     2^-16 of p); an f32 pool's K and V three. Each pair of terms whose
+//     orders add up to at most 2 is one chain of steps into a fresh
+//     fragment, the fragments added in f32 from the smallest up.
 //
-// Decode and prefill are one template and share row_update. Row r of a
+// Decode and prefill are one template and share tile_chunk. Row r of a
 // prefill at absolute position p runs the same operations in the same
 // order as a decode at kv_len = p + 1: the same 16-key chunks of the same
-// blocks in the same order, the same dot, max, exp and sum trees. A block
-// past p (inside the tile's horizon but past the row's own) is fully
+// blocks in the same order, the same splits and instructions, the same
+// max, exp and sum trees. A tensor-core output depends on its own row of A
+// and column of B only, so what else shares the tile does not matter. A
+// chunk past p (inside the tile's horizon but past the row's own) is fully
 // masked for the row and leaves m, l and acc bit for bit unchanged
-// (max(m, MASK) = m, alpha = exp(0) = 1, p = 0 and its products skipped).
-// So the verify pass and a recomputed prefill give a plain decode's bits.
+// (max(m, MASK) = m, alpha = exp(0) = 1, p = 0, a fragment of zero
+// products is 0 and acc + 0 = acc); a chunk dead for every row of a warp's
+// tile is skipped. So the verify pass and a recomputed prefill give a plain
+// decode's bits.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
@@ -71,16 +89,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
 // the JAX package's MASK_VALUE (-0.7 * f32 max, rounded once to f32)
 constexpr float kMask = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
-constexpr int kChunk = 16;           // keys per online-softmax update
+constexpr int kChunk = 16;           // keys per online-softmax update: one k16 of P V
 constexpr int kRoundKeys = 64;       // keys staged per round, whole blocks (bs <= 64)
-constexpr int kPrefillRows = 16;     // flattened query rows per prefill block, a warp each
-constexpr int kMaxThreads = kPrefillRows * 32;
+constexpr int kWarps = 4;            // warps per block
+constexpr int kTile = 16;            // rows of a warp's mma tile
+constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -95,23 +116,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// reductions over the 16 lanes of a half-warp (xor offsets below 16 stay
-// inside it), in a fixed tree order
-__device__ __forceinline__ float half_max(float v) {
+// v as N bf16 terms, largest first: each the nearest bf16 to what the
+// earlier ones left (the subtraction is exact); 3 terms hold every f32
+// value of the normal range exactly, 2 within 2^-16 of |v|
+template <int N>
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16 (&t)[N]) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+  for (int i = 0; i < N; ++i) {
+    t[i] = __float2bfloat16_rn(v);
+    v = __fsub_rn(v, __bfloat162float(t[i]));
+  }
 }
 
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -119,221 +146,415 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Shared-memory row pitch of a staged key, in elements: hd padded to a
-// 16-byte multiple plus 16 bytes, so rows start on 16 bytes (cp.async) and
-// the 16 keys of a chunk spread over the banks.
-template <typename TC>
-__host__ __device__ __forceinline__ int row_pitch(int hd) {
-  constexpr int kVec = 16 / sizeof(TC);
-  return (hd + kVec - 1) / kVec * kVec + kVec;
+// four 8 x 8 bf16 matrices from shared memory, rows given by lanes 8i..8i+7
+// for matrix i; TRANS delivers each transposed
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
 }
 
-// Stage round `rd` (keys [0, n) of blocks rd * bpr ...) into `kb`/`vb` in
-// the pool's own type: key t is row t % bs of pool block phys_s[rd * bpr +
-// t / bs], KV head hk. With 16-byte alignment each thread issues cp.async
-// copies that land while the block computes on the other buffer; otherwise
-// plain element copies. Threads t, t + nt, ... take part.
-template <typename TC>
-__device__ __forceinline__ void stage_round(TC* kb, TC* vb, const TC* kp, const TC* vp,
-                                            const int* phys, int n, int bs, int KV, int hd,
-                                            int hk, int pitch, bool async, int tid, int nt) {
-  constexpr int kVec = 16 / sizeof(TC);
+// d += a . b: a 16 x 16 (row-major fragment), b 16 x 8 (column fragment),
+// bf16 in, f32 out. Fragment of a 16 x 8 f32 tile, lane l (g = l / 4,
+// q = l % 4): d[0], d[1] row g, columns 2q, 2q + 1; d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The pairs (t, u) of split terms a product takes, t of the left operand
+// (NA terms), u of the right (NB), t + u <= 2, in order of t + u from 2
+// down to 0 (the smallest first): pair p's t (or u with U).
+__host__ __device__ constexpr int n_pairs(int na, int nb) {
+  int n = 0;
+  for (int s = 2; s >= 0; --s)
+    for (int t = 0; t < na; ++t)
+      if (s - t >= 0 && s - t < nb) ++n;
+  return n;
+}
+
+__host__ __device__ constexpr int pair_term(int na, int nb, int p, bool u) {
+  int n = 0;
+  for (int s = 2; s >= 0; --s)
+    for (int t = 0; t < na; ++t)
+      if (s - t >= 0 && s - t < nb) {
+        if (n == p) return u ? s - t : t;
+        ++n;
+      }
+  return 0;
+}
+
+// Shared-memory row pitch of a staged key, in bf16: the padded head dim HD
+// plus 8, so rows start on 16 bytes (cp.async, ldmatrix) and the 8 rows an
+// ldmatrix reads fall on distinct banks.
+template <int HD>
+__host__ __device__ constexpr int row_pitch() { return HD + 8; }
+
+// rows of one staged plane: a round's keys rounded up to whole chunks, so a
+// chunk's ldmatrix never reads past its plane
+__host__ __device__ __forceinline__ int plane_rows(int bs) {
+  const int round_keys = (bs >= kRoundKeys ? 1 : kRoundKeys / bs) * bs;
+  return (round_keys + kChunk - 1) / kChunk * kChunk;
+}
+
+// Stage `n` keys (blocks phys[0..], key t is row t % bs of pool block
+// phys[t / bs], KV head hk) into the NT bf16 planes at kb / vb (`plane`
+// elements apart): with 16-byte alignment of a bf16 pool as cp.async copies
+// that land while the block computes on the other buffer; otherwise plain
+// loads, an f32 pool split into hi, mid and lo. Dims past hd are never
+// written (zero since the start).
+template <typename TC, int HD, int NT>
+__device__ __forceinline__ void stage_round(__nv_bfloat16* kb, __nv_bfloat16* vb, const TC* kp,
+                                            const TC* vp, const int* phys, int n, int bs,
+                                            int KV, int hd, int hk, int plane, bool async,
+                                            int tid) {
+  constexpr int kPitch = row_pitch<HD>();
   const long long cell = static_cast<long long>(KV) * hd;    // elements per pool cell
-  if (async) {
-    const int per_row = hd / kVec;
-    for (int c = tid; c < n * per_row; c += nt) {
-      const int t = c / per_row, d0 = (c - t * per_row) * kVec;
-      const long long off = (static_cast<long long>(phys[t / bs]) * bs + t % bs) * cell +
-                            static_cast<long long>(hk) * hd + d0;
-      cp_async16(kb + t * pitch + d0, kp + off);
-      cp_async16(vb + t * pitch + d0, vp + off);
+  if constexpr (std::is_same<TC, __nv_bfloat16>::value) {
+    if (async) {
+      // the first step * per_row threads: thread tid copies 16-byte column
+      // d0 of keys t, t + step, ...; each key's block and row advance by
+      // adds
+      const int per_row = hd / 8, step = kThreads / per_row;
+      if (tid >= step * per_row) return;
+      const int d0 = (tid % per_row) * 8;
+      const int dblk = step / bs, drow = step - dblk * bs;
+      int t = tid / per_row, blk = t / bs, row = t - blk * bs;
+      const long long head = static_cast<long long>(hk) * hd + d0;
+      for (; t < n; t += step) {
+        const long long off = (static_cast<long long>(phys[blk]) * bs + row) * cell + head;
+        cp_async16(kb + t * kPitch + d0, kp + off);
+        cp_async16(vb + t * kPitch + d0, vp + off);
+        blk += dblk;
+        row += drow;
+        if (row >= bs) {
+          row -= bs;
+          ++blk;
+        }
+      }
+      return;
     }
-    return;
   }
-  for (int e = tid; e < n * hd; e += nt) {
+  for (int e = tid; e < n * hd; e += kThreads) {
     const int t = e / hd, d = e - t * hd;
     const long long off = (static_cast<long long>(phys[t / bs]) * bs + t % bs) * cell +
                           static_cast<long long>(hk) * hd + d;
-    kb[t * pitch + d] = kp[off];
-    vb[t * pitch + d] = vp[off];
+    __nv_bfloat16 ks[NT], vs[NT];
+    split_bf16<NT>(to_f32(kp[off]), ks);
+    split_bf16<NT>(to_f32(vp[off]), vs);
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      kb[u * plane + t * kPitch + d] = ks[u];
+      vb[u * plane + t * kPitch + d] = vs[u];
+    }
   }
 }
 
-// One warp, one query row: the online-softmax update with a chunk of
+// One warp, one 16-row tile: the online-softmax update with a chunk of
 // n <= 16 staged keys at absolute positions kpos0 + [0, n) (k_c, v_c point
-// at the chunk's first key, rows `pitch` apart); keys at or past `lim` are
-// dead. Lane j and lane j + 16 own key j: each sums the products of the
-// dims of its parity (two accumulators, d = h, h + 4, ... and h + 2, h + 6,
-// ...), and the key's score is the sum of the two halves. acc[i] holds dim
-// lane + 32 i. Both kernels run exactly this for every row, which is what
-// makes a prefill row bit-equal to the decode at the same position.
-template <int DPL, typename TC>
-__device__ __forceinline__ void row_update(const float* q_row, const TC* k_c, const TC* v_c,
-                                           int pitch, int n, int kpos0, int lim, int hd,
-                                           float& m, float& l, float (&acc)[DPL]) {
-  const int lane = threadIdx.x & 31, j = lane & 15, h = lane >> 4;
-  const bool live = j < n && kpos0 + j < lim;
-  float part = 0.f;
-  if (live) {
-    const TC* kr = k_c + j * pitch;
-    float a0 = 0.f, a1 = 0.f;
-    int d = h;
-#pragma unroll 4
-    for (; d + 2 < hd; d += 4) {
-      a0 = __fmaf_rn(q_row[d], to_f32(kr[d]), a0);
-      a1 = __fmaf_rn(q_row[d + 2], to_f32(kr[d + 2]), a1);
+// at the chunk's first key in plane 0, planes `plane` apart). Lane l holds
+// rows g = l / 4 and g + 8 of the tile (h = 0, 1), whose live-key limits
+// are lim[h]: keys at or past them, or past n, are dead. qa: the rows'
+// q * scale as NQ bf16 terms, A fragments per k16 step. acc: the rows'
+// unnormalised output, 16 x HD as HD / 8 fragments. Both kernels run
+// exactly this for every row, which is what makes a prefill row bit-equal
+// to the decode at the same position.
+template <int HD, int NQ, int NT>
+__device__ __forceinline__ void tile_chunk(const uint32_t (&qa)[NQ][HD / 16][4],
+                                           const __nv_bfloat16* k_c, const __nv_bfloat16* v_c,
+                                           int plane, int n, int kpos0, const int (&lim)[2],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&acc)[HD / 8][4]) {
+  constexpr int kPitch = row_pitch<HD>();
+  constexpr int NS = n_pairs(NQ, NT), NPV = n_pairs(2, NT);
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7, q4 = lane & 3;
+
+  // S = Q~ K^T: per pair of terms a fresh chain over the k16 steps, two n8
+  // tiles (keys 0-7, 8-15); the pairs' fragments added from the smallest
+  float sp[NS][2][4];
+#pragma unroll
+  for (int p = 0; p < NS; ++p)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sp[p][i >> 2][i & 3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t kf[NT][4];
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+      ldmatrix_x4<false>(kf[u], k_c + u * plane + (mr + 8 * (mi >> 1)) * kPitch + 16 * ks +
+                                    8 * (mi & 1));
+#pragma unroll
+    for (int p = 0; p < NS; ++p) {
+      const int t = pair_term(NQ, NT, p, false), u = pair_term(NQ, NT, p, true);
+      mma_bf16(sp[p][0], qa[t][ks], kf[u][0], kf[u][1]);
+      mma_bf16(sp[p][1], qa[t][ks], kf[u][2], kf[u][3]);
     }
-    if (d < hd) a0 = __fmaf_rn(q_row[d], to_f32(kr[d]), a0);
-    part = __fadd_rn(a0, a1);
   }
-  const float other = __shfl_xor_sync(kFull, part, 16);
-  const float s = live ? __fadd_rn(part, other) : kMask;
-  const float m_next = fmaxf(m, half_max(s));
-  const float p = live ? expf(__fsub_rn(s, m_next)) : 0.f;
-  const float alpha = expf(__fsub_rn(m, m_next));
-  l = __fmaf_rn(l, alpha, half_sum(p));
-  m = m_next;
+  float s[2][4];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = __fmul_rn(acc[i], alpha);
+  for (int i = 0; i < 8; ++i) {
+    float v = sp[0][i >> 2][i & 3];
 #pragma unroll
-  for (int jj = 0; jj < kChunk; ++jj) {
-    const float pj = __shfl_sync(kFull, p, jj);   // n and pj are the same on every lane
-    if (jj >= n || pj == 0.f) continue;           // a dead key leaves acc untouched
-    const TC* vr = v_c + jj * pitch;
+    for (int p = 1; p < NS; ++p) v = __fadd_rn(v, sp[p][i >> 2][i & 3]);
+    s[i >> 2][i & 3] = v;
+  }
+
+  // the online softmax per row, its 16 scores on the 4 lanes of a quad
+  float alpha[2], pv[2][4];
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) acc[i] = __fmaf_rn(pj, to_f32(vr[d]), acc[i]);
+  for (int h = 0; h < 2; ++h) {
+    float sv[4];
+    bool live[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = 8 * (j >> 1) + 2 * q4 + (j & 1);
+      live[j] = key < n && kpos0 + key < lim[h];
+      sv[j] = live[j] ? s[j >> 1][2 * h + (j & 1)] : kMask;
     }
+    float mx = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_next = fmaxf(m[h], mx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pv[h][j] = live[j] ? expf(__fsub_rn(sv[j], m_next)) : 0.f;
+    alpha[h] = expf(__fsub_rn(m[h], m_next));
+    float rs = __fadd_rn(__fadd_rn(pv[h][0], pv[h][1]), __fadd_rn(pv[h][2], pv[h][3]));
+    rs = __fadd_rn(rs, __shfl_xor_sync(kFull, rs, 1));
+    rs = __fadd_rn(rs, __shfl_xor_sync(kFull, rs, 2));
+    l[h] = __fmaf_rn(l[h], alpha[h], rs);
+    m[h] = m_next;
+  }
+
+  // P~ as A fragments (16 rows x 16 keys), hi and lo terms
+  uint32_t pa[2][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {      // a0: row g keys 2q..; a1: row g+8; a2, a3: keys 8+2q..
+    const int h = r & 1, j = 2 * (r >> 1);
+    __nv_bfloat16 t0[2], t1[2];
+    split_bf16<2>(pv[h][j], t0);
+    split_bf16<2>(pv[h][j + 1], t1);
+    pa[0][r] = pack2(t0[0], t1[0]);
+    pa[1][r] = pack2(t0[1], t1[1]);
+  }
+
+  // the chunk's P~ V into fresh fragments, two n8 tiles of dims at a time;
+  // acc = fma(acc, alpha, fragment)
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; nt += 2) {
+    uint32_t vf[NT][4];
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+      ldmatrix_x4<true>(vf[u], v_c + u * plane + (mr + 8 * (mi & 1)) * kPitch + 8 * nt +
+                                   8 * (mi >> 1));
+    float f[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int p = 0; p < NPV; ++p) {
+      const int t = pair_term(2, NT, p, false), u = pair_term(2, NT, p, true);
+      mma_bf16(f[0], pa[t], vf[u][0], vf[u][1]);
+      mma_bf16(f[1], pa[t], vf[u][2], vf[u][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      acc[nt + (i >> 2)][i & 3] =
+          __fmaf_rn(acc[nt + (i >> 2)][i & 3], alpha[(i & 3) >> 1], f[i >> 2][i & 3]);
   }
 }
 
 __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 
+// rounds staged at once: the next one lands while the block computes on
+// this one (a ring of four read slower at 8 x 256 rows: its 74 KB of
+// shared memory a block halves the blocks an SM holds)
+constexpr int kBufs = 2;
+
 // ---------------------------------------------------------------------------
-// grid (tiles, KV, B), one warp per query row. Decode: one tile of `group`
-// rows (the query heads of one KV head at the slot's one position).
-// Prefill: tiles of 16 rows of the flattened (position, head-in-group)
-// space (row r is position r / group, head hk * group + r % group).
-// Shared memory: the block's live table entries, the rows' scaled queries,
-// and K and V of two rounds in the pool's type.
+// grid (tiles, KV, B), kWarps warps a block. Decode: one tile, the `group`
+// rows of one KV head at the slot's one position, warp 0's. Prefill: tiles
+// of kWarps x 16 rows of the flattened (position, head-in-group) space (row
+// r is position r / group, head hk * group + r % group), 16 a warp. Shared
+// memory: the block's live table entries, then K and V of kBufs rounds as
+// NT bf16 planes each.
 // ---------------------------------------------------------------------------
-template <typename TQ, typename TC, int DPL, bool DECODE>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename TQ, typename TC, int HD, int NQ, bool DECODE>
+__global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const TQ* __restrict__ q, const TC* __restrict__ kp, const TC* __restrict__ vp,
                   const int* __restrict__ tables, const int* __restrict__ q_off,
                   const int* __restrict__ kv_len, TQ* __restrict__ o, int S, int H, int KV,
                   int hd, int n_pool, int bs, int nb, float scale) {
+  constexpr int NT = std::is_same<TC, float>::value ? 3 : 1;
+  constexpr int kPitch = row_pitch<HD>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int group = H / KV;
-  const int n_rows_cta = DECODE ? group : kPrefillRows;
+  const int rows_cta = DECODE ? group : kWarps * kTile;
   const int bpr = bs >= kRoundKeys ? 1 : kRoundKeys / bs;      // blocks per round
   const int round_keys = bpr * bs;
-  const int pitch = row_pitch<TC>(hd);
+  const int plane = plane_rows(bs) * kPitch;                   // elements of one plane
+  const int buf = NT * plane;                                  // one round's K (or V)
   int* phys_s = reinterpret_cast<int*>(smem);                  // [nb]
-  float* q_s = reinterpret_cast<float*>(smem + align16(sizeof(int) * nb));   // [rows][hd]
-  TC* k_s = reinterpret_cast<TC*>(reinterpret_cast<unsigned char*>(q_s) +
-                                  align16(sizeof(float) * n_rows_cta * hd));
-  TC* v_s = k_s + 2 * round_keys * pitch;                      // each [2][round_keys][pitch]
+  __nv_bfloat16* k_s =
+      reinterpret_cast<__nv_bfloat16*>(smem + align16(sizeof(int) * nb));   // [kBufs][NT][plane]
+  __nv_bfloat16* v_s = k_s + kBufs * buf;
 
   const int tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_rows = S * group;                                // flattened rows of the slot
-  const int r0 = tile * n_rows_cta;
+  const int r0 = tile * rows_cta;
   const int len = kv_len[b];
   const int qo = DECODE ? 0 : q_off[b];
 
   // live keys of the block: below kv_len (and the table's reach) and, for
   // prefill, up to the tile's last row
   int n_live = min(len, nb * bs);
-  if (!DECODE) n_live = min(n_live, qo + (min(r0 + n_rows_cta, n_rows) - 1) / group + 1);
+  if (!DECODE) n_live = min(n_live, qo + (min(r0 + rows_cta, n_rows) - 1) / group + 1);
   const int n_blk = n_live > 0 ? (n_live + bs - 1) / bs : 0;
   const int n_rounds = (n_blk + bpr - 1) / bpr;
 
-  // the live table entries only, clamped into the pool
+  // the live table entries only, clamped into the pool; with hd < HD the
+  // staging buffers zeroed, so the dims past hd read as zeros (a key's
+  // padding meets the query's zero padding: 0 x garbage could be NaN)
   const int* trow = tables + static_cast<long long>(b) * nb;
-  for (int j = tid; j < n_blk; j += nt) phys_s[j] = min(max(trow[j], 0), n_pool - 1);
-  for (int e = tid; e < n_rows_cta * hd; e += nt) {
-    const int rr = e / hd, d = e - rr * hd, r = r0 + rr;
-    float x = 0.f;
-    if (r < n_rows) {
-      const int pos = r / group, h = hk * group + r % group;
-      x = __fmul_rn(to_f32(q[(static_cast<long long>(b) * S + pos) * H * hd +
-                             static_cast<long long>(h) * hd + d]), scale);
-    }
-    q_s[e] = x;
+  for (int j = tid; j < n_blk; j += kThreads) phys_s[j] = min(max(trow[j], 0), n_pool - 1);
+  if (hd < HD) {
+    uint4* z = reinterpret_cast<uint4*>(k_s);
+    const int n16 = static_cast<int>(2 * kBufs * buf * sizeof(__nv_bfloat16) / 16);
+    for (int i = tid; i < n16; i += kThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
 
-  // this warp's row: its position and its live-key limit
-  const int r = r0 + warp;
-  const bool has_row = warp < n_rows_cta && r < n_rows;
-  const int pos = has_row ? r / group : 0;
-  const int lim = !has_row ? 0 : (DECODE ? len : min(qo + pos + 1, len));
-  const float* q_row = q_s + (warp < n_rows_cta ? warp : 0) * hd;
-  float m = kMask, l = 0.f, acc[DPL];
+  // this warp's tile: rows wr0 .. wr0 + 15 (decode: warp 0's, the group);
+  // lane's rows g and g + 8, their positions and live-key limits
+  const int wr0 = DECODE ? 0 : r0 + kTile * warp;
+  const bool active = DECODE ? warp == 0 : wr0 < n_rows;
+  const int g = lane >> 2, q4 = lane & 3;
+  int lim[2];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
+    lim[h] = !(active && r < n_rows) ? 0 : (DECODE ? len : min(qo + r / group + 1, len));
+  }
+  // the warp's horizon: its last row's limit
+  const int last = min(wr0 + kTile, n_rows) - 1;
+  const int warp_lim = !active ? 0 : (DECODE ? len : min(qo + last / group + 1, len));
 
-  constexpr int kVec = 16 / sizeof(TC);
-  const bool async = hd % kVec == 0 && (static_cast<long long>(KV) * hd) % kVec == 0 &&
+  // q * scale in f32, split into NQ bf16 terms, as A fragments: register r
+  // of step ks holds row g (r even) or g + 8, dims 16 ks + 2 q4 (+ 8 for
+  // r >= 2) and the next
+  uint32_t qa[NQ][HD / 16][4];
+  const TQ* qrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + g + 8 * h;
+    qrow[h] = !(active && row < n_rows) ? nullptr
+              : q + (static_cast<long long>(b) * S + row / group) * H * hd +
+                    static_cast<long long>(hk * group + row % group) * hd;
+  }
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const TQ* qr = qrow[r & 1];
+      const int d = 16 * ks + 2 * q4 + 8 * (r >> 1);
+      __nv_bfloat16 t[2][NQ];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        split_bf16<NQ>(qr && d + e < hd ? __fmul_rn(to_f32(qr[d + e]), scale) : 0.f, t[e]);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) qa[i][ks][r] = pack2(t[0][i], t[1][i]);
+    }
+
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  const bool async = std::is_same<TC, __nv_bfloat16>::value && hd % 8 == 0 &&
+                     (static_cast<long long>(KV) * hd) % 8 == 0 &&
                      reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(vp) % 16 == 0;
-  __syncthreads();                                             // phys_s, q_s
+  __syncthreads();                                             // phys_s, zeroed buffers
+  // round rd into its buffer; the rows past its keys zeroed (a chunk reads
+  // 16 rows: dead keys' V rows must be finite, their weight is 0)
+  const int prows = plane_rows(bs);
   auto stage = [&](int rd) {
-    const int nbr = min(bpr, n_blk - rd * bpr);
-    const int buf = (rd & 1) * round_keys * pitch;
-    stage_round(k_s + buf, v_s + buf, kp, vp, phys_s + rd * bpr, nbr * bs, bs, KV, hd, hk,
-                pitch, async, tid, nt);
+    const int n = min(bpr, n_blk - rd * bpr) * bs;
+    __nv_bfloat16* kb = k_s + (rd % kBufs) * buf;
+    __nv_bfloat16* vb = v_s + (rd % kBufs) * buf;
+    stage_round<TC, HD, NT>(kb, vb, kp, vp, phys_s + rd * bpr, n, bs, KV, hd, hk, plane, async,
+                            tid);
+    constexpr int kRow16 = kPitch * 2 / 16;                     // 16-byte words a row
+    for (int i = tid; i < NT * (prows - n) * kRow16; i += kThreads) {
+      const int u = i / ((prows - n) * kRow16), w = i - u * (prows - n) * kRow16;
+      const int at = u * plane + n * kPitch;
+      reinterpret_cast<uint4*>(kb + at)[w] = make_uint4(0u, 0u, 0u, 0u);
+      reinterpret_cast<uint4*>(vb + at)[w] = make_uint4(0u, 0u, 0u, 0u);
+    }
   };
-  if (async && n_rounds > 0) {
-    stage(0);
-    cp_async_commit();
-  }
+  // async: rounds 0 .. kBufs - 2 in flight before the loop, and one more (a
+  // commit group each, empty past the last round) as each is consumed
+  if (async)
+    for (int rd = 0; rd < kBufs - 1; ++rd) {
+      if (rd < n_rounds) stage(rd);
+      cp_async_commit();
+    }
   for (int rd = 0; rd < n_rounds; ++rd) {
     if (async) {
-      if (rd + 1 < n_rounds) {                                 // the next round lands
-        stage(rd + 1);                                         // while this one computes
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
+      if (rd + kBufs - 1 < n_rounds) stage(rd + kBufs - 1);    // into the buffer round
+      cp_async_commit();                                       // rd - 1 freed
+      cp_async_wait<kBufs - 1>();                              // round rd has landed
     } else {
       stage(rd);
     }
     __syncthreads();                                           // round rd staged
-    const int nbr = min(bpr, n_blk - rd * bpr);
-    const TC* kb = k_s + (rd & 1) * round_keys * pitch;
-    const TC* vb = v_s + (rd & 1) * round_keys * pitch;
-    for (int t0 = 0; t0 < nbr * bs; t0 += bs) {                // blocks in order,
-      for (int c0 = 0; c0 < bs; c0 += kChunk) {                // chunks in order
-        const int t = t0 + c0;
-        row_update(q_row, kb + t * pitch, vb + t * pitch, pitch, min(kChunk, bs - c0),
-                   rd * round_keys + t, lim, hd, m, l, acc);
+    const int n = min(bpr, n_blk - rd * bpr) * bs;
+    const __nv_bfloat16* kb = k_s + (rd % kBufs) * buf;
+    const __nv_bfloat16* vb = v_s + (rd % kBufs) * buf;
+    if (active) {
+      for (int t0 = 0; t0 < n; t0 += kChunk) {                 // chunks in order
+        const int kpos0 = rd * round_keys + t0;
+        if (kpos0 >= warp_lim) break;                          // dead for every row of the tile
+        tile_chunk<HD, NQ, NT>(qa, kb + t0 * kPitch, vb + t0 * kPitch, plane,
+                               min(kChunk, n - t0), kpos0, lim, m, l, acc);
       }
     }
     __syncthreads();                                           // round rd fully used
   }
 
-  if (!has_row) return;
-  const int h = hk * group + r % group;
-  const float l_safe = l == 0.f ? 1.f : l;
-  TQ* orow = o + (static_cast<long long>(b) * S + pos) * H * hd + static_cast<long long>(h) * hd;
+  if (!active) return;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) orow[d] = from_f32<TQ>(__fdiv_rn(acc[i], l_safe));
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
+    if (r >= n_rows) continue;
+    const int pos = r / group, head = hk * group + r % group;
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    TQ* orow = o + (static_cast<long long>(b) * S + pos) * H * hd + static_cast<long long>(head) * hd;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nt + 2 * q4 + e;
+        if (d < hd) orow[d] = from_f32<TQ>(__fdiv_rn(acc[nt][2 * h + e], l_safe));
+      }
   }
 }
 
-template <typename TC>
-size_t smem_bytes(int rows, int hd, int bs, int nb) {
-  const int round_keys = (bs >= kRoundKeys ? 1 : kRoundKeys / bs) * bs;
-  return align16(sizeof(int) * nb) + align16(sizeof(float) * rows * hd) +
-         4 * sizeof(TC) * static_cast<size_t>(round_keys) * row_pitch<TC>(hd);
+template <typename TC, int HD>
+size_t smem_bytes(int bs, int nb) {
+  constexpr int NT = std::is_same<TC, float>::value ? 3 : 1;
+  return align16(sizeof(int) * nb) + 2 * kBufs * NT * sizeof(__nv_bfloat16) *
+                                         static_cast<size_t>(plane_rows(bs)) * row_pitch<HD>();
 }
 
-template <typename TQ, typename TC, int DPL, bool DECODE>
+template <typename TQ, typename TC, int HD, int NQ, bool DECODE>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
                    const int* q_off, const int* kv_len, void* o, int B, int S, int H, int KV,
                    int hd, int n_pool, int bs, int nb, float scale, cudaStream_t st) {
@@ -346,31 +567,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(paged_attn_kernel<TQ, TC, DPL, DECODE>,
+      err = cudaFuncSetAttribute(paged_attn_kernel<TQ, TC, HD, NQ, DECODE>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
     max_smem = optin;
   }
   const int group = H / KV;
-  const int rows = DECODE ? group : kPrefillRows;
-  const dim3 grid(DECODE ? 1 : (S * group + kPrefillRows - 1) / kPrefillRows, KV, B);
-  paged_attn_kernel<TQ, TC, DPL, DECODE><<<grid, rows * 32, smem_bytes<TC>(rows, hd, bs, nb), st>>>(
+  const dim3 grid(DECODE ? 1 : (S * group + kWarps * kTile - 1) / (kWarps * kTile), KV, B);
+  paged_attn_kernel<TQ, TC, HD, NQ, DECODE><<<grid, kThreads, smem_bytes<TC, HD>(bs, nb), st>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), tables,
       q_off, kv_len, static_cast<TQ*>(o), S, H, KV, hd, n_pool, bs, nb, scale);
   return cudaGetLastError();
 }
 
+// the head dim padded to 64 or 128; q * scale in one bf16 term when q is
+// bf16 and scale a power of two (the product is exact and bf16), else three
 template <typename TQ, typename TC, bool DECODE>
 cudaError_t by_hd(const void* q, const void* k, const void* v, const int* tables,
                   const int* q_off, const int* kv_len, void* o, int B, int S, int H, int KV,
                   int hd, int n_pool, int bs, int nb, float scale, cudaStream_t st) {
-  // dims per lane: ceil(hd / 32)
-  switch ((hd + 31) / 32) {
-    case 1: return launch<TQ, TC, 1, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
-    case 2: return launch<TQ, TC, 2, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
-    case 3: return launch<TQ, TC, 3, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
-    default: return launch<TQ, TC, 4, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
+    int e = 0;
+    if (frexpf(scale, &e) == 0.5f) {
+      if (hd <= 64)
+        return launch<TQ, TC, 64, 1, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
+      return launch<TQ, TC, 128, 1, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
+    }
   }
+  if (hd <= 64)
+    return launch<TQ, TC, 64, 3, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
+  return launch<TQ, TC, 128, 3, DECODE>(q, k, v, tables, q_off, kv_len, o, B, S, H, KV, hd, n_pool, bs, nb, scale, st);
 }
 
 template <bool DECODE>

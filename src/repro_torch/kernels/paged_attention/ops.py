@@ -30,8 +30,8 @@ from repro_torch.kernels.flash_attention.ops import softmax_scale
 from repro_torch.kernels.paged_attention import ref as _ref
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128       # the kernels keep hd / 32 values per lane
-MAX_GROUP = 16           # decode: one warp per query head of a group
+MAX_HEAD_DIM = 128       # the kernels pad hd to 64 or 128 for their mma tiles
+MAX_GROUP = 16           # decode: a group's query heads are one 16-row mma tile
 MAX_BLOCK_SIZE = 64      # whole blocks are staged in shared memory
 
 
@@ -103,8 +103,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     Besides chunked prefill this is the speculative verify pass (S =
     spec_k + 1, q_off the slot's resident length). On the card row r at
     position p runs the same operations in the same order as
-    :func:`paged_decode_attention` at ``kv_len = p + 1``, so the verify
-    pass and a recomputed prefill give a plain decode's bits."""
+    :func:`paged_decode_attention` at ``kv_len = p + 1`` (the same
+    tensor-core template, a 16-row tile a warp), so the verify pass and a
+    recomputed prefill give a plain decode's bits."""
     _check(q, k_pool, v_pool, tables, ((q_off, "q_off"), (kv_len, "kv_len")))
     B, S, H, hd = q.shape
     scale = softmax_scale(hd)

@@ -11,7 +11,9 @@ before the product, as the kernels (and the TPU kernels) do.
 
 ``ops.py`` sends CPU tensors here; on the card ``chip_smoke.py`` holds each
 CUDA kernel against these on the same inputs. Nothing on the card's main
-path calls them.
+path calls them. ``split_bf16`` is the kernels' split of an f32 operand
+into bf16 terms for the tensor cores, which the tests hold to its stated
+width.
 """
 from __future__ import annotations
 
@@ -62,3 +64,17 @@ def paged_prefill_fwd(q, k_pool, v_pool, tables, q_off, kv_len, *,
     live = (kpos <= qpos[..., None]) & (kpos < kv_len.long()[:, None, None])
     o, _ = _flash_ref._softmax_out(s, live[:, None], v)
     return o.to(q.dtype)
+
+
+def split_bf16(x: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """x as ``terms`` bf16 tensors, largest first, each the nearest bf16 to
+    what the earlier ones left (the f32 subtraction is exact): the kernels'
+    operands for the tensor cores. q * scale takes 1 term (bf16 q, scale a
+    power of two: exact) or 3, P 2, an f32 pool's K and V 3. In the normal
+    range 3 terms sum to x exactly and 2 to within 2^-16 |x|."""
+    out, r = [], x.float()
+    for _ in range(terms):
+        t = r.to(torch.bfloat16)
+        out.append(t)
+        r = r - t.float()
+    return out

@@ -18,8 +18,9 @@
 //                              whose output width is above 2048, and the
 //                              dgrad of the column-wise variants)
 //   wgrad_bf16              <- repro/kernels/switchback/switchback.py:wgrad_bf16
-//                              (the 16-bit weight gradient; see its section:
-//                              its numerics and its bound are its own)
+//                              (the 16-bit weight gradient, on bf16 wgmma; see
+//                              its section: its numerics and its bound are its
+//                              own)
 //
 // The two dgrad forms are the forward kernels with the W tile read the
 // other way (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m]
@@ -44,9 +45,15 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <algorithm>
+
+#include "../../csrc/wgmma.cuh"
 
 namespace {
 
@@ -431,103 +438,204 @@ void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, cons
 // path launches it: the training path's Ẇ is one cuBLAS GEMM
 // (core/switchback.wgrad_16bit), as the JAX package's is XLA's dot_general.
 //
-// Numerics: each output sums its B products in order, b = 0, 1, ..., B-1,
-// in f32. A bf16 x bf16 product is exact in f32 (8 + 8 significant bits),
-// so the FMA acc = fma(x, g, acc) rounds once, as the product followed by
-// the add does, and the plain version (ref.py: a loop over b of
-// acc += x_b^T g_b in f32) repeats every sum bit for bit. That holds while
-// no product falls below f32's normal range (|x g| >= 2^-126), where the
-// product itself would round. B is never split across blocks and no
-// mma/wgmma is used: their internal order of summation cannot be repeated.
-//
-// What bounds it on an H100: operations. 2 B K M of them, which at
-// bf16's tensor-core peak (989 TFLOP/s) take 164 us for one CLIP vision
-// layer's four weight gradients at 4,128 rows (1.62e11), while their bytes
-// take 35 us. This design runs on the CUDA cores, whose f32 FMA peak (67
-// TFLOP/s) puts the floor at 2.4 ms for that work: the price of a
-// reproducible order. Each block owns a 64 x 64 output tile, each of its
-// 256 threads a 4 x 4 micro-tile in registers; 32 rows of x's and g's
-// tile columns are staged at a time in shared memory as f32 (both are
-// contiguous along the tile, so the loads are coalesced, 16 bytes a thread
-// where K or M allows, and nothing is transposed), and every thread reads
-// one float4 of each per row: 16 FMAs for two shared loads, one of them a
-// broadcast. Tensor cores with a stated tolerance are a later design.
+// What bounds it on an H100: operations, 2 B K M of them at bf16's
+// tensor-core peak (989 TFLOP/s): 164 us for one CLIP vision layer's four
+// weight gradients at 4,128 rows (1.62e11), whose bytes take 35 us. It runs
+// on bf16 wgmma (kernels/csrc/wgmma.cuh), in the fp8 GEMMs' shape:
+//   * a block owns a 128 x 128 tile of dw: two consumer warpgroups of 64
+//     rows (x's columns) each and one producer warpgroup. Both operands
+//     contract over their outer dimension (x (B, K) is K-contiguous, g (B, M)
+//     M-contiguous), which bf16 wgmma reads as it lies: MN-major tiles
+//     (tnspA = tnspB = 1), so nothing is transposed anywhere. The producer
+//     fills a ring of up to 6 stages, each 64 rows of B of x's and g's 128
+//     columns (two 64-column boxes each, 128-byte swizzled), by TMA with an
+//     mbarrier per stage. A shape TMA refuses (a row pitch off 16 bytes: the
+//     patch embedding's 588 columns) takes the masked path of the same
+//     kernel: the producer warpgroup loads each stage itself, zeros past
+//     the matrix. Rows past B arrive as zeros on both paths.
+//   * per stage each consumer chains four m64n128k16 steps into a fresh
+//     fragment (one window of WINDOW = 64 rows of B) and adds it on the
+//     CUDA cores into its f32 accumulator, windows in B order (the
+//     promotion): a step keeps 25 bits of each addend below the largest
+//     exponent and 24 significant bits of its sum (truncated), so promoting
+//     every 64 rows bounds what the chain drops.
+//   * no split of B, no atomics: two launches give the same bits.
+// The tensor cores change the order of each window's sum and truncate
+// inside it, so the kernel and the in-order plain version (ref.py) agree to
+// ref.wgrad_bound per output, bit for bit on inputs whose sums are exact
+// (ref.py's exact entries), and kernels/fp8_matmul/wgmma_model.wgrad_rows
+// (the steps' truncations chained over the windows) gives its bits on any
+// input.
 // ---------------------------------------------------------------------------
-constexpr int kWgTile = 64;     // output tile kWgTile x kWgTile, 4 x 4 per thread
-constexpr int kWgRows = 32;     // rows of B staged per step
+constexpr int kWgBM = 128;                  // rows of dw per block (two warpgroups of 64)
+constexpr int kWgBN = 128;                  // columns of dw per block
+constexpr int kWgWindow = 64;               // rows of B per stage: one window, 4 k16 steps
+constexpr int kWgBox = 64 * kWgWindow * 2;  // bytes of a 64-column box of one stage: 8,192
+constexpr int kWgTile = 2 * kWgBox;         // one operand's 128 columns of a stage
+constexpr int kWgThreads = 384;             // producer warpgroup + two consumer warpgroups
+constexpr int kWgMaxStages = 6;
+constexpr int kWgSmemMax = 232448;          // dynamic shared memory a block may use
 
-// Rows [b0, b0 + nb) of a (B, C) bf16 operand, columns [c0, c0 + kWgTile),
-// into s as f32; columns past C read 0. 8 threads per row, 8 values each.
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ a, int C, int b0,
-                                           int nb, int c0, bool vec,
-                                           float (*s)[kWgTile]) {
-  const int r = threadIdx.x / 8, c = (threadIdx.x % 8) * 8;
-  if (r >= nb) return;
-  const __nv_bfloat16* src = a + static_cast<size_t>(b0 + r) * C + c0 + c;
-  float v[8];
-  if (vec && c0 + c < C) {                   // C % 8 == 0: all 8 in range
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+struct Wgrad {
+  const __nv_bfloat16* x;  // (B, K)
+  const __nv_bfloat16* g;  // (B, M)
+  float* dw;               // (K, M)
+  int B, K, M;
+  int tma, stages;         // set by the launcher
+};
+
+size_t wgrad_smem_bytes(int stages) {
+  return 1024 + 2 * static_cast<size_t>(stages) * kWgTile + 2 * kWgMaxStages * sizeof(uint64_t);
+}
+
+// the masked path: rows [b0, b0 + kWgWindow) x columns [c0, c0 + 128) of an
+// (R, C) bf16 matrix into two swizzled 64-column boxes, zeros outside (one
+// 16-byte chunk, 8 columns of one row, per step)
+__device__ void load_mn(uint8_t* dst, const __nv_bfloat16* __restrict__ src, int R, int C,
+                        int b0, int c0, int t) {
+  for (int c = t; c < kWgWindow * 16; c += 128) {
+    const int r = c >> 4, h = (c >> 3) & 1, ch = c & 7, row = b0 + r;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (row < R) {
+      const __nv_bfloat16* p = src + static_cast<size_t>(row) * C;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {            // a bf16 is the high half of its f32
-      v[2 * j] = __uint_as_float(w[j] << 16);
-      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      for (int e = 0; e < 8; ++e) {
+        const int col = c0 + 64 * h + 8 * ch + e;
+        if (col < C) v[e >> 1] |= static_cast<uint32_t>(__bfloat16_as_ushort(p[col])) << (16 * (e & 1));
+      }
     }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = c0 + c + j < C ? __bfloat162float(src[j]) : 0.f;
+    *reinterpret_cast<uint4*>(dst + h * kWgBox + sw128(r * 128 + ch * 16)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
   }
-  *reinterpret_cast<float4*>(&s[r][c]) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(&s[r][c + 4]) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// acc[i][j] += xs[r][4 ty + i] * gs[r][4 tx + j]: one row's products, one
-// rounding each (exact products).
-__device__ __forceinline__ void wgrad_row(const float* __restrict__ xr,
-                                          const float* __restrict__ gr, int ty, int tx,
-                                          float (&acc)[4][4]) {
-  const float4 a = *reinterpret_cast<const float4*>(xr + 4 * ty);
-  const float4 c = *reinterpret_cast<const float4*>(gr + 4 * tx);
-  const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+__global__ void __launch_bounds__(kWgThreads, 1)
+wgrad_bf16_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CUtensorMap tm_g,
+                  const Wgrad w) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sa = base;                                   // x: [stage][2 boxes]
+  uint8_t* sb = base + w.stages * kWgTile;              // g: [stage][2 boxes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + w.stages * kWgTile);
+  uint64_t* empty = full + kWgMaxStages;
+  const int row0 = blockIdx.y * kWgBM, col0 = blockIdx.x * kWgBN;
+  const int nk = (w.B + kWgWindow - 1) / kWgWindow;
+  if (threadIdx.x == 0) {
+    // full: the TMA bytes and their issuer's arrival, or the 128 producer
+    // threads' arrivals on the masked path; empty: the 8 consumer warps
+    for (int i = 0; i < w.stages; ++i) {
+      mbar_init(&full[i], w.tma ? 1u : 128u);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: stage s for each window in B order
+    regs_dec<56>();
+    const int t = threadIdx.x;
+    if (w.tma && t >= 32) return;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      const int b0 = kb * kWgWindow;
+      uint8_t* a = sa + s * kWgTile;
+      uint8_t* b = sb + s * kWgTile;
+      mbar_wait(&empty[s], ph ^ 1u);
+      if (w.tma) {
+        if (t == 0) {
+          // a box wholly past K or M is not loaded: its warpgroup idles, or
+          // its columns of the fragment are never stored
+          const bool a2 = row0 + 64 < w.K, b2 = col0 + 64 < w.M;
+          mbar_expect_tx(&full[s], (2 + a2 + b2) * kWgBox);
+          tma_load_2d(a, &tm_x, &full[s], row0, b0);
+          if (a2) tma_load_2d(a + kWgBox, &tm_x, &full[s], row0 + 64, b0);
+          tma_load_2d(b, &tm_g, &full[s], col0, b0);
+          if (b2) tma_load_2d(b + kWgBox, &tm_g, &full[s], col0 + 64, b0);
+        }
+      } else {
+        load_mn(a, w.x, w.B, w.K, b0, row0, t);
+        load_mn(b, w.g, w.B, w.M, b0, col0, t);
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
+      }
+      if (++s == w.stages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+    return;
+  }
+  // a consumer warpgroup (cw = 0 or 1): rows row0 + 64 cw .. + 63 of dw
+  regs_inc<224>();
+  const int cw = threadIdx.x / 128 - 1, t = threadIdx.x - 128 * (1 + cw);
+  const int warp = t >> 5, lane = t & 31;
+  const int wrow0 = row0 + 64 * cw;
+  float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    mbar_wait(&full[s], ph);
+    if (wrow0 < w.K) {
+      const uint64_t da = sw128_mn_desc(smem_u32(sa + s * kWgTile + cw * kWgBox), kWgBox);
+      const uint64_t db = sw128_mn_desc(smem_u32(sb + s * kWgTile), kWgBox);
+      wgmma_fence();
+      fence_frag(part);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], cv[j], acc[i][j]);
-}
-
-__global__ void __launch_bounds__(kThreads)
-wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-                  float* __restrict__ dw, int B, int K, int M) {
-  __shared__ __align__(16) float xs[kWgRows][kWgTile];
-  __shared__ __align__(16) float gs[kWgRows][kWgTile];
-  const int k0 = blockIdx.y * kWgTile, m0 = blockIdx.x * kWgTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const bool vec_x = K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
-  const bool vec_g = M % 8 == 0 && (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
-  float acc[4][4] = {};
-  for (int b0 = 0; b0 < B; b0 += kWgRows) {
-    const int nb = min(kWgRows, B - b0);
-    stage_rows(x, K, b0, nb, k0, vec_x, xs);
-    stage_rows(g, M, b0, nb, m0, vec_g, gs);
-    __syncthreads();
-    if (nb == kWgRows) {
-#pragma unroll 8
-      for (int r = 0; r < kWgRows; ++r) wgrad_row(xs[r], gs[r], ty, tx, acc);
+      for (int j = 0; j < kWgWindow / 16; ++j)
+        wgmma_m64n128k16_bf16<1>(part, desc_advance(da, 2048 * j), desc_advance(db, 2048 * j), j);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_frag(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == w.stages) {
+      s = 0;
+      ph ^= 1u;
+    }
+  }
+  // epilogue: the accumulator as it is, f32
+  const int r_lo = wrow0 + 16 * warp + (lane >> 2), r_hi = r_lo + 8;
+  const bool pairs = (w.M & 1) == 0;
+  const int c_base = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = ((i >> 1) & 1) ? r_hi : r_lo, col = c_base + 8 * (i >> 2);
+    if (row >= w.K || col >= w.M) continue;
+    float* y = w.dw + static_cast<size_t>(row) * w.M + col;
+    if (pairs && col + 1 < w.M) {
+      *reinterpret_cast<float2*>(y) = make_float2(acc[i], acc[i + 1]);
     } else {
-      for (int r = 0; r < nb; ++r) wgrad_row(xs[r], gs[r], ty, tx, acc);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + 4 * ty + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + 4 * tx + j;
-      if (m < M) dw[static_cast<size_t>(k) * M + m] = acc[i][j];
+      y[0] = acc[i];
+      if (col + 1 < w.M) y[1] = acc[i + 1];
     }
   }
+}
+
+int launch_wgrad(Wgrad w, cudaStream_t st) {
+  // the TMA path: 16-byte row pitches and base addresses
+  w.tma = w.B > 0 && w.K % 8 == 0 && w.M % 8 == 0 && aligned16(w.x) && aligned16(w.g);
+  CUtensorMap mx, mg;
+  memset(&mx, 0, sizeof(mx));
+  memset(&mg, 0, sizeof(mg));
+  if (w.tma && !(tma_map_2d(&mx, w.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.B, w.K, 64,
+                            kWgWindow) &&
+                 tma_map_2d(&mg, w.g, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.B, w.M, 64,
+                            kWgWindow)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t fixed = wgrad_smem_bytes(0), per = wgrad_smem_bytes(1) - fixed;
+  w.stages = static_cast<int>(std::min<size_t>(kWgMaxStages, (kWgSmemMax - fixed) / per));
+  const size_t bytes = wgrad_smem_bytes(w.stages);
+  cudaFuncSetAttribute(wgrad_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(bytes));
+  dim3 grid((w.M + kWgBN - 1) / kWgBN, (w.K + kWgBM - 1) / kWgBM);
+  wgrad_bf16_kernel<<<grid, kWgThreads, bytes, st>>>(mx, mg, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -640,17 +748,19 @@ int sb_int8_matmul_dequant_t(const void* x_q, const void* w_q, const void* row_s
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B, K) bf16, g (B, M) bf16 -> dw (K, M) f32 = x^T g, each output the
-// in-order f32 sum over the B rows.
+// x (B, K) bf16, g (B, M) bf16 -> dw (K, M) f32 = x^T g on bf16 wgmma,
+// windows of 64 rows promoted in B order (see wgrad_bf16_kernel).
 int sb_wgrad_bf16(const void* x, const void* g, void* dw, int B, int K, int M, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K > 0 && M > 0) {
-    dim3 grid((M + kWgTile - 1) / kWgTile, (K + kWgTile - 1) / kWgTile);
-    wgrad_bf16_kernel<<<grid, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                                 static_cast<const __nv_bfloat16*>(g),
-                                                 static_cast<float*>(dw), B, K, M);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (K <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
+  Wgrad w;
+  memset(&w, 0, sizeof(w));
+  w.x = static_cast<const __nv_bfloat16*>(x);
+  w.g = static_cast<const __nv_bfloat16*>(g);
+  w.dw = static_cast<float*>(dw);
+  w.B = B;
+  w.K = K;
+  w.M = M;
+  return launch_wgrad(w, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -220,8 +220,9 @@ def int8_matmul_dequant_t(x_q: torch.Tensor, w_q: torch.Tensor,
 
 def wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Ẇ = xᵀ g: x (B, K) and g (B, M) of any float dtype, rounded to bf16
-    on entry as the JAX op does, -> (K, M) f32, each output the in-order
-    f32 sum of its B products."""
+    on entry as the JAX op does, -> (K, M) f32. The plain version sums each
+    output's B products in order in f32; the kernel on bf16 wgmma, in
+    windows of ``ref.WGRAD_WINDOW`` rows, within ``ref.wgrad_bound`` of it."""
     for t, name in ((x, "x"), (g, "g")):
         if not t.is_floating_point():
             raise TypeError(f"{name}: dtype {t.dtype} is not a float type")

@@ -79,11 +79,51 @@ def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
 def wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Ẇ = xᵀ g: x (B, K) and g (B, M) rounded to bf16, (K, M) in f32, each
     output the sum of its B products in order b = 0, 1, ..., B-1. A bf16
-    product is exact in f32, so each step rounds once, as the kernel's FMA
-    does: the two agree bit for bit."""
+    product is exact in f32, so each step rounds once. The CUDA kernel sums
+    on bf16 wgmma in windows of B (``WGRAD_WINDOW``): it agrees with this
+    to ``wgrad_bound``, bit for bit where every sum is exact."""
     xf = x.to(torch.bfloat16).float()
     gf = g.to(torch.bfloat16).float()
     acc = torch.zeros((xf.shape[1], gf.shape[1]), dtype=torch.float32, device=x.device)
     for b in range(xf.shape[0]):
         acc.addcmul_(xf[b, :, None], gf[b, None, :])
     return acc
+
+
+# How far the CUDA wgrad_bf16 (bf16 wgmma) may lie from ``wgrad_bf16``.
+# The kernel chains WGRAD_WINDOW / 16 m64n128k16 steps over each window of
+# WGRAD_WINDOW rows of B into a fresh fragment and adds the windows in B
+# order into an f32 accumulator. A bf16 step (kernels/fp8_matmul/
+# wgmma_model.py, fitted to an H100 and checked by chip_smoke.py's probe)
+# truncates each addend (its 16 products and, after a window's first step,
+# the fragment) to 2^(E - 25), E the largest of their exponents, at most the
+# window's sum of magnitudes, and its sum to 24 significant bits: each of
+# those WGRAD_ADDENDS truncations loses less than 2^-23 of the window's
+# sum of |products|. Each window's f32 add rounds once (2^-24 of the running
+# sum), and so does each of the plain version's B - 1 in-order adds. So per
+# output |kernel - plain| <= (WGRAD_ADDENDS + (n_windows - 1) / 2
+# + (B - 1) / 2) 2^-23 (|x|ᵀ|g|) + 1 ulp of f32 (products below f32's
+# normal range), |.| of a bf16 subnormal taken as 2^-126, the magnitude a
+# step aligns it by.
+WGRAD_WINDOW = 64
+WGRAD_STEP = 16
+WGRAD_ADDENDS = WGRAD_WINDOW + (WGRAD_WINDOW // WGRAD_STEP - 1) + WGRAD_WINDOW // WGRAD_STEP
+_BF16_MIN_NORMAL = 2.0 ** -126
+
+
+def _mag16(t: torch.Tensor) -> torch.Tensor:
+    """|bf16(t)| in float64, a nonzero subnormal raised to 2^-126."""
+    a = t.to(torch.bfloat16).double().abs()
+    return torch.where((a > 0) & (a < _BF16_MIN_NORMAL), _BF16_MIN_NORMAL, a)
+
+
+def wgrad_bound(y_plain: torch.Tensor, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Per output (float64, (K, M)), the most the CUDA ``wgrad_bf16`` may
+    differ from ``y_plain``, the plain version's output on the same inputs:
+    c 2^-23 (|x|ᵀ|g|) + 1 ulp of f32, c = WGRAD_ADDENDS + (n_windows - 1)
+    / 2 + (B - 1) / 2."""
+    B = x.shape[0]
+    c = WGRAD_ADDENDS + (max(-(-B // WGRAD_WINDOW) - 1, 0) + max(B - 1, 0)) / 2
+    terms = c * 2.0 ** -23 * (_mag16(x).t() @ _mag16(g))
+    a = (y_plain.double().abs() + terms).clamp_min(torch.finfo(torch.float32).tiny)
+    return terms + torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 24)

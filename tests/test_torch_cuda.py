@@ -30,11 +30,17 @@ giving exact zeros; each prefill row bit-equal to the decode at the same
 position (the property that makes speculative verify and preemption
 recompute give a plain decode's tokens), and every kernel bit-identical
 over two launches.
+The paged kernels run on the tensor cores (mma.sync, operands split into
+bf16 terms); a prefill row's bits equal the decode's at every row for
+Sq 5 and 128.
 The two op-entry-point kernels: ``fp8_cast_tensorwise``
 (``kernels/fp8_cast``) bit-equal to its plain version, both formats, f32
 and bf16 inputs, a pointer off 16-byte alignment, twice the same bits;
-``wgrad_bf16`` bit-equal to its plain version (both sum the B rows in
-order) and within B · 2^-23 · (|x|ᵀ|g|) of cuBLAS (``wgrad_16bit``).
+``wgrad_bf16`` (bf16 wgmma, windows of 64 rows of B) within
+``ref.wgrad_bound`` of its plain version (the in-order f32 sum), bit-equal
+to it on exactly summable inputs, bit-equal to the tensor-core model
+(``wgmma_model.wgrad_rows``) at ``wgmma_model.check_rows``, twice the same
+bits, and within B · 2^-23 · (|x|ᵀ|g|) of cuBLAS (``wgrad_16bit``).
 ``chip_smoke.py`` runs the same checks inside its end-to-end run.
 """
 from __future__ import annotations
@@ -524,7 +530,7 @@ def test_cuda_paged_prefill_matches_plain_and_decode(Sq, dt):
     assert _rel(o[live], ro[live]) <= O_TOL[dt]
     assert float(o[7].abs().max()) == 0.0
     assert torch.equal(PA.paged_prefill_attention(q, k, v, tables, q_off, kv_len), o)
-    for r in range(0, Sq, max(1, Sq // 7)):
+    for r in range(0, Sq, 1 if Sq in (5, 128) else max(1, Sq // 7)):
         lens = torch.where(live, (q_off + r + 1).clamp(max=1024), 0).to(torch.int32)
         rows = (q_off + r < kv_len) & live
         d = PA.paged_decode_attention(q[:, r:r + 1].contiguous(), k, v, tables, lens)
@@ -585,24 +591,34 @@ def test_cuda_fp8_cast_matches_plain(R, C, fmt, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,M", [(8, 960, 320), (37, 130, 70), (1000, 588, 1280),
-                                   (2048, 960, 2560)])
+                                   (2048, 960, 2560), (8192, 588, 1280)])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_cuda_wgrad_bf16_matches_plain(B, K, M, dt):
-    """Bit for bit against the plain in-order sum, twice the same bits, and
-    within B · 2^-23 · (|x|ᵀ|g|) of cuBLAS; g's rows shifted by one (the
-    control fault) outside that bound."""
+    """Within ref.wgrad_bound of the plain in-order sum, bit for bit on
+    exact entries and to the tensor-core model at the check rows, twice the
+    same bits, and within B · 2^-23 · (|x|ᵀ|g|) of cuBLAS; g's rows shifted
+    by one (the control fault) outside both bounds. 588 columns take the
+    masked (non-TMA) load path, 8 and 37 rows a ragged last window."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(B + K + M)
     x = torch.randn((B, K), generator=gen, device=dev).to(dt)
     g = torch.randn((B, M), generator=gen, device=dev).to(dt)
     got = TOPS.wgrad_bf16(x, g)
-    assert torch.equal(got.view(torch.int32), TREF.wgrad_bf16(x, g).view(torch.int32))
+    plain = TREF.wgrad_bf16(x, g)
+    wb = TREF.wgrad_bound(plain, x, g)
+    assert bool(((got.double() - plain.double()).abs() <= wb).all())
     assert torch.equal(got.view(torch.int32), TOPS.wgrad_bf16(x, g).view(torch.int32))
+    rows = F8TC.check_rows(K)
+    assert torch.equal(got[rows].view(torch.int32), F8TC.wgrad_rows(x, g, rows).view(torch.int32))
+    xe, ge = F8REF.exact_entries((B, K), gen, dev), F8REF.exact_entries((B, M), gen, dev)
+    assert torch.equal(TOPS.wgrad_bf16(xe, ge).view(torch.int32),
+                       TREF.wgrad_bf16(xe, ge).view(torch.int32))
+    shifted = TOPS.wgrad_bf16(x, g.roll(1, dims=0)).double()
+    assert not bool(((shifted - plain.double()).abs() <= wb).all())
     xb, gb = x.to(torch.bfloat16).double(), g.to(torch.bfloat16).double()
     bound = B * 2.0 ** -23 * (xb.abs().t() @ gb.abs())
     assert bool(((got.double() - SB.wgrad_16bit(x, g).double()).abs() <= bound).all())
-    fault = TOPS.wgrad_bf16(x, g.roll(1, dims=0))
-    assert not bool(((fault.double() - SB.wgrad_16bit(x, g).double()).abs() <= bound).all())
+    assert not bool(((shifted - SB.wgrad_16bit(x, g).double()).abs() <= bound).all())
     torch.cuda.synchronize()
 
 

@@ -3,10 +3,11 @@
 On CPU tensors ``kernels/switchback/ops.wgrad_bf16`` runs its plain
 version (``ref.py``): x (B, K) and g (B, M) rounded to bf16, Ẇ = xᵀ g in
 f32 with each output the sum of its B products in order b = 0, 1, ...
-The CUDA kernel sums in the same order, and a bf16 product is exact in
-f32, so the two agree bit for bit (``chip_smoke.py`` phase 27 and
-``tests/test_torch_cuda.py`` hold that on the card). Here, on inputs made
-from a seeded numpy generator:
+The CUDA kernel sums on bf16 wgmma, within ``ref.wgrad_bound`` of it
+(``chip_smoke.py`` phase 27 and ``tests/test_torch_cuda.py`` hold that on
+the card; ``tests/test_torch_wgrad_bound.py`` the bound and the model of
+the tensor cores' sums). Here, on inputs made from a seeded numpy
+generator:
 
 * against the JAX package's Pallas kernel in interpret mode and its XLA
   path (``dot_general``), at that package's test shapes
