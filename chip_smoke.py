@@ -58,7 +58,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
    PyTorch library call, with CUDA events at the path's shapes (the
    serve kernels at decode and prefill rows, the train kernels at 8 x 256
    tokens), beside the least time the card could take (bytes over 3.35
-   TB/s, operations over the peak for their type);
+   TB/s, operations over the peak for their type); each
+   ``int8_matmul_dequant`` form's TOPS and the bound's share of its time;
 9. train (the training path): full-width smollm-360m with
    ``int8_switchback``, ``flash_scan`` and StableAdamW through
    ``make_train_setup``, ``make_train_step`` and ``Trainer``, on BigramLM
@@ -84,7 +85,11 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     bit-equal to its plain version at the shapes phase 15 gives it (every
     weight of both towers, batch 32: 4,128 vision rows, 8,192 patch rows
     at K = 588, 2,464 text rows), ties and an all-zero row, each run twice
-    with the same bits;
+    with the same bits; then the four ``int8_matmul_dequant`` forms (int8
+    wgmma) at the new paths' edges, bit-equal and twice the same bits: rows
+    1 and 8 (the swapped decode form), 17 and 1,000 against K = 588 (the
+    masked producer), M = 320 (a ragged tile) and 2,560 -> 960, and
+    all-±127 operands at K = 5,120 (the widest s32 sum, checked exactly);
 14. the flash kernels at CLIP's attention shapes, vision (32, 129, 16, 80)
     with no mask and text (32, 77, 16, 64) causal, forward and both
     backward kernels, bf16 and f32, within the tolerances of phase 3; the
@@ -108,7 +113,9 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     three seeds, which take the two column-wise modes in turn, the same
     fault outside;
 18. timing of the CLIP kernels: one vision layer's calls at 4,128 rows,
-    beside their bound, plain version and ``torch._int_mm`` + scale;
+    beside their bound, plain version and ``torch._int_mm`` + scale (the
+    int8 forms' TOPS and bound share); ``flash_fwd`` at the two attention
+    shapes of phase 14 beside SDPA;
 19. fp8 kernels vs plain at every CLIP main-path shape (phase 13's table,
     both formats) and at 37 x 130 -> 70: ``row_quantize``,
     ``tensor_quantize``, ``block_quantize`` and ``transpose_bytes`` (the
@@ -353,14 +360,15 @@ def path_shapes(cfg):
 
 
 def activations(torch, gen, R, K, dev, dtype=None):
-    """Random bf16-valued rows; row 1 holds exact half-way ties at scale 1
-    (absmax 127), row 2 is all zero."""
+    """Random bf16-valued rows; from 3 rows on, row 1 holds exact half-way
+    ties at scale 1 (absmax 127), row 2 is all zero."""
     dtype = dtype or torch.bfloat16
     x = torch.randn((R, K), generator=gen, device=dev) * 3
-    ties = (torch.arange(K, device=dev, dtype=torch.float32) % 8) - 3.5
-    ties[0] = 127.0
-    x[1] = ties
-    x[2] = 0.0
+    if R >= 3:
+        ties = (torch.arange(K, device=dev, dtype=torch.float32) % 8) - 3.5
+        ties[0] = 127.0
+        x[1] = ties
+        x[2] = 0.0
     return x.to(torch.bfloat16).to(dtype)
 
 
@@ -595,13 +603,24 @@ def time_work(torch, KOPS, REF, sets, work, what):
     the work timed."""
     out, n = {}, len(sets)
     for name, (calls, call, library, bytes_, i8, f32) in work.items():
-        out[name] = dict(
+        r = out[name] = dict(
             ms=graph_ms(torch, lambda i: call(sets[i], KOPS), n),
             plain_ms=graph_ms(torch, lambda i: call(sets[i], REF), n),
             library_ms=graph_ms(torch, lambda i: library(sets[i]), n) if library else None,
             eager_ms=eager_ms(torch, lambda i: call(sets[i], KOPS), n),
             bound=bound(bytes_, int8_ops=i8, f32_ops=f32), calls=calls, work=what(calls))
+        if name.startswith("int8_matmul_dequant"):
+            # the int8 GEMM's rate and the share of the card's least time it reaches
+            r["tops"] = i8 / (r["ms"] * 1e-3) / 1e12
+            r["bound_share"] = r["bound"][0] / r["ms"]
     return out
+
+
+def int8_rates(tag, results):
+    """One line of each int8_matmul_dequant form's TOPS and bound share."""
+    print(f"[timing] int8 forms, {tag}: " + json.dumps(
+        {k: {"ms": r["ms"], "tops": r["tops"], "bound_share": r["bound_share"],
+             "library_ms": r["library_ms"]} for k, r in results.items() if "tops" in r}))
 
 
 def time_kernels(torch, KOPS, REF, cfg, dev, seed, R):
@@ -1225,6 +1244,83 @@ def compare_linear_kernels(torch, M, table, dev, seed):
                                                             out_dtype=dt),
                          REF.int8_matmul_dequant_t(g_q, w_n, row, col_scale=col, out_dtype=dt),
                          f"{at} dgrad")
+    torch.cuda.synchronize()
+    return worst, n
+
+
+# phase 13's edges of int8_matmul_dequant's wgmma paths: (rows, K, M) with
+# rows 1, 8 (the swapped decode form), 17 and 1,000 (the first row tile and
+# a ragged one) against K = 588 (the masked producer), M = 320 (a ragged
+# 128-wide tile) and smollm's w_down; and the widest s32 sums
+INT8_EDGE_ROWS = (1, 8, 17, 1000)
+INT8_EDGE_KM = ((588, 1280), (960, 320), (2560, 960))
+INT8_WIDE = ((8, 5120, 1280), (300, 5120, 1280))
+
+
+def int8_forms(KOPS, REF, x_q, s_x, w, dt):
+    """The four forms of int8_matmul_dequant on x_q (B, K) and the weight w
+    (K, M), as (counter key, call(ops module)): the row-scale forward on W
+    tensor-quantized, the colscale forward on W column-quantized, and the
+    transposed (dgrad) forms on W^T (M, K) tensor- and row-quantized (the
+    column scale its row state)."""
+    wt = w.t().contiguous()
+    w_q, s_w = KOPS.tensor_quantize(w)
+    w_c, s_c = KOPS.col_quantize(w)
+    w_t, s_t = KOPS.tensor_quantize(wt)
+    w_n, s_n = KOPS.row_quantize(wt)
+    row, row_t = s_x * REF.div(s_w, 127.0 * 127.0), s_x * REF.div(s_t, 127.0 * 127.0)
+    unit, col = REF.div(s_x, 127.0 * 127.0), s_n.reshape(1, -1)
+    return [
+        ("int8_matmul_dequant", lambda op: op.int8_matmul_dequant(x_q, w_q, row, out_dtype=dt)),
+        ("int8_matmul_dequant_colscale",
+         lambda op: op.int8_matmul_dequant(x_q, w_c, unit, col_scale=s_c, out_dtype=dt)),
+        ("int8_matmul_dequant_t",
+         lambda op: op.int8_matmul_dequant_t(x_q, w_t, row_t, out_dtype=dt)),
+        ("int8_matmul_dequant_colscale_t",
+         lambda op: op.int8_matmul_dequant_t(x_q, w_n, unit, col_scale=col, out_dtype=dt))]
+
+
+def compare_int8_edges(torch, M, dev, seed):
+    """Phase 13's edges: the four int8_matmul_dequant forms bit-equal to
+    their plain versions, twice the same bits, at INT8_EDGE_ROWS x
+    INT8_EDGE_KM in bf16 and f32, and on all-±127 operands at K = 5,120
+    (a row and a column of +127 meet there: the s32 sum 127^2 * 5,120).
+    Returns the largest |kernel - plain| per form and the number of
+    comparisons."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = dict.fromkeys(("int8_matmul_dequant",) + COLSCALE_KERNELS[:1]
+                          + ("int8_matmul_dequant_t",) + COLSCALE_KERNELS[1:], 0.0)
+    n = 0
+
+    def hold(x_q, s_x, w, dt, what):
+        nonlocal n
+        for name, call in int8_forms(KOPS, REF, x_q, s_x, w, dt):
+            got, again, want = call(KOPS), call(KOPS), call(REF)
+            d = max_abs_diff(torch, got, want)
+            worst[name] = max(worst[name], d)
+            check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+                  f"{name} {what}: kernel != plain (max |diff| {d:g})")
+            check(torch.equal(got, again), f"{name} {what}: two launches differ")
+            n += 1
+
+    for R in INT8_EDGE_ROWS:
+        for K, Mw in INT8_EDGE_KM:
+            w = weight(torch, gen, K, Mw, dev, ties=True)
+            x_q, s_x = KOPS.row_quantize(activations(torch, gen, R, K, dev))
+            for dt in (torch.bfloat16, torch.float32):
+                hold(x_q, s_x, w, dt, f"R={R} K={K} M={Mw} {dt}")
+    for R, K, Mw in INT8_WIDE:
+        x_q = (torch.randint(0, 2, (R, K), generator=gen, device=dev, dtype=torch.int8) * 2 - 1) * 127
+        x_q[0] = 127
+        s_x = torch.rand((R, 1), generator=gen, device=dev) + 0.5
+        w = (torch.randint(0, 2, (K, Mw), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        w[:, 0] = 1.0
+        hold(x_q, s_x, w, torch.float32, f"all ±127 R={R} K={K} M={Mw}")
+        acc = KOPS.int8_matmul_dequant(x_q, KOPS.tensor_quantize(w)[0],
+                                       torch.ones((R, 1), device=dev), out_dtype=torch.float32)
+        check(float(acc[0, 0]) == 127.0 * 127.0 * K,
+              f"int8_matmul_dequant all ±127 R={R}: the widest sum reads {float(acc[0, 0])}")
     torch.cuda.synchronize()
     return worst, n
 
@@ -2269,7 +2365,48 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     out = time_work(torch, KOPS, REF, sets, work,
                     lambda c: f"one vision layer's {c} calls at {R} rows (batch {CLIP_BATCH})")
     del sets
+    out["flash_fwd"] = time_clip_flash(torch, M, cfg, dev, seed + 43)
     print("[timing] clip kernels:", json.dumps(out))
+    return out
+
+
+def time_clip_flash(torch, M, cfg, dev, seed):
+    """flash_fwd at CLIP's two attention shapes of phase 14, one layer's
+    call each, bf16 as the path runs: the vision tower's (32, 129, 16, 80)
+    with no mask and the text tower's (32, 77, 16, 64) causal; the kernel,
+    its plain version, SDPA and the bound (bytes against the live pairs'
+    matmul operations at the bf16 peak)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    plain = plain_flash_fwd(M)
+    out = {}
+    for tower, B, S, _, H, KV, hd, causal, _ in clip_flash_cases(cfg):
+        def make():
+            return tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                         for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2),
+                                                  is_causal=causal).transpose(1, 2)
+
+        qkv_bytes = (B * S * H * hd + 2 * B * S * KV * hd) * 2
+        sets = [make() for _ in range(max(2, int(120e6 // qkv_bytes) + 1))]
+        err = rel_err(torch, sdpa(*sets[0]), M.FA.flash_fwd_lse(*sets[0], causal=causal)[0])
+        check(err <= 2e-2, f"SDPA yardstick disagrees with flash_fwd at CLIP {tower} ({err:g})")
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        n = len(sets)
+        out[tower] = dict(
+            ms=graph_ms(torch, lambda i: M.FA.flash_fwd_lse(*sets[i], causal=causal), n),
+            plain_ms=graph_ms(torch, lambda i: plain(*sets[i], causal=causal), n),
+            library_ms=graph_ms(torch, lambda i: sdpa(*sets[i]), n),
+            eager_ms=eager_ms(torch, lambda i: M.FA.flash_fwd_lse(*sets[i], causal=causal), n),
+            bound=bound(qkv_bytes + B * S * H * hd * 2 + B * H * S * 4,
+                        bf16_ops=4.0 * pairs * hd),
+            sdpa_rel_err=err, calls=1,
+            work=f"one {tower} layer's call: ({B}, {S}, {H}, {hd}), "
+                 f"{'causal' if causal else 'no mask'}, bf16")
+        del sets
     return out
 
 
@@ -3737,6 +3874,11 @@ def main(argv=None) -> int:
         print(f"[kernels] {n_clip} SwitchBack comparisons at CLIP's shapes (every kernel of the "
               "four modes) bit-equal and bit-identical over two launches; max |kernel - plain| "
               + json.dumps(clip_worst))
+        edge_worst, n_edge = compare_int8_edges(torch, M, dev, args.seed + 37)
+        print(f"[kernels] {n_edge} int8_matmul_dequant comparisons at the wgmma paths' edges "
+              f"(rows {INT8_EDGE_ROWS} x (K, M) {INT8_EDGE_KM}, all ±127 at {INT8_WIDE}), the "
+              "four forms bit-equal and bit-identical over two launches; max |kernel - plain| "
+              + json.dumps(edge_worst))
         clip_flash, n_clip_flash = compare_flash_train(torch, M, clip_flash_cases(clip_cfg), dev,
                                                        args.seed + 29)
         print(f"[kernels] {n_clip_flash} flash comparisons at CLIP's shapes within o "
@@ -3773,11 +3915,14 @@ def main(argv=None) -> int:
         rows = {}
         for R in (PREFILL_ROWS, DECODE_ROWS):
             rows[R] = time_kernels(torch, KOPS, REF, cfg, dev, args.seed, R)
+            int8_rates(f"{R} rows", rows[R])
         flash_t = time_flash(torch, M, cfg, dev, args.seed, served_lens)
         print("[timing] flash:", json.dumps(flash_t))
         train_t = time_train_kernels(torch, M, cfg, dev, args.seed)
+        int8_rates(f"train, {TRAIN_ROWS} rows", train_t)
     with timed("18 CLIP timing"):
         clip_t = time_clip_kernels(torch, M, clip_cfg, dev, args.seed)
+        int8_rates("one CLIP vision layer", clip_t)
     with timed("23 fp8 timing"):
         fp8_t = time_fp8_kernels(torch, M, clip_cfg, dev, args.seed)
     torch.cuda.empty_cache()
@@ -3801,7 +3946,7 @@ def main(argv=None) -> int:
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
-    readings = (worst, train_worst, clip_worst,
+    readings = (worst, train_worst, clip_worst, edge_worst,
                 *({k: v["max_abs_err"] for k, v in d.items()}
                   for d in (flash_worst, bwd_worst, clip_flash)))
     max_err = {k: max(d.get(k, 0.0) for d in readings) for k in SOURCE}
@@ -3817,7 +3962,8 @@ def main(argv=None) -> int:
                     launches_per_train_step=per_train_step[name],
                     max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=r["library_ms"], eager_ms=r["eager_ms"],
-                    calls_timed=r["calls"], work=r.get("work"))
+                    calls_timed=r["calls"], work=r.get("work"),
+                    **{k: r[k] for k in ("tops", "bound_share") if k in r})
 
     def train_entry(name, err):
         """A kernel of the training path only: ``launches`` from the train run."""
@@ -3828,7 +3974,8 @@ def main(argv=None) -> int:
                     max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=r["library_ms"], eager_ms=r["eager_ms"],
                     calls_timed=r["calls"], work=r["work"],
-                    **({"library": r["library"]} if "library" in r else {}))
+                    **({"library": r["library"]} if "library" in r else {}),
+                    **{k: r[k] for k in ("tops", "bound_share") if k in r})
 
     def entries(R):
         out = []
@@ -3845,14 +3992,17 @@ def main(argv=None) -> int:
     def at_train(name):
         """A forward kernel's reading at the training path's shape (phase 8)."""
         r = train_t[name]
-        return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms", "work")} | {
-            "bound_ms": r["bound"][0]}
+        return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms", "work", "tops",
+                                  "bound_share") if k in r} | {"bound_ms": r["bound"][0]}
 
     full = flash_t["decode_fwd_full"]
     flash_entries = [
         dict(entry("flash_fwd", flash_t["flash_fwd"], max_err["flash_fwd"]),
              library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-             at_train_shape=at_train("flash_fwd")),
+             at_train_shape=at_train("flash_fwd"),
+             at_clip_shapes={t: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms",
+                                                   "work")} | {"bound_ms": r["bound"][0]}
+                             for t, r in clip_t["flash_fwd"].items()}),
         dict(entry("decode_fwd", flash_t["decode_fwd_served"], max_err["decode_fwd"]),
              library="scaled_dot_product_attention(attn_mask=key mask, enable_gqa=True)",
              full_window=dict(ms=full["ms"], plain_ms=full["plain_ms"],
@@ -3878,7 +4028,8 @@ def main(argv=None) -> int:
                     max_abs_err=max_err[name], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
                     eager_ms=r["eager_ms"], calls_timed=r["calls"], work=r["work"],
-                    **({"library": "torch._int_mm + rank-1 scale"} if r["library_ms"] else {}))
+                    **({"library": "torch._int_mm + rank-1 scale"} if r["library_ms"] else {}),
+                    **{k: r[k] for k in ("tops", "bound_share") if k in r})
 
     clip_entries = [clip_entry(k) for k in ("col_quantize", "int8_matmul_dequant_colscale",
                                             "int8_matmul_dequant_colscale_t")]

@@ -3,17 +3,19 @@
 // 128-byte swizzle, wgmma shared-memory descriptors and the wgmma
 // instructions themselves, used by kernels/fp8_matmul/csrc/fp8_matmul.cu (the
 // fp8 GEMMs and the accumulator probe) and kernels/switchback/csrc/
-// switchback.cu (wgrad_bf16). Nothing here launches anything.
+// switchback.cu (wgrad_bf16 and the int8 GEMM int8_matmul_dequant). Nothing
+// here launches anything.
 //
 // Two layouts an operand tile takes in shared memory, both 128-byte rows in
 // groups of 8 (1,024 bytes), each row's eight 16-byte chunks permuted by the
 // 128-byte swizzle, chunk c of row r stored at chunk c ^ (r % 8). TMA writes
 // them with CU_TENSOR_MAP_SWIZZLE_128B into a 1,024-byte-aligned buffer; code
 // that writes a tile itself places byte `off = r * 128 + b` at sw128(off).
-//   * K-major (the fp8 GEMMs, the "TN" form): a row is 128 bytes of the
-//     contraction (128 fp8 or 64 bf16 values) of one row of A or B. A wgmma
-//     reads it through sw128_desc(address of the tile + 32 * step): one k32
-//     step of fp8 (or k16 of bf16) is 32 bytes of each row.
+//   * K-major (the fp8 and int8 GEMMs, the "TN" form): a row is 128 bytes of
+//     the contraction (128 fp8 or int8, or 64 bf16 values) of one row of A
+//     or B. A wgmma reads it through sw128_desc(address of the tile + 32 *
+//     step): one k32 step of fp8 or int8 (or k16 of bf16) is 32 bytes of
+//     each row.
 //   * MN-major (bf16 only; wgrad_bf16, whose operands both contract over
 //     their outer dimension): a row is 64 consecutive bf16 values of A's M
 //     or B's N dimension at one k, one row per k, so an atom of 64 values x
@@ -193,6 +195,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // keeps the compiler from moving reads or writes of a fragment across the
 // asynchronous wgmma that owns it
@@ -200,6 +207,11 @@ template <int N>
 __device__ __forceinline__ void fence_frag(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_frag(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (= or +=, by scale_d) A . B: A 64 x k from shared memory, B N x k
@@ -342,6 +354,58 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS));
+}
+
+// int8: d (s32) += A . B, A 64 x k32 and B N x k32 signed bytes, both
+// K-major (the only layout 8-bit wgmma reads); the sum is exact in s32 (no
+// scale or transpose operands: the integer form has none). m64n128 for the
+// row tiles, m64n16 for the decode form whose B is the few rows of x.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k32_s8(int (&d)[8], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the s8 step of an N-wide fragment (N = 16 or 128)
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_m64n128k32_s8(d, da, db, scale_d);
+  else
+    wgmma_m64n16k32_s8(d, da, db, scale_d);
 }
 
 // fp8 formats 0 = E4M3, 1 = E5M2: the m64n128k32 step for (FA, FB)

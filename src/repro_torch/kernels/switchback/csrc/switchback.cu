@@ -25,9 +25,10 @@
 // The two dgrad forms are the forward kernels with the W tile read the
 // other way (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m]
 // contracts over W's second, contiguous dim, so W (N, M) row-major is
-// already K-major for __dp4a and each W tile is staged with plain row
-// reads; no w_q^T is written anywhere, as on the TPU, where dot_general
-// contracts over any dim pair.
+// already K-major and each W tile is staged as it lies; the forward's
+// (K, M) W is transposed tile by tile on its way into shared memory. No
+// w_q^T is written to device memory anywhere, as on the TPU, where
+// dot_general contracts over any dim pair.
 //
 // Numerics copy the reference operation by operation, so every output is
 // bitwise equal to the plain versions in ref.py:
@@ -39,8 +40,9 @@
 //     output type (__float2bfloat16_rn for bf16); with a column scale
 //     y = f32(acc) * (row[b] * col[m]), the rank-1 product rounded once,
 //     then the multiply.
-//   * the int8 dot accumulates exactly in int32 (__dp4a), so the order of
-//     the sum does not matter.
+//   * the int8 dot accumulates exactly in int32 (__dp4a in the fused
+//     kernels, s32 wgmma in int8_matmul_dequant), so the order of the sum
+//     does not matter.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
@@ -52,6 +54,7 @@
 #include <string.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "../../csrc/wgmma.cuh"
 
@@ -200,7 +203,7 @@ cast_tensorwise_kernel(const T* __restrict__ x, int64_t n, const float* __restri
 }
 
 // ---------------------------------------------------------------------------
-// int8 GEMM core shared by fused_switchback_fwd and int8_matmul_dequant.
+// __dp4a int8 GEMM core of fused_switchback_fwd and fused_switchback_dgrad.
 //
 // acc[b, m] = sum_k x_q[b, k] * w_q[k, m], int32, with __dp4a on 4-byte
 // groups of k. W is stored (K, M), M-contiguous, as the JAX package keeps
@@ -219,8 +222,8 @@ cast_tensorwise_kernel(const T* __restrict__ x, int64_t n, const float* __restri
 // on the CUDA cores, not the tensor cores, and at 8 rows the 16 x 32 tiles
 // give only 10-80 blocks, each paying a global-load latency per 32-byte K
 // step, so it sits about 100x above the decode bound (PERF.md). It is the
-// simple, exact version; more blocks at decode (split-K) and wgmma on a
-// K-major w_q^T at prefill are the later changes. No TMA, no wgmma.
+// simple, exact version; int8_matmul_dequant (below) runs on int8 wgmma,
+// and the fused kernels move onto its mainloop later. No TMA, no wgmma.
 // ---------------------------------------------------------------------------
 constexpr int BK = 32;        // k bytes per shared-memory step
 constexpr int LDS = BK + 4;   // padded row pitch in bytes (9 words)
@@ -348,48 +351,345 @@ fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
 //   -> y (B, M) = f32(x_q . w_q) * row_scale[b]
 // int8_matmul_dequant_t (TW): w_q (M, K) int8 -> y = f32(x_q . w_q^T) * row_scale[b]
 // With col_scale (M,) f32 (not null), either orientation: the colscale
-// branch of the TPU kernel, y = f32(acc) * (row_scale[b] * col_scale[m]),
-// the per-output-column weight state of paper Eq. 4 (forward: W's column
-// scales; the dgrad of SwitchBackQ / LLM.int8: the per-row scales of the
-// row-quantized W, which index the dgrad's output columns). The epilogue
-// reads one col_scale value per output column of the tile; the GEMM is
-// the same __dp4a loop, so it is bound as the row-scale form is.
+// branch of the TPU kernel (switchback.py:176), y = f32(acc) * (row_scale[b]
+// * col_scale[m]), the per-output-column weight state of paper Eq. 4
+// (forward: W's column scales; the dgrad of SwitchBackQ / LLM.int8: the
+// per-row scales of the row-quantized W, which index the dgrad's output
+// columns).
+//
+// What bounds it on an H100: at the training paths' rows (2,048 smollm,
+// 4,128 CLIP) the int8 operations, 2 B K M over 1,979 TOPS; at decode (8
+// rows) the weight's bytes. It runs on int8 wgmma (s32 += s8 . s8,
+// m64nNk32, kernels/csrc/wgmma.cuh) in the fp8 GEMMs' shape:
+//   * a block owns a 128 x 128 tile of y: one producer warpgroup and two
+//     consumer warpgroups of 64 rows. Per stage (128 bytes of K, four k32
+//     steps) the producer fills the x tile and W's K-major tile (128 output
+//     columns x 128 bytes of K), 128-byte swizzled, with an mbarrier a
+//     stage. 8-bit wgmma reads K-major operands only. x_q (B, K) is K-major
+//     as it lies, and so is the dgrad's w_q (M, K): both go by TMA. The
+//     forward's w_q (K, M) is M-major: TMA brings its (128 k x 128 m) tile
+//     as it lies into a ring of raw buffers, and the producer warpgroup
+//     transposes it into the stage, 4 x 4 bytes a thread with __byte_perm,
+//     its lanes laid so that neither the reads nor the writes of shared
+//     memory conflict. No pass over W and no launch is added.
+//   * a shape TMA refuses (a row pitch off 16 bytes: the patch embedding's
+//     x_q at K = 588) takes the masked path of the same kernel: the
+//     producer warpgroup loads every tile itself, zeros past the matrix.
+//     Rows, columns and K past the matrix arrive as zeros on both paths and
+//     add nothing; the epilogue masks the ragged edge.
+//   * decode (B <= 16 rows) swaps the operands: W's K-major tile is A (64
+//     output columns a consumer) and the x rows are B (N = 16), so every
+//     row count runs on the tensor cores; the epilogue writes y transposed.
+//   * the s32 sum is exact (|acc| <= 127^2 * 5,120 < 2^31 at the widest K
+//     on the paths), so the consumers chain every stage into one fragment
+//     with no promotion, keeping one stage's steps in flight while the
+//     next are issued. The epilogue is the plain version's operation for
+//     operation: __int2float_rn(acc) times rs, or times __fmul_rn(rs,
+//     col_scale[m]), rounded once. So every output is bit-equal to ref.py.
 // ---------------------------------------------------------------------------
-template <typename T, int BM, int BN, bool TW>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_dequant_kernel(const int8_t* __restrict__ x_q, const int8_t* __restrict__ w_q,
-                           const float* __restrict__ row_scale,
-                           const float* __restrict__ col_scale, T* __restrict__ y,
-                           int B, int K, int M) {
-  __shared__ Tiles<BM, BN> t;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  int acc[BM / 16][BN / 16] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += kThreads) {
-      const int r = idx / BK, kk = idx % BK;
-      const int row = row0 + r, k = k0 + kk;
-      t.xs[r][kk] = (row < B && k < K) ? x_q[static_cast<size_t>(row) * K + k] : int8_t(0);
-    }
-    load_w_tile<TW, BM, BN>(w_q, K, M, k0, col0, t);
-    __syncthreads();
-    dot_tile<BM, BN>(t, acc);
-    __syncthreads();
-  }
+constexpr int kI8Tile = 128 * 128;          // bytes of one operand's tile of a stage
+constexpr int kI8SwapRows = 16;             // x rows of the swapped (decode) form: N = 16
+constexpr int kI8Threads = 384;             // producer warpgroup + two consumer warpgroups
+constexpr int kI8MaxStages = 6;
+constexpr int kI8MaxRaws = 4;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+struct I8Gemm {
+  const int8_t* x;           // x_q (B, K)
+  const int8_t* w;           // TW: (M, K); else (K, M)
+  const float* row_scale;    // (B,)
+  const float* col_scale;    // (M,) or null
+  void* y;                   // (B, M), T
+  int B, K, M;
+  int tma, stages, raws;     // set by the launcher
+};
+
+size_t i8_smem_bytes(int stages, int raws) {
+  return 1024 + (2 * static_cast<size_t>(stages) + raws) * kI8Tile +
+         (2 * kI8MaxStages + kI8MaxRaws) * sizeof(uint64_t);
+}
+
+// the masked path: rows [r0, r0 + rows) x bytes [c0, c0 + 128) of an (R, C)
+// byte matrix into a swizzled tile (row r at r * 128), zeros outside; one
+// 16-byte chunk per step, in 4-byte words where C and the pointer allow
+__device__ void load_tile(uint8_t* dst, const int8_t* __restrict__ src, int R, int C, int r0,
+                          int c0, int rows, int t) {
+  const bool words = (C & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 3u) == 0;
+  for (int c = t; c < rows * 8; c += 128) {
+    const int r = c >> 3, ch = c & 7, row = r0 + r;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (row < R) {
+      const uint8_t* p = reinterpret_cast<const uint8_t*>(src) + static_cast<size_t>(row) * C;
 #pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= B) continue;
-    const float rs = row_scale[row];
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 16 * ch + 4 * e;
+        if (words) {
+          if (col < C) v[e] = *reinterpret_cast<const uint32_t*>(p + col);
+        } else {
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col >= M) continue;
-      const float scale = col_scale ? __fmul_rn(rs, col_scale[col]) : rs;
-      y[static_cast<size_t>(row) * M + col] = from_f32<T>(__fmul_rn(__int2float_rn(acc[i][j]), scale));
+          for (int i = 0; i < 4; ++i)
+            if (col + i < C) v[e] |= static_cast<uint32_t>(p[col + i]) << (8 * i);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + sw128(r * 128 + ch * 16)) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The forward's W tile made K-major: `raw` holds 128 rows of k, each 128
+// bytes of m (as TMA writes a (K, M) tile, 128-byte swizzled); `dst` gets
+// 128 rows of m, each 128 bytes of k, swizzled. Thread t (of 128) moves
+// 4 x 4-byte blocks: lane l keeps m-word l (m = 4 l .. 4 l + 3) and walks
+// the k-quads v = f(l) ^ i, i = warp + 4 j; f interleaves the lanes so that
+// the 32 lanes of a load or a store reach 32 different banks.
+__device__ __forceinline__ void transpose_tile(uint8_t* dst, const uint8_t* raw, int t) {
+  const int l = t & 31, wq = t >> 5;
+  const int f = 4 * ((l & 3) | ((l >> 4) << 2)) + ((l >> 2) & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int v = f ^ (wq + 4 * j);
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w[r] = *reinterpret_cast<const uint32_t*>(raw + sw128((4 * v + r) * 128 + 4 * l));
+    // w[r] holds k = 4 v + r at m = 4 l .. 4 l + 3; word e of the output
+    // holds m = 4 l + e at k = 4 v .. 4 v + 3
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140), t3 = __byte_perm(w[2], w[3], 0x7362);
+    const uint32_t out[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<uint32_t*>(dst + sw128((4 * l + e) * 128 + 4 * v)) = out[e];
+  }
+}
+
+// the producer warpgroup: x's and W's K-major tiles of stage s for each
+// 128-byte step of K, in order
+template <bool TW, bool SWAP>
+__device__ void i8_produce(const I8Gemm& g, const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                           uint8_t* xs, uint8_t* ws, uint8_t* raw, uint64_t* full,
+                           uint64_t* empty, uint64_t* rawfull, int row0, int col0) {
+  constexpr int kXRows = SWAP ? kI8SwapRows : 128;
+  const int t = threadIdx.x;
+  const int nk = (g.K + 127) / 128;
+  int s = 0;
+  uint32_t ph = 0;
+  if (g.tma && TW) {
+    if (t != 0) return;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&empty[s], ph ^ 1u);
+      mbar_expect_tx(&full[s], kXRows * 128 + kI8Tile);
+      tma_load_2d(xs + s * kI8Tile, tm_x, &full[s], 128 * kb, row0);
+      tma_load_2d(ws + s * kI8Tile, tm_w, &full[s], 128 * kb, col0);
+      if (++s == g.stages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+    return;
+  }
+  if (g.tma) {
+    // W's raw tiles run up to `raws` steps ahead of the transposes
+    if (t == 0)
+      for (int kb = 0; kb < min(g.raws, nk); ++kb) {
+        mbar_expect_tx(&rawfull[kb], kI8Tile);
+        tma_load_2d(raw + kb * kI8Tile, tm_w, &rawfull[kb], col0, 128 * kb);
+      }
+    for (int kb = 0; kb < nk; ++kb) {
+      const int r = kb % g.raws;
+      mbar_wait(&empty[s], ph ^ 1u);
+      if (t == 0) {
+        mbar_expect_tx(&full[s], kXRows * 128);
+        tma_load_2d(xs + s * kI8Tile, tm_x, &full[s], 128 * kb, row0);
+      }
+      mbar_wait(&rawfull[r], (kb / g.raws) & 1u);
+      transpose_tile(ws + s * kI8Tile, raw + r * kI8Tile, t);
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+      named_sync(1, 128);                    // raw tile r fully read
+      if (t == 0 && kb + g.raws < nk) {
+        fence_proxy_async();
+        mbar_expect_tx(&rawfull[r], kI8Tile);
+        tma_load_2d(raw + r * kI8Tile, tm_w, &rawfull[r], col0, 128 * (kb + g.raws));
+      }
+      if (++s == g.stages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+    return;
+  }
+  // the masked path: every thread loads its share of each tile
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = 128 * kb;
+    mbar_wait(&empty[s], ph ^ 1u);
+    load_tile(xs + s * kI8Tile, g.x, g.B, g.K, row0, k0, kXRows, t);
+    if (TW) {
+      load_tile(ws + s * kI8Tile, g.w, g.M, g.K, col0, k0, 128, t);
+    } else {
+      load_tile(raw, g.w, g.K, g.M, k0, col0, 128, t);
+      named_sync(1, 128);
+      transpose_tile(ws + s * kI8Tile, raw, t);
+    }
+    fence_proxy_async();
+    mbar_arrive(&full[s]);
+    if (!TW) named_sync(1, 128);             // the raw tile is free again
+    if (++s == g.stages) {
+      s = 0;
+      ph ^= 1u;
     }
   }
+}
+
+// y[0] = v0 and, with `both`, y[1] = v1, each rounded once; one paired
+// store where the row's pitch keeps pairs aligned
+template <typename T>
+__device__ __forceinline__ void store2(T* y, float v0, float v1, bool both, bool pairs) {
+  if (both && pairs) {
+    if constexpr (std::is_same<T, float>::value)
+      *reinterpret_cast<float2*>(y) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  y[0] = from_f32<T>(v0);
+  if (both) y[1] = from_f32<T>(v1);
+}
+
+// a consumer warpgroup (cw = 0 or 1): A's rows 64 cw .. + 63 of the tile
+// (x rows; W's rows, the output columns, when SWAP), every stage chained
+// into one s32 fragment; then the epilogue
+template <typename T, bool SWAP>
+__device__ void i8_consume(const I8Gemm& g, const uint8_t* xs, const uint8_t* ws, uint64_t* full,
+                           uint64_t* empty, int row0, int col0, int cw) {
+  constexpr int N = SWAP ? kI8SwapRows : 128;
+  const int t = threadIdx.x - 128 * (1 + cw);
+  const int warp = t >> 5, lane = t & 31;
+  const int a0 = (SWAP ? col0 : row0) + 64 * cw;           // first row of A
+  const bool live = a0 < (SWAP ? g.M : g.B);
+  const int nk = (g.K + 127) / 128;
+  int acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+  int s = 0, prev = 0;
+  uint32_t ph = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    mbar_wait(&full[s], ph);
+    if (live) {
+      const uint8_t* a = SWAP ? ws + s * kI8Tile + cw * 64 * 128 : xs + s * kI8Tile + cw * 64 * 128;
+      const uint8_t* b = SWAP ? xs + s * kI8Tile : ws + s * kI8Tile;
+      const uint64_t da = sw128_desc(smem_u32(a)), db = sw128_desc(smem_u32(b));
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_s8<N>(acc, desc_advance(da, 32 * j), desc_advance(db, 32 * j), 1);
+      wgmma_commit();
+      wgmma_wait<1>();                       // the previous stage's steps are done
+      fence_frag(acc);
+    }
+    if (kb > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+    if (++s == g.stages) {
+      s = 0;
+      ph ^= 1u;
+    }
+  }
+  if (!live) return;
+  wgmma_wait0();
+  fence_frag(acc);
+  T* y = static_cast<T*>(g.y);
+  const int f_lo = a0 + 16 * warp + (lane >> 2), f_hi = f_lo + 8;   // the fragment's rows
+  if (SWAP) {
+    // fragment rows are output columns m, its columns the x rows
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int m = ((i >> 1) & 1) ? f_hi : f_lo, r = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      if (m >= g.M || r >= g.B) continue;
+      const float rs = g.row_scale[r];
+      const float scale = g.col_scale ? __fmul_rn(rs, g.col_scale[m]) : rs;
+      y[static_cast<size_t>(r) * g.M + m] = from_f32<T>(__fmul_rn(__int2float_rn(acc[i]), scale));
+    }
+    return;
+  }
+  const float rs_lo = f_lo < g.B ? g.row_scale[f_lo] : 0.f;
+  const float rs_hi = f_hi < g.B ? g.row_scale[f_hi] : 0.f;
+  const int c_base = col0 + 2 * (lane & 3);
+  const bool pairs = (g.M & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const bool hi = (i >> 1) & 1;
+    const int row = hi ? f_hi : f_lo, col = c_base + 8 * (i >> 2);
+    if (row >= g.B || col >= g.M) continue;
+    const float rs = hi ? rs_hi : rs_lo;
+    const bool both = col + 1 < g.M;
+    const float s0 = g.col_scale ? __fmul_rn(rs, g.col_scale[col]) : rs;
+    const float s1 = g.col_scale && both ? __fmul_rn(rs, g.col_scale[col + 1]) : rs;
+    const float v0 = __fmul_rn(__int2float_rn(acc[i]), s0);
+    const float v1 = __fmul_rn(__int2float_rn(acc[i + 1]), s1);
+    store2<T>(y + static_cast<size_t>(row) * g.M + col, v0, v1, both, pairs);
+  }
+}
+
+template <typename T, bool TW, bool SWAP>
+__global__ void __launch_bounds__(kI8Threads, 1)
+int8_matmul_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CUtensorMap tm_w,
+                   const I8Gemm g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);   // [stage]
+  uint8_t* ws = xs + g.stages * kI8Tile;                                       // [stage]
+  uint8_t* raw = ws + g.stages * kI8Tile;                                      // [raws]
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + g.raws * kI8Tile);
+  uint64_t* empty = full + kI8MaxStages;
+  uint64_t* rawfull = empty + kI8MaxStages;
+  const int row0 = blockIdx.y * (SWAP ? kI8SwapRows : 128), col0 = blockIdx.x * 128;
+  if (threadIdx.x == 0) {
+    // full: TMA's bytes with its issuer's arrival, and on the forward the
+    // 128 transposing threads'; the masked path's 128 producer threads;
+    // empty: the 8 consumer warps
+    const uint32_t n_full = g.tma ? (TW ? 1u : 129u) : 128u;
+    for (int i = 0; i < g.stages; ++i) {
+      mbar_init(&full[i], n_full);
+      mbar_init(&empty[i], 8);
+    }
+    for (int i = 0; i < g.raws; ++i) mbar_init(&rawfull[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128)
+    i8_produce<TW, SWAP>(g, &tm_x, &tm_w, xs, ws, raw, full, empty, rawfull, row0, col0);
+  else
+    i8_consume<T, SWAP>(g, xs, ws, full, empty, row0, col0, threadIdx.x / 128 - 1);
+}
+
+template <typename T, bool TW, bool SWAP>
+int launch_i8(I8Gemm g, cudaStream_t st) {
+  // the TMA path: 16-byte row pitches and base addresses
+  g.tma = g.K > 0 && g.K % 16 == 0 && (TW || g.M % 16 == 0) && aligned16(g.x) && aligned16(g.w);
+  g.stages = TW ? kI8MaxStages : 4;
+  g.raws = TW ? 0 : (g.tma ? kI8MaxRaws : 1);
+  CUtensorMap mx, mw;
+  memset(&mx, 0, sizeof(mx));
+  memset(&mw, 0, sizeof(mw));
+  if (g.tma &&
+      !(tma_map_2d(&mx, g.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.B, g.K, 128,
+                   SWAP ? kI8SwapRows : 128) &&
+        (TW ? tma_map_2d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.M, g.K, 128, 128)
+            : tma_map_2d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.M, 128, 128))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = i8_smem_bytes(g.stages, g.raws);
+  static bool opted = false;          // the largest configuration, once per instantiation
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int8_matmul_kernel<T, TW, SWAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(i8_smem_bytes(g.stages, TW ? 0 : kI8MaxRaws)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  const dim3 grid((g.M + 127) / 128, SWAP ? 1 : (g.B + 127) / 128);
+  int8_matmul_kernel<T, TW, SWAP><<<grid, kI8Threads, bytes, st>>>(mx, mw, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Decode (a few rows) takes narrow tiles so more blocks stream the weight;
@@ -412,21 +712,21 @@ void launch_fused(const void* x, const void* w_q, const void* s_w, void* y, int 
   }
 }
 
+// decode (B <= kI8SwapRows) swaps the operands (see int8_matmul_kernel)
 template <typename T, bool TW>
-void launch_matmul(const void* x_q, const void* w_q, const void* row_scale, const void* col_scale,
-                   void* y, int B, int K, int M, cudaStream_t st) {
-  const int8_t* xp = static_cast<const int8_t*>(x_q);
-  const int8_t* wp = static_cast<const int8_t*>(w_q);
-  const float* sp = static_cast<const float*>(row_scale);
-  const float* cp = static_cast<const float*>(col_scale);
-  T* yp = static_cast<T*>(y);
-  if (B <= kSmallRows) {
-    dim3 grid((M + 31) / 32, (B + 15) / 16);
-    int8_matmul_dequant_kernel<T, 16, 32, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, cp, yp, B, K, M);
-  } else {
-    dim3 grid((M + 63) / 64, (B + 63) / 64);
-    int8_matmul_dequant_kernel<T, 64, 64, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, cp, yp, B, K, M);
-  }
+int launch_matmul(const void* x_q, const void* w_q, const void* row_scale, const void* col_scale,
+                  void* y, int B, int K, int M, cudaStream_t st) {
+  I8Gemm g;
+  memset(&g, 0, sizeof(g));
+  g.x = static_cast<const int8_t*>(x_q);
+  g.w = static_cast<const int8_t*>(w_q);
+  g.row_scale = static_cast<const float*>(row_scale);
+  g.col_scale = static_cast<const float*>(col_scale);
+  g.y = y;
+  g.B = B;
+  g.K = K;
+  g.M = M;
+  return B <= kI8SwapRows ? launch_i8<T, TW, true>(g, st) : launch_i8<T, TW, false>(g, st);
 }
 
 
@@ -705,18 +1005,15 @@ int sb_fused_switchback_fwd(const void* x, int bf16, const void* w_q, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-// col_scale (M,) f32, or null for the row-scale epilogue alone.
+// col_scale (M,) f32, or null for the row-scale epilogue alone; on int8
+// wgmma (int8_matmul_kernel).
 int sb_int8_matmul_dequant(const void* x_q, const void* w_q, const void* row_scale,
                            const void* col_scale, void* y, int bf16, int B, int K, int M,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0 && M > 0) {
-    if (bf16)
-      launch_matmul<__nv_bfloat16, false>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
-    else
-      launch_matmul<float, false>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_matmul<__nv_bfloat16, false>(x_q, w_q, row_scale, col_scale, y, B, K, M, st)
+              : launch_matmul<float, false>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
 }
 
 // g (B, K) float/bf16, w_q (N, K) int8 (the forward's weight; K is its
@@ -739,13 +1036,9 @@ int sb_int8_matmul_dequant_t(const void* x_q, const void* w_q, const void* row_s
                              const void* col_scale, void* y, int bf16, int B, int K, int M,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0 && M > 0) {
-    if (bf16)
-      launch_matmul<__nv_bfloat16, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
-    else
-      launch_matmul<float, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_matmul<__nv_bfloat16, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st)
+              : launch_matmul<float, true>(x_q, w_q, row_scale, col_scale, y, B, K, M, st);
 }
 
 // x (B, K) bf16, g (B, M) bf16 -> dw (K, M) f32 = x^T g on bf16 wgmma,

@@ -32,7 +32,12 @@ recompute give a plain decode's tokens), and every kernel bit-identical
 over two launches.
 The paged kernels run on the tensor cores (mma.sync, operands split into
 bf16 terms); a prefill row's bits equal the decode's at every row for
-Sq 5 and 128.
+Sq 5 and 128. ``flash_fwd`` also at CLIP's hd 64 and 80 and Sq off the
+multiples of 16 and 64, twice the same bits.
+``int8_matmul_dequant`` (int8 wgmma) in all four forms (row or column
+scale, W (K, M) or (M, K)) bit-equal to its plain version at the paths'
+shapes, the swapped decode form, the masked producer (K = 588) and the
+widest s32 sums (all-±127 operands at K = 5,120).
 The two op-entry-point kernels: ``fp8_cast_tensorwise``
 (``kernels/fp8_cast``) bit-equal to its plain version, both formats, f32
 and bf16 inputs, a pointer off 16-byte alignment, twice the same bits;
@@ -78,11 +83,14 @@ def _card():
 
 
 def _activations(rng, B, K):
+    """B random rows; from 3 rows on, row 1 holds exact half-way ties and
+    row 2 is all zero."""
     x = rng.standard_normal((B, K)).astype(np.float32) * 3
-    ties = (np.arange(K, dtype=np.float32) % 8) - 3.5
-    ties[0] = 127.0                      # scale 1: every .5 is a tie
-    x[1] = ties
-    x[2] = 0.0                           # all-zero row
+    if B >= 3:
+        ties = (np.arange(K, dtype=np.float32) % 8) - 3.5
+        ties[0] = 127.0                  # scale 1: every .5 is a tie
+        x[1] = ties
+        x[2] = 0.0                       # all-zero row
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
@@ -179,6 +187,84 @@ def test_cuda_colscale_matmul_matches_plain(B, K, M, dt):
     torch.cuda.synchronize()
 
 
+def _int8_forms(x_q, s_x, w, dt):
+    """The four forms of int8_matmul_dequant on x_q (B, K) and the bf16
+    weight w (K, M), each as (name, kernel call, plain output): the row-scale
+    forward on W (K, M) tensor-quantized, the colscale forward on W
+    column-quantized, and the transposed (dgrad) forms on W^T (M, K)
+    tensor- and row-quantized."""
+    wt = w.t().contiguous()
+    w_q, s_w = TOPS.tensor_quantize(w)
+    w_c, s_c = TOPS.col_quantize(w)
+    w_t, s_t = TOPS.tensor_quantize(wt)
+    w_n, s_n = TOPS.row_quantize(wt)
+    row, row_t, unit = (s_x * TREF.div(s_w, 16129.0), s_x * TREF.div(s_t, 16129.0),
+                        TREF.div(s_x, 16129.0))
+    col = s_n.reshape(1, -1)
+    kw = dict(out_dtype=dt)
+    return [
+        ("int8_matmul_dequant", lambda: TOPS.int8_matmul_dequant(x_q, w_q, row, **kw),
+         TREF.int8_matmul_dequant(x_q, w_q, row, **kw)),
+        ("int8_matmul_dequant_colscale",
+         lambda: TOPS.int8_matmul_dequant(x_q, w_c, unit, col_scale=s_c, **kw),
+         TREF.int8_matmul_dequant(x_q, w_c, unit, col_scale=s_c, **kw)),
+        ("int8_matmul_dequant_t", lambda: TOPS.int8_matmul_dequant_t(x_q, w_t, row_t, **kw),
+         TREF.int8_matmul_dequant_t(x_q, w_t, row_t, **kw)),
+        ("int8_matmul_dequant_colscale_t",
+         lambda: TOPS.int8_matmul_dequant_t(x_q, w_n, unit, col_scale=col, **kw),
+         TREF.int8_matmul_dequant_t(x_q, w_n, unit, col_scale=col, **kw))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", [(1, 2560, 960), (8, 2560, 960), (16, 960, 320),
+                                   (17, 960, 320), (1000, 2560, 960), (2048, 960, 2560),
+                                   (4128, 5120, 1280), (8192, 588, 1280), (8, 588, 1280),
+                                   (37, 130, 70)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_int8_matmul_forms_bitwise(B, K, M, dt):
+    """int8_matmul_dequant on int8 wgmma, all four forms bit-equal to their
+    plain versions and twice the same bits: the swapped decode form (B <=
+    16), a ragged M (320 against 128-wide tiles), the masked producer (x_q's
+    pitch 588 or 130 bytes, M = 70), the paths' training and CLIP shapes."""
+    dev = _card()
+    rng = np.random.default_rng(7 * B + K + M)
+    x_q, s_x = TOPS.row_quantize(_activations(rng, B, K).to(dev))
+    w = torch.from_numpy(rng.standard_normal((K, M)).astype(np.float32)).to(dev, torch.bfloat16)
+    for name, fn, want in _int8_forms(x_q, s_x, w, dt):
+        got = fn()
+        assert got.dtype == dt and got.shape == (B, M), name
+        assert torch.equal(got, want), f"{name}: max |diff| {_maxdiff(got, want)}"
+        assert torch.equal(fn(), got), f"{name}: two launches differ"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 300])
+def test_cuda_int8_matmul_widest_sum_bitwise(B):
+    """All-±127 operands at K = 5,120, CLIP's widest contraction: the s32
+    sums reach 127^2 * 5,120 (a row and a column of +127 meet there), and
+    every form stays bit-equal."""
+    dev = _card()
+    rng = np.random.default_rng(B)
+    K, M = 5120, 1280
+    x_q = torch.from_numpy(rng.choice([-127, 127], (B, K)).astype(np.int8)).to(dev)
+    x_q[0] = 127
+    s_x = torch.from_numpy(rng.uniform(0.5, 2.0, (B, 1)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.choice([-1.0, 1.0], (K, M)).astype(np.float32)).to(dev)
+    w[:, 0] = 1.0
+    for name, fn, want in _int8_forms(x_q, s_x, w.bfloat16(), torch.float32):
+        got = fn()
+        assert torch.equal(got, want), f"{name}: max |diff| {_maxdiff(got, want)}"
+    acc = TOPS.int8_matmul_dequant(x_q, TOPS.tensor_quantize(w)[0],
+                                   torch.ones((B, 1), device=dev), out_dtype=torch.float32)
+    assert float(acc[0, 0]) == 127.0 * 127.0 * K
+    torch.cuda.synchronize()
+
+
+def _maxdiff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels():
     dev = _card()
@@ -230,6 +316,33 @@ def test_cuda_flash_fwd_matches_plain(B, Sq, Sk, kv_valid, causal, dt):
     assert o.dtype == dt and bool(torch.isfinite(o).all())
     assert _rel(o, ro) <= O_TOL[dt]
     assert float((lse - rlse).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,Sq,Sk,kv_valid,H,KV,hd,causal", [
+    (4, 129, 129, 129, 16, 16, 80, False), (4, 77, 77, 77, 16, 16, 64, True),
+    (3, 37, 50, 45, 15, 5, 64, False), (3, 37, 50, 45, 16, 16, 80, True),
+    (2, 200, 200, 130, 15, 5, 64, True), (2, 21, 21, 21, 4, 4, 80, True),
+    (2, 100, 100, 100, 15, 5, 64, False)])
+def test_cuda_flash_fwd_clip_and_ragged_shapes(B, Sq, Sk, kv_valid, H, KV, hd, causal, dt):
+    """flash_fwd at CLIP's head dims, hd 64 and 80, causal and full,
+    kv_valid < Sk, Sq off multiples of 16 and 64, GQA and not: within
+    O_TOL / LSE_TOL, two launches the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(B * Sq + hd)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dt)
+    o, lse = FA.flash_fwd_lse(q, k, v, causal=causal, kv_valid=kv_valid)
+    ro, rlse = FREF.mha_fwd(q, k, v, causal=causal, kv_valid=kv_valid,
+                            scale=FA.softmax_scale(hd))
+    o2, lse2 = FA.flash_fwd_lse(q, k, v, causal=causal, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert o.dtype == dt and bool(torch.isfinite(o).all())
+    assert _rel(o, ro) <= O_TOL[dt]
+    assert float((lse - rlse).abs().max()) <= LSE_TOL
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
