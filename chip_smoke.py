@@ -26,7 +26,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
    every linear's widths; ``flash_fwd``, ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` within stated tolerances of their plain versions at
    8 sequences of 64, 200 and 256 tokens, causal and full, kv_valid < Sk,
-   bf16 and f32; each run twice must give the same bits. A control fault
+   bf16 and f32 (``flash_fwd``'s mean signed error of o and lse printed);
+   each run twice must give the same bits. A control fault
    (KV head h % KV instead of h // group) must read at least 10x outside
    each flash tolerance;
 4. serve: full-width smollm-360m (32 layers, d 960, vocab 49152; random
@@ -159,7 +160,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     block edges) within FLASH_O_TOL of their plain versions, q in bf16 and
     f32 over bf16 pools, two launches the same bits, the control fault
     (table rows rotated by one) 10x outside; every prefill row bit-equal to
-    the decode kernel at kv_len = its position + 1. Then each kernel timed
+    the decode kernel at kv_len = its position + 1; the mean signed error
+    of o printed (the tensor cores' sums). Then each kernel timed
     at served shapes beside its bound, its plain version and SDPA over the
     gathered cache (the gather timed beside it);
 25. paged serve (the paged main path): full-width smollm-360m through the
@@ -1378,11 +1380,13 @@ def compare_flash_train(torch, M, cases, dev, seed):
     ``ref.mha_bwd``). Each backward kernel run twice must give the same
     bits, keys past kv_valid get no gradient, and each case's control fault
     (the plain versions on faulty inputs) must read FAULT_MARGIN x outside
-    every tolerance. Returns the readings per kernel and the number of
+    every tolerance. Returns the readings per kernel (for ``flash_fwd``
+    also the mean signed error of o and of lse, by dtype) and the number of
     comparisons."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {k: dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf)
            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    signed = {}                                   # "o bfloat16" ... -> [sum, count]
     n = 0
 
     def record(name, got, want, fault, tol, what):
@@ -1416,6 +1420,10 @@ def compare_flash_train(torch, M, cases, dev, seed):
             fq, fk, fv, fcausal, back = fault(q, k, v, causal)
             fo, flse = M.FREF.mha_fwd(fq, fk, fv, causal=fcausal, kv_valid=kv_valid, scale=scale)
             record("flash_fwd", o, ro, fo, FLASH_O_TOL[key], what)
+            for part, got, want in (("o", o, ro), ("lse", lse, rlse)):
+                acc = signed.setdefault(f"{part} {key}", [0.0, 0])
+                acc[0] += float((got.double() - want.double()).sum())
+                acc[1] += got.numel()
             e = float((lse - rlse).abs().max())
             check(e <= FLASH_LSE_TOL, f"flash_fwd {what}: lse off by {e:g}")
             di = M.FREF.attention_di(o, do)
@@ -1438,6 +1446,7 @@ def compare_flash_train(torch, M, cases, dev, seed):
             check(float(dk[:, kv_valid:].abs().sum()) == 0.0 == float(dv[:, kv_valid:].abs().sum()),
                   f"flash_bwd_dkv {what}: keys past kv_valid got a gradient")
     torch.cuda.synchronize()
+    out["flash_fwd"]["mean_signed_err"] = {k: t / c for k, (t, c) in signed.items()}
     return out, n
 
 
@@ -3129,10 +3138,14 @@ def compare_paged(torch, M, cfg, dev, seed):
     FAULT_MARGIN x outside. Prefill at Sq in {1, 5, 128, 300} with ragged
     offsets off the block edges; then every prefill row bit-equal to the
     decode kernel at kv_len = its position + 1. Returns per kernel the
-    readings, the number of comparisons and of bit-equal rows."""
+    readings (with the mean signed error of o over every live output, by
+    q's dtype: the tensor cores' sums truncate toward zero where they
+    chain; the kernels return no lse), the number of comparisons and of
+    bit-equal rows."""
     gen = torch.Generator(device=dev).manual_seed(seed + 24)
     out = {k: dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf)
            for k in ("paged_decode_fwd", "paged_prefill_fwd")}
+    signed = {k: {} for k in out}                 # kernel -> dtype -> [sum, count]
     plain = plain_paged(M)
     n = rows_equal = 0
     B, H, hd = 8, cfg.n_heads, cfg.hd
@@ -3146,6 +3159,9 @@ def compare_paged(torch, M, cfg, dev, seed):
         check(float(got[~live].abs().max()) == 0.0 if bool((~live).any()) else True,
               f"{name} {what}: a dry slot is not exact zeros")
         g, w, f = got[live], want[live], fault[live]
+        acc = signed[name].setdefault(str(dt).replace("torch.", ""), [0.0, 0])
+        acc[0] += float((g.double() - w.double()).sum())
+        acc[1] += g.numel()
         err = rel_err(torch, g, w)
         r["max_rel_err"] = max(r["max_rel_err"], err)
         r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(torch, g, w))
@@ -3192,6 +3208,8 @@ def compare_paged(torch, M, cfg, dev, seed):
                       "position")
                 rows_equal += int(rows.sum())
     torch.cuda.synchronize()
+    for name, by_dt in signed.items():
+        out[name]["mean_signed_err"] = {dt: t / c for dt, (t, c) in by_dt.items()}
     return out, n, rows_equal
 
 
@@ -3906,7 +3924,8 @@ def main(argv=None) -> int:
         print(f"[kernels] {n_paged} paged comparisons within o {json.dumps(FLASH_O_TOL)} of "
               f"max|o|, dry slots exact zeros, each bit-identical over two launches; control "
               f"fault (tables rotated) >= {FAULT_MARGIN:g}x the tolerance; {n_rows} prefill "
-              "rows bit-equal to the decode kernel at their positions: " + json.dumps(paged_worst))
+              "rows bit-equal to the decode kernel at their positions; the mean signed error "
+              "of o by q's dtype: " + json.dumps(paged_worst))
         paged_t = time_paged(torch, M, cfg, dev, args.seed)
         print("[timing] paged:", json.dumps(paged_t))
     # 25. paged serve (the paged main path) and its served model kernels vs plain
