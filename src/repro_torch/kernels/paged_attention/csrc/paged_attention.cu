@@ -57,18 +57,21 @@
 //     division per copy) land while the block computes on this one. An
 //     f32 pool is split on the way in (plain loads) into three bf16
 //     planes, hi + mid + lo.
-//   * Per 16-key chunk of a round a warp computes S = Q~ K^T (hd / 16 k16
-//     steps a term, ldmatrix from the staged K), the online-softmax update
+//   * Per 16-key chunk of a round a warp runs tile_chunk
+//     (kernels/csrc/mma_tile.cuh, shared with flash_fwd): S = Q~ K^T (hd /
+//     16 k16 steps, ldmatrix from the staged K), the online-softmax update
 //     on the S fragment (each row's 16 scores live in the 4 lanes of a quad:
 //     max and sum over the quad in a fixed tree), then the chunk's P~ V
-//     (ldmatrix.trans from the staged V) into a fresh fragment, which
-//     acc = fma(acc, alpha, fragment) adds on the CUDA cores.
+//     (ldmatrix.trans from the staged V), which acc = fma(acc, alpha, sum)
+//     adds on the CUDA cores.
 //   * Operands not exact in bf16 are split into bf16 terms: q * scale takes
 //     one term when q is bf16 and scale a power of two (exact), else three
-//     (hi + mid + lo: all 24 bits of the f32 value); P two (hi + lo, within
-//     2^-16 of p); an f32 pool's K and V three. Each pair of terms whose
-//     orders add up to at most 2 is one chain of steps into a fresh
-//     fragment, the fragments added in f32 from the smallest up.
+//     (hi + mid + lo: all 24 bits of the f32 value); P three; an f32 pool's
+//     K and V three. Every k16 step, and every pair of terms in it (orders
+//     adding up to at most 2), is a fresh fragment; they are added in f32
+//     rounded to nearest, the smallest first (chaining steps on one
+//     fragment truncates toward zero, and two terms of P are not enough for
+//     the served bf16 model: see the header).
 //
 // Decode and prefill are one template and share tile_chunk. Row r of a
 // prefill at absolute position p runs the same operations in the same
@@ -93,112 +96,13 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "../../csrc/mma_tile.cuh"
+
 namespace {
 
-// the JAX package's MASK_VALUE (-0.7 * f32 max, rounded once to f32)
-constexpr float kMask = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
-constexpr int kChunk = 16;           // keys per online-softmax update: one k16 of P V
 constexpr int kRoundKeys = 64;       // keys staged per round, whole blocks (bs <= 64)
 constexpr int kWarps = 4;            // warps per block
-constexpr int kTile = 16;            // rows of a warp's mma tile
 constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// v as N bf16 terms, largest first: each the nearest bf16 to what the
-// earlier ones left (the subtraction is exact); 3 terms hold every f32
-// value of the normal range exactly, 2 within 2^-16 of |v|
-template <int N>
-__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16 (&t)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    t[i] = __float2bfloat16_rn(v);
-    v = __fsub_rn(v, __bfloat162float(t[i]));
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8 x 8 bf16 matrices from shared memory, rows given by lanes 8i..8i+7
-// for matrix i; TRANS delivers each transposed
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  if constexpr (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-}
-
-// d += a . b: a 16 x 16 (row-major fragment), b 16 x 8 (column fragment),
-// bf16 in, f32 out. Fragment of a 16 x 8 f32 tile, lane l (g = l / 4,
-// q = l % 4): d[0], d[1] row g, columns 2q, 2q + 1; d[2], d[3] row g + 8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The pairs (t, u) of split terms a product takes, t of the left operand
-// (NA terms), u of the right (NB), t + u <= 2, in order of t + u from 2
-// down to 0 (the smallest first): pair p's t (or u with U).
-__host__ __device__ constexpr int n_pairs(int na, int nb) {
-  int n = 0;
-  for (int s = 2; s >= 0; --s)
-    for (int t = 0; t < na; ++t)
-      if (s - t >= 0 && s - t < nb) ++n;
-  return n;
-}
-
-__host__ __device__ constexpr int pair_term(int na, int nb, int p, bool u) {
-  int n = 0;
-  for (int s = 2; s >= 0; --s)
-    for (int t = 0; t < na; ++t)
-      if (s - t >= 0 && s - t < nb) {
-        if (n == p) return u ? s - t : t;
-        ++n;
-      }
-  return 0;
-}
-
-// Shared-memory row pitch of a staged key, in bf16: the padded head dim HD
-// plus 8, so rows start on 16 bytes (cp.async, ldmatrix) and the 8 rows an
-// ldmatrix reads fall on distinct banks.
-template <int HD>
-__host__ __device__ constexpr int row_pitch() { return HD + 8; }
 
 // rows of one staged plane: a round's keys rounded up to whole chunks, so a
 // chunk's ldmatrix never reads past its plane
@@ -257,116 +161,6 @@ __device__ __forceinline__ void stage_round(__nv_bfloat16* kb, __nv_bfloat16* vb
       kb[u * plane + t * kPitch + d] = ks[u];
       vb[u * plane + t * kPitch + d] = vs[u];
     }
-  }
-}
-
-// One warp, one 16-row tile: the online-softmax update with a chunk of
-// n <= 16 staged keys at absolute positions kpos0 + [0, n) (k_c, v_c point
-// at the chunk's first key in plane 0, planes `plane` apart). Lane l holds
-// rows g = l / 4 and g + 8 of the tile (h = 0, 1), whose live-key limits
-// are lim[h]: keys at or past them, or past n, are dead. qa: the rows'
-// q * scale as NQ bf16 terms, A fragments per k16 step. acc: the rows'
-// unnormalised output, 16 x HD as HD / 8 fragments. Both kernels run
-// exactly this for every row, which is what makes a prefill row bit-equal
-// to the decode at the same position.
-template <int HD, int NQ, int NT>
-__device__ __forceinline__ void tile_chunk(const uint32_t (&qa)[NQ][HD / 16][4],
-                                           const __nv_bfloat16* k_c, const __nv_bfloat16* v_c,
-                                           int plane, int n, int kpos0, const int (&lim)[2],
-                                           float (&m)[2], float (&l)[2],
-                                           float (&acc)[HD / 8][4]) {
-  constexpr int kPitch = row_pitch<HD>();
-  constexpr int NS = n_pairs(NQ, NT), NPV = n_pairs(2, NT);
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7, q4 = lane & 3;
-
-  // S = Q~ K^T: per pair of terms a fresh chain over the k16 steps, two n8
-  // tiles (keys 0-7, 8-15); the pairs' fragments added from the smallest
-  float sp[NS][2][4];
-#pragma unroll
-  for (int p = 0; p < NS; ++p)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sp[p][i >> 2][i & 3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t kf[NT][4];
-#pragma unroll
-    for (int u = 0; u < NT; ++u)
-      ldmatrix_x4<false>(kf[u], k_c + u * plane + (mr + 8 * (mi >> 1)) * kPitch + 16 * ks +
-                                    8 * (mi & 1));
-#pragma unroll
-    for (int p = 0; p < NS; ++p) {
-      const int t = pair_term(NQ, NT, p, false), u = pair_term(NQ, NT, p, true);
-      mma_bf16(sp[p][0], qa[t][ks], kf[u][0], kf[u][1]);
-      mma_bf16(sp[p][1], qa[t][ks], kf[u][2], kf[u][3]);
-    }
-  }
-  float s[2][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = sp[0][i >> 2][i & 3];
-#pragma unroll
-    for (int p = 1; p < NS; ++p) v = __fadd_rn(v, sp[p][i >> 2][i & 3]);
-    s[i >> 2][i & 3] = v;
-  }
-
-  // the online softmax per row, its 16 scores on the 4 lanes of a quad
-  float alpha[2], pv[2][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float sv[4];
-    bool live[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = 8 * (j >> 1) + 2 * q4 + (j & 1);
-      live[j] = key < n && kpos0 + key < lim[h];
-      sv[j] = live[j] ? s[j >> 1][2 * h + (j & 1)] : kMask;
-    }
-    float mx = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float m_next = fmaxf(m[h], mx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pv[h][j] = live[j] ? expf(__fsub_rn(sv[j], m_next)) : 0.f;
-    alpha[h] = expf(__fsub_rn(m[h], m_next));
-    float rs = __fadd_rn(__fadd_rn(pv[h][0], pv[h][1]), __fadd_rn(pv[h][2], pv[h][3]));
-    rs = __fadd_rn(rs, __shfl_xor_sync(kFull, rs, 1));
-    rs = __fadd_rn(rs, __shfl_xor_sync(kFull, rs, 2));
-    l[h] = __fmaf_rn(l[h], alpha[h], rs);
-    m[h] = m_next;
-  }
-
-  // P~ as A fragments (16 rows x 16 keys), hi and lo terms
-  uint32_t pa[2][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {      // a0: row g keys 2q..; a1: row g+8; a2, a3: keys 8+2q..
-    const int h = r & 1, j = 2 * (r >> 1);
-    __nv_bfloat16 t0[2], t1[2];
-    split_bf16<2>(pv[h][j], t0);
-    split_bf16<2>(pv[h][j + 1], t1);
-    pa[0][r] = pack2(t0[0], t1[0]);
-    pa[1][r] = pack2(t0[1], t1[1]);
-  }
-
-  // the chunk's P~ V into fresh fragments, two n8 tiles of dims at a time;
-  // acc = fma(acc, alpha, fragment)
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; nt += 2) {
-    uint32_t vf[NT][4];
-#pragma unroll
-    for (int u = 0; u < NT; ++u)
-      ldmatrix_x4<true>(vf[u], v_c + u * plane + (mr + 8 * (mi & 1)) * kPitch + 8 * nt +
-                                   8 * (mi >> 1));
-    float f[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int p = 0; p < NPV; ++p) {
-      const int t = pair_term(2, NT, p, false), u = pair_term(2, NT, p, true);
-      mma_bf16(f[0], pa[t], vf[u][0], vf[u][1]);
-      mma_bf16(f[1], pa[t], vf[u][2], vf[u][3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      acc[nt + (i >> 2)][i & 3] =
-          __fmaf_rn(acc[nt + (i >> 2)][i & 3], alpha[(i & 3) >> 1], f[i >> 2][i & 3]);
   }
 }
 

@@ -69,9 +69,11 @@ def paged_prefill_fwd(q, k_pool, v_pool, tables, q_off, kv_len, *,
 def split_bf16(x: torch.Tensor, terms: int) -> list[torch.Tensor]:
     """x as ``terms`` bf16 tensors, largest first, each the nearest bf16 to
     what the earlier ones left (the f32 subtraction is exact): the kernels'
-    operands for the tensor cores. q * scale takes 1 term (bf16 q, scale a
-    power of two: exact) or 3, P 2, an f32 pool's K and V 3. In the normal
-    range 3 terms sum to x exactly and 2 to within 2^-16 |x|."""
+    operands for the tensor cores (``kernels/csrc/mma_tile.cuh``, shared
+    with the flash kernels). q * scale takes 1 term (bf16 q, scale a power
+    of two: exact) or 3, P (and the flash backward's dS) 3, an f32 pool's K
+    and V 3. In the normal range 3 terms sum to x exactly and 2 to within
+    2^-16 |x|."""
     out, r = [], x.float()
     for _ in range(terms):
         t = r.to(torch.bfloat16)

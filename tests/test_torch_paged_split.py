@@ -4,10 +4,12 @@ The CUDA paged kernels (``kernels/paged_attention/csrc/paged_attention.cu``)
 compute on the tensor cores, whose operands are bf16. An operand that is
 not exact in bf16 is split into bf16 terms (``ref.split_bf16``, the
 kernels' split): q * scale one term when q is bf16 and scale a power of
-two, three otherwise; the softmax weights P two; an f32 pool's K and V
-three. Here each split is held to its stated width: three terms sum to the
-f32 value exactly, two within 2^-16 of it, one exactly where it is said
-to be exact, and no fewer terms would do.
+two, three otherwise; the softmax weights P three (two, within 2^-16 of
+p, were too few for the served bf16 model); an f32 pool's K and V three.
+Here each split is held to its stated width: three terms sum to the f32
+value exactly, two within 2^-16 of it, one exactly where it is said to
+be exact, and no fewer terms would do. ``tests/test_torch_flash_split.py``
+models the whole tile step.
 """
 from __future__ import annotations
 
