@@ -23,40 +23,42 @@
 // scores s = (q * scale) . k in f32, q scaled in f32 before the product as
 // the TPU kernel does; keys past the valid length, and with `causal` keys
 // past the query's position, take the finite MASK_VALUE = -0.7 * FLT_MAX
-// (never -inf: exp(-inf - -inf) is NaN); an online softmax over tiles of 32
+// (never -inf: exp(-inf - -inf) is NaN); an online softmax over tiles of
 // keys keeps a running max m, sum l and unnormalised output acc in f32:
 //   m' = max(m, max_j s_j), p_j = exp(s_j - m'), alpha = exp(m - m'),
 //   l' = l * alpha + sum_j p_j, acc' = acc * alpha + sum_j p_j v_j.
-// A row with no live key yet has m == MASK_VALUE and p == 1; the first
-// live tile corrects it through alpha = exp(MASK_VALUE - m_real) = 0. Key 0
-// is always live (the wrappers ask kv_valid >= 1; causal rows hold key 0),
-// and tile 0 is every row's first, so no final row is dry. At the end
+// Key 0 is always live (the wrappers ask kv_valid >= 1; causal rows hold
+// key 0), and every row meets it first, so no final row is dry. At the end
 // o = acc / l_safe (l_safe = 1 where l == 0), rounded once to the output
 // type (__float2bfloat16_rn), and lse = m + log(l_safe) stays f32. All in
 // IEEE f32: expf/logf, __fdiv_rn, no --use_fast_math.
 //
 // Layouts are the model's, read through the kernels' own offsets (no
-// transposes, no padding): q, o (B, Sq, H, hd); k, v (B, Sk, KV, hd), the
-// ring cache in its storage layout for decode; lse (B, H, Sq). GQA is
-// native: query head h reads KV head h / (H / KV) (jnp.repeat order), and a
-// block works on one KV head, so each K/V tile it loads serves the whole
-// query group.
+// transposes, no padding in memory): q, o (B, Sq, H, hd); k, v (B, Sk, KV,
+// hd), the ring cache in its storage layout for decode; lse (B, H, Sq).
+// GQA is native: query head h reads KV head h / (H / KV) (jnp.repeat
+// order), and a block works on one KV head, so each K/V tile it loads
+// serves the whole query group.
 //
-// What bounds them on this card: at the serve path's shapes both move a
-// few MB (bytes over 3.35 TB/s is 1-2 us) and compute far less than the
-// tensor cores could, so the bound is bytes; the real cost is latency and
-// occupancy. These first kernels use f32 FMAs on the CUDA cores over tiles
-// staged in shared memory as f32 (wgmma, TMA and split-KV across blocks
-// are later work; an mma on bf16 for P.V would round p to bf16, which the
-// reference does not). Their design answers occupancy:
-//   * flash_fwd: a block owns one (batch, KV head) and 16 query rows of
-//     the flattened (position, head-in-group) row space, so a block holds
-//     16/group positions of the whole group. The TPU's 128-row q tiles
-//     would give the path (B 8, KV 5, Sq <= 128) only 40 blocks for 132
-//     SMs; 16 rows give 960 blocks at Sq = 128 and 240 at Sq = 32. Four
-//     warps, four rows each; a lane owns one key of the 32-key tile for
-//     the scores and dims lane + 32 i of the output. KV tiles past the
-//     block's last live key (causal diagonal or kv_valid) are skipped.
+// What bounds them on this card: at the serve and train paths' shapes each
+// moves a few MB (bytes over 3.35 TB/s is 1-4 us) and computes far less
+// than the tensor cores could, so the bound is bytes; the real cost is
+// latency, issue and occupancy.
+//   * flash_fwd runs on the tensor cores, on the paged kernels' tile step
+//     (tile_chunk, kernels/csrc/mma_tile.cuh: mma.sync m16n8k16, bf16
+//     operands split into terms where a value is not exact in bf16, every
+//     k16 step a fresh fragment added rounded to nearest). A block owns
+//     one (batch, KV head) and 64 rows of the flattened (position,
+//     head-in-group) row space, 16 a warp: at smollm's 8 x 256 tokens 480
+//     blocks, at CLIP's vision tower 1,536. It stages 64 keys a round in
+//     shared memory as bf16 (an f32 input split into three planes),
+//     double-buffered by cp.async, and walks the rounds up to its causal
+//     horizon and kv_valid only: tiles past them are neither loaded nor
+//     computed, and a warp stops at its own last row's horizon. q * scale
+//     takes one bf16 term where q is bf16 and the scale a power of two
+//     (exact), else three (hd 80: 1 / sqrt(80)). The head dim is padded in
+//     shared memory and registers to 64, 80 (CLIP's vision tower: five k16
+//     steps) or 128.
 //   * decode_fwd: a block owns one (slot, KV head): `group` query rows.
 //     Its eight warps (four above hd 96, where eight warps' tiles would
 //     overflow shared memory) split the slot's live tiles round-robin (a slot
@@ -64,9 +66,8 @@
 //     neither loaded nor computed; at S_max 256 each warp takes one), each
 //     warp staging its own K and V tiles, and merge their (m, l, acc) at
 //     the end. The cache's S_max need not be a multiple of the tile: the
-//     ragged tile is masked.
-//   Tiles are staged with 16-byte loads where the rows allow it, so a
-//   tile costs one memory latency, not one per key.
+//     ragged tile is masked. f32 FMAs on the CUDA cores, one lane per key,
+//     tiles staged with 16-byte loads where the rows allow it.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
@@ -74,30 +75,36 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
+#include <type_traits>
+
+#include "../../csrc/mma_tile.cuh"
 
 namespace {
 
-// the JAX package's MASK_VALUE (-0.7 * f32 max, rounded once to f32)
-constexpr float kMask = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
-constexpr int kTile = 32;          // keys per tile: one per lane for the scores
-constexpr int kFwdWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kFwdRows = kFwdWarps * kRowsPerWarp;   // flattened q rows per block
+constexpr int kKeyTile = 32;       // keys per tile of decode_fwd and flash_bwd_dq: one per lane
+constexpr int kRowsPerWarp = 4;    // flash_bwd_dq's rows per warp
 constexpr int kDecWarps = 8;       // 4 where 8 warps' tiles overflow shared memory
 constexpr int kMaxGroup = 8;       // query heads per KV head (decode rows)
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMmaWarps = 4;       // warps per block of flash_fwd and flash_bwd_dkv
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kFwdRows = kMmaWarps * kTile;   // flash_fwd: flattened q rows per block
+constexpr int kRoundKeys = 64;     // flash_fwd: keys staged per round
+constexpr int kBwdKeys = kMmaWarps * kTile;   // flash_bwd_dkv: keys per block, 16 a warp
+constexpr int kRoundRows = 32;     // flash_bwd_dkv: flattened q rows staged per round
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+// Above 48 KB of dynamic shared memory a kernel must opt in, up to what the
+// card allows a block; once per kernel (the caller keeps a static flag).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return err;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -131,7 +138,7 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* f, const __nv_bf
 
 // Copy rows [0, n) of a (rows, hd) slab whose rows are `row_stride`
 // elements apart into shared memory as f32 with pitch `pitch`; rows
-// [n, kTile) are zeroed. Threads t, t + nt, ... of the block take part.
+// [n, kKeyTile) are zeroed. Threads t, t + nt, ... of the block take part.
 // Where every row starts on 16 bytes (the path's layouts do) each thread
 // makes 16-byte loads, all independent, so one memory latency covers the
 // tile; otherwise one element per load.
@@ -143,7 +150,7 @@ __device__ __forceinline__ void stage_tile(float* dst, int pitch, const T* src,
   if (hd % kVec == 0 && row_stride % kVec == 0 &&
       reinterpret_cast<uintptr_t>(src) % 16 == 0) {
     const int per_row = hd / kVec;
-    for (int c = t; c < kTile * per_row; c += nt) {
+    for (int c = t; c < kKeyTile * per_row; c += nt) {
       const int j = c / per_row, d0 = (c - j * per_row) * kVec;
       float f[kVec];
       if (j < n) {
@@ -157,7 +164,7 @@ __device__ __forceinline__ void stage_tile(float* dst, int pitch, const T* src,
     }
     return;
   }
-  for (int e = t; e < kTile * hd; e += nt) {
+  for (int e = t; e < kKeyTile * hd; e += nt) {
     const int j = e / hd, d = e - j * hd;
     dst[j * pitch + d] = j < n ? to_f32(src[j * row_stride + d]) : 0.f;
   }
@@ -222,85 +229,193 @@ __device__ __forceinline__ void online_update(const float (&s)[R], float (&m)[R]
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd: grid (ceil(Sq * group / 16), KV, B), 128 threads.
-// Flattened row r of (b, hk) is query position r / group, head
-// hk * group + r % group.
+// flash_fwd: grid (ceil(Sq * group / 64), KV, B), 128 threads. Flattened
+// row r of (b, hk) is query position r / group, head hk * group + r % group;
+// warp w owns rows r0 + 16 w .. r0 + 16 w + 15.
 // ---------------------------------------------------------------------------
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kFwdWarps * 32)
+
+// Stage `n` <= kRoundKeys keys (key t's row at src + t * kv_row) of K and V
+// into NT bf16 planes each at kd / vd (`plane` elements apart): with 16-byte
+// alignment of a bf16 input as cp.async copies that land while the block
+// computes on the other buffer; otherwise plain loads, an f32 input split
+// into hi, mid and lo. Rows n .. kRoundKeys - 1 are zeroed (a chunk reads
+// 16 rows: a dead key's V row must be finite, its weight is 0); dims past
+// hd are never written (zero since the start).
+template <typename T, int HD, int NT>
+__device__ __forceinline__ void stage_keys(__nv_bfloat16* kd, __nv_bfloat16* vd, const T* ksrc,
+                                           const T* vsrc, long long kv_row, int n, int hd,
+                                           int plane, bool async, int tid) {
+  constexpr int P = row_pitch<HD>();
+  constexpr int kRow16 = P * 2 / 16;                           // 16-byte words a row
+  for (int i = tid; i < NT * (kRoundKeys - n) * kRow16; i += kMmaThreads) {
+    const int u = i / ((kRoundKeys - n) * kRow16), w = i - u * (kRoundKeys - n) * kRow16;
+    reinterpret_cast<uint4*>(kd + u * plane + n * P)[w] = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(vd + u * plane + n * P)[w] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (async) {
+      const int per_row = hd / 8;
+      for (int c = tid; c < n * per_row; c += kMmaThreads) {
+        const int t = c / per_row, d0 = (c - t * per_row) * 8;
+        cp_async16(kd + t * P + d0, ksrc + t * kv_row + d0);
+        cp_async16(vd + t * P + d0, vsrc + t * kv_row + d0);
+      }
+      return;
+    }
+  }
+  for (int e = tid; e < n * hd; e += kMmaThreads) {
+    const int t = e / hd, d = e - t * hd;
+    __nv_bfloat16 kt[NT], vt[NT];
+    split_bf16<NT>(to_f32(ksrc[t * kv_row + d]), kt);
+    split_bf16<NT>(to_f32(vsrc[t * kv_row + d]), vt);
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      kd[u * plane + t * P + d] = kt[u];
+      vd[u * plane + t * P + d] = vt[u];
+    }
+  }
+}
+
+template <typename T, int HD>
+constexpr size_t fwd_smem() {
+  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  // K and V of two rounds, NT planes of kRoundKeys rows each
+  return 2 * 2 * NT * sizeof(__nv_bfloat16) * static_cast<size_t>(kRoundKeys) * row_pitch<HD>();
+}
+
+template <typename T, int HD, int NQ>
+__global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
                  int hd, int kv_valid, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                            // [kFwdRows][hd], scaled
-  float* k_s = q_s + kFwdRows * hd;             // [kTile][hd + 1]
-  float* v_s = k_s + kTile * (hd + 1);          // [kTile][hd]
-  const int group = H / KV;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int n_rows = Sq * group;
-  const int r0 = blockIdx.x * kFwdRows;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int P = row_pitch<HD>();
+  constexpr int kPlane = kRoundKeys * P;                       // elements of one plane
+  constexpr int kBuf = NT * kPlane;                            // one round's K (or V)
+  extern __shared__ __align__(16) unsigned char tc_smem[];   // (smem is the f32 kernels')
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);    // [2][NT][kPlane]
+  __nv_bfloat16* v_s = k_s + 2 * kBuf;
+  const int group = H / KV, hk = blockIdx.y, b = blockIdx.z;
+  const int n_rows = Sq * group, r0 = blockIdx.x * kFwdRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const long long kv_row = static_cast<long long>(KV) * hd;   // key stride
   const T* kb = k + static_cast<long long>(b) * Sk * kv_row + static_cast<long long>(hk) * hd;
   const T* vb = v + static_cast<long long>(b) * Sk * kv_row + static_cast<long long>(hk) * hd;
 
-  for (int e = tid; e < kFwdRows * hd; e += blockDim.x) {
-    const int rr = e / hd, d = e - rr * hd, r = r0 + rr;
-    float x = 0.f;
-    if (r < n_rows) {
-      const int pos = r / group, h = hk * group + r % group;
-      x = __fmul_rn(to_f32(q[(static_cast<long long>(b) * Sq + pos) * H * hd
-                             + static_cast<long long>(h) * hd + d]), scale);
-    }
-    q_s[e] = x;
-  }
-
-  int q_row[kRowsPerWarp], pos[kRowsPerWarp];
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    q_row[i] = warp * kRowsPerWarp + i;
-    pos[i] = (r0 + q_row[i]) / group;
-    m[i] = kMask;
-    l[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
-  }
   // live keys of the block: below kv_valid and, causal, up to its last row
-  int n_live = min(kv_valid, Sk);
+  const int n_valid = min(kv_valid, Sk);
+  int n_live = n_valid;
   if (causal) n_live = min(n_live, (min(r0 + kFwdRows, n_rows) - 1) / group + 1);
-  const int n_tiles = (n_live + kTile - 1) / kTile;
+  const int n_rounds = (n_live + kRoundKeys - 1) / kRoundKeys;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int j0 = kt * kTile, n = min(kTile, n_live - j0);
-    __syncthreads();                            // previous tile fully used
-    stage_tile(k_s, hd + 1, kb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
-    stage_tile(v_s, hd, vb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
-    __syncthreads();
-    float s[kRowsPerWarp];
-    scores(s, q_s, q_row, kRowsPerWarp, k_s, hd);
-    const int key = j0 + lane;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
-      if (key >= n_live || (causal && key > pos[i])) s[i] = kMask;
-    online_update(s, m, l, acc, kRowsPerWarp, n, hd,
-                  [&](int j, int d) { return v_s[j * hd + d]; });
+  // with hd < HD the staging buffers zeroed, so the dims past hd read as
+  // zeros (a key's padding meets the query's zero padding)
+  if (hd < HD) {
+    uint4* z = reinterpret_cast<uint4*>(k_s);
+    const int n16 = static_cast<int>(2 * 2 * kBuf * sizeof(__nv_bfloat16) / 16);
+    for (int i = tid; i < n16; i += kMmaThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
 
+  // this warp's rows wr0 .. wr0 + 15; lane's rows g and g + 8 and their
+  // live-key limits; the warp's horizon, its last row's limit
+  const int wr0 = r0 + kTile * warp;
+  const bool active = wr0 < n_rows;
+  int lim[2];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = r0 + q_row[i];
-    if (r >= n_rows) continue;
-    const int h = hk * group + r % group;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (static_cast<long long>(b) * Sq + pos[i]) * H * hd + static_cast<long long>(h) * hd;
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
+    lim[h] = !(active && r < n_rows) ? 0 : (causal ? min(r / group + 1, n_valid) : n_valid);
+  }
+  const int last = min(wr0 + kTile, n_rows) - 1;
+  const int warp_lim = !active ? 0 : (causal ? min(last / group + 1, n_valid) : n_valid);
+
+  // q * scale in f32, split into NQ bf16 terms, as A fragments: register r
+  // of step ks holds row g (r even) or g + 8, dims 16 ks + 2 q4 (+ 8 for
+  // r >= 2) and the next
+  uint32_t qa[NQ][HD / 16][4];
+  const T* qrow[2];
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) orow[d] = from_f32<T>(__fdiv_rn(acc[i][t], l_safe));
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
+    qrow[h] = !(active && r < n_rows) ? nullptr
+              : q + (static_cast<long long>(b) * Sq + r / group) * H * hd +
+                    static_cast<long long>(hk * group + r % group) * hd;
+  }
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const T* qr = qrow[r & 1];
+      const int d = 16 * ks + 2 * q4 + 8 * (r >> 1);
+      uint32_t t[NQ];
+      split_pack<NQ>(qr && d < hd ? __fmul_rn(to_f32(qr[d]), scale) : 0.f,
+                     qr && d + 1 < hd ? __fmul_rn(to_f32(qr[d + 1]), scale) : 0.f, t);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) qa[i][ks][r] = t[i];
     }
-    if (lane == 0)
-      lse[(static_cast<long long>(b) * H + h) * Sq + pos[i]] = m[i] + logf(l_safe);
+
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  const bool async = std::is_same<T, __nv_bfloat16>::value && hd % 8 == 0 && kv_row % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  __syncthreads();                                             // zeroed buffers
+  auto stage = [&](int rd) {
+    const int j0 = rd * kRoundKeys;
+    stage_keys<T, HD, NT>(k_s + (rd & 1) * kBuf, v_s + (rd & 1) * kBuf, kb + j0 * kv_row,
+                          vb + j0 * kv_row, kv_row, min(kRoundKeys, n_live - j0), hd, kPlane,
+                          async, tid);
+  };
+  // async: round 0 in flight before the loop, and the next (a commit group
+  // each, empty past the last round) as each is consumed
+  if (async) {
+    if (n_rounds > 0) stage(0);
+    cp_async_commit();
+  }
+  for (int rd = 0; rd < n_rounds; ++rd) {
+    if (async) {
+      if (rd + 1 < n_rounds) stage(rd + 1);                    // into the buffer round
+      cp_async_commit();                                       // rd - 1 freed
+      cp_async_wait<1>();                                      // round rd has landed
+    } else {
+      stage(rd);
+    }
+    __syncthreads();                                           // round rd staged
+    const int n = min(kRoundKeys, n_live - rd * kRoundKeys);
+    const __nv_bfloat16* kr = k_s + (rd & 1) * kBuf;
+    const __nv_bfloat16* vr = v_s + (rd & 1) * kBuf;
+    if (active) {
+      for (int t0 = 0; t0 < n; t0 += kChunk) {                 // chunks in order
+        const int kpos0 = rd * kRoundKeys + t0;
+        if (kpos0 >= warp_lim) break;                          // dead for every row of the warp
+        tile_chunk<HD, NQ, NT>(qa, kr + t0 * P, vr + t0 * P, kPlane, min(kChunk, n - t0), kpos0,
+                               lim, m, l, acc);
+      }
+    }
+    __syncthreads();                                           // round rd fully used
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
+    if (r >= n_rows) continue;
+    const int pos = r / group, head = hk * group + r % group;
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    T* orow = o + (static_cast<long long>(b) * Sq + pos) * H * hd + static_cast<long long>(head) * hd;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nt + 2 * q4 + e;
+        if (d < hd) orow[d] = from_f32<T>(__fdiv_rn(acc[nt][2 * h + e], l_safe));
+      }
+    if (q4 == 0)
+      lse[(static_cast<long long>(b) * H + head) * Sq + pos] = __fadd_rn(m[h], logf(l_safe));
   }
 }
 
@@ -316,8 +431,8 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
   extern __shared__ float smem[];
   const int group = H / KV;
   float* q_s = smem;                            // [group][hd], scaled
-  float* k_s = q_s + kMaxGroup * hd;            // per warp: K [kTile][hd + 1],
-                                                //           V [kTile][hd]
+  float* k_s = q_s + kMaxGroup * hd;            // per warp: K [kKeyTile][hd + 1],
+                                                //           V [kKeyTile][hd]
   const int hk = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
   const long long kv_row = static_cast<long long>(KV) * hd;
@@ -325,7 +440,7 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
   const TC* vb = v + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * hd;
   const TQ* qb = q + (static_cast<long long>(b) * H + hk * group) * hd;
   const int n_live = max(0, min(kv_len[b], S));
-  const int n_tiles = (n_live + kTile - 1) / kTile;
+  const int n_tiles = (n_live + kKeyTile - 1) / kKeyTile;
 
   for (int e = tid; e < kMaxGroup * hd; e += blockDim.x)
     q_s[e] = e < group * hd ? __fmul_rn(to_f32(qb[e]), scale) : 0.f;
@@ -341,10 +456,10 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[g][t] = 0.f;
   }
-  float* kw = k_s + warp * kTile * (2 * hd + 1);
-  float* vw = kw + kTile * (hd + 1);
+  float* kw = k_s + warp * kKeyTile * (2 * hd + 1);
+  float* vw = kw + kKeyTile * (hd + 1);
   for (int kt = warp; kt < n_tiles; kt += n_warps) {
-    const int j0 = kt * kTile, n = min(kTile, n_live - j0);
+    const int j0 = kt * kKeyTile, n = min(kKeyTile, n_live - j0);
     __syncwarp();                               // previous tile fully used
     stage_tile(kw, hd + 1, kb + j0 * kv_row, kv_row, n, hd, lane, 32);
     stage_tile(vw, hd, vb + j0 * kv_row, kv_row, n, hd, lane, 32);
@@ -395,77 +510,6 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
   }
 }
 
-size_t fwd_smem(int hd) {
-  return sizeof(float) * (kFwdRows * hd + kTile * (hd + 1) + kTile * hd);
-}
-
-size_t decode_smem(int hd, int warps) {
-  const size_t tiles = static_cast<size_t>(warps) * kTile * (2 * hd + 1);
-  const size_t merge = static_cast<size_t>(warps) * kMaxGroup * (hd + 2);
-  return sizeof(float) * (kMaxGroup * hd + (tiles > merge ? tiles : merge));
-}
-
-template <typename T, int DPL>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                       int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
-                       float scale, cudaStream_t st) {
-  const dim3 grid((Sq * (H / KV) + kFwdRows - 1) / kFwdRows, KV, B);
-  flash_fwd_kernel<T, DPL><<<grid, kFwdWarps * 32, fwd_smem(hd), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TC, int DPL>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* kv_len,
-                          void* o, int B, int S, int H, int KV, int hd, float scale,
-                          cudaStream_t st) {
-  // above 48 KB of dynamic shared memory a kernel must opt in, once, up
-  // to what the card allows a block
-  static int max_smem = 0;
-  if (max_smem == 0) {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(decode_fwd_kernel<TQ, TC, DPL>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    max_smem = optin;
-  }
-  const int warps =
-      decode_smem(hd, kDecWarps) <= static_cast<size_t>(max_smem) ? kDecWarps : kDecWarps / 2;
-  decode_fwd_kernel<TQ, TC, DPL><<<dim3(KV, B), warps * 32, decode_smem(hd, warps), st>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), kv_len,
-      static_cast<TQ*>(o), S, H, KV, hd, scale);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TC>
-cudaError_t decode_by_hd(const void* q, const void* k, const void* v, const int* kv_len,
-                         void* o, int B, int S, int H, int KV, int hd, float scale,
-                         cudaStream_t st) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch_decode<TQ, TC, 1>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-    case 2: return launch_decode<TQ, TC, 2>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-    case 3: return launch_decode<TQ, TC, 3>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-    default: return launch_decode<TQ, TC, 4>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-  }
-}
-
-template <typename T>
-cudaError_t fwd_by_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                      int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
-                      float scale, cudaStream_t st) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch_fwd<T, 1>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    case 2: return launch_fwd<T, 2>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    case 3: return launch_fwd<T, 3>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    default: return launch_fwd<T, 4>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Backward (training): recompute-style, as the TPU kernels and the plain
 // version (ref.py flash_bwd_dq / flash_bwd_dkv) compute it. With s the
@@ -487,9 +531,8 @@ cudaError_t fwd_by_hd(const void* q, const void* k, const void* v, void* o, floa
 // What bounds them on an H100: at the training path's shapes (8 x 256
 // tokens, 15 query heads over 5 KV heads, hd 64) each moves a few MB and
 // does about 2.5x the forward's matmul work, far under the tensor cores'
-// rate: the bound is bytes, the real cost is latency and the CUDA cores'
-// f32 FMA rate. mma/wgmma on bf16 (which would round p and ds to bf16) and
-// TMA are later work.
+// rate: the bound is bytes, the real cost is latency and issue.
+// Both are still the first design, f32 FMAs on the CUDA cores.
 // ---------------------------------------------------------------------------
 constexpr int kBwdWarps = 4;
 constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;   // flattened q rows per block
@@ -531,8 +574,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   extern __shared__ float smem[];
   float* q_s = smem;                            // [kBwdRows][hd], scaled
   float* do_s = q_s + kBwdRows * hd;            // [kBwdRows][hd]
-  float* k_s = do_s + kBwdRows * hd;            // [kTile][hd + 1]
-  float* v_s = k_s + kTile * (hd + 1);          // [kTile][hd + 1]
+  float* k_s = do_s + kBwdRows * hd;            // [kKeyTile][hd + 1]
+  float* v_s = k_s + kKeyTile * (hd + 1);          // [kKeyTile][hd + 1]
   const int group = H / KV;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int n_rows = Sq * group;
@@ -566,10 +609,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   int n_live = min(kv_valid, Sk);
   if (causal) n_live = min(n_live, (min(r0 + kBwdRows, n_rows) - 1) / group + 1);
-  const int n_tiles = (n_live + kTile - 1) / kTile;
+  const int n_tiles = (n_live + kKeyTile - 1) / kKeyTile;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int j0 = kt * kTile, n = min(kTile, n_live - j0);
+    const int j0 = kt * kKeyTile, n = min(kKeyTile, n_live - j0);
     __syncthreads();                            // previous tile fully used
     stage_tile(k_s, hd + 1, kb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
     stage_tile(v_s, hd + 1, vb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
@@ -639,19 +682,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* q_s = smem;                            // [kBwdRows][hd]
   float* qs_s = q_s + kBwdRows * hd;            // [kBwdRows][hd], scaled
   float* do_s = qs_s + kBwdRows * hd;           // [kBwdRows][hd]
-  float* k_s = do_s + kBwdRows * hd;            // [kTile][hd + 1]
-  float* v_s = k_s + kTile * (hd + 1);          // [kTile][hd + 1]
-  float* p_s = v_s + kTile * (hd + 1);          // [kBwdRows][kTile]
-  float* ds_s = p_s + kBwdRows * kTile;         // [kBwdRows][kTile]
+  float* k_s = do_s + kBwdRows * hd;            // [kKeyTile][hd + 1]
+  float* v_s = k_s + kKeyTile * (hd + 1);          // [kKeyTile][hd + 1]
+  float* p_s = v_s + kKeyTile * (hd + 1);          // [kBwdRows][kKeyTile]
+  float* ds_s = p_s + kBwdRows * kKeyTile;         // [kBwdRows][kKeyTile]
   __shared__ float st_lse[kBwdRows], st_di[kBwdRows];
   const int group = H / KV;
   const int hk = blockIdx.y, b = blockIdx.z;
-  const int j0 = blockIdx.x * kTile;
+  const int j0 = blockIdx.x * kKeyTile;
   const int n_rows = Sq * group;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long kv_row = static_cast<long long>(KV) * hd;
   const int n_live = min(kv_valid, Sk);
-  const int n = max(0, min(kTile, n_live - j0));       // live keys of this tile
+  const int n = max(0, min(kKeyTile, n_live - j0));       // live keys of this tile
 
   float acc_k[DPT], acc_v[DPT];
 #pragma unroll
@@ -696,13 +739,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         // rows past n_rows carry do = 0, lse = di = 0: their p is finite
         // and their ds and p . do are 0; p is zeroed too so dv sees 0
         const float p = r < n_rows ? expf(s[i] - st_lse[q_row[i]]) : 0.f;
-        p_s[q_row[i] * kTile + lane] = p;
-        ds_s[q_row[i] * kTile + lane] = p * (dp[i] - st_di[q_row[i]]);
+        p_s[q_row[i] * kKeyTile + lane] = p;
+        ds_s[q_row[i] * kKeyTile + lane] = p * (dp[i] - st_di[q_row[i]]);
       }
       __syncthreads();
       const int rows = min(kBwdRows, n_rows - r0);
       for (int rr = 0; rr < rows; ++rr) {
-        const float p = p_s[rr * kTile + lane], ds = ds_s[rr * kTile + lane];
+        const float p = p_s[rr * kKeyTile + lane], ds = ds_s[rr * kKeyTile + lane];
 #pragma unroll
         for (int t = 0; t < DPT; ++t) {
           const int d = warp + kBwdWarps * t;
@@ -729,12 +772,92 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-size_t bwd_dq_smem(int hd) {
-  return sizeof(float) * (2 * kBwdRows * hd + 2 * kTile * (hd + 1));
+size_t decode_smem(int hd, int warps) {
+  const size_t tiles = static_cast<size_t>(warps) * kKeyTile * (2 * hd + 1);
+  const size_t merge = static_cast<size_t>(warps) * kMaxGroup * (hd + 2);
+  return sizeof(float) * (kMaxGroup * hd + (tiles > merge ? tiles : merge));
 }
 
-size_t bwd_dkv_smem(int hd) {
-  return sizeof(float) * (3 * kBwdRows * hd + 2 * kTile * (hd + 1) + 2 * kBwdRows * kTile);
+template <typename T, int HD, int NQ>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
+                       float scale, cudaStream_t st) {
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = opt_in(flash_fwd_kernel<T, HD, NQ>);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  const dim3 grid((Sq * (H / KV) + kFwdRows - 1) / kFwdRows, KV, B);
+  flash_fwd_kernel<T, HD, NQ><<<grid, kMmaThreads, fwd_smem<T, HD>(), st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TC, int DPL>
+cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* kv_len,
+                          void* o, int B, int S, int H, int KV, int hd, float scale,
+                          cudaStream_t st) {
+  // above 48 KB of dynamic shared memory a kernel must opt in, once, up
+  // to what the card allows a block
+  static int max_smem = 0;
+  if (max_smem == 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_fwd_kernel<TQ, TC, DPL>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    max_smem = optin;
+  }
+  const int warps =
+      decode_smem(hd, kDecWarps) <= static_cast<size_t>(max_smem) ? kDecWarps : kDecWarps / 2;
+  decode_fwd_kernel<TQ, TC, DPL><<<dim3(KV, B), warps * 32, decode_smem(hd, warps), st>>>(
+      static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), kv_len,
+      static_cast<TQ*>(o), S, H, KV, hd, scale);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TC>
+cudaError_t decode_by_hd(const void* q, const void* k, const void* v, const int* kv_len,
+                         void* o, int B, int S, int H, int KV, int hd, float scale,
+                         cudaStream_t st) {
+  switch ((hd + 31) / 32) {
+    case 1: return launch_decode<TQ, TC, 1>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
+    case 2: return launch_decode<TQ, TC, 2>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
+    case 3: return launch_decode<TQ, TC, 3>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
+    default: return launch_decode<TQ, TC, 4>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
+  }
+}
+
+// The tensor-core kernels' variants: the head dim padded to 64, 80 or 128;
+// q * scale in one bf16 term when q is bf16 and scale a power of two (the
+// product is exact and bf16; 1 / sqrt(hd) is one only for hd 1, 4, 16 and
+// 64, all padded to 64), else three.
+bool pow2_scale(float scale) {
+  int e = 0;
+  return frexpf(scale, &e) == 0.5f;
+}
+
+template <typename T>
+cudaError_t fwd_by_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
+                      float scale, cudaStream_t st) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if (pow2_scale(scale) && hd <= 64)
+      return launch_fwd<T, 64, 1>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  if (hd <= 64)
+    return launch_fwd<T, 64, 3>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  if (hd <= 80)
+    return launch_fwd<T, 80, 3>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  return launch_fwd<T, 128, 3>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+}
+
+size_t bwd_dq_smem(int hd) {
+  return sizeof(float) * (2 * kBwdRows * hd + 2 * kKeyTile * (hd + 1));
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once, up to
@@ -761,21 +884,6 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-template <typename T, int DPT>
-cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                           const float* lse, const float* di, float* dk, float* dv, int B,
-                           int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
-                           float scale, cudaStream_t st) {
-  const size_t smem = bwd_dkv_smem(hd);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, DPT>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kTile - 1) / kTile, KV, B);
-  flash_bwd_dkv_kernel<T, DPT><<<grid, kBwdWarps * 32, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, dk, dv, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t bwd_dq_by_hd(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* di, float* dq, int B, int Sq, int Sk,
@@ -787,6 +895,25 @@ cudaError_t bwd_dq_by_hd(const void* q, const void* k, const void* v, const void
     case 3: return launch_bwd_dq<T, 3>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
     default: return launch_bwd_dq<T, 4>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
   }
+}
+
+size_t bwd_dkv_smem(int hd) {
+  return sizeof(float) * (3 * kBwdRows * hd + 2 * kKeyTile * (hd + 1) + 2 * kBwdRows * kKeyTile);
+}
+
+template <typename T, int DPT>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* di, float* dk, float* dv, int B,
+                           int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
+                           float scale, cudaStream_t st) {
+  const size_t smem = bwd_dkv_smem(hd);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, DPT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + kKeyTile - 1) / kKeyTile, KV, B);
+  flash_bwd_dkv_kernel<T, DPT><<<grid, kBwdWarps * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, di, dk, dv, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
+  return cudaGetLastError();
 }
 
 template <typename T>
