@@ -532,7 +532,9 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
 // tokens, 15 query heads over 5 KV heads, hd 64) each moves a few MB and
 // does about 2.5x the forward's matmul work, far under the tensor cores'
 // rate: the bound is bytes, the real cost is latency and issue.
-// Both are still the first design, f32 FMAs on the CUDA cores.
+// flash_bwd_dq is still the first design, f32 FMAs on the CUDA cores;
+// flash_bwd_dkv runs its four products on the tensor cores (see its
+// kernel).
 // ---------------------------------------------------------------------------
 constexpr int kBwdWarps = 4;
 constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;   // flattened q rows per block
@@ -659,116 +661,339 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dkv: grid (ceil(Sk / 32), KV, B), 128 threads. A block owns one
-// tile of 32 keys of one KV head and walks every query row that can see
-// them -- all query positions (from the tile's first key on, when causal)
-// and, inside the block, every query head of the KV head's group -- in
-// chunks of 16 flattened rows, as the TPU kernel walks its Q tiles and
-// group loop. Per chunk: stage q (scaled and not), do, lse and di; each
-// warp computes p and ds of its four rows for the 32 keys (a lane = a key)
-// into shared memory; then each thread accumulates dk and dv for one key
-// (lane) and the dims warp + 4 i over the chunk's rows in order. dk, dv land
-// in (B, Sk, KV, hd): the group sum is free. Keys at or past kv_valid see
-// p = 0, so their dk and dv are 0, as in the TPU kernel.
+// flash_bwd_dkv: grid (ceil(Sk / 64), KV, B), 128 threads, on the tensor
+// cores (mma.sync m16n8k16, the tile step's arithmetic of
+// kernels/csrc/mma_tile.cuh). A block owns 64 keys of one KV head, a warp
+// 16 of them, staged once. The outputs' rows are keys, so each warp keeps
+// dV = P^T dO and dK = scale * dS^T Q of its 16 keys (16 x hd each) in
+// registers and contracts over the flattened (position, head-in-group)
+// query rows in k16 chunks: the GQA group sum comes free. The block walks
+// the rows that can see its keys (from its first key's position on, when
+// causal) in rounds of 32, staged by cp.async, double-buffered (bf16) or by
+// plain loads split into three bf16 planes (f32): q (the B operand of
+// dK), q * scale (of S: one bf16 term where q is bf16 and the scale a
+// power of two, else three), do, lse and di. Per chunk of 16 rows a warp
+//   * recomputes S^T = K (q * scale)^T and dP^T = V do^T (K and V as A
+//     fragments by ldmatrix, q and do as B);
+//   * P^T = exp(S^T - lse), dS^T = P^T (dP^T - di) on the fragments (dead
+//     keys and rows past the end get p = 0);
+//   * reuses those accumulator fragments as A operands, each split into
+//     three bf16 terms in registers, for dV += P^T do and dK += dS^T q
+//     (do and q by ldmatrix.trans).
+// Every k16 step is a fresh fragment added in f32 rounded to nearest. No
+// atomics and no split of the rows across blocks: each output element is
+// one lane's sum in one order, so two launches give the same bits. A chunk
+// whose rows all lie before the warp's first key (causal) contributes
+// exactly 0 and is skipped. Keys at or past kv_valid see p = 0, so their dk
+// and dv are 0, as in the TPU kernel.
 // ---------------------------------------------------------------------------
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+template <typename T, int HD, int NQ>
+constexpr size_t dkv_smem() {
+  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr size_t P = row_pitch<HD>();
+  constexpr size_t bufs = NT == 1 ? 2 : 1;
+  return sizeof(__nv_bfloat16) * (2 * NT * kBwdKeys * P + bufs * (NQ + 2 * NT) * kRoundRows * P) +
+         sizeof(float) * 2 * bufs * kRoundRows;
+}
+
+template <typename T, int HD, int NQ>
+__global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int Sq, int Sk, int H, int KV, int hd,
                      int kv_valid, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                            // [kBwdRows][hd]
-  float* qs_s = q_s + kBwdRows * hd;            // [kBwdRows][hd], scaled
-  float* do_s = qs_s + kBwdRows * hd;           // [kBwdRows][hd]
-  float* k_s = do_s + kBwdRows * hd;            // [kKeyTile][hd + 1]
-  float* v_s = k_s + kKeyTile * (hd + 1);          // [kKeyTile][hd + 1]
-  float* p_s = v_s + kKeyTile * (hd + 1);          // [kBwdRows][kKeyTile]
-  float* ds_s = p_s + kBwdRows * kKeyTile;         // [kBwdRows][kKeyTile]
-  __shared__ float st_lse[kBwdRows], st_di[kBwdRows];
-  const int group = H / KV;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int j0 = blockIdx.x * kKeyTile;
+  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int P = row_pitch<HD>();
+  constexpr int kKeyPlane = kBwdKeys * P;
+  constexpr int kRowPlane = kRoundRows * P;
+  constexpr int kBufs = NT == 1 ? 2 : 1;                       // f32 stages by plain loads
+  constexpr int kBuf = (NQ + 2 * NT) * kRowPlane;              // q * scale, q, do
+  extern __shared__ __align__(16) unsigned char tc_smem[];   // (smem is the f32 kernels')
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);    // [NT][kKeyPlane]
+  __nv_bfloat16* v_s = k_s + NT * kKeyPlane;                      // [NT][kKeyPlane]
+  __nv_bfloat16* r_s = v_s + NT * kKeyPlane;                      // [kBufs][kBuf]
+  float* lse_s = reinterpret_cast<float*>(r_s + kBufs * kBuf);    // [kBufs][kRoundRows]
+  float* di_s = lse_s + kBufs * kRoundRows;
+  const int group = H / KV, hk = blockIdx.y, b = blockIdx.z;
+  const int j0 = blockIdx.x * kBwdKeys;
   const int n_rows = Sq * group;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const long long kv_row = static_cast<long long>(KV) * hd;
-  const int n_live = min(kv_valid, Sk);
-  const int n = max(0, min(kKeyTile, n_live - j0));       // live keys of this tile
+  const int n_valid = min(kv_valid, Sk);
+  const int n_keys = max(0, min(kBwdKeys, n_valid - j0));     // live keys of the block
+  const int kw0 = j0 + kTile * warp;                           // the warp's first key
 
-  float acc_k[DPT], acc_v[DPT];
+  float acc_k[HD / 8][4], acc_v[HD / 8][4];
 #pragma unroll
-  for (int t = 0; t < DPT; ++t) acc_k[t] = acc_v[t] = 0.f;
-
-  if (n > 0) {
-    const T* kb = k + (static_cast<long long>(b) * Sk + j0) * kv_row + static_cast<long long>(hk) * hd;
-    const T* vb = v + (static_cast<long long>(b) * Sk + j0) * kv_row + static_cast<long long>(hk) * hd;
-    stage_tile(k_s, hd + 1, kb, kv_row, n, hd, tid, blockDim.x);
-    stage_tile(v_s, hd + 1, vb, kv_row, n, hd, tid, blockDim.x);
-    // causal: query positions before the tile's first key see none of it
-    const int row_start = causal ? min(j0, Sq) * group : 0;
-    const int key = j0 + lane;
-    int q_row[kRowsPerWarp];
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) q_row[i] = warp * kRowsPerWarp + i;
+    for (int i = 0; i < 4; ++i) acc_k[nt][i] = acc_v[nt][i] = 0.f;
 
-    for (int r0 = row_start; r0 < n_rows; r0 += kBwdRows) {
-      __syncthreads();                          // previous chunk fully used
-      stage_rows(q_s, qs_s, q, b, hk, r0, kBwdRows, n_rows, group, Sq, H, hd, scale);
-      stage_rows(do_s, static_cast<float*>(nullptr), dout, b, hk, r0, kBwdRows, n_rows, group,
-                 Sq, H, hd, scale);
-      if (tid < kBwdRows) {
-        const int r = r0 + tid;
-        float l = 0.f, dd = 0.f;
-        if (r < n_rows) {
-          const long long at = (static_cast<long long>(b) * H + hk * group + r % group) * Sq + r / group;
-          l = lse[at];
-          dd = di[at];
+  // causal: query positions before the block's first key see none of it
+  const int row_start = causal ? min(j0, Sq) * group : 0;
+  const int n_rounds = n_keys > 0 ? (n_rows - row_start + kRoundRows - 1) / kRoundRows : 0;
+  const bool async = std::is_same<T, __nv_bfloat16>::value && hd % 8 == 0 && kv_row % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+
+  if (n_rounds > 0) {
+    // every staged byte zero first: dims past hd, keys past the live ones
+    // and rows past the end then read as zeros
+    {
+      uint4* z = reinterpret_cast<uint4*>(tc_smem);
+      const int n16 = static_cast<int>((2 * NT * kKeyPlane + kBufs * kBuf) *
+                                       sizeof(__nv_bfloat16) / 16);
+      for (int i = tid; i < n16; i += kMmaThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+    // the block's live keys of K and V
+    {
+      const T* kb = k + (static_cast<long long>(b) * Sk + j0) * kv_row + static_cast<long long>(hk) * hd;
+      const T* vb = v + (static_cast<long long>(b) * Sk + j0) * kv_row + static_cast<long long>(hk) * hd;
+      if (async) {
+        const int per_row = hd / 8;
+        for (int c = tid; c < n_keys * per_row; c += kMmaThreads) {
+          const int t = c / per_row, d0 = (c - t * per_row) * 8;
+          cp_async16(k_s + t * P + d0, kb + t * kv_row + d0);
+          cp_async16(v_s + t * P + d0, vb + t * kv_row + d0);
         }
-        st_lse[tid] = l;
-        st_di[tid] = dd;
-      }
-      __syncthreads();
-      float s[kRowsPerWarp], dp[kRowsPerWarp];
-      scores(s, qs_s, q_row, kRowsPerWarp, k_s, hd);
-      scores(dp, do_s, q_row, kRowsPerWarp, v_s, hd);
+      } else {
+        for (int e = tid; e < n_keys * hd; e += kMmaThreads) {
+          const int t = e / hd, d = e - t * hd;
+          __nv_bfloat16 kt[NT], vt[NT];
+          split_bf16<NT>(to_f32(kb[t * kv_row + d]), kt);
+          split_bf16<NT>(to_f32(vb[t * kv_row + d]), vt);
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = r0 + q_row[i];
-        if (key >= n_live || (causal && key > r / group)) s[i] = kMask;
-        // rows past n_rows carry do = 0, lse = di = 0: their p is finite
-        // and their ds and p . do are 0; p is zeroed too so dv sees 0
-        const float p = r < n_rows ? expf(s[i] - st_lse[q_row[i]]) : 0.f;
-        p_s[q_row[i] * kKeyTile + lane] = p;
-        ds_s[q_row[i] * kKeyTile + lane] = p * (dp[i] - st_di[q_row[i]]);
-      }
-      __syncthreads();
-      const int rows = min(kBwdRows, n_rows - r0);
-      for (int rr = 0; rr < rows; ++rr) {
-        const float p = p_s[rr * kKeyTile + lane], ds = ds_s[rr * kKeyTile + lane];
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) {
-          const int d = warp + kBwdWarps * t;
-          if (d < hd) {
-            acc_v[t] = fmaf(p, do_s[rr * hd + d], acc_v[t]);
-            acc_k[t] = fmaf(ds, q_s[rr * hd + d], acc_k[t]);
+          for (int u = 0; u < NT; ++u) {
+            k_s[u * kKeyPlane + t * P + d] = kt[u];
+            v_s[u * kKeyPlane + t * P + d] = vt[u];
           }
         }
       }
     }
   }
 
-  const int key = j0 + lane;
-  if (key < Sk) {
-    const long long at = (static_cast<long long>(b) * Sk + key) * kv_row + static_cast<long long>(hk) * hd;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      const int d = warp + kBwdWarps * t;
-      if (d < hd) {
-        dk[at + d] = __fmul_rn(scale, acc_k[t]);
-        dv[at + d] = acc_v[t];
+  // Stage round rd's rows row_start + 32 rd + [0, n) into its buffer:
+  // planes q * scale (NQ), q (NT), do (NT); lse and di. Rows past n are
+  // zero (since the start, or rewritten so here). The async path leaves
+  // q * scale to scale_round, once q has landed.
+  auto stage = [&](int rd) {
+    const int rr0 = row_start + rd * kRoundRows, n = min(kRoundRows, n_rows - rr0);
+    __nv_bfloat16* qt = r_s + (rd % kBufs) * kBuf;
+    __nv_bfloat16* qp = qt + NQ * kRowPlane;
+    __nv_bfloat16* dp = qp + NT * kRowPlane;
+    if (tid < kRoundRows) {
+      float ll = 0.f, dd = 0.f;
+      if (tid < n) {
+        const int r = rr0 + tid;
+        const long long at = (static_cast<long long>(b) * H + hk * group + r % group) * Sq + r / group;
+        ll = lse[at];
+        dd = di[at];
+      }
+      lse_s[(rd % kBufs) * kRoundRows + tid] = ll;
+      di_s[(rd % kBufs) * kRoundRows + tid] = dd;
+    }
+    if (n < kRoundRows) {                                      // the last round's tail
+      constexpr int kRow16 = P * 2 / 16;
+      const int tail = (kRoundRows - n) * kRow16;
+      for (int i = tid; i < (NQ + 2 * NT) * tail; i += kMmaThreads) {
+        const int u = i / tail, w = i - u * tail;
+        reinterpret_cast<uint4*>(qt + u * kRowPlane + n * P)[w] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
+    auto row_at = [&](const T* base, int t) {
+      const int r = rr0 + t;
+      return base + (static_cast<long long>(b) * Sq + r / group) * H * hd +
+             static_cast<long long>(hk * group + r % group) * hd;
+    };
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (async) {
+        const int per_row = hd / 8;
+        for (int c = tid; c < n * per_row; c += kMmaThreads) {
+          const int t = c / per_row, d0 = (c - t * per_row) * 8;
+          cp_async16(qp + t * P + d0, row_at(q, t) + d0);
+          cp_async16(dp + t * P + d0, row_at(dout, t) + d0);
+        }
+        return;
+      }
+    }
+    for (int e = tid; e < n * hd; e += kMmaThreads) {
+      const int t = e / hd, d = e - t * hd;
+      const float x = to_f32(row_at(q, t)[d]);
+      __nv_bfloat16 xt[NT], st[NQ], ot[NT];
+      split_bf16<NT>(x, xt);
+      split_bf16<NQ>(__fmul_rn(x, scale), st);
+      split_bf16<NT>(to_f32(row_at(dout, t)[d]), ot);
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) qt[u * kRowPlane + t * P + d] = st[u];
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        qp[u * kRowPlane + t * P + d] = xt[u];
+        dp[u * kRowPlane + t * P + d] = ot[u];
+      }
+    }
+  };
+  // async: q * scale from the landed bf16 q plane (rows past n stay zero)
+  auto scale_round = [&](int rd) {
+    const int n = min(kRoundRows, n_rows - (row_start + rd * kRoundRows));
+    __nv_bfloat16* qt = r_s + (rd % kBufs) * kBuf;
+    const __nv_bfloat16* qp = qt + NQ * kRowPlane;
+    for (int e = tid; e < n * hd; e += kMmaThreads) {
+      const int t = e / hd, d = e - t * hd;
+      __nv_bfloat16 st[NQ];
+      split_bf16<NQ>(__fmul_rn(__bfloat162float(qp[t * P + d]), scale), st);
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) qt[u * kRowPlane + t * P + d] = st[u];
+    }
+  };
+
+  if (async) {
+    if (n_rounds > 0) stage(0);
+    cp_async_commit();                                         // with the keys
+  }
+  for (int rd = 0; rd < n_rounds; ++rd) {
+    if (async) {
+      if (rd + 1 < n_rounds) stage(rd + 1);                    // into the buffer round
+      cp_async_commit();                                       // rd - 1 freed
+      cp_async_wait<1>();                                      // round rd has landed
+      __syncthreads();
+      scale_round(rd);
+    } else {
+      stage(rd);
+    }
+    __syncthreads();                                           // round rd staged
+    const __nv_bfloat16* qt = r_s + (rd % kBufs) * kBuf;
+    const __nv_bfloat16* qp = qt + NQ * kRowPlane;
+    const __nv_bfloat16* dp = qp + NT * kRowPlane;
+    const float* ls = lse_s + (rd % kBufs) * kRoundRows;
+    const float* ds_ = di_s + (rd % kBufs) * kRoundRows;
+    const int rr0 = row_start + rd * kRoundRows;
+    if (kw0 < j0 + n_keys) {                                   // the warp has live keys
+#pragma unroll
+      for (int c = 0; c < kRoundRows / kTile; ++c) {
+        const int cr0 = rr0 + kTile * c;                       // the chunk's first row
+        if (cr0 >= n_rows) break;
+        if (causal && (min(cr0 + kTile, n_rows) - 1) / group < kw0) continue;
+        // S^T and dP^T (16 keys x 16 rows, two n8 tiles of rows each)
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          uint32_t ka[NT][4], va[NT][4], f[4];
+          uint32_t qb0[NQ][2], qb1[NQ][2], ob0[NT][2], ob1[NT][2];
+#pragma unroll
+          for (int u = 0; u < NT; ++u) {
+            load_a<P>(ka[u], k_s + u * kKeyPlane + kTile * warp * P, 16 * ks);
+            load_a<P>(va[u], v_s + u * kKeyPlane + kTile * warp * P, 16 * ks);
+            load_b_rows<P>(f, dp + u * kRowPlane + kTile * c * P, 16 * ks);
+            ob0[u][0] = f[0];
+            ob0[u][1] = f[1];
+            ob1[u][0] = f[2];
+            ob1[u][1] = f[3];
+          }
+#pragma unroll
+          for (int u = 0; u < NQ; ++u) {
+            load_b_rows<P>(f, qt + u * kRowPlane + kTile * c * P, 16 * ks);
+            qb0[u][0] = f[0];
+            qb0[u][1] = f[1];
+            qb1[u][0] = f[2];
+            qb1[u][1] = f[3];
+          }
+          float x[4][4];
+          pair_sum<NT, NQ>(x[0], ka, qb0);
+          pair_sum<NT, NQ>(x[1], ka, qb1);
+          pair_sum<NT, NT>(x[2], va, ob0);
+          pair_sum<NT, NT>(x[3], va, ob1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[0][i] = __fadd_rn(s[0][i], x[0][i]);
+            s[1][i] = __fadd_rn(s[1][i], x[1][i]);
+            dpt[0][i] = __fadd_rn(dpt[0][i], x[2][i]);
+            dpt[1][i] = __fadd_rn(dpt[1][i], x[3][i]);
+          }
+        }
+        // P^T and dS^T: element i of tile j is key kw0 + g (+ 8 for i >= 2),
+        // row cr0 + 8 j + 2 q4 + (i & 1)
+        float p[2][4], ds[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = kw0 + g + 8 * (i >> 1), t = kTile * c + 8 * j + 2 * q4 + (i & 1);
+            const int r = rr0 + t;
+            const bool live = key < n_valid && r < n_rows && (!causal || key <= r / group);
+            p[j][i] = live ? expf(__fsub_rn(s[j][i], ls[t])) : 0.f;
+            ds[j][i] = __fmul_rn(p[j][i], __fsub_rn(dpt[j][i], ds_[t]));
+          }
+        // as A fragments (16 keys x 16 rows), three bf16 terms each
+        uint32_t pa[kPTerms][4], sa[kPTerms][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = r >> 1, i = 2 * (r & 1);
+          uint32_t tp[kPTerms], ts[kPTerms];
+          split_pack<kPTerms>(p[j][i], p[j][i + 1], tp);
+          split_pack<kPTerms>(ds[j][i], ds[j][i + 1], ts);
+#pragma unroll
+          for (int u = 0; u < kPTerms; ++u) {
+            pa[u][r] = tp[u];
+            sa[u][r] = ts[u];
+          }
+        }
+        // dV += P^T do and dK += dS^T q, two n8 tiles of dims at a time
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; nt += 2) {
+          uint32_t f[4], ob0[NT][2], ob1[NT][2], qb0[NT][2], qb1[NT][2];
+#pragma unroll
+          for (int u = 0; u < NT; ++u) {
+            load_b_cols<P>(f, dp + u * kRowPlane + kTile * c * P, 8 * nt);
+            ob0[u][0] = f[0];
+            ob0[u][1] = f[1];
+            ob1[u][0] = f[2];
+            ob1[u][1] = f[3];
+            load_b_cols<P>(f, qp + u * kRowPlane + kTile * c * P, 8 * nt);
+            qb0[u][0] = f[0];
+            qb0[u][1] = f[1];
+            qb1[u][0] = f[2];
+            qb1[u][1] = f[3];
+          }
+          float x[4][4];
+          pair_sum<kPTerms, NT>(x[0], pa, ob0);
+          pair_sum<kPTerms, NT>(x[1], pa, ob1);
+          pair_sum<kPTerms, NT>(x[2], sa, qb0);
+          pair_sum<kPTerms, NT>(x[3], sa, qb1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc_v[nt][i] = __fadd_rn(acc_v[nt][i], x[0][i]);
+            acc_v[nt + 1][i] = __fadd_rn(acc_v[nt + 1][i], x[1][i]);
+            acc_k[nt][i] = __fadd_rn(acc_k[nt][i], x[2][i]);
+            acc_k[nt + 1][i] = __fadd_rn(acc_k[nt + 1][i], x[3][i]);
+          }
+        }
+      }
+    }
+    __syncthreads();                                           // round rd fully used
+  }
+
+  // dk = scale * acc_k, dv = acc_v; lane holds keys kw0 + g and + 8, dims
+  // 8 nt + 2 q4 and the next
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kw0 + g + 8 * h;
+    if (key >= Sk) continue;
+    const long long at = (static_cast<long long>(b) * Sk + key) * kv_row + static_cast<long long>(hk) * hd;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nt + 2 * q4 + e;
+        if (d < hd) {
+          dk[at + d] = __fmul_rn(scale, acc_k[nt][2 * h + e]);
+          dv[at + d] = acc_v[nt][2 * h + e];
+        }
+      }
   }
 }
 
@@ -897,20 +1122,19 @@ cudaError_t bwd_dq_by_hd(const void* q, const void* k, const void* v, const void
   }
 }
 
-size_t bwd_dkv_smem(int hd) {
-  return sizeof(float) * (3 * kBwdRows * hd + 2 * kKeyTile * (hd + 1) + 2 * kBwdRows * kKeyTile);
-}
-
-template <typename T, int DPT>
+template <typename T, int HD, int NQ>
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* di, float* dk, float* dv, int B,
                            int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
                            float scale, cudaStream_t st) {
-  const size_t smem = bwd_dkv_smem(hd);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, DPT>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kKeyTile - 1) / kKeyTile, KV, B);
-  flash_bwd_dkv_kernel<T, DPT><<<grid, kBwdWarps * 32, smem, st>>>(
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = opt_in(flash_bwd_dkv_kernel<T, HD, NQ>);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  const dim3 grid((Sk + kBwdKeys - 1) / kBwdKeys, KV, B);
+  flash_bwd_dkv_kernel<T, HD, NQ><<<grid, kMmaThreads, dkv_smem<T, HD, NQ>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, di, dk, dv, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
   return cudaGetLastError();
@@ -921,13 +1145,14 @@ cudaError_t bwd_dkv_by_hd(const void* q, const void* k, const void* v, const voi
                           const float* lse, const float* di, float* dk, float* dv, int B,
                           int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
                           float scale, cudaStream_t st) {
-  // dims per thread: ceil(hd / 4) over the block's four warps
-  switch ((hd + 31) / 32) {
-    case 1: return launch_bwd_dkv<T, 8>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    case 2: return launch_bwd_dkv<T, 16>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    case 3: return launch_bwd_dkv<T, 24>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    default: return launch_bwd_dkv<T, 32>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if (pow2_scale(scale) && hd <= 64)
+      return launch_bwd_dkv<T, 64, 1>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  if (hd <= 64)
+    return launch_bwd_dkv<T, 64, 3>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  if (hd <= 80)
+    return launch_bwd_dkv<T, 80, 3>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  return launch_bwd_dkv<T, 128, 3>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
 }
 
 }  // namespace
