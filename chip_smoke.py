@@ -116,7 +116,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
 18. timing of the CLIP kernels: one vision layer's calls at 4,128 rows,
     beside their bound, plain version and ``torch._int_mm`` + scale (the
     int8 forms' TOPS and bound share); ``flash_fwd`` at the two attention
-    shapes of phase 14 beside SDPA;
+    shapes of phase 14 beside SDPA, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    there beside SDPA's backward;
 19. fp8 kernels vs plain at every CLIP main-path shape (phase 13's table,
     both formats) and at 37 x 130 -> 70: ``row_quantize``,
     ``tensor_quantize``, ``block_quantize`` and ``transpose_bytes`` (the
@@ -211,7 +212,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     truncates or rounds, whether small addends are dropped one by one,
     whether the fragment itself is truncated, subnormal products; fails if
     a form keeps fewer bits than ``F8REF.ACC_BITS`` (what matmul_bound and
-    the model assume).
+    the model assume). Beside them the attention kernels' mma.sync
+    m16n8k16 bf16 step: the widths of a step's sum and of its addends.
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -1855,6 +1857,55 @@ def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="t
     return res
 
 
+def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal):
+    """``flash_bwd_dq`` and ``flash_bwd_dkv`` at one layer's attention
+    shape, bf16: each kernel, its plain version, SDPA's whole backward (dq,
+    dk and dv together, eager: the library yardstick of both) and the bound
+    (bytes against the live pairs' matmul operations at the bf16 peak).
+    Returns the readings and the input sets (q, k, v, do, lse, di)."""
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+
+    def attn_set():
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
+                       ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
+        o, lse = M.FA.flash_fwd_lse(q, k, v, causal=causal)
+        return q, k, v, do, lse, M.FREF.attention_di(o, do)
+
+    per = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + 2 * B * H * S * 4
+    asets = [attn_set() for _ in range(max(2, int(120e6 // per) + 1))]
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)   # live pairs
+    plain = {k: plain_flash_bwd(M, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+    # the library yardstick: SDPA's backward (dq, dk, dv together), eager
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in asets[0][:3])
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=H != KV)
+    do_s = asets[0][3].transpose(1, 2)
+    sdpa_dq = torch.autograd.grad(o_s, qs, do_s, retain_graph=True)[0].transpose(1, 2)
+    dq0 = M.FA.flash_bwd_dq(*asets[0], causal=causal)
+    sdpa_err = rel_err(torch, sdpa_dq.float(), dq0)
+    check(sdpa_err <= 2e-2, f"SDPA backward yardstick disagrees with flash_bwd_dq ({sdpa_err:g})")
+    sdpa_bwd_ms = eager_ms(torch, lambda i: torch.autograd.grad(
+        o_s, (qs, ks, vs), do_s, retain_graph=True), 1)
+    dkv_bytes = per + 2 * B * S * KV * hd * 4
+    dq_bytes = per + B * S * H * hd * 4
+    out = {}
+    for name, bytes_, flops in (("flash_bwd_dq", dq_bytes, 6.0 * pairs * hd),
+                                ("flash_bwd_dkv", dkv_bytes, 8.0 * pairs * hd)):
+        fn = getattr(M.FA, name)
+        out[name] = dict(
+            ms=graph_ms(torch, lambda i: fn(*asets[i], causal=causal), len(asets)),
+            plain_ms=graph_ms(torch, lambda i: plain[name](*asets[i], causal=causal),
+                              len(asets)),
+            library_ms=sdpa_bwd_ms, library="SDPA backward (dq, dk, dv together), eager",
+            sdpa_rel_err=sdpa_err,
+            eager_ms=eager_ms(torch, lambda i: fn(*asets[i], causal=causal), len(asets)),
+            bound=bound(bytes_, bf16_ops=flops), calls=1,
+            work=f"one layer's call: ({B}, {S}, {H}/{KV}, {hd}), "
+                 f"{'causal' if causal else 'no mask'}, bf16")
+    return out, asets
+
+
 def time_train_kernels(torch, M, cfg, dev, seed):
     """The training path's kernels at its shapes, one layer's calls: the
     int8 dgrad pair at 2048 rows (5 fused calls, 2 transposed), the flash
@@ -1926,42 +1977,9 @@ def time_train_kernels(torch, M, cfg, dev, seed):
     # the flash backward pair at one layer's shape: 8 x 256, causal, bf16
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    bf = torch.bfloat16
-
-    def attn_set():
-        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
-                       ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
-        o, lse = M.FA.flash_fwd_lse(q, k, v, causal=True)
-        return q, k, v, do, lse, M.FREF.attention_di(o, do)
-
-    per = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + 2 * B * H * S * 4
-    asets = [attn_set() for _ in range(max(2, int(120e6 // per) + 1))]
+    bwd, asets = time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, True)
+    out.update(bwd)
     pairs = B * H * S * (S + 1) // 2                          # causal live pairs
-    plain = {k: plain_flash_bwd(M, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")}
-
-    # the library yardstick: SDPA's backward (dq, dk, dv together), eager
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in asets[0][:3])
-    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    do_s = asets[0][3].transpose(1, 2)
-    sdpa_dq = torch.autograd.grad(o_s, qs, do_s, retain_graph=True)[0].transpose(1, 2)
-    dq0 = M.FA.flash_bwd_dq(*asets[0], causal=True)
-    sdpa_err = rel_err(torch, sdpa_dq.float(), dq0)
-    check(sdpa_err <= 2e-2, f"SDPA backward yardstick disagrees with flash_bwd_dq ({sdpa_err:g})")
-    sdpa_bwd_ms = eager_ms(torch, lambda i: torch.autograd.grad(
-        o_s, (qs, ks, vs), do_s, retain_graph=True), 1)
-    dkv_bytes = per + 2 * B * S * KV * hd * 4
-    dq_bytes = per + B * S * H * hd * 4
-    for name, bytes_, flops in (("flash_bwd_dq", dq_bytes, 6.0 * pairs * hd),
-                                ("flash_bwd_dkv", dkv_bytes, 8.0 * pairs * hd)):
-        fn = getattr(M.FA, name)
-        out[name] = dict(
-            ms=graph_ms(torch, lambda i: fn(*asets[i], causal=True), len(asets)),
-            plain_ms=graph_ms(torch, lambda i: plain[name](*asets[i], causal=True), len(asets)),
-            library_ms=sdpa_bwd_ms, library="SDPA backward (dq, dk, dv together), eager",
-            sdpa_rel_err=sdpa_err,
-            eager_ms=eager_ms(torch, lambda i: fn(*asets[i], causal=True), len(asets)),
-            bound=bound(bytes_, bf16_ops=flops), calls=1,
-            work=f"one layer's call: {B} x {S} tokens, causal, bf16")
 
     # flash_fwd at the same shape beside SDPA's forward
     def sdpa_fwd(q, k, v):
@@ -2444,21 +2462,22 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     out = time_work(torch, KOPS, REF, sets, work,
                     lambda c: f"one vision layer's {c} calls at {R} rows (batch {CLIP_BATCH})")
     del sets
-    out["flash_fwd"] = time_clip_flash(torch, M, cfg, dev, seed + 43)
+    out.update(time_clip_flash(torch, M, cfg, dev, seed + 43))
     print("[timing] clip kernels:", json.dumps(out))
     return out
 
 
 def time_clip_flash(torch, M, cfg, dev, seed):
-    """flash_fwd at CLIP's two attention shapes of phase 14, one layer's
-    call each, bf16 as the path runs: the vision tower's (32, 129, 16, 80)
-    with no mask and the text tower's (32, 77, 16, 64) causal; the kernel,
-    its plain version, SDPA and the bound (bytes against the live pairs'
-    matmul operations at the bf16 peak)."""
+    """The flash kernels at CLIP's two attention shapes of phase 14, one
+    layer's call each, bf16 as the path runs: the vision tower's (32, 129,
+    16, 80) with no mask and the text tower's (32, 77, 16, 64) causal.
+    ``flash_fwd``: the kernel, its plain version, SDPA and the bound (bytes
+    against the live pairs' matmul operations at the bf16 peak); the
+    backward pair as ``time_flash_bwd``. Returns {kernel: {tower: ...}}."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(seed)
     plain = plain_flash_fwd(M)
-    out = {}
+    out = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for tower, B, S, _, H, KV, hd, causal, _ in clip_flash_cases(cfg):
         def make():
             return tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -2475,7 +2494,7 @@ def time_clip_flash(torch, M, cfg, dev, seed):
         check(err <= 2e-2, f"SDPA yardstick disagrees with flash_fwd at CLIP {tower} ({err:g})")
         pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
         n = len(sets)
-        out[tower] = dict(
+        out["flash_fwd"][tower] = dict(
             ms=graph_ms(torch, lambda i: M.FA.flash_fwd_lse(*sets[i], causal=causal), n),
             plain_ms=graph_ms(torch, lambda i: plain(*sets[i], causal=causal), n),
             library_ms=graph_ms(torch, lambda i: sdpa(*sets[i]), n),
@@ -2486,6 +2505,10 @@ def time_clip_flash(torch, M, cfg, dev, seed):
             work=f"one {tower} layer's call: ({B}, {S}, {H}, {hd}), "
                  f"{'causal' if causal else 'no mask'}, bf16")
         del sets
+        bwd, asets = time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal)
+        del asets
+        for name, r in bwd.items():
+            out[name][tower] = r
     return out
 
 
@@ -2924,12 +2947,83 @@ def accumulator_probe(torch, M, dev):
     torch.cuda.synchronize()
     print("[probe] wgmma accumulation: " + json.dumps(out))
     print(f"[probe] readings off the model (F8TC): {len(off)} " + json.dumps(off[:8]))
+    mma = mma_sync_probe(torch, M, dev)
+    print("[probe] widths (bits below the largest addend), wgmma beside mma.sync: " + json.dumps(
+        {name: {k: r[k] for k in ("t", "t_products", "t_accumulator", "t_addend")}
+         for name, r in {**out, MMA_PROBE_FORM: mma}.items()}))
     for name, r in out.items():
         check(r["t"] >= M.F8REF.ACC_BITS[r["kind"]],
               f"probe {name}: adds {r['t']} bits below the largest addend, under the "
               f"{M.F8REF.ACC_BITS[r['kind']]} that matmul_bound assumes")
     check(not off, f"probe: {len(off)} readings off the tensor-core model, e.g. {off[:4]}")
     return out
+
+
+MMA_PROBE_FORM = "bf16.bf16 m16n8k16 (mma.sync)"
+
+
+def mma_sum(torch, M, dev, pairs):
+    """One probe of the attention kernels' mma.sync step (``fa_mma_probe``):
+    the operand ``pairs`` (bf16-exact (a, b), in k order, over as many k16
+    steps as they fill, chained on one fragment from zero) in every row
+    and column. Returns (the card's sum, the exact sum)."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.flash_attention import build as FB
+    steps = -(-len(pairs) // 16)
+    check(1 <= steps <= 4, f"mma.sync probe: {len(pairs)} products are not 1-4 steps")
+    a, b = [0.0] * 16 * steps, [0.0] * 16 * steps
+    for k, (x, y) in enumerate(pairs):
+        a[k], b[k] = x, y
+    A = torch.tensor([a] * 16, dtype=torch.float64)
+    B = torch.tensor([b] * 8, dtype=torch.float64)
+    check(torch.equal(A.bfloat16().double(), A) and torch.equal(B.bfloat16().double(), B),
+          "mma.sync probe: inexact operands")
+    ops = [t.bfloat16().contiguous().to(dev) for t in (A, B)]
+    d = torch.empty((16, 8), dtype=torch.float32, device=dev)
+    KB.launch(FB.load().fa_mma_probe, ops[0].data_ptr(), ops[1].data_ptr(), d.data_ptr(), steps,
+              KB.stream(d))
+    got = d.cpu().double()
+    check(bool((got == got[0, 0]).all()), "mma.sync probe: rows or columns disagree")
+    return float(got[0, 0]), math.fsum(x * y for x, y in pairs)
+
+
+def mma_sync_probe(torch, M, dev):
+    """The widths of the attention kernels' mma.sync m16n8k16 bf16 step
+    (flash_attention.cu, paged_attention.cu), read as ``accumulator_probe``
+    reads wgmma's: ``t_products`` the largest d for which 1 + 2^-d in one
+    step is exact for every smaller d, ``t_accumulator`` the same with the
+    1 a chained first step left in the fragment, ``t_addend`` the largest d
+    for which 15 addends of 2^-d still add something; then 0.75 and -0.5
+    units added to 1 at the width t (truncation or rounding). Printed
+    beside wgmma's; no plain model of it is fitted yet, so nothing is held
+    to one."""
+    def run(prods):
+        return mma_sum(torch, M, dev, [(p, 1.0) for p in prods])
+
+    width = {}
+    for key, case, same in (
+            ("products", lambda d: run([1.0, 2.0 ** -d]), lambda got, exact: got == exact),
+            ("accumulator", lambda d: run([1.0] + [0.0] * 15 + [2.0 ** -d]),
+             lambda got, exact: got == exact),
+            ("addend", lambda d: run([1.0] + [2.0 ** -d] * 15), lambda got, exact: got != 1.0)):
+        t = 0
+        for d in range(1, PROBE_DEPTH):
+            if not same(*case(d)):
+                break
+            t = d
+        width[key] = t
+    t = min(width["products"], width["accumulator"])
+    u = 2.0 ** -t
+    r = dict(kind="bf16", t=t, t_products=width["products"],
+             t_accumulator=width["accumulator"], t_addend=width["addend"], unit=u)
+    for key, prods in (("plus_0.75_unit", [1.0, 0.75 * u]), ("minus_0.5_unit", [1.0, -0.5 * u]),
+                       ("chained_plus_0.75_unit", [1.0] + [0.0] * 15 + [0.75 * u])):
+        got, want = run(prods)
+        r[key] = dict(got_minus_base_in_units=(got - 1.0) / u,
+                      exact_minus_base_in_units=(want - 1.0) / u)
+    torch.cuda.synchronize()
+    print("[probe] mma.sync accumulation: " + json.dumps(r))
+    return r
 
 
 # the one PyTorch call phase 23 times beside each fp8 kernel, by kind
@@ -4085,14 +4179,16 @@ def main(argv=None) -> int:
         return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms", "work", "tops",
                                   "bound_share") if k in r} | {"bound_ms": r["bound"][0]}
 
+    def at_clip(name):
+        """A flash kernel's readings at CLIP's two attention shapes (phase 18)."""
+        return {t: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms", "work")}
+                | {"bound_ms": r["bound"][0]} for t, r in clip_t[name].items()}
+
     full = flash_t["decode_fwd_full"]
     flash_entries = [
         dict(entry("flash_fwd", flash_t["flash_fwd"], max_err["flash_fwd"]),
              library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-             at_train_shape=at_train("flash_fwd"),
-             at_clip_shapes={t: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms",
-                                                   "work")} | {"bound_ms": r["bound"][0]}
-                             for t, r in clip_t["flash_fwd"].items()}),
+             at_train_shape=at_train("flash_fwd"), at_clip_shapes=at_clip("flash_fwd")),
         dict(entry("decode_fwd", flash_t["decode_fwd_served"], max_err["decode_fwd"]),
              library="scaled_dot_product_attention(attn_mask=key mask, enable_gqa=True)",
              full_window=dict(ms=full["ms"], plain_ms=full["plain_ms"],
@@ -4105,7 +4201,9 @@ def main(argv=None) -> int:
               "step_ms", "device_ms_per_step", "device_idle_share", "cuda_launches_per_step")}
               for impl, ps in profs.items()}))
     train_entries = [train_entry(k, max_err[k]) for k in (
-        "fused_switchback_dgrad", "int8_matmul_dequant_t", "flash_bwd_dq", "flash_bwd_dkv")]
+        "fused_switchback_dgrad", "int8_matmul_dequant_t")]
+    train_entries += [dict(train_entry(k, max_err[k]), at_clip_shapes=at_clip(k))
+                      for k in ("flash_bwd_dq", "flash_bwd_dkv")]
     def clip_entry(name):
         """A kernel of the CLIP path only: ``launches`` summed over the four
         modes' timed runs (CLIP_STEPS steps each), per step by mode beside."""

@@ -18,6 +18,8 @@ SIGNATURES = (
     ("fa_decode_fwd", (P, P, P, P, P, I, I, I, I, I, I, I, F32, P)),
     ("fa_flash_bwd_dq", (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F32, P)),
     ("fa_flash_bwd_dkv", (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F32, P)),
+    # chip_smoke.py's accumulator probe of one mma.sync step chain
+    ("fa_mma_probe", (P, P, P, I, P)),
 )
 
 

@@ -1155,6 +1155,34 @@ cudaError_t bwd_dkv_by_hd(const void* q, const void* k, const void* v, const voi
   return launch_bwd_dkv<T, 128, 3>(q, k, v, dout, lse, di, dk, dv, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
 }
 
+// ---------------------------------------------------------------------------
+// The accumulator probe's mma.sync step (chip_smoke.py phase 28): one warp
+// runs `steps` m16n8k16 bf16 steps chained on one fragment from zero, as
+// the tile step's operands would meet them: a (16, 16 steps) row-major, b
+// (8, 16 steps) with column n's k values contiguous, d (16, 8) f32.
+// ---------------------------------------------------------------------------
+__global__ void mma_probe_kernel(const __nv_bfloat16* __restrict__ a,
+                                 const __nv_bfloat16* __restrict__ b, float* __restrict__ d,
+                                 int steps) {
+  const int lane = threadIdx.x, g = lane >> 2, q4 = lane & 3, K = 16 * steps;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < steps; ++s) {
+    const __nv_bfloat16* as = a + 16 * s;
+    const __nv_bfloat16* bs = b + 16 * s;
+    uint32_t ar[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r & 1), col = 2 * q4 + 8 * (r >> 1);
+      ar[r] = pack2(as[row * K + col], as[row * K + col + 1]);
+    }
+    const uint32_t b0 = pack2(bs[g * K + 2 * q4], bs[g * K + 2 * q4 + 1]);
+    const uint32_t b1 = pack2(bs[g * K + 2 * q4 + 8], bs[g * K + 2 * q4 + 9]);
+    mma_bf16(acc, ar, b0, b1);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[(g + 8 * (i >> 1)) * 8 + 2 * q4 + (i & 1)] = acc[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -1227,6 +1255,14 @@ int fa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
       bf16 ? bwd_dkv_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
            : bwd_dkv_by_hd<float>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
   return static_cast<int>(err);
+}
+
+// a (16, 16 steps), b (8, 16 steps) bf16, d (16, 8) f32; 1 <= steps <= 4
+int fa_mma_probe(const void* a, const void* b, void* d, int steps, void* stream) {
+  mma_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<float*>(d), steps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

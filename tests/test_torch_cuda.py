@@ -30,10 +30,13 @@ giving exact zeros; each prefill row bit-equal to the decode at the same
 position (the property that makes speculative verify and preemption
 recompute give a plain decode's tokens), and every kernel bit-identical
 over two launches.
-The paged kernels run on the tensor cores (mma.sync, operands split into
-bf16 terms); a prefill row's bits equal the decode's at every row for
-Sq 5 and 128. ``flash_fwd`` also at CLIP's hd 64 and 80 and Sq off the
-multiples of 16 and 64, twice the same bits.
+The paged kernels, ``flash_fwd`` and ``flash_bwd_dkv`` run on the tensor
+cores through one tile step (mma.sync, operands split into bf16 terms,
+every k16 step a fresh fragment); a paged prefill row's bits equal the
+decode's at every row for Sq 5 and 128. ``flash_fwd`` also at CLIP's hd
+64 and 80 and Sq off the multiples of 16 and 64, and with
+``flash_bwd_dkv`` at smollm's and CLIP's full attention shapes, twice the
+same bits.
 ``int8_matmul_dequant`` (int8 wgmma) in all four forms (row or column
 scale, W (K, M) or (M, K)) bit-equal to its plain version at the paths'
 shapes, the swapped decode form, the masked producer (K = 588) and the
@@ -389,6 +392,35 @@ def test_cuda_flash_bwd_matches_plain(B, S, kv_valid, causal, dt):
     assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, di, **kw), dq)     # rerun
     assert all(torch.equal(a, b) for a, b in zip(FA.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
                                                  (dk, dv)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (8, 256, 15, 5, 64, True), (32, 129, 16, 16, 80, False), (32, 77, 16, 16, 64, True)],
+    ids=["smollm", "clip_vision", "clip_text"])
+def test_cuda_flash_tensor_core_kernels_at_path_shapes(B, S, H, KV, hd, causal, dt):
+    """flash_fwd and flash_bwd_dkv (mma.sync, the tile step of
+    kernels/csrc/mma_tile.cuh) at the training paths' full attention
+    shapes: within O_TOL / LSE_TOL and BWD_TOL of their plain versions,
+    two launches the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(B * S + hd)
+    q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+    scale = FA.softmax_scale(hd)
+    o, lse = FA.flash_fwd_lse(q, k, v, causal=causal)
+    ro, rlse = FREF.mha_fwd(q, k, v, causal=causal, kv_valid=S, scale=scale)
+    assert _rel(o, ro) <= O_TOL[dt] and float((lse - rlse).abs().max()) <= LSE_TOL
+    o2, lse2 = FA.flash_fwd_lse(q, k, v, causal=causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    di = FREF.attention_di(o, do)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal)
+    rdk, rdv = FREF.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal, kv_valid=S, scale=scale)
+    assert _rel(dk, rdk) <= BWD_TOL[dt] and _rel(dv, rdv) <= BWD_TOL[dt]
+    assert all(torch.equal(a, b) for a, b in zip(FA.flash_bwd_dkv(q, k, v, do, lse, di,
+                                                                  causal=causal), (dk, dv)))
     torch.cuda.synchronize()
 
 
