@@ -95,15 +95,18 @@ constexpr int kBwdKeys = kMmaWarps * kTile;   // flash_bwd_dkv: keys per block, 
 constexpr int kRoundRows = 32;     // flash_bwd_dkv: flattened q rows staged per round
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, up to what the
-// card allows a block; once per kernel (the caller keeps a static flag).
+// card allows a block: once per kernel, into the launcher's static
+// max_smem (left 0 on failure).
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel) {
+cudaError_t opt_in(Kernel kernel, int& max_smem) {
+  if (max_smem != 0) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) max_smem = optin;
   return err;
 }
 
@@ -1007,12 +1010,9 @@ template <typename T, int HD, int NQ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
                        float scale, cudaStream_t st) {
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t err = opt_in(flash_fwd_kernel<T, HD, NQ>);
-    if (err != cudaSuccess) return err;
-    opted = true;
-  }
+  static int max_smem = 0;
+  const cudaError_t err = opt_in(flash_fwd_kernel<T, HD, NQ>, max_smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Sq * (H / KV) + kFwdRows - 1) / kFwdRows, KV, B);
   flash_fwd_kernel<T, HD, NQ><<<grid, kMmaThreads, fwd_smem<T, HD>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -1024,20 +1024,9 @@ template <typename TQ, typename TC, int DPL>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* kv_len,
                           void* o, int B, int S, int H, int KV, int hd, float scale,
                           cudaStream_t st) {
-  // above 48 KB of dynamic shared memory a kernel must opt in, once, up
-  // to what the card allows a block
   static int max_smem = 0;
-  if (max_smem == 0) {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(decode_fwd_kernel<TQ, TC, DPL>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    max_smem = optin;
-  }
+  const cudaError_t err = opt_in(decode_fwd_kernel<TQ, TC, DPL>, max_smem);
+  if (err != cudaSuccess) return err;
   const int warps =
       decode_smem(hd, kDecWarps) <= static_cast<size_t>(max_smem) ? kDecWarps : kDecWarps / 2;
   decode_fwd_kernel<TQ, TC, DPL><<<dim3(KV, B), warps * 32, decode_smem(hd, warps), st>>>(
@@ -1085,22 +1074,14 @@ size_t bwd_dq_smem(int hd) {
   return sizeof(float) * (2 * kBwdRows * hd + 2 * kKeyTile * (hd + 1));
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once, up to
-// what the card allows a block.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <typename T, int DPL>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* di, float* dq, int B, int Sq, int Sk,
                           int H, int KV, int hd, int kv_valid, int causal, float scale,
                           cudaStream_t st) {
   const size_t smem = bwd_dq_smem(hd);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, DPL>, smem);
+  static int max_smem = 0;
+  const cudaError_t err = opt_in(flash_bwd_dq_kernel<T, DPL>, max_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq * (H / KV) + kBwdRows - 1) / kBwdRows, KV, B);
   flash_bwd_dq_kernel<T, DPL><<<grid, kBwdWarps * 32, smem, st>>>(
@@ -1127,12 +1108,9 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
                            const float* lse, const float* di, float* dk, float* dv, int B,
                            int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
                            float scale, cudaStream_t st) {
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t err = opt_in(flash_bwd_dkv_kernel<T, HD, NQ>);
-    if (err != cudaSuccess) return err;
-    opted = true;
-  }
+  static int max_smem = 0;
+  const cudaError_t err = opt_in(flash_bwd_dkv_kernel<T, HD, NQ>, max_smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Sk + kBwdKeys - 1) / kBwdKeys, KV, B);
   flash_bwd_dkv_kernel<T, HD, NQ><<<grid, kMmaThreads, dkv_smem<T, HD, NQ>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

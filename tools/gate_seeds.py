@@ -55,9 +55,8 @@ def summarise(readings, where, sound, faults):
         worst = {n: max(r[where][n][key] for r in readings.values()) for n in sound}
         least = {n: min(r[where][n][key] for r in readings.values()) for n in faults}
         hi, lo = max(worst.values()), min(least.values())
-        limit = float(f"{math.sqrt(hi * lo):.0e}") if hi > 0 else lo / 10
-        out[key] = dict(sound_max=worst, fault_min=least, separation=lo / hi if hi else math.inf,
-                        limit=limit,
+        limit = float(f"{math.sqrt(hi * lo):.0e}")
+        out[key] = dict(sound_max=worst, fault_min=least, separation=lo / hi, limit=limit,
                         sound_over_limit=sum(r[where][n][key] > limit
                                              for r in readings.values() for n in sound),
                         faults_within_limit=sum(r[where][n][key] <= limit
