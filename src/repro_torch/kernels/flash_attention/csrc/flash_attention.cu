@@ -43,7 +43,7 @@
 // What bounds them on this card: at the serve and train paths' shapes each
 // moves a few MB (bytes over 3.35 TB/s is 1-4 us) and computes far less
 // than the tensor cores could, so the bound is bytes; the real cost is
-// latency, issue and occupancy.
+// latency, instruction throughput and occupancy.
 //   * flash_fwd runs on the tensor cores, on the paged kernels' tile step
 //     (tile_chunk, kernels/csrc/mma_tile.cuh: mma.sync m16n8k16, bf16
 //     operands split into terms where a value is not exact in bf16, every
@@ -534,7 +534,8 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
 // What bounds them on an H100: at the training path's shapes (8 x 256
 // tokens, 15 query heads over 5 KV heads, hd 64) each moves a few MB and
 // does about 2.5x the forward's matmul work, far under the tensor cores'
-// rate: the bound is bytes, the real cost is latency and issue.
+// rate: the bound is bytes, the real cost is latency and instruction
+// throughput.
 // flash_bwd_dq is still the first design, f32 FMAs on the CUDA cores;
 // flash_bwd_dkv runs its four products on the tensor cores (see its
 // kernel).

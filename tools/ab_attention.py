@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "ab_attention.jsonl"))
+    ap.add_argument("--out", default=os.path.join(ROOT, "runs", "ab_attention.jsonl"))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

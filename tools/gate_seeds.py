@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Candidate statistics for ``chip_smoke.py`` phase 22's gate, over many seeds.
 
-    python3 tools/gate_seeds.py [--seeds 16] [--out chiprun_out/gate_seeds.json]
+    python3 tools/gate_seeds.py [--seeds 16] [--out runs/gate_seeds.json]
 
 Phase 22 trains CLIP ViT-H/14 at 2 + 2 layers and full width for 3 steps
 in the fp8 modes (``fp8`` and ``fp8_mixed`` in turn) on the card and on
@@ -68,7 +68,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "gate_seeds.json"))
+    ap.add_argument("--out", default=os.path.join(ROOT, "runs", "gate_seeds.json"))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
