@@ -552,19 +552,22 @@ def compare_flash(torch, M, cfg, dev, seed):
 # phase 7: timing
 # ---------------------------------------------------------------------------
 
-def graph_ms(torch, fn, n_sets, reps=20):
+def graph_ms(torch, fn, n_sets, reps=20, stream=None):
     """Device ms per ``fn(i)``: the calls for all ``n_sets`` input sets (more
     bytes than the 50 MB L2, as a decode step finds each layer's weights
     cold) captured once in a CUDA graph and replayed ``reps`` times, so the
-    time is the card's and not the host's launch rate."""
-    side = torch.cuda.Stream()
+    time is the card's and not the host's launch rate. With ``stream`` the
+    warm-up and the capture both run on it: an autograd backward issues its
+    kernels on the stream its forward ran on, so ``fn`` may be the backward
+    of a forward run there."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):                 # warm-up outside capture
         for i in range(n_sets):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(n_sets):
             fn(i)
     graph.replay()
@@ -1860,9 +1863,11 @@ def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="t
 def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` at one layer's attention
     shape, bf16: each kernel, its plain version, SDPA's whole backward (dq,
-    dk and dv together, eager: the library yardstick of both) and the bound
-    (bytes against the live pairs' matmul operations at the bf16 peak).
-    Returns the readings and the input sets (q, k, v, do, lse, di)."""
+    dk and dv together: the library yardstick of both) by CUDA-graph replay
+    over the same input sets (its eager time beside, ``library_eager_ms``)
+    and the bound (bytes against the live pairs' matmul operations at the
+    bf16 peak). Returns the readings and the input sets (q, k, v, do, lse,
+    di)."""
     import torch.nn.functional as F
     bf = torch.bfloat16
 
@@ -1877,16 +1882,30 @@ def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal):
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)   # live pairs
     plain = {k: plain_flash_bwd(M, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")}
 
-    # the library yardstick: SDPA's backward (dq, dk, dv together), eager
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in asets[0][:3])
-    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=H != KV)
-    do_s = asets[0][3].transpose(1, 2)
-    sdpa_dq = torch.autograd.grad(o_s, qs, do_s, retain_graph=True)[0].transpose(1, 2)
+    # the library yardstick: SDPA's backward (dq, dk, dv together) on every
+    # input set, its forward run once beforehand on the stream the graph
+    # then captures
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sdpa_sets = []
+        for q, k, v, do, _, _ in asets:
+            ins = tuple(t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            o_s = F.scaled_dot_product_attention(*ins, is_causal=causal, enable_gqa=H != KV)
+            sdpa_sets.append((ins, o_s, do.transpose(1, 2)))
+    torch.cuda.current_stream().wait_stream(side)
+
+    def sdpa_bwd(i):
+        ins, o_s, do_s = sdpa_sets[i]
+        return torch.autograd.grad(o_s, ins, do_s, retain_graph=True)
+
+    sdpa_dq = sdpa_bwd(0)[0].transpose(1, 2)
     dq0 = M.FA.flash_bwd_dq(*asets[0], causal=causal)
     sdpa_err = rel_err(torch, sdpa_dq.float(), dq0)
     check(sdpa_err <= 2e-2, f"SDPA backward yardstick disagrees with flash_bwd_dq ({sdpa_err:g})")
-    sdpa_bwd_ms = eager_ms(torch, lambda i: torch.autograd.grad(
-        o_s, (qs, ks, vs), do_s, retain_graph=True), 1)
+    sdpa_ms = graph_ms(torch, sdpa_bwd, len(asets), stream=side)
+    sdpa_eager_ms = eager_ms(torch, sdpa_bwd, len(asets))
+    del sdpa_sets
     dkv_bytes = per + 2 * B * S * KV * hd * 4
     dq_bytes = per + B * S * H * hd * 4
     out = {}
@@ -1897,8 +1916,8 @@ def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal):
             ms=graph_ms(torch, lambda i: fn(*asets[i], causal=causal), len(asets)),
             plain_ms=graph_ms(torch, lambda i: plain[name](*asets[i], causal=causal),
                               len(asets)),
-            library_ms=sdpa_bwd_ms, library="SDPA backward (dq, dk, dv together), eager",
-            sdpa_rel_err=sdpa_err,
+            library_ms=sdpa_ms, library_eager_ms=sdpa_eager_ms,
+            library="SDPA backward (dq, dk, dv together)", sdpa_rel_err=sdpa_err,
             eager_ms=eager_ms(torch, lambda i: fn(*asets[i], causal=causal), len(asets)),
             bound=bound(bytes_, bf16_ops=flops), calls=1,
             work=f"one layer's call: ({B}, {S}, {H}/{KV}, {hd}), "
@@ -4158,8 +4177,8 @@ def main(argv=None) -> int:
                     max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=r["library_ms"], eager_ms=r["eager_ms"],
                     calls_timed=r["calls"], work=r["work"],
-                    **({"library": r["library"]} if "library" in r else {}),
-                    **{k: r[k] for k in ("tops", "bound_share") if k in r})
+                    **{k: r[k] for k in ("library", "library_eager_ms", "tops", "bound_share")
+                       if k in r})
 
     def entries(R):
         out = []
@@ -4181,7 +4200,8 @@ def main(argv=None) -> int:
 
     def at_clip(name):
         """A flash kernel's readings at CLIP's two attention shapes (phase 18)."""
-        return {t: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "eager_ms", "work")}
+        return {t: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "library_eager_ms",
+                                      "eager_ms", "work") if k in r}
                 | {"bound_ms": r["bound"][0]} for t, r in clip_t[name].items()}
 
     full = flash_t["decode_fwd_full"]

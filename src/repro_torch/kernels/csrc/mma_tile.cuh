@@ -19,8 +19,11 @@
 //     (within 2^-16 of p) the served bf16 model drifts past its tolerance.
 //
 // tile_chunk is the online-softmax step of one warp's 16 query rows over a
-// chunk of 16 staged keys. Both paged kernels and flash_fwd run exactly
-// it, so a paged prefill row computes what a decode at its position does.
+// chunk of 16 staged keys. Both paged kernels, flash_fwd and decode_fwd
+// run exactly it, so a paged prefill row computes what a decode at its
+// position does. Its two products, chunk_scores (S = A K^T) and
+// chunk_times (a 16 x 16 A times the chunk's staged rows), are also
+// flash_bwd_dq's: S and dP = do V^T, then dQ += dS K.
 //
 // kernels/build.py hashes this header into the name of every library
 // whose source includes it, so an edit here rebuilds both.
@@ -200,6 +203,66 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const __nv_bfloat1
   ldmatrix_x4<true>(b, base + (mr + 8 * (mi & 1)) * P + c0 + 8 * (mi >> 1));
 }
 
+// One warp, one 16-row tile against a chunk of 16 staged keys: S = A K^T
+// as two n8 tiles (keys 0-7, 8-15), A the rows' NA bf16 terms as A
+// fragments per k16 step, K staged as NT terms (k_c at the chunk's first
+// key in plane 0, planes `plane` apart). Each k16 step's pairs of terms
+// are summed (pair_sum) and added to the running S, rounded to nearest.
+template <int HD, int NA, int NT>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const uint32_t (&a)[NA][HD / 16][4],
+                                             const __nv_bfloat16* k_c, int plane) {
+  constexpr int kPitch = row_pitch<HD>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t kf[NT][4], as[NA][4], b0[NT][2], b1[NT][2];
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      load_b_rows<kPitch>(kf[u], k_c + u * plane, 16 * ks);
+      b0[u][0] = kf[u][0];
+      b0[u][1] = kf[u][1];
+      b1[u][0] = kf[u][2];
+      b1[u][1] = kf[u][3];
+    }
+#pragma unroll
+    for (int t = 0; t < NA; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) as[t][r] = a[t][ks][r];
+    float x0[4], x1[4];
+    pair_sum<NA, NT>(x0, as, b0);
+    pair_sum<NA, NT>(x1, as, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[0][i] = __fadd_rn(s[0][i], x0[i]);
+      s[1][i] = __fadd_rn(s[1][i], x1[i]);
+    }
+  }
+}
+
+// One warp: a 16-row x 16-key A (kPTerms bf16 terms, A fragments) times
+// the chunk's 16 staged rows (NT terms, v_c at the chunk's first key in
+// plane 0), two n8 tiles of columns 8 nt .. 8 nt + 15 (read by
+// ldmatrix.trans): f[0], f[1] each the pairs' fresh fragments summed.
+template <int HD, int NT>
+__device__ __forceinline__ void chunk_times(float (&f)[2][4], const uint32_t (&pa)[kPTerms][4],
+                                            const __nv_bfloat16* v_c, int plane, int nt) {
+  constexpr int kPitch = row_pitch<HD>();
+  uint32_t vf[NT][4], b0[NT][2], b1[NT][2];
+#pragma unroll
+  for (int u = 0; u < NT; ++u) {
+    load_b_cols<kPitch>(vf[u], v_c + u * plane, 8 * nt);
+    b0[u][0] = vf[u][0];
+    b0[u][1] = vf[u][1];
+    b1[u][0] = vf[u][2];
+    b1[u][1] = vf[u][3];
+  }
+  pair_sum<kPTerms, NT>(f[0], pa, b0);
+  pair_sum<kPTerms, NT>(f[1], pa, b1);
+}
+
 // One warp, one 16-row tile: the online-softmax update with a chunk of
 // n <= 16 staged keys at absolute positions kpos0 + [0, n) (k_c, v_c point
 // at the chunk's first key in plane 0, planes `plane` apart). Lane l holds
@@ -215,36 +278,10 @@ __device__ __forceinline__ void tile_chunk(const uint32_t (&qa)[NQ][HD / 16][4],
                                            int plane, int n, int kpos0, const int (&lim)[2],
                                            float (&m)[2], float (&l)[2],
                                            float (&acc)[HD / 8][4]) {
-  constexpr int kPitch = row_pitch<HD>();
   const int lane = threadIdx.x & 31, q4 = lane & 3;
 
-  // S = Q~ K^T, two n8 tiles (keys 0-7, 8-15): each k16 step's pairs of
-  // terms summed (pair_sum) and added to the running S
-  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t kf[NT][4], a[NQ][4], b0[NT][2], b1[NT][2];
-#pragma unroll
-    for (int u = 0; u < NT; ++u) {
-      load_b_rows<kPitch>(kf[u], k_c + u * plane, 16 * ks);
-      b0[u][0] = kf[u][0];
-      b0[u][1] = kf[u][1];
-      b1[u][0] = kf[u][2];
-      b1[u][1] = kf[u][3];
-    }
-#pragma unroll
-    for (int t = 0; t < NQ; ++t)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[t][r] = qa[t][ks][r];
-    float x0[4], x1[4];
-    pair_sum<NQ, NT>(x0, a, b0);
-    pair_sum<NQ, NT>(x1, a, b1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s[0][i] = __fadd_rn(s[0][i], x0[i]);
-      s[1][i] = __fadd_rn(s[1][i], x1[i]);
-    }
-  }
+  float s[2][4];
+  chunk_scores<HD, NQ, NT>(s, qa, k_c, plane);
 
   // the online softmax per row, its 16 scores on the 4 lanes of a quad
   float alpha[2], pv[2][4];
@@ -288,18 +325,8 @@ __device__ __forceinline__ void tile_chunk(const uint32_t (&qa)[NQ][HD / 16][4],
   // fragments summed, then acc = fma(acc, alpha, sum)
 #pragma unroll
   for (int nt = 0; nt < HD / 8; nt += 2) {
-    uint32_t vf[NT][4], b0[NT][2], b1[NT][2];
-#pragma unroll
-    for (int u = 0; u < NT; ++u) {
-      load_b_cols<kPitch>(vf[u], v_c + u * plane, 8 * nt);
-      b0[u][0] = vf[u][0];
-      b0[u][1] = vf[u][1];
-      b1[u][0] = vf[u][2];
-      b1[u][1] = vf[u][3];
-    }
     float f[2][4];
-    pair_sum<kPTerms, NT>(f[0], pa, b0);
-    pair_sum<kPTerms, NT>(f[1], pa, b1);
+    chunk_times<HD, NT>(f, pa, v_c, plane, nt);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       acc[nt + (i >> 2)][i & 3] =

@@ -15,7 +15,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SIGNATURES = (
     # (name, argtypes); every function returns its cudaError_t as int
     ("fa_flash_fwd", (P, P, P, P, P, I, I, I, I, I, I, I, I, I, F32, P)),
-    ("fa_decode_fwd", (P, P, P, P, P, I, I, I, I, I, I, I, F32, P)),
+    ("fa_decode_fwd", (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F32, P)),
     ("fa_flash_bwd_dq", (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F32, P)),
     ("fa_flash_bwd_dkv", (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F32, P)),
     # chip_smoke.py's accumulator probe of one mma.sync step chain

@@ -43,34 +43,42 @@
 // What bounds them on this card: at the serve and train paths' shapes each
 // moves a few MB (bytes over 3.35 TB/s is 1-4 us) and computes far less
 // than the tensor cores could, so the bound is bytes; the real cost is
-// latency, instruction throughput and occupancy.
-//   * flash_fwd runs on the tensor cores, on the paged kernels' tile step
-//     (tile_chunk, kernels/csrc/mma_tile.cuh: mma.sync m16n8k16, bf16
-//     operands split into terms where a value is not exact in bf16, every
-//     k16 step a fresh fragment added rounded to nearest). A block owns
-//     one (batch, KV head) and 64 rows of the flattened (position,
-//     head-in-group) row space, 16 a warp: at smollm's 8 x 256 tokens 480
-//     blocks, at CLIP's vision tower 1,536. It stages 64 keys a round in
-//     shared memory as bf16 (an f32 input split into three planes),
-//     double-buffered by cp.async, and walks the rounds up to its causal
-//     horizon and kv_valid only: tiles past them are neither loaded nor
-//     computed, and a warp stops at its own last row's horizon. q * scale
-//     takes one bf16 term where q is bf16 and the scale a power of two
-//     (exact), else three (hd 80: 1 / sqrt(80)). The head dim is padded in
-//     shared memory and registers to 64, 80 (CLIP's vision tower: five k16
-//     steps) or 128.
-//   * decode_fwd: a block owns one (slot, KV head): `group` query rows.
-//     Its eight warps (four above hd 96, where eight warps' tiles would
-//     overflow shared memory) split the slot's live tiles round-robin (a slot
-//     kv_len tokens in walks ceil(kv_len / 32) tiles; dead tiles are
-//     neither loaded nor computed; at S_max 256 each warp takes one), each
-//     warp staging its own K and V tiles, and merge their (m, l, acc) at
-//     the end. The cache's S_max need not be a multiple of the tile: the
-//     ragged tile is masked. f32 FMAs on the CUDA cores, one lane per key,
-//     tiles staged with 16-byte loads where the rows allow it.
+// latency, instruction throughput and occupancy. All four run on the
+// tensor cores, on the paged kernels' tile step (kernels/csrc/mma_tile.cuh:
+// mma.sync m16n8k16, bf16 operands split into terms where a value is not
+// exact in bf16, every k16 step a fresh fragment added rounded to
+// nearest).
+//   * flash_fwd: a block owns one (batch, KV head) and 64 rows of the
+//     flattened (position, head-in-group) row space, 16 a warp: at
+//     smollm's 8 x 256 tokens 480 blocks, at CLIP's vision tower 1,536. It
+//     stages 64 keys a round in shared memory as bf16 (an f32 input split
+//     into three planes), double-buffered by cp.async, and walks the rounds
+//     up to its causal horizon and kv_valid only: tiles past them are
+//     neither loaded nor computed, and a warp stops at its own last row's
+//     horizon. q * scale takes one bf16 term where q is bf16 and the scale
+//     a power of two (exact), else three (hd 80: 1 / sqrt(80)). The head
+//     dim is padded in shared memory and registers to 64, 80 (CLIP's
+//     vision tower: five k16 steps) or 128.
+//   * flash_bwd_dq: flash_fwd's blocks, staging and walk, with the online
+//     softmax replaced by the forward's lse: per chunk of 16 keys S and
+//     dP = do V^T from fresh fragments, dS = P (dP - di) on them, and
+//     dQ += dS K (see its kernel).
+//   * decode_fwd: a split-key decode. Each slot's live keys are split into
+//     parts of `part_keys` (16 while S_max <= 1,024), one warp a part, four
+//     warps a block, grid (KV, B, parts / 4): at smollm's 8 slots x 5 KV
+//     heads and S_max 256, 160 blocks of 64 keys. A warp stages its part's
+//     keys as bf16 (16-byte cp.async, or an f32 cache split into three
+//     planes) and walks them with tile_chunk, the group's <= 8 query rows
+//     as its 16-row tile; parts past a slot's kv_len are neither loaded nor
+//     computed. Each part writes its (m, l, acc) to a workspace the wrapper
+//     allocates; the last block of a (slot, KV head) to arrive on an
+//     integer ticket merges the live parts in part-index order by one
+//     formula, in the same launch. The cache's S_max need not be a
+//     multiple of the part: the ragged part is masked.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
+// decode_fwd's workspace and tickets come from its wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,152 +91,57 @@
 
 namespace {
 
-constexpr int kKeyTile = 32;       // keys per tile of decode_fwd and flash_bwd_dq: one per lane
-constexpr int kRowsPerWarp = 4;    // flash_bwd_dq's rows per warp
-constexpr int kDecWarps = 8;       // 4 where 8 warps' tiles overflow shared memory
-constexpr int kMaxGroup = 8;       // query heads per KV head (decode rows)
-constexpr int kMmaWarps = 4;       // warps per block of flash_fwd and flash_bwd_dkv
+constexpr int kDecWarps = 4;       // decode_fwd: warps (parts) per block
+constexpr int kMaxParts = 64;      // decode_fwd: parts a slot's keys split into, at most
+constexpr int kMaxGroup = 8;       // decode_fwd: query heads per KV head
+constexpr int kMmaWarps = 4;       // warps per block of flash_fwd and the backward (at most)
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kFwdRows = kMmaWarps * kTile;   // flash_fwd: flattened q rows per block
-constexpr int kRoundKeys = 64;     // flash_fwd: keys staged per round
+constexpr int kRoundKeys = 64;     // flash_fwd, flash_bwd_dq: keys staged per round
 constexpr int kBwdKeys = kMmaWarps * kTile;   // flash_bwd_dkv: keys per block, 16 a warp
 constexpr int kRoundRows = 32;     // flash_bwd_dkv: flattened q rows staged per round
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, up to what the
-// card allows a block: once per kernel, into the launcher's static
-// max_smem (left 0 on failure).
+// card allows a block less the kernel's static shared memory: once per
+// kernel, into the launcher's static max_smem (left 0 on failure).
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, int& max_smem) {
   if (max_smem != 0) return cudaSuccess;
   int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    optin -= static_cast<int>(attr.sharedSizeBytes);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  }
   if (err == cudaSuccess) max_smem = optin;
   return err;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// A lane's rows g and g + 8 of a 16-row tile (rows[0], rows[1]; null for
+// a dead row) as x * scale in f32 (scale 1: x itself), split into N bf16
+// terms, as A fragments per k16 step: register r of step ks holds row g
+// (r even) or g + 8, dims 16 ks + 2 q4 (+ 8 for r >= 2) and the next; dims
+// past hd are zero.
+template <int N, int HD, typename T>
+__device__ __forceinline__ void row_fragments(uint32_t (&a)[N][HD / 16][4],
+                                              const T* const (&rows)[2], int hd, float scale) {
+  const int q4 = threadIdx.x & 3;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+  for (int ks = 0; ks < HD / 16; ++ks)
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// 16-byte loads: 8 bf16 or 4 f32 values widened to f32.
-__device__ __forceinline__ void unpack(const uint4& raw, float* f, const float*) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack(const uint4& raw, float* f, const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int r = 0; r < 4; ++r) {
+      const T* x = rows[r & 1];
+      const int d = 16 * ks + 2 * q4 + 8 * (r >> 1);
+      uint32_t t[N];
+      split_pack<N>(x && d < hd ? __fmul_rn(to_f32(x[d]), scale) : 0.f,
+                    x && d + 1 < hd ? __fmul_rn(to_f32(x[d + 1]), scale) : 0.f, t);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-// Copy rows [0, n) of a (rows, hd) slab whose rows are `row_stride`
-// elements apart into shared memory as f32 with pitch `pitch`; rows
-// [n, kKeyTile) are zeroed. Threads t, t + nt, ... of the block take part.
-// Where every row starts on 16 bytes (the path's layouts do) each thread
-// makes 16-byte loads, all independent, so one memory latency covers the
-// tile; otherwise one element per load.
-template <typename T>
-__device__ __forceinline__ void stage_tile(float* dst, int pitch, const T* src,
-                                           long long row_stride, int n, int hd,
-                                           int t, int nt) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (hd % kVec == 0 && row_stride % kVec == 0 &&
-      reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    const int per_row = hd / kVec;
-    for (int c = t; c < kKeyTile * per_row; c += nt) {
-      const int j = c / per_row, d0 = (c - j * per_row) * kVec;
-      float f[kVec];
-      if (j < n) {
-        unpack(*reinterpret_cast<const uint4*>(src + j * row_stride + d0), f, src);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) f[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dst[j * pitch + d0 + i] = f[i];
+      for (int i = 0; i < N; ++i) a[i][ks][r] = t[i];
     }
-    return;
-  }
-  for (int e = t; e < kKeyTile * hd; e += nt) {
-    const int j = e / hd, d = e - j * hd;
-    dst[j * pitch + d] = j < n ? to_f32(src[j * row_stride + d]) : 0.f;
-  }
-}
-
-// One warp, the first `rows` <= R rows (warp-uniform): scores of this
-// lane's key (row `lane` of k_s, pitch hd + 1 so the 32 lanes read 32 banks
-// for even hd) against pre-scaled q rows (rows q_row[r] of q_s, broadcast
-// reads), in f32, summed over d in order.
-template <int R>
-__device__ __forceinline__ void scores(float (&s)[R], const float* q_s, const int (&q_row)[R],
-                                       int rows, const float* k_s, int hd) {
-  const int lane = threadIdx.x & 31;
-  const float* kr = k_s + lane * (hd + 1);
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = 0.f;
-  for (int d = 0; d < hd; ++d) {
-    const float kd = kr[d];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < rows) s[r] = fmaf(q_s[q_row[r] * hd + d], kd, s[r]);
-  }
-}
-
-// One warp, the first `rows` <= R rows: the online-softmax update with
-// this tile's (masked) scores s[r] of this lane's key, and v rows j < n
-// read through `v_at` (v_at(j, d) -> f32). acc[r][i] holds dim
-// lane + 32 i of row r.
-template <int R, int DPL, typename VAt>
-__device__ __forceinline__ void online_update(const float (&s)[R], float (&m)[R], float (&l)[R],
-                                              float (&acc)[R][DPL], int rows, int n, int hd,
-                                              VAt v_at) {
-  const int lane = threadIdx.x & 31;
-  float p[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    p[r] = 0.f;
-    if (r >= rows) continue;
-    const float m_next = fmaxf(m[r], warp_max(s[r]));
-    p[r] = expf(s[r] - m_next);
-    const float alpha = expf(m[r] - m_next);
-    l[r] = l[r] * alpha + warp_sum(p[r]);
-    m[r] = m_next;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-  }
-  for (int j = 0; j < n; ++j) {
-    float vj[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      vj[i] = d < hd ? v_at(j, d) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= rows) continue;
-      const float pj = __shfl_sync(kFull, p[r], j);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pj, vj[i], acc[r][i]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -243,14 +156,16 @@ __device__ __forceinline__ void online_update(const float (&s)[R], float (&m)[R]
 // computes on the other buffer; otherwise plain loads, an f32 input split
 // into hi, mid and lo. Rows n .. kRoundKeys - 1 are zeroed (a chunk reads
 // 16 rows: a dead key's V row must be finite, its weight is 0); dims past
-// hd are never written (zero since the start).
+// hd are never written (zero since the start). Threads tid, tid + nthreads,
+// ... of the block take part.
 template <typename T, int HD, int NT>
 __device__ __forceinline__ void stage_keys(__nv_bfloat16* kd, __nv_bfloat16* vd, const T* ksrc,
                                            const T* vsrc, long long kv_row, int n, int hd,
-                                           int plane, bool async, int tid) {
+                                           int plane, bool async, int tid,
+                                           int nthreads) {
   constexpr int P = row_pitch<HD>();
   constexpr int kRow16 = P * 2 / 16;                           // 16-byte words a row
-  for (int i = tid; i < NT * (kRoundKeys - n) * kRow16; i += kMmaThreads) {
+  for (int i = tid; i < NT * (kRoundKeys - n) * kRow16; i += nthreads) {
     const int u = i / ((kRoundKeys - n) * kRow16), w = i - u * (kRoundKeys - n) * kRow16;
     reinterpret_cast<uint4*>(kd + u * plane + n * P)[w] = make_uint4(0u, 0u, 0u, 0u);
     reinterpret_cast<uint4*>(vd + u * plane + n * P)[w] = make_uint4(0u, 0u, 0u, 0u);
@@ -258,7 +173,7 @@ __device__ __forceinline__ void stage_keys(__nv_bfloat16* kd, __nv_bfloat16* vd,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (async) {
       const int per_row = hd / 8;
-      for (int c = tid; c < n * per_row; c += kMmaThreads) {
+      for (int c = tid; c < n * per_row; c += nthreads) {
         const int t = c / per_row, d0 = (c - t * per_row) * 8;
         cp_async16(kd + t * P + d0, ksrc + t * kv_row + d0);
         cp_async16(vd + t * P + d0, vsrc + t * kv_row + d0);
@@ -266,7 +181,7 @@ __device__ __forceinline__ void stage_keys(__nv_bfloat16* kd, __nv_bfloat16* vd,
       return;
     }
   }
-  for (int e = tid; e < n * hd; e += kMmaThreads) {
+  for (int e = tid; e < n * hd; e += nthreads) {
     const int t = e / hd, d = e - t * hd;
     __nv_bfloat16 kt[NT], vt[NT];
     split_bf16<NT>(to_f32(ksrc[t * kv_row + d]), kt);
@@ -276,6 +191,47 @@ __device__ __forceinline__ void stage_keys(__nv_bfloat16* kd, __nv_bfloat16* vd,
       kd[u * plane + t * P + d] = kt[u];
       vd[u * plane + t * P + d] = vt[u];
     }
+  }
+}
+
+// The rounds of kRoundKeys keys [0, n_live) of one (batch, KV head) (key
+// t's row at kb / vb + t * kv_row), staged by the block's nthreads threads
+// into the two buffers of k_s and v_s (NT planes of kRoundKeys rows each,
+// a buffer NT planes long): with `async` round rd + 1 in flight by cp.async
+// while round rd is used, else each round by plain loads when its turn
+// comes. body(rd, kr, vr, n) runs on round rd's n staged keys, between two
+// barriers of the block.
+template <typename T, int HD, int NT, typename Body>
+__device__ __forceinline__ void walk_rounds(__nv_bfloat16* k_s, __nv_bfloat16* v_s, const T* kb,
+                                            const T* vb, long long kv_row, int n_live, int hd,
+                                            bool async, int tid, int nthreads, Body&& body) {
+  constexpr int kPlane = kRoundKeys * row_pitch<HD>();
+  constexpr int kBuf = NT * kPlane;
+  const int n_rounds = (n_live + kRoundKeys - 1) / kRoundKeys;
+  auto stage = [&](int rd) {
+    const int j0 = rd * kRoundKeys;
+    stage_keys<T, HD, NT>(k_s + (rd & 1) * kBuf, v_s + (rd & 1) * kBuf, kb + j0 * kv_row,
+                          vb + j0 * kv_row, kv_row, min(kRoundKeys, n_live - j0), hd, kPlane,
+                          async, tid, nthreads);
+  };
+  // async: round 0 in flight before the loop, and the next (a commit group
+  // each, empty past the last round) as each is consumed
+  if (async) {
+    if (n_rounds > 0) stage(0);
+    cp_async_commit();
+  }
+  for (int rd = 0; rd < n_rounds; ++rd) {
+    if (async) {
+      if (rd + 1 < n_rounds) stage(rd + 1);                    // into the buffer round
+      cp_async_commit();                                       // rd - 1 freed
+      cp_async_wait<1>();                                      // round rd has landed
+    } else {
+      stage(rd);
+    }
+    __syncthreads();                                           // round rd staged
+    body(rd, k_s + (rd & 1) * kBuf, v_s + (rd & 1) * kBuf,
+         min(kRoundKeys, n_live - rd * kRoundKeys));
+    __syncthreads();                                           // round rd fully used
   }
 }
 
@@ -295,7 +251,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int P = row_pitch<HD>();
   constexpr int kPlane = kRoundKeys * P;                       // elements of one plane
   constexpr int kBuf = NT * kPlane;                            // one round's K (or V)
-  extern __shared__ __align__(16) unsigned char tc_smem[];   // (smem is the f32 kernels')
+  extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);    // [2][NT][kPlane]
   __nv_bfloat16* v_s = k_s + 2 * kBuf;
   const int group = H / KV, hk = blockIdx.y, b = blockIdx.z;
@@ -309,7 +265,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int n_valid = min(kv_valid, Sk);
   int n_live = n_valid;
   if (causal) n_live = min(n_live, (min(r0 + kFwdRows, n_rows) - 1) / group + 1);
-  const int n_rounds = (n_live + kRoundKeys - 1) / kRoundKeys;
 
   // with hd < HD the staging buffers zeroed, so the dims past hd read as
   // zeros (a key's padding meets the query's zero padding)
@@ -332,10 +287,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int last = min(wr0 + kTile, n_rows) - 1;
   const int warp_lim = !active ? 0 : (causal ? min(last / group + 1, n_valid) : n_valid);
 
-  // q * scale in f32, split into NQ bf16 terms, as A fragments: register r
-  // of step ks holds row g (r even) or g + 8, dims 16 ks + 2 q4 (+ 8 for
-  // r >= 2) and the next
-  uint32_t qa[NQ][HD / 16][4];
+  // q * scale in f32, split into NQ bf16 terms, as A fragments
   const T* qrow[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -344,18 +296,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
               : q + (static_cast<long long>(b) * Sq + r / group) * H * hd +
                     static_cast<long long>(hk * group + r % group) * hd;
   }
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const T* qr = qrow[r & 1];
-      const int d = 16 * ks + 2 * q4 + 8 * (r >> 1);
-      uint32_t t[NQ];
-      split_pack<NQ>(qr && d < hd ? __fmul_rn(to_f32(qr[d]), scale) : 0.f,
-                     qr && d + 1 < hd ? __fmul_rn(to_f32(qr[d + 1]), scale) : 0.f, t);
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) qa[i][ks][r] = t[i];
-    }
+  uint32_t qa[NQ][HD / 16][4];
+  row_fragments<NQ, HD>(qa, qrow, hd, scale);
 
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[HD / 8][4];
 #pragma unroll
@@ -367,40 +309,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                      reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(v) % 16 == 0;
   __syncthreads();                                             // zeroed buffers
-  auto stage = [&](int rd) {
-    const int j0 = rd * kRoundKeys;
-    stage_keys<T, HD, NT>(k_s + (rd & 1) * kBuf, v_s + (rd & 1) * kBuf, kb + j0 * kv_row,
-                          vb + j0 * kv_row, kv_row, min(kRoundKeys, n_live - j0), hd, kPlane,
-                          async, tid);
-  };
-  // async: round 0 in flight before the loop, and the next (a commit group
-  // each, empty past the last round) as each is consumed
-  if (async) {
-    if (n_rounds > 0) stage(0);
-    cp_async_commit();
-  }
-  for (int rd = 0; rd < n_rounds; ++rd) {
-    if (async) {
-      if (rd + 1 < n_rounds) stage(rd + 1);                    // into the buffer round
-      cp_async_commit();                                       // rd - 1 freed
-      cp_async_wait<1>();                                      // round rd has landed
-    } else {
-      stage(rd);
+  walk_rounds<T, HD, NT>(k_s, v_s, kb, vb, kv_row, n_live, hd, async, tid, kMmaThreads,
+                         [&](int rd, const __nv_bfloat16* kr, const __nv_bfloat16* vr, int n) {
+    if (!active) return;
+    for (int t0 = 0; t0 < n; t0 += kChunk) {                   // chunks in order
+      const int kpos0 = rd * kRoundKeys + t0;
+      if (kpos0 >= warp_lim) break;                            // dead for every row of the warp
+      tile_chunk<HD, NQ, NT>(qa, kr + t0 * P, vr + t0 * P, kPlane, min(kChunk, n - t0), kpos0,
+                             lim, m, l, acc);
     }
-    __syncthreads();                                           // round rd staged
-    const int n = min(kRoundKeys, n_live - rd * kRoundKeys);
-    const __nv_bfloat16* kr = k_s + (rd & 1) * kBuf;
-    const __nv_bfloat16* vr = v_s + (rd & 1) * kBuf;
-    if (active) {
-      for (int t0 = 0; t0 < n; t0 += kChunk) {                 // chunks in order
-        const int kpos0 = rd * kRoundKeys + t0;
-        if (kpos0 >= warp_lim) break;                          // dead for every row of the warp
-        tile_chunk<HD, NQ, NT>(qa, kr + t0 * P, vr + t0 * P, kPlane, min(kChunk, n - t0), kpos0,
-                               lim, m, l, acc);
-      }
-    }
-    __syncthreads();                                           // round rd fully used
-  }
+  });
 
   if (!active) return;
 #pragma unroll
@@ -423,93 +341,181 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// decode_fwd: grid (KV, B), 128 threads. q, o (B, 1, H, hd); the cache
-// k, v (B, S, KV, hd); kv_len (B,) int32 live cells per slot.
+// decode_fwd: grid (KV, B, ceil(parts / 4)), 128 threads. q, o (B, 1, H,
+// hd); the cache k, v (B, S, KV, hd); kv_len (B,) int32 live cells per
+// slot. Warp w of block z takes part p = 4 z + w, the keys p * part_keys ..
+// up to (p + 1) * part_keys and the slot's live count, and walks them in
+// chunks of 16 with tile_chunk: rows 0 .. group - 1 of its tile are the KV
+// head's query group (q * scale as A fragments), the other rows dead. It
+// writes the part's (m, l, acc) per query row to `work`: stats
+// [B][KV][parts][group][2] (m, l), then acc [B][KV][parts][group][hd]. A
+// part with no live key is neither loaded nor computed. Each block then
+// takes an integer ticket of its (slot, KV head); the last of its
+// ceil(parts / 4) blocks to arrive resets the ticket to 0 (ready for the
+// next launch or graph replay) and merges the live parts: their (m, l)
+// staged in shared memory; per query row, the parts p = 0, 1, ... in
+// order, M = max m_p, c_p = e^(m_p - M), L = sum l_p c_p; per output
+// element A = sum acc_p c_p (each sum an fma in part order), o = A / L
+// (L = 1 where it is 0: kv_len 0 gives o = 0). The order is fixed whichever
+// block merges, so two launches give the same bits.
 // ---------------------------------------------------------------------------
-template <typename TQ, typename TC, int DPL>
+template <typename TC, int HD>
+constexpr size_t decode_smem() {
+  constexpr int NT = std::is_same<TC, float>::value ? 3 : 1;
+  // per warp K and V of one chunk, NT planes each
+  return sizeof(__nv_bfloat16) * kDecWarps * 2 * NT * static_cast<size_t>(kChunk) * row_pitch<HD>();
+}
+
+template <typename TQ, typename TC, int HD, int NQ>
 __global__ void __launch_bounds__(kDecWarps * 32)
 decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
-                  const int* __restrict__ kv_len, TQ* __restrict__ o, int S, int H, int KV,
-                  int hd, float scale) {
-  extern __shared__ float smem[];
-  const int group = H / KV;
-  float* q_s = smem;                            // [group][hd], scaled
-  float* k_s = q_s + kMaxGroup * hd;            // per warp: K [kKeyTile][hd + 1],
-                                                //           V [kKeyTile][hd]
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-  const long long kv_row = static_cast<long long>(KV) * hd;
-  const TC* kb = k + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * hd;
-  const TC* vb = v + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * hd;
-  const TQ* qb = q + (static_cast<long long>(b) * H + hk * group) * hd;
+                  const int* __restrict__ kv_len, TQ* __restrict__ o, float* __restrict__ work,
+                  int* __restrict__ tickets, int S, int H, int KV, int hd, int parts,
+                  int part_keys, float scale) {
+  constexpr int NT = std::is_same<TC, float>::value ? 3 : 1;
+  constexpr int P = row_pitch<HD>();
+  constexpr int kPlane = kChunk * P;                           // elements of one plane
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float st_s[kMaxParts * kMaxGroup * 2];            // the merge: live parts' (m, l)
+  __shared__ float c_s[kMaxParts * kMaxGroup];                 // their weights e^(m_p - M)
+  __shared__ float l_s[kMaxGroup];                             // L, 1 where it is 0
+  __shared__ int last;
+  const int group = H / KV, hk = blockIdx.x, b = blockIdx.y, B = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int part = blockIdx.z * kDecWarps + warp;
   const int n_live = max(0, min(kv_len[b], S));
-  const int n_tiles = (n_live + kKeyTile - 1) / kKeyTile;
+  const int j0 = part * part_keys;
+  const long long slot = static_cast<long long>(b) * KV + hk;
+  const long long acc0 = 2LL * B * KV * parts * group;          // acc's offset in work
 
-  for (int e = tid; e < kMaxGroup * hd; e += blockDim.x)
-    q_s[e] = e < group * hd ? __fmul_rn(to_f32(qb[e]), scale) : 0.f;
-  __syncthreads();
+  if (part < parts && j0 < n_live) {                           // a live part
+    const int j1 = min(j0 + part_keys, n_live);
+    const long long kv_row = static_cast<long long>(KV) * hd;  // key stride
+    const TC* kb = k + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * hd;
+    const TC* vb = v + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * hd;
+    __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(tc_smem) + warp * 2 * NT * kPlane;
+    __nv_bfloat16* v_s = k_s + NT * kPlane;
+    const bool async = std::is_same<TC, __nv_bfloat16>::value && hd % 8 == 0 &&
+                       kv_row % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(v) % 16 == 0;
 
-  int q_row[kMaxGroup];
-  float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup][DPL];
+    // the chunk of n keys at c0 into this warp's planes, all 16 rows: rows
+    // n .. 15 repeat key n - 1 (finite; their weights are 0), by 16-byte
+    // cp.async (a bf16 cache with aligned rows) or plain loads split into
+    // NT terms. Dims past hd are zeroed once, before the first chunk.
+    if (hd < HD) {
+      uint4* z = reinterpret_cast<uint4*>(k_s);
+      constexpr int n16 = static_cast<int>(2 * NT * kPlane * sizeof(__nv_bfloat16) / 16);
+      for (int i = lane; i < n16; i += 32) z[i] = make_uint4(0u, 0u, 0u, 0u);
+      __syncwarp();
+    }
+    auto stage = [&](int c0, int n) {
+      __syncwarp();                                            // the previous chunk used
+      const TC* ks = kb + c0 * kv_row;
+      const TC* vs = vb + c0 * kv_row;
+      if constexpr (std::is_same<TC, __nv_bfloat16>::value) {
+        if (async) {
+          const int per_row = hd / 8;
+          for (int c = lane; c < kChunk * per_row; c += 32) {
+            const int t = c / per_row, d0 = (c - t * per_row) * 8, src = min(t, n - 1);
+            cp_async16(k_s + t * P + d0, ks + src * kv_row + d0);
+            cp_async16(v_s + t * P + d0, vs + src * kv_row + d0);
+          }
+          cp_async_commit();
+          return;
+        }
+      }
+      for (int e = lane; e < kChunk * hd; e += 32) {
+        const int t = e / hd, d = e - t * hd, src = min(t, n - 1);
+        __nv_bfloat16 kt[NT], vt[NT];
+        split_bf16<NT>(to_f32(ks[src * kv_row + d]), kt);
+        split_bf16<NT>(to_f32(vs[src * kv_row + d]), vt);
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    q_row[g] = g;
-    m[g] = kMask;
-    l[g] = 0.f;
+        for (int u = 0; u < NT; ++u) {
+          k_s[u * kPlane + t * P + d] = kt[u];
+          v_s[u * kPlane + t * P + d] = vt[u];
+        }
+      }
+    };
+    stage(j0, min(kChunk, j1 - j0));                           // in flight while q is read
+
+    // q * scale of the group's rows (tile rows g < group <= 8, query head
+    // hk * group + g; rows g + 8 and past the group are zero) as NQ bf16
+    // terms, A fragments
+    const TQ* qrow[2] = {g < group ? q + (slot * group + g) * hd : nullptr, nullptr};
+    uint32_t qa[NQ][HD / 16][4];
+    row_fragments<NQ, HD>(qa, qrow, hd, scale);
+    const int lim[2] = {g < group ? j1 : 0, 0};
+    float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[HD / 8][4];
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[g][t] = 0.f;
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+    for (int c0 = j0; c0 < j1; c0 += kChunk) {
+      const int n = min(kChunk, j1 - c0);
+      if (c0 > j0) stage(c0, n);
+      if (async) cp_async_wait<0>();
+      __syncwarp();                                            // the chunk staged
+      tile_chunk<HD, NQ, NT>(qa, k_s, v_s, kPlane, n, c0, lim, m, l, acc);
+    }
+
+    // the part's (m, l, acc) of rows g < group: lane holds dims 8 nt + 2 q4
+    // and the next of row g
+    if (g < group) {
+      const long long at = (slot * parts + part) * group + g;
+      if (q4 == 0) {
+        work[2 * at] = m[0];
+        work[2 * at + 1] = l[0];
+      }
+      float* wa = work + acc0 + at * hd;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * nt + 2 * q4 + e;
+          if (d < hd) wa[d] = acc[nt][e];
+        }
+    }
   }
-  float* kw = k_s + warp * kKeyTile * (2 * hd + 1);
-  float* vw = kw + kKeyTile * (hd + 1);
-  for (int kt = warp; kt < n_tiles; kt += n_warps) {
-    const int j0 = kt * kKeyTile, n = min(kKeyTile, n_live - j0);
-    __syncwarp();                               // previous tile fully used
-    stage_tile(kw, hd + 1, kb + j0 * kv_row, kv_row, n, hd, lane, 32);
-    stage_tile(vw, hd, vb + j0 * kv_row, kv_row, n, hd, lane, 32);
-    __syncwarp();
-    float s[kMaxGroup];
-    scores(s, q_s, q_row, group, kw, hd);
-    if (j0 + lane >= n_live) {
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) s[g] = kMask;
-    }
-    online_update(s, m, l, acc, group, n, hd,
-                  [&](int j, int d) { return vw[j * hd + d]; });
-  }
 
-  // merge the warps' partial states: M = max m_w, L = sum l_w e^(m_w - M),
-  // A = sum acc_w e^(m_w - M); a warp with no tile holds (MASK, 0, 0)
+  // the ticket: this block's parts written and visible before it arrives
+  __threadfence();
   __syncthreads();
-  float* red_m = k_s;                           // [n_warps][kMaxGroup]
-  float* red_l = red_m + n_warps * kMaxGroup;
-  float* red_a = red_l + n_warps * kMaxGroup;   // [n_warps][kMaxGroup][hd]
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g >= group) break;
-    if (lane == 0) {
-      red_m[warp * kMaxGroup + g] = m[g];
-      red_l[warp * kMaxGroup + g] = l[g];
+  if (tid == 0) {
+    last = atomicAdd(tickets + slot, 1) == static_cast<int>(gridDim.z) - 1;
+    if (last) tickets[slot] = 0;                               // for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last block merges the live parts (loads from L2: other blocks wrote them)
+  const int n_parts = (n_live + part_keys - 1) / part_keys;
+  const float* stats = work + 2 * slot * parts * group;        // [parts][group][2]
+  const float* accs = work + acc0 + slot * parts * group * hd;  // [parts][group][hd]
+  for (int i = tid; i < 2 * n_parts * group; i += blockDim.x) st_s[i] = __ldcg(stats + i);
+  __syncthreads();
+  if (tid < group) {                                           // one thread a row, parts in order
+    float mx = kMask;
+    for (int p = 0; p < n_parts; ++p) mx = fmaxf(mx, st_s[2 * (p * group + tid)]);
+    float sum_l = 0.f;
+    for (int p = 0; p < n_parts; ++p) {
+      const float c = expf(__fsub_rn(st_s[2 * (p * group + tid)], mx));
+      c_s[p * group + tid] = c;
+      sum_l = __fmaf_rn(st_s[2 * (p * group + tid) + 1], c, sum_l);
     }
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) red_a[(warp * kMaxGroup + g) * hd + d] = acc[g][t];
-    }
+    l_s[tid] = sum_l == 0.f ? 1.f : sum_l;
   }
   __syncthreads();
   for (int e = tid; e < group * hd; e += blockDim.x) {
-    const int g = e / hd, d = e - g * hd;
-    float mx = kMask;
-    for (int w = 0; w < n_warps; ++w) mx = fmaxf(mx, red_m[w * kMaxGroup + g]);
-    float sum_l = 0.f, sum_a = 0.f;
-    for (int w = 0; w < n_warps; ++w) {
-      const float c = expf(red_m[w * kMaxGroup + g] - mx);
-      sum_l = fmaf(red_l[w * kMaxGroup + g], c, sum_l);
-      sum_a = fmaf(red_a[(w * kMaxGroup + g) * hd + d], c, sum_a);
-    }
-    const float l_safe = sum_l == 0.f ? 1.f : sum_l;
-    o[(static_cast<long long>(b) * H + hk * group + g) * hd + d] =
-        from_f32<TQ>(__fdiv_rn(sum_a, l_safe));
+    const int r = e / hd, d = e - r * hd;
+    float sum_a = 0.f;
+#pragma unroll 8
+    for (int p = 0; p < n_parts; ++p)
+      sum_a = __fmaf_rn(__ldcg(accs + (static_cast<long long>(p) * group + r) * hd + d),
+                        c_s[p * group + r], sum_a);
+    o[(slot * group + r) * hd + d] = from_f32<TQ>(__fdiv_rn(sum_a, l_s[r]));
   }
 }
 
@@ -527,140 +533,180 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
 // casts them once to the input types.
 //
 // No floating-point atomics: every output element is written by one thread,
-// which sums its terms in one fixed order (key tiles in order, keys in order
-// for dq; query rows in order for dk and dv), so two launches on the same
-// inputs give bit-identical results.
+// which sums its terms in one fixed order (chunks of 16 keys in order for
+// dq, of 16 query rows for dk and dv; an mma sums a chunk in a fixed order
+// too), so two launches on the same inputs give bit-identical results.
 //
 // What bounds them on an H100: at the training path's shapes (8 x 256
 // tokens, 15 query heads over 5 KV heads, hd 64) each moves a few MB and
 // does about 2.5x the forward's matmul work, far under the tensor cores'
 // rate: the bound is bytes, the real cost is latency and instruction
-// throughput.
-// flash_bwd_dq is still the first design, f32 FMAs on the CUDA cores;
-// flash_bwd_dkv runs its four products on the tensor cores (see its
+// throughput. Both run their products on the tensor cores (see each
 // kernel).
-// ---------------------------------------------------------------------------
-constexpr int kBwdWarps = 4;
-constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;   // flattened q rows per block
 
-// Stage `n_stage` rows of flattened (position, head-in-group) rows starting
-// at r0 of one (batch, KV head) into shared memory as f32, pitch hd:
-// `dst_scaled` (if not null) takes x * scale rounded once (the forward's
-// scaled q), `dst` the value itself. Rows past n_rows are zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, float* dst_scaled, const T* src, int b,
-                                           int hk, int r0, int n_stage, int n_rows, int group,
-                                           int Sq, int H, int hd, float scale) {
-  for (int e = threadIdx.x; e < n_stage * hd; e += blockDim.x) {
-    const int rr = e / hd, d = e - rr * hd, r = r0 + rr;
-    float x = 0.f;
-    if (r < n_rows) {
-      const int pos = r / group, h = hk * group + r % group;
-      x = to_f32(src[(static_cast<long long>(b) * Sq + pos) * H * hd + static_cast<long long>(h) * hd + d]);
-    }
-    if (dst) dst[e] = x;
-    if (dst_scaled) dst_scaled[e] = __fmul_rn(x, scale);
-  }
+// ---------------------------------------------------------------------------
+// flash_bwd_dq: grid (ceil(tiles / w), KV, B), 32 w threads, on the tensor
+// cores (the tile step's products, kernels/csrc/mma_tile.cuh). The
+// outputs' rows are query rows, so the block is flash_fwd's: w <= 4 tiles
+// of 16 flattened (position, head-in-group) rows of one KV head, a warp
+// each, so one staged K/V round serves the whole query group; K and V
+// staged 64 keys a round as flash_fwd stages them, up to the block's
+// causal horizon and kv_valid. The Sq * group rows make `tiles` tiles of
+// 16, and the launcher spreads them evenly over the fewest blocks of at
+// most four (CLIP's 129 vision rows: 3 + 3 + 3 tiles, not 4 + 4 + 1).
+// A warp keeps q * scale (NQ bf16 terms) and do (NT terms) as A fragments
+// for the whole walk, and dQ (16 x HD) in registers. Per chunk of 16 keys:
+//   * S = (q * scale) K^T and dP = do V^T (chunk_scores: each k16 step's
+//     pairs of terms a fresh fragment); S is the forward's, bit for bit;
+//   * P = exp(S - lse), dS = P (dP - di) on the C fragments (dead keys and
+//     rows past the end get p = 0);
+//   * dS in three bf16 terms as the A operand of dQ += dS K, K the B
+//     operand by ldmatrix.trans (chunk_times, as flash_fwd's P V), each
+//     chunk's fresh fragments added in f32 rounded to nearest.
+// A chunk whose keys all lie past the warp's last row (causal) contributes
+// exactly 0 and is skipped, with every later one. dq = scale * acc, each
+// element one lane's sum in one order: two launches give the same bits.
+// ---------------------------------------------------------------------------
+// flash_bwd_dq's blocks an SM must hold at 128 threads (__launch_bounds__,
+// read on the card: each step up spills no more than 36 bytes): bf16 at
+// HD 64 with one q term four (128 registers), at HD 80 three (168); the
+// rest, with more terms or dims to hold, two.
+template <typename T, int HD, int NQ>
+constexpr int dq_min_blocks() {
+  if (!std::is_same<T, __nv_bfloat16>::value) return 2;
+  return HD == 64 && NQ == 1 ? 4 : HD == 80 ? 3 : 2;
 }
 
-// ---------------------------------------------------------------------------
-// flash_bwd_dq: grid (ceil(Sq * group / 16), KV, B), 128 threads. As
-// flash_fwd, a block owns 16 flattened (position, head-in-group) rows of one
-// KV head, so each K/V tile it stages serves the whole query group, and
-// walks the live key tiles (causal diagonal and kv_valid) in order. A warp
-// owns four rows; for the scores and ds a lane owns one key of the tile,
-// for the dq accumulator dims lane + 32 i.
-// ---------------------------------------------------------------------------
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+template <typename T, int HD, int NQ>
+__global__ void __launch_bounds__(kMmaThreads, dq_min_blocks<T, HD, NQ>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq, int Sq, int Sk, int H,
                     int KV, int hd, int kv_valid, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                            // [kBwdRows][hd], scaled
-  float* do_s = q_s + kBwdRows * hd;            // [kBwdRows][hd]
-  float* k_s = do_s + kBwdRows * hd;            // [kKeyTile][hd + 1]
-  float* v_s = k_s + kKeyTile * (hd + 1);          // [kKeyTile][hd + 1]
-  const int group = H / KV;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int n_rows = Sq * group;
-  const int r0 = blockIdx.x * kBwdRows;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long kv_row = static_cast<long long>(KV) * hd;
+  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int P = row_pitch<HD>();
+  constexpr int kPlane = kRoundKeys * P;                       // elements of one plane
+  constexpr int kBuf = NT * kPlane;                            // one round's K (or V)
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);    // [2][NT][kPlane]
+  __nv_bfloat16* v_s = k_s + 2 * kBuf;
+  const int group = H / KV, hk = blockIdx.y, b = blockIdx.z;
+  const int nthreads = blockDim.x, block_rows = kTile * (nthreads >> 5);
+  const int n_rows = Sq * group, r0 = blockIdx.x * block_rows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const long long kv_row = static_cast<long long>(KV) * hd;   // key stride
   const T* kb = k + static_cast<long long>(b) * Sk * kv_row + static_cast<long long>(hk) * hd;
   const T* vb = v + static_cast<long long>(b) * Sk * kv_row + static_cast<long long>(hk) * hd;
 
-  stage_rows(static_cast<float*>(nullptr), q_s, q, b, hk, r0, kBwdRows, n_rows, group, Sq, H, hd,
-             scale);
-  stage_rows(do_s, static_cast<float*>(nullptr), dout, b, hk, r0, kBwdRows, n_rows, group, Sq,
-             H, hd, scale);
+  // live keys of the block: below kv_valid and, causal, up to its last row
+  const int n_valid = min(kv_valid, Sk);
+  int n_live = n_valid;
+  if (causal) n_live = min(n_live, (min(r0 + block_rows, n_rows) - 1) / group + 1);
 
-  int q_row[kRowsPerWarp], pos[kRowsPerWarp];
-  float row_lse[kRowsPerWarp], row_di[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    q_row[i] = warp * kRowsPerWarp + i;
-    const int r = r0 + q_row[i];
-    pos[i] = r / group;
-    row_lse[i] = 0.f;
-    row_di[i] = 0.f;
-    if (r < n_rows) {
-      const long long at = (static_cast<long long>(b) * H + hk * group + r % group) * Sq + pos[i];
-      row_lse[i] = lse[at];
-      row_di[i] = di[at];
-    }
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
-  }
-  int n_live = min(kv_valid, Sk);
-  if (causal) n_live = min(n_live, (min(r0 + kBwdRows, n_rows) - 1) / group + 1);
-  const int n_tiles = (n_live + kKeyTile - 1) / kKeyTile;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int j0 = kt * kKeyTile, n = min(kKeyTile, n_live - j0);
-    __syncthreads();                            // previous tile fully used
-    stage_tile(k_s, hd + 1, kb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
-    stage_tile(v_s, hd + 1, vb + j0 * kv_row, kv_row, n, hd, tid, blockDim.x);
-    __syncthreads();
-    float s[kRowsPerWarp], dp[kRowsPerWarp];
-    scores(s, q_s, q_row, kRowsPerWarp, k_s, hd);
-    scores(dp, do_s, q_row, kRowsPerWarp, v_s, hd);
-    const int key = j0 + lane;
-    float ds[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      if (key >= n_live || (causal && key > pos[i])) s[i] = kMask;
-      const float p = expf(s[i] - row_lse[i]);
-      ds[i] = p * (dp[i] - row_di[i]);
-    }
-    for (int j = 0; j < n; ++j) {
-      float kj[DPL];
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        const int d = lane + 32 * t;
-        kj[t] = d < hd ? k_s[j * (hd + 1) + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float dsj = __shfl_sync(kFull, ds[i], j);
-#pragma unroll
-        for (int t = 0; t < DPL; ++t) acc[i][t] = fmaf(dsj, kj[t], acc[i][t]);
-      }
-    }
+  if (hd < HD) {                                               // padded dims read as zeros
+    uint4* z = reinterpret_cast<uint4*>(k_s);
+    const int n16 = static_cast<int>(2 * 2 * kBuf * sizeof(__nv_bfloat16) / 16);
+    for (int i = tid; i < n16; i += nthreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
 
+  // this warp's rows wr0 .. wr0 + 15; lane's rows g and g + 8 (h = 0, 1),
+  // their live-key limits, lse and di; the warp's horizon
+  const int wr0 = r0 + kTile * warp;
+  const bool active = wr0 < n_rows;
+  int lim[2];
+  float row_lse[2], row_di[2];
+  const T *qrow[2], *dorow[2];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = r0 + q_row[i];
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
+    const bool live = active && r < n_rows;
+    lim[h] = !live ? 0 : (causal ? min(r / group + 1, n_valid) : n_valid);
+    const long long row = (static_cast<long long>(b) * Sq + r / group) * H * hd +
+                          static_cast<long long>(hk * group + r % group) * hd;
+    qrow[h] = live ? q + row : nullptr;
+    dorow[h] = live ? dout + row : nullptr;
+    const long long at = (static_cast<long long>(b) * H + hk * group + r % group) * Sq + r / group;
+    row_lse[h] = live ? lse[at] : 0.f;
+    row_di[h] = live ? di[at] : 0.f;
+  }
+  const int last = min(wr0 + kTile, n_rows) - 1;
+  const int warp_lim = !active ? 0 : (causal ? min(last / group + 1, n_valid) : n_valid);
+
+  // q * scale (NQ terms) and do (NT terms) as A fragments
+  uint32_t qa[NQ][HD / 16][4], da[NT][HD / 16][4];
+  row_fragments<NQ, HD>(qa, qrow, hd, scale);
+  row_fragments<NT, HD>(da, dorow, hd, 1.f);
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  const bool async = std::is_same<T, __nv_bfloat16>::value && hd % 8 == 0 && kv_row % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  __syncthreads();                                             // zeroed buffers
+  walk_rounds<T, HD, NT>(k_s, v_s, kb, vb, kv_row, n_live, hd, async, tid, nthreads,
+                         [&](int rd, const __nv_bfloat16* kr, const __nv_bfloat16* vr, int n) {
+    if (!active) return;
+    for (int t0 = 0; t0 < n; t0 += kChunk) {                   // chunks in order
+      const int kpos0 = rd * kRoundKeys + t0;
+      if (kpos0 >= warp_lim) break;                            // dead for every row of the warp
+      const int nc = min(kChunk, n - t0);
+      float s[2][4], dp[2][4];
+      chunk_scores<HD, NQ, NT>(s, qa, kr + t0 * P, kPlane);
+      chunk_scores<HD, NT, NT>(dp, da, vr + t0 * P, kPlane);
+      // element i of tile j: row g + 8 (i >> 1), key kpos0 + 8 j + 2 q4 + (i & 1)
+      float ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = 8 * j + 2 * q4 + (i & 1), h = i >> 1;
+          const bool live = key < nc && kpos0 + key < lim[h];
+          const float p = live ? expf(__fsub_rn(s[j][i], row_lse[h])) : 0.f;
+          ds[j][i] = __fmul_rn(p, __fsub_rn(dp[j][i], row_di[h]));
+        }
+      // dS as A fragments (16 rows x 16 keys), three bf16 terms
+      uint32_t sa[kPTerms][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = r >> 1, i = 2 * (r & 1);
+        uint32_t t[kPTerms];
+        split_pack<kPTerms>(ds[j][i], ds[j][i + 1], t);
+#pragma unroll
+        for (int u = 0; u < kPTerms; ++u) sa[u][r] = t[u];
+      }
+      // dQ += dS K, two n8 tiles of dims at a time
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; nt += 2) {
+        float f[2][4];
+        chunk_times<HD, NT>(f, sa, kr + t0 * P, kPlane, nt);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[nt][i] = __fadd_rn(acc[nt][i], f[0][i]);
+          acc[nt + 1][i] = __fadd_rn(acc[nt + 1][i], f[1][i]);
+        }
+      }
+    }
+  });
+
+  if (!active) return;
+  // lane holds rows g and g + 8, dims 8 nt + 2 q4 and the next
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + g + 8 * h;
     if (r >= n_rows) continue;
-    const int h = hk * group + r % group;
-    float* drow = dq + (static_cast<long long>(b) * Sq + pos[i]) * H * hd + static_cast<long long>(h) * hd;
+    float* drow = dq + (static_cast<long long>(b) * Sq + r / group) * H * hd +
+                  static_cast<long long>(hk * group + r % group) * hd;
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) drow[d] = __fmul_rn(scale, acc[i][t]);
-    }
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nt + 2 * q4 + e;
+        if (d < hd) drow[d] = __fmul_rn(scale, acc[nt][2 * h + e]);
+      }
   }
 }
 
@@ -713,7 +759,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr int kRowPlane = kRoundRows * P;
   constexpr int kBufs = NT == 1 ? 2 : 1;                       // f32 stages by plain loads
   constexpr int kBuf = (NQ + 2 * NT) * kRowPlane;              // q * scale, q, do
-  extern __shared__ __align__(16) unsigned char tc_smem[];   // (smem is the f32 kernels')
+  extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);    // [NT][kKeyPlane]
   __nv_bfloat16* v_s = k_s + NT * kKeyPlane;                      // [NT][kKeyPlane]
   __nv_bfloat16* r_s = v_s + NT * kKeyPlane;                      // [kBufs][kBuf]
@@ -1001,12 +1047,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-size_t decode_smem(int hd, int warps) {
-  const size_t tiles = static_cast<size_t>(warps) * kKeyTile * (2 * hd + 1);
-  const size_t merge = static_cast<size_t>(warps) * kMaxGroup * (hd + 2);
-  return sizeof(float) * (kMaxGroup * hd + (tiles > merge ? tiles : merge));
-}
-
 template <typename T, int HD, int NQ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
@@ -1019,33 +1059,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
   return cudaGetLastError();
-}
-
-template <typename TQ, typename TC, int DPL>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* kv_len,
-                          void* o, int B, int S, int H, int KV, int hd, float scale,
-                          cudaStream_t st) {
-  static int max_smem = 0;
-  const cudaError_t err = opt_in(decode_fwd_kernel<TQ, TC, DPL>, max_smem);
-  if (err != cudaSuccess) return err;
-  const int warps =
-      decode_smem(hd, kDecWarps) <= static_cast<size_t>(max_smem) ? kDecWarps : kDecWarps / 2;
-  decode_fwd_kernel<TQ, TC, DPL><<<dim3(KV, B), warps * 32, decode_smem(hd, warps), st>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), kv_len,
-      static_cast<TQ*>(o), S, H, KV, hd, scale);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TC>
-cudaError_t decode_by_hd(const void* q, const void* k, const void* v, const int* kv_len,
-                         void* o, int B, int S, int H, int KV, int hd, float scale,
-                         cudaStream_t st) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch_decode<TQ, TC, 1>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-    case 2: return launch_decode<TQ, TC, 2>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-    case 3: return launch_decode<TQ, TC, 3>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-    default: return launch_decode<TQ, TC, 4>(q, k, v, kv_len, o, B, S, H, KV, hd, scale, st);
-  }
 }
 
 // The tensor-core kernels' variants: the head dim padded to 64, 80 or 128;
@@ -1071,21 +1084,19 @@ cudaError_t fwd_by_hd(const void* q, const void* k, const void* v, void* o, floa
   return launch_fwd<T, 128, 3>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
 }
 
-size_t bwd_dq_smem(int hd) {
-  return sizeof(float) * (2 * kBwdRows * hd + 2 * kKeyTile * (hd + 1));
-}
-
-template <typename T, int DPL>
+template <typename T, int HD, int NQ>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* di, float* dq, int B, int Sq, int Sk,
                           int H, int KV, int hd, int kv_valid, int causal, float scale,
                           cudaStream_t st) {
-  const size_t smem = bwd_dq_smem(hd);
   static int max_smem = 0;
-  const cudaError_t err = opt_in(flash_bwd_dq_kernel<T, DPL>, max_smem);
+  const cudaError_t err = opt_in(flash_bwd_dq_kernel<T, HD, NQ>, max_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq * (H / KV) + kBwdRows - 1) / kBwdRows, KV, B);
-  flash_bwd_dq_kernel<T, DPL><<<grid, kBwdWarps * 32, smem, st>>>(
+  const int tiles = (Sq * (H / KV) + kTile - 1) / kTile;
+  const int blocks = (tiles + kMmaWarps - 1) / kMmaWarps;
+  const int warps = (tiles + blocks - 1) / blocks;             // tiles spread evenly
+  const dim3 grid(blocks, KV, B);
+  flash_bwd_dq_kernel<T, HD, NQ><<<grid, warps * 32, fwd_smem<T, HD>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, di, dq, Sq, Sk, H, KV, hd, kv_valid, causal, scale);
   return cudaGetLastError();
@@ -1096,12 +1107,42 @@ cudaError_t bwd_dq_by_hd(const void* q, const void* k, const void* v, const void
                          const float* lse, const float* di, float* dq, int B, int Sq, int Sk,
                          int H, int KV, int hd, int kv_valid, int causal, float scale,
                          cudaStream_t st) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch_bwd_dq<T, 1>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    case 2: return launch_bwd_dq<T, 2>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    case 3: return launch_bwd_dq<T, 3>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-    default: return launch_bwd_dq<T, 4>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
-  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if (pow2_scale(scale) && hd <= 64)
+      return launch_bwd_dq<T, 64, 1>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  if (hd <= 64)
+    return launch_bwd_dq<T, 64, 3>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  if (hd <= 80)
+    return launch_bwd_dq<T, 80, 3>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+  return launch_bwd_dq<T, 128, 3>(q, k, v, dout, lse, di, dq, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+}
+
+template <typename TQ, typename TC, int HD, int NQ>
+cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* kv_len,
+                          void* o, float* work, int* tickets, int B, int S, int H, int KV,
+                          int hd, int parts, int part_keys, float scale, cudaStream_t st) {
+  static int max_smem = 0;
+  const cudaError_t err = opt_in(decode_fwd_kernel<TQ, TC, HD, NQ>, max_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KV, B, (parts + kDecWarps - 1) / kDecWarps);
+  decode_fwd_kernel<TQ, TC, HD, NQ><<<grid, kDecWarps * 32, decode_smem<TC, HD>(), st>>>(
+      static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), kv_len,
+      static_cast<TQ*>(o), work, tickets, S, H, KV, hd, parts, part_keys, scale);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TC>
+cudaError_t decode_by_hd(const void* q, const void* k, const void* v, const int* kv_len,
+                         void* o, float* work, int* tickets, int B, int S, int H, int KV, int hd,
+                         int parts, int part_keys, float scale, cudaStream_t st) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value)
+    if (pow2_scale(scale) && hd <= 64)
+      return launch_decode<TQ, TC, 64, 1>(q, k, v, kv_len, o, work, tickets, B, S, H, KV, hd, parts, part_keys, scale, st);
+  if (hd <= 64)
+    return launch_decode<TQ, TC, 64, 3>(q, k, v, kv_len, o, work, tickets, B, S, H, KV, hd, parts, part_keys, scale, st);
+  if (hd <= 80)
+    return launch_decode<TQ, TC, 80, 3>(q, k, v, kv_len, o, work, tickets, B, S, H, KV, hd, parts, part_keys, scale, st);
+  return launch_decode<TQ, TC, 128, 3>(q, k, v, kv_len, o, work, tickets, B, S, H, KV, hd, parts, part_keys, scale, st);
 }
 
 template <typename T, int HD, int NQ>
@@ -1182,23 +1223,33 @@ int fa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
 }
 
 // q, o (B, 1, H, hd) bf16 (q_bf16 != 0) or f32; the cache k, v
-// (B, S, KV, hd) bf16 (c_bf16 != 0) or f32; kv_len (B,) int32.
+// (B, S, KV, hd) bf16 (c_bf16 != 0) or f32; kv_len (B,) int32; work f32,
+// at least B * KV * parts * (H / KV) * (hd + 2) elements; tickets int32,
+// B * KV elements, all 0 before the first launch (each launch leaves them
+// 0: one buffer serves launches in stream order, not two at once). Keys
+// split into `parts` <= 64 parts of `part_keys` (a multiple of 16, parts *
+// part_keys >= S); other values are refused with cudaErrorInvalidValue.
 // 1 <= hd <= 128, H % KV == 0, H / KV <= 8 (checked by the wrapper).
 int fa_decode_fwd(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-                  int q_bf16, int c_bf16, int B, int S, int H, int KV, int hd, float scale,
-                  void* stream) {
+                  void* work, void* tickets, int q_bf16, int c_bf16, int B, int S, int H, int KV,
+                  int hd, int parts, int part_keys, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (parts < 1 || parts > kMaxParts || part_keys % kChunk != 0 ||
+      static_cast<long long>(parts) * part_keys < S)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const int* lens = static_cast<const int*>(kv_len);
+  float* w = static_cast<float*>(work);
+  int* t = static_cast<int*>(tickets);
   cudaError_t err;
   if (q_bf16 && c_bf16)
-    err = decode_by_hd<__nv_bfloat16, __nv_bfloat16>(q, k, v, lens, o, B, S, H, KV, hd, scale, st);
+    err = decode_by_hd<__nv_bfloat16, __nv_bfloat16>(q, k, v, lens, o, w, t, B, S, H, KV, hd, parts, part_keys, scale, st);
   else if (q_bf16)
-    err = decode_by_hd<__nv_bfloat16, float>(q, k, v, lens, o, B, S, H, KV, hd, scale, st);
+    err = decode_by_hd<__nv_bfloat16, float>(q, k, v, lens, o, w, t, B, S, H, KV, hd, parts, part_keys, scale, st);
   else if (c_bf16)
-    err = decode_by_hd<float, __nv_bfloat16>(q, k, v, lens, o, B, S, H, KV, hd, scale, st);
+    err = decode_by_hd<float, __nv_bfloat16>(q, k, v, lens, o, w, t, B, S, H, KV, hd, parts, part_keys, scale, st);
   else
-    err = decode_by_hd<float, float>(q, k, v, lens, o, B, S, H, KV, hd, scale, st);
+    err = decode_by_hd<float, float>(q, k, v, lens, o, w, t, B, S, H, KV, hd, parts, part_keys, scale, st);
   return static_cast<int>(err);
 }
 

@@ -30,8 +30,9 @@ from repro_torch.kernels import build as _b
 from repro_torch.kernels.flash_attention import ref as _ref
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128       # the kernels keep hd / 32 values per lane
-MAX_GROUP = 8            # decode keeps the query group's rows in registers
+MAX_HEAD_DIM = 128       # the kernels pad the head dim to 64, 80 or 128
+MAX_GROUP = 8            # decode's query group: rows 0-7 of a warp's 16-row tile
+DECODE_MAX_PARTS = 64    # decode's parts a slot's keys split into, at most (= kMaxParts in the .cu)
 
 
 def softmax_scale(hd: int) -> float:
@@ -90,6 +91,30 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def decode_split(S: int) -> tuple[int, int]:
+    """(part_keys, parts): how the decode kernel splits a cache of ``S``
+    cells into parts, one warp each, merged in part order: 16 keys a part
+    (one tile-step chunk) up to 16 * DECODE_MAX_PARTS cells, then the
+    least multiple of 16 that keeps the parts within DECODE_MAX_PARTS."""
+    part_keys = 16 * max(1, -(-S // (16 * DECODE_MAX_PARTS)))
+    return part_keys, max(1, -(-S // part_keys))
+
+
+_TICKETS: dict = {}      # (device index, B * KV) -> decode_fwd's int32 tickets
+
+
+def _decode_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """decode_fwd's ticket counters for n = B * KV (slot, KV head) pairs:
+    zero when made, and every launch leaves them zero (the last block of a
+    pair resets its own), so one buffer serves every launch in stream
+    order, CUDA-graph replays included. Kept for the process's life, since
+    a captured graph holds its address."""
+    key = (device.index, n)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """Single-query attention over the (ring) KV cache.
@@ -99,7 +124,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     live cells per slot (``min(length + 1, S_max)``, so a wrapped slot
     attends over the whole window). q and the cache may differ in dtype
     (f32 compute over a bf16 cache). Returns (B, 1, H, hd) in q's dtype.
-    A slot walks only its live key tiles."""
+    On the card the keys are split into parts (``decode_split``) whose
+    partial softmax states go to a workspace allocated here and are merged
+    in part order in the same launch; only a slot's live parts are read."""
     _b.need(q, "q", _FLOAT_TYPES, 4)
     _b.need(k, "k", _FLOAT_TYPES, 4)
     _b.need(v, "v", _FLOAT_TYPES, 4)
@@ -119,9 +146,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _b.on_cpu(q, k, v, kv_len):
         return _ref.decode_fwd(q, k, v, kv_len, scale=scale)
     o = torch.empty_like(q)
+    part_keys, parts = decode_split(S)
+    work = torch.empty(B * KV * parts * (H // KV) * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     _b.launch(_lib().fa_decode_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              kv_len.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16),
-              int(k.dtype == torch.bfloat16), B, S, H, KV, hd, scale, _b.stream(q))
+              kv_len.data_ptr(), o.data_ptr(), work.data_ptr(),
+              _decode_tickets(q.device, B * KV).data_ptr(), int(q.dtype == torch.bfloat16),
+              int(k.dtype == torch.bfloat16), B, S, H, KV, hd, parts, part_keys, scale,
+              _b.stream(q))
     decode_attention.launches += 1
     return o
 

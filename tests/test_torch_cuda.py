@@ -30,13 +30,14 @@ giving exact zeros; each prefill row bit-equal to the decode at the same
 position (the property that makes speculative verify and preemption
 recompute give a plain decode's tokens), and every kernel bit-identical
 over two launches.
-The paged kernels, ``flash_fwd`` and ``flash_bwd_dkv`` run on the tensor
-cores through one tile step (mma.sync, operands split into bf16 terms,
-every k16 step a fresh fragment); a paged prefill row's bits equal the
-decode's at every row for Sq 5 and 128. ``flash_fwd`` also at CLIP's hd
-64 and 80 and Sq off the multiples of 16 and 64, and with
-``flash_bwd_dkv`` at smollm's and CLIP's full attention shapes, twice the
-same bits.
+The paged kernels and all four flash kernels run on the tensor cores
+through one tile step (mma.sync, operands split into bf16 terms, every k16
+step a fresh fragment); a paged prefill row's bits equal the decode's at
+every row for Sq 5 and 128. ``flash_fwd`` also at CLIP's hd 64 and 80 and
+Sq off the multiples of 16 and 64, and with both backward kernels at
+smollm's and CLIP's full attention shapes, twice the same bits;
+``decode_fwd`` (split-key) at every dtype pair, groups up to 8, hd 64, 80
+and 128, S_max off its part and kv_len 0, twice the same bits.
 ``int8_matmul_dequant`` (int8 wgmma) in all four forms (row or column
 scale, W (K, M) or (M, K)) bit-equal to its plain version at the paths'
 shapes, the swapped decode form, the masked producer (K = 588) and the
@@ -350,19 +351,34 @@ def test_cuda_flash_fwd_clip_and_ragged_shapes(B, Sq, Sk, kv_valid, H, KV, hd, c
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("S", [96, 256])
-def test_cuda_decode_matches_plain(S, dt):
+@pytest.mark.parametrize("S,H,KV,hd,cache", [
+    (96, 15, 5, 64, "bf16"), (256, 15, 5, 64, "bf16"), (256, 15, 5, 64, "f32"),
+    (100, 16, 2, 64, "bf16"), (200, 8, 1, 80, "f32"), (131, 12, 3, 128, "bf16"),
+    (1500, 15, 5, 64, "bf16"), (96, 6, 2, 48, "f32"), (64, 4, 2, 36, "bf16")])
+def test_cuda_decode_matches_plain(S, H, KV, hd, cache, dt):
+    """decode_fwd (split-key, ops.decode_split) within O_TOL of its plain
+    version: q bf16 or f32 over a bf16 or f32 cache, groups 3, 4 and 8, hd
+    36 and 48 (padded to 64; 36 staged by plain loads), 64, 80 and 128,
+    S_max off the part (100, 131) and past 64 parts of 16 keys (1,500:
+    32-key parts), slots at kv_len 0 (o = 0) to S_max; two launches the
+    same bits."""
     dev = _card()
-    lens = torch.tensor([1, 2, 127, 128, 129, 200, S, S // 2], dtype=torch.int32,
+    lens = torch.tensor([1, 2, 127, 128, 129, 200, S, S // 2, 0], dtype=torch.int32,
                         device=dev).clamp(max=S)
-    gen = torch.Generator(device=dev).manual_seed(S)
-    q = torch.randn((8, 1, 15, 64), generator=gen, device=dev).to(dt)
-    k = torch.randn((8, S, 5, 64), generator=gen, device=dev).bfloat16()
-    v = torch.randn((8, S, 5, 64), generator=gen, device=dev).bfloat16()
+    B = lens.numel()
+    cdt = torch.bfloat16 if cache == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(cdt)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(cdt)
     o = FA.decode_attention(q, k, v, lens)
-    ro = FREF.decode_fwd(q, k, v, lens, scale=FA.softmax_scale(64))
+    ro = FREF.decode_fwd(q, k, v, lens, scale=FA.softmax_scale(hd))
+    o2 = FA.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    assert o.dtype == dt and _rel(o, ro) <= O_TOL[dt]
+    assert o.dtype == dt and bool(torch.isfinite(o).all())
+    assert _rel(o, ro) <= O_TOL[dt]
+    assert float(o[-1].abs().sum()) == 0.0                     # kv_len 0
+    assert torch.equal(o, o2)
 
 
 @pytest.mark.cuda
@@ -397,12 +413,37 @@ def test_cuda_flash_bwd_matches_plain(B, S, kv_valid, causal, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,S,H,KV,hd,kv_valid,causal", [
+    (2, 70, 6, 2, 36, 70, True), (2, 70, 6, 2, 48, 60, False), (3, 50, 4, 4, 100, 50, True),
+    (2, 21, 16, 16, 80, 21, False)])
+def test_cuda_flash_bwd_dq_head_dims(B, S, H, KV, hd, kv_valid, causal, dt):
+    """flash_bwd_dq at head dims padded in shared memory (36 and 48 to 64,
+    36 staged by plain loads; 100 to 128) and with fewer rows than one
+    tile of four warps: within BWD_TOL of its plain version, two launches
+    the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(B * S + hd)
+    q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+    kw = dict(causal=causal, kv_valid=kv_valid)
+    o, lse = FA.flash_fwd_lse(q, k, v, **kw)
+    di = FREF.attention_di(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    rdq = FREF.flash_bwd_dq(q, k, v, do, lse, di, scale=FA.softmax_scale(hd), **kw)
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.float32 and bool(torch.isfinite(dq).all())
+    assert _rel(dq, rdq) <= BWD_TOL[dt]
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, di, **kw), dq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,S,H,KV,hd,causal", [
     (8, 256, 15, 5, 64, True), (32, 129, 16, 16, 80, False), (32, 77, 16, 16, 64, True)],
     ids=["smollm", "clip_vision", "clip_text"])
 def test_cuda_flash_tensor_core_kernels_at_path_shapes(B, S, H, KV, hd, causal, dt):
-    """flash_fwd and flash_bwd_dkv (mma.sync, the tile step of
-    kernels/csrc/mma_tile.cuh) at the training paths' full attention
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv (mma.sync, the tile step
+    of kernels/csrc/mma_tile.cuh) at the training paths' full attention
     shapes: within O_TOL / LSE_TOL and BWD_TOL of their plain versions,
     two launches the same bits."""
     dev = _card()
@@ -416,6 +457,10 @@ def test_cuda_flash_tensor_core_kernels_at_path_shapes(B, S, H, KV, hd, causal, 
     o2, lse2 = FA.flash_fwd_lse(q, k, v, causal=causal)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     di = FREF.attention_di(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, di, causal=causal)
+    rdq = FREF.flash_bwd_dq(q, k, v, do, lse, di, causal=causal, kv_valid=S, scale=scale)
+    assert dq.dtype == torch.float32 and _rel(dq, rdq) <= BWD_TOL[dt]
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, di, causal=causal), dq)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal)
     rdk, rdv = FREF.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal, kv_valid=S, scale=scale)
     assert _rel(dk, rdk) <= BWD_TOL[dt] and _rel(dv, rdv) <= BWD_TOL[dt]

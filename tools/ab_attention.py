@@ -13,13 +13,16 @@ checkout, so that two commits are read by the same code on the same card:
   versions, with the mean signed error of o by q's dtype, and every
   prefill row bit-equal to the decode at its position; their times
   (``time_paged``);
+* phase 3 (``compare_flash``): ``flash_fwd`` and ``decode_fwd`` against
+  their plain versions at the serve path's shapes and edges;
 * phases 3 and 14 (``compare_flash_train``): ``flash_fwd`` and the two
   backward kernels against their plain versions at smollm's and CLIP's
   training shapes, with ``flash_fwd``'s mean signed error of o and lse;
-* the flash kernels' times: ``flash_fwd`` at the 1,024-row prefill
-  (``time_flash``) and at 8 x 256, the backward pair at 8 x 256
-  (``time_flash_bwd``), all three at CLIP's two shapes
-  (``time_clip_flash``).
+* the flash kernels' times: ``flash_fwd`` at the 1,024-row prefill and
+  ``decode_fwd`` at 8 slots of a 256-cell cache, full and at 200 each
+  (``time_flash``), ``flash_fwd`` at 8 x 256, the backward pair at 8 x
+  256 (``time_flash_bwd``, SDPA's backward beside), all three at CLIP's
+  two shapes (``time_clip_flash``).
 
 Run it for two checkouts in turns (A, B, B, A) within one call to compare
 them. Prints one JSON line and appends it to ``--out``. Needs one card;
@@ -90,14 +93,17 @@ def main(argv=None) -> int:
                                  ("clip", C.clip_flash_cases(clip_cfg), 29)):
             flash[name], _ = C.compare_flash_train(torch, M, cases, dev, args.seed + off)
         res["flash"] = flash
+        res["ring"], _ = C.compare_flash(torch, M, cfg, dev, args.seed)
         gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         bwd, asets = C.time_flash_bwd(torch, M, gen, dev, C.TRAIN_BATCH, C.TRAIN_SEQ, H, KV, hd,
                                       True)
         fwd = lambda i: FA.flash_fwd_lse(*asets[i][:3], causal=True)
+        ring = C.time_flash(torch, M, cfg, dev, args.seed, [200] * 8)
         times = {"flash_fwd 8 x 256": dict(ms=C.graph_ms(torch, fwd, len(asets))),
-                 "flash_fwd prefill 8 x 128": C.time_flash(torch, M, cfg, dev, args.seed,
-                                                           [200] * 8)["flash_fwd"],
+                 "flash_fwd prefill 8 x 128": ring["flash_fwd"],
+                 "decode_fwd 8 x 256 full": ring["decode_fwd_full"],
+                 "decode_fwd 8 x 256 at 200": ring["decode_fwd_served"],
                  **{f"{k} 8 x 256": r for k, r in bwd.items()}}
         del asets
         for name, by_tower in C.time_clip_flash(torch, M, clip_cfg, dev, args.seed + 43).items():
@@ -117,6 +123,7 @@ def main(argv=None) -> int:
         paged_ms={k: r["ms"] for k, r in res["paged"]["times"].items()},
         flash={t: {k: {x: r[x] for x in ("max_rel_err", "mean_signed_err") if x in r}
                    for k, r in f.items()} for t, f in flash.items()},
+        ring={k: r["max_rel_err"] for k, r in res["ring"].items()},
         seconds=res["seconds"])))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as fh:
