@@ -557,7 +557,7 @@ def graph_ms(torch, fn, n_sets, reps=20, stream=None):
     bytes than the 50 MB L2, as a decode step finds each layer's weights
     cold) captured once in a CUDA graph and replayed ``reps`` times, so the
     time is the card's and not the host's launch rate. With ``stream`` the
-    warm-up and the capture both run on it: an autograd backward issues its
+    warm-up and the capture both run on it: an autograd backward launches its
     kernels on the stream its forward ran on, so ``fn`` may be the backward
     of a forward run there."""
     side = stream or torch.cuda.Stream()
