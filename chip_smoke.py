@@ -609,18 +609,18 @@ def bound(bytes_, int8_ops=0.0, f32_ops=0.0, bf16_ops=0.0, fp8_ops=0.0):
 def time_work(torch, KOPS, REF, sets, work, what):
     """Each entry of ``work`` (name: (calls, call(set, ops module), library
     call or None, bytes, int8 ops, f32 ops)) over ``sets``: the kernels'
-    and the plain versions' device ms by CUDA-graph replay, the library
-    call's, the kernels' eager ms, and the bound; ``what(calls)`` names
-    the work timed."""
+    and the plain versions' (none without ``REF``) device ms by CUDA-graph
+    replay, the library call's, the kernels' eager ms, and the bound;
+    ``what(calls)`` names the work timed."""
     out, n = {}, len(sets)
     for name, (calls, call, library, bytes_, i8, f32) in work.items():
         r = out[name] = dict(
             ms=graph_ms(torch, lambda i: call(sets[i], KOPS), n),
-            plain_ms=graph_ms(torch, lambda i: call(sets[i], REF), n),
+            plain_ms=graph_ms(torch, lambda i: call(sets[i], REF), n) if REF else None,
             library_ms=graph_ms(torch, lambda i: library(sets[i]), n) if library else None,
             eager_ms=eager_ms(torch, lambda i: call(sets[i], KOPS), n),
             bound=bound(bytes_, int8_ops=i8, f32_ops=f32), calls=calls, work=what(calls))
-        if name.startswith("int8_matmul_dequant"):
+        if name.startswith(("int8_matmul_dequant", "fused_switchback")):
             # the int8 GEMM's rate and the share of the card's least time it reaches
             r["tops"] = i8 / (r["ms"] * 1e-3) / 1e12
             r["bound_share"] = r["bound"][0] / r["ms"]
@@ -628,10 +628,85 @@ def time_work(torch, KOPS, REF, sets, work, what):
 
 
 def int8_rates(tag, results):
-    """One line of each int8_matmul_dequant form's TOPS and bound share."""
+    """One line of each int8 GEMM form's TOPS and bound share (the fused
+    pair's with its two-step yardstick beside)."""
     print(f"[timing] int8 forms, {tag}: " + json.dumps(
-        {k: {"ms": r["ms"], "tops": r["tops"], "bound_share": r["bound_share"],
-             "library_ms": r["library_ms"]} for k, r in results.items() if "tops" in r}))
+        {k: {x: r[x] for x in ("ms", "tops", "bound_share", "library_ms", "two_step_ms")
+             if x in r} for k, r in results.items() if "tops" in r}))
+
+
+def two_step(KOPS, REF, x, w_q, s_w, transposed):
+    """The fused pair's function by the port's own two-step path (as
+    ``core/switchback`` runs it above FUSED_MAX_CONTRACT): row_quantize,
+    the scale, then int8_matmul_dequant (or _t)."""
+    x_q, s_x = KOPS.row_quantize(x)
+    mm = KOPS.int8_matmul_dequant_t if transposed else KOPS.int8_matmul_dequant
+    return mm(x_q, w_q, s_x * REF.div(s_w, 127.0 * 127.0), out_dtype=x.dtype)
+
+
+def add_two_step(torch, KOPS, REF, r, sets, calls, transposed):
+    """The yardstick of a fused reading ``r``: the two-step path at the
+    same calls (``calls(set)``: [(x, w_q, s_w)]), by graph replay over the
+    same sets, first checked bit-equal to the fused kernel on set 0."""
+    fused = KOPS.fused_switchback_dgrad if transposed else KOPS.fused_switchback_fwd
+    for a in calls(sets[0]):
+        check(torch.equal(two_step(KOPS, REF, *a, transposed), fused(*a)),
+              "the two-step yardstick disagrees with the fused kernel")
+    r["two_step_ms"] = graph_ms(torch, lambda i: [two_step(KOPS, REF, *a, transposed)
+                                                  for a in calls(sets[i])], len(sets))
+    return r
+
+
+def fused_calls(linears, fused_max):
+    """The fused pair's calls over one layer's ``linears`` [(K, M, needs
+    Ẋ)]: the forward's (K, M) where K fits ``fused_max``, the dgrad's (M,
+    N = K) where the output width M does."""
+    return ([(K, Mw) for K, Mw, _ in linears if K <= fused_max],
+            [(Mw, K) for K, Mw, dx in linears if dx and Mw <= fused_max])
+
+
+def clip_layer(lins):
+    """One layer's linears of a ``clip_shapes`` entry, in call order
+    (``w_qkvo`` stands for four)."""
+    return [km for k, km in lins.items() for _ in range(4 if k == "w_qkvo" else 1)]
+
+
+def time_fused(torch, M, gen, dev, R, fwd, dgrad, what, plain=True):
+    """The fused pair at ``R`` rows over one layer's calls: ``fwd`` the
+    forward's (K, M), ``dgrad`` the dgrad's (M, N) (g (R, M) against W (N,
+    M)); each beside its plain version (``plain``), the two-step yardstick
+    and the bound. Returns {kernel: reading}."""
+    KOPS, REF = M.KOPS, M.REF
+
+    def one_set():
+        s = {"fwd": [], "dgrad": []}
+        for K, Mw in fwd:
+            w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, K, Mw, dev))
+            s["fwd"].append((activations(torch, gen, R, K, dev), w_q, s_w))
+        for Mw, N in dgrad:
+            w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, N, Mw, dev))
+            s["dgrad"].append((activations(torch, gen, R, Mw, dev), w_q, s_w))
+        return s
+
+    if not fwd + dgrad:
+        return {}
+    per_set = sum(3 * R * a + a * b + 2 * R * b for a, b in fwd + dgrad)
+    sets = [one_set() for _ in range(max(2, int(120e6 // per_set) + 1))]
+    torch.cuda.synchronize()
+    keys = {"fused_switchback_fwd": "fwd", "fused_switchback_dgrad": "dgrad"}
+    work = {}
+    for name, key in keys.items():
+        shapes = fwd if key == "fwd" else dgrad
+        if shapes:
+            # name: (calls, call(set, ops module), library call, bytes, int8 ops, f32 ops)
+            work[name] = (len(shapes),
+                          lambda s, m, name=name, key=key: [getattr(m, name)(*a) for a in s[key]],
+                          None, sum(R * a * 2 + a * b + 4 + R * b * 2 for a, b in shapes),
+                          sum(2 * R * a * b for a, b in shapes), sum(4 * R * a for a, _ in shapes))
+    return {name: add_two_step(torch, KOPS, REF, r, sets, lambda s, key=keys[name]: s[key],
+                               keys[name] == "dgrad")
+            for name, r in time_work(torch, KOPS, REF if plain else None, sets, work,
+                                     what).items()}
 
 
 def time_kernels(torch, KOPS, REF, cfg, dev, seed, R):
@@ -692,6 +767,8 @@ def time_kernels(torch, KOPS, REF, cfg, dev, seed, R):
     for name, r in out.items():
         if r["library_ms"] is not None:
             r["library_rows"] = R + pad
+    add_two_step(torch, KOPS, REF, out["fused_switchback_fwd"], sets,
+                 lambda s: [(s["x"], *s["qs"][k]) for k in fused], False)
     return out
 
 
@@ -1072,8 +1149,10 @@ def reference(torch, M, cfg, dev, seed):
     return res
 
 
-KERNEL_GROUPS = ("row_quantize", "absmax_partial", "cast_tensorwise", "fused_fwd",
-                 "int8_matmul_dequant", "flash_fwd", "decode_fwd")
+# the decode step's kernel families, by name (before PyTorch's "gemm": both
+# int8 GEMM kernels take an ``I8Gemm``)
+KERNEL_GROUPS = ("row_quantize", "absmax_partial", "cast_tensorwise", "fused_switchback_kernel",
+                 "int8_matmul_kernel", "flash_fwd", "decode_fwd")
 
 
 def kernel_times(torch, fn, n):
@@ -1266,6 +1345,12 @@ def compare_linear_kernels(torch, M, table, dev, seed):
 INT8_EDGE_ROWS = (1, 8, 17, 1000)
 INT8_EDGE_KM = ((588, 1280), (960, 320), (2560, 960))
 INT8_WIDE = ((8, 5120, 1280), (300, 5120, 1280))
+# and the fused pair's: rows 1, 15, 16 (the one-launch form, x quantized in
+# the block) and 17, 1,000 (the quantize pass, then the GEMM) against K =
+# 588 (the masked producer), the widest fused contraction (2,048), a ragged
+# 130 -> 70 and smollm's 960 -> 320; each also on all-zero rows
+FUSED_EDGE_ROWS = (1, 15, 16, 17, 1000)
+FUSED_EDGE_KM = ((588, 1280), (2048, 960), (130, 70), (960, 320))
 
 
 def int8_forms(KOPS, REF, x_q, s_x, w, dt):
@@ -1295,18 +1380,21 @@ def compare_int8_edges(torch, M, dev, seed):
     """Phase 13's edges: the four int8_matmul_dequant forms bit-equal to
     their plain versions, twice the same bits, at INT8_EDGE_ROWS x
     INT8_EDGE_KM in bf16 and f32, and on all-±127 operands at K = 5,120
-    (a row and a column of +127 meet there: the s32 sum 127^2 * 5,120).
-    Returns the largest |kernel - plain| per form and the number of
-    comparisons."""
+    (a row and a column of +127 meet there: the s32 sum 127^2 * 5,120);
+    the fused forward and dgrad the same way at FUSED_EDGE_ROWS x
+    FUSED_EDGE_KM, on random rows (ties and a zero row among them) and on
+    all-zero ones. Returns the largest |kernel - plain| per form and the
+    number of comparisons."""
     KOPS, REF = M.KOPS, M.REF
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = dict.fromkeys(("int8_matmul_dequant",) + COLSCALE_KERNELS[:1]
-                          + ("int8_matmul_dequant_t",) + COLSCALE_KERNELS[1:], 0.0)
+                          + ("int8_matmul_dequant_t",) + COLSCALE_KERNELS[1:]
+                          + ("fused_switchback_fwd", "fused_switchback_dgrad"), 0.0)
     n = 0
 
-    def hold(x_q, s_x, w, dt, what):
+    def hold(forms, what):
         nonlocal n
-        for name, call in int8_forms(KOPS, REF, x_q, s_x, w, dt):
+        for name, call in forms:
             got, again, want = call(KOPS), call(KOPS), call(REF)
             d = max_abs_diff(torch, got, want)
             worst[name] = max(worst[name], d)
@@ -1315,19 +1403,34 @@ def compare_int8_edges(torch, M, dev, seed):
             check(torch.equal(got, again), f"{name} {what}: two launches differ")
             n += 1
 
+    for R in FUSED_EDGE_ROWS:
+        for K, Mw in FUSED_EDGE_KM:
+            w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, K, Mw, dev, ties=True))
+            for dt in (torch.bfloat16, torch.float32):
+                for zero in (False, True):
+                    x = activations(torch, gen, R, K, dev, dt)
+                    g = activations(torch, gen, R, Mw, dev, dt)
+                    if zero:
+                        x, g = torch.zeros_like(x), torch.zeros_like(g)
+                    hold([("fused_switchback_fwd",
+                           lambda op: op.fused_switchback_fwd(x, w_q, s_w)),
+                          ("fused_switchback_dgrad",
+                           lambda op: op.fused_switchback_dgrad(g, w_q, s_w))],
+                         f"R={R} K={K} M={Mw} {dt} zero={zero}")
+
     for R in INT8_EDGE_ROWS:
         for K, Mw in INT8_EDGE_KM:
             w = weight(torch, gen, K, Mw, dev, ties=True)
             x_q, s_x = KOPS.row_quantize(activations(torch, gen, R, K, dev))
             for dt in (torch.bfloat16, torch.float32):
-                hold(x_q, s_x, w, dt, f"R={R} K={K} M={Mw} {dt}")
+                hold(int8_forms(KOPS, REF, x_q, s_x, w, dt), f"R={R} K={K} M={Mw} {dt}")
     for R, K, Mw in INT8_WIDE:
         x_q = (torch.randint(0, 2, (R, K), generator=gen, device=dev, dtype=torch.int8) * 2 - 1) * 127
         x_q[0] = 127
         s_x = torch.rand((R, 1), generator=gen, device=dev) + 0.5
         w = (torch.randint(0, 2, (K, Mw), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
         w[:, 0] = 1.0
-        hold(x_q, s_x, w, torch.float32, f"all ±127 R={R} K={K} M={Mw}")
+        hold(int8_forms(KOPS, REF, x_q, s_x, w, torch.float32), f"all ±127 R={R} K={K} M={Mw}")
         acc = KOPS.int8_matmul_dequant(x_q, KOPS.tensor_quantize(w)[0],
                                        torch.ones((R, 1), device=dev), out_dtype=torch.float32)
         check(float(acc[0, 0]) == 127.0 * 127.0 * K,
@@ -1790,7 +1893,18 @@ def card_vs_cpu(torch, M, path, dev, seed, steps=3):
     return res
 
 
+# (pattern, flag, group): a kernel whose name holds both lands in the group,
+# the first that matches. The int8 GEMM's kernels are ``<T, TW, SWAP>``:
+# ", true," reads TW (the transposed, dgrad forms), "true>" would read SWAP.
+# The fused pair's kernels (its row-quantize pass above 16 rows, either
+# form, then its GEMM) count under the pair's own names.
 TRAIN_KERNEL_GROUPS = (
+    ("fused_quantize", "true>", "fused_switchback_dgrad"),
+    ("fused_quantize", "", "fused_switchback_fwd"),
+    ("fused_switchback_kernel", ", true,", "fused_switchback_dgrad"),
+    ("fused_switchback_kernel", "", "fused_switchback_fwd"),
+    ("int8_matmul_kernel", ", true,", "int8_matmul_dequant_t (row or column scale)"),
+    ("int8_matmul_kernel", "", "int8_matmul_dequant (row or column scale)"),
     ("fp8_gemm_kernel", "true>", "fp8_mixed_matmul and _t (one wgmma kernel)"),
     ("fp8_gemm_kernel", "", "fp8_matmul_dequant and _t (one wgmma kernel)"),
     ("transpose_bytes", "", "fp8 forward's K-major W (transpose_bytes)"),
@@ -1798,10 +1912,6 @@ TRAIN_KERNEL_GROUPS = (
     ("row_quantize", "unsigned char", "fp8_row_quantize"),
     ("cast_tensorwise", "unsigned char", "fp8_tensor_quantize (cast pass)"),
     ("col_quantize", "", "col_quantize"),
-    ("fused_fwd_kernel", "true>", "fused_switchback_dgrad"),
-    ("fused_fwd_kernel", "", "fused_switchback_fwd"),
-    ("int8_matmul_dequant_kernel", "true>", "int8_matmul_dequant_t"),
-    ("int8_matmul_dequant_kernel", "", "int8_matmul_dequant"),
     ("row_quantize", "", "row_quantize"),
     ("absmax_partial", "", "tensor_quantize pass 1 (int8 or fp8)"),
     ("cast_tensorwise", "", "tensor_quantize"),
@@ -1991,6 +2101,7 @@ def time_train_kernels(torch, M, cfg, dev, seed):
     }
     out.update(time_work(torch, KOPS, REF, sets, work,
                          lambda c: f"one layer's {c} call(s) at {R} rows"))
+    add_two_step(torch, KOPS, REF, out["fused_switchback_dgrad"], sets, lambda s: s["fused"], True)
     del sets
 
     # the flash backward pair at one layer's shape: 8 x 256, causal, bf16
@@ -2426,7 +2537,9 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     six weights, the colscale forward of the six linears and their
     transposed colscale dgrad; each with its plain version, the library
     yardstick (``torch._int_mm`` plus the rank-1 scale) for the matmuls,
-    and the bound."""
+    and the bound. Then the fused pair at each tower's layer (vision 4,128
+    rows, text 2,464, the patch embedding's 8,192 x 588 -> 1,280), with the
+    two-step yardstick (``time_fused``)."""
     KOPS, REF = M.KOPS, M.REF
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
     _, R, _, _, _, shapes = clip_shapes(cfg)[0]                         # the vision tower
@@ -2481,6 +2594,16 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     out = time_work(torch, KOPS, REF, sets, work,
                     lambda c: f"one vision layer's {c} calls at {R} rows (batch {CLIP_BATCH})")
     del sets
+    # the fused pair (int8_switchback) at each tower's layer: the forward of
+    # every linear whose K fits FUSED_MAX_CONTRACT, the dgrad of every one
+    # whose output width does; the patch embedding's forward alone
+    for tower, rows, _, _, _, lins in clip_shapes(cfg):
+        fwd, dgrad = fused_calls(clip_layer(lins), KOPS.FUSED_MAX_CONTRACT)
+        got = time_fused(torch, M, gen, dev, rows, fwd, dgrad,
+                         lambda c, t=tower, r=rows: f"one {t} layer's {c} calls at {r} rows")
+        for name, r in got.items():
+            out.setdefault(name, {})[tower] = r
+        int8_rates(f"fused pair, CLIP {tower}", got)
     out.update(time_clip_flash(torch, M, cfg, dev, seed + 43))
     print("[timing] clip kernels:", json.dumps(out))
     return out
@@ -4077,10 +4200,11 @@ def main(argv=None) -> int:
               "four modes) bit-equal and bit-identical over two launches; max |kernel - plain| "
               + json.dumps(clip_worst))
         edge_worst, n_edge = compare_int8_edges(torch, M, dev, args.seed + 37)
-        print(f"[kernels] {n_edge} int8_matmul_dequant comparisons at the wgmma paths' edges "
-              f"(rows {INT8_EDGE_ROWS} x (K, M) {INT8_EDGE_KM}, all ±127 at {INT8_WIDE}), the "
-              "four forms bit-equal and bit-identical over two launches; max |kernel - plain| "
-              + json.dumps(edge_worst))
+        print(f"[kernels] {n_edge} int8 GEMM comparisons at the wgmma paths' edges "
+              f"(int8_matmul_dequant: rows {INT8_EDGE_ROWS} x (K, M) {INT8_EDGE_KM}, all ±127 "
+              f"at {INT8_WIDE}; the fused pair: rows {FUSED_EDGE_ROWS} x (K, M) {FUSED_EDGE_KM}, "
+              "random and all-zero rows), the four forms and the fused pair bit-equal and "
+              "bit-identical over two launches; max |kernel - plain| " + json.dumps(edge_worst))
         clip_flash, n_clip_flash = compare_flash_train(torch, M, clip_flash_cases(clip_cfg), dev,
                                                        args.seed + 29)
         print(f"[kernels] {n_clip_flash} flash comparisons at CLIP's shapes within o "
@@ -4166,7 +4290,7 @@ def main(argv=None) -> int:
                     max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=r["library_ms"], eager_ms=r["eager_ms"],
                     calls_timed=r["calls"], work=r.get("work"),
-                    **{k: r[k] for k in ("tops", "bound_share") if k in r})
+                    **{k: r[k] for k in ("tops", "bound_share", "two_step_ms") if k in r})
 
     def train_entry(name, err):
         """A kernel of the training path only: ``launches`` from the train run."""
@@ -4177,8 +4301,8 @@ def main(argv=None) -> int:
                     max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=r["library_ms"], eager_ms=r["eager_ms"],
                     calls_timed=r["calls"], work=r["work"],
-                    **{k: r[k] for k in ("library", "library_eager_ms", "tops", "bound_share")
-                       if k in r})
+                    **{k: r[k] for k in ("library", "library_eager_ms", "tops", "bound_share",
+                                         "two_step_ms") if k in r})
 
     def entries(R):
         out = []
@@ -4189,6 +4313,8 @@ def main(argv=None) -> int:
                 e["library_rows"] = r["library_rows"]
             if name == "int8_matmul_dequant":
                 e["at_train_shape"] = at_train(name)
+            if name == "fused_switchback_fwd" and R == DECODE_ROWS:
+                e["at_clip_shapes"] = at_clip(name)
             out.append(e)
         return out
 
@@ -4199,9 +4325,11 @@ def main(argv=None) -> int:
                                   "bound_share") if k in r} | {"bound_ms": r["bound"][0]}
 
     def at_clip(name):
-        """A flash kernel's readings at CLIP's two attention shapes (phase 18)."""
+        """A flash kernel's readings at CLIP's two attention shapes, or the
+        fused pair's at each tower's layer (phase 18)."""
         return {t: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "library_eager_ms",
-                                      "eager_ms", "work") if k in r}
+                                      "eager_ms", "two_step_ms", "tops", "bound_share", "work")
+                    if k in r}
                 | {"bound_ms": r["bound"][0]} for t, r in clip_t[name].items()}
 
     full = flash_t["decode_fwd_full"]
@@ -4220,8 +4348,9 @@ def main(argv=None) -> int:
           + json.dumps({impl: {key: [p[key] for p in ps] for key in (
               "step_ms", "device_ms_per_step", "device_idle_share", "cuda_launches_per_step")}
               for impl, ps in profs.items()}))
-    train_entries = [train_entry(k, max_err[k]) for k in (
-        "fused_switchback_dgrad", "int8_matmul_dequant_t")]
+    train_entries = [dict(train_entry("fused_switchback_dgrad", max_err["fused_switchback_dgrad"]),
+                          at_clip_shapes=at_clip("fused_switchback_dgrad")),
+                     train_entry("int8_matmul_dequant_t", max_err["int8_matmul_dequant_t"])]
     train_entries += [dict(train_entry(k, max_err[k]), at_clip_shapes=at_clip(k))
                       for k in ("flash_bwd_dq", "flash_bwd_dkv")]
     def clip_entry(name):

@@ -3,8 +3,8 @@
 // 128-byte swizzle, wgmma shared-memory descriptors and the wgmma
 // instructions themselves, used by kernels/fp8_matmul/csrc/fp8_matmul.cu (the
 // fp8 GEMMs and the accumulator probe) and kernels/switchback/csrc/
-// switchback.cu (wgrad_bf16 and the int8 GEMM int8_matmul_dequant). Nothing
-// here launches anything.
+// switchback.cu (wgrad_bf16, and the int8 GEMM of int8_matmul_dequant and
+// the fused forward and dgrad). Nothing here launches anything.
 //
 // Two layouts an operand tile takes in shared memory, both 128-byte rows in
 // groups of 8 (1,024 bytes), each row's eight 16-byte chunks permuted by the

@@ -16,9 +16,9 @@ SIGNATURES = (
     ("sb_row_quantize", (P, I, P, P, I, I, P)),
     ("sb_col_quantize", (P, I, P, P, I, I, P)),
     ("sb_tensor_quantize", (P, I, I64, P, I, P, P, P)),
-    ("sb_fused_switchback_fwd", (P, I, P, P, P, I, I, I, P)),
+    ("sb_fused_switchback_fwd", (P, I, P, P, P, P, P, P, I, I, I, P)),
     ("sb_int8_matmul_dequant", (P, P, P, P, P, I, I, I, I, P)),
-    ("sb_fused_switchback_dgrad", (P, I, P, P, P, I, I, I, P)),
+    ("sb_fused_switchback_dgrad", (P, I, P, P, P, P, P, P, I, I, I, P)),
     ("sb_int8_matmul_dequant_t", (P, P, P, P, P, I, I, I, I, P)),
     ("sb_wgrad_bf16", (P, P, P, I, I, I, P)),
 )

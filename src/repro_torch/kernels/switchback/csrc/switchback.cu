@@ -22,13 +22,16 @@
 //                              its section: its numerics and its bound are its
 //                              own)
 //
-// The two dgrad forms are the forward kernels with the W tile read the
-// other way (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m]
-// contracts over W's second, contiguous dim, so W (N, M) row-major is
-// already K-major and each W tile is staged as it lies; the forward's
-// (K, M) W is transposed tile by tile on its way into shared memory. No
-// w_q^T is written to device memory anywhere, as on the TPU, where
-// dot_general contracts over any dim pair.
+// The fused forward and dgrad and both int8_matmul_dequant forms run one
+// int8 wgmma mainloop (int8_matmul_kernel's; the fused pair's own kernel,
+// fused_switchback_kernel, differs in where x's rows are quantized and in
+// the epilogue's scale). The dgrad forms read the W tile the other way
+// (template flag TW): dx[b, n] = sum_m g_q[b, m] * w_q[n, m] contracts over
+// W's second, contiguous dim, so W (N, M) row-major is already K-major and
+// each W tile is staged as it lies; the forward's (K, M) W is transposed
+// tile by tile on its way into shared memory. No w_q^T is written to device
+// memory anywhere, as on the TPU, where dot_general contracts over any dim
+// pair.
 //
 // Numerics copy the reference operation by operation, so every output is
 // bitwise equal to the plain versions in ref.py:
@@ -40,12 +43,12 @@
 //     output type (__float2bfloat16_rn for bf16); with a column scale
 //     y = f32(acc) * (row[b] * col[m]), the rank-1 product rounded once,
 //     then the multiply.
-//   * the int8 dot accumulates exactly in int32 (__dp4a in the fused
-//     kernels, s32 wgmma in int8_matmul_dequant), so the order of the sum
-//     does not matter.
+//   * the int8 dot accumulates exactly in int32 (s32 wgmma), so the order
+//     of the sum does not matter.
 //
-// Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
+// Every entry point launches on the caller's stream, allocates nothing (the
+// fused pair's workspaces come from the wrapper) and returns
+// cudaGetLastError(); the Python wrapper raises on a non-zero code.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,11 +111,12 @@ __device__ float block_max(float v, float* red) {
 //
 // Bound by bytes (read x, write q). One block owns one row, so the row
 // absmax is a block reduction and the second read of the row hits L1/L2.
+// The fused pair's first pass above 16 rows (fused_quantize_kernel, below)
+// computes the same, a warp to a row where it can.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                    float* __restrict__ s, int K) {
+__device__ __forceinline__ void quantize_row(const T* __restrict__ x, int8_t* __restrict__ q,
+                                             float* __restrict__ s, int K) {
   __shared__ float red[32];
   const size_t base = static_cast<size_t>(blockIdx.x) * K;
   float m = 0.f;
@@ -121,6 +125,12 @@ row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   const float scale = __fdiv_rn(kQmax, absmax);
   for (int k = threadIdx.x; k < K; k += blockDim.x) q[base + k] = quantize(to_f32(x[base + k]), scale);
   if (threadIdx.x == 0) s[blockIdx.x] = absmax;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s, int K) {
+  quantize_row<T>(x, q, s, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -203,150 +213,6 @@ cast_tensorwise_kernel(const T* __restrict__ x, int64_t n, const float* __restri
 }
 
 // ---------------------------------------------------------------------------
-// __dp4a int8 GEMM core of fused_switchback_fwd and fused_switchback_dgrad.
-//
-// acc[b, m] = sum_k x_q[b, k] * w_q[k, m], int32, with __dp4a on 4-byte
-// groups of k. W is stored (K, M), M-contiguous, as the JAX package keeps
-// it; __dp4a needs 4 consecutive k of one column, so each W tile is staged
-// transposed in shared memory (ws[n][k]) while it is loaded with coalesced
-// reads along M. No w_q^T is ever written to device memory.
-//
-// A block owns a BM x BN output tile and walks K in BK-byte steps; 256
-// threads sit on a 16 x 16 grid and own rows ty + 16 i and columns
-// tx + 16 j (strided, so the shared-memory word reads of one warp fall in
-// distinct banks: the row pitch is 9 words).
-//
-// What bounds it on an H100: at decode (8 rows) the int8 weight read, K x M
-// bytes at 3.35 TB/s, under a microsecond per linear; at prefill (1024 rows)
-// the int8 tensor-core rate. This first kernel reaches neither: __dp4a runs
-// on the CUDA cores, not the tensor cores, and at 8 rows the 16 x 32 tiles
-// give only 10-80 blocks, each paying a global-load latency per 32-byte K
-// step, so it sits about 100x above the decode bound (PERF.md). It is the
-// simple, exact version; int8_matmul_dequant (below) runs on int8 wgmma,
-// and the fused kernels move onto its mainloop later. No TMA, no wgmma.
-// ---------------------------------------------------------------------------
-constexpr int BK = 32;        // k bytes per shared-memory step
-constexpr int LDS = BK + 4;   // padded row pitch in bytes (9 words)
-
-template <int BM, int BN>
-struct Tiles {
-  alignas(16) int8_t xs[BM][LDS];
-  alignas(16) int8_t ws[BN][LDS];
-};
-
-// Stage the W tile of output columns [col0, col0 + BN) and contraction
-// indices [k0, k0 + BK) as ws[n][kk]. TW = false: w_q is (K, M), read
-// along M (coalesced) and written transposed. TW = true: w_q is (M, K) --
-// the forward's (N, M) weight seen from the dgrad, whose output columns
-// are W's rows -- read along K, which is already the order ws wants.
-template <bool TW, int BM, int BN>
-__device__ __forceinline__ void load_w_tile(const int8_t* __restrict__ w_q, int K, int M,
-                                            int k0, int col0, Tiles<BM, BN>& t) {
-  if (TW) {
-    for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
-      const int n = idx / BK, kk = idx % BK;
-      const int k = k0 + kk, c = col0 + n;
-      t.ws[n][kk] = (k < K && c < M) ? w_q[static_cast<size_t>(c) * K + k] : int8_t(0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
-      const int kk = idx / BN, n = idx % BN;
-      const int k = k0 + kk, c = col0 + n;
-      t.ws[n][kk] = (k < K && c < M) ? w_q[static_cast<size_t>(k) * M + c] : int8_t(0);
-    }
-  }
-}
-
-template <int BM, int BN>
-__device__ __forceinline__ void dot_tile(const Tiles<BM, BN>& t, int (&acc)[BM / 16][BN / 16]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int kw = 0; kw < BK / 4; ++kw) {
-    int a[BM / 16], b[BN / 16];
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i) a[i] = *reinterpret_cast<const int*>(&t.xs[ty + 16 * i][4 * kw]);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) b[j] = *reinterpret_cast<const int*>(&t.ws[tx + 16 * j][4 * kw]);
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fused_switchback_fwd: x (B, K) float/bf16, w_q (K, M) int8, s_w (1,) f32
-//   -> y (B, M) = (x_q . w_q) * (absmax_row * (s_w / 127^2))   (paper Eq. 3)
-// fused_switchback_dgrad (TW): g (B, K) float/bf16, w_q (M, K) int8 -- the
-//   forward's (N, M) weight, here with K = the layer's output width and M =
-//   its input width -- -> dx (B, M) = (g_q . w_q^T) * (absmax_row * (s_w /
-//   127^2)), the same arithmetic on the other contraction.
-//
-// X (or the output gradient) is row-quantized inside the kernel: the block
-// first takes the absmax of each of its BM rows over the whole K, then
-// quantizes each tile as it stages it into shared memory. It never goes to
-// device memory as int8 and no state (B, 1) is written.
-//
-// What bounds the dgrad on an H100: at the training path's 2048 rows the
-// int8 operations, 2 * B * K * M over 1,979 TOPS (a few us per linear);
-// this __dp4a kernel on the CUDA cores sits far above that, as the forward
-// does at prefill. mma/wgmma int8 on the tensor cores is the later change.
-// ---------------------------------------------------------------------------
-template <typename T, int BM, int BN, bool TW>
-__global__ void __launch_bounds__(kThreads)
-fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
-                 const float* __restrict__ s_w, T* __restrict__ y, int B, int K, int M) {
-  __shared__ Tiles<BM, BN> t;
-  __shared__ float amax[BM];
-  __shared__ float inv[BM];
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    const int row = row0 + r;
-    float m = 0.f;
-    if (row < B)
-      for (int k = lane; k < K; k += 32) m = fmaxf(m, fabsf(to_f32(x[static_cast<size_t>(row) * K + k])));
-    m = warp_max(m);
-    if (lane == 0) {
-      const float a = fmaxf(m, kEps);
-      amax[r] = a;
-      inv[r] = __fdiv_rn(kQmax, a);
-    }
-  }
-  __syncthreads();
-
-  int acc[BM / 16][BN / 16] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += kThreads) {
-      const int r = idx / BK, kk = idx % BK;
-      const int row = row0 + r, k = k0 + kk;
-      t.xs[r][kk] = (row < B && k < K)
-                        ? quantize(to_f32(x[static_cast<size_t>(row) * K + k]), inv[r])
-                        : int8_t(0);
-    }
-    load_w_tile<TW, BM, BN>(w_q, K, M, k0, col0, t);
-    __syncthreads();
-    dot_tile<BM, BN>(t, acc);
-    __syncthreads();
-  }
-
-  const float sw = __fdiv_rn(s_w[0], kQmax2);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int r = ty + 16 * i, row = row0 + r;
-    if (row >= B) continue;
-    const float scale = __fmul_rn(amax[r], sw);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < M)
-        y[static_cast<size_t>(row) * M + col] = from_f32<T>(__fmul_rn(__int2float_rn(acc[i][j]), scale));
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // int8_matmul_dequant: x_q (B, K) int8, w_q (K, M) int8, row_scale (B,) f32
 //   -> y (B, M) = f32(x_q . w_q) * row_scale[b]
 // int8_matmul_dequant_t (TW): w_q (M, K) int8 -> y = f32(x_q . w_q^T) * row_scale[b]
@@ -357,9 +223,17 @@ fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
 // per-row scales of the row-quantized W, which index the dgrad's output
 // columns).
 //
-// What bounds it on an H100: at the training paths' rows (2,048 smollm,
+// fused_switchback_fwd: x (B, K) float/bf16, w_q (K, M) int8, s_w (1,) f32
+//   -> y (B, M) = f32(x_q . w_q) * (absmax_row * (s_w / 127^2))   (paper Eq. 3)
+// fused_switchback_dgrad (TW): g (B, K) float/bf16, w_q (M, K) int8 -- the
+//   forward's (N, M) weight, here with K = the layer's output width and M =
+//   its input width -- -> dx (B, M), the same arithmetic on the other
+//   contraction. x's (or g's) rows are row-quantized as row_quantize does;
+//   the scale is rounded once, then the multiply, in x's type.
+//
+// What bounds them on an H100: at the training paths' rows (2,048 smollm,
 // 4,128 CLIP) the int8 operations, 2 B K M over 1,979 TOPS; at decode (8
-// rows) the weight's bytes. It runs on int8 wgmma (s32 += s8 . s8,
+// rows) the weight's bytes. They run on int8 wgmma (s32 += s8 . s8,
 // m64nNk32, kernels/csrc/wgmma.cuh) in the fp8 GEMMs' shape:
 //   * a block owns a 128 x 128 tile of y: one producer warpgroup and two
 //     consumer warpgroups of 64 rows. Per stage (128 bytes of K, four k32
@@ -386,6 +260,31 @@ fused_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w_q,
 //     next are issued. The epilogue is the plain version's operation for
 //     operation: __int2float_rn(acc) times rs, or times __fmul_rn(rs,
 //     col_scale[m]), rounded once. So every output is bit-equal to ref.py.
+// The fused pair (fused_switchback_kernel) quantizes each row of x once,
+// never once per column block (a 128-column block's producer quantizing
+// its rows itself would re-read x's bf16 panel M / 128 times, 424 MB of L2
+// reads at CLIP's w_up, where the product's int8 work takes about 55 us):
+//   * above 16 rows, in a pass of its own first (fused_quantize_kernel, a
+//     warp a row, read once), into the wrapper's int8 (B, K) workspace and
+//     its f32 absmax (B,); the GEMM then runs as int8_matmul_dequant's and
+//     its epilogue forms the scale itself, __fmul_rn(absmax[b], __fdiv_rn(
+//     s_w, 16129)), so nothing runs between the two launches;
+//   * at <= 16 rows (decode, verify, short prefills), where the step is
+//     the host's and a launch more would lengthen every token, in the one
+//     launch: before the roles split, the block's 12 warps take the absmax
+//     of its <= 16 rows over K (at most 64 KB, from L2 after the first
+//     block) while W's first tiles are already on their way; then per stage
+//     the producer warpgroup writes the 16 x 128 quantized bytes straight
+//     into the swizzled B tile (thread t: row t / 8, bytes 16 (t % 8) .. +
+//     15), fences them for the async proxy and arrives, beside W's tile
+//     (TMA, or the raw ring and the transpose, or the masked loads).
+//     M / 128 blocks (3 at smollm's K/V projections) cannot stream the
+//     weight, so K's steps split over blocks (blockIdx.y) until the column
+//     tiles' blocks about fill the card: each block adds its s32 sums into
+//     the wrapper's zeroed workspace by atomicAdd (exact in any order, so
+//     two launches give the same bits) and takes a ticket; the last block
+//     of a tile takes the sums back out (atomicExch with 0), resets the
+//     ticket and stores the tile.
 // ---------------------------------------------------------------------------
 constexpr int kI8Tile = 128 * 128;          // bytes of one operand's tile of a stage
 constexpr int kI8SwapRows = 16;             // x rows of the swapped (decode) form: N = 16
@@ -394,18 +293,26 @@ constexpr int kI8MaxStages = 6;
 constexpr int kI8MaxRaws = 4;
 
 struct I8Gemm {
-  const int8_t* x;           // x_q (B, K)
+  const int8_t* x;           // x_q (B, K); the fused decode form: null
   const int8_t* w;           // TW: (M, K); else (K, M)
-  const float* row_scale;    // (B,)
+  const float* row_scale;    // (B,): the caller's scale, or the fused pair's absmax
   const float* col_scale;    // (M,) or null
+  const float* s_w;          // the fused pair's (1,) weight state, else null
+  const void* xf;            // the fused decode form's x (B, K) in T, else null
+  int* split;                // the fused decode form's s32 sums (16, M), then a ticket per
+                             // column tile: zero, and left zero by every launch
   void* y;                   // (B, M), T
   int B, K, M;
   int tma, stages, raws;     // set by the launcher
+  int xvec;                  // xf's rows load 16 bytes at a time (K % 8 == 0, aligned)
+  int splits, per;           // the fused decode form: K's 128-byte steps split into `splits`
+                             // ranges of `per` (blockIdx.y), else 1 and all of them
 };
 
 size_t i8_smem_bytes(int stages, int raws) {
   return 1024 + (2 * static_cast<size_t>(stages) + raws) * kI8Tile +
-         (2 * kI8MaxStages + kI8MaxRaws) * sizeof(uint64_t);
+         (2 * kI8MaxStages + kI8MaxRaws) * sizeof(uint64_t) + 2 * kI8SwapRows * sizeof(float) +
+         4 * sizeof(int);
 }
 
 // the masked path: rows [r0, r0 + rows) x bytes [c0, c0 + 128) of an (R, C)
@@ -541,6 +448,200 @@ __device__ void i8_produce(const I8Gemm& g, const CUtensorMap* tm_x, const CUten
   }
 }
 
+// v = x's values at k = c .. c + 7 of one row (K of them), zeros past K:
+// one or two 16-byte loads where `vec` (then K % 8 == 0, so c < K means the
+// whole 8 lie inside), else one value at a time
+template <typename T>
+__device__ __forceinline__ void load8(const T* __restrict__ row, int c, int K, bool vec,
+                                      float (&v)[8]) {
+  if (vec && c < K) {
+    if constexpr (std::is_same<T, float>::value) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(row + c));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(row + c + 4));
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+      v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {             // a bf16 is the top half of its f32
+        v[2 * e] = __uint_as_float(w[e] << 16);
+        v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = c + e < K ? to_f32(row[c + e]) : 0.f;
+}
+
+// the fused decode form, before the roles split: the absmax of each of the
+// block's kI8SwapRows rows of x over K (every warp of the block, a row at a
+// time) and its 127 / absmax; rows past B get the floor (never stored)
+template <typename T>
+__device__ void swap_absmax(const I8Gemm& g, float* samax, float* sinv) {
+  const T* x = static_cast<const T*>(g.xf);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kI8SwapRows; r += kI8Threads / 32) {
+    float m = 0.f;
+    if (r < g.B) {
+      const T* row = x + static_cast<size_t>(r) * g.K;
+      for (int c = 8 * lane; c < g.K; c += 8 * 32) {
+        float v[8];
+        load8<T>(row, c, g.K, g.xvec, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
+      }
+    }
+    m = warp_max(m);
+    if (lane == 0) {
+      const float a = fmaxf(m, kEps);
+      samax[r] = a;
+      sinv[r] = __fdiv_rn(kQmax, a);
+    }
+  }
+}
+
+// the fused decode form's B tile of one stage: x's rows quantized at k =
+// k0 .. k0 + 127; thread t (of 128) writes row t / 8, bytes 16 (t % 8) ..
+// + 15, one 16-byte store at their swizzled place (zeros past B and K)
+template <typename T>
+__device__ __forceinline__ void quantize_stage(uint8_t* dst, const I8Gemm& g, const float* sinv,
+                                               int k0, int t) {
+  const int r = t >> 3, ch = t & 7, k = k0 + 16 * ch;
+  uint32_t q[4] = {0u, 0u, 0u, 0u};
+  if (r < g.B && k < g.K) {
+    const T* row = static_cast<const T*>(g.xf) + static_cast<size_t>(r) * g.K;
+    const float inv = sinv[r];
+    float v[2][8];
+    load8<T>(row, k, g.K, g.xvec, v[0]);
+    load8<T>(row, k + 8, g.K, g.xvec, v[1]);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      q[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[e >> 3][e & 7], inv)))
+                   << (8 * (e & 3));
+  }
+  *reinterpret_cast<uint4*>(dst + sw128(r * 128 + ch * 16)) = make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// The fused pair's first pass above 16 rows: x (B, K) row-quantized into the
+// workspace q (B, K) int8 and s (B,) f32, row_quantize's arithmetic. Where
+// K % 8 == 0, K <= kQuantVecK and x is 16-byte aligned, a warp owns a row
+// and reads it once, in 16-byte loads, into registers: the absmax is a warp
+// reduction and nothing is read twice (fused_quantize_kernel); else a block
+// owns a row (fused_quantize_block_kernel, quantize_row: a kernel of its
+// own, as the registers of the first would cut its occupancy). TW marks
+// the dgrad's pass: the flag only names the kernel, so that a profile
+// counts each pass under its own entry point.
+constexpr int kQuantVecK = 8 * 32 * 8;       // 8 loads of 8 values a lane
+
+template <typename T, bool TW>
+__global__ void __launch_bounds__(kThreads)
+fused_quantize_block_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                            float* __restrict__ s, int K) {
+  quantize_row<T>(x, q, s, K);
+}
+
+template <typename T, bool TW>
+__global__ void __launch_bounds__(kThreads)
+fused_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+                      int B, int K) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const T* p = x + static_cast<size_t>(row) * K;
+  float v[kQuantVecK / 256][8];
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < kQuantVecK / 256; ++j) {
+    load8<T>(p, 8 * (lane + 32 * j), K, true, v[j]);          // zeros past K
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[j][e]));
+  }
+  const float absmax = fmaxf(warp_max(m), kEps);
+  const float scale = __fdiv_rn(kQmax, absmax);
+#pragma unroll
+  for (int j = 0; j < kQuantVecK / 256; ++j) {
+    const int c = 8 * (lane + 32 * j);
+    if (c >= K) break;
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[j][e], scale)))
+                   << (8 * (e & 3));
+    *reinterpret_cast<uint2*>(q + static_cast<size_t>(row) * K + c) = make_uint2(w[0], w[1]);
+  }
+  if (lane == 0) s[row] = absmax;
+}
+
+// the fused decode form: W's first tiles of the block's steps kb0 .. kb0 +
+// n - 1, issued by the thread that made the barriers before the absmax pass
+// (the dgrad's straight into the first `stages` stages; the forward's into
+// the raw ring)
+template <bool TW>
+__device__ void i8_prefetch_w(const I8Gemm& g, const CUtensorMap* tm_w, uint8_t* ws, uint8_t* raw,
+                              uint64_t* full, uint64_t* rawfull, int col0, int kb0, int n) {
+  if (TW) {
+    for (int i = 0; i < min(g.stages, n); ++i) {
+      mbar_expect_tx(&full[i], kI8Tile);
+      tma_load_2d(ws + i * kI8Tile, tm_w, &full[i], 128 * (kb0 + i), col0);
+    }
+  } else {
+    for (int i = 0; i < min(g.raws, n); ++i) {
+      mbar_expect_tx(&rawfull[i], kI8Tile);
+      tma_load_2d(raw + i * kI8Tile, tm_w, &rawfull[i], col0, 128 * (kb0 + i));
+    }
+  }
+}
+
+// the fused decode form's producer warpgroup: per 128-byte step of K (the
+// block's n steps from kb0), x's quantized rows (all 128 threads) and W's
+// K-major tile as i8_produce brings it; the stage's full barrier counts the
+// 128 threads (and, for the dgrad's TMA, the issuer's expect_tx)
+template <typename T, bool TW>
+__device__ void i8_produce_qx(const I8Gemm& g, const CUtensorMap* tm_w, uint8_t* xs, uint8_t* ws,
+                              uint8_t* raw, uint64_t* full, uint64_t* empty, uint64_t* rawfull,
+                              const float* sinv, int col0, int kb0, int n) {
+  const int t = threadIdx.x;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int i = 0; i < n; ++i) {
+    const int k0 = 128 * (kb0 + i);
+    mbar_wait(&empty[s], ph ^ 1u);
+    if (TW && g.tma && i >= g.stages && t == 0) {
+      mbar_expect_tx(&full[s], kI8Tile);
+      tma_load_2d(ws + s * kI8Tile, tm_w, &full[s], k0, col0);
+    }
+    quantize_stage<T>(xs + s * kI8Tile, g, sinv, k0, t);
+    if (TW) {
+      if (!g.tma) load_tile(ws + s * kI8Tile, g.w, g.M, g.K, col0, k0, 128, t);
+    } else if (g.tma) {
+      const int r = i % g.raws;
+      mbar_wait(&rawfull[r], (i / g.raws) & 1u);
+      transpose_tile(ws + s * kI8Tile, raw + r * kI8Tile, t);
+    } else {
+      load_tile(raw, g.w, g.K, g.M, k0, col0, 128, t);
+      named_sync(1, 128);
+      transpose_tile(ws + s * kI8Tile, raw, t);
+    }
+    fence_proxy_async();
+    mbar_arrive(&full[s]);
+    if (!TW) {
+      named_sync(1, 128);                    // the raw tile is free again
+      const int r = i % g.raws;
+      if (g.tma && t == 0 && i + g.raws < n) {
+        fence_proxy_async();
+        mbar_expect_tx(&rawfull[r], kI8Tile);
+        tma_load_2d(raw + r * kI8Tile, tm_w, &rawfull[r], col0, k0 + 128 * g.raws);
+      }
+    }
+    if (++s == g.stages) {
+      s = 0;
+      ph ^= 1u;
+    }
+  }
+}
+
 // y[0] = v0 and, with `both`, y[1] = v1, each rounded once; one paired
 // store where the row's pitch keeps pairs aligned
 template <typename T>
@@ -557,23 +658,29 @@ __device__ __forceinline__ void store2(T* y, float v0, float v1, bool both, bool
 }
 
 // a consumer warpgroup (cw = 0 or 1): A's rows 64 cw .. + 63 of the tile
-// (x rows; W's rows, the output columns, when SWAP), every stage chained
-// into one s32 fragment; then the epilogue
-template <typename T, bool SWAP>
+// (x rows; W's rows, the output columns, when SWAP), the block's n stages
+// chained into one s32 fragment; then the epilogue. Row b's scale:
+// row_scale[b] (QX: the block's own absmax, samax[b]), times __fdiv_rn(s_w,
+// 16129) for the fused pair, rounded once. QX with K split over the
+// blocks of a column tile: each adds its sums into g.split (s32 adds,
+// exact in any order) and takes a ticket; the last stores the tile from
+// the whole sums, leaving g.split zero
+template <typename T, bool SWAP, bool QX>
 __device__ void i8_consume(const I8Gemm& g, const uint8_t* xs, const uint8_t* ws, uint64_t* full,
-                           uint64_t* empty, int row0, int col0, int cw) {
+                           uint64_t* empty, const float* samax, int* sflag, int row0, int col0,
+                           int cw, int n) {
   constexpr int N = SWAP ? kI8SwapRows : 128;
   const int t = threadIdx.x - 128 * (1 + cw);
   const int warp = t >> 5, lane = t & 31;
   const int a0 = (SWAP ? col0 : row0) + 64 * cw;           // first row of A
   const bool live = a0 < (SWAP ? g.M : g.B);
-  const int nk = (g.K + 127) / 128;
+  const int f_lo = a0 + 16 * warp + (lane >> 2), f_hi = f_lo + 8;   // the fragment's rows
   int acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0;
   int s = 0, prev = 0;
   uint32_t ph = 0;
-  for (int kb = 0; kb < nk; ++kb) {
+  for (int kb = 0; kb < n; ++kb) {
     mbar_wait(&full[s], ph);
     if (live) {
       const uint8_t* a = SWAP ? ws + s * kI8Tile + cw * 64 * 128 : xs + s * kI8Tile + cw * 64 * 128;
@@ -596,25 +703,56 @@ __device__ void i8_consume(const I8Gemm& g, const uint8_t* xs, const uint8_t* ws
       ph ^= 1u;
     }
   }
+  if (live) {
+    wgmma_wait0();
+    fence_frag(acc);
+  }
+  if constexpr (QX) {
+    if (g.splits > 1) {
+      // (QX is the swapped form: fragment rows are output columns m, its
+      // columns the x rows)
+      int* sums = g.split;
+      int* ticket = sums + kI8SwapRows * g.M + blockIdx.x;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int m = ((i >> 1) & 1) ? f_hi : f_lo, r = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (live && m < g.M && r < g.B) atomicAdd(&sums[r * g.M + m], acc[i]);
+      }
+      __threadfence();
+      named_sync(2, 256);                      // both consumer warpgroups' sums are in
+      if (t == 0 && cw == 0) *sflag = atomicAdd(ticket, 1) == g.splits - 1;
+      named_sync(2, 256);
+      if (!*sflag) return;
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int m = ((i >> 1) & 1) ? f_hi : f_lo, r = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (live && m < g.M && r < g.B) acc[i] = atomicExch(&sums[r * g.M + m], 0);
+      }
+      if (t == 0 && cw == 0) *ticket = 0;
+    }
+  }
   if (!live) return;
-  wgmma_wait0();
-  fence_frag(acc);
   T* y = static_cast<T*>(g.y);
-  const int f_lo = a0 + 16 * warp + (lane >> 2), f_hi = f_lo + 8;   // the fragment's rows
+  const float sw = g.s_w ? __fdiv_rn(g.s_w[0], kQmax2) : 0.f;
+  auto row_scale = [&](int b) {
+    const float rs = QX ? samax[b] : g.row_scale[b];
+    return g.s_w ? __fmul_rn(rs, sw) : rs;
+  };
   if (SWAP) {
     // fragment rows are output columns m, its columns the x rows
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
       const int m = ((i >> 1) & 1) ? f_hi : f_lo, r = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
       if (m >= g.M || r >= g.B) continue;
-      const float rs = g.row_scale[r];
+      const float rs = row_scale(r);
       const float scale = g.col_scale ? __fmul_rn(rs, g.col_scale[m]) : rs;
       y[static_cast<size_t>(r) * g.M + m] = from_f32<T>(__fmul_rn(__int2float_rn(acc[i]), scale));
     }
     return;
   }
-  const float rs_lo = f_lo < g.B ? g.row_scale[f_lo] : 0.f;
-  const float rs_hi = f_hi < g.B ? g.row_scale[f_hi] : 0.f;
+  const float rs_lo = f_lo < g.B ? row_scale(f_lo) : 0.f;
+  const float rs_hi = f_hi < g.B ? row_scale(f_hi) : 0.f;
   const int c_base = col0 + 2 * (lane & 3);
   const bool pairs = (g.M & 1) == 0;
 #pragma unroll
@@ -632,84 +770,127 @@ __device__ void i8_consume(const I8Gemm& g, const uint8_t* xs, const uint8_t* ws
   }
 }
 
-template <typename T, bool TW, bool SWAP>
-__global__ void __launch_bounds__(kI8Threads, 1)
-int8_matmul_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CUtensorMap tm_w,
-                   const I8Gemm g) {
-  extern __shared__ uint8_t smem_raw[];
+// one block of the GEMM; QX: the fused decode form (x's rows quantized in
+// the block, SWAP only)
+template <typename T, bool TW, bool SWAP, bool QX>
+__device__ __forceinline__ void i8_gemm(uint8_t* smem_raw, const CUtensorMap* tm_x,
+                                        const CUtensorMap* tm_w, const I8Gemm& g) {
+  static_assert(!QX || SWAP, "x is quantized in the block only in the swapped form");
   uint8_t* xs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);   // [stage]
   uint8_t* ws = xs + g.stages * kI8Tile;                                       // [stage]
   uint8_t* raw = ws + g.stages * kI8Tile;                                      // [raws]
   uint64_t* full = reinterpret_cast<uint64_t*>(raw + g.raws * kI8Tile);
   uint64_t* empty = full + kI8MaxStages;
   uint64_t* rawfull = empty + kI8MaxStages;
-  const int row0 = blockIdx.y * (SWAP ? kI8SwapRows : 128), col0 = blockIdx.x * 128;
+  float* samax = reinterpret_cast<float*>(rawfull + kI8MaxRaws);               // [kI8SwapRows]
+  float* sinv = samax + kI8SwapRows;
+  int* sflag = reinterpret_cast<int*>(sinv + kI8SwapRows);
+  const int row0 = SWAP ? 0 : blockIdx.y * 128, col0 = blockIdx.x * 128;
+  // the block's 128-byte steps of K: QX, the blockIdx.y-th range of g.per
+  const int nk = (g.K + 127) / 128;
+  const int kb0 = QX ? blockIdx.y * g.per : 0, n = QX ? min(nk, kb0 + g.per) - kb0 : nk;
   if (threadIdx.x == 0) {
     // full: TMA's bytes with its issuer's arrival, and on the forward the
     // 128 transposing threads'; the masked path's 128 producer threads;
+    // QX: the 128 quantizing threads, and the dgrad's TMA issuer;
     // empty: the 8 consumer warps
-    const uint32_t n_full = g.tma ? (TW ? 1u : 129u) : 128u;
+    const uint32_t n_full =
+        QX ? 128u + (g.tma && TW ? 1u : 0u) : (g.tma ? (TW ? 1u : 129u) : 128u);
     for (int i = 0; i < g.stages; ++i) {
       mbar_init(&full[i], n_full);
       mbar_init(&empty[i], 8);
     }
     for (int i = 0; i < g.raws; ++i) mbar_init(&rawfull[i], 1);
     mbar_init_fence();
+    if constexpr (QX)
+      if (g.tma) i8_prefetch_w<TW>(g, tm_w, ws, raw, full, rawfull, col0, kb0, n);
   }
+  if constexpr (QX) swap_absmax<T>(g, samax, sinv);
   __syncthreads();
-  if (threadIdx.x < 128)
-    i8_produce<TW, SWAP>(g, &tm_x, &tm_w, xs, ws, raw, full, empty, rawfull, row0, col0);
-  else
-    i8_consume<T, SWAP>(g, xs, ws, full, empty, row0, col0, threadIdx.x / 128 - 1);
+  if (threadIdx.x < 128) {
+    if constexpr (QX)
+      i8_produce_qx<T, TW>(g, tm_w, xs, ws, raw, full, empty, rawfull, sinv, col0, kb0, n);
+    else
+      i8_produce<TW, SWAP>(g, tm_x, tm_w, xs, ws, raw, full, empty, rawfull, row0, col0);
+  } else {
+    i8_consume<T, SWAP, QX>(g, xs, ws, full, empty, samax, sflag, row0, col0,
+                            threadIdx.x / 128 - 1, n);
+  }
 }
 
 template <typename T, bool TW, bool SWAP>
+__global__ void __launch_bounds__(kI8Threads, 1)
+int8_matmul_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CUtensorMap tm_w,
+                   const I8Gemm g) {
+  extern __shared__ uint8_t smem_raw[];
+  i8_gemm<T, TW, SWAP, false>(smem_raw, &tm_x, &tm_w, g);
+}
+
+// the fused pair's GEMM: SWAP quantizes x in the block (one launch); else
+// x_q and its absmax come from fused_quantize_kernel's workspace
+template <typename T, bool TW, bool SWAP>
+__global__ void __launch_bounds__(kI8Threads, 1)
+fused_switchback_kernel(__grid_constant__ const CUtensorMap tm_x,
+                        __grid_constant__ const CUtensorMap tm_w, const I8Gemm g) {
+  extern __shared__ uint8_t smem_raw[];
+  i8_gemm<T, TW, SWAP, SWAP>(smem_raw, &tm_x, &tm_w, g);
+}
+
+// FUSED: launch fused_switchback_kernel (g.s_w set; SWAP: g.xf, else g.x
+// and g.row_scale the workspace), else int8_matmul_kernel
+template <typename T, bool TW, bool SWAP, bool FUSED>
 int launch_i8(I8Gemm g, cudaStream_t st) {
-  // the TMA path: 16-byte row pitches and base addresses
-  g.tma = g.K > 0 && g.K % 16 == 0 && (TW || g.M % 16 == 0) && aligned16(g.x) && aligned16(g.w);
+  constexpr bool QX = FUSED && SWAP;
+  // the TMA path: 16-byte row pitches and base addresses (QX: W's alone)
+  const bool w_ok = (TW ? g.K % 16 == 0 : g.M % 16 == 0) && aligned16(g.w);
+  g.tma = g.K > 0 && w_ok && (QX || (g.K % 16 == 0 && aligned16(g.x)));
+  g.xvec = QX && g.K % 8 == 0 && aligned16(g.xf);
   g.stages = TW ? kI8MaxStages : 4;
   g.raws = TW ? 0 : (g.tma ? kI8MaxRaws : 1);
+  const int nk = (g.K + 127) / 128, tiles = (g.M + 127) / 128;
+  g.splits = 1;
+  g.per = nk;
+  if (QX && g.split) {
+    // K split so that the column tiles' blocks about fill the card once
+    static int sms = 0;
+    if (!sms) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    const int want = std::max(1, std::min(nk, sms / tiles));
+    g.per = std::max(1, (nk + want - 1) / want);
+    g.splits = std::max(1, (nk + g.per - 1) / g.per);
+  }
   CUtensorMap mx, mw;
   memset(&mx, 0, sizeof(mx));
   memset(&mw, 0, sizeof(mw));
   if (g.tma &&
-      !(tma_map_2d(&mx, g.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.B, g.K, 128,
-                   SWAP ? kI8SwapRows : 128) &&
+      !((QX || tma_map_2d(&mx, g.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.B, g.K, 128,
+                          SWAP ? kI8SwapRows : 128)) &&
         (TW ? tma_map_2d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.M, g.K, 128, 128)
             : tma_map_2d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.M, 128, 128))))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = i8_smem_bytes(g.stages, g.raws);
+  const int most = static_cast<int>(i8_smem_bytes(g.stages, TW ? 0 : kI8MaxRaws));
   static bool opted = false;          // the largest configuration, once per instantiation
   if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int8_matmul_kernel<T, TW, SWAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(i8_smem_bytes(g.stages, TW ? 0 : kI8MaxRaws)));
+    cudaError_t err;
+    if constexpr (FUSED)
+      err = cudaFuncSetAttribute(fused_switchback_kernel<T, TW, SWAP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    else
+      err = cudaFuncSetAttribute(int8_matmul_kernel<T, TW, SWAP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = true;
   }
-  const dim3 grid((g.M + 127) / 128, SWAP ? 1 : (g.B + 127) / 128);
-  int8_matmul_kernel<T, TW, SWAP><<<grid, kI8Threads, bytes, st>>>(mx, mw, g);
+  const dim3 grid(tiles, SWAP ? g.splits : (g.B + 127) / 128);
+  if constexpr (FUSED)
+    fused_switchback_kernel<T, TW, SWAP><<<grid, kI8Threads, bytes, st>>>(mx, mw, g);
+  else
+    int8_matmul_kernel<T, TW, SWAP><<<grid, kI8Threads, bytes, st>>>(mx, mw, g);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Decode (a few rows) takes narrow tiles so more blocks stream the weight;
-// prefill takes square 64 x 64 tiles.
-constexpr int kSmallRows = 16;
-
-template <typename T, bool TW>
-void launch_fused(const void* x, const void* w_q, const void* s_w, void* y, int B, int K, int M,
-                  cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w_q);
-  const float* sp = static_cast<const float*>(s_w);
-  T* yp = static_cast<T*>(y);
-  if (B <= kSmallRows) {
-    dim3 grid((M + 31) / 32, (B + 15) / 16);
-    fused_fwd_kernel<T, 16, 32, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
-  } else {
-    dim3 grid((M + 63) / 64, (B + 63) / 64);
-    fused_fwd_kernel<T, 64, 64, TW><<<grid, kThreads, 0, st>>>(xp, wp, sp, yp, B, K, M);
-  }
 }
 
 // decode (B <= kI8SwapRows) swaps the operands (see int8_matmul_kernel)
@@ -726,7 +907,44 @@ int launch_matmul(const void* x_q, const void* w_q, const void* row_scale, const
   g.B = B;
   g.K = K;
   g.M = M;
-  return B <= kI8SwapRows ? launch_i8<T, TW, true>(g, st) : launch_i8<T, TW, false>(g, st);
+  return B <= kI8SwapRows ? launch_i8<T, TW, true, false>(g, st)
+                          : launch_i8<T, TW, false, false>(g, st);
+}
+
+// the fused pair: at <= kI8SwapRows rows one launch (x quantized in the
+// block; with `split`, K split over the blocks of a column tile); above,
+// fused_quantize_kernel into the workspace x_q (B, K) int8 and absmax (B,)
+// f32, then the GEMM on them
+template <typename T, bool TW>
+int launch_fused(const void* x, const void* w_q, const void* s_w, void* y, void* x_q,
+                 void* absmax, void* split, int B, int K, int M, cudaStream_t st) {
+  I8Gemm g;
+  memset(&g, 0, sizeof(g));
+  g.w = static_cast<const int8_t*>(w_q);
+  g.s_w = static_cast<const float*>(s_w);
+  g.y = y;
+  g.B = B;
+  g.K = K;
+  g.M = M;
+  if (B <= kI8SwapRows) {
+    g.xf = x;
+    g.split = static_cast<int*>(split);
+    return launch_i8<T, TW, true, true>(g, st);
+  }
+  if (!x_q || !absmax) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  int8_t* qp = static_cast<int8_t*>(x_q);
+  float* sp = static_cast<float*>(absmax);
+  constexpr int rows = kThreads / 32;
+  if (K % 8 == 0 && K <= kQuantVecK && aligned16(x) && aligned16(x_q))
+    fused_quantize_kernel<T, TW><<<(B + rows - 1) / rows, kThreads, 0, st>>>(xp, qp, sp, B, K);
+  else
+    fused_quantize_block_kernel<T, TW><<<B, kThreads, 0, st>>>(xp, qp, sp, K);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g.x = static_cast<const int8_t*>(x_q);
+  g.row_scale = static_cast<const float*>(absmax);
+  return launch_i8<T, TW, false, true>(g, st);
 }
 
 
@@ -993,16 +1211,17 @@ int sb_tensor_quantize(const void* x, int bf16, int64_t n, void* partial, int n_
   return static_cast<int>(cudaGetLastError());
 }
 
+// x_q (B, K) int8 and absmax (B,) f32: the wrapper's workspace above 16
+// rows (null at <= 16); split: at <= 16 rows, int32 (16 M + ceil(M / 128)),
+// zero and left zero (the K-split sums and tickets; null: no split)
 int sb_fused_switchback_fwd(const void* x, int bf16, const void* w_q, const void* s_w, void* y,
-                            int B, int K, int M, void* stream) {
+                            void* x_q, void* absmax, void* split, int B, int K, int M,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0 && M > 0) {
-    if (bf16)
-      launch_fused<__nv_bfloat16, false>(x, w_q, s_w, y, B, K, M, st);
-    else
-      launch_fused<float, false>(x, w_q, s_w, y, B, K, M, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16
+             ? launch_fused<__nv_bfloat16, false>(x, w_q, s_w, y, x_q, absmax, split, B, K, M, st)
+             : launch_fused<float, false>(x, w_q, s_w, y, x_q, absmax, split, B, K, M, st);
 }
 
 // col_scale (M,) f32, or null for the row-scale epilogue alone; on int8
@@ -1017,17 +1236,17 @@ int sb_int8_matmul_dequant(const void* x_q, const void* w_q, const void* row_sca
 }
 
 // g (B, K) float/bf16, w_q (N, K) int8 (the forward's weight; K is its
-// output width), s_w (1,) f32 -> dx (B, N) in g's type.
+// output width), s_w (1,) f32 -> dx (B, N) in g's type; g_q (B, K) int8,
+// absmax (B,) f32 and split (16 N + ceil(N / 128)) int32 the workspace, as
+// for the forward.
 int sb_fused_switchback_dgrad(const void* g, int bf16, const void* w_q, const void* s_w,
-                              void* dx, int B, int K, int N, void* stream) {
+                              void* dx, void* g_q, void* absmax, void* split, int B, int K,
+                              int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0 && N > 0) {
-    if (bf16)
-      launch_fused<__nv_bfloat16, true>(g, w_q, s_w, dx, B, K, N, st);
-    else
-      launch_fused<float, true>(g, w_q, s_w, dx, B, K, N, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16
+             ? launch_fused<__nv_bfloat16, true>(g, w_q, s_w, dx, g_q, absmax, split, B, K, N, st)
+             : launch_fused<float, true>(g, w_q, s_w, dx, g_q, absmax, split, B, K, N, st);
 }
 
 // x_q (B, K) int8, w_q (M, K) int8, row_scale (B,) f32, col_scale (M,) f32

@@ -14,6 +14,9 @@ incremented only where it launches its kernel. The two matmul wrappers
 count their column-scale form apart (``int8_matmul_dequant_colscale``,
 ``int8_matmul_dequant_colscale_t``): it is the colscale branch of the TPU
 kernel. ``launch_counts``/``reset_launch_counts`` read and zero them all.
+The fused forward and dgrad count one launch a call: at ``SWAP_ROWS`` rows
+or fewer that is one CUDA kernel, above it two (x's row-quantize pass into
+the wrapper's workspace, then the int8 GEMM).
 
 ``wgrad_bf16`` is the JAX package's op entry point of the same name; no
 serve or train path calls it (the training path's Ẇ is one cuBLAS GEMM,
@@ -32,6 +35,11 @@ from repro_torch.kernels.switchback import ref as _ref
 # package's ``repro/kernels/switchback/ops.py`` (FUSED_MAX_CONTRACT), kept
 # so both packages run the same kernels on the same layers.
 FUSED_MAX_CONTRACT = 2048
+
+# At most this many rows, the fused forward and dgrad quantize x inside
+# their one launch (the kernels' swapped decode form, N = 16); above it the
+# kernels take a workspace for x's int8 rows and absmax from the wrapper.
+SWAP_ROWS = 16
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 # scratch for tensor_quantize's first pass: one partial max per block
@@ -102,9 +110,46 @@ def _check_weight(w_q: torch.Tensor, K: int):
         raise ValueError(f"w_q {tuple(w_q.shape)} does not contract with K={K}")
 
 
+_SPLIT: dict = {}         # (device index, M) -> the one-launch fused form's int32 sums
+
+
+def _split_sums(device: torch.device, M: int) -> torch.Tensor:
+    """The fused pair's K-split workspace at SWAP_ROWS rows or fewer for
+    an output width M: int32 s32 sums (SWAP_ROWS, M), then one ticket per
+    128-column tile. Zero when made, and every launch leaves it zero (the
+    last block of a tile takes the sums back out), so one buffer serves
+    every launch in stream order, CUDA-graph replays included. Kept for the
+    process's life, since a captured graph holds its address."""
+    key = (device.index, M)
+    if key not in _SPLIT:
+        _SPLIT[key] = torch.zeros(SWAP_ROWS * M + -(-M // 128), dtype=torch.int32, device=device)
+    return _SPLIT[key]
+
+
+def _fused(entry, name, x, w_q, s_w, M):
+    """Launch one of the two fused entry points on x (B, K) and count it
+    once under ``name``. Above SWAP_ROWS rows the kernels first quantize x
+    into a workspace allocated here (int8 (B, K) and the f32 absmax (B,));
+    at SWAP_ROWS or fewer they split K over blocks into ``_split_sums``."""
+    B, K = x.shape
+    y = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    # held until the launch is queued: a workspace freed before it could be
+    # handed out again, in part, to the other
+    if B > SWAP_ROWS:
+        work = (torch.empty((B, K), dtype=torch.int8, device=x.device),
+                torch.empty((B,), dtype=torch.float32, device=x.device))
+        ptrs = [t.data_ptr() for t in work] + [None]
+    else:
+        ptrs = [None, None, _split_sums(x.device, M).data_ptr()]
+    _b.launch(entry, x.data_ptr(), int(x.dtype == torch.bfloat16), w_q.data_ptr(),
+              s_w.data_ptr(), y.data_ptr(), *ptrs, B, K, M, _b.stream(x))
+    LAUNCHES[name] += 1
+    return y
+
+
 def fused_switchback_fwd(x: torch.Tensor, w_q: torch.Tensor,
                          s_w: torch.Tensor) -> torch.Tensor:
-    """Row-quantize x inside the int8 matmul: x (B, K) f32/bf16, w_q (K, M)
+    """Row-quantize x and run the int8 matmul: x (B, K) f32/bf16, w_q (K, M)
     int8, s_w (1, 1) f32 -> (B, M) in x's dtype."""
     _b.need(x, "x", _FLOAT_TYPES, 2)
     _check_weight(w_q, x.shape[1])
@@ -113,14 +158,8 @@ def fused_switchback_fwd(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"s_w must hold one value, got shape {tuple(s_w.shape)}")
     if _b.on_cpu(x, w_q, s_w):
         return _ref.fused_switchback_fwd(x, w_q, s_w)
-    B, K = x.shape
-    M = w_q.shape[1]
-    y = torch.empty((B, M), dtype=x.dtype, device=x.device)
-    _b.launch(_lib().sb_fused_switchback_fwd, x.data_ptr(),
-              int(x.dtype == torch.bfloat16), w_q.data_ptr(),
-              s_w.data_ptr(), y.data_ptr(), B, K, M, _b.stream(x))
-    LAUNCHES["fused_switchback_fwd"] += 1
-    return y
+    return _fused(_lib().sb_fused_switchback_fwd, "fused_switchback_fwd", x, w_q, s_w,
+                  w_q.shape[1])
 
 
 def _check_scales(row_scale, col_scale, B: int, M: int, out_dtype):
@@ -170,8 +209,8 @@ def int8_matmul_dequant(x_q: torch.Tensor, w_q: torch.Tensor,
 
 def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
                            s_w: torch.Tensor) -> torch.Tensor:
-    """Input gradient with the row-quantize of g fused into the int8
-    matmul: g (B, M) f32/bf16, w_q (N, M) int8 as the forward quantized it,
+    """Input gradient, g row-quantized for the int8 matmul as the
+    forward quantizes x: g (B, M) f32/bf16, w_q (N, M) int8 as the forward quantized it,
     s_w (1, 1) f32 -> dx (B, N) = s_g * s_w / 127^2 * (q(g) . w_q^T), in
     g's dtype. The contraction runs over w_q's second dim (no transpose)."""
     _b.need(g, "g", _FLOAT_TYPES, 2)
@@ -183,14 +222,8 @@ def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"s_w must hold one value, got shape {tuple(s_w.shape)}")
     if _b.on_cpu(g, w_q, s_w):
         return _ref.fused_switchback_dgrad(g, w_q, s_w)
-    B, M = g.shape
-    N = w_q.shape[0]
-    dx = torch.empty((B, N), dtype=g.dtype, device=g.device)
-    _b.launch(_lib().sb_fused_switchback_dgrad, g.data_ptr(),
-              int(g.dtype == torch.bfloat16), w_q.data_ptr(),
-              s_w.data_ptr(), dx.data_ptr(), B, M, N, _b.stream(g))
-    LAUNCHES["fused_switchback_dgrad"] += 1
-    return dx
+    return _fused(_lib().sb_fused_switchback_dgrad, "fused_switchback_dgrad", g, w_q, s_w,
+                  w_q.shape[0])
 
 
 def int8_matmul_dequant_t(x_q: torch.Tensor, w_q: torch.Tensor,

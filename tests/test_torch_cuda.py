@@ -9,9 +9,11 @@ without JAX (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 Elsewhere they skip. Each SwitchBack kernel, forward and input gradient,
 must be bit-equal to its plain PyTorch version
 (``kernels/switchback/ref.py``) on the same inputs at the serve and train
-paths' shapes; each flash-attention forward kernel must agree with its
-plain version (``kernels/flash_attention/ref.py``, one full softmax where
-the kernel takes an online one) within o 2^-7 of max|o| in bf16 (one bf16
+paths' shapes (the fused pair also either side of its one-launch form's
+16 rows, on all-zero rows and twice the same bits); each flash-attention
+forward kernel must agree with its plain version
+(``kernels/flash_attention/ref.py``, one full softmax where the kernel
+takes an online one) within o 2^-7 of max|o| in bf16 (one bf16
 ulp at the largest value) and 1e-5 in f32, lse 1e-5 absolute; the two
 backward kernels within BWD_TOL of max|grad| of theirs (the same
 recomputed p, sums in another order), and bit-identical over two
@@ -98,35 +100,58 @@ def _activations(rng, B, K):
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
+def _fused_holds(fused, plain, t, w_q, s_w):
+    """A fused kernel bit-equal to its plain version on ``t``, twice the
+    same bits, and on all-zero rows of the same shape (the absmax floor);
+    the one-launch form's K-split workspace left zero."""
+    for a in (t, torch.zeros_like(t)):
+        want = plain(a, w_q, s_w)
+        got = fused(a, w_q, s_w)
+        assert got.dtype == a.dtype and torch.equal(got, want)
+        assert torch.equal(fused(a, w_q, s_w), got)                     # rerun
+    assert not any(bool(b.any()) for b in TOPS._SPLIT.values())
+
+
+# the fused pair's shapes: smollm's decode (8), prefill (1,024) and train
+# (2,048) rows; CLIP's vision (4,128), text (2,464) and patch embedding
+# (8,192 x 588); either side of the one-launch form's 16 rows (1, 15, 16,
+# 17); ragged; the widest fused contraction (2,048)
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K,M", [(8, 960, 320), (8, 2560, 960),
-                                   (1024, 960, 2560), (37, 130, 70)])
-def test_cuda_kernels_match_plain(B, K, M):
+@pytest.mark.parametrize("B,K,M", [(8, 960, 320), (8, 2560, 960), (8, 960, 2560),
+                                   (1024, 960, 2560), (2048, 960, 960), (37, 130, 70),
+                                   (4128, 1280, 1280), (4128, 1280, 5120), (2464, 1024, 1024),
+                                   (2464, 1024, 4096), (8192, 588, 1280), (1, 960, 960),
+                                   (15, 960, 320), (16, 960, 320), (17, 960, 320),
+                                   (8, 2048, 960), (1000, 2048, 960)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_kernels_match_plain(B, K, M, dt):
     dev = _card()
     rng = np.random.default_rng(B * K + M)
-    x = _activations(rng, B, K).to(dev)
+    x = _activations(rng, B, K).to(dev, dt)
     w = torch.from_numpy(rng.standard_normal((K, M)).astype(np.float32)
                          ).to(dev, torch.bfloat16)
     w_q, s_w = TOPS.tensor_quantize(w)
     rq, rs = TREF.tensor_quantize(w)
     assert torch.equal(w_q, rq) and torch.equal(s_w, rs)
-    assert torch.equal(TOPS.fused_switchback_fwd(x, w_q, s_w),
-                       TREF.fused_switchback_fwd(x, w_q, s_w))
+    _fused_holds(TOPS.fused_switchback_fwd, TREF.fused_switchback_fwd, x, w_q, s_w)
     x_q, s_x = TOPS.row_quantize(x)
     rxq, rsx = TREF.row_quantize(x)
     assert torch.equal(x_q, rxq) and torch.equal(s_x, rsx)
     scale = s_x * TREF.div(s_w, 16129.0)
-    assert torch.equal(TOPS.int8_matmul_dequant(x_q, w_q, scale),
-                       TREF.int8_matmul_dequant(x_q, w_q, scale))
+    assert torch.equal(TOPS.int8_matmul_dequant(x_q, w_q, scale, out_dtype=dt),
+                       TREF.int8_matmul_dequant(x_q, w_q, scale, out_dtype=dt))
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,N", [(2048, 960, 960), (2048, 320, 960), (2048, 960, 2560),
-                                   (1000, 2560, 960), (8, 2560, 960), (37, 70, 130)])
+                                   (1000, 2560, 960), (8, 2560, 960), (37, 70, 130),
+                                   (4128, 1280, 1280), (4128, 1280, 5120), (2464, 1024, 1024),
+                                   (2464, 1024, 4096), (1, 960, 960), (15, 320, 960),
+                                   (16, 320, 960), (17, 320, 960), (1000, 2048, 960)])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_cuda_dgrad_kernels_match_plain(B, M, N, dt):
-    """The dgrad pair at the train path's shapes: g (B, M) against the
+    """The dgrad pair at the train paths' shapes: g (B, M) against the
     forward's w_q (N, M), contracted over M."""
     dev = _card()
     rng = np.random.default_rng(B * M + N)
@@ -134,10 +159,7 @@ def test_cuda_dgrad_kernels_match_plain(B, M, N, dt):
     w = torch.from_numpy(rng.standard_normal((N, M)).astype(np.float32)
                          ).to(dev, torch.bfloat16)
     w_q, s_w = TOPS.tensor_quantize(w)
-    want = TREF.fused_switchback_dgrad(g, w_q, s_w)
-    got = TOPS.fused_switchback_dgrad(g, w_q, s_w)
-    assert got.dtype == dt and torch.equal(got, want)
-    assert torch.equal(TOPS.fused_switchback_dgrad(g, w_q, s_w), got)   # rerun
+    _fused_holds(TOPS.fused_switchback_dgrad, TREF.fused_switchback_dgrad, g, w_q, s_w)
     g_q, s_g = TOPS.row_quantize(g)
     scale = s_g * TREF.div(s_w, 16129.0)
     want = TREF.int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=dt)
