@@ -1897,7 +1897,9 @@ def card_vs_cpu(torch, M, path, dev, seed, steps=3):
 # the first that matches. The int8 GEMM's kernels are ``<T, TW, SWAP>``:
 # ", true," reads TW (the transposed, dgrad forms), "true>" would read SWAP.
 # The fused pair's kernels (its row-quantize pass above 16 rows, either
-# form, then its GEMM) count under the pair's own names.
+# form, then its GEMM) count under the pair's own names; the fp8 row and
+# tile quantizers (one body, two kernel names) under theirs, before the
+# int8 ``row_quantize``.
 TRAIN_KERNEL_GROUPS = (
     ("fused_quantize", "true>", "fused_switchback_dgrad"),
     ("fused_quantize", "", "fused_switchback_fwd"),
@@ -1908,8 +1910,8 @@ TRAIN_KERNEL_GROUPS = (
     ("fp8_gemm_kernel", "true>", "fp8_mixed_matmul and _t (one wgmma kernel)"),
     ("fp8_gemm_kernel", "", "fp8_matmul_dequant and _t (one wgmma kernel)"),
     ("transpose_bytes", "", "fp8 forward's K-major W (transpose_bytes)"),
-    ("block_quantize", "", "fp8_block_quantize"),
-    ("row_quantize", "unsigned char", "fp8_row_quantize"),
+    ("fp8_block_quantize", "", "fp8_block_quantize"),
+    ("fp8_row_quantize", "", "fp8_row_quantize"),
     ("cast_tensorwise", "unsigned char", "fp8_tensor_quantize (cast pass)"),
     ("col_quantize", "", "col_quantize"),
     ("row_quantize", "", "row_quantize"),
@@ -1919,6 +1921,13 @@ TRAIN_KERNEL_GROUPS = (
     ("flash_bwd_dkv", "", "flash_bwd_dkv"),
     ("flash_fwd", "", "flash_fwd"),
 )
+
+
+# groups that a mode's profile (phases 15 and 20) must read device time in:
+# a pattern that no longer matches its kernel's name leaves its group empty
+PROFILE_GROUPS = {"fp8": ("fp8_row_quantize", "fp8_matmul_dequant and _t (one wgmma kernel)"),
+                  "fp8_mixed": ("fp8_block_quantize",
+                                "fp8_mixed_matmul and _t (one wgmma kernel)")}
 
 
 # PyTorch's own kernels on the train step, by family (lower-case patterns)
@@ -2319,6 +2328,10 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
                   f"{per * CLIP_STEPS} ({per} per step)")
         prof = train_profile(torch, M, trainer, batches[1:], n_steps=1, rows=CLIP_BATCH,
                              tag=f"clip profile {mode}")
+        for g in PROFILE_GROUPS.get(mode, ()) if prof["device_ms_per_step"] else ():
+            check(prof["groups"].get(g, {}).get("ms", 0.0) > 0,
+                  f"CLIP {mode}: the profile's group {g!r} read no device time (its pattern "
+                  "matches no kernel name)")
         # activation memory: the peak of one forward and backward (the
         # gradients included) above what the trainer holds, without the
         # optimizer's copies, which set the step's peak in every mode
@@ -2911,6 +2924,125 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
     return worst, dict(bound_share=share, fault_model_ulps=fault, **mixed), n
 
 
+# phase 19's quantizer edges: every (rows, K) of the fp8 paths (the
+# vision and text layers' X and Ẏ widths, the patch embedding's 588), the
+# warp-a-row path's last K and the first past it, the cuda tests' ragged
+# 37 x 130; the tiles of the main path, the cuda tests and the CLI
+FP8_QUANT_EDGES = ((4128, 1280), (4128, 5120), (2464, 1024), (2464, 4096), (8192, 588),
+                   (300, 2048), (300, 2049), (37, 130))
+FP8_QUANT_TILES = ((128, 128), (64, 32), (64, 64))
+
+
+def fp8_edge_input(torch, gen, R, C, dev, dtype, offset=0):
+    """``fp8_activations`` (scales e^-4..e^4 a row, exact fp8 ties in row 1,
+    an all-zero row 2 and 128 x 128 tile) with the other cases the
+    quantizers' arithmetic must keep: ±0 beside 1.0 (row 3), bf16
+    subnormals alone (row 4: the 1e-12 floor) and beside 1.0 (row 5).
+    ``offset``: the elements the contiguous view starts after its buffer's
+    start (an odd one: not 16-byte aligned, the masked path)."""
+    x = fp8_activations(torch, gen, R, C, dev, torch.float32, outliers=False)
+    k = torch.arange(C, device=dev)
+    tiny = ((k % 7) - 3).float() * 2.0 ** -133
+    for r, v in {3: torch.where(k % 2 == 0, -0.0, 0.0), 4: tiny, 5: tiny}.items():
+        if r < R:
+            x[r] = v
+            if r != 4:
+                x[r, 0] = 1.0
+    x = x.to(dtype)
+    if offset:
+        buf = torch.empty(R * C + offset, dtype=dtype, device=dev)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(R, C)
+        check(x.is_contiguous() and x.data_ptr() % 16 != 0, "an odd offset's view")
+    return x
+
+
+def compare_fp8_quantizer_edges(torch, M, dev, seed, encode_check=True):
+    """Phase 19: ``row_quantize`` and ``block_quantize`` at FP8_QUANT_TILES,
+    bit-equal to their plain versions (q's bytes and the state) at
+    FP8_QUANT_EDGES, bf16 and f32, E4M3 and E5M2, from an aligned base and
+    from an odd offset, on ``fp8_edge_input``'s cases; each run twice gives
+    the same bits. With ``encode_check``, the quantizers' conversion equals
+    grid_round + encode on every f32 bit pattern (``ops.encode_check``) and
+    their bf16 division ``__fdiv_rn`` on every pair it meets
+    (``ops.divide_check``).
+    Returns the largest |kernel - plain| (decoded) by kernel and the number
+    of comparisons."""
+    F8, F8REF = M.F8, M.F8REF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = {"fp8_row_quantize": 0.0, "fp8_block_quantize": 0.0}
+    n = 0
+    for R, C in FP8_QUANT_EDGES:
+        for dt in (torch.bfloat16, torch.float32):
+            for offset in (0, 1):
+                x = fp8_edge_input(torch, gen, R, C, dev, dt, offset)
+                for fmt in ("e4m3", "e5m2"):
+                    cases = [("fp8_row_quantize", "row_quantize", ())]
+                    cases += [("fp8_block_quantize", "block_quantize", t) for t in FP8_QUANT_TILES]
+                    for key, name, args in cases:
+                        what = f"{key} {R}x{C} {dt} offset {offset} {fmt} {args}"
+                        got = getattr(F8, name)(x, fmt, *args)
+                        again = getattr(F8, name)(x, fmt, *args)
+                        want = getattr(F8REF, name)(x, fmt, *args)
+                        for g, a, w, part in zip(got, again, want, ("fp8", "state")):
+                            check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(
+                                as_bits(torch, g), as_bits(torch, w)),
+                                f"{what} {part}: kernel != plain")
+                            check(torch.equal(as_bits(torch, g), as_bits(torch, a)),
+                                  f"{what} {part}: two launches differ")
+                            worst[key] = max(worst[key],
+                                             max_abs_diff(torch, g.float(), w.float()))
+                            n += 1
+                del x
+    if encode_check:
+        for fmt in ("e4m3", "e5m2"):
+            bad = F8.encode_check(fmt, dev)
+            check(bad == 0, f"the quantizers' {fmt} conversion differs from grid_round + encode "
+                  f"on {bad} of the 2 x 2^32 bytes encode_check reads")
+        bad = F8.divide_check(dev)
+        check(bad == 0, f"the bf16 quantizers' division differs from __fdiv_rn on {bad} "
+              "(x, absmax) pairs")
+        n += 3
+    return worst, n
+
+
+def quantizer_calls(lins):
+    """The fp8 quantizers' calls over one layer of a ``clip_shapes`` entry:
+    X (K, E4M3) of each linear, then Ẏ (M, E5M2) of each with an input
+    gradient."""
+    layer = clip_layer(lins)
+    return [(K, "e4m3") for K, _, _ in layer] + [(Mw, "e5m2") for _, Mw, dx in layer if dx]
+
+
+def time_fp8_quantizers(torch, M, gen, dev, R, calls, what, plain=True):
+    """``row_quantize`` and ``block_quantize`` (128 x 128) over one layer's
+    ``calls`` [(K, fmt)] at ``R`` rows, bf16 as the path gives them
+    (``fp8_activations``: many binades, ties, zeros, outlier tiles): each
+    kernel's device ms by graph replay over input sets larger than L2, the
+    plain version's (with ``plain``), the eager ms and the bound (each value
+    read once in bf16 and written once in 8 bits, and the states)."""
+    F8, F8REF = M.F8, M.F8REF
+    n_el = sum(R * K for K, _ in calls)
+    sets = [[fp8_activations(torch, gen, R, K, dev, torch.bfloat16, outliers=True)
+             for K, _ in calls] for _ in range(max(2, int(120e6 // (3 * n_el)) + 1))]
+    tiles = sum(-(-R // 128) * -(-K // 128) for K, _ in calls)
+    work = {"fp8_row_quantize": ("row_quantize", (), n_el * 3 + 4 * R * len(calls)),
+            "fp8_block_quantize": ("block_quantize", (128, 128), n_el * 3 + 4 * tiles)}
+    out = {}
+    for name, (fn, args, bytes_) in work.items():
+        def call(i, op, fn=fn, args=args):
+            return [getattr(op, fn)(x, fmt, *args) for x, (_, fmt) in zip(sets[i], calls)]
+        out[name] = dict(
+            ms=graph_ms(torch, lambda i: call(i, F8), len(sets)),
+            plain_ms=graph_ms(torch, lambda i: call(i, F8REF), len(sets)) if plain else None,
+            library_ms=None, library=None,
+            eager_ms=eager_ms(torch, lambda i: call(i, F8), len(sets)),
+            bound=bound(bytes_, f32_ops=2 * n_el), calls=len(calls),
+            work=f"{what}: {len(calls)} calls at {R} rows")
+    del sets
+    return out
+
+
 def plain_fp8(M):
     """The fp8 wrappers' plain versions behind the wrappers' signatures."""
     R = M.F8REF
@@ -3252,14 +3384,6 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
         "fp8_tensor_quantize": (len(lin), lambda s, op, p: [op.tensor_quantize(w, "e4m3")
                                                             for w in s["w"]], None,
                                 n_w * 2 + n_w + 4 * len(lin), 0, 0, 2 * n_w),
-        "fp8_row_quantize": (2 * len(lin), lambda s, op, p: [op.row_quantize(x, "e4m3")
-                                                             for x in s["x"]]
-                             + [op.row_quantize(g, "e5m2") for g in s["g"]], None,
-                             (rk + rm) * 3 + 4 * R * 2 * len(lin), 0, 0, 2 * (rk + rm)),
-        "fp8_block_quantize": (2 * len(lin), lambda s, op, p: [op.block_quantize(x, "e4m3")
-                                                               for x in s["x"]]
-                               + [op.block_quantize(g, "e5m2") for g in s["g"]], None,
-                               (rk + rm) * 3, 0, 0, 2 * (rk + rm)),
         "fp8_matmul_dequant": (len(lin), lambda s, op, p: [p("fp8_matmul_dequant")(
             *a, out_dtype=bf) for a in s["fwd"]], "fwd",
             rk + n_w + 4 * R * len(lin) + 2 * rm, 2 * mac, 0, 0),
@@ -3295,6 +3419,15 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
                              bound_share=out[name]["bound"][0] / out[name]["ms"])
     out["fallback_share"] = fb_share
     del sets
+    # the two quantizers at one layer of each tower: vision (the row above),
+    # text and the patch embedding beside
+    quant = {tower: time_fp8_quantizers(torch, M, gen, dev, rows, quantizer_calls(lins),
+                                        f"one {tower} layer")
+             for tower, rows, _, _, _, lins in clip_shapes(cfg)}
+    for name in ("fp8_row_quantize", "fp8_block_quantize"):
+        out[name] = dict(quant["vision"][name], at_shapes={
+            t: {k: q[name][k] for k in ("ms", "plain_ms", "eager_ms", "calls", "work")}
+            | {"bound_ms": q[name]["bound"][0]} for t, q in quant.items() if t != "vision"})
     print("[timing] fp8 kernels:", json.dumps(out))
     return out
 
@@ -4231,6 +4364,15 @@ def main(argv=None) -> int:
               f"at the check rows (control faults >= {FAULT_MARGIN:g} ulps off it, smallest "
               "by form), bit-equal on exact entries, each bit-identical over two launches: "
               + json.dumps(fp8_mm) + "; max |kernel - plain| " + json.dumps(fp8_worst))
+        edge_worst8, n_edge8 = compare_fp8_quantizer_edges(torch, M, dev, args.seed + 43)
+        for k, v in edge_worst8.items():
+            fp8_worst[k] = max(fp8_worst[k], v)
+        print(f"[kernels] {n_edge8} fp8 quantizer comparisons at the edges (rows x K "
+              f"{FP8_QUANT_EDGES}, tiles {FP8_QUANT_TILES}, bf16 and f32, both formats, aligned "
+              "and at an odd offset; ties, ±0, subnormals, all-zero rows and tiles) bit-equal and "
+              "bit-identical over two launches, the conversion equal to grid_round + encode on "
+              "every f32 (encode_check), the bf16 division to __fdiv_rn on every pair "
+              "(divide_check); max |kernel - plain| " + json.dumps(edge_worst8))
     with timed("20 CLIP fp8 train"):
         fp8_res, fp8_counts = clip_train(torch, M, clip_cfg, dev, args.seed, CLIP_FP8_MODES,
                                          tag="clip fp8 train")
@@ -4386,6 +4528,7 @@ def main(argv=None) -> int:
                     **({"library": r["library"]} if r["library"] else {}),
                     **({"part_of": "fp8_matmul_dequant and fp8_mixed_matmul (the forward's "
                                    "K-major W)"} if name == "fp8_transpose_bytes" else {}),
+                    **({"at_shapes": r["at_shapes"]} if "at_shapes" in r else {}),
                     **({"tflops": r["tflops"], "bound_share": r["bound_share"],
                         "matmul_bound_share": fp8_mm["bound_share"][name],
                         "fault_model_ulps": fp8_mm["fault_model_ulps"][name],

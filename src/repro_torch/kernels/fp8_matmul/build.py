@@ -22,6 +22,8 @@ SIGNATURES = (
     ("f8_mixed_matmul_t", _MIXED),
     ("f8_transpose_bytes", (P, P, I, I, P)),
     ("f8_wgmma_probe", (P, P, P, I, I, P)),
+    ("f8_encode_check", (I, P, P)),
+    ("f8_divide_check", (P, P)),
 )
 
 

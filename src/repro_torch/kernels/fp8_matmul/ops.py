@@ -114,6 +114,32 @@ def block_quantize(x: torch.Tensor, fmt: str = "e4m3", block_rows: int = 128,
     return q, s
 
 
+def encode_check(fmt: str = "e4m3", device="cuda") -> int:
+    """The bytes, over every f32 bit pattern y, where the quantizers'
+    conversion on the card (NaN to -max, then round to nearest even onto
+    the fp8 grid) differs from ``encode(grid_round(y))``, the plain
+    versions' rounding: 0 on a sound card. A check of the kernels' arithmetic
+    (the ``encode_check`` kernel, a few milliseconds), not a wrapper: it is
+    not counted in ``LAUNCHES``."""
+    code = _fmt(fmt)
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    _b.launch(_lib().f8_encode_check, code, bad.data_ptr(), _b.stream(bad))
+    return int(bad.item())
+
+
+def divide_check(device="cuda") -> int:
+    """The differences between the bf16 quantizers' division (a reciprocal
+    once a tile, an fma correction) and the IEEE division ``__fdiv_rn``,
+    over every bf16 x and every absmax a bf16 row or tile can have below
+    2^126 with |x| <= absmax (or x NaN): the pairs whose E4M3 or E5M2 byte
+    differs, and whose quotient's bits differ where |x| >= 2^-100 and the
+    quotient is normal. 0 on a sound card. A check of the kernels' arithmetic (the
+    ``divide_check`` kernel), not counted in ``LAUNCHES``."""
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    _b.launch(_lib().f8_divide_check, bad.data_ptr(), _b.stream(bad))
+    return int(bad.item())
+
+
 def _check_matmul(x_q, w_q, transpose_w: bool, out_dtype):
     """(B, K, M) of a matmul whose LHS x_q (B, K) contracts with w_q
     (K, M), or (M, K) with ``transpose_w``."""

@@ -18,7 +18,11 @@ ulp at the largest value) and 1e-5 in f32, lse 1e-5 absolute; the two
 backward kernels within BWD_TOL of max|grad| of theirs (the same
 recomputed p, sums in another order), and bit-identical over two
 launches. The fp8 kernels (``kernels/fp8_matmul``): the three quantizers
-bit-equal to their plain versions (``kernels/fp8_matmul/ref.py``);
+bit-equal to their plain versions (``kernels/fp8_matmul/ref.py``) at every
+fp8 path shape and the warp-a-row path's K edges, on ties, ±0, subnormals,
+all-zero rows and tiles, from an odd offset too, twice the same bits; their
+byte conversion equal to grid_round + encode on every f32 and their bf16
+division to ``__fdiv_rn``'s bytes on every pair it meets;
 ``fp8_matmul_dequant`` and ``fp8_mixed_matmul`` in both orientations (fp8
 wgmma, whose sums keep 13 bits below their largest addend) within
 ``ref.matmul_bound`` of theirs per output, bit-identical over two
@@ -535,22 +539,80 @@ def _within_bound(got, want, bnd) -> float:
     return float(((got.double() - want.double()).abs() / bnd).max())
 
 
+def _quantizer_input(gen, R, C, dev, dt, offset=0):
+    """``_fp8_activations`` at scales e^-4..e^4 a row, with the cases the
+    quantizers' arithmetic must keep: exact fp8 ties at absmax 1 (k/64 for
+    |k| <= 64: midpoints of both grids in [1/4, 1)), an all-zero row, ±0
+    beside 1.0, bf16 subnormals alone (the 1e-12 floor) and beside 1.0, an
+    all-zero 128 x 128 tile. ``offset``: the elements the contiguous view
+    starts after its buffer's start (an odd one: not 16-byte aligned)."""
+    x = _fp8_activations(gen, R, C, dev)
+    x = x * torch.exp(torch.empty((R, 1), device=dev).uniform_(-4, 4, generator=gen))
+    k = torch.arange(C, device=dev)
+    tiny = ((k % 7) - 3).float() * 2.0 ** -133
+    rows = {1: ((k % 129) - 64).float() / 64, 2: torch.zeros(C, device=dev),
+            3: torch.where(k % 2 == 0, -0.0, 0.0), 4: tiny, 5: tiny}
+    for r, v in rows.items():
+        if r < R:
+            x[r] = v
+            if r in (3, 5):
+                x[r, 0] = 1.0
+    if R > 256 and C > 128:
+        x[128:256, :128] = 0.0
+    x = x.to(dt)
+    if offset:
+        buf = torch.empty(R * C + offset, dtype=dt, device=dev)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(R, C)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
-@pytest.mark.parametrize("R,C", [(4128, 1280), (1032, 5120), (8192, 588), (37, 130)])
+@pytest.mark.parametrize("R,C", [(4128, 1280), (1032, 5120), (8192, 588), (37, 130),
+                                 (2464, 1024), (2464, 4096), (4128, 5120), (300, 2048),
+                                 (300, 2049)])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_cuda_fp8_quantizers_match_plain(R, C, fmt, dt):
+    """The three quantizers bit-equal to their plain versions (q's bytes and
+    the state) at the paths' shapes and the warp-per-row path's K edges, on
+    ``_quantizer_input``'s cases, from an aligned base and an odd offset;
+    each launched twice gives the same bits."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(R + C)
-    x = _fp8_activations(gen, R, C, dev).to(dt)
-    for name, args in (("row_quantize", ()), ("tensor_quantize", ()),
-                       ("block_quantize", (128, 128)), ("block_quantize", (64, 32))):
-        got = getattr(F8, name)(x, fmt, *args)
-        want = getattr(F8REF, name)(x, fmt, *args)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape
-            assert torch.equal(_bits(g), _bits(w)), (name, args)
+    for offset in (0, 1):
+        x = _quantizer_input(gen, R, C, dev, dt, offset)
+        for name, args in (("row_quantize", ()), ("tensor_quantize", ()),
+                           ("block_quantize", (128, 128)), ("block_quantize", (64, 32)),
+                           ("block_quantize", (64, 64))):
+            got = getattr(F8, name)(x, fmt, *args)
+            again = getattr(F8, name)(x, fmt, *args)
+            want = getattr(F8REF, name)(x, fmt, *args)
+            for g, a, w in zip(got, again, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert torch.equal(_bits(g), _bits(w)), (name, args, offset)
+                assert torch.equal(_bits(g), _bits(a)), (name, args, offset)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_cuda_fp8_conversion_is_grid_round_on_every_f32(fmt):
+    """The quantizers' byte conversion (NaN to -max, then the card's
+    round-to-nearest-even conversion) equals encode(grid_round(y)) on every
+    f32 bit pattern y."""
+    _card()
+    assert F8.encode_check(fmt) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_bf16_division_is_ieee_on_every_pair():
+    """The bf16 quantizers' division (a reciprocal once a tile, an fma
+    correction) gives __fdiv_rn's bits on every bf16 x and every absmax a
+    bf16 row or tile can have."""
+    _card()
+    assert F8.divide_check() == 0
 
 
 @pytest.mark.cuda
