@@ -91,6 +91,13 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     1 and 8 (the swapped decode form), 17 and 1,000 against K = 588 (the
     masked producer), M = 320 (a ragged tile) and 2,560 -> 960, and
     all-±127 operands at K = 5,120 (the widest s32 sum, checked exactly);
+    then ``row_quantize`` and ``col_quantize`` at their edges
+    (``compare_int8_quantizer_edges``: every group size and granule, the
+    wide paths, ragged bands and slabs, aligned and unaligned bases, ties,
+    all-zero rows and columns, a lone outlier in the last row), bit-equal
+    and twice the same bits, the control fault (a band's last slab left out
+    of its absmax) outside in every case; phase 15 also fails a column-wise
+    mode whose profile reads no time under either quantizer's group;
 14. the flash kernels at CLIP's attention shapes, vision (32, 129, 16, 80)
     with no mask and text (32, 77, 16, 64) causal, forward and both
     backward kernels, bf16 and f32, within the tolerances of phase 3; the
@@ -115,7 +122,9 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     fault outside;
 18. timing of the CLIP kernels: one vision layer's calls at 4,128 rows,
     beside their bound, plain version and ``torch._int_mm`` + scale (the
-    int8 forms' TOPS and bound share); ``flash_fwd`` at the two attention
+    int8 forms' TOPS and bound share); the column-wise modes'
+    ``row_quantize`` and ``col_quantize`` calls at each tower's layer
+    (vision, text, the patch embedding); ``flash_fwd`` at the two attention
     shapes of phase 14 beside SDPA, ``flash_bwd_dq`` and ``flash_bwd_dkv``
     there beside SDPA's backward;
 19. fp8 kernels vs plain at every CLIP main-path shape (phase 13's table,
@@ -1439,6 +1448,158 @@ def compare_int8_edges(torch, M, dev, seed):
     return worst, n
 
 
+# phase 13's edges of the int8 row and column quantizers (bf16 and f32):
+# row_quantize at rows 1, 17, 1,000 and CLIP's 4,128 x K = 1 and 7, the
+# patch embedding's 588 (the 4-value granules), smollm's 960, CLIP's 1,280,
+# a warp's last 2,048 and the first past it, the two-, four- and eight-warp
+# groups' 4,096, 5,120 and 8,192, and the first K past the register path
+# (16,385: the wide path); col_quantize at R = 1, 17, 588, 1,025, 5,120
+# (ten slabs a band) and the first R past a cluster of 16 slabs (8,193: the
+# wide path) x C = 1, 33, 70 (ragged bands), 1,024, 1,280 and 5,120. Each
+# from an aligned base, an odd offset (values one by one) and 4 values in
+# (bf16: 8-byte aligned, so the 4-value granules at every K % 4 == 0)
+INT8_ROW_EDGE_ROWS = (1, 17, 1000, 4128)
+INT8_ROW_EDGE_K = (1, 7, 588, 960, 1280, 2048, 2049, 4096, 5120, 8192, 16385)
+INT8_COL_EDGE_R = (1, 17, 588, 1025, 5120, 8193)
+INT8_COL_EDGE_C = (1, 33, 70, 1024, 1280, 5120)
+INT8_EDGE_OFFSETS = (0, 1, 4)
+# col_quantize's cluster launch (switchback.cu, launch_cols): bands of 32
+# columns, 64 rows a chunk step, as few slabs a band as hold at most 8 steps
+# each, at most 16 slabs
+COL_BAND, COL_STEP, COL_MAX_STEPS, COL_MAX_CLUSTER = 32, 64, 8, 16
+
+
+def col_last_slab(R, C):
+    """The first row of the last slab of a band in ``col_quantize``'s
+    cluster launch, or None where the launcher takes the wide path."""
+    steps = -(-R // COL_STEP)
+    slabs = -(-steps // COL_MAX_STEPS)
+    if slabs > COL_MAX_CLUSTER:
+        return None
+    return (slabs - 1) * COL_STEP * -(-steps // slabs)
+
+
+def int8_edge_input(torch, gen, R, C, dev, dtype, offset=0):
+    """Random values over many binades (a scale e^-4..e^4 a row) with the
+    cases the quantizers must keep: exact half-way ties at scale 1 in row 1
+    and column 1 (absmax 127), an all-zero row 2 and column 2, and a lone
+    outlier (1,000) in the last row, column 3 (or the last): the last slab's
+    of its band, the last chunk's of its row. ``offset``: the elements the
+    contiguous view starts after its buffer's start."""
+    x = torch.randn((R, C), generator=gen, device=dev) * 3
+    x = x * torch.exp(torch.empty((R, 1), device=dev).uniform_(-4, 4, generator=gen))
+    ties = lambda n: (torch.arange(n, device=dev, dtype=torch.float32) % 8) - 3.5
+    if C >= 3:
+        x[:, 1] = ties(R)
+        x[0, 1] = 127.0
+        x[:, 2] = 0.0
+    if R >= 3:
+        x[1] = ties(C)
+        x[1, 0] = 127.0
+        x[2] = 0.0
+    x[-1, min(3, C - 1)] = 1000.0
+    x = x.to(dtype)
+    if offset:
+        buf = torch.empty(R * C + offset, dtype=dtype, device=dev)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(R, C)
+        check(x.is_contiguous(), "an offset view")
+    return x
+
+
+def dropped_slab(torch, REF, x, start):
+    """The control fault of the column edges: ``col_quantize`` with the
+    maxima of the rows from ``start`` on (a band's last slab) left out of
+    each column's absmax."""
+    a = x[:start].float().abs().amax(0, keepdim=True) if start else torch.zeros_like(x[:1]).float()
+    s = a.clamp_min(1e-12)
+    return torch.round(x.float() * REF.div(127.0, s)).to(torch.int8), s
+
+
+def compare_int8_quantizer_edges(torch, M, dev, seed):
+    """Phase 13: ``row_quantize`` at INT8_ROW_EDGE_ROWS x INT8_ROW_EDGE_K
+    and ``col_quantize`` at INT8_COL_EDGE_R x INT8_COL_EDGE_C, bf16 and f32,
+    from each of INT8_EDGE_OFFSETS, on ``int8_edge_input``'s cases: the
+    codes and the states bit-equal to the plain versions and bit-identical
+    over two launches. The control fault (``dropped_slab``, every column
+    case on the cluster path) must differ from the plain version. Returns
+    the largest |kernel - plain| by kernel, the number of comparisons and
+    of faults caught."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = {"row_quantize": 0.0, "col_quantize": 0.0}
+    n = caught = 0
+    cases = [("row_quantize", R, K) for R in INT8_ROW_EDGE_ROWS for K in INT8_ROW_EDGE_K]
+    cases += [("col_quantize", R, C) for R in INT8_COL_EDGE_R for C in INT8_COL_EDGE_C]
+    for name, R, C in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            for offset in INT8_EDGE_OFFSETS:
+                x = int8_edge_input(torch, gen, R, C, dev, dt, offset)
+                what = f"{name} {R}x{C} {dt} offset {offset}"
+                got, again = getattr(KOPS, name)(x), getattr(KOPS, name)(x)
+                want = getattr(REF, name)(x)
+                for g, a, w, part in zip(got, again, want, ("int8", "state")):
+                    check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+                          f"{what} {part}: kernel != plain (max |diff| "
+                          f"{max_abs_diff(torch, g, w):g})")
+                    check(torch.equal(g, a), f"{what} {part}: two launches differ")
+                    worst[name] = max(worst[name], max_abs_diff(torch, g, w))
+                    n += 1
+                start = col_last_slab(R, C) if name == "col_quantize" else None
+                if start is not None and offset == 0:
+                    q_f, s_f = dropped_slab(torch, REF, x, start)
+                    check(not (torch.equal(q_f, want[0]) and torch.equal(s_f, want[1])),
+                          f"{what}: the control fault (the last slab's maxima, rows "
+                          f"{start}.., left out) reads as the plain version")
+                    caught += 1
+                del x, got, again, want
+    torch.cuda.synchronize()
+    return worst, n, caught
+
+
+def int8_quantizer_calls(lins, rows):
+    """The int8 quantizers' calls over one layer of a ``clip_shapes`` entry
+    in the column-wise modes (``_q``, ``int8_llm``), as (rows, width, a
+    weight): ``row_quantize`` of X (rows, K) of each linear and, where it
+    has an input gradient, of Ẏ (rows, M) and of W (K, M); ``col_quantize``
+    of each W (K, M)."""
+    layer = clip_layer(lins)
+    row = ([(rows, K, False) for K, _, _ in layer] + [(rows, Mw, False) for _, Mw, dx in layer if dx]
+           + [(K, Mw, True) for K, Mw, dx in layer if dx])
+    return row, [(K, Mw, True) for K, Mw, _ in layer]
+
+
+def time_int8_quantizers(torch, M, gen, dev, calls, what, plain=True):
+    """``row_quantize`` and ``col_quantize`` over one layer's ``calls``
+    (``int8_quantizer_calls``), bf16 as the path gives them: each kernel's
+    device ms by graph replay over input sets larger than L2, the plain
+    version's (with ``plain``), the eager ms and the bound (each value read
+    once in bf16 and written once in 8 bits, and the states)."""
+    KOPS, REF = M.KOPS, M.REF
+    row, col = calls
+    make = lambda a, b, w: weight(torch, gen, a, b, dev) if w else activations(torch, gen, a, b, dev)
+    n_el = sum(a * b for a, b, _ in row + col)
+    sets = [{"row_quantize": [make(*c) for c in row], "col_quantize": [make(*c) for c in col]}
+            for _ in range(max(2, int(120e6 // (3 * n_el)) + 1))]
+    work = {"row_quantize": (row, sum(3 * a * b + 4 * a for a, b, _ in row)),
+            "col_quantize": (col, sum(3 * a * b + 4 * b for a, b, _ in col))}
+    out = {}
+    for name, (shapes, bytes_) in work.items():
+        if not shapes:
+            continue
+
+        def call(i, op, name=name):
+            return [getattr(op, name)(x) for x in sets[i][name]]
+        out[name] = dict(
+            ms=graph_ms(torch, lambda i: call(i, KOPS), len(sets)),
+            plain_ms=graph_ms(torch, lambda i: call(i, REF), len(sets)) if plain else None,
+            library_ms=None, eager_ms=eager_ms(torch, lambda i: call(i, KOPS), len(sets)),
+            bound=bound(bytes_, f32_ops=2 * sum(a * b for a, b, _ in shapes)),
+            calls=len(shapes), work=f"{what}: {len(shapes)} calls")
+    del sets
+    return out
+
+
 def kv_grads_by_modulo(dk_heads, n_kv):
     """The control fault's dk/dv: a gradient over H query heads' own K/V
     copies (B, S, H, hd) summed onto KV head h % KV (the tiled wiring)."""
@@ -1927,7 +2088,9 @@ TRAIN_KERNEL_GROUPS = (
 # a pattern that no longer matches its kernel's name leaves its group empty
 PROFILE_GROUPS = {"fp8": ("fp8_row_quantize", "fp8_matmul_dequant and _t (one wgmma kernel)"),
                   "fp8_mixed": ("fp8_block_quantize",
-                                "fp8_mixed_matmul and _t (one wgmma kernel)")}
+                                "fp8_mixed_matmul and _t (one wgmma kernel)"),
+                  "int8_switchback_q": ("row_quantize", "col_quantize"),
+                  "int8_llm": ("row_quantize", "col_quantize")}
 
 
 # PyTorch's own kernels on the train step, by family (lower-case patterns)
@@ -2546,27 +2709,27 @@ def clip_check_path(torch, M, cfg, modes=("int8_switchback_q", "int8_llm"),
 
 def time_clip_kernels(torch, M, cfg, dev, seed):
     """Phase 18: the new kernels at CLIP's shapes, one vision layer's calls
-    of the column-wise modes at batch 32 (4,128 rows): col_quantize of the
-    six weights, the colscale forward of the six linears and their
-    transposed colscale dgrad; each with its plain version, the library
-    yardstick (``torch._int_mm`` plus the rank-1 scale) for the matmuls,
-    and the bound. Then the fused pair at each tower's layer (vision 4,128
-    rows, text 2,464, the patch embedding's 8,192 x 588 -> 1,280), with the
-    two-step yardstick (``time_fused``)."""
+    of the column-wise modes at batch 32 (4,128 rows): the colscale forward
+    of the six linears and their transposed colscale dgrad; each with its
+    plain version, the library yardstick (``torch._int_mm`` plus the rank-1
+    scale) and the bound. Then at each tower's layer (vision 4,128 rows,
+    text 2,464, the patch embedding's 8,192 x 588 -> 1,280) the column-wise
+    modes' ``row_quantize`` and ``col_quantize`` calls
+    (``time_int8_quantizers``) and the fused pair with the two-step
+    yardstick (``time_fused``)."""
     KOPS, REF = M.KOPS, M.REF
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
     _, R, _, _, _, shapes = clip_shapes(cfg)[0]                         # the vision tower
     lin = [shapes[k][:2] for k in ("w_qkvo",) * 4 + ("w_up", "w_down")]    # (K, M)
 
     def one_set():
-        s = {"w": [], "fwd": [], "dgrad": []}
+        s = {"fwd": [], "dgrad": []}
         for K, Mw in lin:
             w = weight(torch, gen, K, Mw, dev)
             w_q, s_w = KOPS.col_quantize(w)
             x_q, s_x = KOPS.row_quantize(activations(torch, gen, R, K, dev))
             g_q, s_g = KOPS.row_quantize(activations(torch, gen, R, Mw, dev))
             w_n, s_n = KOPS.row_quantize(w)
-            s["w"].append(w)
             s["fwd"].append((x_q, w_q, REF.div(s_x, 127.0 * 127.0), s_w))
             s["dgrad"].append((g_q, w_n, REF.div(s_g, 127.0 * 127.0), s_n.reshape(1, -1)))
         return s
@@ -2586,11 +2749,8 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
           "torch._int_mm yardstick disagrees with the colscale int8_matmul_dequant")
     check(torch.equal(int_mm_t(*b), KOPS.int8_matmul_dequant_t(b[0], b[1], b[2], col_scale=b[3])),
           "torch._int_mm yardstick disagrees with the colscale int8_matmul_dequant_t")
-    n_w = sum(K * Mw for K, Mw in lin)
     work = {
         # name: (calls, call(set, ops module), library call, bytes, int8 ops, f32 ops)
-        "col_quantize": (len(lin), lambda s, op: [op.col_quantize(w) for w in s["w"]], None,
-                         n_w * 2 + n_w + sum(4 * Mw for _, Mw in lin), 0, 4 * n_w),
         "int8_matmul_dequant_colscale": (
             len(lin),
             lambda s, op: [op.int8_matmul_dequant(x, w, r, col_scale=c) for x, w, r, c in s["fwd"]],
@@ -2607,6 +2767,11 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     out = time_work(torch, KOPS, REF, sets, work,
                     lambda c: f"one vision layer's {c} calls at {R} rows (batch {CLIP_BATCH})")
     del sets
+    for tower, rows, _, _, _, lins in clip_shapes(cfg):
+        got = time_int8_quantizers(torch, M, gen, dev, int8_quantizer_calls(lins, rows),
+                                   f"one {tower} layer at {rows} rows")
+        for name, r in got.items():
+            out.setdefault(name, {})[tower] = r
     # the fused pair (int8_switchback) at each tower's layer: the forward of
     # every linear whose K fits FUSED_MAX_CONTRACT, the dgrad of every one
     # whose output width does; the patch embedding's forward alone
@@ -4338,6 +4503,14 @@ def main(argv=None) -> int:
               f"at {INT8_WIDE}; the fused pair: rows {FUSED_EDGE_ROWS} x (K, M) {FUSED_EDGE_KM}, "
               "random and all-zero rows), the four forms and the fused pair bit-equal and "
               "bit-identical over two launches; max |kernel - plain| " + json.dumps(edge_worst))
+        quant_worst, n_quant, n_fault = compare_int8_quantizer_edges(torch, M, dev,
+                                                                     args.seed + 47)
+        print(f"[kernels] {n_quant} int8 quantizer comparisons at the edges (row_quantize: rows "
+              f"{INT8_ROW_EDGE_ROWS} x K {INT8_ROW_EDGE_K}; col_quantize: R {INT8_COL_EDGE_R} x C "
+              f"{INT8_COL_EDGE_C}; bf16 and f32, offsets {INT8_EDGE_OFFSETS}; ties, all-zero "
+              "rows and columns, a lone outlier in the last row) bit-equal and bit-identical "
+              f"over two launches; the control fault (a band's last slab left out) caught in "
+              f"{n_fault} of {n_fault} cases; max |kernel - plain| " + json.dumps(quant_worst))
         clip_flash, n_clip_flash = compare_flash_train(torch, M, clip_flash_cases(clip_cfg), dev,
                                                        args.seed + 29)
         print(f"[kernels] {n_clip_flash} flash comparisons at CLIP's shapes within o "
@@ -4415,7 +4588,7 @@ def main(argv=None) -> int:
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
-    readings = (worst, train_worst, clip_worst, edge_worst,
+    readings = (worst, train_worst, clip_worst, edge_worst, quant_worst,
                 *({k: v["max_abs_err"] for k, v in d.items()}
                   for d in (flash_worst, bwd_worst, clip_flash)))
     max_err = {k: max(d.get(k, 0.0) for d in readings) for k in SOURCE}
@@ -4455,7 +4628,7 @@ def main(argv=None) -> int:
                 e["library_rows"] = r["library_rows"]
             if name == "int8_matmul_dequant":
                 e["at_train_shape"] = at_train(name)
-            if name == "fused_switchback_fwd" and R == DECODE_ROWS:
+            if name in ("fused_switchback_fwd", "row_quantize") and R == DECODE_ROWS:
                 e["at_clip_shapes"] = at_clip(name)
             out.append(e)
         return out
@@ -4497,8 +4670,11 @@ def main(argv=None) -> int:
                       for k in ("flash_bwd_dq", "flash_bwd_dkv")]
     def clip_entry(name):
         """A kernel of the CLIP path only: ``launches`` summed over the four
-        modes' timed runs (CLIP_STEPS steps each), per step by mode beside."""
-        r = clip_t[name]
+        modes' timed runs (CLIP_STEPS steps each), per step by mode beside;
+        times at the vision layer, with the other towers' beside where they
+        were read."""
+        towers = "vision" in clip_t[name]
+        r = clip_t[name]["vision"] if towers else clip_t[name]
         b_ms, b_by = r["bound"]
         return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
                     launches=sum(c[name] for c in clip_counts.values()),
@@ -4508,6 +4684,7 @@ def main(argv=None) -> int:
                     bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
                     eager_ms=r["eager_ms"], calls_timed=r["calls"], work=r["work"],
                     **({"library": "torch._int_mm + rank-1 scale"} if r["library_ms"] else {}),
+                    **({"at_clip_shapes": at_clip(name)} if towers else {}),
                     **{k: r[k] for k in ("tops", "bound_share") if k in r})
 
     clip_entries = [clip_entry(k) for k in ("col_quantize", "int8_matmul_dequant_colscale",

@@ -33,6 +33,13 @@
 // memory anywhere, as on the TPU, where dot_general contracts over any dim
 // pair.
 //
+// The quantizers read x once from device memory into registers:
+// row_quantize and the fused pair's pass above 16 rows launch one row body
+// (quantize_rows: a group of 32 to 256 threads a row); col_quantize gives a
+// block a band of 32 columns over a slab of rows, the band's slabs the
+// blocks of one thread block cluster, whose maxima meet in distributed
+// shared memory, in one launch. tensor_quantize takes two passes.
+//
 // Numerics copy the reference operation by operation, so every output is
 // bitwise equal to the plain versions in ref.py:
 //   * quantize: q = rint(x * (127 / absmax)), the division first, both
@@ -108,15 +115,187 @@ __device__ float block_max(float v, float* red) {
 
 // ---------------------------------------------------------------------------
 // row_quantize: x (B, K) -> q (B, K) int8, s (B,) f32   (paper Eq. 1)
+// col_quantize: x (R, C) -> q (R, C) int8, s (C,) f32   (paper Eq. 4, the
+// per-output-unit weight scales of SwitchBackQ and LLM.int8)
 //
-// Bound by bytes (read x, write q). One block owns one row, so the row
-// absmax is a block reduction and the second read of the row hits L1/L2.
-// The fused pair's first pass above 16 rows (fused_quantize_kernel, below)
-// computes the same, a warp to a row where it can.
+// Both are bound by bytes: x read once in its type, q written once, the
+// states. Each reads x once from device memory into registers, in chunks of
+// kChunk values, every load issued before any is read, and quantizes from
+// the registers.
+//
+// A chunk loads and stores in granules of G values, which the launchers
+// choose from x's alignment and width: G = 8 (a 16-byte load of bf16, two
+// of f32; an 8-byte store) where x is 16-byte aligned and the width W (K or
+// C) is a multiple of 8; G = 4 (an 8-byte load of bf16, a 16-byte one of
+// f32; 4-byte stores) where W % 4 == 0 and x is aligned to 4 values (the
+// patch embedding's K = 588); else G = 1, value by value. A granule lies
+// wholly inside or wholly past the row, so only whole granules are read.
 // ---------------------------------------------------------------------------
+constexpr int kChunk = 8;        // values of one chunk: 16 bytes of bf16
+constexpr int kMaxChunks = 8;    // chunks a thread holds in registers: 64 values
+static_assert(kThreads == 1 << 8, "the row groups shift by log2(kThreads) = 8");
+
 template <typename T>
-__device__ __forceinline__ void quantize_row(const T* __restrict__ x, int8_t* __restrict__ q,
-                                             float* __restrict__ s, int K) {
+struct Chunk;
+
+template <>
+struct Chunk<__nv_bfloat16> {    // 8 bf16 values as 4 words, widened on use
+  uint32_t w[4];
+  // the first n values at p (n = 0 or a whole number of granules), the rest 0
+  template <int G>
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, int n) {
+    w[0] = w[1] = w[2] = w[3] = 0u;
+    if (G == 8) {
+      if (n > 0) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+        w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+      }
+    } else if (G == 4) {
+      if (n > 0) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+        w[0] = u.x, w[1] = u.y;
+      }
+      if (n > 4) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(p + 4));
+        w[2] = u.x, w[3] = u.y;
+      }
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        if (e < n) w[e >> 1] |= static_cast<uint32_t>(__ldg(h + e)) << (16 * (e & 1));
+    }
+  }
+  __device__ __forceinline__ float operator[](int e) const {   // a bf16 is the top half of its f32
+    return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
+  }
+};
+
+template <>
+struct Chunk<float> {
+  float v[kChunk];
+  template <int G>
+  __device__ __forceinline__ void load(const float* p, int n) {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) v[e] = 0.f;
+    if (G > 1) {                               // 16-byte granules of 4 (G = 8: both)
+      if (n > 0) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+      }
+      if (n > 4) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        if (e < n) v[e] = __ldg(p + e);
+    }
+  }
+  __device__ __forceinline__ float operator[](int e) const { return v[e]; }
+};
+
+// four values' int8 codes, little-endian in one word
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d, float sa, float sb,
+                                          float sc, float sd) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(quantize(a, sa))) |
+         static_cast<uint32_t>(static_cast<uint8_t>(quantize(b, sb))) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(quantize(c, sc))) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(quantize(d, sd))) << 24;
+}
+
+// a chunk's n codes (as for Chunk::load) at p: one 8-byte store (G = 8),
+// 4-byte words (G = 4) or bytes
+template <int G>
+__device__ __forceinline__ void store_chunk(int8_t* p, uint32_t lo, uint32_t hi, int n) {
+  if (G == 8) {
+    if (n > 0) *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+  } else if (G == 4) {
+    if (n > 0) *reinterpret_cast<uint32_t*>(p) = lo;
+    if (n > 4) *reinterpret_cast<uint32_t*>(p + 4) = hi;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      if (e < n) p[e] = static_cast<int8_t>((e < 4 ? lo : hi) >> (8 * (e & 3)));
+  }
+}
+
+// the granule for an x of width W at x (and its codes at q): 8, 4 or 1
+template <typename T>
+int granule(const void* x, const void* q, int W) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x), b = reinterpret_cast<uintptr_t>(q);
+  if (W % 8 == 0 && a % 16 == 0 && b % 8 == 0) return 8;
+  if (W % 4 == 0 && a % (4 * sizeof(T)) == 0 && b % 4 == 0) return 4;
+  return 1;
+}
+
+// ---------------------------------------------------------------------------
+// The one row-quantize body (quantize_rows), launched by row_quantize and by
+// the fused pair's first pass above 16 rows (fused_quantize_kernel, which
+// quantizes x into the wrapper's workspace). A group of 2^gshift threads (32
+// to 256; 256 / group groups a block) owns a row. Thread t of the group
+// holds chunks t, t + group, ... of the row (np of them, at most
+// kMaxChunks), so neighbouring threads read neighbouring bytes. The
+// launcher takes the smallest group with np <= kMaxChunks: a warp a row up
+// to K = 2,048 (the absmax a warp shuffle), two warps to 4,096, four to
+// 8,192, eight to 16,384 (the group's warps meet in shared memory). Then one
+// IEEE division a row and the codes from the registers. A longer row takes
+// the wide path: a block a row, two passes over x, the second mostly from
+// L2 (quantize_row_wide; no path has such rows).
+// ---------------------------------------------------------------------------
+struct Rows {
+  int B, K;      // x (B, K), row-major
+  int gshift;    // log2 of the threads that own a row: 5 to 8
+  int np;        // chunks a thread: ceil(K / (kChunk << gshift)) <= kMaxChunks
+};
+
+template <typename T, int G>
+__device__ __forceinline__ void quantize_rows(const T* __restrict__ x, int8_t* __restrict__ q,
+                                              float* __restrict__ s, const Rows& p) {
+  __shared__ float red[kThreads / 32];
+  const int g = threadIdx.x >> p.gshift, t = threadIdx.x & ((1 << p.gshift) - 1);
+  const int row = (blockIdx.x << (8 - p.gshift)) + g;        // kThreads = 2^8
+  const bool live = row < p.B;
+  const size_t base = static_cast<size_t>(row) * p.K;
+  Chunk<T> v[kMaxChunks];
+  int n[kMaxChunks];
+  // every load issued before any is read
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) {
+    const int c = kChunk * (t + (j << p.gshift));
+    n[j] = live && j < p.np && c < p.K ? min(kChunk, p.K - c) : 0;
+    v[j].template load<G>(x + base + c, n[j]);
+  }
+  float m = 0.f;                                             // chunks not loaded hold 0
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j)
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) m = fmaxf(m, fabsf(v[j][e]));
+  m = warp_max(m);
+  if (p.gshift > 5) {                                        // the group's warps' maxima
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+    __syncthreads();
+    const int w0 = (g << p.gshift) >> 5;
+    for (int i = 0; i < 1 << (p.gshift - 5); ++i) m = fmaxf(m, red[w0 + i]);
+  }
+  const float absmax = fmaxf(m, kEps);
+  const float scale = __fdiv_rn(kQmax, absmax);
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) {
+    if (n[j] == 0) continue;
+    const uint32_t lo = pack4(v[j][0], v[j][1], v[j][2], v[j][3], scale, scale, scale, scale);
+    const uint32_t hi = pack4(v[j][4], v[j][5], v[j][6], v[j][7], scale, scale, scale, scale);
+    store_chunk<G>(q + base + kChunk * (t + (j << p.gshift)), lo, hi, n[j]);
+  }
+  if (live && t == 0) s[row] = absmax;
+}
+
+// the wide path: one block a row, the absmax a block reduction, then a
+// second pass over the row
+template <typename T>
+__device__ __forceinline__ void quantize_row_wide(const T* __restrict__ x, int8_t* __restrict__ q,
+                                                  float* __restrict__ s, int K) {
   __shared__ float red[32];
   const size_t base = static_cast<size_t>(blockIdx.x) * K;
   float m = 0.f;
@@ -127,53 +306,267 @@ __device__ __forceinline__ void quantize_row(const T* __restrict__ x, int8_t* __
   if (threadIdx.x == 0) s[blockIdx.x] = absmax;
 }
 
-template <typename T>
+// G = 0: the wide path. Two entry kernels of one body, so that a profile
+// tells row_quantize's launches from the fused pair's pass (TW: the dgrad's)
+template <typename T, int G>
+__device__ __forceinline__ void quantize_rows_at(const T* x, int8_t* q, float* s, const Rows& p) {
+  if constexpr (G == 0)
+    quantize_row_wide<T>(x, q, s, p.K);
+  else
+    quantize_rows<T, G>(x, q, s, p);
+}
+
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s, int K) {
-  quantize_row<T>(x, q, s, K);
+row_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s, Rows p) {
+  quantize_rows_at<T, G>(x, q, s, p);
+}
+
+template <typename T, int G, bool TW>
+__global__ void __launch_bounds__(kThreads)
+fused_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+                      Rows p) {
+  quantize_rows_at<T, G>(x, q, s, p);
+}
+
+enum { kRowQuantize = 0, kFusedFwd = 1, kFusedDgrad = 2 };   // who launches the row body
+
+template <typename T, int G>
+void launch_rows_at(int who, const T* x, int8_t* q, float* s, const Rows& p, int blocks,
+                    cudaStream_t st) {
+  if (who == kRowQuantize)
+    row_quantize_kernel<T, G><<<blocks, kThreads, 0, st>>>(x, q, s, p);
+  else if (who == kFusedFwd)
+    fused_quantize_kernel<T, G, false><<<blocks, kThreads, 0, st>>>(x, q, s, p);
+  else
+    fused_quantize_kernel<T, G, true><<<blocks, kThreads, 0, st>>>(x, q, s, p);
+}
+
+// the group, the path and the grid (see above), then one launch
+template <typename T>
+int launch_rows(int who, const void* x, void* q, void* s, int B, int K, cudaStream_t st) {
+  if (B <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  Rows p;
+  p.B = B, p.K = K;
+  const int chunks = (K + kChunk - 1) / kChunk;
+  p.gshift = 5;
+  while (p.gshift < 8 && chunks > kMaxChunks << p.gshift) ++p.gshift;
+  p.np = (chunks + (1 << p.gshift) - 1) >> p.gshift;
+  const int G = p.np > kMaxChunks ? 0 : granule<T>(x, q, K);
+  const int blocks = G == 0 ? B : (B + (kThreads >> p.gshift) - 1) >> (8 - p.gshift);
+  const T* xp = static_cast<const T*>(x);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(s);
+  if (G == 8)
+    launch_rows_at<T, 8>(who, xp, qp, sp, p, blocks, st);
+  else if (G == 4)
+    launch_rows_at<T, 4>(who, xp, qp, sp, p, blocks, st);
+  else if (G == 1)
+    launch_rows_at<T, 1>(who, xp, qp, sp, p, blocks, st);
+  else
+    launch_rows_at<T, 0>(who, xp, qp, sp, p, blocks, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// col_quantize: x (R, C) -> q (R, C) int8, s (C,) f32   (paper Eq. 4, the
-// per-output-unit weight scales of SwitchBackQ and LLM.int8)
-//
-// Bound by bytes (read x twice, the second time mostly from L2; write q).
-// The TPU kernel gives each grid step whole columns so the column absmax
-// stays in one VMEM block. Here a block owns 32 adjacent columns, one per
-// lane, and its 8 warps split the rows: a warp reads 32 consecutive
-// elements of one row per step (coalesced along the contiguous dim),
-// each thread keeps its column's partial max, and the 8 partials meet in
-// shared memory (a max, so their order does not matter). Then each thread
-// quantizes its column's share of the rows. Ragged column edges are
-// masked, nothing is padded.
+// col_quantize. The reduction runs down the columns, across the contiguous
+// dimension's rows. A block owns a band of kBand columns (64 bytes of bf16 a
+// row) over a slab of rows: thread t takes chunk column t % 4 of the band
+// and rows t / 4, t / 4 + 64, ... of the slab (np chunks, at most
+// kColChunks), so a warp reads 8 rows' whole band and each thread's chunks
+// share its 8 columns. Its 8 column maxima meet by shuffles across the lanes
+// of one chunk column (lane % 4), then across the warps in shared memory:
+// the slab's band maxima. The band's slabs are the blocks of one thread
+// block cluster (grid (slabs, bands), cluster (slabs, 1, 1), at most
+// kMaxCluster, H100's non-portable limit). After the cluster barrier each
+// block reads every slab's maxima through distributed shared memory (mapa;
+// the reads all in flight at once), takes the band's absmax and 127 /
+// absmax, and quantizes its slab from its registers; a second barrier keeps
+// every block's maxima alive until its peers have read them. So x is read
+// once from device memory, in one launch. A block holds its slab until its
+// cluster's last block has loaded, so the launcher takes as few slabs as
+// fit kColChunks a thread: the fewer blocks, the fewer clusters wait for a
+// second wave. Ragged bands and slabs are masked, nothing is padded. Rows past kMaxCluster slabs (8,192) take the
+// wide path: a block owns 32 columns, one per lane, over every row, and
+// reads x twice, the second time mostly from L2 (no path has such rows).
 // ---------------------------------------------------------------------------
-constexpr int kColTile = 32;
-constexpr int kColRowSplit = kThreads / kColTile;   // 8 warps over the rows
+constexpr int kBand = 32;                           // columns of a band
+constexpr int kBandChunks = kBand / kChunk;         // chunk columns of a band: 4
+constexpr int kSlabStep = kThreads / kBandChunks;   // rows a block reads a chunk step: 64
+constexpr int kColChunks = 8;                       // chunk steps a slab at most
+constexpr int kMaxCluster = 16;
+constexpr int kColRowSplit = kThreads / kBand;      // the wide path: 8 warps over the rows
 
+struct Cols {
+  int R, C;      // x (R, C), row-major
+  int np;        // chunks a thread: a slab is kSlabStep * np rows
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+// the float at p in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float cluster_load(const float* p, uint32_t rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+template <typename T, int G>
+__device__ __forceinline__ void quantize_cols(const T* __restrict__ x, int8_t* __restrict__ q,
+                                              float* __restrict__ s, const Cols& p) {
+  __shared__ float red[kThreads / 32][kBand];   // each warp's band maxima
+  __shared__ float slab[kBand];                 // this slab's: read by the cluster's blocks
+  __shared__ float peer[kMaxCluster][kBand];    // every slab's, read from its block
+  __shared__ float scale[kBand];                // the band's 127 / absmax
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c0 = blockIdx.y * kBand, cc = t % kBandChunks;
+  const int col = c0 + kChunk * cc, cols = min(kChunk, p.C - col);
+  const int r0 = blockIdx.x * kSlabStep * p.np + t / kBandChunks;
+  // chunk j is row r0 + 64 j: the first nj lie inside the slab and x
+  const int nj = cols > 0 ? max(0, min(p.np, (p.R - r0 + kSlabStep - 1) / kSlabStep)) : 0;
+  Chunk<T> v[kColChunks];
+  // every load issued before any is read
+#pragma unroll
+  for (int j = 0; j < kColChunks; ++j)
+    v[j].template load<G>(x + static_cast<size_t>(r0 + kSlabStep * j) * p.C + col,
+                          j < nj ? cols : 0);
+  float m[kChunk];
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) {
+    m[e] = 0.f;                                 // chunks not loaded hold 0
+#pragma unroll
+    for (int j = 0; j < kColChunks; ++j) m[e] = fmaxf(m[e], fabsf(v[j][e]));
+#pragma unroll
+    for (int o = kBandChunks; o < 32; o <<= 1)  // the lanes of one chunk column
+      m[e] = fmaxf(m[e], __shfl_xor_sync(0xffffffffu, m[e], o));
+  }
+  if (lane < kBandChunks)
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) red[warp][kChunk * lane + e] = m[e];
+  __syncthreads();
+  if (t < kBand) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) a = fmaxf(a, red[w][t]);
+    slab[t] = a;
+  }
+  cluster_arrive();                             // release: this slab's maxima
+  cluster_wait();                               // acquire: every slab's
+  for (int i = t; i < static_cast<int>(gridDim.x) * kBand; i += kThreads)   // all at once
+    peer[i / kBand][i % kBand] = cluster_load(&slab[i % kBand], i / kBand);
+  cluster_arrive();                             // done with the peers' maxima
+  __syncthreads();
+  if (t < kBand) {
+    float a = 0.f;
+    for (uint32_t k = 0; k < gridDim.x; ++k) a = fmaxf(a, peer[k][t]);
+    const float absmax = fmaxf(a, kEps);
+    scale[t] = __fdiv_rn(kQmax, absmax);
+    if (blockIdx.x == 0 && c0 + t < p.C) s[c0 + t] = absmax;
+  }
+  __syncthreads();
+  float sc[kChunk];
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) sc[e] = scale[kChunk * cc + e];
+#pragma unroll
+  for (int j = 0; j < kColChunks; ++j) {
+    if (j >= nj) break;
+    const uint32_t lo = pack4(v[j][0], v[j][1], v[j][2], v[j][3], sc[0], sc[1], sc[2], sc[3]);
+    const uint32_t hi = pack4(v[j][4], v[j][5], v[j][6], v[j][7], sc[4], sc[5], sc[6], sc[7]);
+    store_chunk<G>(q + static_cast<size_t>(r0 + kSlabStep * j) * p.C + col, lo, hi, cols);
+  }
+  cluster_wait();                               // no block leaves while a peer reads it
+}
+
+// the wide path (see above): the 8 warps' partial column maxima meet in
+// shared memory, then each thread quantizes its column's share of the rows
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-col_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
-                    int R, int C) {
-  __shared__ float part[kColRowSplit][kColTile];
-  const int lane = threadIdx.x % kColTile, split = threadIdx.x / kColTile;
-  const int c = blockIdx.x * kColTile + lane;
+__device__ __forceinline__ void quantize_cols_wide(const T* __restrict__ x, int8_t* __restrict__ q,
+                                                   float* __restrict__ s, const Cols& p) {
+  __shared__ float part[kColRowSplit][kBand];
+  const int lane = threadIdx.x % kBand, split = threadIdx.x / kBand;
+  const int c = blockIdx.x * kBand + lane;
   float m = 0.f;
-  if (c < C)
-    for (int r = split; r < R; r += kColRowSplit)
-      m = fmaxf(m, fabsf(to_f32(x[static_cast<size_t>(r) * C + c])));
+  if (c < p.C)
+    for (int r = split; r < p.R; r += kColRowSplit)
+      m = fmaxf(m, fabsf(to_f32(x[static_cast<size_t>(r) * p.C + c])));
   part[split][lane] = m;
   __syncthreads();
   m = 0.f;
 #pragma unroll
   for (int i = 0; i < kColRowSplit; ++i) m = fmaxf(m, part[i][lane]);
-  if (c >= C) return;
+  if (c >= p.C) return;
   const float absmax = fmaxf(m, kEps);
-  const float scale = __fdiv_rn(kQmax, absmax);
-  for (int r = split; r < R; r += kColRowSplit) {
-    const size_t i = static_cast<size_t>(r) * C + c;
-    q[i] = quantize(to_f32(x[i]), scale);
+  const float sc = __fdiv_rn(kQmax, absmax);
+  for (int r = split; r < p.R; r += kColRowSplit) {
+    const size_t i = static_cast<size_t>(r) * p.C + c;
+    q[i] = quantize(to_f32(x[i]), sc);
   }
   if (split == 0) s[c] = absmax;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+col_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+                    Cols p) {
+  if constexpr (G == 0)
+    quantize_cols_wide<T>(x, q, s, p);
+  else
+    quantize_cols<T, G>(x, q, s, p);
+}
+
+// one cluster launch: grid (slabs, bands), the cluster a band's slabs
+template <typename T, int G>
+cudaError_t launch_cols_at(const T* x, int8_t* q, float* s, const Cols& p, int slabs, int bands,
+                           cudaStream_t st) {
+  void (*kernel)(const T*, int8_t*, float*, Cols) = col_quantize_kernel<T, G>;
+  static const cudaError_t allowed =      // once: clusters above 8 blocks
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (allowed != cudaSuccess) return allowed;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slabs, bands, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slabs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, x, q, s, p);
+}
+
+// the slabs, the path and the grid (see above), then one launch
+template <typename T>
+int launch_cols(const void* x, void* q, void* s, int R, int C, cudaStream_t st) {
+  if (R <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  Cols p;
+  p.R = R, p.C = C;
+  const int bands = (C + kBand - 1) / kBand;
+  const int steps = (R + kSlabStep - 1) / kSlabStep;         // chunk steps down a column
+  const int slabs = (steps + kColChunks - 1) / kColChunks;
+  const T* xp = static_cast<const T*>(x);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(s);
+  if (slabs > kMaxCluster || bands > 65535) {                 // the wide path
+    col_quantize_kernel<T, 0><<<bands, kThreads, 0, st>>>(xp, qp, sp, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  p.np = (steps + slabs - 1) / slabs;                        // the steps spread evenly
+  cudaError_t err;
+  switch (granule<T>(x, q, C)) {
+    case 8: err = launch_cols_at<T, 8>(xp, qp, sp, p, slabs, bands, st); break;
+    case 4: err = launch_cols_at<T, 4>(xp, qp, sp, p, slabs, bands, st); break;
+    default: err = launch_cols_at<T, 1>(xp, qp, sp, p, slabs, bands, st); break;
+  }
+  const cudaError_t last = cudaGetLastError();               // cleared either way
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // ---------------------------------------------------------------------------
@@ -264,8 +657,8 @@ cast_tensorwise_kernel(const T* __restrict__ x, int64_t n, const float* __restri
 // never once per column block (a 128-column block's producer quantizing
 // its rows itself would re-read x's bf16 panel M / 128 times, 424 MB of L2
 // reads at CLIP's w_up, where the product's int8 work takes about 55 us):
-//   * above 16 rows, in a pass of its own first (fused_quantize_kernel, a
-//     warp a row, read once), into the wrapper's int8 (B, K) workspace and
+//   * above 16 rows, in a pass of its own first (fused_quantize_kernel,
+//     row_quantize's body: x read once), into the wrapper's int8 (B, K) workspace and
 //     its f32 absmax (B,); the GEMM then runs as int8_matmul_dequant's and
 //     its epilogue forms the scale itself, __fmul_rn(absmax[b], __fdiv_rn(
 //     s_w, 16129)), so nothing runs between the two launches;
@@ -522,56 +915,6 @@ __device__ __forceinline__ void quantize_stage(uint8_t* dst, const I8Gemm& g, co
                    << (8 * (e & 3));
   }
   *reinterpret_cast<uint4*>(dst + sw128(r * 128 + ch * 16)) = make_uint4(q[0], q[1], q[2], q[3]);
-}
-
-// The fused pair's first pass above 16 rows: x (B, K) row-quantized into the
-// workspace q (B, K) int8 and s (B,) f32, row_quantize's arithmetic. Where
-// K % 8 == 0, K <= kQuantVecK and x is 16-byte aligned, a warp owns a row
-// and reads it once, in 16-byte loads, into registers: the absmax is a warp
-// reduction and nothing is read twice (fused_quantize_kernel); else a block
-// owns a row (fused_quantize_block_kernel, quantize_row: a kernel of its
-// own, as the registers of the first would cut its occupancy). TW marks
-// the dgrad's pass: the flag only names the kernel, so that a profile
-// counts each pass under its own entry point.
-constexpr int kQuantVecK = 8 * 32 * 8;       // 8 loads of 8 values a lane
-
-template <typename T, bool TW>
-__global__ void __launch_bounds__(kThreads)
-fused_quantize_block_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                            float* __restrict__ s, int K) {
-  quantize_row<T>(x, q, s, K);
-}
-
-template <typename T, bool TW>
-__global__ void __launch_bounds__(kThreads)
-fused_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
-                      int B, int K) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= B) return;
-  const T* p = x + static_cast<size_t>(row) * K;
-  float v[kQuantVecK / 256][8];
-  float m = 0.f;
-#pragma unroll
-  for (int j = 0; j < kQuantVecK / 256; ++j) {
-    load8<T>(p, 8 * (lane + 32 * j), K, true, v[j]);          // zeros past K
-#pragma unroll
-    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[j][e]));
-  }
-  const float absmax = fmaxf(warp_max(m), kEps);
-  const float scale = __fdiv_rn(kQmax, absmax);
-#pragma unroll
-  for (int j = 0; j < kQuantVecK / 256; ++j) {
-    const int c = 8 * (lane + 32 * j);
-    if (c >= K) break;
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[j][e], scale)))
-                   << (8 * (e & 3));
-    *reinterpret_cast<uint2*>(q + static_cast<size_t>(row) * K + c) = make_uint2(w[0], w[1]);
-  }
-  if (lane == 0) s[row] = absmax;
 }
 
 // the fused decode form: W's first tiles of the block's steps kb0 .. kb0 +
@@ -913,8 +1256,8 @@ int launch_matmul(const void* x_q, const void* w_q, const void* row_scale, const
 
 // the fused pair: at <= kI8SwapRows rows one launch (x quantized in the
 // block; with `split`, K split over the blocks of a column tile); above,
-// fused_quantize_kernel into the workspace x_q (B, K) int8 and absmax (B,)
-// f32, then the GEMM on them
+// fused_quantize_kernel (launch_rows) into the workspace x_q (B, K) int8
+// and absmax (B,) f32, then the GEMM on them
 template <typename T, bool TW>
 int launch_fused(const void* x, const void* w_q, const void* s_w, void* y, void* x_q,
                  void* absmax, void* split, int B, int K, int M, cudaStream_t st) {
@@ -932,16 +1275,8 @@ int launch_fused(const void* x, const void* w_q, const void* s_w, void* y, void*
     return launch_i8<T, TW, true, true>(g, st);
   }
   if (!x_q || !absmax) return static_cast<int>(cudaErrorInvalidValue);
-  const T* xp = static_cast<const T*>(x);
-  int8_t* qp = static_cast<int8_t*>(x_q);
-  float* sp = static_cast<float*>(absmax);
-  constexpr int rows = kThreads / 32;
-  if (K % 8 == 0 && K <= kQuantVecK && aligned16(x) && aligned16(x_q))
-    fused_quantize_kernel<T, TW><<<(B + rows - 1) / rows, kThreads, 0, st>>>(xp, qp, sp, B, K);
-  else
-    fused_quantize_block_kernel<T, TW><<<B, kThreads, 0, st>>>(xp, qp, sp, K);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = launch_rows<T>(TW ? kFusedDgrad : kFusedFwd, x, x_q, absmax, B, K, st);
+  if (err != cudaSuccess) return err;
   g.x = static_cast<const int8_t*>(x_q);
   g.row_scale = static_cast<const float*>(absmax);
   return launch_i8<T, TW, false, true>(g, st);
@@ -1166,29 +1501,14 @@ extern "C" {
 
 int sb_row_quantize(const void* x, int bf16, void* q, void* s, int B, int K, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0 && K > 0) {
-    if (bf16)
-      row_quantize_kernel<__nv_bfloat16><<<B, kThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), K);
-    else
-      row_quantize_kernel<float><<<B, kThreads, 0, st>>>(
-          static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), K);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_rows<__nv_bfloat16>(kRowQuantize, x, q, s, B, K, st)
+              : launch_rows<float>(kRowQuantize, x, q, s, B, K, st);
 }
 
 int sb_col_quantize(const void* x, int bf16, void* q, void* s, int R, int C, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R > 0 && C > 0) {
-    const int blocks = (C + kColTile - 1) / kColTile;
-    if (bf16)
-      col_quantize_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), R, C);
-    else
-      col_quantize_kernel<float><<<blocks, kThreads, 0, st>>>(
-          static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), R, C);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_cols<__nv_bfloat16>(x, q, s, R, C, st)
+              : launch_cols<float>(x, q, s, R, C, st);
 }
 
 // `partial` is scratch of n_partial floats; the caller picks n_partial

@@ -47,7 +47,10 @@ and 128, S_max off its part and kv_len 0, twice the same bits.
 ``int8_matmul_dequant`` (int8 wgmma) in all four forms (row or column
 scale, W (K, M) or (M, K)) bit-equal to its plain version at the paths'
 shapes, the swapped decode form, the masked producer (K = 588) and the
-widest s32 sums (all-±127 operands at K = 5,120).
+widest s32 sums (all-±127 operands at K = 5,120). ``row_quantize`` and
+``col_quantize`` (read once into registers; the column kernel a thread
+block cluster a band) bit-equal to their plain versions at their paths'
+edges, from aligned and unaligned bases.
 The two op-entry-point kernels: ``fp8_cast_tensorwise``
 (``kernels/fp8_cast``) bit-equal to its plain version, both formats, f32
 and bf16 inputs, a pointer off 16-byte alignment, twice the same bits;
@@ -190,6 +193,37 @@ def test_cuda_col_quantize_matches_plain(R, C, dt):
     rq, rs = TREF.col_quantize(w)
     assert torch.equal(q, rq) and torch.equal(s, rs)
     assert torch.equal(TOPS.col_quantize(w)[0], q)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(17, 1), (1000, 7), (1000, 588), (17, 2049), (300, 5120),
+                                 (3, 16385), (8193, 70), (5120, 33), (1025, 1280)])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_int8_quantizers_match_plain_at_the_edges(R, C, offset, dt):
+    """``row_quantize`` (a warp to eight warps a row, the 4-value granules
+    at K = 588, the wide path past 16,384) and ``col_quantize`` (ragged
+    bands, ten slabs a cluster, the wide path past 8,192 rows) from an
+    aligned base, an odd offset and 4 values in: half-way ties in row and
+    column 1, an all-zero row and column 2, a lone outlier in the last row;
+    bit-equal to the plain versions, twice the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(R + 7 * C + offset)
+    x = (rng.standard_normal((R, C)) * np.exp(rng.uniform(-4, 4, (R, 1)))).astype(np.float32)
+    if C >= 3:
+        x[:, 1], x[0, 1], x[:, 2] = np.arange(R) % 8 - 3.5, 127.0, 0.0
+    if R >= 3:
+        x[1], x[1, 0], x[2] = np.arange(C) % 8 - 3.5, 127.0, 0.0
+    x[-1, min(3, C - 1)] = 1000.0
+    buf = torch.empty(R * C + offset, device=dev, dtype=dt)
+    buf[offset:] = torch.from_numpy(x).to(dev).reshape(-1).to(dt)
+    x = buf[offset:].view(R, C)
+    for name in ("row_quantize", "col_quantize"):
+        got, want = getattr(TOPS, name)(x), getattr(TREF, name)(x)
+        again = getattr(TOPS, name)(x)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a), name
     torch.cuda.synchronize()
 
 
