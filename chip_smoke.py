@@ -54,7 +54,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
    dense, dense, flash): one decode step's wall time, its wrapper
    launches (counted over ten steps, each kernel exactly its per-layer
    count times the layers), its device time and CUDA launches by kernel
-   (torch.profiler), at the serve run's batch;
+   (torch.profiler), at the serve run's batch; ``tensor_quantize``'s
+   CUDA kernels no more than its wrapper calls (224 a step);
 8. timing: each kernel, its plain version and (where one exists) one
    PyTorch library call, with CUDA events at the path's shapes (the
    serve kernels at decode and prefill rows, the train kernels at 8 x 256
@@ -78,7 +79,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     parameters' per-leaf mean difference within stated tolerances, the control fault (KV heads tiled) outside;
 12. train-step profile: wall time, device time and idle share, CUDA
     launches and device time by kernel (torch.profiler), tokens trained
-    per second;
+    per second; ``tensor_quantize``'s CUDA kernels no more than its
+    wrapper calls;
 13. CLIP kernels vs plain: every SwitchBack kernel of the four modes
     (the fused forward and dgrad, ``row_quantize`` with
     ``int8_matmul_dequant`` and its transposed form, ``tensor_quantize``,
@@ -96,8 +98,16 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     wide paths, ragged bands and slabs, aligned and unaligned bases, ties,
     all-zero rows and columns, a lone outlier in the last row), bit-equal
     and twice the same bits, the control fault (a band's last slab left out
-    of its absmax) outside in every case; phase 15 also fails a column-wise
-    mode whose profile reads no time under either quantizer's group;
+    of its absmax) outside in every case; then ``tensor_quantize``
+    (``compare_tensor_quantizer_edges``: every path weight, each on the one
+    launch in bf16 and one CUDA kernel a call (a profile of these calls
+    alone), ragged and small n, the one-launch limit and a granule
+    either side, offsets of 0, 1, 2 and 4 elements, the absmax first, last,
+    inside the last block's span and at a span's edge, negative, ties, an
+    all-zero tensor) bit-equal and twice the same bits, the control fault
+    (the absmax's block's partial left out) outside in every case with more
+    than one block; phase 15 also fails a mode whose profile reads no time
+    under a quantizer group it runs;
 14. the flash kernels at CLIP's attention shapes, vision (32, 129, 16, 80)
     with no mask and text (32, 77, 16, 64) causal, forward and both
     backward kernels, bf16 and f32, within the tolerances of phase 3; the
@@ -112,7 +122,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     3 timed steps with every launch counter zeroed just before and read
     just after, each exactly the count worked out from the layer shapes
     (``clip_launches_per_step``); every loss finite; peak memory; one
-    step profiled;
+    step profiled, ``tensor_quantize``'s CUDA kernels no more than its
+    wrapper calls (337 a step in ``int8_switchback`` and ``_m``);
 16. one CLIP train step at 2 + 2 layers and full width, kernels vs plain,
     in each int8 mode: under flash_scan from three seeds within stated
     tolerances, the control fault (the positional embedding read one row
@@ -123,8 +134,9 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
 18. timing of the CLIP kernels: one vision layer's calls at 4,128 rows,
     beside their bound, plain version and ``torch._int_mm`` + scale (the
     int8 forms' TOPS and bound share); the column-wise modes'
-    ``row_quantize`` and ``col_quantize`` calls at each tower's layer
-    (vision, text, the patch embedding); ``flash_fwd`` at the two attention
+    ``row_quantize`` and ``col_quantize`` calls and the tensor-wise modes'
+    ``tensor_quantize`` of the weights at each tower's layer (vision,
+    text, the patch embedding); ``flash_fwd`` at the two attention
     shapes of phase 14 beside SDPA, ``flash_bwd_dq`` and ``flash_bwd_dkv``
     there beside SDPA's backward;
 19. fp8 kernels vs plain at every CLIP main-path shape (phase 13's table,
@@ -141,11 +153,13 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     at least 10 output ulps off the model; bit-equal on
     ``F8REF.exact_entries`` inputs (fallback tiles in a checkerboard); fp8
     ties, an all-zero row and an all-zero tile; each run twice with the
-    same bits;
+    same bits; ``tensor_quantize`` at phase 13's edges in both formats;
 20. CLIP fp8 train: as phase 15 in ``fp8_sim`` (zero-init layer-scale,
     the paper's recipe), ``fp8``, ``fp8_mixed`` and ``fp8_switchback``;
     every launch counter (the seven fp8 kernel forms and transpose_bytes
-    included) exactly its worked-out count;
+    included) exactly its worked-out count; the fp8 ``tensor_quantize``'s
+    CUDA kernels no more than its wrapper calls (337 a step in ``fp8``
+    and ``fp8_mixed``);
 21. one CLIP step at 2 + 2 layers and full width, kernels vs plain, in
     ``fp8`` and ``fp8_mixed`` from three seeds (as phase 16), under
     flash_scan and under dense (the tensor cores' sums are not the plain
@@ -162,7 +176,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     beside their bound (the matmuls' operations at the fp8 peak), plain
     version and ``torch._scaled_mm`` with row-wise scales (transpose_bytes
     beside ``w_q.t().contiguous()``); the matmuls' TFLOP/s and the bound's
-    share of their time;
+    share of their time; ``tensor_quantize`` also at the text layer's and
+    the patch embedding's weights;
 24. paged kernels vs plain at the paged serve path's shapes (8 slots,
     tables of 64 blocks of 16, ragged lengths 0 to 1,024, dead table
     entries outside the pool, a dry slot): ``paged_decode_fwd`` and
@@ -1160,8 +1175,30 @@ def reference(torch, M, cfg, dev, seed):
 
 # the decode step's kernel families, by name (before PyTorch's "gemm": both
 # int8 GEMM kernels take an ``I8Gemm``)
-KERNEL_GROUPS = ("row_quantize", "absmax_partial", "cast_tensorwise", "fused_switchback_kernel",
+KERNEL_GROUPS = ("row_quantize", "tensor_quantize", "fused_switchback_kernel",
                  "int8_matmul_kernel", "flash_fwd", "decode_fwd")
+# the tensor quantizers, whose one-launch form runs one CUDA kernel a
+# wrapper call on every path weight (each exactly, in phases 13 and 19:
+# ``tq_kernels_a_call``). A step's profile (phases 7, 12, 15, 20) loses
+# about 1% of its kernel records (on an H100: 222 of 224 tensor_quantize a
+# decode step, 190.2 of 192 fused_switchback_kernel; PERF.md), so there
+# each one's group (named as its wrapper's count) must launch no more
+# kernels a step than its wrapper counted calls: the two-launch form would
+# read twice as many
+ONE_KERNEL_A_CALL = ("tensor_quantize", "fp8_tensor_quantize")
+
+
+def check_one_kernel_a_call(prof, per_step, what):
+    """Each ONE_KERNEL_A_CALL group of a profile (device time by kernel
+    family) launched no more CUDA kernels a step than its wrapper counted
+    calls, where the profile read device time."""
+    if not prof["device_ms_per_step"]:
+        return
+    for name in ONE_KERNEL_A_CALL:
+        calls = per_step.get(name, 0)
+        got = prof["groups"].get(name, {}).get("launches", 0)
+        check(got <= calls, f"{what}: {name}: {got} CUDA kernels a step for {calls} wrapper "
+              "calls (the one-launch form runs one a call)")
 
 
 def kernel_times(torch, fn, n):
@@ -1238,6 +1275,7 @@ def decode_profile(torch, M, cfg, eng, params, prompts):
     if not dev_ms:
         print(f"[profile] {impl}: torch.profiler saw no device time; step wall time only")
     print("[profile]", json.dumps(prof_out))
+    check_one_kernel_a_call(prof_out, per_step, f"decode profile {impl}")
     lengths = next(iter(cache.values())).length[0].tolist()
     return prof_out, lengths
 
@@ -1516,15 +1554,193 @@ def dropped_slab(torch, REF, x, start):
     return torch.round(x.float() * REF.div(127.0, s)).to(torch.int8), s
 
 
+# the tensor quantizers' edges (int8 in phase 13, both fp8 formats in phase
+# 19; bf16 and f32): every weight of the serve and train paths (smollm's
+# seven a layer, CLIP's vision and text layers' six, the patch embedding),
+# where each must take the one launch in bf16; n = 1, 7, 9, 15, 257 chunks
+# (two blocks), 33 blocks, ~700 K values with n % 8 = 5; the one-launch
+# limit (every resident block's registers, from the launcher's plan), one
+# granule either side of it and 3 values under it. Each from offsets of 0,
+# 1, 2 and 4 elements (the granules of 16, 2, 4 and 8 bytes of bf16)
+TQ_PATH_SHAPES = ((960, 960), (960, 320), (960, 2560), (2560, 960), (1280, 1280), (1280, 5120),
+                  (5120, 1280), (1024, 1024), (1024, 4096), (4096, 1024), (588, 1280))
+TQ_SMALL_SHAPES = ((1, 1), (1, 7), (1, 9), (3, 5), (1, 2049), (1, 65541), (7, 100003))
+TQ_OFFSETS = (0, 1, 2, 4)
+TQ_LIBRARY = "none: no single PyTorch call takes a tensor's absmax and casts by it"
+
+
+def tq_family(M, family):
+    """(kernel, plain version, control fault, plan) of a tensor quantizer:
+    ``family`` "int8" or an fp8 format."""
+    if family == "int8":
+        O, R, args = M.KOPS, M.REF, ()
+    else:
+        O, R, args = M.F8, M.F8REF, (family,)
+    return (lambda x: O.tensor_quantize(x, *args), lambda x: R.tensor_quantize(x, *args),
+            lambda x, b: O.tensor_quantize_drop(x, *args, b), O.tensor_quantize_plan)
+
+
+def tq_input(torch, gen, R, C, dev, dtype, family, at, offset=0):
+    """Random values over many binades below the absmax A (127 for int8, 1
+    for fp8, where the scale is exact), A alone at the flat index ``at``
+    (negative at odd ``at``), and where room allows 256 exact rounding ties
+    at that scale (int8: k + 0.5; fp8: k / 64, midpoints of both grids) and
+    seven bf16 subnormals. ``offset``: the elements the contiguous view
+    starts after its buffer's start."""
+    n = R * C
+    A = 127.0 if family == "int8" else 1.0
+    x = torch.randn(n, generator=gen, device=dev)
+    x = x * torch.exp(torch.empty(n, device=dev).uniform_(-4, 4, generator=gen))
+    x = x / x.abs().max() * (0.9 * A)
+    if n >= 1024:
+        k = torch.arange(256, device=dev, dtype=torch.float32)
+        x[n // 3:n // 3 + 256] = (k % 8) - 3.5 if family == "int8" else ((k % 127) - 63) / 64
+        x[n // 2:n // 2 + 7] = (torch.arange(7, device=dev) - 3).float() * 2.0 ** -133
+    x[at] = -A if at % 2 else A
+    x = x.to(dtype)
+    if offset:
+        buf = torch.empty(n + offset, dtype=dtype, device=dev)
+        buf[offset:] = x
+        x = buf[offset:]
+    return x.view(R, C)
+
+
+def tq_spans(n, blocks):
+    """The first chunk of 8 values of each block's span: block b owns
+    [b C / B, (b + 1) C / B) of the C chunks (tensor_absmax.cuh)."""
+    chunks = -(-n // 8)
+    return [b * chunks // blocks for b in range(blocks)]
+
+
+def tq_spots(n, blocks):
+    """Where the absmax goes: the first value, the last, inside the last
+    block's span, the last value before it (a span's edge)."""
+    last = 8 * tq_spans(n, blocks)[-1]
+    return {"first": 0, "last": n - 1, "last block": min(n - 1, last + (n - last) // 2),
+            "span edge": max(0, min(n - 1, last - 1))}
+
+
+def compare_tensor_quantizer_edges(torch, M, dev, seed, families):
+    """Each tensor quantizer of ``families`` ("int8", "e4m3", "e5m2") at
+    TQ_PATH_SHAPES, TQ_SMALL_SHAPES and the one-launch limit's edges from
+    each of TQ_OFFSETS, bf16 and f32, on ``tq_input``'s cases with the
+    absmax at each of ``tq_spots`` (from offset 0; inside the last block's
+    span from the others) and on an all-zero tensor: codes and state
+    bit-equal to the plain version and bit-identical over two launches;
+    every path weight in bf16 on the one launch, one CUDA kernel a call
+    (``tq_kernels_a_call``). The control fault (the
+    partial of the absmax's block left out) must differ from the plain
+    version in every case with more than one block. Returns the largest
+    |kernel - plain| by family, the comparisons and the faults caught."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = dict.fromkeys(families, 0.0)
+    n_cmp = caught = 0
+    bits = lambda t: t.view(torch.uint8) if t.element_size() == 1 else t
+    for family in families:
+        quant, plain, drop, plan = tq_family(M, family)
+        a_call = tq_kernels_a_call(torch, quant, family != "int8", dev)
+        check(a_call == 1, f"{family} tensor_quantize: {a_call} CUDA kernels a call on the path "
+              "weights, not the one launch")
+        for dt in (torch.bfloat16, torch.float32):
+            lim = plan(torch.empty((1, 8), dtype=dt, device=dev))
+            L = lim["resident"] * lim["block_values"]
+            for R, C in TQ_PATH_SHAPES + TQ_SMALL_SHAPES + ((1, L - 8), (1, L - 3), (1, L),
+                                                             (1, L + 8)):
+                n = R * C
+                p = plan(torch.empty((R, C), dtype=dt, device=dev))
+                check(p["rounds"] == (0 if n <= L else 2),
+                      f"{family} tensor_quantize {R}x{C} {dt}: plan {p} against the limit {L}")
+                check((R, C) not in TQ_PATH_SHAPES or dt != torch.bfloat16 or p["rounds"] == 0,
+                      f"{family} tensor_quantize {R}x{C} bf16, a path weight: two launches {p}")
+                spots = tq_spots(n, p["blocks"])
+                cases = [(0, w, at) for w, at in spots.items()]
+                cases += [(o, "last block", spots["last block"]) for o in TQ_OFFSETS[1:]]
+                cases.append((0, "all zero", None))
+                for offset, where, at in cases:
+                    what = f"{family} tensor_quantize {R}x{C} {dt} offset {offset} absmax {where}"
+                    x = (torch.zeros((R, C), dtype=dt, device=dev) if at is None else
+                         tq_input(torch, gen, R, C, dev, dt, family, at, offset))
+                    got, again, want = quant(x), quant(x), plain(x)
+                    for g, a, w, part in zip(got, again, want, ("codes", "state")):
+                        check(g.dtype == w.dtype and g.shape == w.shape
+                              and torch.equal(bits(g), bits(w)),
+                              f"{what} {part}: kernel != plain (max |diff| "
+                              f"{max_abs_diff(torch, g.float(), w.float()):g})")
+                        check(torch.equal(bits(g), bits(a)), f"{what} {part}: two launches differ")
+                        worst[family] = max(worst[family],
+                                            max_abs_diff(torch, g.float(), w.float()))
+                        n_cmp += 1
+                    if at is not None and offset == 0 and p["blocks"] > 1:
+                        block = max(b for b, lo in enumerate(tq_spans(n, p["blocks"]))
+                                    if lo <= at // 8)
+                        q_f, s_f = drop(x, block)
+                        check(not (torch.equal(bits(q_f), bits(want[0]))
+                                   and torch.equal(s_f, want[1])),
+                              f"{what}: the control fault (block {block}'s partial left out) "
+                              "reads as the plain version")
+                        caught += 1
+                    del x, got, again, want
+    torch.cuda.synchronize()
+    return worst, n_cmp, caught
+
+
+def tq_kernels_a_call(torch, quant, fp8, dev, windows=3):
+    """CUDA kernels torch.profiler reads for one ``quant`` call on each
+    weight of TQ_PATH_SHAPES in bf16 (the int8 family's kernels, or with
+    ``fp8`` the fp8 family's), a call a weight: the most over ``windows``
+    windows of these calls alone. The profiler can drop a kernel's record
+    (10 of 11 in one window on an H100; PERF.md), never add one, so the
+    most is the count, and the two-launch form would read two a call."""
+    from torch.profiler import ProfilerActivity, profile
+    ws = [torch.randn(shape, device=dev).to(torch.bfloat16) for shape in TQ_PATH_SHAPES]
+    counts = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for w in ws:
+                quant(w)
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if "tensor_quantize_kernel" in e.key
+                          and ("fp8_tensor_quantize" in e.key) == fp8))
+    return max(counts) / len(ws)
+
+
+def time_tensor_quantize(torch, quant, plain, gen, dev, shapes, what):
+    """A tensor quantizer over one layer's weights ``shapes`` [(K, M)], bf16
+    as the paths give them: its device ms by graph replay over input sets
+    larger than L2, the plain version's (with ``plain``), the eager ms and
+    the bound (each value read once in bf16 and written once in 8 bits, and
+    the state)."""
+    n_el = sum(K * Mw for K, Mw in shapes)
+    sets = [[weight(torch, gen, K, Mw, dev) for K, Mw in shapes]
+            for _ in range(max(2, int(120e6 // (3 * n_el)) + 1))]
+    call = lambda i, fn: [fn(w) for w in sets[i]]
+    out = dict(ms=graph_ms(torch, lambda i: call(i, quant), len(sets)),
+               plain_ms=graph_ms(torch, lambda i: call(i, plain), len(sets)) if plain else None,
+               library_ms=None, library=TQ_LIBRARY,
+               eager_ms=eager_ms(torch, lambda i: call(i, quant), len(sets)),
+               bound=bound(3 * n_el + 4 * len(shapes), f32_ops=2 * n_el), calls=len(shapes),
+               work=f"{what}: {len(shapes)} calls")
+    del sets
+    return out
+
+
+def tower_weights(lins):
+    """The weights (K, M) of one layer of a ``clip_shapes`` entry."""
+    return [(K, Mw) for K, Mw, _ in clip_layer(lins)]
+
+
 def compare_int8_quantizer_edges(torch, M, dev, seed):
     """Phase 13: ``row_quantize`` at INT8_ROW_EDGE_ROWS x INT8_ROW_EDGE_K
     and ``col_quantize`` at INT8_COL_EDGE_R x INT8_COL_EDGE_C, bf16 and f32,
     from each of INT8_EDGE_OFFSETS, on ``int8_edge_input``'s cases: the
     codes and the states bit-equal to the plain versions and bit-identical
     over two launches. The control fault (``dropped_slab``, every column
-    case on the cluster path) must differ from the plain version. Returns
-    the largest |kernel - plain| by kernel, the number of comparisons and
-    of faults caught."""
+    case on the cluster path) must differ from the plain version. Then
+    ``tensor_quantize`` at its edges (``compare_tensor_quantizer_edges``),
+    where the module has the entry points for them. Returns the largest
+    |kernel - plain| by kernel, the number of comparisons and of faults
+    caught."""
     KOPS, REF = M.KOPS, M.REF
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"row_quantize": 0.0, "col_quantize": 0.0}
@@ -1553,6 +1769,10 @@ def compare_int8_quantizer_edges(torch, M, dev, seed):
                           f"{start}.., left out) reads as the plain version")
                     caught += 1
                 del x, got, again, want
+    if getattr(KOPS, "tensor_quantize_plan", None):
+        t_worst, t_n, t_caught = compare_tensor_quantizer_edges(torch, M, dev, seed + 1, ("int8",))
+        worst["tensor_quantize"] = t_worst["int8"]
+        n, caught = n + t_n, caught + t_caught
     torch.cuda.synchronize()
     return worst, n, caught
 
@@ -2060,7 +2280,8 @@ def card_vs_cpu(torch, M, path, dev, seed, steps=3):
 # The fused pair's kernels (its row-quantize pass above 16 rows, either
 # form, then its GEMM) count under the pair's own names; the fp8 row and
 # tile quantizers (one body, two kernel names) under theirs, before the
-# int8 ``row_quantize``.
+# int8 ``row_quantize``; the fp8 tensor quantizer before the int8 one,
+# whose name its own holds.
 TRAIN_KERNEL_GROUPS = (
     ("fused_quantize", "true>", "fused_switchback_dgrad"),
     ("fused_quantize", "", "fused_switchback_fwd"),
@@ -2073,11 +2294,10 @@ TRAIN_KERNEL_GROUPS = (
     ("transpose_bytes", "", "fp8 forward's K-major W (transpose_bytes)"),
     ("fp8_block_quantize", "", "fp8_block_quantize"),
     ("fp8_row_quantize", "", "fp8_row_quantize"),
-    ("cast_tensorwise", "unsigned char", "fp8_tensor_quantize (cast pass)"),
+    ("fp8_tensor_quantize", "", "fp8_tensor_quantize"),
     ("col_quantize", "", "col_quantize"),
     ("row_quantize", "", "row_quantize"),
-    ("absmax_partial", "", "tensor_quantize pass 1 (int8 or fp8)"),
-    ("cast_tensorwise", "", "tensor_quantize"),
+    ("tensor_quantize", "", "tensor_quantize"),
     ("flash_bwd_dq", "", "flash_bwd_dq"),
     ("flash_bwd_dkv", "", "flash_bwd_dkv"),
     ("flash_fwd", "", "flash_fwd"),
@@ -2086,9 +2306,12 @@ TRAIN_KERNEL_GROUPS = (
 
 # groups that a mode's profile (phases 15 and 20) must read device time in:
 # a pattern that no longer matches its kernel's name leaves its group empty
-PROFILE_GROUPS = {"fp8": ("fp8_row_quantize", "fp8_matmul_dequant and _t (one wgmma kernel)"),
-                  "fp8_mixed": ("fp8_block_quantize",
+PROFILE_GROUPS = {"fp8": ("fp8_tensor_quantize", "fp8_row_quantize",
+                          "fp8_matmul_dequant and _t (one wgmma kernel)"),
+                  "fp8_mixed": ("fp8_tensor_quantize", "fp8_block_quantize",
                                 "fp8_mixed_matmul and _t (one wgmma kernel)"),
+                  "int8_switchback": ("tensor_quantize",),
+                  "int8_switchback_m": ("tensor_quantize",),
                   "int8_switchback_q": ("row_quantize", "col_quantize"),
                   "int8_llm": ("row_quantize", "col_quantize")}
 
@@ -2495,6 +2718,7 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
             check(prof["groups"].get(g, {}).get("ms", 0.0) > 0,
                   f"CLIP {mode}: the profile's group {g!r} read no device time (its pattern "
                   "matches no kernel name)")
+        check_one_kernel_a_call(prof, want, f"CLIP {mode} profile")
         # activation memory: the peak of one forward and backward (the
         # gradients included) above what the trainer holds, without the
         # optimizer's copies, which set the step's peak in every mode
@@ -2715,8 +2939,9 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     scale) and the bound. Then at each tower's layer (vision 4,128 rows,
     text 2,464, the patch embedding's 8,192 x 588 -> 1,280) the column-wise
     modes' ``row_quantize`` and ``col_quantize`` calls
-    (``time_int8_quantizers``) and the fused pair with the two-step
-    yardstick (``time_fused``)."""
+    (``time_int8_quantizers``), the tensor-wise modes' ``tensor_quantize``
+    of the layer's weights (``time_tensor_quantize``) and the fused pair
+    with the two-step yardstick (``time_fused``)."""
     KOPS, REF = M.KOPS, M.REF
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
     _, R, _, _, _, shapes = clip_shapes(cfg)[0]                         # the vision tower
@@ -2772,6 +2997,10 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
                                    f"one {tower} layer at {rows} rows")
         for name, r in got.items():
             out.setdefault(name, {})[tower] = r
+        # int8_switchback's and _m's tensor_quantize of the layer's weights
+        out.setdefault("tensor_quantize", {})[tower] = time_tensor_quantize(
+            torch, KOPS.tensor_quantize, REF.tensor_quantize, gen, dev, tower_weights(lins),
+            f"one {tower} layer's weights")
     # the fused pair (int8_switchback) at each tower's layer: the forward of
     # every linear whose K fits FUSED_MAX_CONTRACT, the dgrad of every one
     # whose output width does; the patch embedding's forward alone
@@ -3127,12 +3356,14 @@ def compare_fp8_quantizer_edges(torch, M, dev, seed, encode_check=True):
     bit-equal to their plain versions (q's bytes and the state) at
     FP8_QUANT_EDGES, bf16 and f32, E4M3 and E5M2, from an aligned base and
     from an odd offset, on ``fp8_edge_input``'s cases; each run twice gives
-    the same bits. With ``encode_check``, the quantizers' conversion equals
-    grid_round + encode on every f32 bit pattern (``ops.encode_check``) and
-    their bf16 division ``__fdiv_rn`` on every pair it meets
-    (``ops.divide_check``).
-    Returns the largest |kernel - plain| (decoded) by kernel and the number
-    of comparisons."""
+    the same bits. Then ``tensor_quantize`` at its edges in both formats
+    (``compare_tensor_quantizer_edges``), where the module has the entry
+    points for them. With ``encode_check``, the quantizers' conversion
+    equals grid_round + encode on every f32 bit pattern
+    (``ops.encode_check``) and their bf16 division ``__fdiv_rn`` on every
+    pair it meets (``ops.divide_check``).
+    Returns the largest |kernel - plain| (decoded) by kernel, the number
+    of comparisons and the tensor quantizer's control faults caught."""
     F8, F8REF = M.F8, M.F8REF
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"fp8_row_quantize": 0.0, "fp8_block_quantize": 0.0}
@@ -3159,6 +3390,12 @@ def compare_fp8_quantizer_edges(torch, M, dev, seed, encode_check=True):
                                              max_abs_diff(torch, g.float(), w.float()))
                             n += 1
                 del x
+    caught = 0
+    if getattr(F8, "tensor_quantize_plan", None):
+        t_worst, t_n, caught = compare_tensor_quantizer_edges(torch, M, dev, seed + 1,
+                                                              ("e4m3", "e5m2"))
+        worst["fp8_tensor_quantize"] = max(t_worst.values())
+        n += t_n
     if encode_check:
         for fmt in ("e4m3", "e5m2"):
             bad = F8.encode_check(fmt, dev)
@@ -3168,7 +3405,7 @@ def compare_fp8_quantizer_edges(torch, M, dev, seed, encode_check=True):
         check(bad == 0, f"the bf16 quantizers' division differs from __fdiv_rn on {bad} "
               "(x, absmax) pairs")
         n += 3
-    return worst, n
+    return worst, n, caught
 
 
 def quantizer_calls(lins):
@@ -3593,6 +3830,15 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
         out[name] = dict(quant["vision"][name], at_shapes={
             t: {k: q[name][k] for k in ("ms", "plain_ms", "eager_ms", "calls", "work")}
             | {"bound_ms": q[name]["bound"][0]} for t, q in quant.items() if t != "vision"})
+    # the fp8 modes' tensor_quantize of the weights of the other towers' layers
+    out["fp8_tensor_quantize"]["at_shapes"] = {
+        tower: {k: r[k] for k in ("ms", "plain_ms", "eager_ms", "calls", "work")}
+        | {"bound_ms": r["bound"][0]}
+        for tower, _, _, _, _, lins in clip_shapes(cfg) if tower != "vision"
+        for r in [time_tensor_quantize(torch, lambda w: F8.tensor_quantize(w, "e4m3"),
+                                       lambda w: F8REF.tensor_quantize(w, "e4m3"), gen, dev,
+                                       tower_weights(lins), f"one {tower} layer's weights")]}
+    out["fp8_tensor_quantize"]["library"] = TQ_LIBRARY
     print("[timing] fp8 kernels:", json.dumps(out))
     return out
 
@@ -4485,6 +4731,7 @@ def main(argv=None) -> int:
     # 12. train-step profile
     with timed("12 train profile"):
         train_prof = train_profile(torch, M, trainer, batches)
+        check_one_kernel_a_call(train_prof, train_res["launches_per_step"], "train profile")
     del trainer, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4508,9 +4755,13 @@ def main(argv=None) -> int:
         print(f"[kernels] {n_quant} int8 quantizer comparisons at the edges (row_quantize: rows "
               f"{INT8_ROW_EDGE_ROWS} x K {INT8_ROW_EDGE_K}; col_quantize: R {INT8_COL_EDGE_R} x C "
               f"{INT8_COL_EDGE_C}; bf16 and f32, offsets {INT8_EDGE_OFFSETS}; ties, all-zero "
-              "rows and columns, a lone outlier in the last row) bit-equal and bit-identical "
-              f"over two launches; the control fault (a band's last slab left out) caught in "
-              f"{n_fault} of {n_fault} cases; max |kernel - plain| " + json.dumps(quant_worst))
+              "rows and columns, a lone outlier in the last row; tensor_quantize at every path "
+              f"weight {TQ_PATH_SHAPES}, {TQ_SMALL_SHAPES} and the one-launch limit's edges, "
+              f"offsets {TQ_OFFSETS}, the absmax first, last, in the last block's span and at "
+              "a span's edge, ties, all zero) bit-equal and bit-identical over two launches; "
+              f"the control faults (a band's last slab left out; the absmax's block's partial "
+              f"left out) caught in {n_fault} of {n_fault} cases; max |kernel - plain| "
+              + json.dumps(quant_worst))
         clip_flash, n_clip_flash = compare_flash_train(torch, M, clip_flash_cases(clip_cfg), dev,
                                                        args.seed + 29)
         print(f"[kernels] {n_clip_flash} flash comparisons at CLIP's shapes within o "
@@ -4537,15 +4788,18 @@ def main(argv=None) -> int:
               f"at the check rows (control faults >= {FAULT_MARGIN:g} ulps off it, smallest "
               "by form), bit-equal on exact entries, each bit-identical over two launches: "
               + json.dumps(fp8_mm) + "; max |kernel - plain| " + json.dumps(fp8_worst))
-        edge_worst8, n_edge8 = compare_fp8_quantizer_edges(torch, M, dev, args.seed + 43)
+        edge_worst8, n_edge8, n_fault8 = compare_fp8_quantizer_edges(torch, M, dev,
+                                                                     args.seed + 43)
         for k, v in edge_worst8.items():
             fp8_worst[k] = max(fp8_worst[k], v)
         print(f"[kernels] {n_edge8} fp8 quantizer comparisons at the edges (rows x K "
               f"{FP8_QUANT_EDGES}, tiles {FP8_QUANT_TILES}, bf16 and f32, both formats, aligned "
-              "and at an odd offset; ties, ±0, subnormals, all-zero rows and tiles) bit-equal and "
-              "bit-identical over two launches, the conversion equal to grid_round + encode on "
-              "every f32 (encode_check), the bf16 division to __fdiv_rn on every pair "
-              "(divide_check); max |kernel - plain| " + json.dumps(edge_worst8))
+              "and at an odd offset; ties, ±0, subnormals, all-zero rows and tiles; "
+              "tensor_quantize as in phase 13) bit-equal and bit-identical over two launches, "
+              "the conversion equal to grid_round + encode on every f32 (encode_check), the "
+              "bf16 division to __fdiv_rn on every pair (divide_check); the tensor quantizer's "
+              f"control fault caught in {n_fault8} of {n_fault8} cases; max |kernel - plain| "
+              + json.dumps(edge_worst8))
     with timed("20 CLIP fp8 train"):
         fp8_res, fp8_counts = clip_train(torch, M, clip_cfg, dev, args.seed, CLIP_FP8_MODES,
                                          tag="clip fp8 train")
@@ -4628,8 +4882,11 @@ def main(argv=None) -> int:
                 e["library_rows"] = r["library_rows"]
             if name == "int8_matmul_dequant":
                 e["at_train_shape"] = at_train(name)
-            if name in ("fused_switchback_fwd", "row_quantize") and R == DECODE_ROWS:
+            if name in ("fused_switchback_fwd", "row_quantize", "tensor_quantize") and \
+                    R == DECODE_ROWS:
                 e["at_clip_shapes"] = at_clip(name)
+            if name == "tensor_quantize":
+                e["library"] = TQ_LIBRARY
             out.append(e)
         return out
 

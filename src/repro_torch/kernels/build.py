@@ -151,3 +151,32 @@ def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as the int the C entry
     points take."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_BARRIERS: dict = {}      # (device index, stream) -> the tensor quantizers' barrier workspace
+
+
+def grid_barrier(device: torch.device, st: int) -> torch.Tensor:
+    """The two-word workspace of the tensor quantizers' grid barrier
+    (``kernels/csrc/tensor_absmax.cuh``: arrivals, then an epoch) for the
+    stream ``st`` (``stream(t)``) of ``device``: int32 zeros when made, and
+    every launch leaves the arrivals 0. One a stream, since a launch may
+    not share it with a launch that runs beside it; kept for the process's
+    life, since a captured CUDA graph holds its address."""
+    key = (device.index, st)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIERS[key]
+
+
+def plan(entry, x: torch.Tensor) -> dict:
+    """A tensor quantizer's launch plan for ``x`` (and a q as the wrapper
+    allocates it, 256-byte aligned), from its C entry point ``entry``:
+    its blocks, its rounds (0: the one launch; else the two passes'
+    rounds), the granule (values a load), the one-launch kernel's resident
+    blocks and the values a block holds in one round. Host only; it loads
+    the library, so it needs the card's toolchain."""
+    out = (ctypes.c_int * 5)()
+    launch(entry, x.data_ptr(), int(x.dtype == torch.bfloat16), None, x.numel(),
+           ctypes.addressof(out))
+    return dict(zip(("blocks", "rounds", "granule", "resident", "block_values"), out))

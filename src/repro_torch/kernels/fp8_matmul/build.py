@@ -16,7 +16,9 @@ _MIXED = (P, I, P, I, P, P, P, I, P, P, I, I, I, I, I, I, P)
 SIGNATURES = (
     # (name, argtypes); every function returns its cudaError_t as int
     ("f8_row_quantize", (P, I, P, P, I, I, I, P)),
-    ("f8_tensor_quantize", (P, I, I64, P, I, P, P, I, P)),
+    ("f8_tensor_quantize", (P, I, I64, P, P, P, P, I, P)),
+    ("f8_tensor_quantize_drop", (P, I, I64, P, P, P, P, I, I, P)),
+    ("f8_tensor_quantize_plan", (P, I, P, I64, P)),
     ("f8_block_quantize", (P, I, P, P, I, I, I, I, I, P)),
     ("f8_matmul_dequant_t", _MATMUL),
     ("f8_mixed_matmul_t", _MIXED),

@@ -6,7 +6,7 @@
 // (repro/kernels/fp8_matmul/fp8_matmul.py):
 //
 //   row_quantize          <- row_quantize (:47)     fp8 per row
-//   tensor_quantize       <- tensor_quantize (:86)  fp8 per tensor, two passes
+//   tensor_quantize       <- tensor_quantize (:86)  fp8 per tensor, read once
 //   block_quantize        <- block_quantize (:128)  fp8 per (br x bc) tile
 //   fp8_matmul_dequant    <- fp8_matmul_dequant (:176, body :158), both W
 //                            orientations
@@ -117,6 +117,7 @@
 #include <type_traits>
 
 #include "../../csrc/fp8_grid.cuh"
+#include "../../csrc/tensor_absmax.cuh"
 #include "../../csrc/wgmma.cuh"
 
 namespace {
@@ -497,36 +498,55 @@ int quantize_tiles_launch(bool row, const void* x, int bf16, void* q, void* s, i
 }
 
 // ---------------------------------------------------------------------------
-// tensor_quantize: x (n,) -> q (n,) fp8, s (1,) f32. The TPU kernel carries
-// the max across a sequential grid; GPU blocks run in no order, so pass 1
-// writes one partial max per block and each block of pass 2 reduces the
-// partials itself before casting its share (no atomics, no memset).
+// tensor_quantize: x (n,) -> q (n,) fp8, s (1,) f32. The skeleton of
+// kernels/csrc/tensor_absmax.cuh (shared with the int8 tensor_quantize):
+// x read once into the resident blocks' registers, their maxima met at one
+// grid-wide barrier inside one cooperative launch, the bytes from the
+// registers; two launches only past the registers. The per-value
+// arithmetic is the tile kernel's: quantize4<F, FAST>, for bf16 inputs
+// with absmax below kFastMax the division by r = RN(1 / absmax) and an fma
+// (div_fast), else __fdiv_rn.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-absmax_partial_kernel(const T* __restrict__ x, int64_t n, float* __restrict__ partial) {
-  __shared__ float red[32];
-  float m = 0.f;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    m = fmaxf(m, fabsf(to_f32(x[i])));
-  m = block_max(m, red);
-  if (threadIdx.x == 0) partial[blockIdx.x] = m;
+template <int F, bool FAST>
+struct Fp8Four {                     // four values' bytes of x / absmax
+  float absmax, r;
+  __device__ __forceinline__ uint32_t four(float a, float b, float c, float d) const {
+    return quantize4<F, FAST>(a, b, c, d, absmax, r);
+  }
+};
+
+template <int F>
+struct Fp8Codec {
+  template <int MODE, int G, typename T, int K>
+  __device__ __forceinline__ static void cast(float absmax, tq::Vals<T> (&v)[K],
+                                              const tq::Work<T>& w) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (absmax < kFastMax) {
+        tq::cast_work<MODE, G>(Fp8Four<F, true>{absmax, __frcp_rn(absmax)}, v, w);
+        return;
+      }
+    }
+    tq::cast_work<MODE, G>(Fp8Four<F, false>{absmax, 0.f}, v, w);
+  }
+};
+
+// __launch_bounds__ 2 blocks an SM: at most 128 registers a thread, so 264
+// blocks on 132 SMs hold 8.65 M values in one launch
+template <typename T, int G, int F, int MODE>
+__global__ void __launch_bounds__(tq::kThreads, 2)
+fp8_tensor_quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
+                           float* __restrict__ s, float* __restrict__ partial,
+                           unsigned* __restrict__ bar, tq::Plan p) {
+  tq::quantize<T, G, MODE, Fp8Codec<F>>(x, q, s, partial, bar, p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cast_tensorwise_kernel(const T* __restrict__ x, int64_t n, const float* __restrict__ partial,
-                       int n_partial, uint8_t* __restrict__ q, float* __restrict__ s, int fmt) {
-  __shared__ float red[32];
-  float m = 0.f;
-  for (int i = threadIdx.x; i < n_partial; i += blockDim.x) m = fmaxf(m, partial[i]);
-  const float absmax = fmaxf(block_max(m, red), kEps);
-  if (blockIdx.x == 0 && threadIdx.x == 0) s[0] = absmax;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    q[i] = quantize(to_f32(x[i]), absmax, fmt);
-}
+struct Fp8Kernels {                  // the launcher's family (tq::run): format 0 or 1
+  template <typename T, int G, int MODE>
+  static tq::Kernel<T> kernel(int fmt) {
+    if (fmt) return fp8_tensor_quantize_kernel<T, G, 1, MODE>;
+    return fp8_tensor_quantize_kernel<T, G, 0, MODE>;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // The fp8 GEMMs (see the note at the top).
@@ -1060,26 +1080,28 @@ int f8_row_quantize(const void* x, int bf16, void* q, void* s, int B, int K, int
                                static_cast<cudaStream_t>(stream));
 }
 
-// `partial` is scratch of n_partial floats (1 <= n_partial <= 1024), the
-// same value for both passes.
-int f8_tensor_quantize(const void* x, int bf16, int64_t n, void* partial, int n_partial, void* q,
+// partial: scratch of tq::kMaxPartials floats; bar: the two-word barrier
+// workspace, zero and left zero (see tensor_absmax.cuh)
+int f8_tensor_quantize(const void* x, int bf16, int64_t n, void* partial, void* bar, void* q,
                        void* s, int fmt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pp = static_cast<float*>(partial);
-  uint8_t* qp = static_cast<uint8_t*>(q);
-  float* sp = static_cast<float*>(s);
-  if (bf16) {
-    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-    absmax_partial_kernel<__nv_bfloat16><<<n_partial, kThreads, 0, st>>>(xp, n, pp);
-    cast_tensorwise_kernel<__nv_bfloat16><<<n_partial, kThreads, 0, st>>>(xp, n, pp, n_partial,
-                                                                           qp, sp, fmt);
-  } else {
-    const float* xp = static_cast<const float*>(x);
-    absmax_partial_kernel<float><<<n_partial, kThreads, 0, st>>>(xp, n, pp);
-    cast_tensorwise_kernel<float><<<n_partial, kThreads, 0, st>>>(xp, n, pp, n_partial, qp, sp,
-                                                                   fmt);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? tq::run<__nv_bfloat16, Fp8Kernels>(x, q, s, partial, bar, n, fmt, -1, st)
+              : tq::run<float, Fp8Kernels>(x, q, s, partial, bar, n, fmt, -1, st);
+}
+
+// the control fault of the checks: block `drop`'s partial left out of the
+// absmax (not a path's entry point)
+int f8_tensor_quantize_drop(const void* x, int bf16, int64_t n, void* partial, void* bar, void* q,
+                            void* s, int fmt, int drop, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? tq::run<__nv_bfloat16, Fp8Kernels>(x, q, s, partial, bar, n, fmt, drop, st)
+              : tq::run<float, Fp8Kernels>(x, q, s, partial, bar, n, fmt, drop, st);
+}
+
+// out (5,) host ints: the plan tensor_quantize takes for these pointers and n
+int f8_tensor_quantize_plan(const void* x, int bf16, const void* q, int64_t n, int* out) {
+  return bf16 ? tq::plan<__nv_bfloat16, Fp8Kernels>(x, q, n, out)
+              : tq::plan<float, Fp8Kernels>(x, q, n, out);
 }
 
 // s (ceil(R / br), ceil(C / bc)) f32, row-major; 1 <= br <= R, 1 <= bc <= C.

@@ -37,9 +37,9 @@ from repro_torch.kernels.fp8_matmul import ref as _ref
 _FMT_CODE = {FMT_DTYPE["e4m3"]: 0, FMT_DTYPE["e5m2"]: 1}
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _FP8_TYPES = tuple(_FMT_CODE)
-# scratch for tensor_quantize's first pass: one partial max per block
-_MAX_PARTIALS = 1024
-_PARTIAL_ELEMS = 2048
+# tensor_quantize's partial maxima, one a block: the most blocks its
+# launcher takes (kMaxPartials, kernels/csrc/tensor_absmax.cuh)
+MAX_PARTIALS = 1024
 
 fallback_mask = _ref.fallback_mask
 
@@ -77,21 +77,49 @@ def row_quantize(x: torch.Tensor, fmt: str = "e4m3"):
     return q, s
 
 
+def _tensor(x: torch.Tensor, fmt: str, drop=None):
+    """One launch of the tensor quantizer on a CUDA x (its two passes
+    past the registers): the partials allocated here, the stream's barrier
+    workspace; with ``drop``, the control fault's entry point."""
+    q = torch.empty(x.shape, dtype=FMT_DTYPE[fmt], device=x.device)
+    s = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+    partial = torch.empty((MAX_PARTIALS,), dtype=torch.float32, device=x.device)
+    st = _b.stream(x)
+    args = (x.data_ptr(), _bf16(x), x.numel(), partial.data_ptr(),
+            _b.grid_barrier(x.device, st).data_ptr(), q.data_ptr(), s.data_ptr(), _fmt(fmt))
+    if drop is None:
+        _b.launch(_lib().f8_tensor_quantize, *args, st)
+    else:
+        _b.launch(_lib().f8_tensor_quantize_drop, *args, drop, st)
+    return q, s
+
+
 def tensor_quantize(x: torch.Tensor, fmt: str = "e4m3"):
     """x (R, C) f32/bf16 -> (q fp8 (R, C), state f32 (1, 1))."""
     _b.need(x, "x", _FLOAT_TYPES, 2)
-    code = _fmt(fmt)
+    _fmt(fmt)
     if _b.on_cpu(x):
         return _ref.tensor_quantize(x, fmt)
-    n = x.numel()
-    n_partial = max(1, min(_MAX_PARTIALS, -(-n // _PARTIAL_ELEMS)))
-    partial = torch.empty((n_partial,), dtype=torch.float32, device=x.device)
-    q = torch.empty(x.shape, dtype=FMT_DTYPE[fmt], device=x.device)
-    s = torch.empty((1, 1), dtype=torch.float32, device=x.device)
-    _b.launch(_lib().f8_tensor_quantize, x.data_ptr(), _bf16(x), n, partial.data_ptr(),
-              n_partial, q.data_ptr(), s.data_ptr(), code, _b.stream(x))
+    out = _tensor(x, fmt)
     LAUNCHES["fp8_tensor_quantize"] += 1
-    return q, s
+    return out
+
+
+def tensor_quantize_drop(x: torch.Tensor, fmt: str, drop: int):
+    """The checks' control fault: ``tensor_quantize`` with block ``drop``'s
+    partial maximum left out of the absmax. CUDA tensors only, not a path's
+    entry point and not counted in ``LAUNCHES``."""
+    _b.need(x, "x", _FLOAT_TYPES, 2)
+    if _b.on_cpu(x):
+        raise ValueError("tensor_quantize_drop launches the kernel: x must lie on the card")
+    return _tensor(x, fmt, drop)
+
+
+def tensor_quantize_plan(x: torch.Tensor) -> dict:
+    """The launch plan ``tensor_quantize`` takes for x (``build.plan``;
+    the same in both formats)."""
+    _b.need(x, "x", _FLOAT_TYPES, 2)
+    return _b.plan(_lib().f8_tensor_quantize_plan, x)
 
 
 def block_quantize(x: torch.Tensor, fmt: str = "e4m3", block_rows: int = 128,

@@ -15,7 +15,9 @@ SIGNATURES = (
     # (name, argtypes); every function returns its cudaError_t as int
     ("sb_row_quantize", (P, I, P, P, I, I, P)),
     ("sb_col_quantize", (P, I, P, P, I, I, P)),
-    ("sb_tensor_quantize", (P, I, I64, P, I, P, P, P)),
+    ("sb_tensor_quantize", (P, I, I64, P, P, P, P, P)),
+    ("sb_tensor_quantize_drop", (P, I, I64, P, P, P, P, I, P)),
+    ("sb_tensor_quantize_plan", (P, I, P, I64, P)),
     ("sb_fused_switchback_fwd", (P, I, P, P, P, P, P, P, I, I, I, P)),
     ("sb_int8_matmul_dequant", (P, P, P, P, P, I, I, I, I, P)),
     ("sb_fused_switchback_dgrad", (P, I, P, P, P, P, P, P, I, I, I, P)),

@@ -38,7 +38,9 @@
 // (quantize_rows: a group of 32 to 256 threads a row); col_quantize gives a
 // block a band of 32 columns over a slab of rows, the band's slabs the
 // blocks of one thread block cluster, whose maxima meet in distributed
-// shared memory, in one launch. tensor_quantize takes two passes.
+// shared memory, in one launch. tensor_quantize reads x once into the
+// resident blocks' registers and meets their maxima at one grid barrier in
+// one cooperative launch (kernels/csrc/tensor_absmax.cuh).
 //
 // Numerics copy the reference operation by operation, so every output is
 // bitwise equal to the plain versions in ref.py:
@@ -66,6 +68,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "../../csrc/tensor_absmax.cuh"
 #include "../../csrc/wgmma.cuh"
 
 namespace {
@@ -572,38 +575,44 @@ int launch_cols(const void* x, void* q, void* s, int R, int C, cudaStream_t st) 
 // ---------------------------------------------------------------------------
 // tensor_quantize: x (n,) -> q (n,) int8, s (1,) f32   (paper Eq. 2)
 //
-// Bound by bytes. The TPU kernel carries the max across a sequential grid;
-// GPU blocks run in no order, so the reduction takes two launches: each
-// block of pass 1 writes its partial max, and each block of pass 2 reduces
-// the (at most kMaxPartials) partials itself before casting its share.
-// No atomics and no memset, and the result does not depend on block order.
+// Bound by bytes. The skeleton of kernels/csrc/tensor_absmax.cuh (shared
+// with the fp8 tensor_quantize): x read once into the registers of the
+// blocks that can be resident at once, their maxima met at one grid-wide
+// barrier inside one cooperative launch, the codes from the registers;
+// two launches only past the registers (no path weight: about 8.7 M bf16
+// values at two blocks an SM). The per-value arithmetic is the plain
+// version's: q = rint(x * (127 / absmax)), both IEEE-rounded in f32.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-absmax_partial_kernel(const T* __restrict__ x, int64_t n, float* __restrict__ partial) {
-  __shared__ float red[32];
-  float m = 0.f;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    m = fmaxf(m, fabsf(to_f32(x[i])));
-  m = block_max(m, red);
-  if (threadIdx.x == 0) partial[blockIdx.x] = m;
+struct Int8Four {                    // four values' codes at 127 / absmax
+  float scale;
+  __device__ __forceinline__ uint32_t four(float a, float b, float c, float d) const {
+    return pack4(a, b, c, d, scale, scale, scale, scale);
+  }
+};
+
+struct Int8Codec {
+  template <int MODE, int G, typename T, int K>
+  __device__ __forceinline__ static void cast(float absmax, tq::Vals<T> (&v)[K],
+                                              const tq::Work<T>& w) {
+    tq::cast_work<MODE, G>(Int8Four{__fdiv_rn(kQmax, absmax)}, v, w);
+  }
+};
+
+// __launch_bounds__ 2 blocks an SM: at most 128 registers a thread, so 264
+// blocks on 132 SMs hold 8.65 M values in one launch
+template <typename T, int G, int MODE>
+__global__ void __launch_bounds__(tq::kThreads, 2)
+tensor_quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ s,
+                       float* __restrict__ partial, unsigned* __restrict__ bar, tq::Plan p) {
+  tq::quantize<T, G, MODE, Int8Codec>(x, q, s, partial, bar, p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cast_tensorwise_kernel(const T* __restrict__ x, int64_t n, const float* __restrict__ partial,
-                       int n_partial, int8_t* __restrict__ q, float* __restrict__ s) {
-  __shared__ float red[32];
-  float m = 0.f;
-  for (int i = threadIdx.x; i < n_partial; i += blockDim.x) m = fmaxf(m, partial[i]);
-  const float absmax = fmaxf(block_max(m, red), kEps);
-  const float scale = __fdiv_rn(kQmax, absmax);
-  if (blockIdx.x == 0 && threadIdx.x == 0) s[0] = absmax;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    q[i] = quantize(to_f32(x[i]), scale);
-}
+struct Int8Kernels {                 // the launcher's family (tq::run): one format
+  template <typename T, int G, int MODE>
+  static tq::Kernel<T> kernel(int) {
+    return tensor_quantize_kernel<T, G, MODE>;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // int8_matmul_dequant: x_q (B, K) int8, w_q (K, M) int8, row_scale (B,) f32
@@ -1511,24 +1520,28 @@ int sb_col_quantize(const void* x, int bf16, void* q, void* s, int R, int C, voi
               : launch_cols<float>(x, q, s, R, C, st);
 }
 
-// `partial` is scratch of n_partial floats; the caller picks n_partial
-// (1 <= n_partial <= 1024) and passes the same value to both passes.
-int sb_tensor_quantize(const void* x, int bf16, int64_t n, void* partial, int n_partial, void* q,
+// partial: scratch of tq::kMaxPartials floats; bar: the two-word barrier
+// workspace, zero and left zero (see tensor_absmax.cuh)
+int sb_tensor_quantize(const void* x, int bf16, int64_t n, void* partial, void* bar, void* q,
                        void* s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pp = static_cast<float*>(partial);
-  int8_t* qp = static_cast<int8_t*>(q);
-  float* sp = static_cast<float*>(s);
-  if (bf16) {
-    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-    absmax_partial_kernel<__nv_bfloat16><<<n_partial, kThreads, 0, st>>>(xp, n, pp);
-    cast_tensorwise_kernel<__nv_bfloat16><<<n_partial, kThreads, 0, st>>>(xp, n, pp, n_partial, qp, sp);
-  } else {
-    const float* xp = static_cast<const float*>(x);
-    absmax_partial_kernel<float><<<n_partial, kThreads, 0, st>>>(xp, n, pp);
-    cast_tensorwise_kernel<float><<<n_partial, kThreads, 0, st>>>(xp, n, pp, n_partial, qp, sp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? tq::run<__nv_bfloat16, Int8Kernels>(x, q, s, partial, bar, n, 0, -1, st)
+              : tq::run<float, Int8Kernels>(x, q, s, partial, bar, n, 0, -1, st);
+}
+
+// the control fault of the checks: block `drop`'s partial left out of the
+// absmax (not a path's entry point)
+int sb_tensor_quantize_drop(const void* x, int bf16, int64_t n, void* partial, void* bar, void* q,
+                            void* s, int drop, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? tq::run<__nv_bfloat16, Int8Kernels>(x, q, s, partial, bar, n, 0, drop, st)
+              : tq::run<float, Int8Kernels>(x, q, s, partial, bar, n, 0, drop, st);
+}
+
+// out (5,) host ints: the plan tensor_quantize takes for these pointers and n
+int sb_tensor_quantize_plan(const void* x, int bf16, const void* q, int64_t n, int* out) {
+  return bf16 ? tq::plan<__nv_bfloat16, Int8Kernels>(x, q, n, out)
+              : tq::plan<float, Int8Kernels>(x, q, n, out);
 }
 
 // x_q (B, K) int8 and absmax (B,) f32: the wrapper's workspace above 16

@@ -42,9 +42,9 @@ FUSED_MAX_CONTRACT = 2048
 SWAP_ROWS = 16
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-# scratch for tensor_quantize's first pass: one partial max per block
-_MAX_PARTIALS = 1024
-_PARTIAL_ELEMS = 2048            # elements per pass-1 block before capping
+# tensor_quantize's partial maxima, one a block: the most blocks its
+# launcher takes (kMaxPartials, kernels/csrc/tensor_absmax.cuh)
+MAX_PARTIALS = 1024
 
 
 LAUNCHES = dict.fromkeys((
@@ -87,21 +87,47 @@ def col_quantize(x: torch.Tensor):
     return q, s
 
 
+def _tensor(x: torch.Tensor, drop=None):
+    """One launch of the tensor quantizer on a CUDA x (its two passes
+    past the registers): the partials allocated here, the stream's barrier
+    workspace; with ``drop``, the control fault's entry point."""
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+    partial = torch.empty((MAX_PARTIALS,), dtype=torch.float32, device=x.device)
+    st = _b.stream(x)
+    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(), partial.data_ptr(),
+            _b.grid_barrier(x.device, st).data_ptr(), q.data_ptr(), s.data_ptr())
+    if drop is None:
+        _b.launch(_lib().sb_tensor_quantize, *args, st)
+    else:
+        _b.launch(_lib().sb_tensor_quantize_drop, *args, drop, st)
+    return q, s
+
+
 def tensor_quantize(x: torch.Tensor):
     """x (R, C) f32/bf16 -> (q int8 (R, C), state f32 (1, 1))  (Eq. 2)."""
     _b.need(x, "x", _FLOAT_TYPES, 2)
     if _b.on_cpu(x):
         return _ref.tensor_quantize(x)
-    n = x.numel()
-    n_partial = max(1, min(_MAX_PARTIALS, -(-n // _PARTIAL_ELEMS)))
-    partial = torch.empty((n_partial,), dtype=torch.float32, device=x.device)
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty((1, 1), dtype=torch.float32, device=x.device)
-    _b.launch(_lib().sb_tensor_quantize, x.data_ptr(), int(x.dtype == torch.bfloat16),
-              n, partial.data_ptr(), n_partial, q.data_ptr(), s.data_ptr(),
-              _b.stream(x))
+    out = _tensor(x)
     LAUNCHES["tensor_quantize"] += 1
-    return q, s
+    return out
+
+
+def tensor_quantize_drop(x: torch.Tensor, drop: int):
+    """The checks' control fault: ``tensor_quantize`` with block ``drop``'s
+    partial maximum left out of the absmax. CUDA tensors only, not a path's
+    entry point and not counted in ``LAUNCHES``."""
+    _b.need(x, "x", _FLOAT_TYPES, 2)
+    if _b.on_cpu(x):
+        raise ValueError("tensor_quantize_drop launches the kernel: x must lie on the card")
+    return _tensor(x, drop)
+
+
+def tensor_quantize_plan(x: torch.Tensor) -> dict:
+    """The launch plan ``tensor_quantize`` takes for x (``build.plan``)."""
+    _b.need(x, "x", _FLOAT_TYPES, 2)
+    return _b.plan(_lib().sb_tensor_quantize_plan, x)
 
 
 def _check_weight(w_q: torch.Tensor, K: int):

@@ -50,7 +50,13 @@ shapes, the swapped decode form, the masked producer (K = 588) and the
 widest s32 sums (all-±127 operands at K = 5,120). ``row_quantize`` and
 ``col_quantize`` (read once into registers; the column kernel a thread
 block cluster a band) bit-equal to their plain versions at their paths'
-edges, from aligned and unaligned bases.
+edges, from aligned and unaligned bases. The int8 and fp8
+``tensor_quantize`` (one cooperative launch: x read once into the resident
+blocks' registers, their maxima met at one grid barrier) bit-equal to
+their plain versions at every path weight, ragged n and the one-launch
+limit's edges, from every granule's offset, the control fault (the
+absmax's block's partial left out) caught; a captured CUDA graph replays
+to the same bytes; one CUDA kernel a call on every path weight.
 The two op-entry-point kernels: ``fp8_cast_tensorwise``
 (``kernels/fp8_cast``) bit-equal to its plain version, both formats, f32
 and bf16 inputs, a pointer off 16-byte alignment, twice the same bits;
@@ -944,3 +950,174 @@ def test_cuda_tensors_launch_the_op_kernels():
     assert TOPS.launch_counts()["wgrad_bf16"] == 1
     with pytest.raises(ValueError):                 # mixed devices
         FC.fp8_cast_tensorwise(x, torch.tensor(1.0))
+
+
+# ---------------------------------------------------------------------------
+# the tensor quantizers, int8 and fp8: one skeleton (kernels/csrc/
+# tensor_absmax.cuh), x read once into the resident blocks' registers and
+# their maxima met at one grid barrier in one cooperative launch
+# ---------------------------------------------------------------------------
+
+# every weight of the serve and train paths: smollm's seven a layer, CLIP's
+# vision and text layers' six and the patch embedding
+TQ_PATH = [(960, 960), (960, 320), (960, 2560), (2560, 960), (1280, 1280), (1280, 5120),
+           (5120, 1280), (1024, 1024), (1024, 4096), (4096, 1024), (588, 1280)]
+# ragged and small: n = 1, 7, 9, 15; 257 chunks (two blocks); 33 blocks;
+# ~700 K values with n % 8 = 5
+TQ_SMALL = [(1, 1), (1, 7), (1, 9), (3, 5), (1, 2049), (1, 65541), (7, 100003)]
+
+
+def _tq_family(family):
+    """(kernel, plain, control fault, plan) of one quantizer family: int8
+    or an fp8 format."""
+    if family == "int8":
+        return (TOPS.tensor_quantize, TREF.tensor_quantize, TOPS.tensor_quantize_drop,
+                TOPS.tensor_quantize_plan)
+    return (lambda x: F8.tensor_quantize(x, family), lambda x: F8REF.tensor_quantize(x, family),
+            lambda x, b: F8.tensor_quantize_drop(x, family, b), F8.tensor_quantize_plan)
+
+
+def _tq_input(gen, R, C, dev, dt, family, at, offset=0):
+    """Random values over many binades below the absmax A (127 for int8, 1
+    for fp8: the scale is then exact), A itself (negative at odd ``at``) at
+    the flat index ``at`` alone, and where room allows a stretch of exact
+    rounding ties at that scale (int8: k + 0.5; fp8: k / 64, midpoints of
+    both grids) and of bf16 subnormals. ``offset``: the elements the view
+    starts after its buffer's start."""
+    n = R * C
+    A = 127.0 if family == "int8" else 1.0
+    x = torch.randn(n, generator=gen, device=dev)
+    x = x * torch.exp(torch.empty(n, device=dev).uniform_(-4, 4, generator=gen))
+    x = x / x.abs().max() * (0.9 * A)
+    if n >= 1024:
+        k = torch.arange(256, device=dev, dtype=torch.float32)
+        ties = (k % 8) - 3.5 if family == "int8" else ((k % 127) - 63) / 64
+        x[n // 3:n // 3 + 256] = ties
+        x[n // 2:n // 2 + 7] = (torch.arange(7, device=dev) - 3).float() * 2.0 ** -133
+    x[at] = -A if at % 2 else A
+    x = x.to(dt)
+    if offset:
+        buf = torch.empty(n + offset, dtype=dt, device=dev)
+        buf[offset:] = x
+        x = buf[offset:]
+    return x.view(R, C)
+
+
+def _tq_block_of(i, n, blocks):
+    """The block whose span holds flat index i: block b owns the chunks of
+    8 values [b C / B, (b + 1) C / B)."""
+    chunks = -(-n // 8)
+    lo = [b * chunks // blocks for b in range(blocks)]
+    return int(np.searchsorted(lo, i // 8, side="right")) - 1
+
+
+def _tq_holds(quant, plain, x, what):
+    got, again, want = quant(x), quant(x), plain(x)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w)), what
+        assert torch.equal(_bits(g), _bits(a)), what
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["int8", "e4m3", "e5m2"])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_tensor_quantizers_match_plain_at_the_edges(family, dt):
+    """Each tensor quantizer bit-equal to its plain version (codes and
+    state) at every path weight, ragged and small n, n one granule either
+    side of the one-launch limit and the limit itself, from offsets 0, 1,
+    2 and 4 elements (every granule); the absmax first, last, inside the
+    last block's span and at a span's edge, negative at odd places; an
+    all-zero tensor (state 1e-12). Twice the same bits. Every path weight
+    in bf16 takes the one launch. The control fault (the absmax's block's
+    partial left out) differs from the plain version in every case with
+    more than one block."""
+    dev = _card()
+    quant, plain, drop, plan = _tq_family(family)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    limit = plan(torch.empty((1, 8), dtype=dt, device=dev))
+    L = limit["resident"] * limit["block_values"]
+    shapes = TQ_PATH + TQ_SMALL + [(1, L - 8), (1, L - 3), (1, L), (1, L + 8)]
+    for R, C in shapes:
+        n = R * C
+        p = plan(torch.empty((R, C), dtype=dt, device=dev))
+        assert p["rounds"] == (0 if n <= L else 2), (R, C, p)
+        if (R, C) in TQ_PATH and dt == torch.bfloat16:
+            assert p["rounds"] == 0, (R, C, p)
+        last = 8 * ((p["blocks"] - 1) * -(-n // 8) // p["blocks"])    # the last span's first
+        spots = {"first": 0, "last": n - 1, "last block": min(n - 1, last + (n - last) // 2),
+                 "span edge": max(0, min(n - 1, last - 1))}
+        for offset in (0, 1, 2, 4):
+            for where, at in (spots.items() if offset == 0 else [("last block",
+                                                                  spots["last block"])]):
+                x = _tq_input(gen, R, C, dev, dt, family, at, offset)
+                want = _tq_holds(quant, plain, x, (R, C, offset, where))
+                if offset == 0 and p["blocks"] > 1:
+                    q_f, s_f = drop(x, _tq_block_of(at, n, p["blocks"]))
+                    assert not (torch.equal(_bits(q_f), _bits(want[0]))
+                                and torch.equal(s_f, want[1])), (R, C, where)
+        zero = torch.zeros((R, C), dtype=dt, device=dev)
+        assert float(_tq_holds(quant, plain, zero, (R, C, "zero"))[1]) == float(np.float32(1e-12))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["int8", "e4m3"])
+def test_cuda_tensor_quantizers_capture_and_replay(family):
+    """A captured CUDA graph of the cooperative launch replays to the same
+    bytes as the eager call, and to the plain version's on new values in
+    the same buffer."""
+    dev = _card()
+    quant, plain, _, _ = _tq_family(family)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _tq_input(gen, 1280, 5120, dev, torch.bfloat16, family, 12345)
+    eager = quant(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant(x)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, e in zip(out, eager):
+            assert torch.equal(_bits(g), _bits(e))
+    x.copy_(_tq_input(gen, 1280, 5120, dev, torch.bfloat16, family, 999))
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(out, plain(x)):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_quantizers_one_kernel_a_call():
+    """Every path weight in bf16 takes one CUDA kernel a call (the one
+    launch), as torch.profiler reads the card's activity, and the wrappers
+    count one launch a call."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    ws = [torch.randn(s, device=dev).to(torch.bfloat16) for s in TQ_PATH]
+    calls = [lambda w: TOPS.tensor_quantize(w), lambda w: F8.tensor_quantize(w, "e4m3"),
+             lambda w: F8.tensor_quantize(w, "e5m2")]
+    for call in calls:
+        call(ws[0])
+    torch.cuda.synchronize()
+    TOPS.reset_launch_counts()
+    F8.reset_launch_counts()
+    fp8, int8 = [], []
+    for _ in range(3):        # the profiler may drop a record, never add one: the most counts
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for call in calls:
+                for w in ws:
+                    call(w)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages() if "tensor_quantize" in e.key}
+        fp8.append(sum(c for k, c in kernels.items() if "fp8_tensor_quantize" in k))
+        int8.append(sum(c for k, c in kernels.items() if "fp8_tensor_quantize" not in k))
+    assert max(fp8) == 2 * len(ws) and max(int8) == len(ws), (fp8, int8)
+    assert TOPS.launch_counts()["tensor_quantize"] == 3 * len(ws)
+    assert F8.launch_counts()["fp8_tensor_quantize"] == 6 * len(ws)

@@ -16,7 +16,10 @@ commits are read by the same code on the same card:
   where the checkout has it;
 * ``time_fp8_quantizers``: one vision layer's 12 calls (4,128 rows), one
   text layer's 12 (2,464) and the patch embedding's one (8,192 x 588), by
-  graph replay, beside the bound;
+  graph replay, beside the bound; ``time_tensor_quantize``: the fp8 modes'
+  ``tensor_quantize`` (E4M3) of each of those layers' weights (6, 6, 1);
+* phase 19's tensor-quantizer edges (``compare_tensor_quantizer_edges``,
+  both formats) where the checkout has the entry points they need;
 * the SASS of the built library (``cuobjdump -sass``): for each quantizer
   kernel its instructions, and per value the instructions of its main
   loops (a loop's body over the values one pass of it handles: the loads
@@ -24,7 +27,8 @@ commits are read by the same code on the same card:
   loops, of one path through its body (the division's out-of-line slow
   path left out; at each branch whose two sides both convert, the side
   of E4M3 and of the division without the slow-path check) over the most
-  values a thread holds (8 chunks of 8).
+  values a thread holds (8 chunks of 8); ``sass_tensor``: the tensor
+  quantizer's bf16 16-byte path a value (``tensor_sass``).
 
 Run it for two checkouts in turns (A, B, B, A) within one call to compare
 them. Prints one JSON line and appends it to ``--out``. Needs one card;
@@ -80,19 +84,47 @@ def target(ins: str):
     return int(found[-1], 16) if found else None
 
 
-def f2fp_format(ins: str):
-    m = re.search(r"F2FP\.\S*?(E4M3|E5M2)", ins)
-    return m.group(1) if m else None
+def tensor_sass(funcs: dict) -> dict:
+    """Per value of x, the SASS of a library's tensor quantizer on bf16
+    input and its 16-byte path, for each family the library holds: the
+    one-launch kernel (granule 8, MODE 0: ``Li8E`` then ``Li0E`` last; fp8
+    E4M3) walked as ``count_kernel`` walks a straight-line body (the
+    barrier's and the partials' loops once) over the 128 values a thread
+    holds; or an older commit's two kernels, the max loop's body over the
+    values it loads plus the cast loop's over the values it stores."""
+    out = {}
+    for name, fn in funcs.items():
+        if "__nv_bfloat16" not in name:
+            continue
+        m = re.search(r"(fp8_)?tensor_quantize_kernelI13__nv_bfloat16Li8E(Li0E)?Li0EEE", name)
+        if m:
+            body = main_body(fn)
+            at = {a: k for k, (a, _) in enumerate(body)}
+            out["fp8" if m.group(1) else "int8"] = dict(
+                instructions=len(body), per_value=walk(body, 0, len(body), at) / 128,
+                how="one path through the one-launch kernel over 128 values")
+    old = {k: loop_counts(main_body(fn)) for k, fn in funcs.items() if "__nv_bfloat16" in k
+           and ("absmax_partial" in k or "cast_tensorwise" in k)}
+    if old and not out:
+        per = sum(min((lp["instructions"] / lp[kind] for lp in loops if lp[kind]
+                       and (kind == "stg" or not lp["stg"])), default=0.0)
+                  for k, loops in old.items() for kind in (("ldg",) if "absmax" in k else ("stg",)))
+        out["two passes"] = dict(per_value=per, how="max loop / loads + cast loop / stores")
+    return out
 
 
-def count_kernel(fn: list) -> dict:
-    """Instructions of one kernel and per value (see the module's note)."""
+def main_body(fn: list) -> list:
+    """A kernel's instructions before its first out-of-line call target
+    (the division's slow path), NOPs left out."""
     calls = [target(i) for _, i in fn if opcode(i).startswith("CALL")]
     end = min(c for c in calls if c is not None) if calls else fn[-1][0] + 1
-    body = [(a, i) for a, i in fn if a < end and opcode(i) != "NOP"]
+    return [(a, i) for a, i in fn if a < end and opcode(i) != "NOP"]
+
+
+def loop_counts(body: list) -> list:
+    """The backward branches' loops of a body: instructions, loads, stores."""
     ops = [opcode(i) for _, i in body]
     at = {a: k for k, (a, _) in enumerate(body)}
-    res = dict(instructions=len(body))
     loops = []
     for k, (a, i) in enumerate(body):
         t = target(i)
@@ -100,6 +132,20 @@ def count_kernel(fn: list) -> dict:
             seg = ops[at[t]:k + 1]
             loops.append(dict(instructions=len(seg), ldg=sum(o.startswith("LDG") for o in seg),
                               stg=sum(o.startswith("STG") for o in seg)))
+    return loops
+
+
+def f2fp_format(ins: str):
+    m = re.search(r"F2FP\.\S*?(E4M3|E5M2)", ins)
+    return m.group(1) if m else None
+
+
+def count_kernel(fn: list) -> dict:
+    """Instructions of one kernel and per value (see the module's note)."""
+    body = main_body(fn)
+    at = {a: k for k, (a, _) in enumerate(body)}
+    res = dict(instructions=len(body))
+    loops = loop_counts(body)
     cast = [lp for lp in loops if lp["stg"]]
     if cast:
         # the smallest loop that loads only (the max pass) and that stores (the cast)
@@ -174,8 +220,9 @@ def sass_counts(lib_path: str) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    return {name: count_kernel(fn) for name, fn in sass_functions(text).items()
-            if any(q in name for q in QUANTIZERS)}
+    funcs = sass_functions(text)
+    return ({name: count_kernel(fn) for name, fn in funcs.items()
+             if any(q in name for q in QUANTIZERS)}, tensor_sass(funcs))
 
 
 def main(argv=None) -> int:
@@ -206,14 +253,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib, log = F8B.build()
     F8B.load()
+    sass, sass_tensor = sass_counts(str(lib))
     res = dict(tag=args.tag, src=os.path.relpath(src, ROOT), card=smi,
                build_s=time.perf_counter() - t0,
-               ptxas=ptxas_quantizers(log),
-               sass=sass_counts(str(lib)))
+               ptxas=ptxas_quantizers(log), sass=sass, sass_tensor=sass_tensor)
     try:
-        worst, n = C.compare_fp8_quantizer_edges(torch, M, dev, args.seed + 43,
-                                                 encode_check=hasattr(F8, "encode_check"))
-        res["checks"] = dict(comparisons=n, worst=worst)
+        worst, n, caught = C.compare_fp8_quantizer_edges(torch, M, dev, args.seed + 43,
+                                                         encode_check=hasattr(F8, "encode_check"))
+        res["checks"] = dict(comparisons=n, worst=worst, faults_caught=caught)
         gen = torch.Generator(device=dev).manual_seed(args.seed + 37)
         times = {}
         for tower, rows, _, _, _, lins in C.clip_shapes(get_config("clip-vit-huge")):
@@ -223,6 +270,12 @@ def main(argv=None) -> int:
                 times[f"{kernel} {tower}"] = {k: r[k] for k in ("ms", "eager_ms", "calls",
                                                                 "work")} | {
                     "bound_ms": r["bound"][0], "bound_share": r["bound"][0] / r["ms"]}
+            # the fp8 modes' tensor_quantize of the layer's weights (E4M3)
+            r = C.time_tensor_quantize(torch, lambda w: F8.tensor_quantize(w, "e4m3"), None,
+                                       gen, dev, C.tower_weights(lins), f"one {tower} layer")
+            times[f"fp8_tensor_quantize {tower}"] = {k: r[k] for k in (
+                "ms", "eager_ms", "calls", "work")} | {"bound_ms": r["bound"][0],
+                                                      "bound_share": r["bound"][0] / r["ms"]}
         res["times"] = times
     except C.Failure as e:
         print(f"ab_fp8_quantize ({args.tag}): FAILED: {e}", file=sys.stderr)
@@ -230,7 +283,8 @@ def main(argv=None) -> int:
     res["seconds"] = time.perf_counter() - t0
     print(f"[ab] {args.tag}: " + json.dumps(dict(
         card=smi, us={k: r["ms"] * 1e3 for k, r in times.items()},
-        sass_per_value={k: round(v["per_value"], 2) for k, v in res["sass"].items()},
+        sass_per_value={k: round(v["per_value"], 2) for k, v in
+                        {**res["sass"], **res["sass_tensor"]}.items()},
         comparisons=n, seconds=res["seconds"])))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as fh:

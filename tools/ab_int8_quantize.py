@@ -18,11 +18,14 @@ commits are read by the same code on the same card:
   text layer (2,464) and the patch embedding (8,192 x 588), and smollm's
   train layer (2,048 rows: the 3 ``row_quantize`` calls of
   ``int8_switchback``), by graph replay, beside the bound;
+  ``time_tensor_quantize``: ``tensor_quantize`` of a decode layer's seven
+  weights and of each CLIP tower layer's (6, 6, 1);
 * the SASS of the built library (``cuobjdump -sass``, counted as
   ``tools/ab_fp8_quantize.py`` counts it): for each int8 quantizer kernel
   its instructions, and per value those of its loops' bodies or, in a
   kernel without such loops, of its body over the 64 values a thread
-  holds; ``per_value`` names the bf16 kernels of the 16-byte path.
+  holds; ``per_value`` names the bf16 kernels of the 16-byte path; the
+  tensor quantizer's a value as ``ab_fp8_quantize.tensor_sass`` counts it.
 
 Run it for two checkouts in turns (A, B, B, A) within one call to compare
 them. Prints one JSON line and appends it to ``--out``. Needs one card;
@@ -54,14 +57,16 @@ def vector_path(name: str) -> bool:
     return "__nv_bfloat16" in name and (not g or g[0] == "8")
 
 
-def sass_counts(lib_path: str) -> dict:
-    """Per int8 quantizer kernel of the library, its counts."""
-    from ab_fp8_quantize import count_kernel, sass_functions
+def sass_counts(lib_path: str):
+    """Per int8 quantizer kernel of the library, its counts; and the
+    tensor quantizer's a value (``ab_fp8_quantize.tensor_sass``)."""
+    from ab_fp8_quantize import count_kernel, sass_functions, tensor_sass
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    return {name: count_kernel(fn) for name, fn in sass_functions(text).items()
-            if any(q in name for q in QUANTIZERS)}
+    funcs = sass_functions(text)
+    return ({name: count_kernel(fn) for name, fn in funcs.items()
+             if any(q in name for q in QUANTIZERS)}, tensor_sass(funcs))
 
 
 def smollm_train_calls(C, cfg, fused_max):
@@ -101,13 +106,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib, log = KB.build()
     KB.load()
-    sass = sass_counts(str(lib))
+    sass, sass_tensor = sass_counts(str(lib))
     res = dict(tag=args.tag, src=os.path.relpath(src, ROOT), card=smi,
                build_s=time.perf_counter() - t0,
                ptxas=[ln.strip() for ln in log.splitlines()
                       if any(q in ln for q in QUANTIZERS)
                       or "registers" in ln or "spill" in ln],
-               sass=sass)
+               sass=sass, sass_tensor=sass_tensor)
     cfg, clip_cfg = get_config("smollm-360m"), get_config("clip-vit-huge")
     try:
         worst, n = C.compare_linear_kernels(torch, M, C.clip_shapes(clip_cfg), dev, args.seed + 23)
@@ -119,13 +124,21 @@ def main(argv=None) -> int:
                  for tower, rows, _, _, _, lins in C.clip_shapes(clip_cfg)]
         cases.append(("smollm train", smollm_train_calls(C, cfg, KOPS.FUSED_MAX_CONTRACT)))
         times = {}
+        row = lambda r: {k: r[k] for k in ("ms", "eager_ms", "calls", "work")} | {
+            "bound_ms": r["bound"][0], "bound_share": r["bound"][0] / r["ms"]}
         for tower, calls in cases:
             got = C.time_int8_quantizers(torch, M, gen, dev, calls, f"one {tower} layer",
                                          plain=False)
             for kernel, r in got.items():
-                times[f"{kernel} {tower}"] = {k: r[k] for k in ("ms", "eager_ms", "calls",
-                                                                "work")} | {
-                    "bound_ms": r["bound"][0], "bound_share": r["bound"][0] / r["ms"]}
+                times[f"{kernel} {tower}"] = row(r)
+        # tensor_quantize of a decode layer's seven weights and of each CLIP
+        # tower layer's (int8_switchback and _m)
+        weights = [("decode", list(C.path_shapes(cfg).values()))]
+        weights += [(tower, C.tower_weights(lins))
+                    for tower, _, _, _, _, lins in C.clip_shapes(clip_cfg)]
+        for where, shapes in weights:
+            times[f"tensor_quantize {where}"] = row(C.time_tensor_quantize(
+                torch, KOPS.tensor_quantize, None, gen, dev, shapes, f"one {where} layer"))
         res["times"] = times
     except C.Failure as e:
         print(f"ab_int8_quantize ({args.tag}): FAILED: {e}", file=sys.stderr)
@@ -133,7 +146,10 @@ def main(argv=None) -> int:
     res["seconds"] = time.perf_counter() - t0
     print(f"[ab] {args.tag}: " + json.dumps(dict(
         card=smi, us={k: r["ms"] * 1e3 for k, r in times.items()},
-        sass_per_value={k: round(v["per_value"], 2) for k, v in sass.items() if vector_path(k)},
+        sass_per_value={**{k: round(v["per_value"], 2) for k, v in sass.items()
+                           if vector_path(k)},
+                        **{f"tensor_quantize {k}": round(v["per_value"], 2)
+                           for k, v in sass_tensor.items()}},
         comparisons=n + qn, seconds=res["seconds"])))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as fh:
