@@ -141,8 +141,12 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     there beside SDPA's backward;
 19. fp8 kernels vs plain at every CLIP main-path shape (phase 13's table,
     both formats) and at 37 x 130 -> 70: ``row_quantize``,
-    ``tensor_quantize``, ``block_quantize`` and ``transpose_bytes`` (the
-    forward's K-major W) bit-equal; the four matmul forms
+    ``tensor_quantize``, ``block_quantize``, ``transpose_bytes`` (an op
+    entry point) and ``tensor_quantize_kt`` (the fp8 paths' quantizer of W:
+    the codes and, from the same registers, the forward's K-major W; its q
+    and state the flat kernel's bits, its q_k ``transpose_bytes``') bit-equal;
+    both forwards given the fold's ``w_k`` bit-equal to the same call
+    through ``transpose_bytes``; the four matmul forms
     (``fp8_matmul_dequant``, ``fp8_mixed_matmul``, each with its ``_t``
     form, on fp8 wgmma) within ``F8REF.matmul_bound`` per output (a worst
     case) and, at ``F8TC.check_rows``, bit-equal to ``F8TC``
@@ -153,13 +157,18 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     at least 10 output ulps off the model; bit-equal on
     ``F8REF.exact_entries`` inputs (fallback tiles in a checkerboard); fp8
     ties, an all-zero row and an all-zero tile; each run twice with the
-    same bits; ``tensor_quantize`` at phase 13's edges in both formats;
+    same bits; ``tensor_quantize`` at phase 13's edges in both formats, and
+    ``tensor_quantize_kt`` at them and at its own (37 x 5, 130 x 70, a bf16
+    3,000 x 3,000 past the registers), both copies bit-equal, one CUDA
+    kernel a call, its control faults (the absmax's block's partial left
+    out; that block's K-major tile left unwritten) caught;
 20. CLIP fp8 train: as phase 15 in ``fp8_sim`` (zero-init layer-scale,
     the paper's recipe), ``fp8``, ``fp8_mixed`` and ``fp8_switchback``;
     every launch counter (the seven fp8 kernel forms and transpose_bytes
-    included) exactly its worked-out count; the fp8 ``tensor_quantize``'s
-    CUDA kernels no more than its wrapper calls (337 a step in ``fp8``
-    and ``fp8_mixed``);
+    included) exactly its worked-out count (transpose_bytes 0: the fold
+    gives the forward's W); the fp8 ``tensor_quantize``'s CUDA kernels (the
+    fold's) no more than its wrapper calls (337 a step in ``fp8`` and
+    ``fp8_mixed``), the transpose_bytes profile group empty;
 21. one CLIP step at 2 + 2 layers and full width, kernels vs plain, in
     ``fp8`` and ``fp8_mixed`` from three seeds (as phase 16), under
     flash_scan and under dense (the tensor cores' sums are not the plain
@@ -176,8 +185,11 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     beside their bound (the matmuls' operations at the fp8 peak), plain
     version and ``torch._scaled_mm`` with row-wise scales (transpose_bytes
     beside ``w_q.t().contiguous()``); the matmuls' TFLOP/s and the bound's
-    share of their time; ``tensor_quantize`` also at the text layer's and
-    the patch embedding's weights;
+    share of their time; the fold (``tensor_quantize_kt``) beside the flat
+    ``tensor_quantize``, the parent's pair (``tensor_quantize`` +
+    ``transpose_bytes``) and the library pair, also at the text layer's and
+    the patch embedding's weights; the forwards given ``w_k`` beside the
+    same calls through ``transpose_bytes``;
 24. paged kernels vs plain at the paged serve path's shapes (8 slots,
     tables of 64 blocks of 16, ragged lengths 0 to 1,024, dead table
     entries outside the pool, a dry slot): ``paged_decode_fwd`` and
@@ -204,9 +216,12 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     pool's tokens; ``spec_mode="ngram"`` on repetitive prompts accepts
     drafts and gives spec off's tokens; launch counts exact; a verify
     pass's logit rows against decode steps' (printed);
-27. the op entry points ``wgrad_bf16`` (``kernels/switchback/ops.py``) and
-    ``fp8_cast_tensorwise`` (``kernels/fp8_cast/ops.py``), which no serve
-    or train path calls (their counters read 0 in every phase above): each
+27. the op entry points ``wgrad_bf16`` (``kernels/switchback/ops.py``),
+    ``fp8_cast_tensorwise`` (``kernels/fp8_cast/ops.py``) and
+    ``transpose_bytes`` (``kernels/fp8_matmul/ops.py``, at every CLIP fp8
+    weight shape and 130 x 70, 37 x 5: byte for byte the plain copy), which
+    no serve or train path calls (their counters read 0 in every phase
+    above): each
     driven once at every shape below with the counters zeroed just before
     and read just after, then run again for the same bits and held against
     its plain version: ``fp8_cast_tensorwise`` bit-equal; ``wgrad_bf16``
@@ -1705,12 +1720,127 @@ def tq_kernels_a_call(torch, quant, fp8, dev, windows=3):
     return max(counts) / len(ws)
 
 
-def time_tensor_quantize(torch, quant, plain, gen, dev, shapes, what):
+# the K-major fp8 quantizer's own edges beside TQ_PATH_SHAPES and
+# TQ_SMALL_SHAPES: the cuda tests' ragged transposes, and a bf16 tensor past
+# the registers of 264 blocks (the two passes, on no path)
+KT_EDGE_SHAPES = ((37, 5), (130, 70), (3000, 3000))
+
+
+def kt_spots(p, R, C):
+    """Where the absmax goes in the K-major form (flat indices): the first
+    value, the last, the last tile's first value and the value before it
+    in x (another tile's, or another row's)."""
+    h, w = p["tile_rows"], p["tile_cols"]
+    nc = -(-C // w)
+    r0, c0 = (p["tiles"] - 1) // nc * h, (p["tiles"] - 1) % nc * w
+    first = r0 * C + c0
+    return {"first": 0, "last": R * C - 1, "last tile": first, "tile edge": max(0, first - 1)}
+
+
+def kt_block_of(p, at, C):
+    """The block that holds flat index ``at``: its tile (row-major over the
+    grid of h x w tiles), modulo the blocks (the two passes' rounds)."""
+    r, c = divmod(at, C)
+    nc = -(-C // p["tile_cols"])
+    return (r // p["tile_rows"] * nc + c // p["tile_cols"]) % p["blocks"]
+
+
+def kt_kernels_a_call(torch, F8, dev, windows=3):
+    """CUDA kernels torch.profiler reads for one ``tensor_quantize_kt`` call
+    on each weight of TQ_PATH_SHAPES in bf16: the most over ``windows``
+    windows (as ``tq_kernels_a_call``)."""
+    from torch.profiler import ProfilerActivity, profile
+    ws = [torch.randn(shape, device=dev).to(torch.bfloat16) for shape in TQ_PATH_SHAPES]
+    counts = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for w in ws:
+                F8.tensor_quantize_kt(w, "e4m3")
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if "tensor_quantize" in e.key))
+    return max(counts) / len(ws)
+
+
+def compare_kt_edges(torch, M, dev, seed):
+    """The fp8 K-major quantizer (``tensor_quantize_kt``, the fp8 paths'
+    quantizer of W) in both formats, bf16 and f32, at TQ_PATH_SHAPES,
+    TQ_SMALL_SHAPES and KT_EDGE_SHAPES, on ``tq_input``'s cases with the
+    absmax at each of ``kt_spots`` (from offset 0; at the last tile's first
+    value from offsets 1, 2 and 4) and on an all-zero tensor: q and the
+    state bit-equal to ``F8REF.tensor_quantize``, q_k to q's bytes
+    transposed, both copies the same over two launches. The plan: its grid
+    within the resident blocks, its tile of whole 32-row runs and 16-column
+    cells inside the registers; every path weight in bf16 on the one
+    launch, one CUDA kernel a call. Two control faults at offset 0: the
+    partial of the absmax's block left out (caught where there is more than
+    one block) and the K-major tile of that block left unwritten (always).
+    Returns the largest |kernel - plain| (decoded), the comparisons and the
+    faults caught."""
+    F8 = M.F8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a_call = kt_kernels_a_call(torch, F8, dev)
+    check(a_call == 1, f"fp8 tensor_quantize_kt: {a_call} CUDA kernels a call on the path "
+          "weights, not the one launch")
+    worst, n_cmp, caught = 0.0, 0, 0
+    for fmt in ("e4m3", "e5m2"):
+        for dt in (torch.bfloat16, torch.float32):
+            for R, C in TQ_PATH_SHAPES + TQ_SMALL_SHAPES + KT_EDGE_SHAPES:
+                n = R * C
+                p = F8.tensor_quantize_kt_plan(torch.empty((R, C), dtype=dt, device=dev))
+                check(p["blocks"] <= min(p["resident"], F8.MAX_PARTIALS)
+                      and p["tile_rows"] % 32 == 0 and p["tile_cols"] % 16 == 0
+                      and p["tile_rows"] * p["tile_cols"] <= p["block_values"]
+                      and (p["rounds"] > 0 or p["blocks"] == p["tiles"]),
+                      f"tensor_quantize_kt {R}x{C} {dt}: plan {p}")
+                check((R, C) not in TQ_PATH_SHAPES or dt != torch.bfloat16 or p["rounds"] == 0,
+                      f"tensor_quantize_kt {R}x{C} bf16, a path weight: two launches {p}")
+                check(n <= p["resident"] * p["block_values"] or p["rounds"] > 0,
+                      f"tensor_quantize_kt {R}x{C} {dt}: one launch past the registers {p}")
+                spots = kt_spots(p, R, C)
+                cases = [(0, w, at) for w, at in spots.items()]
+                cases += [(o, "last tile", spots["last tile"]) for o in TQ_OFFSETS[1:]]
+                cases.append((0, "all zero", None))
+                for offset, where, at in cases:
+                    what = f"tensor_quantize_kt {fmt} {R}x{C} {dt} offset {offset} absmax {where}"
+                    x = (torch.zeros((R, C), dtype=dt, device=dev) if at is None else
+                         tq_input(torch, gen, R, C, dev, dt, fmt, at, offset))
+                    got, again = F8.tensor_quantize_kt(x, fmt), F8.tensor_quantize_kt(x, fmt)
+                    want = plain_kt(torch, M, x, fmt)
+                    want = (want[0].view(torch.uint8), *want[1:])
+                    got = (got[0].view(torch.uint8), got[1], got[2])
+                    again = (again[0].view(torch.uint8), again[1], again[2])
+                    for g, a, w, part in zip(got, again, want, ("codes", "state", "K-major")):
+                        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+                              f"{what} {part}: kernel != plain")
+                        check(torch.equal(g, a), f"{what} {part}: two launches differ")
+                        n_cmp += 1
+                    worst = max(worst, max_abs_diff(torch, got[1], want[1]))
+                    if at is not None and offset == 0:
+                        b = kt_block_of(p, at, C)
+                        if p["blocks"] > 1:
+                            q_f, s_f, _ = F8.tensor_quantize_kt_fault(x, fmt, drop=b)
+                            check(not (torch.equal(q_f.view(torch.uint8), want[0])
+                                       and torch.equal(s_f, want[1])),
+                                  f"{what}: the control fault (block {b}'s partial left out) "
+                                  "reads as the plain version")
+                            caught += 1
+                        _, _, k_f = F8.tensor_quantize_kt_fault(x, fmt, skip=b)
+                        check(not torch.equal(k_f, want[2]), f"{what}: the control fault "
+                              f"(block {b}'s K-major tile left unwritten) reads as the plain "
+                              "version")
+                        caught += 1
+                    del x, got, again, want
+    torch.cuda.synchronize()
+    return worst, n_cmp, caught
+
+
+def time_tensor_quantize(torch, quant, plain, gen, dev, shapes, what, k_major=False):
     """A tensor quantizer over one layer's weights ``shapes`` [(K, M)], bf16
     as the paths give them: its device ms by graph replay over input sets
     larger than L2, the plain version's (with ``plain``), the eager ms and
     the bound (each value read once in bf16 and written once in 8 bits, and
-    the state)."""
+    with ``k_major`` once more K-major, and the state)."""
     n_el = sum(K * Mw for K, Mw in shapes)
     sets = [[weight(torch, gen, K, Mw, dev) for K, Mw in shapes]
             for _ in range(max(2, int(120e6 // (3 * n_el)) + 1))]
@@ -1719,8 +1849,8 @@ def time_tensor_quantize(torch, quant, plain, gen, dev, shapes, what):
                plain_ms=graph_ms(torch, lambda i: call(i, plain), len(sets)) if plain else None,
                library_ms=None, library=TQ_LIBRARY,
                eager_ms=eager_ms(torch, lambda i: call(i, quant), len(sets)),
-               bound=bound(3 * n_el + 4 * len(shapes), f32_ops=2 * n_el), calls=len(shapes),
-               work=f"{what}: {len(shapes)} calls")
+               bound=bound((4 if k_major else 3) * n_el + 4 * len(shapes), f32_ops=2 * n_el),
+               calls=len(shapes), work=f"{what}: {len(shapes)} calls")
     del sets
     return out
 
@@ -2314,6 +2444,11 @@ PROFILE_GROUPS = {"fp8": ("fp8_tensor_quantize", "fp8_row_quantize",
                   "int8_switchback_m": ("tensor_quantize",),
                   "int8_switchback_q": ("row_quantize", "col_quantize"),
                   "int8_llm": ("row_quantize", "col_quantize")}
+# groups that a mode's profile must read no kernel in: the fp8 forward's W
+# comes K-major from its quantizer (tensor_quantize_kt, in the
+# fp8_tensor_quantize group), so transpose_bytes is on no path
+PROFILE_IDLE_GROUPS = dict.fromkeys(("fp8", "fp8_mixed"),
+                                    ("fp8 forward's K-major W (transpose_bytes)",))
 
 
 # PyTorch's own kernels on the train step, by family (lower-case patterns)
@@ -2566,11 +2701,12 @@ def clip_launches_per_step(cfg, mode, fused_max):
     * int8_switchback_q / int8_llm: row_quantize(X), col_quantize(W), the
       colscale matmul; dgrad row_quantize(Ẏ), row_quantize(W), the
       transposed colscale matmul;
-    * fp8: fp8 tensor_quantize(W), row_quantize(X), transpose_bytes(W_q),
-      fp8_matmul_dequant; dgrad row_quantize(Ẏ), fp8_matmul_dequant_t;
-    * fp8_mixed: fp8 tensor_quantize(W), block_quantize(X),
-      transpose_bytes(W_q), fp8_mixed_matmul; dgrad block_quantize(Ẏ),
-      fp8_mixed_matmul_t;
+    * fp8: fp8 tensor_quantize_kt(W) (counted as fp8_tensor_quantize; its
+      K-major copy is the forward's W, so transpose_bytes runs 0 times),
+      row_quantize(X), fp8_matmul_dequant; dgrad row_quantize(Ẏ),
+      fp8_matmul_dequant_t;
+    * fp8_mixed: fp8 tensor_quantize_kt(W), block_quantize(X),
+      fp8_mixed_matmul; dgrad block_quantize(Ẏ), fp8_mixed_matmul_t;
     * fp8_sim / fp8_switchback: none (plain products);
     * each layer of both towers: flash_fwd, flash_bwd_dq, flash_bwd_dkv."""
     c = dict.fromkeys(("tensor_quantize", "fused_switchback_fwd", "row_quantize",
@@ -2587,7 +2723,6 @@ def clip_launches_per_step(cfg, mode, fused_max):
             c["fp8_tensor_quantize"] += 1
             c[quant] += 1 + dx
             c[fwd] += 1
-            c["fp8_transpose_bytes"] += 1
             c[dgrad] += dx
             continue
         if mode.startswith("fp8"):
@@ -2718,6 +2853,9 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
             check(prof["groups"].get(g, {}).get("ms", 0.0) > 0,
                   f"CLIP {mode}: the profile's group {g!r} read no device time (its pattern "
                   "matches no kernel name)")
+        for g in PROFILE_IDLE_GROUPS.get(mode, ()):
+            check(g not in prof["groups"], f"CLIP {mode}: the profile's group {g!r} ran on the "
+                  f"path: {prof['groups'].get(g)}")
         check_one_kernel_a_call(prof, want, f"CLIP {mode} profile")
         # activation memory: the peak of one forward and backward (the
         # gradients included) above what the trainer holds, without the
@@ -3132,7 +3270,9 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
     ``table`` as ``clip_shapes`` (every weight of both towers at batch 32:
     4,128 vision rows, 8,192 patch rows at K = 588, 2,464 text rows), and
     the ragged 37 x 130 -> 70 of the cuda tests. Per linear:
-    ``tensor_quantize(W)`` in E4M3 and ``transpose_bytes`` of it; per dtype
+    ``tensor_quantize(W)`` in E4M3, ``transpose_bytes`` of it (an op entry
+    point) and ``tensor_quantize_kt(W)`` (the path's quantizer: q and the
+    state the flat kernel's bits, q_k ``transpose_bytes``' bytes); per dtype
     the forward (``row_quantize`` E4M3 + ``fp8_matmul_dequant``;
     ``block_quantize`` + ``fp8_mixed_matmul``) and, where the layer has an
     input gradient, the dgrad (``row_quantize`` E5M2 +
@@ -3144,7 +3284,9 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
     plain versions per output and, at ``F8TC.check_rows``, bit-equal to the
     model ``F8TC``, from which their control faults (one k32 slab of A read
     one row off; for fp8_mixed the fallback bits dropped) lie at least
-    FAULT_MARGIN output ulps off; on inputs from ``F8REF.exact_entries`` (a
+    FAULT_MARGIN output ulps off; both forwards given the fold's ``w_k``
+    bit-equal to the same call through ``transpose_bytes``; on inputs from
+    ``F8REF.exact_entries`` (a
     checkerboard of fallback tiles for the mixed forms) all four bit-equal
     to their plain versions; each run twice gives the same bits. Returns per
     kernel the largest |kernel - plain| (the quantizers' decoded values), the
@@ -3157,7 +3299,7 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
     worst = dict.fromkeys(FP8_KERNELS, 0.0)
     share = dict.fromkeys(MATMUL_FORMS, 0.0)
     fault = dict.fromkeys(MATMUL_FORMS, math.inf)
-    mixed = dict(tiles=0, fallback_tiles=0, exact_cases=0, model_outputs=0)
+    mixed = dict(tiles=0, fallback_tiles=0, exact_cases=0, model_outputs=0, w_k_forwards=0)
     n = 0
 
     def twice(fn, what):
@@ -3185,6 +3327,30 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
               f"fp8_transpose_bytes {what}: kernel != w_q.t().contiguous()")
         n += 1
 
+    def folded(w, w_q, s_w, what):
+        """The fold, tensor_quantize_kt(W): q and state the flat kernel's
+        bits (held to the plain version), q_k its bytes K-major, as both
+        transpose_bytes and the plain copy give them; its q_k."""
+        nonlocal n
+        q, s_, w_k = twice(lambda: F8.tensor_quantize_kt(w, "e4m3"),
+                           f"fp8_tensor_quantize (kt) {what}")
+        check(torch.equal(as_bits(torch, q), as_bits(torch, w_q)) and torch.equal(s_, s_w),
+              f"fp8_tensor_quantize (kt) {what}: q or the state != tensor_quantize's")
+        check(w_k.dtype == torch.uint8 and torch.equal(w_k, F8.transpose_bytes(w_q))
+              and torch.equal(w_k, w_q.view(torch.uint8).t().contiguous()),
+              f"fp8_tensor_quantize (kt) {what}: q_k != q's bytes transposed")
+        n += 1
+        return w_k
+
+    def through_w_k(got, fn, what):
+        """A forward given the fold's w_k: the bits of the same call through
+        transpose_bytes."""
+        nonlocal n
+        check(torch.equal(fn(), got), f"{what}: the forward given the fold's w_k != "
+              "through transpose_bytes")
+        mixed["w_k_forwards"] += 1
+        n += 1
+
     readings = []
 
     def bounded(key, got, want, bnd, model, rows, faults, what):
@@ -3205,10 +3371,12 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
         mixed["model_outputs"] += model.numel()
         n += 1
 
-    def dequant(a_q, w_q, rs, tw, dt, what):
+    def dequant(a_q, w_q, rs, tw, dt, what, w_k=None):
         key = "fp8_matmul_dequant_t" if tw else "fp8_matmul_dequant"
         fn = getattr(F8, key)
         got = twice(lambda: fn(a_q, w_q, rs, out_dtype=dt), f"{key} {what}")
+        if w_k is not None:
+            through_w_k(got, lambda: fn(a_q, w_q, rs, out_dtype=dt, w_k=w_k), f"{key} {what}")
         plain = lambda a: F8REF.fp8_matmul_dequant(a, w_q, rs, transpose_w=tw, out_dtype=dt)
         want = plain(a_q)
         rows = torch.tensor(F8TC.check_rows(a_q.shape[0]), device=dev)
@@ -3217,12 +3385,15 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
         bounded(key, got, want, F8REF.matmul_bound(want, a_q, w_q, rs, transpose_w=tw), model,
                 rows, {"slab": plain(slab_fault(torch, a_q, k0))}, what)
 
-    def mixed_pair(a, fmt, w_q, s_w, tw, dt, what):
+    def mixed_pair(a, fmt, w_q, s_w, tw, dt, what, w_k=None):
         key = "fp8_mixed_matmul_t" if tw else "fp8_mixed_matmul"
         a_q, s_blk = quantized("fp8_block_quantize", "block_quantize", (a, fmt), what)
         fb = F8.fallback_mask(s_blk, 8.0)
         fn = getattr(F8, key)
         got = twice(lambda: fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt), f"{key} {what}")
+        if w_k is not None:
+            through_w_k(got, lambda: fn(a, a_q, s_blk, fb, w_q, s_w, out_dtype=dt, w_k=w_k),
+                        f"{key} {what}")
         kw = dict(block_rows=128, block_cols=128, transpose_w=tw)
         plain = lambda b_q, f: F8REF.fp8_mixed_matmul(a, b_q, s_blk, f, w_q, s_w,
                                                       out_dtype=dt, **kw)
@@ -3280,12 +3451,13 @@ def compare_fp8_kernels(torch, M, table, dev, seed):
             w = weight(torch, gen, K, Mw, dev)
             w_q, s_w = quantized("fp8_tensor_quantize", "tensor_quantize", (w, "e4m3"), what)
             transposed(w_q, what)
+            w_k = folded(w, w_q, s_w, what)
             for dt in (getattr(torch, d) for d in dts):
                 for label, x in inputs(R, K, dt):
                     at = f"{what} {dt}{label}"
                     x_q, s_x = quantized("fp8_row_quantize", "row_quantize", (x, "e4m3"), at)
-                    dequant(x_q, w_q, s_x * s_w, False, dt, at)
-                    mixed_pair(x, "e4m3", w_q, s_w, False, dt, at)
+                    dequant(x_q, w_q, s_x * s_w, False, dt, at, w_k)
+                    mixed_pair(x, "e4m3", w_q, s_w, False, dt, at, w_k)
                 if dx:                              # the patch embedding has no Ẋ
                     for label, g in inputs(R, Mw, dt):
                         at = f"{what} {dt}{label} dgrad"
@@ -3357,13 +3529,14 @@ def compare_fp8_quantizer_edges(torch, M, dev, seed, encode_check=True):
     FP8_QUANT_EDGES, bf16 and f32, E4M3 and E5M2, from an aligned base and
     from an odd offset, on ``fp8_edge_input``'s cases; each run twice gives
     the same bits. Then ``tensor_quantize`` at its edges in both formats
-    (``compare_tensor_quantizer_edges``), where the module has the entry
-    points for them. With ``encode_check``, the quantizers' conversion
+    (``compare_tensor_quantizer_edges``) and ``tensor_quantize_kt`` at its
+    own (``compare_kt_edges``), where the module has the entry points for
+    them. With ``encode_check``, the quantizers' conversion
     equals grid_round + encode on every f32 bit pattern
     (``ops.encode_check``) and their bf16 division ``__fdiv_rn`` on every
     pair it meets (``ops.divide_check``).
     Returns the largest |kernel - plain| (decoded) by kernel, the number
-    of comparisons and the tensor quantizer's control faults caught."""
+    of comparisons and the tensor quantizers' control faults caught."""
     F8, F8REF = M.F8, M.F8REF
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"fp8_row_quantize": 0.0, "fp8_block_quantize": 0.0}
@@ -3396,6 +3569,11 @@ def compare_fp8_quantizer_edges(torch, M, dev, seed, encode_check=True):
                                                               ("e4m3", "e5m2"))
         worst["fp8_tensor_quantize"] = max(t_worst.values())
         n += t_n
+    if getattr(F8, "tensor_quantize_kt", None):
+        k_worst, k_n, k_caught = compare_kt_edges(torch, M, dev, seed + 2)
+        worst["fp8_tensor_quantize"] = max(worst.get("fp8_tensor_quantize", 0.0), k_worst)
+        n += k_n
+        caught += k_caught
     if encode_check:
         for fmt in ("e4m3", "e5m2"):
             bad = F8.encode_check(fmt, dev)
@@ -3445,18 +3623,39 @@ def time_fp8_quantizers(torch, M, gen, dev, R, calls, what, plain=True):
     return out
 
 
+def plain_kt(torch, M, w, fmt="e4m3"):
+    """The fold's plain version: ``ref.tensor_quantize`` and the plain copy."""
+    q, s = M.F8REF.tensor_quantize(w, fmt)
+    return q, s, q.view(torch.uint8).t().contiguous()
+
+
 def plain_fp8(M):
-    """The fp8 wrappers' plain versions behind the wrappers' signatures."""
+    """The fp8 wrappers' plain versions behind the wrappers' signatures (the
+    forwards' ``w_k`` read as the wrappers' CPU path reads it: its bytes as
+    w_q's dtype in the ``transpose_w`` form, the same function)."""
+    import torch
     R = M.F8REF
+
+    def w_of(w_q, w_k):
+        return (w_q, False) if w_k is None else (w_k.view(w_q.dtype), True)
+
+    def dequant(x_q, w_q, rs, *, out_dtype, w_k=None):
+        w, tw = w_of(w_q, w_k)
+        return R.fp8_matmul_dequant(x_q, w, rs, transpose_w=tw, out_dtype=out_dtype)
+
+    def mixed(x16, x_q, s_blk, fb, w_q, s_w, *, block_rows, block_cols, out_dtype, w_k=None):
+        w, tw = w_of(w_q, w_k)
+        return R.fp8_mixed_matmul(x16, x_q, s_blk, fb, w, s_w, block_rows=block_rows,
+                                  block_cols=block_cols, transpose_w=tw, out_dtype=out_dtype)
+
     return {
         "row_quantize": R.row_quantize, "tensor_quantize": R.tensor_quantize,
+        "tensor_quantize_kt": lambda x, fmt="e4m3": plain_kt(torch, M, x, fmt),
         "block_quantize": R.block_quantize,
-        "fp8_matmul_dequant": lambda x_q, w_q, rs, *, out_dtype: R.fp8_matmul_dequant(
-            x_q, w_q, rs, out_dtype=out_dtype),
+        "fp8_matmul_dequant": dequant,
         "fp8_matmul_dequant_t": lambda x_q, w_q, rs, *, out_dtype: R.fp8_matmul_dequant(
             x_q, w_q, rs, transpose_w=True, out_dtype=out_dtype),
-        "fp8_mixed_matmul": lambda *a, block_rows, block_cols, out_dtype: R.fp8_mixed_matmul(
-            *a, block_rows=block_rows, block_cols=block_cols, out_dtype=out_dtype),
+        "fp8_mixed_matmul": mixed,
         "fp8_mixed_matmul_t": lambda *a, block_rows, block_cols, out_dtype: R.fp8_mixed_matmul(
             *a, block_rows=block_rows, block_cols=block_cols, transpose_w=True,
             out_dtype=out_dtype),
@@ -3706,13 +3905,23 @@ def mma_sync_probe(torch, M, dev):
 LIBRARY_CALL = {"fwd": "torch._scaled_mm, row-wise scales, bf16 out",
                 "dgrad": "torch._scaled_mm, row-wise scales, bf16 out",
                 "transpose": "w_q.view(torch.uint8).t().contiguous() (also the plain version)"}
+# what phase 23 reads beside the fold (tensor_quantize_kt), for the six
+# weights of a layer: the flat tensor_quantize alone, the parent's pair
+# (tensor_quantize, then transpose_bytes) and the library pair
+# (tensor_quantize, then PyTorch's transposed copy of the bytes); no single
+# PyTorch call takes a tensor's absmax and casts by it
+KT_LIBRARY = ("none (no single call); library_pair_ms: F8.tensor_quantize + "
+              "w_q.view(torch.uint8).t().contiguous()")
 
 
 def time_fp8_kernels(torch, M, cfg, dev, seed):
     """Phase 23: each fp8 kernel at one vision layer's calls at batch 32
     (4,128 rows; the six linears wq, wk, wv, wo, w_up, w_down): the fp8
-    mode's tensor_quantize of the six weights, transpose_bytes of them,
-    row_quantize of X (E4M3) and Ẏ (E5M2), fp8_matmul_dequant and its
+    modes' tensor_quantize_kt of the six weights (the fold, beside the flat
+    tensor_quantize alone, the parent's tensor_quantize + transpose_bytes
+    pair and the library pair), transpose_bytes of them (an op entry point),
+    row_quantize of X (E4M3) and Ẏ (E5M2), fp8_matmul_dequant given the
+    fold's w_k (beside the same call through transpose_bytes) and its
     transposed form;
     fp8_mixed's block_quantize of X and Ẏ and both mixed forms (with the
     fallback tiles of these inputs). Each beside its plain version, the
@@ -3720,9 +3929,8 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
     of 1,979 TFLOP/s, the fallback tiles' over the bf16 peak) and, for the
     matmuls, ``torch._scaled_mm`` with row-wise scales (timed only; the
     port never calls it; the forward's column-major W is made outside its
-    timing, where the kernels' forward times include their K-major copy of
-    W), and for the matmuls the rate in TFLOP/s and the bound's share of
-    the time."""
+    timing, as the path's forward is given it), and for the matmuls the
+    rate in TFLOP/s and the bound's share of the time."""
     F8, F8REF = M.F8, M.F8REF
     gen = torch.Generator(device=dev).manual_seed(seed + 37)
     _, R, _, _, _, shapes = clip_shapes(cfg)[0]
@@ -3730,10 +3938,12 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
     bf = torch.bfloat16
 
     def one_set():
-        s = {"w": [], "x": [], "g": [], "fwd": [], "dgrad": [], "mix": [], "mix_t": []}
+        s = {"w": [], "x": [], "g": [], "fwd": [], "dgrad": [], "mix": [], "mix_t": [],
+             "w_k": []}
         for K, Mw in lin:
             w = weight(torch, gen, K, Mw, dev)
-            w_q, s_w = F8.tensor_quantize(w, "e4m3")
+            w_q, s_w, w_k = F8.tensor_quantize_kt(w, "e4m3")
+            s["w_k"].append(w_k)
             x = fp8_activations(torch, gen, R, K, dev, bf, outliers=True)
             g = fp8_activations(torch, gen, R, Mw, dev, bf, outliers=True)
             x_q, s_x = F8.row_quantize(x, "e4m3")
@@ -3748,7 +3958,7 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
                 s[key].append((a, a_q, s_blk, F8.fallback_mask(s_blk, 8.0), w_q, s_w))
         return s
 
-    per_set = sum(K * Mw * 4 + R * (K + Mw) * 8 for K, Mw in lin)
+    per_set = sum(K * Mw * 5 + R * (K + Mw) * 8 for K, Mw in lin)
     sets = [one_set() for _ in range(max(2, int(120e6 // per_set) + 1))]
     torch.cuda.synchronize()
     fb_share = {key: sum(float(t[3].sum()) for t in sets[0][key]) /
@@ -3781,19 +3991,23 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
     rk = sum(R * K for K, _ in lin)
     rm = sum(R * Mw for _, Mw in lin)
     mac = sum(R * K * Mw for K, Mw in lin)
+    # the path's forward reads the fold's w_k (the kernel only: the plain
+    # version is the same function without it)
+    given = lambda s, op, i: {"w_k": s["w_k"][i]} if op is F8 else {}
     work = {
         # name: (calls, call(set, module, plain), library call, bytes, fp8 ops, bf16 ops, f32 ops)
-        "fp8_tensor_quantize": (len(lin), lambda s, op, p: [op.tensor_quantize(w, "e4m3")
-                                                            for w in s["w"]], None,
-                                n_w * 2 + n_w + 4 * len(lin), 0, 0, 2 * n_w),
+        "fp8_tensor_quantize": (len(lin), lambda s, op, p: [
+            F8.tensor_quantize_kt(w, "e4m3") if op is F8 else plain_kt(torch, M, w)
+            for w in s["w"]], None, n_w * 2 + 2 * n_w + 4 * len(lin), 0, 0, 2 * n_w),
         "fp8_matmul_dequant": (len(lin), lambda s, op, p: [p("fp8_matmul_dequant")(
-            *a, out_dtype=bf) for a in s["fwd"]], "fwd",
+            *a, out_dtype=bf, **given(s, op, i)) for i, a in enumerate(s["fwd"])], "fwd",
             rk + n_w + 4 * R * len(lin) + 2 * rm, 2 * mac, 0, 0),
         "fp8_matmul_dequant_t": (len(lin), lambda s, op, p: [p("fp8_matmul_dequant_t")(
             *a, out_dtype=bf) for a in s["dgrad"]], "dgrad",
             rm + n_w + 4 * R * len(lin) + 2 * rk, 2 * mac, 0, 0),
         "fp8_mixed_matmul": (len(lin), lambda s, op, p: [p("fp8_mixed_matmul")(
-            *a, block_rows=128, block_cols=128, out_dtype=bf) for a in s["mix"]], "fwd",
+            *a, block_rows=128, block_cols=128, out_dtype=bf, **given(s, op, i))
+            for i, a in enumerate(s["mix"])], "fwd",
             rk * 3 + n_w + 2 * rm, 2 * mac * (1 - fb_share["mix"]), 2 * mac * fb_share["mix"], 0),
         "fp8_transpose_bytes": (len(lin), lambda s, op, p: [
             (F8.transpose_bytes if op is F8 else plain_t)(a[1]) for a in s["fwd"]], "transpose",
@@ -3820,6 +4034,25 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
             out[name].update(tflops=(f8 + b16) / (out[name]["ms"] * 1e-3) / 1e12,
                              bound_share=out[name]["bound"][0] / out[name]["ms"])
     out["fallback_share"] = fb_share
+    # beside the fold: the flat quantizer alone, the parent's pair and the
+    # library pair; beside each forward given w_k: the call through
+    # transpose_bytes (the parent's path)
+    beside = {
+        ("fp8_tensor_quantize", "flat_ms"): lambda s: [F8.tensor_quantize(w, "e4m3")
+                                                       for w in s["w"]],
+        ("fp8_tensor_quantize", "pair_ms"): lambda s: [
+            F8.transpose_bytes(F8.tensor_quantize(w, "e4m3")[0]) for w in s["w"]],
+        ("fp8_tensor_quantize", "library_pair_ms"): lambda s: [
+            plain_t(F8.tensor_quantize(w, "e4m3")[0]) for w in s["w"]],
+        ("fp8_matmul_dequant", "with_transpose_ms"): lambda s: [
+            F8.fp8_matmul_dequant(*a, out_dtype=bf) for a in s["fwd"]],
+        ("fp8_mixed_matmul", "with_transpose_ms"): lambda s: [
+            F8.fp8_mixed_matmul(*a, block_rows=128, block_cols=128, out_dtype=bf)
+            for a in s["mix"]],
+    }
+    for (name, key), fn in beside.items():
+        out[name][key] = graph_ms(torch, lambda i, fn=fn: fn(sets[i]), n)
+    out["fp8_tensor_quantize"]["library"] = KT_LIBRARY
     del sets
     # the two quantizers at one layer of each tower: vision (the row above),
     # text and the patch embedding beside
@@ -3830,15 +4063,18 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
         out[name] = dict(quant["vision"][name], at_shapes={
             t: {k: q[name][k] for k in ("ms", "plain_ms", "eager_ms", "calls", "work")}
             | {"bound_ms": q[name]["bound"][0]} for t, q in quant.items() if t != "vision"})
-    # the fp8 modes' tensor_quantize of the weights of the other towers' layers
+    # the fp8 modes' quantizer (the fold) of the weights of the other
+    # towers' layers, the flat form beside
     out["fp8_tensor_quantize"]["at_shapes"] = {
         tower: {k: r[k] for k in ("ms", "plain_ms", "eager_ms", "calls", "work")}
-        | {"bound_ms": r["bound"][0]}
+        | {"bound_ms": r["bound"][0], "flat_ms": flat["ms"]}
         for tower, _, _, _, _, lins in clip_shapes(cfg) if tower != "vision"
-        for r in [time_tensor_quantize(torch, lambda w: F8.tensor_quantize(w, "e4m3"),
-                                       lambda w: F8REF.tensor_quantize(w, "e4m3"), gen, dev,
-                                       tower_weights(lins), f"one {tower} layer's weights")]}
-    out["fp8_tensor_quantize"]["library"] = TQ_LIBRARY
+        for r, flat in [(time_tensor_quantize(
+            torch, lambda w: F8.tensor_quantize_kt(w, "e4m3"), lambda w: plain_kt(torch, M, w),
+            gen, dev, tower_weights(lins), f"one {tower} layer's weights (the fold)",
+            k_major=True),
+            time_tensor_quantize(torch, lambda w: F8.tensor_quantize(w, "e4m3"), None, gen, dev,
+                                 tower_weights(lins), f"one {tower} layer's weights"))]}
     print("[timing] fp8 kernels:", json.dumps(out))
     return out
 
@@ -4373,11 +4609,19 @@ def cast_input(torch, gen, R, C, fmt, dtype, dev):
     return x.to(getattr(torch, dtype))
 
 
+def op_transpose_shapes(clip_cfg):
+    """``transpose_bytes``' cases: every fp8 weight shape (K, M) of CLIP and
+    the cuda tests' ragged ones."""
+    return sorted({(K, Mw) for K, Mw, _ in clip_linears(clip_cfg)}) + [(130, 70), (37, 5)]
+
+
 def drive_op_path(torch, M, cfg, clip_cfg, dev, seed):
-    """Phase 27, the path: the two op entry points called once at every case
+    """Phase 27, the path: the op entry points called once at every case
     (``op_wgrad_shapes``; ``op_cast_shapes`` x both formats x three
     absmaxes, an all-zero tensor with absmax 0 per format, and
-    CAST_SPLIT_CASES), every launch counter zeroed just before and read
+    CAST_SPLIT_CASES; ``transpose_bytes`` of E4M3 codes at
+    ``op_transpose_shapes``, since the fp8 paths take W's K-major copy from
+    tensor_quantize_kt), every launch counter zeroed just before and read
     just after: each kernel exactly its number of calls, every other 0.
     Returns the cases with their outputs and the counts."""
     gen = torch.Generator(device=dev).manual_seed(seed + 27)
@@ -4403,6 +4647,9 @@ def drive_op_path(torch, M, cfg, clip_cfg, dev, seed):
         ccases.append(dict(shape=(4, 130), dtype="float32", fmt=fmt, absmax_kind="split",
                            x=torch.full((4, 130), xv, device=dev),
                            absmax=torch.full((), am, device=dev), want=want))
+    tcases = [dict(shape=(K, Mw), w_q=M.F8.tensor_quantize(weight(torch, gen, K, Mw, dev),
+                                                           "e4m3")[0])
+              for K, Mw in op_transpose_shapes(clip_cfg)]
     torch.cuda.synchronize()
 
     reset_launch_counts(M)
@@ -4410,16 +4657,19 @@ def drive_op_path(torch, M, cfg, clip_cfg, dev, seed):
         c["out"] = M.KOPS.wgrad_bf16(c["x"], c["g"])
     for c in ccases:
         c["out"] = M.FC.fp8_cast_tensorwise(c["x"], c["absmax"], c["fmt"])
+    for c in tcases:
+        c["out"] = M.F8.transpose_bytes(c["w_q"])
     torch.cuda.synchronize()
     counts = launch_counts(M)
-    check_launches(counts, {"wgrad_bf16": len(wcases), "fp8_cast_tensorwise": len(ccases)},
-                   "op entry points")
-    return wcases, ccases, counts
+    check_launches(counts, {"wgrad_bf16": len(wcases), "fp8_cast_tensorwise": len(ccases),
+                            "fp8_transpose_bytes": len(tcases)}, "op entry points")
+    return wcases, ccases, tcases, counts
 
 
-def compare_op_kernels(torch, M, wcases, ccases, seed):
+def compare_op_kernels(torch, M, wcases, ccases, tcases, seed):
     """Phase 27, the checks on the path's outputs: each run again for the
-    same bits; the outputs finite, of the expected shape. fp8_cast_tensorwise
+    same bits; the outputs finite, of the expected shape. transpose_bytes
+    byte for byte the plain copy. fp8_cast_tensorwise
     bit-equal to its plain version; fp8 values only (on the grid of the
     format, within [-fmax, fmax]); the all-zero tensor gives zeros, the
     split inputs the Pallas kernel's value. wgrad_bf16, on bf16 wgmma, whose
@@ -4433,7 +4683,13 @@ def compare_op_kernels(torch, M, wcases, ccases, seed):
     from repro_torch.core import switchback as SB
     from repro_torch.core.fp8 import SPECS, fp8_values
     from repro_torch.kernels.fp8_cast import ref as FCREF
-    worst = dict(wgrad_bf16=0.0, fp8_cast_tensorwise=0.0)
+    worst = dict(wgrad_bf16=0.0, fp8_cast_tensorwise=0.0, fp8_transpose_bytes=0.0)
+    for c in tcases:
+        w_q, out = c["w_q"], c["out"]
+        what = f"fp8_transpose_bytes {c['shape']}"
+        plain = w_q.view(torch.uint8).t().contiguous()
+        check(out.dtype == torch.uint8 and torch.equal(out, plain), f"{what}: kernel != plain")
+        check(torch.equal(out, M.F8.transpose_bytes(w_q)), f"{what}: two launches differ")
     lib_ratio, fault_ratio = 0.0, math.inf
     bound_share, fault_share, model_outputs = 0.0, math.inf, 0
     by_group = {}
@@ -4508,7 +4764,8 @@ def compare_op_kernels(torch, M, wcases, ccases, seed):
         if "want" in c:
             check(bool((out == c["want"]).all()), f"{what}: not the Pallas kernel's value "
                   f"{c['want']!r}: {float(out[0, 0])!r}")
-    res = dict(wgrad_cases=len(wcases), cast_cases=len(ccases), max_abs_err=worst,
+    res = dict(wgrad_cases=len(wcases), cast_cases=len(ccases), transpose_cases=len(tcases),
+               max_abs_err=worst,
                wgrad_bound_share=bound_share, wgrad_fault_bound_share=fault_share,
                wgrad_model_outputs=model_outputs,
                wgrad_vs_cublas_max_ratio=lib_ratio, wgrad_fault_min_ratio=fault_ratio,
@@ -4783,7 +5040,9 @@ def main(argv=None) -> int:
         fp8_worst, fp8_mm, n_fp8 = compare_fp8_kernels(torch, M, clip_shapes(clip_cfg), dev,
                                                        args.seed + 41)
         print(f"[kernels] {n_fp8} fp8 comparisons at CLIP's shapes and 37 x 130 -> 70: "
-              "quantizers and transpose_bytes bit-equal, the four matmul forms within "
+              "quantizers, tensor_quantize_kt (both copies) and transpose_bytes bit-equal, "
+              f"{fp8_mm['w_k_forwards']} forwards given the fold's w_k bit-equal to those "
+              "through transpose_bytes, the four matmul forms within "
               "F8REF.matmul_bound (worst share of it by form) and bit-equal to the F8TC model "
               f"at the check rows (control faults >= {FAULT_MARGIN:g} ulps off it, smallest "
               "by form), bit-equal on exact entries, each bit-identical over two launches: "
@@ -4795,10 +5054,11 @@ def main(argv=None) -> int:
         print(f"[kernels] {n_edge8} fp8 quantizer comparisons at the edges (rows x K "
               f"{FP8_QUANT_EDGES}, tiles {FP8_QUANT_TILES}, bf16 and f32, both formats, aligned "
               "and at an odd offset; ties, ±0, subnormals, all-zero rows and tiles; "
-              "tensor_quantize as in phase 13) bit-equal and bit-identical over two launches, "
+              "tensor_quantize as in phase 13, tensor_quantize_kt there and at "
+              f"{KT_EDGE_SHAPES}) bit-equal and bit-identical over two launches, "
               "the conversion equal to grid_round + encode on every f32 (encode_check), the "
-              "bf16 division to __fdiv_rn on every pair (divide_check); the tensor quantizer's "
-              f"control fault caught in {n_fault8} of {n_fault8} cases; max |kernel - plain| "
+              "bf16 division to __fdiv_rn on every pair (divide_check); the tensor quantizers' "
+              f"control faults caught in {n_fault8} of {n_fault8} cases; max |kernel - plain| "
               + json.dumps(edge_worst8))
     with timed("20 CLIP fp8 train"):
         fp8_res, fp8_counts = clip_train(torch, M, clip_cfg, dev, args.seed, CLIP_FP8_MODES,
@@ -4824,9 +5084,10 @@ def main(argv=None) -> int:
     # 27. the op entry points wgrad_bf16 and fp8_cast_tensorwise: the path
     # (counted), its checks, its times
     with timed("27 op entry points"):
-        wcases, ccases, op_counts = drive_op_path(torch, M, cfg, clip_cfg, dev, args.seed)
-        op_res = compare_op_kernels(torch, M, wcases, ccases, args.seed)
-        del wcases, ccases
+        wcases, ccases, tcases, op_counts = drive_op_path(torch, M, cfg, clip_cfg, dev,
+                                                          args.seed)
+        op_res = compare_op_kernels(torch, M, wcases, ccases, tcases, args.seed)
+        del wcases, ccases, tcases
         op_t = time_op_kernels(torch, M, cfg, clip_cfg, dev, args.seed)
     torch.cuda.empty_cache()
     # 21-22. the fp8 whole step, kernels vs plain, and card vs CPU
@@ -4949,19 +5210,31 @@ def main(argv=None) -> int:
 
     def fp8_entry(name):
         """An fp8 kernel: ``launches`` summed over the four fp8 modes' timed
-        runs (CLIP_STEPS steps each), per step by mode beside."""
+        runs (CLIP_STEPS steps each), per step by mode beside; for
+        transpose_bytes, an op entry point since the fold, phase 27's run
+        (its count on every serve and train run beside, 0). The fp8
+        ``tensor_quantize`` entry reads the path's form, the fold
+        (tensor_quantize_kt), with the flat form and the pairs beside."""
         r = fp8_t[name]
         b_ms, b_by = r["bound"]
+        on_path = sum(c[name] for c in fp8_counts.values())
+        op = name == "fp8_transpose_bytes"
+        elsewhere = (counts[name] + train_counts[name] + p_counts[name] + on_path
+                     + sum(c[name] for c in clip_counts.values())) if op else None
         return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-                    launches=sum(c[name] for c in fp8_counts.values()),
+                    launches=op_counts[name] if op else on_path,
                     launches_per_clip_step={m: c[name] / CLIP_STEPS
                                             for m, c in fp8_counts.items()},
-                    max_abs_err=fp8_worst[name], ms=r["ms"], plain_ms=r["plain_ms"],
+                    max_abs_err=max(fp8_worst[name], op_res["max_abs_err"].get(name, 0.0)),
+                    ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
                     eager_ms=r["eager_ms"], calls_timed=r["calls"], work=r["work"],
                     **({"library": r["library"]} if r["library"] else {}),
-                    **({"part_of": "fp8_matmul_dequant and fp8_mixed_matmul (the forward's "
-                                   "K-major W)"} if name == "fp8_transpose_bytes" else {}),
+                    **({"launches_serve_train": elsewhere,
+                        "part_of": "op entry point on no path: the fp8 forward's K-major W "
+                                   "comes from tensor_quantize_kt"} if op else {}),
+                    **{k: r[k] for k in ("flat_ms", "pair_ms", "library_pair_ms",
+                                         "with_transpose_ms") if k in r},
                     **({"at_shapes": r["at_shapes"]} if "at_shapes" in r else {}),
                     **({"tflops": r["tflops"], "bound_share": r["bound_share"],
                         "matmul_bound_share": fp8_mm["bound_share"][name],

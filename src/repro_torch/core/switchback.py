@@ -177,14 +177,16 @@ def _fp8_forward(ctx, x, wc, variant, f: FP8Config):
         w_q, s_w = Q.quantize_tensorwise_fp8(wc, f.fwd_fmt)
         ctx.save_for_backward(x, w_q, s_w)
         return _fp8_sim_dot(x_q, s_x, w_q, s_w, x.dtype)
-    w_q, s_w = F8OPS.tensor_quantize(wc, f.fwd_fmt)              # (n, m), (1, 1)
+    # W's codes row-major for the dgrad and K-major (w_k, (m, n) bytes) for
+    # the forward GEMM, from one quantizer call
+    w_q, s_w, w_k = F8OPS.tensor_quantize_kt(wc, f.fwd_fmt)     # (n, m), (1, 1), (m, n)
     ctx.save_for_backward(x, w_q, s_w)                          # fp X + fp8 W
     if variant == "fp8":
         x_q, s_x = F8OPS.row_quantize(x, f.fwd_fmt)
-        return F8OPS.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=x.dtype)
+        return F8OPS.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=x.dtype, w_k=w_k)
     return F8OPS.mixed(x, w_q, s_w, fmt=f.fwd_fmt, block_rows=f.block_rows,
                        block_cols=f.block_cols, fallback_ratio=f.fallback_ratio,
-                       out_dtype=x.dtype)
+                       out_dtype=x.dtype, w_k=w_k)
 
 
 def _fp8_backward(ctx, g, need_dx, need_dw):

@@ -294,12 +294,13 @@ __device__ __forceinline__ void grid_barrier(unsigned* bar) {
   __syncthreads();
 }
 
-// the absmax from every block's partial but p.drop's (the control fault),
+// the absmax from every block's partial but drop's (the control fault),
 // floored at kEps
-__device__ __forceinline__ float reduce_partials(const float* partial, const Plan& p, float* red) {
+__device__ __forceinline__ float reduce_partials(const float* partial, int blocks, int drop,
+                                                 float* red) {
   float m = 0.f;
-  for (int i = threadIdx.x; i < p.blocks; i += kThreads)
-    if (i != p.drop) m = fmaxf(m, __ldcg(partial + i));
+  for (int i = threadIdx.x; i < blocks; i += kThreads)
+    if (i != drop) m = fmaxf(m, __ldcg(partial + i));
   return fmaxf(block_max(m, red), kEps);
 }
 
@@ -335,9 +336,221 @@ __device__ __forceinline__ void quantize(const T* __restrict__ x, uint8_t* __res
     if constexpr (MODE == kMax) return;
     grid_barrier(bar);
   }
-  const float absmax = reduce_partials(partial, p, red);
+  const float absmax = reduce_partials(partial, p.blocks, p.drop, red);
   if (blockIdx.x == 0 && threadIdx.x == 0) s[0] = absmax;
   Codec::template cast<MODE, G>(absmax, v, w);
+}
+
+// ---------------------------------------------------------------------------
+// The K-major form (the fp8 forward's W): x (R, C) row-major -> q (R, C)
+// and its transpose qk (C, R), both written from the registers, so the
+// GEMMs' K-major copy of W needs no launch of its own and the codes are
+// never read back. The flat split above gives a block under five rows of a
+// CLIP weight, runs of about 5 bytes in each row of qk; here block b owns
+// tile b of a grid of h x w tiles (h a multiple of kTileRows, w of
+// kTileCols; the launcher's choice, make_tile_plan):
+//   * loading: the tile's chunks of 8 values along its rows, cw = w / 8 a
+//     row; thread t holds chunks t, t + 256, ... (every load issued before
+//     any is read), its (row, chunk) stepped by divmod(256, cw) from
+//     divmod(t, cw); a chunk past the tile's last column (x's right edge)
+//     is not loaded, one across it (C % 8 != 0) loads its values one by one;
+//   * the max and the barrier as above (a max ignores order, so the state
+//     and every code are the flat form's bits);
+//   * the bytes: each chunk's 8 codes stored row-major into q (granules of
+//     G) and staged in shared memory, the tile's rows at a pitch of an odd
+//     number of words (w / 4 + 1); then each thread moves 4 x 4-byte
+//     blocks (4 rows x 4 columns, __byte_perm) into qk: lane l of a warp
+//     takes row block 8 a + (l & 7) and column block 4 b + (l >> 3) of its
+//     warp's cell (32 rows x 16 columns), so its four reads of a staged
+//     word meet 32 different banks (the odd pitch), and each of its four
+//     4-byte stores puts 8 lanes on one 32-byte run of a row of qk (bytes
+//     one by one where R % 4 or an edge forbids words). Chunk i of the
+//     tile (row r) stages at words 2 i + r and 2 i + r + 1; of its two
+//     stores the first takes the even one in the warp's first 16 lanes and
+//     the odd one in its second, so a warp's 32 lanes meet 32 banks within
+//     a row (at most 2 wavefronts where rows break inside the warp).
+// Past the registers (the tile grid exceeds the resident blocks at the
+// largest tile) the two passes walk a block's tiles b, b + B, ... in
+// rounds: kMax their max, kCast loads each again and writes both copies.
+// ---------------------------------------------------------------------------
+constexpr int kTileRows = 32;      // h is a multiple: runs of qk of at least 32 bytes
+constexpr int kTileCols = 16;      // w is a multiple: a warp cell's 4 column blocks
+constexpr int kMaxTileRows = 1024;
+// the staging buffer: h (w / 4 + 1) words at most, h w <= the registers
+constexpr int kStageWords = kThreads * max_chunks<__nv_bfloat16>() * kChunk / 4 + kMaxTileRows;
+
+struct TilePlan {
+  int R, C;          // x (R, C), row-major
+  int h, w;          // the tile
+  int nc;            // tiles a row of the tile grid
+  int tiles;         // tiles in all (row-major over the grid)
+  int blocks;
+  int rounds;        // 0: the one launch, one tile a block; else each pass's tiles a block
+  int G;             // values a granule: 8, 4, 2 or 1 (x, q and C allow it)
+  int cw, dr, dc;    // chunks a tile row; divmod(kThreads, cw)
+  int pitch;         // words a staged row: w / 4 + 1, odd
+  int kwords;        // 1: 4-byte stores into qk (R % 4 == 0, qk aligned)
+  int drop;          // a check's control fault: the partial left out, or -1
+  int skip;          // a check's control fault: the block that writes no qk, or -1
+};
+
+struct TileAt {      // a tile's first row and column, its rows and columns inside x
+  int64_t r0, c0;
+  int rows, cols;
+};
+
+__device__ __forceinline__ TileAt tile_at(const TilePlan& p, int tile) {
+  const int tr = tile / p.nc, tc = tile - tr * p.nc;
+  TileAt a;
+  a.r0 = static_cast<int64_t>(tr) * p.h;
+  a.c0 = static_cast<int64_t>(tc) * p.w;
+  const int64_t rows = p.R - a.r0, cols = p.C - a.c0;
+  a.rows = rows < p.h ? static_cast<int>(rows) : p.h;
+  a.cols = cols < p.w ? static_cast<int>(cols) : p.w;
+  return a;
+}
+
+// the tile's chunks of this thread into v, those outside x 0
+template <int G, typename T, int K>
+__device__ __forceinline__ void load_tile(Vals<T> (&v)[K], const T* x, const TilePlan& p,
+                                          const TileAt& a) {
+  int r = threadIdx.x / p.cw, c = threadIdx.x - r * p.cw;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    v[j].zero();
+    const int col = kChunk * c;
+    if (r < a.rows && col < a.cols) {
+      const T* src = x + (a.r0 + r) * p.C + a.c0 + col;
+      if (a.cols - col >= kChunk)
+        v[j].template load<G>(src);
+      else
+        v[j].load_tail(src, a.cols - col);
+    }
+    r += p.dr, c += p.dc;
+    if (c >= p.cw) c -= p.cw, ++r;
+  }
+}
+
+// four staged words (rows k, columns 0-3 each, the first in the low byte)
+// as four words of columns (column e's rows 0-3)
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&out)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140), t3 = __byte_perm(w[2], w[3], 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410), out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410), out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// the codes of the chunks load_tile read: row-major into q and staged, then
+// the tile's K-major copy into qk (not by block p.skip, the control fault)
+template <int G, class E, typename T, int K>
+__device__ __forceinline__ void store_tile(const E& e, const Vals<T> (&v)[K], uint8_t* q,
+                                           uint8_t* qk, uint32_t* stage, const TilePlan& p,
+                                           const TileAt& a) {
+  const int half = (threadIdx.x >> 4) & 1;
+  int r = threadIdx.x / p.cw, c = threadIdx.x - r * p.cw;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int col = kChunk * c;
+    if (r < a.rows && col < a.cols) {
+      const uint32_t lo = e.four(v[j][0], v[j][1], v[j][2], v[j][3]);
+      const uint32_t hi = e.four(v[j][4], v[j][5], v[j][6], v[j][7]);
+      uint8_t* dst = q + (a.r0 + r) * p.C + a.c0 + col;
+      if (a.cols - col >= kChunk)
+        store8<G>(dst, lo, hi);
+      else
+        store_tail(dst, lo, hi, a.cols - col);
+      uint32_t* st = stage + r * p.pitch + 2 * c;              // word 2 (r cw + c) + r
+      const int odd = (r ^ half) & 1;                          // the first store's word:
+      st[odd] = odd ? hi : lo;                                 // even in the warp's first
+      st[odd ^ 1] = odd ? lo : hi;                             // half, odd in its second
+    }
+    r += p.dr, c += p.dc;
+    if (c >= p.cw) c -= p.cw, ++r;
+  }
+  __syncthreads();
+  if (static_cast<int>(blockIdx.x) != p.skip) {
+    const int lane = threadIdx.x & 31;
+    const int cells_r = p.h / 32, cells = cells_r * (p.w / 16);
+    int ca = threadIdx.x >> 5, cb = 0;                       // this warp's first cell
+    while (ca >= cells_r) ca -= cells_r, ++cb;
+    for (int cell = threadIdx.x >> 5; cell < cells; cell += kThreads / 32) {
+      const int row = 4 * (8 * ca + (lane & 7)), blk = 4 * cb + (lane >> 3), col = 4 * blk;
+      if (row < a.rows && col < a.cols) {
+        uint32_t w[4], out[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = stage[(row + k) * p.pitch + blk];
+        transpose4(w, out);
+        const bool words = p.kwords && row + 4 <= a.rows;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (col + i >= a.cols) break;
+          uint8_t* d = qk + (a.c0 + col + i) * p.R + a.r0 + row;
+          if (words) {
+            *reinterpret_cast<uint32_t*>(d) = out[i];
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (row + k < a.rows) d[k] = static_cast<uint8_t>(out[i] >> (8 * k));
+          }
+        }
+      }
+      ca += kThreads / 32;
+      while (ca >= cells_r) ca -= cells_r, ++cb;
+    }
+  }
+  __syncthreads();                                           // the stage is free again
+}
+
+// a block's tiles b, b + B, ... (walk of them) cast with one encoder: from
+// the registers (kOne), or each loaded again (kCast)
+template <int MODE, int G, class E, typename T, int K>
+__device__ __forceinline__ void cast_tiles(const E& e, Vals<T> (&v)[K], const T* x, uint8_t* q,
+                                           uint8_t* qk, uint32_t* stage, const TilePlan& p,
+                                           int walk) {
+  for (int i = 0; i < walk; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    if (tile >= p.tiles) break;
+    const TileAt a = tile_at(p, tile);
+    if constexpr (MODE == kCast) load_tile<G>(v, x, p, a);
+    store_tile<G>(e, v, q, qk, stage, p, a);
+  }
+}
+
+// The K-major kernel body: MODE kOne (the one launch), kMax or kCast (the
+// two passes). The codec gives the encoder: Codec::fast<T>(absmax) picks
+// Codec::encoder<true or false>(absmax).
+template <typename T, int G, int MODE, class Codec>
+__device__ __forceinline__ void quantize_kt(const T* __restrict__ x, uint8_t* __restrict__ q,
+                                            uint8_t* __restrict__ qk, float* __restrict__ s,
+                                            float* __restrict__ partial,
+                                            unsigned* __restrict__ bar, const TilePlan& p) {
+  constexpr int K = max_chunks<T>();
+  __shared__ float red[32];
+  __shared__ uint32_t stage[kStageWords];
+  const int walk = MODE == kOne ? 1 : p.rounds;             // tiles b, b + B, ...
+  Vals<T> v[K];
+  if constexpr (MODE != kCast) {
+    float m = 0.f;                                          // chunks not loaded hold 0
+    for (int i = 0; i < walk; ++i) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      if (tile >= p.tiles) break;
+      load_tile<G>(v, x, p, tile_at(p, tile));
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) m = fmaxf(m, fabsf(v[j][e]));
+    }
+    m = block_max(m, red);
+    if (threadIdx.x == 0) partial[blockIdx.x] = m;
+    if constexpr (MODE == kMax) return;
+    grid_barrier(bar);
+  }
+  const float absmax = reduce_partials(partial, p.blocks, p.drop, red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) s[0] = absmax;
+  if (Codec::template fast<T>(absmax))
+    cast_tiles<MODE, G>(Codec::template encoder<true>(absmax), v, x, q, qk, stage, p, walk);
+  else
+    cast_tiles<MODE, G>(Codec::template encoder<false>(absmax), v, x, q, qk, stage, p, walk);
 }
 
 // ---------------------------------------------------------------------------
@@ -463,6 +676,131 @@ int plan(const void* x, const void* q, int64_t n, int* out) {
   const Plan p = make_plan<T>(n, G, r, -1);
   out[0] = p.blocks, out[1] = p.rounds, out[2] = p.G, out[3] = r;
   out[4] = kThreads * max_chunks<T>() * kChunk;
+  return r > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// ---------------------------------------------------------------------------
+// host side of the K-major form
+// ---------------------------------------------------------------------------
+
+// values a granule of the K-major form: as granule(), and C % G == 0, so
+// that every row of x and q starts on a granule
+inline int granule_kt(const void* x, const void* q, int64_t C, int tsize) {
+  int G = granule(x, q, tsize);
+  while (G > 1 && C % G) G >>= 1;
+  return G;
+}
+
+// The tile of the one launch: over h = 32, 64, ... (at most R rounded up
+// to 32, and kMaxTileRows), w the narrowest multiple of kTileCols that
+// keeps the tile grid within `cap` blocks; the tile whose h w (the values
+// a block holds, each thread's share of them) is least and fits the
+// registers, the squarer one (the larger of min(h, w)) on a tie. None fits
+// (rounds > 0): the two passes over tiles of about 128 rows that fill the
+// registers, each block walking its tiles in rounds.
+template <typename T>
+TilePlan make_tile_plan(int64_t R, int64_t C, int G, int resident, int drop, int skip, bool kw) {
+  TilePlan p = {};
+  p.R = static_cast<int>(R), p.C = static_cast<int>(C), p.G = G;
+  p.drop = drop, p.skip = skip;
+  p.kwords = kw && R % 4 == 0;
+  const int64_t cap = std::max(1, std::min(resident, kMaxPartials));
+  const int64_t vals = static_cast<int64_t>(kThreads) * max_chunks<T>() * kChunk;
+  const int64_t hmax =
+      std::min<int64_t>(kMaxTileRows, (R + kTileRows - 1) / kTileRows * kTileRows);
+  const int64_t wmax = (C + kTileCols - 1) / kTileCols * kTileCols;
+  int64_t best = 0;
+  for (int64_t h = kTileRows; h <= hmax; h += kTileRows) {
+    const int64_t nr = (R + h - 1) / h, ncmax = cap / nr;
+    if (ncmax == 0) continue;
+    const int64_t per = (C + ncmax - 1) / ncmax;
+    const int64_t w = std::min(wmax, (per + kTileCols - 1) / kTileCols * kTileCols);
+    if (h * w > vals) continue;
+    if (best == 0 || h * w < best ||
+        (h * w == best && std::min(h, w) > std::min<int64_t>(p.h, p.w)))
+      best = h * w, p.h = static_cast<int>(h), p.w = static_cast<int>(w);
+  }
+  if (best == 0) {
+    p.h = static_cast<int>(std::min<int64_t>(128, hmax));
+    p.w = static_cast<int>(std::min(wmax, vals / p.h / kTileCols * kTileCols));
+  }
+  p.nc = static_cast<int>((C + p.w - 1) / p.w);
+  const int64_t tiles = (R + p.h - 1) / p.h * p.nc;
+  p.tiles = static_cast<int>(tiles);
+  p.blocks = static_cast<int>(std::max<int64_t>(1, std::min(tiles, cap)));
+  p.rounds = best ? 0 : static_cast<int>((tiles + p.blocks - 1) / p.blocks);
+  p.cw = p.w / kChunk, p.dr = kThreads / p.cw, p.dc = kThreads % p.cw;
+  p.pitch = p.w / 4 + 1;
+  return p;
+}
+
+template <typename T>
+using KtKernel = void (*)(const T*, uint8_t*, uint8_t*, float*, float*, unsigned*, TilePlan);
+
+template <typename T, int G, class Family>
+int resident_kt() {
+  static const int r = resident_blocks(Family::template kernel_kt<T, G, kOne>(0));
+  return r;
+}
+
+template <typename T, int G, class Family>
+int run_kt_at(const T* x, uint8_t* q, uint8_t* qk, float* s, float* partial, unsigned* bar,
+              int64_t R, int64_t C, int fmt, int drop, int skip, cudaStream_t st) {
+  const int r = resident_kt<T, G, Family>();
+  if (r <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool kw = reinterpret_cast<uintptr_t>(qk) % 4 == 0;
+  const TilePlan p = make_tile_plan<T>(R, C, G, r, drop, skip, kw);
+  cudaError_t err;
+  if (p.rounds == 0) {
+    err = launch(Family::template kernel_kt<T, G, kOne>(fmt), p.blocks, true, st, x, q, qk, s,
+                 partial, bar, p);
+  } else {
+    err = launch(Family::template kernel_kt<T, G, kMax>(fmt), p.blocks, false, st, x, q, qk, s,
+                 partial, bar, p);
+    if (err == cudaSuccess)
+      err = launch(Family::template kernel_kt<T, G, kCast>(fmt), p.blocks, false, st, x, q, qk,
+                   s, partial, bar, p);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// x (R, C) in T -> q (R, C) bytes, qk (C, R) bytes, s (1,); drop and skip:
+// the checks' control faults, else -1
+template <typename T, class Family>
+int run_kt(const void* x, void* q, void* qk, void* s, void* partial, void* bar, int64_t R,
+           int64_t C, int fmt, int drop, int skip, cudaStream_t st) {
+  if (R <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  uint8_t* qp = static_cast<uint8_t*>(q);
+  uint8_t* kp = static_cast<uint8_t*>(qk);
+  float* sp = static_cast<float*>(s);
+  float* pp = static_cast<float*>(partial);
+  unsigned* bp = static_cast<unsigned*>(bar);
+  switch (granule_kt(x, q, C, sizeof(T))) {
+    case 8: return run_kt_at<T, 8, Family>(xp, qp, kp, sp, pp, bp, R, C, fmt, drop, skip, st);
+    case 4: return run_kt_at<T, 4, Family>(xp, qp, kp, sp, pp, bp, R, C, fmt, drop, skip, st);
+    case 2: return run_kt_at<T, 2, Family>(xp, qp, kp, sp, pp, bp, R, C, fmt, drop, skip, st);
+    default: return run_kt_at<T, 1, Family>(xp, qp, kp, sp, pp, bp, R, C, fmt, drop, skip, st);
+  }
+}
+
+// the K-major launcher's plan for x, q and qk (R, C) into out (8,): blocks,
+// rounds (0: one launch), G, resident blocks, values a block holds in one
+// round, h, w, tiles
+template <typename T, class Family>
+int plan_kt(const void* x, const void* q, const void* qk, int64_t R, int64_t C, int* out) {
+  if (R <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = granule_kt(x, q, C, sizeof(T));
+  const int r = G == 8   ? resident_kt<T, 8, Family>()
+                : G == 4 ? resident_kt<T, 4, Family>()
+                : G == 2 ? resident_kt<T, 2, Family>()
+                         : resident_kt<T, 1, Family>();
+  const TilePlan p = make_tile_plan<T>(R, C, G, r, -1, -1,
+                                       reinterpret_cast<uintptr_t>(qk) % 4 == 0);
+  out[0] = p.blocks, out[1] = p.rounds, out[2] = p.G, out[3] = r;
+  out[4] = kThreads * max_chunks<T>() * kChunk;
+  out[5] = p.h, out[6] = p.w, out[7] = p.tiles;
   return r > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 

@@ -19,6 +19,9 @@ SIGNATURES = (
     ("f8_tensor_quantize", (P, I, I64, P, P, P, P, I, P)),
     ("f8_tensor_quantize_drop", (P, I, I64, P, P, P, P, I, I, P)),
     ("f8_tensor_quantize_plan", (P, I, P, I64, P)),
+    ("f8_tensor_quantize_kt", (P, I, I64, I64, P, P, P, P, P, I, P)),
+    ("f8_tensor_quantize_kt_fault", (P, I, I64, I64, P, P, P, P, P, I, I, I, P)),
+    ("f8_tensor_quantize_kt_plan", (P, I, P, P, I64, I64, P)),
     ("f8_block_quantize", (P, I, P, P, I, I, I, I, I, P)),
     ("f8_matmul_dequant_t", _MATMUL),
     ("f8_mixed_matmul_t", _MIXED),

@@ -528,6 +528,17 @@ struct Fp8Codec {
     }
     tq::cast_work<MODE, G>(Fp8Four<F, false>{absmax, 0.f}, v, w);
   }
+
+  // the K-major form's encoder: for bf16 inputs below kFastMax (fast) the
+  // reciprocal's division, else __fdiv_rn
+  template <typename T>
+  __device__ __forceinline__ static bool fast(float absmax) {
+    return std::is_same<T, __nv_bfloat16>::value && absmax < kFastMax;
+  }
+  template <bool FAST>
+  __device__ __forceinline__ static Fp8Four<F, FAST> encoder(float absmax) {
+    return Fp8Four<F, FAST>{absmax, FAST ? __frcp_rn(absmax) : 0.f};
+  }
 };
 
 // __launch_bounds__ 2 blocks an SM: at most 128 registers a thread, so 264
@@ -540,11 +551,28 @@ fp8_tensor_quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
   tq::quantize<T, G, MODE, Fp8Codec<F>>(x, q, s, partial, bar, p);
 }
 
+// tensor_quantize_kt: the same codes and state, and qk (C, R), the K-major
+// copy of q that the forward GEMMs read, from the same registers (the
+// skeleton's tile split, tq::quantize_kt)
+template <typename T, int G, int F, int MODE>
+__global__ void __launch_bounds__(tq::kThreads, 2)
+fp8_tensor_quantize_kt_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
+                              uint8_t* __restrict__ qk, float* __restrict__ s,
+                              float* __restrict__ partial, unsigned* __restrict__ bar,
+                              tq::TilePlan p) {
+  tq::quantize_kt<T, G, MODE, Fp8Codec<F>>(x, q, qk, s, partial, bar, p);
+}
+
 struct Fp8Kernels {                  // the launcher's family (tq::run): format 0 or 1
   template <typename T, int G, int MODE>
   static tq::Kernel<T> kernel(int fmt) {
     if (fmt) return fp8_tensor_quantize_kernel<T, G, 1, MODE>;
     return fp8_tensor_quantize_kernel<T, G, 0, MODE>;
+  }
+  template <typename T, int G, int MODE>
+  static tq::KtKernel<T> kernel_kt(int fmt) {
+    if (fmt) return fp8_tensor_quantize_kt_kernel<T, G, 1, MODE>;
+    return fp8_tensor_quantize_kt_kernel<T, G, 0, MODE>;
   }
 };
 
@@ -1102,6 +1130,37 @@ int f8_tensor_quantize_drop(const void* x, int bf16, int64_t n, void* partial, v
 int f8_tensor_quantize_plan(const void* x, int bf16, const void* q, int64_t n, int* out) {
   return bf16 ? tq::plan<__nv_bfloat16, Fp8Kernels>(x, q, n, out)
               : tq::plan<float, Fp8Kernels>(x, q, n, out);
+}
+
+// x (R, C) -> q (R, C), qk (C, R) (q's bytes, K-major: the forward GEMMs'
+// W), s (1,); partial and bar as f8_tensor_quantize
+int f8_tensor_quantize_kt(const void* x, int bf16, int64_t R, int64_t C, void* partial,
+                          void* bar, void* q, void* qk, void* s, int fmt, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? tq::run_kt<__nv_bfloat16, Fp8Kernels>(x, q, qk, s, partial, bar, R, C, fmt, -1,
+                                                      -1, st)
+              : tq::run_kt<float, Fp8Kernels>(x, q, qk, s, partial, bar, R, C, fmt, -1, -1, st);
+}
+
+// the control faults of the checks: block `drop`'s partial left out of the
+// absmax, block `skip`'s tile of qk left unwritten (-1: none; not a path's
+// entry point)
+int f8_tensor_quantize_kt_fault(const void* x, int bf16, int64_t R, int64_t C, void* partial,
+                                void* bar, void* q, void* qk, void* s, int fmt, int drop,
+                                int skip, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? tq::run_kt<__nv_bfloat16, Fp8Kernels>(x, q, qk, s, partial, bar, R, C, fmt, drop,
+                                                      skip, st)
+              : tq::run_kt<float, Fp8Kernels>(x, q, qk, s, partial, bar, R, C, fmt, drop, skip,
+                                              st);
+}
+
+// out (8,) host ints: the plan tensor_quantize_kt takes for these pointers
+// and (R, C)
+int f8_tensor_quantize_kt_plan(const void* x, int bf16, const void* q, const void* qk, int64_t R,
+                               int64_t C, int* out) {
+  return bf16 ? tq::plan_kt<__nv_bfloat16, Fp8Kernels>(x, q, qk, R, C, out)
+              : tq::plan_kt<float, Fp8Kernels>(x, q, qk, R, C, out);
 }
 
 // s (ceil(R / br), ceil(C / bc)) f32, row-major; 1 <= br <= R, 1 <= bc <= C.

@@ -56,7 +56,11 @@ blocks' registers, their maxima met at one grid barrier) bit-equal to
 their plain versions at every path weight, ragged n and the one-launch
 limit's edges, from every granule's offset, the control fault (the
 absmax's block's partial left out) caught; a captured CUDA graph replays
-to the same bytes; one CUDA kernel a call on every path weight.
+to the same bytes; one CUDA kernel a call on every path weight. The fp8
+forward's K-major W from the quantizer (``tensor_quantize_kt``): q and the
+state ``tensor_quantize``'s bits, q_k ``transpose_bytes``' bytes, one CUDA
+kernel a call, the forwards given it bit-equal to those through
+``transpose_bytes``, its control faults caught.
 The two op-entry-point kernels: ``fp8_cast_tensorwise``
 (``kernels/fp8_cast``) bit-equal to its plain version, both formats, f32
 and bf16 inputs, a pointer off 16-byte alignment, twice the same bits;
@@ -763,6 +767,62 @@ def test_cuda_transpose_bytes_matches_plain(K, M):
     got = F8.transpose_bytes(w_q)
     assert F8.launch_counts()["fp8_transpose_bytes"] == 1
     assert got.dtype == torch.uint8 and torch.equal(got, w_q.view(torch.uint8).t().contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,M", [(1280, 3840), (5120, 1280), (588, 1280), (130, 70), (37, 5)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_tensor_quantize_kt_is_tensor_quantize_and_transpose_bytes(K, M, dt):
+    """The fold, both formats: q and the state bit-equal to
+    ``tensor_quantize``'s, q_k to ``transpose_bytes`` of that q, twice the
+    same bits, one CUDA kernel a call (two past the registers, as f32 at
+    1,280 x 3,840 and 5,120 x 1,280; counted once as fp8_tensor_quantize); the
+    forwards given its q_k bit-equal to the same calls through
+    ``transpose_bytes``."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(K * M)
+    w = (torch.randn((K, M), generator=gen, device=dev)
+         * torch.exp(torch.empty((K, M), device=dev).uniform_(-4, 4, generator=gen))).to(dt)
+    for fmt in ("e4m3", "e5m2"):
+        F8.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            q, s, q_k = F8.tensor_quantize_kt(w, fmt)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages() if "tensor_quantize" in e.key)
+        passes = 1 if F8.tensor_quantize_kt_plan(w)["rounds"] == 0 else 2   # f32 past ~4.3 M
+        assert kernels <= passes and F8.launch_counts()["fp8_tensor_quantize"] == 1, kernels
+        rq, rs = F8.tensor_quantize(w, fmt)
+        assert torch.equal(_bits(q), _bits(rq)) and torch.equal(s, rs)
+        assert torch.equal(_bits(q), _bits(F8REF.tensor_quantize(w, fmt)[0]))
+        assert q_k.dtype == torch.uint8 and torch.equal(q_k, F8.transpose_bytes(rq))
+        again = F8.tensor_quantize_kt(w, fmt)
+        assert torch.equal(_bits(again[0]), _bits(q)) and torch.equal(again[2], q_k)
+    w_q, s_w, w_k = F8.tensor_quantize_kt(w, "e4m3")
+    x = (torch.randn((300, K), generator=gen, device=dev) * 3).to(dt)
+    x[:, :4] *= 1000.0                                 # tiles that fall back in fp8_mixed
+    x_q, s_x = F8.row_quantize(x, "e4m3")
+    for kw in ({}, {"out_dtype": torch.float32}):
+        assert torch.equal(F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, w_k=w_k, **kw),
+                           F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, **kw))
+        assert torch.equal(F8.mixed(x, w_q, s_w, block_rows=64, block_cols=64, w_k=w_k, **kw),
+                           F8.mixed(x, w_q, s_w, block_rows=64, block_cols=64, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_quantize_kt_faults_are_caught():
+    """The fold's control faults: block 0's partial left out changes the
+    state where it holds the absmax; block 0's K-major tile left unwritten
+    leaves 0xff bytes there."""
+    dev = _card()
+    w = torch.randn((1280, 1280), device=dev).to(torch.bfloat16)
+    w[0, 0] = 100.0
+    q, s, q_k = F8.tensor_quantize_kt(w, "e4m3")
+    _, s_f, _ = F8.tensor_quantize_kt_fault(w, "e4m3", drop=0)
+    assert float(s_f) < float(s)
+    q_f, s_f, k_f = F8.tensor_quantize_kt_fault(w, "e4m3", skip=0)
+    assert torch.equal(_bits(q_f), _bits(q)) and torch.equal(s_f, s)
+    assert not torch.equal(k_f, q_k) and int(k_f[0, 0]) == 0xFF
 
 
 # ---------------------------------------------------------------------------

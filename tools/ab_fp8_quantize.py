@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The fp8 row and tile quantizers of one checkout of the port, read on one card.
+"""The fp8 quantizers of one checkout of the port, read on one card.
 
     python3 tools/ab_fp8_quantize.py [--src DIR] [--tag NAME] [--out FILE]
 
@@ -18,8 +18,14 @@ commits are read by the same code on the same card:
   text layer's 12 (2,464) and the patch embedding's one (8,192 x 588), by
   graph replay, beside the bound; ``time_tensor_quantize``: the fp8 modes'
   ``tensor_quantize`` (E4M3) of each of those layers' weights (6, 6, 1);
+  the fp8 forward's K-major W at the same weights by the checkout's route
+  (``fp8_k_major_w``: the fold ``tensor_quantize_kt`` where the checkout
+  has it, else ``tensor_quantize`` then ``transpose_bytes``) beside that
+  pair (``fp8_pair``), both against the fold's bound (4 bytes a bf16
+  value);
 * phase 19's tensor-quantizer edges (``compare_tensor_quantizer_edges``,
-  both formats) where the checkout has the entry points they need;
+  both formats; ``compare_kt_edges``) where the checkout has the entry
+  points they need;
 * the SASS of the built library (``cuobjdump -sass``): for each quantizer
   kernel its instructions, and per value the instructions of its main
   loops (a loop's body over the values one pass of it handles: the loads
@@ -30,6 +36,11 @@ commits are read by the same code on the same card:
   values a thread holds (8 chunks of 8); ``sass_tensor``: the tensor
   quantizer's bf16 16-byte path a value (``tensor_sass``).
 
+With ``--train-steps N``: also N CLIP train steps at 2 + 2 layers and full
+width in ``fp8`` and ``fp8_mixed`` (batch 32, parameters, batches and kept
+patches from ``--seed``), their losses and a SHA-256 of the final
+parameters' bytes, so that two checkouts' steps can be held bit for bit.
+
 Run it for two checkouts in turns (A, B, B, A) within one call to compare
 them. Prints one JSON line and appends it to ``--out``. Needs one card;
 exits 1 without one, and on any failed check.
@@ -37,6 +48,8 @@ exits 1 without one, and on any failed check.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -225,11 +238,44 @@ def sass_counts(lib_path: str) -> dict:
              if any(q in name for q in QUANTIZERS)}, tensor_sass(funcs))
 
 
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of a parameter tree's leaves, in name order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def clip_steps(torch, C, cfg, dev, seed, steps):
+    """``steps`` CLIP train steps at 2 + 2 layers, full width, batch 32, in
+    each fp8 kernel mode (chip_smoke's ``path_run``): per mode the losses and
+    the SHA-256 of the final parameters' bytes, leaf by leaf in name order."""
+    from repro_torch.models import params as PRM
+    from repro_torch.models.clip import patch_keep_sampler
+    small = dataclasses.replace(cfg, vision_layers=2, text_layers=2)
+    draw = patch_keep_sampler(small)
+    path = types.SimpleNamespace(small=small, opt=C.CLIP_OPT)
+    p0 = PRM.init_params(C.param_specs_of(small), seed, device="cpu")
+    batches = C.clip_batches(torch, small, steps, C.CLIP_BATCH, "cpu", seed)
+    keeps = [draw(torch.Generator().manual_seed(seed + i)) for i in range(steps)]
+    out = {}
+    for mode in C.FP8_KERNEL_MODES:
+        losses, params = C.path_run(torch, path, dev, mode, p0, batches, keeps)
+        h = hashlib.sha256()
+        for name, leaf in named_leaves(params):
+            h.update(name.encode())
+            h.update(leaf.detach().reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+        out[mode] = dict(losses=losses, params_sha256=h.hexdigest())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "runs", "ab_fp8_quantize.jsonl"))
     args = ap.parse_args(argv)
     import torch
@@ -276,7 +322,23 @@ def main(argv=None) -> int:
             times[f"fp8_tensor_quantize {tower}"] = {k: r[k] for k in (
                 "ms", "eager_ms", "calls", "work")} | {"bound_ms": r["bound"][0],
                                                       "bound_share": r["bound"][0] / r["ms"]}
+            # the forward's K-major W: this checkout's route, and the pair
+            kt = getattr(F8, "tensor_quantize_kt", None)
+            pair = lambda w: F8.transpose_bytes(F8.tensor_quantize(w, "e4m3")[0])
+            routes = {"fp8_k_major_w": (lambda w: kt(w, "e4m3")) if kt else pair,
+                      "fp8_pair": pair}
+            for key, fn in routes.items():
+                r = C.time_tensor_quantize(torch, fn, None, gen, dev, C.tower_weights(lins),
+                                           f"one {tower} layer ({key})", k_major=True)
+                times[f"{key} {tower}"] = {k: r[k] for k in (
+                    "ms", "eager_ms", "calls", "work")} | {
+                    "bound_ms": r["bound"][0], "bound_share": r["bound"][0] / r["ms"],
+                    "route": "tensor_quantize_kt" if kt and key == "fp8_k_major_w"
+                             else "tensor_quantize + transpose_bytes"}
         res["times"] = times
+        if args.train_steps:
+            res["clip_steps"] = clip_steps(torch, C, get_config("clip-vit-huge"), dev, args.seed,
+                                           args.train_steps)
     except C.Failure as e:
         print(f"ab_fp8_quantize ({args.tag}): FAILED: {e}", file=sys.stderr)
         return 1
@@ -285,7 +347,7 @@ def main(argv=None) -> int:
         card=smi, us={k: r["ms"] * 1e3 for k, r in times.items()},
         sass_per_value={k: round(v["per_value"], 2) for k, v in
                         {**res["sass"], **res["sass_tensor"]}.items()},
-        comparisons=n, seconds=res["seconds"])))
+        comparisons=n, seconds=res["seconds"], clip_steps=res.get("clip_steps"))))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as fh:
         fh.write(json.dumps(res) + "\n")
