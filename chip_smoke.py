@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22):
+24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the TF32 flags (both left False);
@@ -252,7 +252,40 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     whether the fragment itself is truncated, subnormal products; fails if
     a form keeps fewer bits than ``F8REF.ACC_BITS`` (what matmul_bound and
     the model assume). Beside them the attention kernels' mma.sync
-    m16n8k16 bf16 step: the widths of a step's sum and of its addends.
+    m16n8k16 bf16 step: the widths of a step's sum and of its addends;
+29. self-healing CLIP training and the flight recorder (after phase 26):
+    CLIP ViT-H/14 at full width and 2 + 2 layers, ``int8_switchback`` with
+    zero-init layer-scale, batch 32, patch dropout 0.5, StableAdamW, data
+    index j a ``DeterministicBatcher`` over ``SyntheticCLIP(seed=2900 +
+    j)``, checkpoints in a temporary directory the phase removes; every
+    launch counter exactly the CLIP step's count times the steps each run
+    took. (a) 12 steps, a checkpoint every 3 (4 kept): losses and a SHA-256
+    of the final state; (b) the same run crashed at step 7
+    (``SimulatedCrash``), a fresh Trainer resumes at 6: losses and digest
+    bit-equal to (a); a leaf of the newest checkpoint truncated and a stray
+    ``.tmp`` left: resume warns, falls back to 9, replays to (a)'s digest;
+    (c) a ``TrainSupervisor`` under a NaN gradient at index 7, checkpoint
+    6 bit-flipped, checkpoint 9's write failing and a gradient explosion at
+    index 13 (detection only the faults can trip): its report equal to
+    SELFHEAL_REPORT (pinned against the JAX supervisor on the CPU), every
+    loss finite; (d) a plain Trainer without checkpoints fed the shifted
+    indices (c)'s rewind log implies reaches (c)'s losses and digest bit
+    for bit; (e) two control faults break (d)'s equality: a restore that
+    leaves the generator as it was, a skip one index short; (f) (c) again
+    with telemetry and a ``torch.profiler`` window over steps 2-3: the file
+    valid, its event kinds and steps equal to SELFHEAL_EVENTS (pinned as
+    the report), the trace naming the fused SwitchBack and flash kernels,
+    losses, digest and metric fetches those of (c); the median
+    ``checkpoint_save``, ``rewind`` and ``flush`` spans and the wall time
+    a step with and without checkpoints; (g) phase 25's paged engine
+    serves 8 requests with telemetry on and (c)'s supervisor as
+    ``stability_source``: the telemetry-off run's tokens, every request's
+    submitted and finished events, prefill and decode wave spans, launches
+    exact, the stats row's ``supervisor_*`` (c)'s counters; (h) the
+    full-depth state (0.99 B parameters), one step, then ``save_async``,
+    ``wait``, ``verify`` and ``restore`` into a fresh state: every leaf and
+    the generator's state bit-equal; bytes, free disk (too little fails
+    the phase) and seconds of each part.
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -4838,6 +4871,559 @@ def time_op_kernels(torch, M, cfg, clip_cfg, dev, seed):
 
 # ---------------------------------------------------------------------------
 
+# -- phase 29: self-healing CLIP training and the flight recorder -----------
+# CLIP ViT-H/14 at full width and 2 + 2 layers, int8_switchback with
+# zero-init layer-scale, batch CLIP_BATCH, patch dropout 0.5, StableAdamW;
+# data index j -> DeterministicBatcher over SyntheticCLIP(seed =
+# SELFHEAL_DATA_SEED + j), a pure function of j
+SELFHEAL_STEPS, SELFHEAL_EVERY, SELFHEAL_KEEP = 12, 3, 4
+SELFHEAL_DATA_SEED = 2900
+# (c)'s plan: a NaN gradient at data index 7, checkpoint 6 bit-flipped after
+# its write, checkpoint 9's write failing, a gradient explosion at data
+# index 13 (reached after the first rewind's skip)
+SELFHEAL_PLAN = (dict(step=7, kind="nan_grad"), dict(step=6, kind="corrupt_ckpt", key="step"),
+                 dict(step=9, kind="fail_save", key="step"), dict(step=13, kind="explode_grad"))
+# detection that only the injected faults can trip: the EMA ratios far past
+# any sound step's spread, the spike detector's history past the run
+SELFHEAL_SUP = dict(checkpoint_every=SELFHEAL_EVERY, keep_checkpoints=SELFHEAL_KEEP,
+                    log_every=0, detect_warmup=2, grad_norm_ratio=1e3, loss_jump_ratio=1e3,
+                    spike_min_history=100)
+SELFHEAL_PROFILE = (2, 3)
+# (c)'s report() and (f)'s event sequence, pinned on the CPU against the
+# JAX package's supervisor under the same plan and config
+# (tests/test_torch_selfheal.py); rewind_log entries without their detail
+# (it prints the step's loss)
+SELFHEAL_REPORT = {
+    "rewinds": 2, "data_steps_skipped": 8, "incidents": 2, "escalations": 0,
+    "save_failures": 1, "save_retries": 1,
+    "incident_kinds": {"nonfinite": 1, "grad_explosion": 1}, "data_offset": 8,
+    "fault_plan_fired": {"nan_grad": 1, "corrupt_ckpt": 1, "fail_save": 1, "explode_grad": 1},
+    "rewind_log": [
+        {"fault_step": 7, "kind": "nonfinite", "restored_step": 3, "attempt": 1, "skipped": 5,
+         "data_offset": 5},
+        {"fault_step": 8, "kind": "grad_explosion", "restored_step": 6, "attempt": 1,
+         "skipped": 3, "data_offset": 8}]}
+SELFHEAL_EVENTS = [
+    ["train_step", "", 0], ["span", "flush", 0], ["flush", "", 0],
+    ["train_step", "", 1], ["span", "flush", 1], ["flush", "", 1],
+    ["profile", "start", 2], ["train_step", "", 2], ["span", "flush", 2],
+    ["flush", "", 2], ["span", "checkpoint_save", 3], ["checkpoint", "", 3],
+    ["train_step", "", 3], ["span", "flush", 3], ["flush", "", 3],
+    ["profile", "stop", 4], ["train_step", "", 4], ["span", "flush", 4],
+    ["flush", "", 4], ["train_step", "", 5], ["span", "flush", 5], ["flush", "", 5],
+    ["span", "checkpoint_save", 6], ["checkpoint", "", 6], ["train_step", "", 6],
+    ["span", "flush", 6], ["flush", "", 6], ["train_step", "", 7],
+    ["anomaly", "nonfinite", 7], ["span", "rewind", 7], ["rewind", "nonfinite", 7],
+    ["train_step", "", 3], ["span", "flush", 3], ["flush", "", 3],
+    ["train_step", "", 4], ["span", "flush", 4], ["flush", "", 4],
+    ["train_step", "", 5], ["span", "flush", 5], ["flush", "", 5],
+    ["span", "checkpoint_save", 6], ["checkpoint", "", 6], ["train_step", "", 6],
+    ["span", "flush", 6], ["flush", "", 6], ["train_step", "", 7],
+    ["span", "flush", 7], ["flush", "", 7], ["train_step", "", 8],
+    ["anomaly", "grad_explosion", 8], ["span", "rewind", 8],
+    ["rewind", "grad_explosion", 8], ["train_step", "", 6], ["span", "flush", 6],
+    ["flush", "", 6], ["train_step", "", 7], ["span", "flush", 7], ["flush", "", 7],
+    ["train_step", "", 8], ["span", "flush", 8], ["flush", "", 8],
+    ["span", "checkpoint_save", 9], ["checkpoint", "", 9], ["train_step", "", 9],
+    ["span", "flush", 9], ["flush", "", 9], ["save_failure", "", 9],
+    ["train_step", "", 10], ["span", "flush", 10], ["flush", "", 10],
+    ["train_step", "", 11], ["span", "flush", 11], ["flush", "", 11],
+    ["span", "checkpoint_save", 12], ["checkpoint", "", 12],
+]
+# phase 29's serve run: 8 requests through phase 25's paged engine
+SELFHEAL_SERVE = dict(n=8, prompt=(64, 256), new=16)
+# the profiler's trace must name these kernels of the path
+SELFHEAL_TRACE_KERNELS = ("fused_switchback_kernel", "flash_fwd", "flash_bwd_dq",
+                          "flash_bwd_dkv")
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def selfheal_config():
+    from repro_torch.configs.base import SupervisorConfig
+    return SupervisorConfig(**SELFHEAL_SUP)
+
+
+def selfheal_plan():
+    from repro_torch.train import FaultPlan, FaultSpec
+    return FaultPlan([FaultSpec(**f) for f in SELFHEAL_PLAN])
+
+
+def report_key(rep) -> dict:
+    """The part of a supervisor's report() that phase 29 holds: counters,
+    incident kinds, the rewind log without its detail, the data offset and
+    the faults fired."""
+    keys = ("rewinds", "data_steps_skipped", "incidents", "escalations", "save_failures",
+            "save_retries", "incident_kinds", "data_offset", "fault_plan_fired")
+    return {**{k: rep[k] for k in keys},
+            "rewind_log": [{k: v for k, v in e.items() if k != "detail"}
+                           for e in rep["rewind_log"]]}
+
+
+def event_sequence(records) -> list:
+    """[kind, name, step] of each telemetry record but the meta header (a
+    span's name, a profile or request event, an anomaly's kind); times and
+    values left out."""
+    return [[r["kind"], r.get("name") or r.get("event") or r.get("anomaly") or "",
+             r.get("step")] for r in records if r["kind"] != "meta"]
+
+
+def shifted_indices(rewind_log, n) -> list:
+    """The data index of each of ``n`` steps on the trajectory that survives
+    the rewinds: a rewind restoring step r with data offset o replays every
+    step from r on with index i + o."""
+    off = [0] * n
+    for ev in rewind_log:
+        for i in range(ev["restored_step"], n):
+            off[i] = ev["data_offset"]
+    return [i + o for i, o in enumerate(off)]
+
+
+def state_leaves(state, prefix=""):
+    """(path, leaf) of a train state in a fixed order (NamedTuple fields,
+    sorted dict keys)."""
+    if isinstance(state, dict):
+        for k in sorted(state):
+            yield from state_leaves(state[k], f"{prefix}/{k}")
+    elif hasattr(state, "_fields"):
+        for k in state._fields:
+            yield from state_leaves(getattr(state, k), f"{prefix}/{k}")
+    else:
+        yield prefix, state
+
+
+def leaf_bytes(torch, leaf):
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state().numpy().tobytes()
+    return leaf.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes()
+
+
+def state_digest(torch, state) -> str:
+    """SHA-256 over every leaf of a train state: parameters, optimizer and
+    scaler state, step and the generator's state."""
+    import hashlib
+    h = hashlib.sha256()
+    for path, leaf in state_leaves(state):
+        h.update(path.encode())
+        h.update(leaf_bytes(torch, leaf))
+    return h.hexdigest()
+
+
+def selfheal_parts(torch, cfg, dev, seed, batch=CLIP_BATCH, layers=(2, 2)):
+    """Phase 29's training path: the CLIP config at ``layers`` (vision,
+    text), zero-init layer-scale, int8_switchback, its step (counted), a
+    fresh state from ``seed``, and ``data_fn(j)`` (cached on ``dev``)."""
+    from repro_torch.data import DeterministicBatcher, SyntheticCLIP
+    from repro_torch.models import params as PRM
+    from repro_torch.train import init_train_state
+    small = dataclasses.replace(cfg, vision_layers=layers[0], text_layers=layers[1],
+                                layer_scale_init=0.0)
+    bundle, policy, parallel, tc, step, opt, scaler = train_parts(
+        torch, small, dev, mode="int8_switchback", **CLIP_OPT)
+    batcher = DeterministicBatcher(
+        lambda s: SyntheticCLIP(small.image_size, small.text_ctx, small.text_vocab,
+                                n_classes=32, seed=s), seed=SELFHEAL_DATA_SEED)
+    cache, calls = {}, [0]
+
+    def data_fn(j):
+        if j not in cache:
+            b = batcher.batch_at(j, batch_size=batch)
+            cache[j] = {"images": torch.from_numpy(b["images"]).to(dev),
+                        "texts": torch.from_numpy(b["texts"]).to(device=dev, dtype=torch.long)}
+        return cache[j]
+
+    def fresh_state(s=seed):
+        return init_train_state(PRM.init_params(bundle.param_specs, s, device=dev), opt,
+                                scaler, seed=s)
+
+    def counted(state, b):
+        calls[0] += 1
+        return step(state, b)
+
+    return types.SimpleNamespace(cfg=small, step=counted, calls=calls, data_fn=data_fn,
+                                 fresh_state=fresh_state, dev=dev)
+
+
+def selfheal_trainer(P, state, ckpt_dir=None, plan=None, telemetry=None):
+    """A Trainer over phase 29's step: flush every step, checkpoints every
+    SELFHEAL_EVERY steps (kept SELFHEAL_KEEP) when a directory is given, no
+    early checkpoint on a slow step (the watchdog reads wall time)."""
+    from repro_torch.train import Trainer
+    return Trainer(P.step, state, checkpoint_dir=ckpt_dir,
+                   checkpoint_every=SELFHEAL_EVERY if ckpt_dir else 0,
+                   keep_checkpoints=SELFHEAL_KEEP, log_every=0, fault_plan=plan,
+                   early_checkpoint_on_slow=False, telemetry=telemetry)
+
+
+def selfheal_supervised(P, ckpt_dir, telemetry=None):
+    """(c): a TrainSupervisor over SELFHEAL_STEPS steps under
+    SELFHEAL_PLAN and SELFHEAL_SUP (no early checkpoint on a slow step)."""
+    from repro_torch.train import TrainSupervisor
+    sup = TrainSupervisor(P.step, P.fresh_state(), P.data_fn, checkpoint_dir=ckpt_dir,
+                          config=selfheal_config(), fault_plan=selfheal_plan(),
+                          telemetry=telemetry)
+    sup.trainer.early_checkpoint_on_slow = False
+    sup.run(SELFHEAL_STEPS)
+    return sup
+
+
+def check_selfheal_launches(M, P, what):
+    """Every launch counter (zeroed just before the run) exactly the CLIP
+    step's count times the steps the run took (replays included)."""
+    counts = launch_counts(M)
+    want = {k: per * P.calls[0] for k, per in
+            clip_launches_per_step(P.cfg, "int8_switchback", M.KOPS.FUSED_MAX_CONTRACT).items()}
+    check_launches(counts, want, f"phase 29 {what}")
+    return counts
+
+
+@contextlib.contextmanager
+def generator_kept():
+    """Control fault (e): a restore that leaves the train state's
+    torch.Generator as it was."""
+    from repro_torch.train import Trainer
+    orig = Trainer.restore_checkpoint
+
+    def restore(self, step=None):
+        rng = self.state.rng
+        out = orig(self, step)
+        self.state = self.state._replace(rng=rng)
+        return out
+
+    Trainer.restore_checkpoint = restore
+    try:
+        yield
+    finally:
+        Trainer.restore_checkpoint = orig
+
+
+@contextlib.contextmanager
+def counting_fetches():
+    """Count the trainer's device-to-host metric fetches (one per flush)."""
+    import repro_torch.train.trainer as TR
+    real, n = TR.fetch_metrics, [0]
+
+    def fetch(window):
+        n[0] += 1
+        return real(window)
+
+    TR.fetch_metrics = fetch
+    try:
+        yield n
+    finally:
+        TR.fetch_metrics = real
+
+
+def span_seconds(records, name) -> list:
+    return [r["dur_s"] for r in records if r["kind"] == "span" and r["name"] == name]
+
+
+def trace_kernel_names(path) -> set:
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def selfheal_training(torch, M, cfg, dev, seed, root, batch=CLIP_BATCH):
+    """Phase 29 (a)-(f) under ``root``: the clean run, crash and resume, the
+    torn checkpoint, the supervised run, the shifted stream, the control
+    faults and the flight recorder. Returns (readings, supervisor)."""
+    import shutil
+    import warnings
+
+    from repro_torch.telemetry import Telemetry, validate_file
+    from repro_torch.telemetry.report import load
+    from repro_torch.train import FaultPlan, FaultSpec, SimulatedCrash
+    P = selfheal_parts(torch, cfg, dev, seed, batch=batch)
+    n = SELFHEAL_STEPS
+    out, secs = {}, {}
+    t_part = [time.perf_counter()]
+
+    def part(name, *dirs):
+        """Close part ``name``: its seconds; its checkpoint directories go."""
+        sync(torch, dev)
+        now = time.perf_counter()
+        secs[name] = now - t_part[0]
+        t_part[0] = now
+        for d in dirs:
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+
+    for j in range(n + 8):                 # every index (c) reads, built up front
+        P.data_fn(j)
+    part("data")
+    # (a) clean run with checkpoints
+    reset_launch_counts(M)
+    P.calls[0] = 0
+    t_a = selfheal_trainer(P, P.fresh_state(), os.path.join(root, "a"))
+    sync(torch, dev)
+    t = time.perf_counter()
+    t_a.run(P.data_fn, n)
+    sync(torch, dev)
+    out["wall_ms_per_step_ckpt"] = (time.perf_counter() - t) / n * 1e3
+    check_selfheal_launches(M, P, "clean run")
+    losses_a = [h["loss"] for h in t_a.history]
+    digest_a = state_digest(torch, t_a.state)
+    check(len(losses_a) == n and all(math.isfinite(x) for x in losses_a),
+          f"phase 29 (a): losses {losses_a}")
+    check(t_a.ckpt.all_steps() == [3, 6, 9, 12], f"phase 29 (a): checkpoints "
+          f"{t_a.ckpt.all_steps()}")
+    del t_a
+    part("a", "a")
+    # (b) crash at step 7, then a fresh process: resume from 6
+    d_b = os.path.join(root, "b")
+    t_b = selfheal_trainer(P, P.fresh_state(), d_b,
+                           plan=FaultPlan([FaultSpec(step=7, kind="crash", key="step")]))
+    try:
+        t_b.run(P.data_fn, n)
+        check(False, "phase 29 (b): the planned crash did not fire")
+    except SimulatedCrash:
+        pass
+    t_b.ckpt.wait()
+    del t_b
+    t_r = selfheal_trainer(P, P.fresh_state(), d_b)
+    start = t_r.maybe_resume()
+    check(start == 6, f"phase 29 (b): resumed at {start}, expected 6")
+    t_r.run(P.data_fn, n - start)
+    losses_b = [h["loss"] for h in t_r.history]
+    check(losses_b == losses_a[6:], f"phase 29 (b): resumed losses {losses_b} != the clean "
+          f"run's {losses_a[6:]}")
+    check(state_digest(torch, t_r.state) == digest_a, "phase 29 (b): the resumed run's final "
+          "state is not the clean run's")
+    del t_r
+    # ... then a torn newest checkpoint (a leaf truncated) and a stray .tmp
+    newest = os.path.join(d_b, "step_00000012")
+    leaf = sorted(f for f in os.listdir(newest) if f.endswith(".npy"))[0]
+    with open(os.path.join(newest, leaf), "r+b") as f:
+        f.truncate(16)
+    os.makedirs(os.path.join(d_b, "step_00000015.tmp"))
+    t_t = selfheal_trainer(P, P.fresh_state(), d_b)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        start = t_t.maybe_resume()
+    check(start == 9 and any("skipping corrupt" in str(w.message) for w in caught),
+          f"phase 29 (b): torn checkpoint: resumed at {start}, warnings "
+          f"{[str(w.message) for w in caught]}")
+    t_t.run(P.data_fn, n - start)
+    check(state_digest(torch, t_t.state) == digest_a, "phase 29 (b): the replay past the torn "
+          "checkpoint does not reach the clean run's final state")
+    del t_t
+    part("b", "b")
+    # (c) supervised under the plan
+    reset_launch_counts(M)
+    P.calls[0] = 0
+    sync(torch, dev)
+    t = time.perf_counter()
+    with counting_fetches() as fetches_off:
+        sup = selfheal_supervised(P, os.path.join(root, "c"))
+    sync(torch, dev)
+    out["supervised_s"] = time.perf_counter() - t
+    check_selfheal_launches(M, P, "supervised run")
+    out["supervised_steps_taken"] = P.calls[0]
+    rep = report_key(sup.report())
+    out["report"] = rep
+    check(rep == SELFHEAL_REPORT, f"phase 29 (c): report {json.dumps(rep)} != the pinned "
+          f"{json.dumps(SELFHEAL_REPORT)}")
+    hist_c = sup.trainer.history
+    check(len(hist_c) == n and all(math.isfinite(h["loss"]) for h in hist_c),
+          f"phase 29 (c): history {[h['loss'] for h in hist_c]}")
+    digest_c = state_digest(torch, sup.trainer.state)
+    part("c", "c")
+    # (d) the shifted stream: a plain Trainer, no checkpoints
+    idx = shifted_indices(sup.report()["rewind_log"], n)
+    out["shifted_indices"] = idx
+
+    def shifted_digest(indices):
+        tr = selfheal_trainer(P, P.fresh_state())
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        tr.run(lambda i: (indices[i], P.data_fn(indices[i])), n)
+        sync(torch, dev)
+        return state_digest(torch, tr.state), [h["loss"] for h in tr.history], \
+            (time.perf_counter() - t0) / n * 1e3
+
+    digest_d, losses_d, out["wall_ms_per_step_plain"] = shifted_digest(idx)
+    check(digest_d == digest_c, "phase 29 (d): the shifted stream's final state is not the "
+          "supervised run's")
+    check(losses_d == [h["loss"] for h in hist_c], "phase 29 (d): the shifted stream's losses "
+          "are not the supervised run's")
+    part("d")
+    # (e) control faults, each must break (d)'s equality
+    short = [j - 1 if j != i else j for i, j in enumerate(idx)]
+    faults = {"skip one data index short": shifted_digest(short)[0] != digest_c}
+    with generator_kept():
+        g_sup = selfheal_supervised(P, os.path.join(root, "e"))
+    faults["restore leaves the generator as it was"] = \
+        state_digest(torch, g_sup.trainer.state) != digest_d
+    del g_sup
+    out["control_faults_caught"] = faults
+    check(all(faults.values()), f"phase 29 (e): a control fault kept (d)'s equality: {faults}")
+    part("e", "e")
+    # (f) the flight recorder: (c) again with telemetry and a profile window
+    path = os.path.join(root, "run.jsonl")
+    tele = Telemetry(path, profile_steps=SELFHEAL_PROFILE, profile_dir=os.path.join(root, "prof"),
+                     program="train", meta={"phase": 29})
+    try:
+        with counting_fetches() as fetches_on:
+            f_sup = selfheal_supervised(P, os.path.join(root, "f"), telemetry=tele)
+    finally:
+        tele.close()
+    errs = validate_file(path)
+    check(errs == [], f"phase 29 (f): telemetry file invalid: {errs[:5]}")
+    recs = load(path)
+    seq = event_sequence(recs)
+    check(seq == SELFHEAL_EVENTS, f"phase 29 (f): event sequence {json.dumps(seq)} != the "
+          f"pinned {json.dumps(SELFHEAL_EVENTS)}")
+    check([h["loss"] for h in f_sup.trainer.history] == [h["loss"] for h in hist_c]
+          and state_digest(torch, f_sup.trainer.state) == digest_c,
+          "phase 29 (f): telemetry on changed the losses or the final state")
+    check(fetches_on[0] == fetches_off[0], f"phase 29 (f): {fetches_on[0]} metric fetches with "
+          f"telemetry on, {fetches_off[0]} off")
+    out["metric_fetches"] = fetches_off[0]
+    stop = [r for r in recs if r["kind"] == "profile" and r.get("event") == "stop"]
+    check(len(stop) == 1, "phase 29 (f): profile events "
+          f"{[r for r in recs if r['kind'] == 'profile']}")
+    if dev.type == "cuda":
+        names = trace_kernel_names(stop[0]["file"])
+        missing = [k for k in SELFHEAL_TRACE_KERNELS if not any(k in nm for nm in names)]
+        check(not missing, f"phase 29 (f): the profiler's trace names none of {missing}")
+        out["trace_kernels"] = len(names)
+    out["span_median_s"] = {k: statistics.median(span_seconds(recs, k)) for k in
+                            ("checkpoint_save", "rewind", "flush")}
+    out["telemetry_records"] = len(recs)
+    out["losses"] = losses_a
+    out["digest"] = digest_a
+    del f_sup
+    part("f", "f", "prof")
+    out["seconds"] = secs
+    return out, sup
+
+
+def selfheal_serve(torch, M, cfg, eng, params, sup, root, seed):
+    """Phase 29 (g): the paged engine (phase 25's) serves SELFHEAL_SERVE's
+    requests with telemetry on and the supervisor as stability source:
+    the tokens of a telemetry-off run, every request's submitted and
+    finished events, spans of each wave kind, launches exact, the stats
+    row's supervisor_* equal to the supervisor's report."""
+    import numpy as np
+
+    from repro_torch.serve.engine import SUPERVISOR_KEYS
+    from repro_torch.telemetry import Telemetry, validate_file
+    from repro_torch.telemetry.report import load
+    s = SELFHEAL_SERVE
+    rng = np.random.default_rng(seed + 29)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(k)).tolist()
+               for k in rng.integers(s["prompt"][0], s["prompt"][1] + 1, size=s["n"])]
+    off, _ = eng.generate(params, prompts, max_new_tokens=s["new"])
+    path = os.path.join(root, "serve.jsonl")
+    eng.telemetry = Telemetry(path, program="serve", meta={"phase": 29})
+    eng.stability_source = sup
+    reset_launch_counts(M)
+    try:
+        on, stats = eng.generate(params, prompts, max_new_tokens=s["new"])
+    finally:
+        eng.telemetry.close()
+        eng.telemetry = eng.stability_source = None
+    check_launches(launch_counts(M), expected_paged_launches(cfg, stats), "phase 29 (g)")
+    check(on == off, "phase 29 (g): telemetry on changed the served tokens")
+    check(validate_file(path) == [], f"phase 29 (g): {validate_file(path)[:5]}")
+    recs = load(path)
+    for uid in range(s["n"]):
+        evs = {r["event"] for r in recs if r["kind"] == "request" and r["uid"] == uid}
+        check({"submitted", "finished"} <= evs, f"phase 29 (g): request {uid}: events {evs}")
+    spans = {r["name"] for r in recs if r["kind"] == "span"}
+    check({"prefill_wave", "decode_wave"} <= spans, f"phase 29 (g): spans {spans}")
+    rep = sup.report()
+    got = {k: stats[f"supervisor_{k}"] for k in SUPERVISOR_KEYS}
+    check(got == {k: rep[k] for k in SUPERVISOR_KEYS},
+          f"phase 29 (g): stats row {got} != the supervisor's report")
+    return {"tokens_per_s": stats["tokens_per_s"], "records": len(recs),
+            "supervisor": got}
+
+
+def selfheal_full_depth(torch, cfg, dev, seed, root, batch=CLIP_BATCH):
+    """Phase 29 (h): the full-depth CLIP state, one step, then save_async,
+    wait, verify and restore into a fresh state (keep_last=1): every leaf
+    and the generator's state bit-equal; bytes, free disk and seconds."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import Trainer
+    P = selfheal_parts(torch, cfg, dev, seed, batch=batch, layers=(cfg.vision_layers,
+                                                                   cfg.text_layers))
+    tr = selfheal_trainer(P, P.fresh_state())
+    tr.run(P.data_fn, 1)
+    state = tr.state
+    del tr
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    need = sum(len(leaf_bytes(torch, x)) if isinstance(x, torch.Generator)
+               else x.numel() * x.element_size() for _, x in state_leaves(state))
+    d = os.path.join(root, "h")
+    os.makedirs(d)
+    free = shutil.disk_usage(d).free
+    check(free > need * 1.05, f"phase 29 (h): {free} bytes free under {d}, the checkpoint "
+          f"needs {need}")
+    mgr = CheckpointManager(d, keep_last=1)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    mgr.save_async(1, state)
+    t1 = time.perf_counter()
+    mgr.wait()
+    t2 = time.perf_counter()
+    mgr.verify(1)
+    t3 = time.perf_counter()
+    fresh = Trainer(P.step, P.fresh_state(seed + 1), checkpoint_dir=d, keep_checkpoints=1)
+    sync(torch, dev)
+    t4 = time.perf_counter()
+    step = fresh.restore_checkpoint(1)
+    sync(torch, dev)
+    t5 = time.perf_counter()
+    check(step == 1, f"phase 29 (h): restored step {step}")
+    a, b = dict(state_leaves(state)), dict(state_leaves(fresh.state))
+    check(a.keys() == b.keys(), "phase 29 (h): the restored state's leaves differ")
+    bad = [p for p in a if (isinstance(a[p], torch.Generator)
+                            and not torch.equal(a[p].get_state(), b[p].get_state()))
+           or (isinstance(a[p], torch.Tensor)
+               and (a[p].dtype != b[p].dtype or a[p].device != b[p].device
+                    or not torch.equal(a[p].reshape(-1).view(torch.uint8),
+                                       b[p].reshape(-1).view(torch.uint8))))]
+    check(not bad, f"phase 29 (h): leaves not bit-equal after the round trip: {bad[:5]}")
+    stored = sum(os.path.getsize(os.path.join(d, "step_00000001", f))
+                 for f in os.listdir(os.path.join(d, "step_00000001")))
+    return {"bytes": need, "bytes_on_disk": stored, "free_bytes_before": free,
+            "leaves": len(a), "snapshot_s": t1 - t0, "write_s": t2 - t1, "verify_s": t3 - t2,
+            "restore_s": t5 - t4}
+
+
+def selfheal(torch, M, clip_cfg, cfg, dev, seed, eng, params):
+    """Phase 29: self-healing CLIP training and the flight recorder (a)-(h)
+    in a fresh temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_selfheal_")
+    try:
+        t = time.perf_counter()
+        res, sup = selfheal_training(torch, M, clip_cfg, dev, seed, root)
+        res["training_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["serve"] = selfheal_serve(torch, M, cfg, eng, params, sup, root, seed)
+        res["serve_s"] = time.perf_counter() - t
+        del sup
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        res["full_depth"] = selfheal_full_depth(torch, clip_cfg, dev, seed, root)
+        res["full_depth_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4972,6 +5558,13 @@ def main(argv=None) -> int:
     # 26. the paged features at full width: preemption, n-gram drafts
     with timed("26 paged features"):
         paged_features(torch, M, cfg, dev, args.seed, p_params)
+    # 29. self-healing CLIP training and the flight recorder (serving
+    # through phase 25's engine)
+    with timed("29 self-healing and the flight recorder"):
+        heal = selfheal(torch, M, get_config("clip-vit-huge"), cfg, dev, args.seed, p_eng,
+                        p_params)
+    print(smi)
+    print("[selfheal] " + json.dumps(heal))
     del p_eng, p_params
     gc.collect()
     torch.cuda.empty_cache()

@@ -14,11 +14,13 @@ nothing of ``repro``), cut to what the port reads:
   (the port dispatches on the device of its tensors).
 * ``ServeConfig`` — the engine knobs, minus the JAX ``kernel_backend``:
   the port dispatches on the device of its tensors instead.
+* ``SupervisorConfig`` and ``TelemetryConfig`` — whole, with the JAX
+  fields and defaults (the profiler window is ``torch.profiler``'s).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,11 +132,11 @@ class TrainConfig:
     ``quant_mode``: a ``core.precision`` mode (the unported ones raise when
     the policy is built); the ``fp8_*`` fields are ``fp8_mixed``'s tile
     and fallback ratio (``QuantPolicy.from_train_config``, and the
-    fallback gauge of ``telemetry/health.py``). Left out until something
-    reads them: ``checkpoint_every`` /
-    ``keep_checkpoints`` (with ``checkpoint/manager.py``), and ``seed``,
-    ``global_batch`` and ``seq_len``, which the JAX package does not read
-    either (the caller seeds the parameters; the batch sets its shape)."""
+    fallback gauge of ``telemetry/health.py``). Left out: ``checkpoint_every``
+    / ``keep_checkpoints`` (the Trainer and ``SupervisorConfig`` carry the
+    checkpoint knobs), ``seed``, ``global_batch`` and ``seq_len``, which the
+    JAX package does not read either (the caller seeds the parameters; the
+    batch sets its shape)."""
     optimizer: str = "stable_adamw"
     learning_rate: float = 2e-3
     warmup_steps: int = 5000
@@ -151,6 +153,29 @@ class TrainConfig:
     microbatch_steps: int = 1        # gradient accumulation
     quant_health_metrics: bool = True  # quantized modes: per-group device
     # health scalars (telemetry/health.py) ride the metrics dict
+
+
+@dataclasses.dataclass(frozen=True)
+class SupervisorConfig:
+    """Knobs for the self-healing ``TrainSupervisor``
+    (``repro_torch.train.supervisor``). Detection runs at the trainer's
+    flush points on the metrics it already fetches; recovery restores the
+    last good checkpoint and skips past the offending data window (the
+    pipeline is a pure function of the data index). Repeat failures
+    escalate: rewind one checkpoint earlier and skip wider, then abort."""
+    checkpoint_every: int = 10       # the supervisor requires checkpoints
+    keep_checkpoints: int = 4        # escalation rewinds need depth > 1
+    max_retries: int = 3             # rewinds per incident before abort
+    max_total_rewinds: int = 12      # global bound across all incidents
+    skip_margin: int = 1             # data steps skipped past the fault
+    skip_widen: int = 8              # extra skip per escalation attempt
+    grad_norm_ratio: float = 20.0    # grad_norm > ratio x running EMA
+    grad_norm_abs: float = float("inf")  # absolute grad-norm ceiling
+    loss_jump_ratio: float = 3.0     # loss > ratio x running EMA
+    detect_warmup: int = 10          # steps of EMA before ratio checks
+    spike_min_history: int = 20      # LossSpikeDetector.min_history
+    spike_z: float = 3.2             # LossSpikeDetector.z_threshold
+    log_every: int = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,3 +211,14 @@ class ServeConfig:
     spec_ngram: int = 3              # spec: longest history n-gram matched
     spec_min_ngram: int = 2          # spec: shortest n-gram accepted
     seed: int = 0                    # temperature>0 sampling seed
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Flight-recorder knobs (``repro_torch.telemetry``). ``path=None``
+    disables the JSONL sink; ``profile_steps`` is an inclusive (start,
+    stop) step window wrapped in ``torch.profiler`` (the ``--profile-steps
+    A:B`` flag), whose Chrome trace lands in ``profile_dir``."""
+    path: Optional[str] = None       # JSONL event file (None = off)
+    profile_steps: Optional[Tuple[int, int]] = None
+    profile_dir: str = "/tmp/repro-profile"

@@ -5,13 +5,20 @@ summary lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels). Like the JAX launcher it serves the
 arch's reduced config with random weights. ``--kernel-backend``,
 ``--mesh`` and ``--devices`` are not here: the port dispatches on the
-device of its tensors and runs on one card.
+device of its tensors and runs on one card. ``--telemetry`` records the
+measured ``generate`` call's flight-recorder events (not the warm-up),
+``--profile-steps A:B`` wraps engine waves A..B in a ``torch.profiler``
+Chrome trace under ``--profile-dir``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --quant-mode int8_switchback --max-batch 4 --n-requests 8 --new-tokens 16
     # the paged cache, chunked prefill, preemption, n-gram drafts
     PYTHONPATH=src python -m repro_torch.launch.serve --cache-mode paged \
         --prefill-chunk-tokens 8 --preemption recompute --spec-mode ngram
+    # the flight recorder: events, then the summary
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --telemetry /tmp/serve.jsonl --profile-steps 2:3
+    PYTHONPATH=src python -m repro_torch.telemetry.report /tmp/serve.jsonl
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.configs import ALL_ARCHS, get_reduced_config
 from repro_torch.configs.base import ServeConfig
 from repro_torch.models import build
 from repro_torch.serve import make_serve_engine
+from repro_torch.telemetry import Telemetry, parse_profile_steps
 
 
 def main(argv=None):
@@ -70,6 +78,13 @@ def main(argv=None):
     ap.add_argument("--spec-min-ngram", type=int, default=2,
                     help="spec: shortest n-gram worth a verify pass")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write flight-recorder JSONL events here (read with "
+                         "python -m repro_torch.telemetry.report); only the measured "
+                         "generate() call is recorded, not the warm-up")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="wrap engine waves A..B (inclusive) in a torch.profiler trace")
+    ap.add_argument("--profile-dir", default="/tmp/repro-profile")
     args = ap.parse_args(argv)
 
     cfg = get_reduced_config(args.arch)
@@ -104,8 +119,16 @@ def main(argv=None):
                for n in lens]
 
     engine.generate(params, prompts, max_new_tokens=2)      # warm-up
-    gens, stats = engine.generate(params, prompts,
-                                  max_new_tokens=args.new_tokens)
+    tele = Telemetry(args.telemetry, profile_steps=parse_profile_steps(args.profile_steps),
+                     profile_dir=args.profile_dir, program="serve",
+                     meta={"arch": args.arch, "quant_mode": args.quant_mode,
+                           "cache_mode": args.cache_mode, "spec_mode": args.spec_mode,
+                           "n_requests": args.n_requests})
+    engine.telemetry = tele
+    try:
+        gens, stats = engine.generate(params, prompts, max_new_tokens=args.new_tokens)
+    finally:
+        tele.close()
     print(f"[serve] {stats['new_tokens']} new tokens "
           f"({stats['prefill_tokens']} prefilled) in "
           f"{stats['wall_s']:.2f}s — {stats['tokens_per_s']:.0f} tok/s, "
@@ -134,6 +157,9 @@ def main(argv=None):
                   f"{stats['tokens_per_model_pass']:.2f} tokens per "
                   f"model pass")
     print("sample:", gens[0][:12])
+    if args.telemetry:
+        print(f"[telemetry] events written to {args.telemetry} — summarize with: "
+              f"python -m repro_torch.telemetry.report {args.telemetry}")
 
 
 if __name__ == "__main__":

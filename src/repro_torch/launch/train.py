@@ -6,10 +6,14 @@ with random weights, through ``make_train_setup``,
 ``make_train_step`` and ``Trainer``, and prints the per-step log, the
 final loss and the stability report. ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions) is new. Training runs with
-``remat="none"``. The flags of what is not ported yet are accepted and
-raise ``NotImplementedError``: the mesh and sharding flags, the
-supervisor, fault injection, checkpoints, the flight recorder and its
-profiler window, and ``--kernel-backend`` (the port dispatches on the
+``remat="none"``. As in the JAX launcher, ``--ckpt-dir`` checkpoints
+every ``max(steps // 3, 10)`` steps and resumes from the newest valid
+checkpoint, ``--supervise`` runs under the self-healing
+``TrainSupervisor``, ``--fault-plan`` injects faults, and
+``--telemetry``/``--profile-steps`` record the flight recorder's JSONL
+events and a ``torch.profiler`` Chrome trace. The flags of what is not
+ported yet are accepted and raise ``NotImplementedError``: the mesh and
+sharding flags, and ``--kernel-backend`` (the port dispatches on the
 device of its tensors).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -19,6 +23,10 @@ device of its tensors).
     PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
         --steps 3 --batch 4 --quant-mode fp8_mixed --fp8-block 64 64 \
         --fp8-fallback-ratio 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 30 \
+        --ckpt-dir /tmp/ck --supervise \
+        --fault-plan '[{"step": 12, "kind": "nan_grad"}]' \
+        --telemetry /tmp/run.jsonl --profile-steps 3:4 --device cpu
 """
 from __future__ import annotations
 
@@ -27,12 +35,15 @@ import argparse
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_reduced_config
-from repro_torch.configs.base import CLIPConfig, ParallelConfig, TrainConfig
+from repro_torch.configs.base import (CLIPConfig, ParallelConfig, SupervisorConfig,
+                                      TelemetryConfig, TrainConfig)
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.data import BigramLM, SyntheticCLIP
 from repro_torch.models import build
 from repro_torch.models import params as PRM
-from repro_torch.train import Trainer, init_train_state, make_train_setup, make_train_step
+from repro_torch.telemetry import Telemetry, parse_profile_steps
+from repro_torch.train import (FaultPlan, Trainer, TrainSupervisor, init_train_state,
+                               make_train_setup, make_train_step)
 
 # flag -> the ROADMAP.md item that brings it
 UNPORTED = {
@@ -40,13 +51,6 @@ UNPORTED = {
     "devices": "sharded training (Queue 1 #4)",
     "fsdp": "sharded training (Queue 1 #4)",
     "pure_dp": "sharded training (Queue 1 #4)",
-    "supervise": "self-healing training (Queue 1 #7)",
-    "max_retries": "self-healing training (Queue 1 #7)",
-    "fault_plan": "self-healing training (Queue 1 #7)",
-    "ckpt_dir": "checkpoint/manager.py (Queue 1 #3)",
-    "telemetry": "the flight recorder (Queue 1 #7)",
-    "profile_steps": "the flight recorder (Queue 1 #7)",
-    "profile_dir": "the flight recorder (Queue 1 #7)",
     "kernel_backend": "nothing: the port dispatches on the device of its tensors",
 }
 
@@ -93,8 +97,28 @@ def main(argv=None):
     ap.add_argument("--loss-scaler", default="none")
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the self-healing TrainSupervisor (anomaly "
+                         "detection -> verified-checkpoint rewind -> data skip); needs "
+                         "--ckpt-dir. The synthetic stream here, as in the JAX "
+                         "launcher, ignores the data index, so a skip does not give "
+                         "the exact shifted stream")
+    ap.add_argument("--fault-plan", default=None,
+                    help="inject faults: JSON list (inline or a file path) of "
+                         '{"step", "kind", ...} specs; see repro_torch/train/faults.py '
+                         "for kinds")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="supervisor: rewinds per incident before abort")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write flight-recorder JSONL events here (read with "
+                         "python -m repro_torch.telemetry.report)")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="wrap steps A..B (inclusive) in a torch.profiler trace "
+                         "(a Chrome trace written under --profile-dir)")
+    ap.add_argument("--profile-dir", default="/tmp/repro-profile")
     for flag in UNPORTED:
-        store_true = flag in ("fsdp", "pure_dp", "supervise")
+        store_true = flag in ("fsdp", "pure_dp")
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         action="store_true" if store_true else "store",
                         help=f"not ported yet: {UNPORTED[flag]}")
@@ -129,12 +153,44 @@ def main(argv=None):
               f"fallback ratio {policy.fp8_fallback_ratio:g}")
 
     data_fn = make_data(cfg, args.batch, args.seq, dev)
-    trainer = Trainer(step, state, log_every=10)
-    trainer.run(data_fn, args.steps)
+    plan = FaultPlan.from_json(args.fault_plan) if args.fault_plan else None
+    ckpt_every = max(args.steps // 3, 10) if args.ckpt_dir else 0
+    tele = Telemetry.from_config(
+        TelemetryConfig(path=args.telemetry,
+                        profile_steps=parse_profile_steps(args.profile_steps),
+                        profile_dir=args.profile_dir),
+        program="train",
+        meta={"arch": args.arch, "quant_mode": args.quant_mode, "device": str(dev),
+              "optimizer": args.optimizer, "steps": args.steps,
+              "supervised": bool(args.supervise)})
+    try:
+        if args.supervise:
+            if not args.ckpt_dir:
+                ap.error("--supervise needs --ckpt-dir (rewind is the recovery primitive)")
+            sup = TrainSupervisor(step, state, data_fn, checkpoint_dir=args.ckpt_dir,
+                                  config=SupervisorConfig(checkpoint_every=ckpt_every,
+                                                          max_retries=args.max_retries),
+                                  fault_plan=plan, telemetry=tele)
+            start = sup.maybe_resume()
+            sup.run(args.steps - start)
+            trainer = sup.trainer
+        else:
+            trainer = Trainer(step, state, checkpoint_dir=args.ckpt_dir,
+                              checkpoint_every=ckpt_every, log_every=10,
+                              fault_plan=plan, telemetry=tele)
+            start = trainer.maybe_resume()
+            trainer.run(data_fn, args.steps - start)
+            sup = None
+    finally:
+        tele.close()
     if trainer.history:
         print("final loss:", trainer.history[-1]["loss"])
-        print("stability:", trainer.stability_report())
-
+        print("stability:", (sup or trainer).stability_report())
+    else:
+        print(f"nothing to do: resumed at step {start} >= --steps {args.steps}")
+    if args.telemetry:
+        print(f"[telemetry] events written to {args.telemetry} — summarize with: "
+              f"python -m repro_torch.telemetry.report {args.telemetry}")
 
 if __name__ == "__main__":
     main()

@@ -39,7 +39,13 @@ prefill and decode) or the paged kernels (paged prefill, verify and
 decode). There is no jit, no mesh and no donation: each step runs eagerly
 on the engine's device.
 
-Not ported yet: the flight recorder (``telemetry``), ROADMAP Queue 1.
+Observability, as in the JAX engine: an optional ``telemetry`` flight
+recorder (per-request lifecycle events, ``prefill_wave``/``verify_wave``/
+``decode_wave`` spans and ``wave`` events, the ``serve_stats`` row, a
+profiler window over waves) and an optional ``stability_source`` (a
+``TrainSupervisor``, anything with ``report()``/``stability_report()``, or
+a report dict) whose rewind/skip counters fill the stats row's
+``supervisor_*`` keys. Neither touches the tokens.
 """
 from __future__ import annotations
 
@@ -58,11 +64,9 @@ from repro_torch.models.common import rope_tables
 from repro_torch.serve.paged import NoFreeBlocks, PagedCacheManager
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve.spec import NgramProposer
-from repro_torch.telemetry.registry import MetricsRegistry
+from repro_torch.telemetry import MetricsRegistry, as_telemetry
 
-#: supervisor counters in the stats row (zero: no training supervisor
-#: runs beside the port's engine yet; kept so the row's keys match the
-#: JAX engine's)
+#: supervisor counters surfaced in the stats row (``stability_source``)
 SUPERVISOR_KEYS = ("rewinds", "data_steps_skipped", "incidents",
                    "escalations", "save_failures", "save_retries")
 
@@ -118,7 +122,11 @@ class ServeEngine:
     Paged mode: ``num_blocks`` physical blocks (the trash block not
     counted), ``blocks_per_slot`` = cdiv(max_len, block_size) table width,
     ``block_bytes`` what one block costs across layers (K and V), and
-    ``ring_equiv_cache_bytes`` what the ring cache would cost."""
+    ``ring_equiv_cache_bytes`` what the ring cache would cost.
+
+    ``telemetry`` (a :class:`~repro_torch.telemetry.Telemetry`) and
+    ``stability_source`` are attributes, None by default, as in the JAX
+    engine."""
 
     def __init__(self, bundle, serve_cfg: ServeConfig, parallel: ParallelConfig,
                  policy: QuantPolicy, device="cuda"):
@@ -152,6 +160,8 @@ class ServeEngine:
         self.block_bytes = per_token * bs if paged else 0
         self.ring_equiv_cache_bytes = (per_token * serve_cfg.max_batch
                                        * serve_cfg.max_len)
+        self.telemetry = None
+        self.stability_source = None
 
     def init_cache(self):
         """Fresh all-zero serve state on the engine's device: the ring cache,
@@ -303,6 +313,31 @@ class ServeEngine:
             reg.counter(f"supervisor_{k}")
         return reg
 
+    def _fill_supervisor(self, reg: MetricsRegistry) -> None:
+        """Copy the attached stability source's supervisor counters into
+        the registry (a TrainSupervisor, anything with a
+        ``report()``/``stability_report()``, or a plain dict)."""
+        src = self.stability_source
+        if src is None:
+            return
+        if isinstance(src, dict):
+            rep = src
+        elif hasattr(src, "report"):
+            rep = src.report()
+        elif hasattr(src, "stability_report"):
+            rep = src.stability_report().get("supervisor", {})
+        else:
+            raise TypeError(f"stability_source {type(src).__name__} has "
+                            "no report()/stability_report()")
+        for k in SUPERVISOR_KEYS:
+            if k in rep:
+                reg.counter(f"supervisor_{k}").set(rep[k])
+
+    def _empty_stats(self) -> Dict[str, float]:
+        reg = self._stats_registry()
+        self._fill_supervisor(reg)
+        return reg.snapshot()
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -357,7 +392,8 @@ class ServeEngine:
             raise ValueError(f"{len(stop)} stop entries for "
                              f"{len(prompts)} prompts")
         if not any(m >= 1 for m in budgets):
-            return [[] for _ in prompts], self._stats_registry().snapshot()
+            return [[] for _ in prompts], self._empty_stats()
+        tele = as_telemetry(self.telemetry)
         reg = self._stats_registry()
         h_ttft, h_itl = reg.histogram("ttft"), reg.histogram("itl")
         h_itl_wall = reg.histogram("itl_wall")
@@ -369,6 +405,9 @@ class ServeEngine:
                 uids[i] = sched.submit(p, max_new_tokens=budgets[i],
                                        eos_id=eos_id,
                                        stop=None if stop is None else stop[i])
+                if tele.enabled:
+                    tele.emit("request", uid=uids[i], event="submitted",
+                              prompt_len=len(p), budget=budgets[i])
         # speculative decoding is greedy-only: acceptance compares drafts
         # against argmax
         spec_on = paged and scfg.spec_mode == "ngram" and scfg.temperature == 0
@@ -395,10 +434,15 @@ class ServeEngine:
         stall: Dict[int, float] = {}
         last_t: Dict[int, float] = {}
         peak_live_blocks = 0
+        wave = 0                              # engine-step index (events)
 
         def _finish(slot, r):
             last_t.pop(slot, None)
             stall.pop(slot, None)
+            if tele.enabled:
+                tele.emit("request", uid=r.uid, event="finished",
+                          reason=r.finish_reason, n_generated=len(r.generated),
+                          wave=wave)
             if paged:
                 # K/V written: the context and every decoded token but the
                 # last (never consumed); full blocks park for reuse
@@ -412,10 +456,14 @@ class ServeEngine:
             sched.preempt(vslot)
             last_t.pop(vslot, None)
             stall.pop(vslot, None)
+            if tele.enabled:
+                tele.emit("request", uid=vr.uid, event="preempted", slot=vslot,
+                          n_generated=len(vr.generated), wave=wave)
 
         self._sync()
         t0 = time.perf_counter()
         while sched.has_work:
+            tele.maybe_profile(wave)
             if paged:
                 mgr.begin_wave()
             admits = sched.admit(fits=fits)
@@ -424,6 +472,12 @@ class ServeEngine:
                 # loop below prefills context[prefilled:] from here
                 r.prefilled = (mgr.admit(slot, r.context, r.remaining_new)
                                if paged else 0)
+                if tele.enabled:
+                    ev = dict(uid=r.uid, event="admitted", slot=slot, wave=wave,
+                              queue_depth=sched.pending)
+                    if paged:       # radix adoption + pool pressure
+                        ev.update(prefix_adopted=r.prefilled, live_blocks=mgr.live_blocks)
+                    tele.emit("request", **ev)
             if paged and admits:
                 peak_live_blocks = max(peak_live_blocks, mgr.live_blocks)
             prefilling = sched.prefilling
@@ -468,12 +522,18 @@ class ServeEngine:
                 dur = now - t_pf
                 for slot, r in prefilling:
                     r.prefilled += chunks[slot]
+                    if tele.enabled:
+                        tele.emit("request", uid=r.uid, event="prefill_chunk", slot=slot,
+                                  tokens=chunks[slot], prefilled=r.prefilled,
+                                  context_len=len(r.context), wave=wave)
                     if r.prefilled >= len(r.context):
                         # prompt resident: first token from the last position
                         done = sched.record(slot, tok[slot])
                         cur[slot] = tok[slot]
                         if r.uid not in ttft:
                             ttft[r.uid] = now - t0
+                            tele.emit("request", uid=r.uid, event="first_token",
+                                      ttft_s=ttft[r.uid], wave=wave)
                         last_t[slot] = now
                         n_new += 1
                         if done:
@@ -485,8 +545,15 @@ class ServeEngine:
                 n_chunks += len(prefilling)
                 n_prefills += 1
                 prefill_s += dur
+                if tele.enabled:
+                    tele.emit_span("prefill_wave", time.time() - dur, dur, wave=wave,
+                                   slots=len(prefilling),
+                                   tokens=int(sum(chunks.values())), bucket=S)
+                    tele.emit("wave", wave=wave, mode="prefill", dur_s=dur,
+                              slots=len(prefilling), tokens=int(sum(chunks.values())))
             running = sched.running
             if not running:
+                wave += 1
                 continue
             drafts: Dict[int, List[int]] = {}
             if spec_on:
@@ -588,6 +655,12 @@ class ServeEngine:
                             len_dirty = True
                 n_steps += 1
                 n_verify += 1
+                if tele.enabled:
+                    v_dur = now - t_dec
+                    tele.emit_span("verify_wave", time.time() - v_dur, v_dur, wave=wave)
+                    tele.emit("wave", wave=wave, mode="verify", dur_s=v_dur,
+                              drafted=sum(len(d) for d in drafts.values()),
+                              slots=len(drafts))
             else:
                 # -- plain wave: ordinary one-token decode ------------------
                 if paged and len_dirty:
@@ -633,7 +706,12 @@ class ServeEngine:
                 n_decoded += n_live
                 n_slot_passes += n_live
                 n_steps += 1
+                if tele.enabled:
+                    d_dur = now - t_dec
+                    tele.emit_span("decode_wave", time.time() - d_dur, d_dur, wave=wave)
+                    tele.emit("wave", wave=wave, mode="decode", dur_s=d_dur, slots=n_live)
             decode_s += now - t_dec
+            wave += 1
         dt = time.perf_counter() - t0
 
         h_ttft.observe_many(ttft[u] for u in uids if u in ttft)
@@ -659,12 +737,17 @@ class ServeEngine:
             reg.counter("spec_accepted").set(spec_accepted)
             reg.counter("spec_verify_calls").set(n_verify)
             reg.gauge("spec_acceptance_rate").set(spec_accepted / max(spec_drafted, 1))
+        self._fill_supervisor(reg)
         stats = reg.snapshot()
         # itl is wall-minus-stall per sample; the bucketed estimator can
         # invert the order by one bucket width, so pin it at the row level
         for p in (50, 95):
             stats[f"itl_p{p}_s"] = min(stats[f"itl_p{p}_s"],
                                        stats[f"itl_wall_p{p}_s"])
+        if tele.enabled:
+            tele.emit("serve_stats", **stats)
+        if tele._profiling:        # window ran off the end of the run
+            tele._stop_profile(wave)
         return [[] if u is None else sched.results[u] for u in uids], stats
 
 

@@ -18,6 +18,10 @@ other, by the first substring of the leaf path):
   ``fp8_block_cols`` with leading dims folded into rows. The JAX package
   cannot tap the kernel's own activation mask inside its custom VJP, and
   reads this gradient-tile rate as its proxy; so does the port.
+
+On the host, ``qh_items`` and ``summarize_rms`` turn a flush's fetched
+metrics into the ``train_step`` event's floats (the App.-D ratio per
+group from StableAdamW's RMS_t), with no device work.
 """
 from __future__ import annotations
 
@@ -85,3 +89,20 @@ def quant_health(params, grads, train_cfg) -> Dict[str, torch.Tensor]:
                      for g in leaves]
             out[f"qh/{group}/fp8_fallback_frac"] = torch.mean(torch.stack(fracs))
     return out
+
+
+# -- host-side helpers (on fetched metrics) -----------------------------------
+
+def qh_items(metrics: Dict) -> Dict[str, float]:
+    """The qh/ scalars of one fetched metrics dict, as floats."""
+    return {k: float(v) for k, v in metrics.items() if k.startswith("qh/")}
+
+
+def summarize_rms(rms_tree) -> Dict[str, float]:
+    """Per-group mean of the fetched StableAdamW RMS_t tree (the paper's
+    App.-D ``sqrt(E[g²]/v_t)`` spike-precursor signal), grouped like the
+    device-side health metrics."""
+    groups: Dict[str, list] = {}
+    for path, leaf in tree_paths(rms_tree):
+        groups.setdefault(group_of(path), []).append(float(leaf))
+    return {f"qh/{g}/adamw_rms": sum(v) / len(v) for g, v in sorted(groups.items())}

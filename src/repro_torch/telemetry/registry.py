@@ -1,8 +1,7 @@
 """MetricsRegistry: counters / gauges / streaming histograms.
 
 A copy of the JAX package's ``repro/telemetry/registry.py`` (pure Python;
-the port imports nothing of ``repro``). The rest of the flight recorder
-(sink, spans, report) comes with the telemetry slice.
+the port imports nothing of ``repro``).
 
 One registry instance declares a *schema* — every instrument registered
 up front — and ``snapshot()`` renders the full schema every time, so the

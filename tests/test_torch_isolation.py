@@ -50,10 +50,15 @@ def _modules():
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
 
 
-# the fp8 oracle and the op entry points' modules: the walk must reach them
+# the fp8 oracle, the op entry points' modules and the self-healing and
+# flight-recorder modules: the walk must reach them
 NAMED = ("repro_torch.core.fp8", "repro_torch.kernels.fp8_cast.ops",
          "repro_torch.kernels.fp8_cast.ref", "repro_torch.kernels.fp8_cast.build",
-         "repro_torch.kernels.switchback.ops")
+         "repro_torch.kernels.switchback.ops", "repro_torch.checkpoint",
+         "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
+         "repro_torch.train.faults", "repro_torch.train.supervisor",
+         "repro_torch.telemetry", "repro_torch.telemetry.sink",
+         "repro_torch.telemetry.report")
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -264,18 +269,8 @@ def test_training_needs_remat_none(remat):
                         tc, opt, scaler)
 
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_dir="ckpt"), dict(fault_plan=[]),
-                                dict(telemetry=object())])
-def test_unported_trainer_options_raise(kw):
-    from repro_torch.train import Trainer
-    with pytest.raises(NotImplementedError):
-        Trainer(lambda s, b: (s, {}), None, **kw)
-
-
 @pytest.mark.parametrize("flag", [["--mesh", "test"], ["--devices", "8"], ["--fsdp"],
-                                  ["--pure-dp"], ["--supervise"], ["--fault-plan", "[]"],
-                                  ["--ckpt-dir", "ckpt"], ["--telemetry", "run.jsonl"],
-                                  ["--kernel-backend", "pallas"], ["--profile-steps", "1:2"]])
+                                  ["--pure-dp"], ["--kernel-backend", "pallas"]])
 def test_unported_train_flags_raise(flag):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError):
