@@ -4,10 +4,12 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22):
+24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, the TF32 flags (both left False);
+   and CUDA versions, the four product flags ``full_precision_products``
+   turns off (TF32 for matmuls and cuDNN, bf16 and f16 reduced-precision
+   reductions), as the launchers do;
 2. build: compile the five kernel libraries from this checkout with nvcc,
    in parallel (``csrc/switchback.cu``, ``csrc/flash_attention.cu``,
    ``csrc/fp8_matmul.cu``, ``csrc/paged_attention.cu``,
@@ -287,6 +289,32 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     the generator's state bit-equal; bytes, free disk (too little fails
     the phase) and seconds of each part.
 
+30. the paper's remaining training options, CLIP ViT-H/14 at full width
+    and depth, batch 32 (after phase 22; each part prints its seconds):
+    (a) the f16 forms of ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` against their plain versions at CLIP's vision and
+    text attention (causal and full) and phase 3's smollm edges (o within
+    2^-10 of max|o|, the backward within FLASH_BWD_TOL, twice the same
+    bits, the case faults 10x outside), two control faults that must fail
+    (o rounded through bf16; a one-term split), and their times beside
+    the bound and SDPA at f16; (b) the ``FP16`` policy (f16 compute) with
+    the ``fixed_tensor`` and then the ``dynamic`` loss scaler, 3 steps
+    each with the kernels (launches exact) and with the plain attention:
+    the loss-scale sequence and the skipped-tensor counts equal, losses
+    finite where nothing was skipped, a step that updates, each leaf's
+    change within FP16_DELTA_TOL; (c) ``fp32`` with bf16 and with f32
+    compute under ``remat="block"``, 2 steps each, one step's loss and
+    gradient with the kernels against the plain versions within
+    FP32_STEP_TOL; (d) ``int8_switchback`` under ``remat="block"`` against
+    ``"none"``: losses and every parameter bit-equal, peak GiB, device ms,
+    wall ms and launches a step of each, then batch 128 under ``"block"``;
+    (e) AdaFactor: 3 finite steps, its state's bytes beside StableAdamW's,
+    its state through ``CheckpointManager`` bit for bit; (f) App. C's
+    measured and predicted variance of the Eq. 3 product on the card's
+    kernels at k = 1,280, 5,120 and 65,536 (b = m = 256): each ratio in
+    [0.3, 3], growing with k, the kernels bit-equal to the plain
+    functions.
+
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
 the last line is
@@ -380,9 +408,10 @@ PER_LAYER = {"tensor_quantize": 7, "fused_switchback_fwd": 6,
 # under flash_scan: launches per layer per prefill call and per decode step
 FLASH_PER_LAYER = {"flash_fwd": {"prefill": 1, "decode": 0},
                    "decode_fwd": {"prefill": 0, "decode": 1}}
-# flash kernel vs plain: o relative to max|o| (one bf16 ulp at the largest
-# value in bf16), lse absolute; the control fault must read 10x outside
-FLASH_O_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# flash kernel vs plain: o relative to max|o| (one ulp at the largest value
+# in bf16 and in f16: both sides compute in f32 and round once), lse
+# absolute; the control fault must read 10x outside
+FLASH_O_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5, "float16": 2.0 ** -10}
 FLASH_LSE_TOL = 1e-5
 FAULT_MARGIN = 10.0
 
@@ -407,8 +436,8 @@ TRAIN_PER_LAYER = {"tensor_quantize": 7, "fused_switchback_fwd": 6, "row_quantiz
                    "flash_bwd_dkv": 1, "decode_fwd": 0, **dict.fromkeys(OP_KERNELS, 0)}
 # flash backward kernel vs plain, relative to max|grad|: the same
 # recomputed p on both sides, the sums over keys and query rows in another
-# order (f32 in both dtypes: bf16 inputs are exact in f32)
-FLASH_BWD_TOL = {"bfloat16": 1e-4, "float32": 1e-4}
+# order (f32 in every dtype: bf16 and f16 inputs are exact in f32)
+FLASH_BWD_TOL = {"bfloat16": 1e-4, "float32": 1e-4, "float16": 1e-4}
 
 
 class Failure(Exception):
@@ -2023,7 +2052,7 @@ def smollm_flash_cases(cfg):
     return [("smollm", TRAIN_BATCH, S, kv, H, KV, hd, c, fault) for S, kv, c in cases]
 
 
-def compare_flash_train(torch, M, cases, dev, seed):
+def compare_flash_train(torch, M, cases, dev, seed, dtypes=None):
     """The flash kernels a training path runs against their plain versions
     at its attention shapes (``cases``, see ``smollm_flash_cases``), bf16
     and f32: ``flash_fwd`` (o within FLASH_O_TOL of max|o|, lse within
@@ -2032,9 +2061,9 @@ def compare_flash_train(torch, M, cases, dev, seed):
     ``ref.mha_bwd``). Each backward kernel run twice must give the same
     bits, keys past kv_valid get no gradient, and each case's control fault
     (the plain versions on faulty inputs) must read FAULT_MARGIN x outside
-    every tolerance. Returns the readings per kernel (for ``flash_fwd``
-    also the mean signed error of o and of lse, by dtype) and the number of
-    comparisons."""
+    every tolerance. ``dtypes`` (default bf16 and f32) are the forms held.
+    Returns the readings per kernel (for ``flash_fwd`` also the mean signed
+    error of o and of lse, by dtype) and the number of comparisons."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {k: dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf)
            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -2059,7 +2088,7 @@ def compare_flash_train(torch, M, cases, dev, seed):
     def rand(*shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes or (torch.bfloat16, torch.float32):
         key = str(dt).replace("torch.", "")
         for tower, B, S, kv_valid, H, KV, hd, causal, fault in cases:
             scale = M.FA.softmax_scale(hd)
@@ -2107,18 +2136,21 @@ def compare_flash_train(torch, M, cases, dev, seed):
 # ---------------------------------------------------------------------------
 
 def train_parts(torch, cfg, dev, *, mode="int8_switchback", compute_dtype=None,
-                impl="flash_scan", steps=100, lr=2e-3, warmup=4):
+                impl="flash_scan", steps=100, lr=2e-3, warmup=4, scaler="none",
+                remat="none", optimizer="stable_adamw"):
     """(bundle, policy, parallel, TrainConfig, train_step, opt, scaler) of
     a training path: StableAdamW (warm-up ``warmup``, cosine over
-    ``steps``), no loss scaling, remat "none"."""
+    ``steps``), no loss scaling, remat "none", unless phase 30 asks for
+    another ``optimizer``, ``scaler`` or ``remat``."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.core.precision import QuantPolicy
     from repro_torch.models import build
     from repro_torch.train import make_train_setup, make_train_step
     bundle = build(cfg)
     policy = QuantPolicy(mode, compute_dtype=compute_dtype or torch.bfloat16)
-    parallel = ParallelConfig(remat="none", attn_impl=impl)
-    tc = TrainConfig(learning_rate=lr, warmup_steps=warmup, total_steps=steps, quant_mode=mode)
+    parallel = ParallelConfig(remat=remat, attn_impl=impl)
+    tc = TrainConfig(learning_rate=lr, warmup_steps=warmup, total_steps=steps, quant_mode=mode,
+                     loss_scaler=scaler, optimizer=optimizer)
     opt, scaler = make_train_setup(tc)
     step = make_train_step(bundle, policy, parallel, tc, opt, scaler)
     return bundle, policy, parallel, tc, step, opt, scaler
@@ -2533,16 +2565,16 @@ def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="t
     return res
 
 
-def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal):
+def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt=None):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` at one layer's attention
-    shape, bf16: each kernel, its plain version, SDPA's whole backward (dq,
+    shape, in ``dt`` (default bf16): each kernel, its plain version, SDPA's whole backward (dq,
     dk and dv together: the library yardstick of both) by CUDA-graph replay
     over the same input sets (its eager time beside, ``library_eager_ms``)
     and the bound (bytes against the live pairs' matmul operations at the
     bf16 peak). Returns the readings and the input sets (q, k, v, do, lse,
     di)."""
     import torch.nn.functional as F
-    bf = torch.bfloat16
+    bf = dt or torch.bfloat16
 
     def attn_set():
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
@@ -2594,7 +2626,7 @@ def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal):
             eager_ms=eager_ms(torch, lambda i: fn(*asets[i], causal=causal), len(asets)),
             bound=bound(bytes_, bf16_ops=flops), calls=1,
             work=f"one layer's call: ({B}, {S}, {H}/{KV}, {hd}), "
-                 f"{'causal' if causal else 'no mask'}, bf16")
+                 f"{'causal' if causal else 'no mask'}, {str(bf).replace('torch.', '')}")
     return out, asets
 
 
@@ -2861,6 +2893,10 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
         setup_s = time.perf_counter() - t
         del params
         trainer = Trainer(step, state, log_every=1000)
+        # the trainer holds the only reference to the state, so the peak
+        # below is the steps' own (the initial state, 11 GiB at full depth,
+        # is not kept beside it)
+        del state
         trainer.run(lambda i: batches[i], 1)                      # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2913,7 +2949,7 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
         counts_by_mode[mode] = counts
         print(f"[{tag}] {mode}: " + json.dumps({k: v for k, v in res[mode].items()
                                                 if k != "profile"}))
-        del trainer, state, batches, step, opt
+        del trainer, batches, step, opt
         gc.collect()                 # the autograd graph's cycles hold card memory
         torch.cuda.empty_cache()
     print(f"[{tag}] peak memory GiB (step; one forward and backward above the state): "
@@ -3187,20 +3223,22 @@ def time_clip_kernels(torch, M, cfg, dev, seed):
     return out
 
 
-def time_clip_flash(torch, M, cfg, dev, seed):
+def time_clip_flash(torch, M, cfg, dev, seed, dt=None):
     """The flash kernels at CLIP's two attention shapes of phase 14, one
-    layer's call each, bf16 as the path runs: the vision tower's (32, 129,
-    16, 80) with no mask and the text tower's (32, 77, 16, 64) causal.
+    layer's call each, in ``dt`` (default bf16, as the int8 and fp8 paths
+    run; f16 under the FP16 policy): the vision tower's (32, 129, 16, 80)
+    with no mask and the text tower's (32, 77, 16, 64) causal.
     ``flash_fwd``: the kernel, its plain version, SDPA and the bound (bytes
     against the live pairs' matmul operations at the bf16 peak); the
     backward pair as ``time_flash_bwd``. Returns {kernel: {tower: ...}}."""
     import torch.nn.functional as F
+    dt = dt or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
     plain = plain_flash_fwd(M)
     out = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for tower, B, S, _, H, KV, hd, causal, _ in clip_flash_cases(cfg):
         def make():
-            return tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
                          for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
 
         def sdpa(q, k, v):
@@ -3223,9 +3261,9 @@ def time_clip_flash(torch, M, cfg, dev, seed):
                         bf16_ops=4.0 * pairs * hd),
             sdpa_rel_err=err, calls=1,
             work=f"one {tower} layer's call: ({B}, {S}, {H}, {hd}), "
-                 f"{'causal' if causal else 'no mask'}, bf16")
+                 f"{'causal' if causal else 'no mask'}, {str(dt).replace('torch.', '')}")
         del sets
-        bwd, asets = time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal)
+        bwd, asets = time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt)
         del asets
         for name, r in bwd.items():
             out[name][tower] = r
@@ -5424,6 +5462,432 @@ def selfheal(torch, M, clip_cfg, cfg, dev, seed, eng, params):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the paper's remaining training options on CLIP at full width:
+# fp16 with loss scaling on the f16 forms of the three flash kernels, fp32,
+# activation recomputation, AdaFactor and the App. C variance analysis
+# ---------------------------------------------------------------------------
+
+# the three flash kernels' f16 forms (the FP16 policy's attention)
+F16_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FP16_STEPS = 3
+FP16_SCALERS = ("fixed_tensor", "dynamic")
+# (b) each leaf's change over the FP16 steps, the kernels against the plain
+# attention on the card: mean |diff| over the largest change the plain run
+# made in that leaf; the CPU tests' limit against the JAX package
+# (tests/test_torch_precision16.py, tests/test_torch_clip.py), fixed before
+# the first card run. A leaf the plain run left as it was (skipped on every
+# step) must be left as it was. The key bias is left out, as in those
+# tests: its exact gradient is 0 (softmax ignores a per-query constant), so
+# both runs hold rounding noise there, which Adam turns into +-lr steps.
+FP16_DELTA_TOL = 5e-2
+FP32_STEPS = 2
+# (c) one fp32 step's loss and gradient, kernels against plain versions, by
+# compute dtype, and the control fault (the text tower's causal mask
+# dropped) outside on at least one key. Limits by phase 10's rule: the
+# geometric mean of the worst sound reading and the fault's reading, one
+# digit, from one seed a dtype on an H100 (readings in PERF.md, run P3): sound
+# loss 0 (bf16) and 1.4e-7 (f32) against the fault's 8.9e-4 and 9.5e-4;
+# gradient max 4.2e-3 and 8.6e-6 against 1.49 and 1.47; mean 2.3e-6 and
+# 1.8e-6 against 0.31 and 0.31. Under bf16 compute the gradients of the
+# leaves that stay bf16 (the embeddings and the first norm of each tower)
+# are rounded to bf16, so a last-bit difference in the f32 attention flips
+# their rounding now and then: one bf16 ulp of an element, up to 2^-8 of
+# the leaf's max
+FP32_STEP_TOL = {"bfloat16": dict(loss_rel_err=1e-5, grad_max_rel_err=8e-2,
+                                  grad_mean_rel_err=8e-4),
+                 "float32": dict(loss_rel_err=1e-5, grad_max_rel_err=4e-3,
+                                 grad_mean_rel_err=8e-4)}
+STEP_SKIP = ("['bk']", "['logit_scale']")
+REMAT_STEPS = 3
+REMAT_BIG_BATCH = 128
+ADAFACTOR_STEPS = 3
+# (f) App. C: k at the two CLIP widths and the paper's weight-gradient k
+# (App. C.3: batch x sequence, about 65,536), b = m = 256; the reference's
+# criteria (measured / predicted within [0.3, 3], the variance growing)
+APPC_K = (1280, 5120, 65536)
+APPC_BM = 256
+
+
+def f16_clip_cases(cfg):
+    """CLIP's vision (32, 129, 16, 80) and text (32, 77, 16, 64) attention,
+    each causal and full (control faults: the lanes past 64 dropped, the
+    mask dropped), in ``compare_flash_train``'s form."""
+    from repro_torch.models.clip import n_kept_patches
+    Sv, Hv, Ht = n_kept_patches(cfg) + 1, cfg.vision_heads, cfg.text_heads
+    hv, ht = cfg.vision_width // Hv, cfg.text_width // Ht
+    return ([("vision", CLIP_BATCH, Sv, Sv, Hv, Hv, hv, c, lanes_fault) for c in (False, True)]
+            + [("text", CLIP_BATCH, cfg.text_ctx, cfg.text_ctx, Ht, Ht, ht, c, mask_fault)
+               for c in (True, False)])
+
+
+def f16_faults(torch, M, cfg, dev, seed):
+    """(a)'s two control faults of the f16 forms, each of which must fail the
+    kernel-vs-plain check at every CLIP case: o rounded through bf16 in place
+    of f16 (the output conversion of the bf16 form), and a one-term split
+    (the kernels fed k, v, q and do rounded through bf16: what staging an f16
+    value as one bf16 term computes). Returns the smallest reading over the
+    tolerance of each."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h16 = torch.float16
+    o_tol, b_tol = FLASH_O_TOL["float16"], FLASH_BWD_TOL["float16"]
+    worst = {"o through bf16": math.inf, "one-term split": math.inf}
+    for tower, B, S, kv_valid, H, KV, hd, causal, _ in f16_clip_cases(cfg):
+        q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(h16) for _ in range(2))
+        k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(h16) for _ in range(2))
+        scale = M.FA.softmax_scale(hd)
+        ro, rlse = M.FREF.mha_fwd(q, k, v, causal=causal, kv_valid=S, scale=scale)
+        o, lse = M.FA.flash_fwd_lse(q, k, v, causal=causal)
+        r = rel_err(torch, o.to(torch.bfloat16).to(h16), ro) / o_tol
+        worst["o through bf16"] = min(worst["o through bf16"], r)
+        check(r > 1.0, f"f16 {tower}: o rounded through bf16 reads only {r:g} x the tolerance")
+        one = [t.to(torch.bfloat16).to(h16) for t in (q, k, v, do)]
+        fo, flse = M.FA.flash_fwd_lse(*one[:3], causal=causal)
+        di = M.FREF.attention_di(o, do)
+        rdq = M.FREF.flash_bwd_dq(q, k, v, do, lse, di, causal=causal, kv_valid=S, scale=scale)
+        fdq = M.FA.flash_bwd_dq(*one, lse, di, causal=causal)
+        fdk, fdv = M.FA.flash_bwd_dkv(*one, lse, di, causal=causal)
+        rdk, rdv = M.FREF.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal, kv_valid=S,
+                                        scale=scale)
+        r = min(max(rel_err(torch, fo, ro) / o_tol, float((flse - rlse).abs().max())
+                    / FLASH_LSE_TOL),
+                *(rel_err(torch, a, b) / b_tol for a, b in ((fdq, rdq), (fdk, rdk), (fdv, rdv))))
+        worst["one-term split"] = min(worst["one-term split"], r)
+        check(r > 1.0, f"f16 {tower}: a one-term split reads only {r:g} x the tolerance in "
+              "one of the kernels")
+    torch.cuda.synchronize()
+    return worst
+
+
+def clip_steps(torch, M, P, batches, seed, dev, keep_initial=False):
+    """Run ``len(batches)`` steps of the parts ``P`` from the seed's fresh
+    parameters (each loss call's patches from the state's generator): the
+    metrics per step ((loss, grad norm, loss scale, skipped tensors)), the
+    final state and, with ``keep_initial``, a copy of the initial
+    parameters (else None, so that a peak read over the steps is theirs)."""
+    from repro_torch.models import params as PRM
+    from repro_torch.train import init_train_state
+    bundle, policy, parallel, tc, step, opt, sc = P
+    params = PRM.init_params(bundle.param_specs, seed, device=dev)
+    p0 = PRM.tree_map(lambda t: t.clone(), params) if keep_initial else None
+    state = init_train_state(params, opt, sc, seed=seed)
+    del params
+    hist = []
+    for b in batches:
+        state, m = step(state, b)
+        hist.append([float(m[k]) for k in ("loss", "grad_norm", "loss_scale",
+                                           "n_skipped_tensors")])
+    torch.cuda.synchronize()
+    return hist, state, p0
+
+
+def leaf_changes(torch, got, want, p0):
+    """Per leaf, mean |(got - p0) - (want - p0)| over max|want - p0|; a leaf
+    ``want`` left as it was reads 0 if ``got`` left it too, else inf."""
+    from repro_torch.models.params import tree_paths
+    out = {}
+    for (path, g), w, z in zip(tree_paths(got), (l for _, l in tree_paths(want)),
+                               (l for _, l in tree_paths(p0))):
+        dg, dw = g.double() - z.double(), w.double() - z.double()
+        top = float(dw.abs().max())
+        out[path] = (float((dg - dw).abs().mean()) / top if top
+                     else (0.0 if float(dg.abs().max()) == 0.0 else math.inf))
+    return out
+
+
+def fp16_runs(torch, M, cfg, dev, seed):
+    """(b): the FP16 policy (f16 compute, the f16 flash forms) at full
+    width and depth, batch 32, FP16_STEPS steps under each scaler, with the
+    kernels (every counter zeroed just before, read just after: the flash
+    kernels exactly once a layer a step, no SwitchBack kernel) and again
+    with the plain attention on the card; the loss-scale sequence and the
+    skipped-tensor counts equal, losses finite wherever nothing was skipped,
+    at least one step that updates, each leaf's change within
+    FP16_DELTA_TOL. Returns the readings and the kernel run's counts."""
+    batches = clip_batches(torch, cfg, FP16_STEPS, CLIP_BATCH, dev, seed + 3000)
+    layers = cfg.vision_layers + cfg.text_layers
+    out, counts = {}, dict.fromkeys(F16_KERNELS, 0)
+    for scaler in FP16_SCALERS:
+        P = train_parts(torch, cfg, dev, mode="fp16", compute_dtype=torch.float16,
+                        scaler=scaler, **CLIP_OPT)
+        reset_launch_counts(M)
+        t = time.perf_counter()
+        hist, state, p0 = clip_steps(torch, M, P, batches, seed, dev, keep_initial=True)
+        wall = time.perf_counter() - t
+        c = launch_counts(M)
+        for k in F16_KERNELS:
+            check(c[k] == layers * FP16_STEPS, f"FP16 {scaler}: {k}: {c[k]} launches in "
+                  f"{FP16_STEPS} steps, expected {layers * FP16_STEPS}")
+            counts[k] += c[k]
+        check(all(c[k] == 0 for k in SB_KERNELS + ("decode_fwd",) + FP8_KERNELS),
+              f"FP16 {scaler}: a SwitchBack, fp8 or decode kernel ran: {c}")
+        with plain_ops(M, flash=True):
+            plain_hist, plain_state, _ = clip_steps(torch, M, P, batches, seed, dev)
+        n_leaves = sum(1 for _ in _leaves(p0))
+        changes = leaf_changes(torch, state.params, plain_state.params, p0)
+        bk = {k: v for k, v in changes.items() if "['bk']" in k}
+        changes = {k: v for k, v in changes.items() if k not in bk}
+        worst = max(changes, key=changes.get)
+        r = dict(losses=[h[0] for h in hist], grad_norms=[h[1] for h in hist],
+                 loss_scales=[h[2] for h in hist], skipped=[h[3] for h in hist],
+                 plain_losses=[h[0] for h in plain_hist], n_tensors=n_leaves,
+                 worst_leaf_change=changes[worst], worst_leaf=worst, bk_changes=bk,
+                 step_ms=wall / FP16_STEPS * 1e3)
+        out[scaler] = r
+        print(f"[fp16] {scaler}: " + json.dumps(r))
+        check([h[2:] for h in hist] == [h[2:] for h in plain_hist],
+              f"FP16 {scaler}: the loss scales or skips differ from the plain attention's: "
+              f"{hist} against {plain_hist}")
+        check(all(math.isfinite(h[0]) for h in hist if h[3] == 0),
+              f"FP16 {scaler}: a non-finite loss where nothing was skipped: {hist}")
+        check(changes[worst] <= FP16_DELTA_TOL,
+              f"FP16 {scaler}: leaf {worst}'s change {changes[worst]:g} > {FP16_DELTA_TOL:g}")
+        del state, plain_state, p0, P
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(any(h < out["fixed_tensor"]["n_tensors"] for h in out["fixed_tensor"]["skipped"]),
+          "FP16 fixed_tensor: no step updated any tensor")
+    return out, counts
+
+
+def fp32_runs(torch, M, cfg, dev, seed):
+    """(c): ``fp32`` with the CLI's bf16 compute dtype and with f32 compute,
+    full width and depth, batch 32, ``remat="block"`` (f32 activations
+    would pass ~65 GiB without it), FP32_STEPS steps each: losses finite,
+    nothing skipped; then one step's loss and gradient with the kernels
+    against the plain versions within FP32_STEP_TOL, the control fault (the
+    text tower's causal mask dropped, on the plain versions) outside. Every
+    reading is printed before any is checked."""
+    from repro_torch.train import loss_and_grads
+    batches = clip_batches(torch, cfg, FP32_STEPS, CLIP_BATCH, dev, seed + 3100)
+    res, finite = {}, {}
+    for cd in (torch.bfloat16, torch.float32):
+        name = str(cd).replace("torch.", "")
+        P = train_parts(torch, cfg, dev, mode="fp32", compute_dtype=cd, remat="block",
+                        **CLIP_OPT)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        hist, state, _ = clip_steps(torch, M, P, batches, seed, dev)
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(h[0]) and h[3] == 0 for h in hist),
+              f"fp32 compute {name}: non-finite loss or a skipped tensor: {hist}")
+        bundle, policy, parallel = P[:3]
+        keep = bundle.patch_keep(torch.Generator(device=dev).manual_seed(seed))
+        run = lambda: loss_and_grads(bundle, policy, parallel, state.params, batches[0],
+                                     patch_keep=keep)
+        kern = run()
+        with plain_ops(M, flash=True):
+            plain = run()
+            with causal_mask_dropped(M):
+                fault = run()
+        res[name], finite[name] = step_reading(torch, kern, plain, {"text mask dropped": fault},
+                                               skip=STEP_SKIP)
+        res[name].update(losses=[h[0] for h in hist], step_ms=wall / FP32_STEPS * 1e3,
+                         peak_memory_gib=peak, tolerance=FP32_STEP_TOL[name])
+        print(f"[fp32] compute {name}: " + json.dumps(res[name]))
+        del kern, plain, fault, state, P
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_readings("fp32 whole step", res, finite)
+    return res
+
+
+def remat_run(torch, M, cfg, dev, seed, remat, batch, steps, profile=True):
+    """``int8_switchback`` (zero-init layer-scale) at full width and depth
+    under ``remat`` through the Trainer: a warm-up step, then ``steps``
+    steps (launches per step and peak memory over them); with ``profile``
+    one more step's device time from torch.profiler. Returns the losses,
+    the final state, and the readings."""
+    from repro_torch.models import params as PRM
+    from repro_torch.train import Trainer, init_train_state, loss_and_grads
+    c = dataclasses.replace(cfg, layer_scale_init=0.0)
+    P = train_parts(torch, c, dev, remat=remat, **CLIP_OPT)
+    bundle, _, _, _, step, opt, sc = P
+    batches = clip_batches(torch, c, 1 + steps, batch, dev, seed + 3200)
+    # the trainer holds the only reference to the state, so the peak is the
+    # steps' own
+    trainer = Trainer(step, init_train_state(PRM.init_params(bundle.param_specs, seed, device=dev),
+                                             opt, sc, seed=seed), log_every=1000)
+    trainer.run(lambda i: batches[i], 1)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(M)
+    t = time.perf_counter()
+    trainer.run(lambda i: batches[i], steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / steps * 1e3
+    counts = launch_counts(M)
+    r = dict(remat=remat, batch=batch, peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+             wall_ms_per_step=wall, pairs_per_s=batch / wall * 1e3,
+             launches_per_step=sum(counts.values()) / steps)
+    # the activations' share: one forward and backward's peak above the
+    # state the trainer holds (the optimizer's copies left out)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = loss_and_grads(bundle, *P[1:3], trainer.state.params, batches[1],
+                           patch_keep=bundle.patch_keep(trainer.state.rng))
+    torch.cuda.synchronize()
+    r["fwd_bwd_peak_gib_above_state"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del grads
+    if profile:
+        by_kernel = kernel_times(torch, lambda: trainer.run(lambda i: batches[1 + i % steps], 1),
+                                 1)
+        r.update(device_ms_per_step=sum(v[0] for v in by_kernel.values()),
+                 cuda_launches_per_step=sum(v[1] for v in by_kernel.values()))
+    losses = [h["loss"] for h in trainer.history]
+    check(all(math.isfinite(x) for x in losses), f"remat {remat} batch {batch}: losses {losses}")
+    return losses[:1 + steps], trainer.state, r
+
+
+def remat_checks(torch, M, cfg, dev, seed):
+    """(d): int8_switchback under ``"block"`` against ``"none"`` at batch 32:
+    the 1 + REMAT_STEPS steps' losses and every parameter bit-equal; peak
+    GiB, device ms, wall ms and launches a step of each; then batch 128
+    under ``"block"`` (predicted not to fit without it)."""
+    from repro_torch.models import params as PRM
+    from repro_torch.models.params import tree_paths
+    runs = {}
+    for remat in ("none", "block"):
+        losses, state, r = remat_run(torch, M, cfg, dev, seed, remat, CLIP_BATCH, REMAT_STEPS)
+        # the parameters kept on the host, so the next run's peak is its own
+        runs[remat] = (losses, PRM.tree_map(lambda t: t.to("cpu"), state.params), r)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, p0, r0), (l1, p1, r1) = runs["none"], runs["block"]
+    differ = [path for (path, a), (_, b) in zip(tree_paths(p0), tree_paths(p1))
+              if not torch.equal(a, b)]
+    out = {"none": r0, "block": r1, "losses_equal": l0 == l1, "leaves_differing": differ}
+    _, _, big = remat_run(torch, M, cfg, dev, seed, "block", REMAT_BIG_BATCH, 2)
+    out["block_batch_128"] = big
+    del runs, p0, p1
+    print("[remat] " + json.dumps(out))
+    check(l0 == l1, f"remat block vs none: losses differ: {l0} against {l1}")
+    check(not differ, f"remat block vs none: {len(differ)} parameter leaves differ: {differ[:8]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def adafactor_run(torch, M, cfg, dev, seed):
+    """(e): int8_switchback (zero-init layer-scale) with AdaFactor, full width
+    and depth, batch 32, ADAFACTOR_STEPS steps: finite losses; the optimizer
+    state's bytes beside StableAdamW's for the same parameters; its state
+    saved and restored by ``CheckpointManager`` bit for bit."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import stable_adamw
+    c = dataclasses.replace(cfg, layer_scale_init=0.0)
+    P = train_parts(torch, c, dev, optimizer="adafactor", **CLIP_OPT)
+    batches = clip_batches(torch, c, ADAFACTOR_STEPS, CLIP_BATCH, dev, seed + 3300)
+    t = time.perf_counter()
+    hist, state, _ = clip_steps(torch, M, P, batches, seed, dev)
+    wall = (time.perf_counter() - t) / ADAFACTOR_STEPS * 1e3
+    check(all(math.isfinite(h[0]) for h in hist), f"AdaFactor: losses {hist}")
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves(state.opt_state.moments))
+    adam = stable_adamw().init(state.params)
+    adam_bytes = sum(t.numel() * t.element_size() for tree in (adam.exp_avg, adam.exp_avg_sq)
+                     for t in _leaves(tree))
+    del adam
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adafactor_") as d:
+        mgr = CheckpointManager(d)
+        mgr.save(ADAFACTOR_STEPS, {"opt_state": state.opt_state})
+        back, step, _ = mgr.restore(ADAFACTOR_STEPS, like={"opt_state": state.opt_state},
+                                    device=dev)
+    same = (type(back["opt_state"]).__name__ == "AdafactorState"
+            and torch.equal(back["opt_state"].step, state.opt_state.step)
+            and all(torch.equal(a, b) for a, b in zip(_leaves(state.opt_state.moments),
+                                                      _leaves(back["opt_state"].moments))))
+    r = dict(losses=[h[0] for h in hist], step_ms=wall, state_bytes=state_bytes,
+             stable_adamw_state_bytes=adam_bytes, checkpoint_round_trip_bit_equal=same)
+    print("[adafactor] " + json.dumps(r))
+    check(same, "AdaFactor: the optimizer state did not come back bit for bit")
+    del state, back, P
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def appendix_c(torch, M, dev, seed):
+    """(f): App. C's measured and predicted variance of the Eq. 3 product at
+    k = APPC_K, b = m = APPC_BM, on the card (``core/analysis``: the
+    row_quantize, tensor_quantize and int8_matmul_dequant_t kernels, counted
+    and each launched); each ratio within [0.3, 3], the variance growing with
+    k; one draw's kernels bit-equal to the plain functions on the same card
+    tensors."""
+    from repro_torch.core import analysis as AN
+    from repro_torch.core import quantization as Q
+    out = {}
+    reset_launch_counts(M)
+    for k in APPC_K:
+        gen = torch.Generator(device=dev).manual_seed(seed + k)
+        measured, predicted = AN.empirical_matmul_quant_error(gen, APPC_BM, k, APPC_BM)
+        out[k] = dict(measured=measured, predicted=predicted, ratio=measured / predicted)
+    counts = launch_counts(M)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((APPC_BM, APPC_K[0]), generator=gen, device=dev)
+    w = torch.randn((APPC_BM, APPC_K[0]), generator=gen, device=dev)
+    x_q, s_x, w_q, s_w, approx = AN.eq3_product(x, w)
+    qx, sx = Q.quantize_rowwise(x)
+    qw, sw = Q.quantize_tensorwise(w)
+    bits = (torch.equal(x_q, qx) and torch.equal(s_x, sx) and torch.equal(w_q, qw)
+            and torch.equal(s_w.reshape(()), sw)
+            and torch.equal(approx, Q.int8_matmul_dequant_rowwise_tensorwise(qx, qw, sx, sw)))
+    res = dict(by_k=out, launches={k: counts[k] for k in ("row_quantize", "tensor_quantize",
+                                                           "int8_matmul_dequant_t")},
+               kernels_bit_equal_to_plain=bits)
+    print("[appendix C] " + json.dumps(res))
+    for k, r in out.items():
+        check(0.3 <= r["ratio"] <= 3.0, f"App. C k={k}: measured / predicted {r['ratio']:g}")
+    check(all(out[a]["measured"] < out[b]["measured"] for a, b in zip(APPC_K, APPC_K[1:])),
+          f"App. C: the variance does not grow with k: {out}")
+    check(all(v > 0 for v in res["launches"].values()), f"App. C: a kernel never ran: {res}")
+    check(bits, "App. C: the kernels' Eq. 3 product differs from the plain functions")
+    return res
+
+
+def training_options(torch, M, cfg, smollm_cfg, dev, seed):
+    """Phase 30, parts (a) to (f); each part prints its seconds."""
+    secs, res = {}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        print(f"[time] 30{name}: {secs[name]:.1f} s", flush=True)
+        return out
+
+    def kernels_a():
+        # CLIP's shapes, then phase 3's smollm edges (8 sequences of 64, 200
+        # and 256 tokens, kv_valid 200, GQA 15/5)
+        cases = f16_clip_cases(cfg) + smollm_flash_cases(smollm_cfg)
+        worst, n = compare_flash_train(torch, M, cases, dev, seed + 3400,
+                                       dtypes=(torch.float16,))
+        faults = f16_faults(torch, M, cfg, dev, seed + 3500)
+        times = time_clip_flash(torch, M, cfg, dev, seed + 3600, dt=torch.float16)
+        print(f"[kernels] {n} f16 flash comparisons within o {FLASH_O_TOL['float16']:g} of "
+              f"max|o|, backward {FLASH_BWD_TOL['float16']:g}, lse {FLASH_LSE_TOL:g}, "
+              f"bit-identical over two launches; the control faults (smallest reading over "
+              "the tolerance): " + json.dumps({"case faults": {
+                  k: v["fault_over_tol"] for k, v in worst.items()}, **faults})
+              + "; readings " + json.dumps(worst))
+        print("[timing] f16 flash: " + json.dumps(times))
+        return dict(worst=worst, n=n, faults=faults, times=times)
+
+    res["a"] = part("a f16 kernels", kernels_a)
+    res["b"], res["f16_counts"] = part("b fp16", lambda: fp16_runs(torch, M, cfg, dev, seed))
+    res["c"] = part("c fp32", lambda: fp32_runs(torch, M, cfg, dev, seed))
+    res["d"] = part("d remat", lambda: remat_checks(torch, M, cfg, dev, seed))
+    res["e"] = part("e adafactor", lambda: adafactor_run(torch, M, cfg, dev, seed))
+    res["f"] = part("f appendix C", lambda: appendix_c(torch, M, dev, seed))
+    res["seconds"] = secs
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5436,6 +5900,7 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.precision import full_precision_products, product_flags
     from repro_torch.kernels.flash_attention import build as FB
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as FREF
@@ -5460,17 +5925,13 @@ def main(argv=None) -> int:
     # 1. environment
     smi = nvidia_smi_line()
     print(smi)
-    # full-precision products, as the JAX package computes them: no TF32,
-    # and bf16 GEMMs reduce in f32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # full-precision products, as the JAX package computes them and as the
+    # launchers set them: no TF32, and bf16 and f16 GEMMs reduce in f32
+    full_precision_products()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)} "
-          f"x{torch.cuda.device_count()}; allow_tf32 matmul="
-          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
-          f"{torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction "
-          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+          f"x{torch.cuda.device_count()}; " + json.dumps(product_flags()))
+    check(not any(product_flags().values()), f"product flags left on: {product_flags()}")
 
     # 2. build: one nvcc per source, started together
     secs = {}
@@ -5693,6 +6154,12 @@ def main(argv=None) -> int:
                                               tag="clip fp8 card vs cpu", seed_offset=13,
                                               faults=CLIP_FP8_FAULTS),
                     dev, args.seed)
+    torch.cuda.empty_cache()
+    # 30. the paper's remaining training options on CLIP at full width: the
+    # f16 flash forms, fp16 with loss scaling, fp32, recomputation,
+    # AdaFactor and App. C
+    with timed("30 training options"):
+        opts = training_options(torch, M, clip_cfg, cfg, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
@@ -5909,8 +6376,31 @@ def main(argv=None) -> int:
           f"{len(train_res['losses'])} train steps, {len(CLIP_MODES) + len(CLIP_FP8_MODES)} x "
           f"{1 + CLIP_STEPS} CLIP train steps; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
+    def f16_entry(name):
+        """A flash kernel's f16 form: ``launches`` from phase 30's FP16 runs
+        (both scalers), its error over phase 30 (a), its times at the CLIP
+        vision layer with the text layer's beside."""
+        times = opts["a"]["times"][name]
+        r = times["vision"]
+        b_ms, b_by = r["bound"]
+        return dict(name=name + "_f16", route="cuda", source=SOURCE[name],
+                    replaces=REPLACES[name], launches=opts["f16_counts"][name],
+                    launches_per_clip_step=opts["f16_counts"][name]
+                    / (FP16_STEPS * len(FP16_SCALERS)),
+                    max_abs_err=opts["a"]["worst"][name]["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=r["library_ms"], eager_ms=r["eager_ms"],
+                    library=r.get("library", "scaled_dot_product_attention, f16"),
+                    calls_timed=r["calls"], work=r["work"],
+                    at_clip_shapes={t: {k: v[k] for k in ("ms", "plain_ms", "library_ms", "work")}
+                                    | {"bound_ms": v["bound"][0]} for t, v in times.items()})
+
+    f16_entries = [f16_entry(k) for k in F16_KERNELS]
+    print("[training options] " + json.dumps({k: opts[k] for k in ("b", "c", "d", "e", "f",
+                                                                    "seconds")}))
     print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
-                      + clip_entries + fp8_entries + paged_entries + op_entries}))
+                      + clip_entries + fp8_entries + paged_entries + op_entries
+                      + f16_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
 """The paper's quantizers: int8 Eq. (1) row-wise, Eq. (2) tensor-wise and
-the column-wise weight state of Eq. (4); and the fp8 "exact value"
-quantizers of §2.2.1 (E4M3 and E5M2).
+the column-wise weight state of Eq. (4), the int8 products with fused
+dequantization of Eq. (3) and Eq. (4), row-wise stochastic rounding (an
+ablation, not on the paper's path); and the fp8 "exact value" quantizers
+of §2.2.1 (E4M3 and E5M2) with their simulated product.
 
 The PyTorch counterpart of ``repro/core/quantization.py``. Each quantizer
 returns ``(q, state)`` with ``state`` the absmax saved for
@@ -75,6 +77,64 @@ def dequantize_tensorwise(q: torch.Tensor, state: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# int8 matmuls with fused dequantization (paper Eq. 3 / Eq. 4)
+# ---------------------------------------------------------------------------
+
+def _int8_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """x_q (..., b, n) . w_q (m, n)ᵀ summed exactly: float64 holds every
+    int32 sum of int8 products (|acc| <= 127² n < 2^53), and torch has no
+    integer matmul on CUDA. Rounding it to f32 is the one rounding of the
+    reference's int32 -> f32 conversion."""
+    return x_q.double() @ w_q.double().t()
+
+
+def int8_matmul_dequant_rowwise_tensorwise(x_q: torch.Tensor, w_q: torch.Tensor,
+                                           state_x: torch.Tensor, state_w: torch.Tensor,
+                                           out_dtype=torch.float32) -> torch.Tensor:
+    """Eq. (3): f32(Q_row(X) Q_tensor(W)ᵀ) * (state_x * (state_w / 127²)),
+    the scale rounded as the reference rounds it. ``x_q`` (..., b, n) int8
+    with row state (..., b, 1); ``w_q`` (m, n) int8 with a scalar state.
+    Returns (..., b, m). The CUDA ``int8_matmul_dequant_t`` takes the same
+    scale and rounds its epilogue the same way (``core/analysis.py`` runs
+    it on the card)."""
+    scale = state_x * div(state_w.reshape(()), INT8_QMAX * INT8_QMAX)
+    return (_int8_acc(x_q, w_q).float() * scale).to(out_dtype)
+
+
+def int8_matmul_dequant_rowwise_rowwise(x_q: torch.Tensor, w_q: torch.Tensor,
+                                        state_x: torch.Tensor, state_w: torch.Tensor,
+                                        out_dtype=torch.float32) -> torch.Tensor:
+    """Eq. (4) (SwitchBackQ / LLM.int8() style): both operands row-wise,
+    ``w_q`` (m, n) with state (m, 1); the scale is the outer product
+    state_x * (state_wᵀ / 127²), rounded as the reference rounds it."""
+    scale = state_x * div(state_w.transpose(-1, -2), INT8_QMAX * INT8_QMAX)
+    return (_int8_acc(x_q, w_q).float() * scale).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# stochastic rounding (an ablation for int8 weight-gradient experiments)
+# ---------------------------------------------------------------------------
+
+def stochastic_codes(x: torch.Tensor, state: torch.Tensor,
+                     uniforms: torch.Tensor) -> torch.Tensor:
+    """The reference's formula given its uniforms: with s = x * (127 /
+    state), q = floor(s) + (u < s - floor(s)), as int8."""
+    scaled = x.float() * div(INT8_QMAX, state)
+    floor = torch.floor(scaled)
+    return (floor + (uniforms < scaled - floor).float()).to(torch.int8)
+
+
+def quantize_rowwise_stochastic(x: torch.Tensor, generator: torch.Generator):
+    """Row-wise int8 with stochastic rounding (unbiased noise; not on the
+    paper's path). The uniforms come from ``generator`` (the reference
+    draws them from a threefry key, which torch cannot replay), so only the
+    draw differs: ``stochastic_codes`` is the reference's formula."""
+    state = _absmax(x, dim=-1)
+    u = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+    return stochastic_codes(x, state, u), state
+
+
+# ---------------------------------------------------------------------------
 # fp8 "exact value" quantizers (paper §2.2.1, float8 paragraph)
 # ---------------------------------------------------------------------------
 
@@ -126,3 +186,13 @@ def quantize_rowwise_fp8(x: torch.Tensor, fmt: str = "e4m3"):
     """Row-wise fp8: one absmax per row of the last dim, state (..., 1)."""
     state = _absmax(x, dim=-1)
     return fp8_cast(x.float() / state, fmt), state
+
+
+def fp8_matmul_dequant(x_q: torch.Tensor, w_q: torch.Tensor, state_x: torch.Tensor,
+                       state_w: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """The simulated fp8 product: operands hold exact fp8 values (in f32),
+    an f32 product, then ``acc * (state_x * state_w)`` with a row or
+    scalar state_x and a scalar or (m, 1) row state_w (transposed)."""
+    acc = x_q.float() @ w_q.float().t()
+    sw = state_w if state_w.dim() == 0 else state_w.transpose(-1, -2)
+    return (acc * (state_x * sw)).to(out_dtype)

@@ -19,6 +19,23 @@
 // The two backward kernels and their design are described where they
 // start, below decode_fwd.
 //
+// flash_fwd, flash_bwd_dq and flash_bwd_dkv each have an f32, a bf16 and
+// an f16 form (the f16 forms run under the FP16 policy: the paper's fp16
+// CLIP with loss scaling); decode_fwd has f32 and bf16 forms. The forms
+// differ only in how a staged input value becomes bf16 mma operands
+// (n_terms): f32 in three terms, f16 in two, bf16 as it is. The f16 split
+// is exact: an f16 value has 11 significant bits, and f16's whole range,
+// subnormals included, lies inside bf16's normal exponent range, so the
+// first term rounds to bf16's 8 bits and the remainder (the f16 value
+// less that term, at most 4 significant bits) is a bf16 value too. So an
+// f16 form computes what the f32 form computes on the same values widened
+// to f32, with fewer products: the S and dP products over two K, V or do
+// terms, P V and dS K over P's three and V's or K's two. f16 inputs stage
+// by plain loads, split in registers on their way to shared memory, as
+// f32 inputs stage: cp.async copies bytes, and an f16 tile copied as it is
+// would need a second pass over shared memory (read, split, write two
+// planes, one more barrier) before a product could read it.
+//
 // What they compute (the plain versions are kernels/flash_attention/ref.py):
 // scores s = (q * scale) . k in f32, q scaled in f32 before the product as
 // the TPU kernel does; keys past the valid length, and with `causal` keys
@@ -81,6 +98,7 @@
 // decode_fwd's workspace and tickets come from its wrapper.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -90,6 +108,21 @@
 #include "../../csrc/mma_tile.cuh"
 
 namespace {
+
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+
+// bf16 terms a staged input value of type T takes (split_bf16): f32 three
+// (every f32 of the normal range exactly), f16 two (every f16 exactly, see
+// the top of this file), bf16 one (itself)
+template <typename T>
+__host__ __device__ constexpr int n_terms() {
+  return std::is_same<T, float>::value ? 3 : std::is_same<T, __half>::value ? 2 : 1;
+}
+
+// the C interface's dtype code of q, k, v and do (ops.DTYPE_CODE)
+enum DtypeCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 constexpr int kDecWarps = 4;       // decode_fwd: warps (parts) per block
 constexpr int kMaxParts = 64;      // decode_fwd: parts a slot's keys split into, at most
@@ -237,7 +270,7 @@ __device__ __forceinline__ void walk_rounds(__nv_bfloat16* k_s, __nv_bfloat16* v
 
 template <typename T, int HD>
 constexpr size_t fwd_smem() {
-  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<T>();
   // K and V of two rounds, NT planes of kRoundKeys rows each
   return 2 * 2 * NT * sizeof(__nv_bfloat16) * static_cast<size_t>(kRoundKeys) * row_pitch<HD>();
 }
@@ -247,7 +280,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
                  int hd, int kv_valid, int causal, float scale) {
-  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<T>();
   constexpr int P = row_pitch<HD>();
   constexpr int kPlane = kRoundKeys * P;                       // elements of one plane
   constexpr int kBuf = NT * kPlane;                            // one round's K (or V)
@@ -361,7 +394,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---------------------------------------------------------------------------
 template <typename TC, int HD>
 constexpr size_t decode_smem() {
-  constexpr int NT = std::is_same<TC, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<TC>();
   // per warp K and V of one chunk, NT planes each
   return sizeof(__nv_bfloat16) * kDecWarps * 2 * NT * static_cast<size_t>(kChunk) * row_pitch<HD>();
 }
@@ -372,7 +405,7 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
                   const int* __restrict__ kv_len, TQ* __restrict__ o, float* __restrict__ work,
                   int* __restrict__ tickets, int S, int H, int KV, int hd, int parts,
                   int part_keys, float scale) {
-  constexpr int NT = std::is_same<TC, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<TC>();
   constexpr int P = row_pitch<HD>();
   constexpr int kPlane = kChunk * P;                           // elements of one plane
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -583,7 +616,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq, int Sq, int Sk, int H,
                     int KV, int hd, int kv_valid, int causal, float scale) {
-  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<T>();
   constexpr int P = row_pitch<HD>();
   constexpr int kPlane = kRoundKeys * P;                       // elements of one plane
   constexpr int kBuf = NT * kPlane;                            // one round's K (or V)
@@ -739,7 +772,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // ---------------------------------------------------------------------------
 template <typename T, int HD, int NQ>
 constexpr size_t dkv_smem() {
-  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<T>();
   constexpr size_t P = row_pitch<HD>();
   constexpr size_t bufs = NT == 1 ? 2 : 1;
   return sizeof(__nv_bfloat16) * (2 * NT * kBwdKeys * P + bufs * (NQ + 2 * NT) * kRoundRows * P) +
@@ -753,7 +786,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int Sq, int Sk, int H, int KV, int hd,
                      int kv_valid, int causal, float scale) {
-  constexpr int NT = std::is_same<T, float>::value ? 3 : 1;
+  constexpr int NT = n_terms<T>();
   constexpr int P = row_pitch<HD>();
   constexpr int kKeyPlane = kBwdKeys * P;
   constexpr int kRowPlane = kRoundRows * P;
@@ -1207,18 +1240,22 @@ __global__ void mma_probe_kernel(const __nv_bfloat16* __restrict__ a,
 
 extern "C" {
 
-// q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all bf16 (bf16 != 0) or all f32;
-// o like q, lse (B, H, Sq) f32. 1 <= hd <= 128, H % KV == 0,
-// 1 <= kv_valid <= Sk (checked by the wrapper).
-int fa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bf16, int B,
-                 int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal, float scale,
-                 void* stream) {
+// q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all of one dtype: `dtype` 0 f32,
+// 1 bf16, 2 f16 (DtypeCode; another value is refused with
+// cudaErrorInvalidValue); o like q, lse (B, H, Sq) f32. 1 <= hd <= 128,
+// H % KV == 0, 1 <= kv_valid <= Sk (checked by the wrapper).
+int fa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                 int B, int Sq, int Sk, int H, int KV, int hd, int kv_valid, int causal,
+                 float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   float* l = static_cast<float*>(lse);
   const cudaError_t err =
-      bf16 ? fwd_by_hd<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
-           : fwd_by_hd<float>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+      dtype == kBF16 ? fwd_by_hd<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+      : dtype == kF16 ? fwd_by_hd<__half>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+                      : fwd_by_hd<float>(q, k, v, o, l, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
   return static_cast<int>(err);
 }
 
@@ -1253,37 +1290,43 @@ int fa_decode_fwd(const void* q, const void* k, const void* v, const void* kv_le
   return static_cast<int>(err);
 }
 
-// q, do (B, Sq, H, hd), k/v (B, Sk, KV, hd), all bf16 (bf16 != 0) or all
-// f32; lse, di (B, H, Sq) f32; dq (B, Sq, H, hd) f32. Same limits as
-// fa_flash_fwd (checked by the wrapper).
+// q, do (B, Sq, H, hd), k/v (B, Sk, KV, hd), all of one dtype (`dtype` as
+// in fa_flash_fwd); lse, di (B, H, Sq) f32; dq (B, Sq, H, hd) f32. Same
+// limits as fa_flash_fwd (checked by the wrapper).
 int fa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* di, void* dq, int bf16, int B, int Sq, int Sk,
+                    const void* lse, const void* di, void* dq, int dtype, int B, int Sq, int Sk,
                     int H, int KV, int hd, int kv_valid, int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   float* out = static_cast<float*>(dq);
   const cudaError_t err =
-      bf16 ? bwd_dq_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
-           : bwd_dq_by_hd<float>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+      dtype == kBF16 ? bwd_dq_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+      : dtype == kF16 ? bwd_dq_by_hd<__half>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+                      : bwd_dq_by_hd<float>(q, k, v, dout, l, d, out, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
   return static_cast<int>(err);
 }
 
 // As fa_flash_bwd_dq; dk, dv (B, Sk, KV, hd) f32, every element written.
 int fa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* di, void* dk, void* dv, int bf16, int B, int Sq,
+                     const void* lse, const void* di, void* dk, void* dv, int dtype, int B, int Sq,
                      int Sk, int H, int KV, int hd, int kv_valid, int causal, float scale,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sk == 0) return static_cast<int>(cudaGetLastError());
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   float* ok = static_cast<float*>(dk);
   float* ov = static_cast<float*>(dv);
   const cudaError_t err =
-      bf16 ? bwd_dkv_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
-           : bwd_dkv_by_hd<float>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
+      dtype == kBF16 ? bwd_dkv_by_hd<__nv_bfloat16>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+      : dtype == kF16 ? bwd_dkv_by_hd<__half>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st)
+                      : bwd_dkv_by_hd<float>(q, k, v, dout, l, d, ok, ov, B, Sq, Sk, H, KV, hd, kv_valid, causal, scale, st);
   return static_cast<int>(err);
 }
 

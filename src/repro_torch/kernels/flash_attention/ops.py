@@ -29,7 +29,12 @@ import torch
 from repro_torch.kernels import build as _b
 from repro_torch.kernels.flash_attention import ref as _ref
 
-_FLOAT_TYPES = (torch.float32, torch.bfloat16)
+# flash_fwd and the two backward kernels take f32, bf16 and f16 (the f16
+# forms run under the FP16 policy); decode_fwd serves f32 and bf16 only
+_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DECODE_TYPES = (torch.float32, torch.bfloat16)
+# the C interface's dtype code of q, k, v (and do)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 128       # the kernels pad the head dim to 64, 80 or 128
 MAX_GROUP = 8            # decode's query group: rows 0-7 of a warp's 16-row tile
 DECODE_MAX_PARTS = 64    # decode's parts a slot's keys split into, at most (= kMaxParts in the .cu)
@@ -66,8 +71,9 @@ def _lib():
 
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, kv_valid: Optional[int] = None):
-    """Softmax attention: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all f32 or
-    all bf16 -> (o (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) f32).
+    """Softmax attention: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all f32,
+    all bf16 or all f16 -> (o (B, Sq, H, hd) in q's dtype, lse (B, H, Sq)
+    f32).
 
     Keys at or past ``kv_valid`` (default Sk; 1 <= kv_valid <= Sk) are
     masked; with ``causal`` query i sees keys j <= i."""
@@ -85,7 +91,7 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _b.launch(_lib().fa_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              o.data_ptr(), lse.data_ptr(), int(q.dtype == torch.bfloat16),
+              o.data_ptr(), lse.data_ptr(), DTYPE_CODE[q.dtype],
               B, Sq, Sk, H, KV, hd, kv_valid, int(bool(causal)), scale, _b.stream(q))
     flash_fwd_lse.launches += 1
     return o, lse
@@ -127,9 +133,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card the keys are split into parts (``decode_split``) whose
     partial softmax states go to a workspace allocated here and are merged
     in part order in the same launch; only a slot's live parts are read."""
-    _b.need(q, "q", _FLOAT_TYPES, 4)
-    _b.need(k, "k", _FLOAT_TYPES, 4)
-    _b.need(v, "v", _FLOAT_TYPES, 4)
+    _b.need(q, "q", _DECODE_TYPES, 4)
+    _b.need(k, "k", _DECODE_TYPES, 4)
+    _b.need(v, "v", _DECODE_TYPES, 4)
     _b.need(kv_len, "kv_len", (torch.int32,), 1)
     if k.dtype != v.dtype:
         raise TypeError(f"k, v dtypes differ: {k.dtype}, {v.dtype}")
@@ -176,7 +182,7 @@ def _check_bwd(q, k, v, do, lse, di):
 def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
                  kv_valid: Optional[int] = None) -> torch.Tensor:
     """dq of softmax attention, recomputing p from (q, k, lse): q, do
-    (B, Sq, H, hd), k/v (B, Sk, KV, hd), all f32 or all bf16; lse (the
+    (B, Sq, H, hd), k/v (B, Sk, KV, hd), all f32, bf16 or f16; lse (the
     forward's) and di = sum_d o * do, both (B, H, Sq) f32. Returns dq
     (B, Sq, H, hd) f32."""
     _check_bwd(q, k, v, do, lse, di)
@@ -190,7 +196,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
     dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
     _b.launch(_lib().fa_flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
               do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-              int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, kv_valid,
+              DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, hd, kv_valid,
               int(bool(causal)), scale, _b.stream(q))
     flash_bwd_dq.launches += 1
     return dq
@@ -213,7 +219,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
     dv = torch.empty_like(dk)
     _b.launch(_lib().fa_flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
               do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-              dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd,
+              dv.data_ptr(), DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, hd,
               kv_valid, int(bool(causal)), scale, _b.stream(q))
     flash_bwd_dkv.launches += 1
     return dk, dv

@@ -5,7 +5,9 @@ summary lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels). Like the JAX launcher it serves the
 arch's reduced config with random weights. ``--kernel-backend``,
 ``--mesh`` and ``--devices`` are not here: the port dispatches on the
-device of its tensors and runs on one card. ``--telemetry`` records the
+device of its tensors and runs on one card. Before it builds anything it
+turns off TF32 and the reduced-precision reductions of 16-bit GEMMs
+(``core/precision.full_precision_products``). ``--telemetry`` records the
 measured ``generate`` call's flight-recorder events (not the warm-up),
 ``--profile-steps A:B`` wraps engine waves A..B in a ``torch.profiler``
 Chrome trace under ``--profile-dir``.
@@ -28,6 +30,7 @@ import numpy as np
 
 from repro_torch.configs import ALL_ARCHS, get_reduced_config
 from repro_torch.configs.base import ServeConfig
+from repro_torch.core.precision import full_precision_products
 from repro_torch.models import build
 from repro_torch.serve import make_serve_engine
 from repro_torch.telemetry import Telemetry, parse_profile_steps
@@ -87,6 +90,7 @@ def main(argv=None):
     ap.add_argument("--profile-dir", default="/tmp/repro-profile")
     args = ap.parse_args(argv)
 
+    full_precision_products()
     cfg = get_reduced_config(args.arch)
     scfg = ServeConfig(max_batch=args.max_batch, max_len=args.max_len,
                        temperature=args.temperature,

@@ -5,8 +5,17 @@ batches (``BigramLM``; ``SyntheticCLIP`` for ``--arch clip-vit-huge``),
 with random weights, through ``make_train_setup``,
 ``make_train_step`` and ``Trainer``, and prints the per-step log, the
 final loss and the stability report. ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions) is new. Training runs with
-``remat="none"``. As in the JAX launcher, ``--ckpt-dir`` checkpoints
+``cpu`` runs the kernels' plain versions) is new. As the JAX launcher
+does, it trains with ``remat="block"`` (each block recomputed in the
+backward), and ``--quant-mode`` takes every mode, ``fp16`` and ``fp32``
+with the bf16 compute dtype of ``QuantPolicy.from_train_config`` (f32
+products under ``fp32``); ``--optimizer adafactor`` runs AdaFactor;
+``--loss-scaler`` is ``none``, ``fixed_tensor`` (the paper's §3.6
+tensor-level skip at a fixed scale) or ``dynamic`` (the whole-network
+skip and halving baseline). Before it builds anything it turns off TF32
+and the reduced-precision reductions of 16-bit GEMMs
+(``core/precision.full_precision_products``). As in the JAX launcher,
+``--ckpt-dir`` checkpoints
 every ``max(steps // 3, 10)`` steps and resumes from the newest valid
 checkpoint, ``--supervise`` runs under the self-healing
 ``TrainSupervisor``, ``--fault-plan`` injects faults, and
@@ -23,6 +32,9 @@ device of its tensors).
     PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
         --steps 3 --batch 4 --quant-mode fp8_mixed --fp8-block 64 64 \
         --fp8-fallback-ratio 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
+        --steps 3 --batch 4 --quant-mode fp16 --loss-scaler dynamic \
+        --optimizer adafactor --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 \
         --ckpt-dir /tmp/ck --supervise \
         --fault-plan '[{"step": 12, "kind": "nan_grad"}]' \
@@ -37,7 +49,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_reduced_config
 from repro_torch.configs.base import (CLIPConfig, ParallelConfig, SupervisorConfig,
                                       TelemetryConfig, TrainConfig)
-from repro_torch.core.precision import QuantPolicy
+from repro_torch.core.precision import QuantPolicy, full_precision_products
 from repro_torch.data import BigramLM, SyntheticCLIP
 from repro_torch.models import build
 from repro_torch.models import params as PRM
@@ -92,9 +104,13 @@ def main(argv=None):
                     help="fp8_mixed: tile absmax > ratio x median falls "
                          "back to bf16 (lower = more conservative)")
     ap.add_argument("--attn-impl", default="flash_scan", choices=("flash_scan", "dense"))
-    ap.add_argument("--optimizer", default="stable_adamw")
+    ap.add_argument("--optimizer", default="stable_adamw",
+                    help="stable_adamw, adamw or adafactor")
     ap.add_argument("--beta2", type=float, default=0.95)
-    ap.add_argument("--loss-scaler", default="none")
+    ap.add_argument("--loss-scaler", default="none",
+                    help="fixed_tensor: the paper's fixed scale with a per-tensor skip of "
+                         "Inf/NaN gradients (§3.6); dynamic: the whole-network skip, the "
+                         "scale halved on overflow (the baseline); none: no scaling")
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
@@ -128,10 +144,11 @@ def main(argv=None):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet "
                                       f"({item}; ROADMAP.md)")
 
+    full_precision_products()
     dev = PRM.resolve_device(args.device)
     cfg = get_reduced_config(args.arch)
     bundle = build(cfg)
-    par = ParallelConfig(remat="none", attn_impl=args.attn_impl)
+    par = ParallelConfig(remat="block", attn_impl=args.attn_impl)
     tc = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
                      warmup_steps=max(args.steps // 10, 1), total_steps=args.steps,
                      beta2=args.beta2, loss_scaler=args.loss_scaler,

@@ -16,7 +16,7 @@ from repro_torch.configs.base import CLIPConfig, ParallelConfig
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.models.common import embed_tokens, layer_norm
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.transformer import _stack_specs, require_no_remat
+from repro_torch.models.transformer import _stack_specs
 from repro_torch.models.vit import _block_specs, _ln_spec, run_blocks, vision_forward, \
     vision_param_specs
 
@@ -73,7 +73,6 @@ def clip_forward(params, batch: Dict[str, torch.Tensor], cfg: CLIPConfig,
                  collect_stats: bool = False):
     """(image features (B, E) f32, text features (B, E) f32, both L2
     normalised, per-block vision stats)."""
-    require_no_remat(parallel)
     img, stats = vision_forward(params["visual"], batch["images"], cfg, policy, parallel,
                                 patch_keep=patch_keep, collect_stats=collect_stats)
     txt = text_forward(params, batch["texts"], cfg, policy, parallel)

@@ -14,16 +14,20 @@ Serve states are updated in place: ``serve_prefill``, ``decode_step``,
 lengths into the cache tensors they are given and return the same state
 object.
 
-Training runs with ``remat="none"`` only: ``"block"``/``"full"``
-(activation recomputation) raise until they are ported. MoE, SSM, hybrid
-and multimodal stacks come with their own slices.
+Training recomputes activations as the JAX package does: under
+``remat="block"`` or ``"full"`` (the same in both packages) each layer
+group runs under ``torch.utils.checkpoint`` (non-reentrant), so only the
+groups' inputs are kept for the backward (``maybe_remat``). MoE, SSM,
+hybrid and multimodal stacks come with their own slices.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.layer_scale import apply_layer_scale
@@ -183,28 +187,37 @@ def _train_layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
     return x + apply_layer_scale(lp.get("gamma2"), m)
 
 
-def require_no_remat(parallel: ParallelConfig):
-    if parallel.remat != "none":
-        raise NotImplementedError(
-            f"remat={parallel.remat!r} is not ported yet: training runs with "
-            "remat='none' (activation recomputation is queued, ROADMAP.md "
-            "Queue 1); full-width smollm-360m fits the card without it")
+def maybe_remat(fn, parallel: ParallelConfig):
+    """``fn`` as it is under ``remat="none"``; else ``fn`` under
+    ``torch.utils.checkpoint`` (non-reentrant, the RNG state preserved):
+    its activations are dropped after the forward and recomputed in the
+    backward, only its inputs kept. ``"block"`` and ``"full"`` are the same
+    in the JAX package too (``jax.checkpoint`` of the unit)."""
+    if parallel.remat == "none":
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             policy: QuantPolicy, parallel: ParallelConfig):
     """Training forward over the whole sequence: tokens (B, S) ->
-    (logits (B, S, V), aux loss, a zero for dense stacks)."""
+    (logits (B, S, V), aux loss, a zero for dense stacks). The unit of
+    recomputation is a layer group, as in the JAX package."""
     require_dense(cfg, "forward")
-    require_no_remat(parallel)
     x = embed_input(params, tokens, cfg, policy)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = {key: PRM.tree_map(lambda t: t.unbind(0), blk)
               for key, blk in params["blocks"].items()}
-    for g in range(n_groups(cfg)):
+
+    def group_fwd(x, gp):
         for i in range(period(cfg)):
-            lp = PRM.tree_map(lambda views: views[g], layers[f"pos{i}"])
-            x = _train_layer_apply(x, lp, cfg, policy, parallel, positions=positions)
+            x = _train_layer_apply(x, gp[f"pos{i}"], cfg, policy, parallel,
+                                   positions=positions)
+        return x
+
+    blk = maybe_remat(group_fwd, parallel)
+    for g in range(n_groups(cfg)):
+        x = blk(x, {key: PRM.tree_map(lambda views: views[g], lv) for key, lv in layers.items()})
     logits = lm_head(params, x, cfg, policy)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -231,7 +244,10 @@ def lm_head(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy):
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     cd = policy.compute_dtype
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].to(cd).t())
+        # the JAX einsum promotes (f32 activations under fp32 with bf16
+        # compute meet the bf16 table in f32)
+        dt = torch.promote_types(x.dtype, cd)
+        return torch.matmul(x.to(dt), params["embed"].to(cd).to(dt).t())
     return torch.matmul(x.to(cd), PRM.use_weight(params["head"],
                                                  ("embed", "vocab"), cd))
 

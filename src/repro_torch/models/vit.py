@@ -11,7 +11,8 @@ linears and optional zero-init layer-scale (§2.3), and patch dropout
 Every linear goes through ``quant_linear`` with the weight cast to the
 compute dtype by ``use_weight``, as the JAX layers do. The stacked block
 parameters run as a Python loop over one ``unbind`` per leaf (the JAX
-package scans over the stack).
+package scans over the stack); under ``remat`` other than ``"none"`` each
+block is the unit of recomputation, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.models import params as PRM
 from repro_torch.models.attention import _core_attention
 from repro_torch.models.common import layer_norm
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.transformer import _stack_specs
+from repro_torch.models.transformer import _stack_specs, maybe_remat
+from repro_torch.stability.feature_stats import block_feature_magnitude
 
 
 def _ln_spec(width):
@@ -115,7 +117,7 @@ def vit_block(x, lp, heads: int, policy: QuantPolicy, causal: bool = False,
     h = layer_norm(x, lp["norm2"]["scale"], lp["norm2"]["bias"])
     m = _mlp(h, lp["mlp"], policy)
     x = x + apply_layer_scale(lp.get("gamma2"), m)
-    stat = (torch.mean(torch.abs(x.float())) if collect_stats
+    stat = (block_feature_magnitude(x) if collect_stats
             else torch.zeros((), dtype=torch.float32, device=x.device))
     return x, stat
 
@@ -124,13 +126,19 @@ def run_blocks(x, blocks, n_layers: int, heads: int, policy: QuantPolicy,
                parallel: ParallelConfig, *, causal: bool = False,
                collect_stats: bool = False):
     """The stacked blocks in order (one ``unbind`` per leaf, whose backward
-    stacks the layers' gradients once). Returns (x, per-layer stats (L,))."""
+    stacks the layers' gradients once), each block recomputed in the
+    backward unless ``parallel.remat`` is ``"none"`` (its stat comes out of
+    the recomputed body). Returns (x, per-layer stats (L,))."""
     layers = PRM.tree_map(lambda t: t.unbind(0), blocks)
+
+    def body(x, lp):
+        return vit_block(x, lp, heads, policy, causal=causal, collect_stats=collect_stats,
+                         impl=parallel.attn_impl)
+
+    blk = maybe_remat(body, parallel)
     stats = []
     for i in range(n_layers):
-        lp = PRM.tree_map(lambda views: views[i], layers)
-        x, s = vit_block(x, lp, heads, policy, causal=causal, collect_stats=collect_stats,
-                         impl=parallel.attn_impl)
+        x, s = blk(x, PRM.tree_map(lambda views: views[i], layers))
         stats.append(s)
     return x, torch.stack(stats)
 

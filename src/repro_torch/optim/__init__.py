@@ -1,5 +1,5 @@
-"""Optimizers and stabilization (paper §3): the port of ``repro/optim``.
-AdaFactor is not ported yet (ROADMAP.md Queue 1) and raises."""
+"""Optimizers and stabilization (paper §3): the port of ``repro/optim``."""
+from repro_torch.optim.adafactor import adafactor  # noqa: F401
 from repro_torch.optim.base import Optimizer, default_wd_mask, global_norm  # noqa: F401
 from repro_torch.optim.grad_clip import clip_by_global_norm  # noqa: F401
 from repro_torch.optim.loss_scaler import (  # noqa: F401
@@ -14,7 +14,5 @@ def make_optimizer(name: str, learning_rate, **kw) -> Optimizer:
     if name == "adamw":
         return adamw(learning_rate, **kw)
     if name == "adafactor":
-        raise NotImplementedError(
-            "optimizer 'adafactor' is not ported yet (ROADMAP.md Queue 1); "
-            "the port runs stable_adamw and adamw")
+        return adafactor(learning_rate, **kw)
     raise ValueError(f"unknown optimizer {name!r}")

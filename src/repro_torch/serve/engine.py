@@ -829,4 +829,8 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
         raise ValueError(f"attn_impl {parallel.attn_impl!r} not in {ATTN_IMPLS}")
     _check_serve_config(serve_cfg)
     policy = policy or QuantPolicy(serve_cfg.quant_mode)
+    if policy.mode in ("fp16", "fp32"):
+        raise NotImplementedError(
+            f"serving quant mode {policy.mode!r} is not ported yet: decode_fwd and the "
+            "paged kernels take f32 and bf16 (ROADMAP.md Queue 1 #12)")
     return ServeEngine(bundle, serve_cfg, parallel, policy, device)

@@ -7,7 +7,9 @@ The port of ``repro/train/train_step.py``:
 * loss scaling (the paper's §3.6 tensor-level fixed scaler, or the dynamic
   baseline);
 * global-norm clipping (the paper's comparison intervention, Fig. 10);
-* StableAdamW / AdamW through the Optimizer protocol;
+* StableAdamW / AdamW / AdaFactor through the Optimizer protocol;
+* activation recomputation per the ParallelConfig's ``remat`` (the
+  models wrap each block or layer group, ``models.transformer.maybe_remat``);
 * per-tensor RMS_t and the int8 quant-health scalars in the metrics, with
   the JAX package's keys;
 * patch dropout (CLIP): the state carries a ``torch.Generator`` where the
@@ -29,7 +31,6 @@ import torch
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.core.quantization import div
-from repro_torch.models.transformer import require_no_remat
 from repro_torch.optim import (clip_by_global_norm, global_norm, make_optimizer,
                                make_scaler, warmup_cosine)
 from repro_torch.models.params import tree_leaves, tree_map, tree_paths, tree_unflatten
@@ -93,7 +94,6 @@ def loss_and_grads(bundle, policy: QuantPolicy, parallel: ParallelConfig, params
 def make_train_step(bundle, policy: QuantPolicy, parallel: ParallelConfig,
                     train_cfg: TrainConfig, opt, scaler) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics)."""
-    require_no_remat(parallel)
     if parallel.attn_block_q or parallel.attn_block_k:
         raise NotImplementedError(
             "attn_block_q/attn_block_k are the TPU kernels' tile sizes; the card's "

@@ -91,12 +91,17 @@ from repro_torch.kernels.paged_attention import ref as PREF
 from repro_torch.kernels.switchback import ops as TOPS
 from repro_torch.kernels.switchback import ref as TREF
 
-O_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+# flash o vs plain, relative to max|o|: one ulp at the largest value in the
+# 16-bit types (2^-7 bf16, 2^-10 f16: both sides compute in f32 and round
+# once, now and then on either side of a boundary), 1e-5 in f32
+O_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 1e-5}
 LSE_TOL = 1e-5
 # backward kernels vs plain, relative to max|grad|: the inputs are exact in
 # both types and both sides compute in f32, so the gap is the order of f32
-# sums over keys and rows (about 1e-6); bf16 inputs carry the same
-BWD_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
+# sums over keys and rows (about 1e-6); bf16 and f16 inputs carry the same
+BWD_TOL = {torch.bfloat16: 1e-4, torch.float16: 1e-4, torch.float32: 1e-4}
+# the flash kernels' forms: bf16, f32 and f16 (the FP16 policy's)
+FLASH_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
 
 
 def _card():
@@ -373,7 +378,7 @@ def _rel(got, want) -> float:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dt", FLASH_DTYPES, ids=["bf16", "f32", "f16"])
 @pytest.mark.parametrize("B,Sq,Sk,kv_valid,causal", [
     (8, 32, 32, 32, True), (8, 128, 128, 128, True), (8, 96, 96, 96, False),
     (8, 64, 160, 150, False), (8, 64, 160, 150, True), (3, 37, 37, 37, True)])
@@ -393,7 +398,7 @@ def test_cuda_flash_fwd_matches_plain(B, Sq, Sk, kv_valid, causal, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dt", FLASH_DTYPES, ids=["bf16", "f32", "f16"])
 @pytest.mark.parametrize("B,Sq,Sk,kv_valid,H,KV,hd,causal", [
     (4, 129, 129, 129, 16, 16, 80, False), (4, 77, 77, 77, 16, 16, 64, True),
     (3, 37, 50, 45, 15, 5, 64, False), (3, 37, 50, 45, 16, 16, 80, True),
@@ -452,7 +457,7 @@ def test_cuda_decode_matches_plain(S, H, KV, hd, cache, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dt", FLASH_DTYPES, ids=["bf16", "f32", "f16"])
 @pytest.mark.parametrize("B,S,kv_valid,causal", [
     (8, 256, 256, True), (8, 200, 200, False), (8, 64, 50, True), (8, 64, 50, False),
     (3, 37, 37, True)])
@@ -482,7 +487,7 @@ def test_cuda_flash_bwd_matches_plain(B, S, kv_valid, causal, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dt", FLASH_DTYPES, ids=["bf16", "f32", "f16"])
 @pytest.mark.parametrize("B,S,H,KV,hd,kv_valid,causal", [
     (2, 70, 6, 2, 36, 70, True), (2, 70, 6, 2, 48, 60, False), (3, 50, 4, 4, 100, 50, True),
     (2, 21, 16, 16, 80, 21, False)])
@@ -507,7 +512,7 @@ def test_cuda_flash_bwd_dq_head_dims(B, S, H, KV, hd, kv_valid, causal, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dt", FLASH_DTYPES, ids=["bf16", "f32", "f16"])
 @pytest.mark.parametrize("B,S,H,KV,hd,causal", [
     (8, 256, 15, 5, 64, True), (32, 129, 16, 16, 80, False), (32, 77, 16, 16, 64, True)],
     ids=["smollm", "clip_vision", "clip_text"])
@@ -1181,3 +1186,75 @@ def test_cuda_tensor_quantizers_one_kernel_a_call():
     assert max(fp8) == 2 * len(ws) and max(int8) == len(ws), (fp8, int8)
     assert TOPS.launch_counts()["tensor_quantize"] == 3 * len(ws)
     assert F8.launch_counts()["fp8_tensor_quantize"] == 6 * len(ws)
+
+
+@pytest.mark.cuda
+def test_cuda_clip_remat_is_bit_equal_to_none():
+    """CLIP ViT-H/14 at full width and 2 + 2 layers, int8_switchback with
+    zero-init layer-scale, batch 8, 3 steps: under ``remat="block"`` the
+    losses and every parameter are ``"none"``'s bits (each block's forward
+    recomputed in the backward by the same kernels)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.precision import QuantPolicy, full_precision_products
+    from repro_torch.data import SyntheticCLIP
+    from repro_torch.models import build
+    from repro_torch.models import params as PRM
+    from repro_torch.train import init_train_state, make_train_setup, make_train_step
+    dev = _card()
+    full_precision_products()
+    cfg = dataclasses.replace(get_config("clip-vit-huge"), vision_layers=2, text_layers=2,
+                              layer_scale_init=0.0)
+    data = SyntheticCLIP(cfg.image_size, cfg.text_ctx, cfg.text_vocab, n_classes=32, seed=5)
+    batches = [{"images": torch.from_numpy(b["images"]).to(dev),
+                "texts": torch.from_numpy(b["texts"]).to(device=dev, dtype=torch.long)}
+               for b in (data.batch(8) for _ in range(3))]
+    runs = {}
+    for remat in ("none", "block"):
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                         quant_mode="int8_switchback")
+        opt, scaler = make_train_setup(tc)
+        bundle = build(cfg)
+        step = make_train_step(bundle, QuantPolicy("int8_switchback"),
+                               ParallelConfig(remat=remat), tc, opt, scaler)
+        state = init_train_state(PRM.init_params(bundle.param_specs, 0, device=dev), opt, scaler)
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        runs[remat] = (losses, state.params)
+    torch.cuda.synchronize()
+    (l0, p0), (l1, p1) = runs["none"], runs["block"]
+    assert l0 == l1
+    for (path, a), (_, b) in zip(PRM.tree_paths(p0), PRM.tree_paths(p1)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.cuda
+def test_cuda_appendix_c_product_is_the_plain_function():
+    """App. C's Eq. 3 product on the card goes through the row_quantize,
+    tensor_quantize and int8_matmul_dequant_t kernels (counted), and gives
+    the plain functions' bits on the same card tensors; the reference's
+    criteria hold at the CLIP widths."""
+    from repro_torch.core import analysis as AN
+    from repro_torch.core import quantization as Q
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((256, 1280), generator=gen, device=dev)
+    w = torch.randn((256, 1280), generator=gen, device=dev)
+    TOPS.reset_launch_counts()
+    x_q, s_x, w_q, s_w, approx = AN.eq3_product(x, w)
+    counts = TOPS.launch_counts()
+    assert all(counts[k] == 1 for k in ("row_quantize", "tensor_quantize",
+                                        "int8_matmul_dequant_t"))
+    qx, sx = Q.quantize_rowwise(x)
+    qw, sw = Q.quantize_tensorwise(w)
+    assert torch.equal(x_q, qx) and torch.equal(s_x, sx)
+    assert torch.equal(w_q, qw) and torch.equal(s_w.reshape(()), sw)
+    assert torch.equal(approx, Q.int8_matmul_dequant_rowwise_tensorwise(qx, qw, sx, sw))
+    small = AN.empirical_matmul_quant_error(gen, 256, 1280, 256)
+    large = AN.empirical_matmul_quant_error(gen, 256, 5120, 256)
+    assert large[0] > small[0]
+    assert all(0.3 <= m / p <= 3.0 for m, p in (small, large))

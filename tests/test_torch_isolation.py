@@ -262,11 +262,18 @@ def _train_parts(cfg):
 
 @pytest.mark.parametrize("remat", ["block", "full"])
 def test_training_needs_remat_none(remat):
-    from repro_torch.train import make_train_step
-    bundle, tc, opt, scaler = _train_parts(get_reduced_config("smollm-360m"))
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(bundle, QuantPolicy("int8_switchback"), ParallelConfig(remat=remat),
-                        tc, opt, scaler)
+    """Recomputation is ported (the name is kept from when it raised): a
+    step under ``remat`` builds and runs (tests/test_torch_remat.py holds it
+    bit for bit to ``"none"``)."""
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_reduced_config("smollm-360m")
+    bundle, tc, opt, scaler = _train_parts(cfg)
+    step = make_train_step(bundle, QuantPolicy("int8_switchback"), ParallelConfig(remat=remat),
+                           tc, opt, scaler)
+    state = init_train_state(PRM.init_params(bundle.param_specs, 0, device="cpu"), opt, scaler)
+    tokens = torch.zeros((2, 8), dtype=torch.long)
+    state, m = step(state, {"tokens": tokens, "labels": tokens})
+    assert bool(torch.isfinite(m["loss"])) and int(state.step) == 1
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "test"], ["--devices", "8"], ["--fsdp"],
@@ -278,14 +285,15 @@ def test_unported_train_flags_raise(flag):
 
 
 def test_unported_training_options_raise():
-    """AdaFactor still raises; the fp8 paths that raised until their slice
-    now run: the fp8 SwitchBack linear forward and backward, and the
+    """The training options that raised until their slice now run:
+    AdaFactor, the fp8 SwitchBack linear forward and backward, and the
     fp8_mixed quant-health gauge."""
     from repro_torch.core import switchback as SB
     from repro_torch.optim import make_optimizer
     from repro_torch.telemetry.health import quant_health
-    with pytest.raises(NotImplementedError):
-        make_optimizer("adafactor", 1e-3)
+    opt = make_optimizer("adafactor", 1e-3)
+    p = {"w": torch.ones(4, 3)}
+    assert set(opt.init(p).moments["w"]) == {"vr", "vc"}
     x = torch.randn(2, 4, requires_grad=True)
     w = torch.randn(4, 3, requires_grad=True)
     y = SB.switchback_linear(x, w, variant="fp8")
