@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30):
+24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the four product flags ``full_precision_products``
@@ -102,8 +102,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     and twice the same bits, the control fault (a band's last slab left out
     of its absmax) outside in every case; then ``tensor_quantize``
     (``compare_tensor_quantizer_edges``: every path weight, each on the one
-    launch in bf16 and one CUDA kernel a call (a profile of these calls
-    alone), ragged and small n, the one-launch limit and a granule
+    launch in bf16 and one CUDA kernel a call (the kernel nodes of a CUDA
+    graph of these calls), ragged and small n, the one-launch limit and a granule
     either side, offsets of 0, 1, 2 and 4 elements, the absmax first, last,
     inside the last block's span and at a span's edge, negative, ties, an
     all-zero tensor) bit-equal and twice the same bits, the control fault
@@ -314,6 +314,19 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     kernels at k = 1,280, 5,120 and 65,536 (b = m = 256): each ratio in
     [0.3, 3], growing with k, the kernels bit-equal to the plain
     functions.
+
+31. data-parallel and ZeRO-3 training through the ``TrainEngine``
+    (``make_engine``) on a world-1 NCCL group, CLIP ViT-H/14 at full width
+    and ENGINE_LAYERS (4 + 4) layers, ``int8_switchback``, batch 32,
+    ENGINE_STEPS steps a run (last): (a) without fsdp, the losses, final
+    state and launch counts of the direct ``make_train_step`` exactly; (b)
+    fsdp with the explicit weight gather and pure_dp (bf16 wire): (a)'s
+    exactly; (c) the same over the int8 wire: the direct step whose
+    weights pass through ``models.params.int8_wire`` exactly, and a
+    control fault (an absmax per half of each weight) that must not be;
+    (d) device ms and CUDA launches a step of each (torch.profiler), NCCL's
+    kernels apart, peak memory, and the per-rank state bytes predicted
+    from the leaf sizes at world 4 under fsdp (full depth).
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -1715,7 +1728,7 @@ def compare_tensor_quantizer_edges(torch, M, dev, seed, families):
     bits = lambda t: t.view(torch.uint8) if t.element_size() == 1 else t
     for family in families:
         quant, plain, drop, plan = tq_family(M, family)
-        a_call = tq_kernels_a_call(torch, quant, family != "int8", dev)
+        a_call = tq_kernels_a_call(torch, quant, dev)
         check(a_call == 1, f"{family} tensor_quantize: {a_call} CUDA kernels a call on the path "
               "weights, not the one launch")
         for dt in (torch.bfloat16, torch.float32):
@@ -1761,25 +1774,48 @@ def compare_tensor_quantizer_edges(torch, M, dev, seed, families):
     return worst, n_cmp, caught
 
 
-def tq_kernels_a_call(torch, quant, fp8, dev, windows=3):
-    """CUDA kernels torch.profiler reads for one ``quant`` call on each
-    weight of TQ_PATH_SHAPES in bf16 (the int8 family's kernels, or with
-    ``fp8`` the fp8 family's), a call a weight: the most over ``windows``
-    windows of these calls alone. The profiler can drop a kernel's record
-    (10 of 11 in one window on an H100; PERF.md), never add one, so the
-    most is the count, and the two-launch form would read two a call."""
-    from torch.profiler import ProfilerActivity, profile
+def graph_kernels(torch, fn):
+    """CUDA kernels one ``fn()`` launches: the kernel nodes of a CUDA graph
+    that captures it, read through the driver (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``). Exact, where torch.profiler's CUPTI records
+    can go missing (one window of an H100 read 10 of 11, and a run read
+    none in three windows), and blind to kernel names: a torch kernel the
+    wrapper launched beside its own would count. ``fn`` runs once on the
+    capture stream first, so that its per-stream workspace (the grid
+    barrier) is made outside the capture."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(raw, None, ctypes.byref(n))
+    check(err == 0, f"cuGraphGetNodes: CUresult {err}")
+    nodes = (ctypes.c_void_p * n.value)()
+    err = cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    check(err == 0, f"cuGraphGetNodes: CUresult {err}")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        err = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        check(err == 0, f"cuGraphNodeGetType: CUresult {err}")
+        kernels += kind.value == 0                  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
+
+
+def tq_kernels_a_call(torch, quant, dev):
+    """CUDA kernels a ``quant`` call launches on the weights of
+    TQ_PATH_SHAPES in bf16, a call a weight (``graph_kernels``): 1 for the
+    one launch, 2 for the two-pass form."""
     ws = [torch.randn(shape, device=dev).to(torch.bfloat16) for shape in TQ_PATH_SHAPES]
-    counts = []
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for w in ws:
-                quant(w)
-            torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if "tensor_quantize_kernel" in e.key
-                          and ("fp8_tensor_quantize" in e.key) == fp8))
-    return max(counts) / len(ws)
+    return graph_kernels(torch, lambda: [quant(w) for w in ws]) / len(ws)
 
 
 # the K-major fp8 quantizer's own edges beside TQ_PATH_SHAPES and
@@ -1807,21 +1843,10 @@ def kt_block_of(p, at, C):
     return (r // p["tile_rows"] * nc + c // p["tile_cols"]) % p["blocks"]
 
 
-def kt_kernels_a_call(torch, F8, dev, windows=3):
-    """CUDA kernels torch.profiler reads for one ``tensor_quantize_kt`` call
-    on each weight of TQ_PATH_SHAPES in bf16: the most over ``windows``
-    windows (as ``tq_kernels_a_call``)."""
-    from torch.profiler import ProfilerActivity, profile
-    ws = [torch.randn(shape, device=dev).to(torch.bfloat16) for shape in TQ_PATH_SHAPES]
-    counts = []
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for w in ws:
-                F8.tensor_quantize_kt(w, "e4m3")
-            torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if "tensor_quantize" in e.key))
-    return max(counts) / len(ws)
+def kt_kernels_a_call(torch, F8, dev):
+    """CUDA kernels a ``tensor_quantize_kt`` call launches on the weights
+    of TQ_PATH_SHAPES in bf16 (as ``tq_kernels_a_call``)."""
+    return tq_kernels_a_call(torch, lambda w: F8.tensor_quantize_kt(w, "e4m3"), dev)
 
 
 def compare_kt_edges(torch, M, dev, seed):
@@ -5888,6 +5913,158 @@ def training_options(torch, M, cfg, smollm_cfg, dev, seed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 31: data-parallel and ZeRO-3 training through the TrainEngine, on a
+# world-1 NCCL group: CLIP ViT-H/14 at full width in int8_switchback
+# ---------------------------------------------------------------------------
+
+# vision, text layers: the depth cut so the phase's six runs fit ~60 s
+ENGINE_LAYERS = (4, 4)
+ENGINE_STEPS = 3
+# the world whose per-rank state the phase predicts under fsdp
+ENGINE_PREDICT_WORLD = 4
+
+
+def halves_int8_wire(torch, PRM, w):
+    """(c)'s control fault: the int8 wire with an absmax per half of the
+    weight's first dim, as two shards would make it without the reduction."""
+    return torch.cat([PRM.int8_wire(h) for h in w.chunk(2, dim=0)], dim=0)
+
+
+@contextlib.contextmanager
+def use_weight_through(PRM, wire):
+    """The direct step with every weight passed through ``wire`` after
+    ``use_weight``'s cast (the plain reference of the int8 wire)."""
+    real = PRM.use_weight
+    PRM.use_weight = lambda w, logical=(), dtype=None: wire(real(w, logical, dtype))
+    try:
+        yield
+    finally:
+        PRM.use_weight = real
+
+
+def engine_run(torch, M, step_fn, state, batches, context=contextlib.nullcontext,
+               profile=True):
+    """ENGINE_STEPS steps of ``step_fn`` from ``state`` with every launch
+    counter zeroed just before and read just after: the losses, the
+    counts, the final state's digest and the peak memory; with ``profile``
+    one more step's device time by kernel (torch.profiler), NCCL's own
+    kernels counted apart."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(M)
+    losses = []
+    with context():
+        for b in batches[:ENGINE_STEPS]:
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        r = dict(losses=losses, counts=launch_counts(M), digest=state_digest(torch, state),
+                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if profile:
+            by_kernel = kernel_times(torch, lambda: step_fn(state, batches[ENGINE_STEPS]), 1)
+            nccl = {k: v for k, v in by_kernel.items() if "nccl" in k.lower()}
+            dev_ms = sum(v[0] for v in by_kernel.values())
+            r.update(device_ms_per_step=dev_ms,
+                     cuda_launches_per_step=sum(v[1] for v in by_kernel.values()),
+                     nccl_ms_per_step=sum(v[0] for v in nccl.values()),
+                     nccl_launches_per_step=sum(v[1] for v in nccl.values()),
+                     nccl_share=(sum(v[0] for v in nccl.values()) / dev_ms if dev_ms else None))
+    check(all(math.isfinite(x) for x in losses), f"engine run: losses {losses}")
+    return r
+
+
+def sharded_engine(torch, M, cfg, dev, seed):
+    """Phase 31: CLIP ViT-H/14 at full width and ENGINE_LAYERS depth,
+    int8_switchback (zero-init layer-scale), batch 32, through
+    ``make_engine`` on a world-1 NCCL group. (a) fsdp off: ENGINE_STEPS
+    steps' losses, final state and launch counts equal the direct
+    ``make_train_step``'s (phase 15's route) exactly; (b) fsdp with the
+    explicit gather and pure_dp (the dry-run's CLIP recipe, bf16 wire):
+    (a)'s exactly; (c) the same over the int8 wire: the direct step whose
+    weights pass through the plain wire, exactly, and not the control
+    fault (an absmax per half of each weight); (d) device ms and launches
+    a step of each, the NCCL kernels' share, peak memory, and the
+    predicted per-rank state at world ENGINE_PREDICT_WORLD under fsdp."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.models import params as PRM
+    from repro_torch.train import init_train_state, make_engine
+    from repro_torch.train.engine import predicted_state_bytes
+    # one card, one rank: NCCL's bootstrap stays on the loopback device
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    t0 = time.perf_counter()
+    started = init_distributed("cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"engine: backend {dist.get_backend()}, world {dist.get_world_size()}")
+    try:
+        small = dataclasses.replace(cfg, vision_layers=ENGINE_LAYERS[0],
+                                    text_layers=ENGINE_LAYERS[1], layer_scale_init=0.0)
+        bundle, policy, _, tc, step, opt, sc = train_parts(torch, small, dev,
+                                                           mode="int8_switchback", **CLIP_OPT)
+        batches = clip_batches(torch, small, ENGINE_STEPS + 1, CLIP_BATCH, dev, seed + 3100)
+        mesh = make_test_mesh((1, 1))
+
+        def fresh():
+            return init_train_state(PRM.init_params(bundle.param_specs, seed, device=dev), opt,
+                                    sc, seed=seed)
+
+        def engine(**kw):
+            par = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"), remat="none",
+                                 attn_impl="flash_scan", **kw)
+            eng = make_engine(bundle, tc, par, mesh, batches[0], policy=policy)
+            return eng.step, eng.init_state(seed)
+
+        gather = dict(fsdp=True, fsdp_gather_weights=True, pure_dp=True)
+        runs = {"direct": engine_run(torch, M, step, fresh(), batches),
+                "a": engine_run(torch, M, *engine(), batches),
+                "b": engine_run(torch, M, *engine(**gather), batches),
+                "c": engine_run(torch, M, *engine(gather_wire="int8", **gather), batches),
+                "wire_direct": engine_run(torch, M, step, fresh(), batches,
+                                          lambda: use_weight_through(PRM, PRM.int8_wire)),
+                "wire_fault": engine_run(torch, M, step, fresh(), batches,
+                                         lambda: use_weight_through(
+                                             PRM, lambda w: halves_int8_wire(torch, PRM, w)),
+                                         profile=False)}
+        for k, ref in (("a", "direct"), ("b", "a"), ("c", "wire_direct")):
+            got, want = runs[k], runs[ref]
+            check(got["losses"] == want["losses"],
+                  f"engine ({k}): losses {got['losses']} != {ref}'s {want['losses']}")
+            check(got["digest"] == want["digest"],
+                  f"engine ({k}): the final state differs from {ref}'s")
+            check_launches(got["counts"], want["counts"], f"engine ({k}) against {ref}")
+        check_launches(runs["direct"]["counts"],
+                       {k: v * ENGINE_STEPS for k, v in clip_launches_per_step(
+                           small, "int8_switchback", M.KOPS.FUSED_MAX_CONTRACT).items()},
+                       "engine: the direct step")
+        check(runs["wire_fault"]["losses"] != runs["wire_direct"]["losses"],
+              "engine (c): the control fault (an absmax per half) left the losses as they were")
+        full = dataclasses.replace(cfg, layer_scale_init=0.0)
+        fbundle = build(full)
+        predicted = {f"world{n}": predicted_state_bytes(
+            fbundle, tc, ParallelConfig(mesh_shape=(n, 1), fsdp=n > 1), (n, 1))
+            for n in (1, ENGINE_PREDICT_WORLD)}
+    finally:
+        if started:
+            dist.destroy_process_group()
+    keys = ("losses", "device_ms_per_step", "cuda_launches_per_step", "nccl_ms_per_step",
+            "nccl_launches_per_step", "nccl_share", "peak_memory_gib")
+    res = dict(card=nvidia_smi_line(), layers=ENGINE_LAYERS, batch=CLIP_BATCH,
+               steps=ENGINE_STEPS,
+               runs={k: {kk: r[kk] for kk in keys if kk in r} | {
+                   "wrapper_launches_per_step": sum(r["counts"].values()) / ENGINE_STEPS}
+                   for k, r in runs.items()},
+               wire_equals_no_wire=runs["c"]["losses"] == runs["a"]["losses"],
+               predicted_state_bytes_full_depth=predicted,
+               seconds=time.perf_counter() - t0)
+    print("[engine] " + json.dumps(res))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6160,6 +6337,11 @@ def main(argv=None) -> int:
     # AdaFactor and App. C
     with timed("30 training options"):
         opts = training_options(torch, M, clip_cfg, cfg, dev, args.seed)
+    torch.cuda.empty_cache()
+    # 31. data-parallel and ZeRO-3 training through the TrainEngine on a
+    # world-1 NCCL group (CLIP at full width, ENGINE_LAYERS deep)
+    with timed("31 sharded engine"):
+        sharded_engine(torch, M, clip_cfg, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it

@@ -35,8 +35,15 @@ What a torch state adds:
   * dtypes numpy lacks (bf16, fp8) are stored as their raw bits
     (uint16 / uint8 ``.npy``) with the JAX dtype name in META.json, so the
     crc covers the bytes JAX's would.
-``restore(..., device=)`` puts the leaves on one device; the JAX
-``shardings=`` (elastic re-mesh) waits for sharded training. Leaves are
+``restore(..., device=)`` puts the leaves on one device. With
+``shardings`` (the sharded engine's ``StateShardings``, the counterpart of
+the JAX ``restore(shardings=)``) the manager serves a world of ranks: a
+save gathers the whole leaves and the first rank writes them, in the same
+format, so the bytes and crcs are a world-1 run's; a restore reads the
+whole leaves and keeps this rank's slices, so a checkpoint moves between
+world sizes (elastic re-mesh). ``wait`` ends with a barrier, so every rank
+then lists the same directories, and a failed write is raised on every
+rank at the same boundary. Leaves are
 written, loaded and checksummed on a pool of threads (numpy's file I/O and
 zlib's crc32 release the GIL); a verification still reports the first
 bad leaf in the order the JAX package checks them.
@@ -190,21 +197,35 @@ def _place(arr: np.ndarray, dtype: str, ref, device):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep_last: int = 3):
+    def __init__(self, directory: str, keep_last: int = 3, shardings=None):
         self.directory = directory
         self.keep_last = keep_last
+        self.shardings = shardings
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
+    @property
+    def _writes(self) -> bool:
+        return self.shardings is None or self.shardings.is_writer
+
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
         self.wait()
-        self._write(step, _host_snapshot(tree), extra or {})
+        if self.shardings is not None:
+            tree = self.shardings.gather(tree)
+        if self._writes:
+            self._write(step, _host_snapshot(tree), extra or {})
+        if self.shardings is not None:
+            self.shardings.barrier()
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None):
         """Snapshot synchronously (device -> host copy), write in background."""
         self.wait()
+        if self.shardings is not None:
+            tree = self.shardings.gather(tree)
+        if not self._writes:
+            return
         host_tree = _host_snapshot(tree)
 
         def work():
@@ -220,17 +241,24 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.shardings is not None:
+            self.shardings.barrier()
         self.poll_error()
 
     def poll_error(self):
         """Raise a completed worker's failure without blocking on a live
         write: the trainer polls this at every checkpoint boundary so a
-        failed save surfaces at the boundary that caused it."""
-        if self._thread is not None and self._thread.is_alive():
-            return
-        if self._error is not None:
-            e, self._error = self._error, None
-            raise e
+        failed save surfaces at the boundary that caused it (on every rank:
+        the writer's verdict is broadcast)."""
+        err = None
+        if not (self._thread is not None and self._thread.is_alive()):
+            err, self._error = self._error, None
+        if self.shardings is not None:
+            step = self.shardings.writer_value(-1 if err is None else err.step)
+            if err is None and step >= 0:
+                err = CheckpointWriteError(step, RuntimeError("the writing rank's write failed"))
+        if err is not None:
+            raise err
 
     def _write(self, step: int, host_tree, extra: Dict):
         name = f"step_{step:08d}"
@@ -360,7 +388,8 @@ class CheckpointManager:
         ``torch.Generator`` leaf of ``like`` comes back as a Generator with
         the stored state; with ``device`` every other leaf comes back as a
         tensor there (in ``like``'s dtype), else as the stored numpy array.
-        Returns ``(tree, step, extra)``; each leaf is read once."""
+        Returns ``(tree, step, extra)``; each leaf is read once. With
+        ``shardings`` the tree is this rank's slices of the whole leaves."""
         self.wait()
         if step is None:
             last_err: Optional[CheckpointCorruption] = None
@@ -412,7 +441,10 @@ class CheckpointManager:
                 return vals
             raise ValueError(kind)
 
-        return rebuild(meta["structure"], like), meta["step"], meta["extra"]
+        tree = rebuild(meta["structure"], like)
+        if self.shardings is not None:
+            tree = self.shardings.local(tree)
+        return tree, meta["step"], meta["extra"]
 
 
 def _find_namedtuple(tree, cls_name):

@@ -7,9 +7,11 @@ nothing of ``repro``), cut to what the port reads:
   the mixture-of-experts, SSM, enc-dec and frontend fields are carried but
   their model families are not ported yet (``models.model_zoo`` raises).
 * ``CLIPConfig`` — the whole dataclass (the paper's own two-tower model).
-* ``ParallelConfig`` — only the fields the train and serve paths read.
-  Sharding, meshes and scan-over-layers do not exist in the port: layers
-  run as a Python loop over the stacked group dimension on one card.
+* ``ParallelConfig`` — the JAX fields and defaults; the mesh fields act
+  through the sharded ``TrainEngine`` on the data axes (``train/engine.py``),
+  and the fields of what is not ported raise on any value but their
+  default. Scan-over-layers does not exist in the port: layers run as a
+  Python loop over the stacked group dimension.
 * ``TrainConfig`` — the JAX fields and defaults, minus ``kernel_backend``
   (the port dispatches on the device of its tensors).
 * ``ServeConfig`` — the engine knobs, minus the JAX ``kernel_backend``:
@@ -98,23 +100,57 @@ class CLIPConfig:
 ATTN_IMPLS = ("flash_scan", "dense")
 
 
+def _only_defaults(cfg, names, why: str):
+    """Raise on a field the port does not take set to other than its
+    default, rather than ignore it."""
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    for name in names:
+        if getattr(cfg, name) != defaults[name]:
+            raise NotImplementedError(
+                f"{type(cfg).__name__}.{name}={getattr(cfg, name)!r}: {why}; "
+                f"the port takes only the default {defaults[name]!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The train and serve paths' fields of the JAX ``ParallelConfig``,
-    with its defaults. ``attn_impl="flash_scan"`` (the default here and in
-    the JAX package) runs the flash-attention kernels, as the JAX package
-    does on its Pallas backends; ``"dense"`` runs the materialised oracle.
+    """The JAX ``ParallelConfig``: its fields and defaults.
 
-    ``scan_layers`` only sets how XLA compiles the layer stack (the port
-    always runs a Python loop) and takes any value. ``remat`` acts only
-    under a gradient: serving takes any value, training only ``"none"``
-    (``"block"``/``"full"`` raise until activation recomputation is
-    ported). ``attn_block_q``/``attn_block_k`` are the TPU kernels' tile
-    sizes; the card's kernels choose their own tiles, so the engine and
-    the trainer reject any value but 0.
+    The mesh fields act through the sharded ``TrainEngine``
+    (``train/engine.py``) on the data axes: ``fsdp`` shards the weights'
+    embed axis over data (ZeRO-3), ``fsdp_gather_weights`` with
+    ``gather_wire`` ("bf16" or "int8") is the JAX package's explicit
+    weight gather (``models.params.use_weight``), ``pure_dp`` folds the
+    ``model`` axis into data, ``shard_kv_heads`` sets the rule of
+    ``kv_heads``. A ``model`` axis above 1 without ``pure_dp`` raises in
+    the engine (tensor parallelism, ROADMAP.md Queue 1 #13).
+    ``grad_compression`` is carried and read by no train step, as in the
+    JAX package (``distributed/compression.py`` is a library).
+    ``sequence_parallel`` (#13) and ``moe_grouped`` (the MoE family, #9)
+    raise on any value but their default.
+
+    ``attn_impl="flash_scan"`` (the default here and in the JAX package)
+    runs the flash-attention kernels, as the JAX package does on its Pallas
+    backends; ``"dense"`` runs the materialised oracle. ``scan_layers``
+    only sets how XLA compiles the layer stack (the port always runs a
+    Python loop) and takes any value. ``remat`` acts only under a
+    gradient, and training takes each of ``"none"``, ``"block"`` and
+    ``"full"`` (``models.transformer.maybe_remat``). ``attn_block_q``/
+    ``attn_block_k`` are the TPU kernels' tile sizes; the card's kernels
+    choose their own tiles, so the engine and the trainer reject any value
+    but 0.
     """
+    mesh_shape: Tuple[int, ...] = (16, 16)
+    mesh_axes: Tuple[str, ...] = ("data", "model")
+    fsdp: bool = False               # shard weights over data too (ZeRO-3)
+    fsdp_gather_weights: bool = False  # explicit weight all-gather at use
+    gather_wire: str = "bf16"        # bf16|int8: the weights' wire format
+    pure_dp: bool = False            # fold the model axis into data parallelism
+    moe_grouped: bool = True         # grouped MoE dispatch (the MoE family, #9)
+    shard_kv_heads: bool = True      # False: replicate K/V projections
     scan_layers: bool = True
     remat: str = "block"             # none|block|full
+    sequence_parallel: bool = False  # shard seq over model (#13)
+    grad_compression: str = "none"   # none|int8_rowwise (no step reads it)
     attn_impl: str = "flash_scan"    # flash_scan | dense
     attn_block_q: int = 0            # flash-attention tile sizes; 0 = auto
     attn_block_k: int = 0
@@ -122,13 +158,27 @@ class ParallelConfig:
     def __post_init__(self):
         if self.remat not in ("none", "block", "full"):
             raise ValueError(f"remat {self.remat!r} not in ('none', 'block', 'full')")
+        if self.gather_wire not in ("bf16", "int8"):
+            raise ValueError(f"gather_wire {self.gather_wire!r} not in ('bf16', 'int8')")
+        if self.grad_compression not in ("none", "int8_rowwise"):
+            raise ValueError(f"grad_compression {self.grad_compression!r} not in "
+                             "('none', 'int8_rowwise')")
+        _only_defaults(self, ("sequence_parallel",),
+                       "sequence parallelism is ROADMAP.md Queue 1 #13")
+        _only_defaults(self, ("moe_grouped",),
+                       "the MoE family is ROADMAP.md Queue 1 #9")
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """Mesh axes that jointly form the batch/data dimension (pod folds in)."""
+        return tuple(a for a in self.mesh_axes if a in ("pod", "data"))
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of the JAX ``TrainConfig`` that the port reads, with the
-    same defaults. ``optimizer``: stable_adamw | adamw (adafactor raises
-    until it is ported); ``loss_scaler``: none | fixed_tensor | dynamic;
+    same defaults. ``optimizer``: stable_adamw | adamw | adafactor;
+    ``loss_scaler``: none | fixed_tensor | dynamic;
     ``quant_mode``: a ``core.precision`` mode (the unported ones raise when
     the policy is built); the ``fp8_*`` fields are ``fp8_mixed``'s tile
     and fallback ratio (``QuantPolicy.from_train_config``, and the

@@ -1,40 +1,47 @@
-"""Training launcher: the port of ``repro/launch/train.py`` on one card.
+"""Training launcher: the port of ``repro/launch/train.py``. Every run
+goes through the sharded ``TrainEngine``, as in the JAX launcher; one
+process is a world of one (a degenerate (1, 1) mesh).
 
 Like the JAX launcher it trains the arch's reduced config on synthetic
 batches (``BigramLM``; ``SyntheticCLIP`` for ``--arch clip-vit-huge``),
-with random weights, through ``make_train_setup``,
-``make_train_step`` and ``Trainer``, and prints the per-step log, the
-final loss and the stability report. ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions) is new. As the JAX launcher
-does, it trains with ``remat="block"`` (each block recomputed in the
-backward), and ``--quant-mode`` takes every mode, ``fp16`` and ``fp32``
-with the bf16 compute dtype of ``QuantPolicy.from_train_config`` (f32
-products under ``fp32``); ``--optimizer adafactor`` runs AdaFactor;
-``--loss-scaler`` is ``none``, ``fixed_tensor`` (the paper's §3.6
-tensor-level skip at a fixed scale) or ``dynamic`` (the whole-network
-skip and halving baseline). Before it builds anything it turns off TF32
-and the reduced-precision reductions of 16-bit GEMMs
-(``core/precision.full_precision_products``). As in the JAX launcher,
-``--ckpt-dir`` checkpoints
-every ``max(steps // 3, 10)`` steps and resumes from the newest valid
+with random weights, through ``make_engine`` and ``Trainer``, and prints
+the mesh line, the per-step log, the final loss and the stability report
+(rank 0 only). ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain versions) is new. As the JAX launcher does, it trains with
+``remat="block"`` (each block recomputed in the backward), and
+``--quant-mode`` takes every mode, ``fp16`` and ``fp32`` with the bf16
+compute dtype of ``QuantPolicy.from_train_config`` (f32 products under
+``fp32``); ``--optimizer adafactor`` runs AdaFactor; ``--loss-scaler`` is
+``none``, ``fixed_tensor`` (the paper's §3.6 tensor-level skip at a fixed
+scale) or ``dynamic`` (the whole-network skip and halving baseline).
+Before it builds anything it turns off TF32 and the reduced-precision
+reductions of 16-bit GEMMs (``core/precision.full_precision_products``).
+As in the JAX launcher, ``--ckpt-dir`` checkpoints every
+``max(steps // 3, 10)`` steps and resumes from the newest valid
 checkpoint, ``--supervise`` runs under the self-healing
 ``TrainSupervisor``, ``--fault-plan`` injects faults, and
 ``--telemetry``/``--profile-steps`` record the flight recorder's JSONL
-events and a ``torch.profiler`` Chrome trace. The flags of what is not
-ported yet are accepted and raise ``NotImplementedError``: the mesh and
-sharding flags, and ``--kernel-backend`` (the port dispatches on the
+events and a ``torch.profiler`` Chrome trace (rank 0's).
+
+Sharding (the data axes): ``--mesh auto|test|single|multi`` picks the
+mesh over the ranks (``launch/mesh.py``), ``--fsdp`` shards parameters and
+optimizer state over data (ZeRO-3), ``--pure-dp`` folds the ``model``
+axis into data. A ``model`` axis above 1 without ``--pure-dp`` raises
+``NotImplementedError`` (tensor parallelism, ROADMAP.md Queue 1 #13).
+``--devices N`` with ``--device cpu`` starts N gloo ranks on this host;
+on the card, start one process per card with ``torchrun``.
+``--kernel-backend`` is accepted and raises (the port dispatches on the
 device of its tensors).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 20 --quant-mode int8_switchback --device cuda
-    PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
-        --steps 3 --batch 4 --quant-mode int8_llm --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --steps 3 --device cpu --devices 4 --pure-dp --fsdp
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch clip-vit-huge --steps 5 --batch 32 --fsdp
     PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
         --steps 3 --batch 4 --quant-mode fp8_mixed --fp8-block 64 64 \
         --fp8-fallback-ratio 4 --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \
-        --steps 3 --batch 4 --quant-mode fp16 --loss-scaler dynamic \
-        --optimizer adafactor --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 \
         --ckpt-dir /tmp/ck --supervise \
         --fault-plan '[{"step": 12, "kind": "nan_grad"}]' \
@@ -43,26 +50,28 @@ device of its tensors).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import math
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ALL_ARCHS, get_reduced_config
 from repro_torch.configs.base import (CLIPConfig, ParallelConfig, SupervisorConfig,
                                       TelemetryConfig, TrainConfig)
 from repro_torch.core.precision import QuantPolicy, full_precision_products
 from repro_torch.data import BigramLM, SyntheticCLIP
+from repro_torch.launch.mesh import cli_mesh_shape, init_distributed, make_cli_mesh, \
+    spawn_cpu_ranks
 from repro_torch.models import build
 from repro_torch.models import params as PRM
 from repro_torch.telemetry import Telemetry, parse_profile_steps
-from repro_torch.train import (FaultPlan, Trainer, TrainSupervisor, init_train_state,
-                               make_train_setup, make_train_step)
+from repro_torch.train import FaultPlan, Trainer, make_engine
+from repro_torch.train.engine import n_partitioned, require_data_axes
 
-# flag -> the ROADMAP.md item that brings it
+# flag -> why the port does not take it
 UNPORTED = {
-    "mesh": "sharded training (Queue 1 #4)",
-    "devices": "sharded training (Queue 1 #4)",
-    "fsdp": "sharded training (Queue 1 #4)",
-    "pure_dp": "sharded training (Queue 1 #4)",
     "kernel_backend": "nothing: the port dispatches on the device of its tensors",
 }
 
@@ -126,6 +135,14 @@ def main(argv=None):
                          "for kinds")
     ap.add_argument("--max-retries", type=int, default=3,
                     help="supervisor: rewinds per incident before abort")
+    ap.add_argument("--mesh", default="auto", choices=("auto", "test", "single", "multi"))
+    ap.add_argument("--devices", type=int, default=None,
+                    help="with --device cpu: start this many gloo ranks on this host "
+                         "(on the card, start one process a card with torchrun)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params/moments over data too (ZeRO-3)")
+    ap.add_argument("--pure-dp", action="store_true",
+                    help="fold the model axis into data parallelism")
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="write flight-recorder JSONL events here (read with "
                          "python -m repro_torch.telemetry.report)")
@@ -134,21 +151,58 @@ def main(argv=None):
                          "(a Chrome trace written under --profile-dir)")
     ap.add_argument("--profile-dir", default="/tmp/repro-profile")
     for flag in UNPORTED:
-        store_true = flag in ("fsdp", "pure_dp")
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        action="store_true" if store_true else "store",
-                        help=f"not ported yet: {UNPORTED[flag]}")
+                        help=f"not ported: {UNPORTED[flag]}")
     args = ap.parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet "
-                                      f"({item}; ROADMAP.md)")
+    for flag, why in UNPORTED.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported ({why})")
 
+    if args.supervise and not args.ckpt_dir:
+        ap.error("--supervise needs --ckpt-dir (rewind is the recovery primitive)")
+    dev = PRM.resolve_device(args.device)
+    if args.devices is not None and dev.type != "cpu":
+        raise ValueError("--devices N starts N gloo ranks with --device cpu; on the card start "
+                         "one process a card: torchrun --nproc-per-node N")
+    spawn = (args.devices is not None and not dist.is_initialized()
+             and "WORLD_SIZE" not in os.environ)
+    world = (args.devices if spawn else dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    # the layout's check before any rank starts: a model axis above 1
+    # without --pure-dp is tensor parallelism (Queue 1 #13)
+    shape, axes = cli_mesh_shape(args.mesh, world)
+    require_data_axes(ParallelConfig(mesh_shape=shape, mesh_axes=axes, pure_dp=args.pure_dp))
+    if spawn:
+        spawn_cpu_ranks(args.devices, _run, (args,))
+        return
+    started = init_distributed(dev)
+    try:
+        _run(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args):
+    """One rank's run (the process group is up); ranks past 0 print nothing."""
+    if dist.get_rank() == 0:
+        _train(args, True)
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        _train(args, False)
+
+
+def _train(args, rank0: bool):
     full_precision_products()
     dev = PRM.resolve_device(args.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg = get_reduced_config(args.arch)
     bundle = build(cfg)
-    par = ParallelConfig(remat="block", attn_impl=args.attn_impl)
+    mesh = make_cli_mesh(args.mesh)
+    par = ParallelConfig(mesh_shape=mesh.mesh_shape, mesh_axes=mesh.axis_names,
+                         fsdp=args.fsdp, pure_dp=args.pure_dp, remat="block",
+                         attn_impl=args.attn_impl)
     tc = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
                      warmup_steps=max(args.steps // 10, 1), total_steps=args.steps,
                      beta2=args.beta2, loss_scaler=args.loss_scaler,
@@ -157,11 +211,14 @@ def main(argv=None):
                      fp8_fallback_ratio=args.fp8_fallback_ratio,
                      microbatch_steps=args.microbatch)
     policy = QuantPolicy.from_train_config(tc)
-    opt, scaler = make_train_setup(tc)
-    step = make_train_step(bundle, policy, par, tc, opt, scaler)
-    params = PRM.init_params(bundle.param_specs, args.seed, device=dev)
-    state = init_train_state(params, opt, scaler, seed=args.seed)
-    n_params = sum(p.numel() for p in PRM.tree_leaves(params))
+    data_fn = make_data(cfg, args.batch, args.seq, dev)
+    # the batch spec is the stream's first batch, as the JAX launcher takes it
+    engine = make_engine(bundle, tc, par, mesh, data_fn(0), policy=policy)
+    state = engine.init_state(seed=args.seed)
+    n_split, n_leaves = n_partitioned(engine)
+    n_params = sum(math.prod(s.shape) for s in PRM.tree_leaves(bundle.param_specs))
+    print(f"[train] mesh {mesh.shape} fsdp={par.fsdp} pure_dp={par.pure_dp} — "
+          f"{n_split}/{n_leaves} param tensors partitioned, step donated")
     print(f"[train] {cfg.name} on {dev}: {n_params / 1e6:.2f} M params, quant_mode "
           f"{args.quant_mode}, attn_impl {args.attn_impl}, {args.optimizer}, "
           f"batch {args.batch} x {args.seq}, microbatch {args.microbatch}")
@@ -169,34 +226,33 @@ def main(argv=None):
         print(f"[train] fp8_mixed tile {policy.fp8_block_rows} x {policy.fp8_block_cols}, "
               f"fallback ratio {policy.fp8_fallback_ratio:g}")
 
-    data_fn = make_data(cfg, args.batch, args.seq, dev)
     plan = FaultPlan.from_json(args.fault_plan) if args.fault_plan else None
     ckpt_every = max(args.steps // 3, 10) if args.ckpt_dir else 0
     tele = Telemetry.from_config(
-        TelemetryConfig(path=args.telemetry,
-                        profile_steps=parse_profile_steps(args.profile_steps),
+        TelemetryConfig(path=args.telemetry if rank0 else None,
+                        profile_steps=parse_profile_steps(args.profile_steps) if rank0 else None,
                         profile_dir=args.profile_dir),
         program="train",
         meta={"arch": args.arch, "quant_mode": args.quant_mode, "device": str(dev),
               "optimizer": args.optimizer, "steps": args.steps,
-              "supervised": bool(args.supervise)})
+              "supervised": bool(args.supervise), "mesh": mesh.shape})
     try:
         if args.supervise:
-            if not args.ckpt_dir:
-                ap.error("--supervise needs --ckpt-dir (rewind is the recovery primitive)")
-            sup = TrainSupervisor(step, state, data_fn, checkpoint_dir=args.ckpt_dir,
-                                  config=SupervisorConfig(checkpoint_every=ckpt_every,
-                                                          max_retries=args.max_retries),
-                                  fault_plan=plan, telemetry=tele)
+            sup = engine.make_supervisor(
+                state, data_fn, checkpoint_dir=args.ckpt_dir,
+                config=SupervisorConfig(checkpoint_every=ckpt_every,
+                                        max_retries=args.max_retries),
+                fault_plan=plan, telemetry=tele)
             start = sup.maybe_resume()
             sup.run(args.steps - start)
             trainer = sup.trainer
         else:
-            trainer = Trainer(step, state, checkpoint_dir=args.ckpt_dir,
+            trainer = Trainer(engine.step, state, checkpoint_dir=args.ckpt_dir,
                               checkpoint_every=ckpt_every, log_every=10,
+                              state_shardings=engine.state_shardings,
                               fault_plan=plan, telemetry=tele)
             start = trainer.maybe_resume()
-            trainer.run(data_fn, args.steps - start)
+            trainer.run(lambda i: engine.shard_batch(data_fn(i)), args.steps - start)
             sup = None
     finally:
         tele.close()
@@ -208,6 +264,7 @@ def main(argv=None):
     if args.telemetry:
         print(f"[telemetry] events written to {args.telemetry} — summarize with: "
               f"python -m repro_torch.telemetry.report {args.telemetry}")
+
 
 if __name__ == "__main__":
     main()

@@ -4,7 +4,10 @@ The PyTorch counterpart of ``repro/models/clip.py``. Image tower: the ViT
 of ``vit.py``; text tower: the same pre-norm blocks, causal, pooled at the
 final position ``x[:, -1]`` (as the JAX package pools, not OpenCLIP's
 argmax over the EOT token). Symmetric InfoNCE in f32 with the learned
-``logit_scale`` clipped at ±ln(100) (paper §3.2).
+``logit_scale`` clipped at ±ln(100) (paper §3.2). The loss is over the
+global batch: in a sharded step the embeddings are gathered from every
+rank first (``models.params.gather_rows``), as GSPMD gathers them for the
+B x B logits of the JAX package.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from repro_torch.configs.base import CLIPConfig, ParallelConfig
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.models.common import embed_tokens, layer_norm
+from repro_torch.models import params as PRM
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.transformer import _stack_specs
 from repro_torch.models.vit import _block_specs, _ln_spec, run_blocks, vision_forward, \
@@ -88,6 +92,7 @@ def clip_loss(params, batch, cfg: CLIPConfig, policy: QuantPolicy,
     feature_stats})."""
     img, txt, stats = clip_forward(params, batch, cfg, policy, parallel,
                                    patch_keep=patch_keep, collect_stats=collect_stats)
+    img, txt = PRM.gather_rows(img), PRM.gather_rows(txt)   # the global batch
     # paper §3.2: clip the logit_scale parameter (ln 100 cap)
     scale = torch.exp(torch.clamp(params["logit_scale"].float(),
                                   -cfg.logit_scale_max, cfg.logit_scale_max))

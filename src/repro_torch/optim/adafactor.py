@@ -19,6 +19,12 @@ skips keeps its parameter and every tensor of its moment dict. The
 reference's ``apply_skip_mask`` maps ``jnp.where`` over the per-leaf
 moment dicts and raises, so no JAX train step can run AdaFactor; with no
 tensor skipped the update is the reference's ``update(skip_mask=None)``.
+
+Under the sharded engine (``shards``, a tree of LeafShard) each leaf is
+this rank's slice: a row or column mean over the split dim, the mean of
+``vr`` over its split last dim and the update's RMS sum their parts over
+the ranks; ``state_logical_axes`` gives ``vr`` and ``vc`` the axes that
+survive their reduction.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.quantization import div
+from repro_torch.distributed import sharding as S
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim.base import Optimizer, Schedule, constant_schedule, default_wd_mask
 
@@ -67,23 +74,23 @@ def adafactor(learning_rate: float | Schedule = 2e-3,
                               tree_map(leaf, params))
 
     @torch.no_grad()
-    def update(params, state, grads, skip_mask=None):
+    def update(params, state, grads, skip_mask=None, shards=None):
         t = state.step + 1
         tf = t.to(torch.float32)
         beta2t = 1.0 - tf ** (-decay_pow)
         lr = sched(state.step)
         wd_mask = wd_mask_fn(params)
 
-        def leaf(p, g, mom, wm, skip):
+        def leaf(p, g, mom, wm, skip, sh):
             gf = g.float()
             g2 = gf * gf + eps1
             new_mom = {}
             if _factored(p.shape):
-                vr = beta2t * mom["vr"] + (1 - beta2t) * torch.mean(g2, dim=-1)
-                vc = beta2t * mom["vc"] + (1 - beta2t) * torch.mean(g2, dim=-2)
+                vr = beta2t * mom["vr"] + (1 - beta2t) * S.mean(g2, sh, dim=-1)
+                vc = beta2t * mom["vc"] + (1 - beta2t) * S.mean(g2, sh, dim=-2)
                 new_mom["vr"], new_mom["vc"] = vr, vc
                 # û: vr ⊗ vc / mean(vr)
-                denom = torch.mean(vr, dim=-1, keepdim=True)
+                denom = S.mean(vr, sh and sh.drop(-1), dim=-1, keepdim=True)
                 u_hat = div(vr, torch.clamp_min(denom, eps1))[..., None] * vc[..., None, :]
             else:
                 v = beta2t * mom["v"] + (1 - beta2t) * g2
@@ -91,7 +98,7 @@ def adafactor(learning_rate: float | Schedule = 2e-3,
                 u_hat = v
             upd = div(gf, torch.sqrt(torch.clamp_min(u_hat, eps1)))
             # update clipping (d = clip_threshold): what StableAdamW ports
-            rms_u = torch.sqrt(torch.mean(upd * upd))
+            rms_u = torch.sqrt(S.mean(upd * upd, sh))
             upd = div(upd, torch.clamp_min(div(rms_u, clip_threshold), 1.0))
             if beta1 is not None:
                 m = beta1 * mom["m"] + (1 - beta1) * upd
@@ -110,9 +117,22 @@ def adafactor(learning_rate: float | Schedule = 2e-3,
         # the moments tree holds a dict at each parameter's place, which
         # tree_map hands over whole (it walks the first tree's dicts)
         skips = skip_mask if skip_mask is not None else tree_map(lambda p: None, params)
-        out = tree_map(leaf, params, grads, state.moments, wd_mask, skips)
+        shs = shards if shards is not None else tree_map(lambda p: None, params)
+        out = tree_map(leaf, params, grads, state.moments, wd_mask, skips, shs)
         new_params = tree_map(lambda o: o[0], out)
         new_moments = tree_map(lambda o: o[1], out)
         return new_params, AdafactorState(t, new_moments), {"lr": lr}
 
-    return Optimizer(init, update)
+    def state_logical_axes(param_specs):
+        # factored moments are row/col means of g²: vr drops the last
+        # logical axis, vc the second-to-last; each keeps the surviving
+        # axes' sharding (1-D pspecs for 2-D params)
+        def leaf(s):
+            lg = tuple(s.logical)
+            m = {"vr": lg[:-1], "vc": lg[:-2] + lg[-1:]} if _factored(s.shape) else {"v": lg}
+            if beta1 is not None:
+                m["m"] = lg
+            return m
+        return AdafactorState(step=(), moments=tree_map(leaf, param_specs))
+
+    return Optimizer(init, update, state_logical_axes)

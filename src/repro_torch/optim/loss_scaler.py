@@ -13,7 +13,11 @@ States are 0-d tensors on the parameters' device; every decision stays
 there (no host sync).
 
     scaled_loss = scaler.scale(loss, state)
-    grads, skip_mask, state, stats = scaler.unscale(grads, state)
+    grads, skip_mask, state, stats = scaler.unscale(grads, state, shards=None)
+
+``shards`` (the sharded engine's LeafShard tree) makes each finite mask a
+whole tensor's, so every rank skips the same tensors and the dynamic
+scaler takes the same whole-network decision everywhere.
 """
 from __future__ import annotations
 
@@ -53,8 +57,8 @@ class FixedTensorLevelScaler:
         return loss * state.scale.to(loss.dtype)
 
     @torch.no_grad()
-    def unscale(self, grads, state: ScalerState):
-        finite = tree_finite_mask(grads)
+    def unscale(self, grads, state: ScalerState, shards=None):
+        finite = tree_finite_mask(grads, shards)
         skip_mask = tree_map(torch.logical_not, finite)
         inv = div(1.0, state.scale)
         grads = tree_map(lambda g, f: torch.where(f, g.float() * inv, 0.0), grads, finite)
@@ -83,8 +87,8 @@ class DynamicLossScaler:
         return loss * state.scale.to(loss.dtype)
 
     @torch.no_grad()
-    def unscale(self, grads, state: ScalerState):
-        finite = tree_finite_mask(grads)
+    def unscale(self, grads, state: ScalerState, shards=None):
+        finite = tree_finite_mask(grads, shards)
         all_finite = torch.all(torch.stack(tree_leaves(finite)))
         inv = div(1.0, state.scale)
         grads = tree_map(lambda g: g.float() * inv, grads)
@@ -113,8 +117,8 @@ class NoOpScaler:
         return loss
 
     @torch.no_grad()
-    def unscale(self, grads, state):
-        finite = tree_finite_mask(grads)
+    def unscale(self, grads, state, shards=None):
+        finite = tree_finite_mask(grads, shards)
         skip_mask = tree_map(torch.logical_not, finite)
         grads = tree_map(lambda g, f: torch.where(f, g.float(), 0.0), grads, finite)
         return grads, skip_mask, state, {"n_skipped_tensors": _n_true(skip_mask),

@@ -11,6 +11,11 @@ Numerics follow the JAX function op by op in f32: β̂ is computed from the
 step in f32 tensors (a Python float power would round differently, the
 trap of two roundings), every division is tensor by tensor, and ε² stays
 inside the max.
+
+Under the sharded engine each leaf is this rank's slice (``shards``, a
+tree of LeafShard): the moments are elementwise and stay local, RMS_t is a
+mean over the whole tensor (its split leaves' sums all-reduced), and
+``state_logical_axes`` gives the moments their parameter's axes.
 """
 from __future__ import annotations
 
@@ -19,9 +24,11 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.quantization import div
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.distributed import sharding as S
+from repro_torch.models.params import tree_from_leaves, tree_leaves, tree_map
 from repro_torch.optim.base import (Optimizer, Schedule, apply_skip_mask,
-                                    constant_schedule, default_wd_mask)
+                                    constant_schedule, default_wd_mask,
+                                    param_logical_axes, shard_leaves)
 
 
 class StableAdamWState(NamedTuple):
@@ -55,7 +62,7 @@ def stable_adamw(learning_rate: float | Schedule = 2e-3,
                                 zeros(), zeros())
 
     @torch.no_grad()
-    def update(params, state, grads, skip_mask=None):
+    def update(params, state, grads, skip_mask=None, shards=None):
         t = state.step + 1
         tf = t.to(torch.float32)
         b1t, b2t = _beta_hat(beta1, tf), _beta_hat(beta2, tf)
@@ -64,8 +71,9 @@ def stable_adamw(learning_rate: float | Schedule = 2e-3,
         v = tree_map(lambda m, g: b1t * m + (1.0 - b1t) * g, state.exp_avg, gf)
         u = tree_map(lambda s, g: b2t * s + (1.0 - b2t) * g * g, state.exp_avg_sq, gf)
         # per-tensor RMS_t = sqrt(mean(g² / max(u, ε²))), the spike signal
-        rms = tree_map(lambda g, uu: torch.sqrt(torch.mean(
-            div(g * g, torch.clamp_min(uu, eps * eps)))), gf, u)
+        ratio = tree_map(lambda g, uu: div(g * g, torch.clamp_min(uu, eps * eps)), gf, u)
+        rms = tree_from_leaves(ratio, [torch.sqrt(m) for m in S.tree_mean(
+            tree_leaves(ratio), shard_leaves(ratio, shards))])
 
         lr = sched(state.step)
         wd_mask = wd_mask_fn(params)
@@ -86,7 +94,12 @@ def stable_adamw(learning_rate: float | Schedule = 2e-3,
         u = apply_skip_mask(skip_mask, u, state.exp_avg_sq)
         return new_params, StableAdamWState(t, v, u), {"rms": rms, "lr": lr}
 
-    return Optimizer(init, update)
+    def state_logical_axes(param_specs):
+        # moments are elementwise EMAs: they shard exactly like their param
+        axes = param_logical_axes(param_specs)
+        return StableAdamWState(step=(), exp_avg=axes, exp_avg_sq=axes)
+
+    return Optimizer(init, update, state_logical_axes)
 
 
 def adamw(learning_rate=2e-3, beta1=0.9, beta2=0.999, eps=1e-8,

@@ -49,14 +49,13 @@ a report dict) whose rewind/skip counters fill the stats row's
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN_IMPLS, ParallelConfig, ServeConfig
+from repro_torch.configs.base import ATTN_IMPLS, ParallelConfig, ServeConfig, _only_defaults
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.models import params as PRM
 from repro_torch.models import transformer as TF
@@ -749,17 +748,6 @@ class ServeEngine:
         if tele._profiling:        # window ran off the end of the run
             tele._stop_profile(wave)
         return [[] if u is None else sched.results[u] for u in uids], stats
-
-
-def _only_defaults(cfg, names, why: str):
-    """Raise on a field the port does not take set to other than its
-    default, rather than ignore it."""
-    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
-    for name in names:
-        if getattr(cfg, name) != defaults[name]:
-            raise NotImplementedError(
-                f"{type(cfg).__name__}.{name}={getattr(cfg, name)!r}: {why}; "
-                f"the port takes only the default {defaults[name]!r}")
 
 
 def _check_serve_config(scfg: ServeConfig):

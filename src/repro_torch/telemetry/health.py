@@ -19,6 +19,11 @@ other, by the first substring of the leaf path):
   cannot tap the kernel's own activation mask inside its custom VJP, and
   reads this gradient-tile rate as its proxy; so does the port.
 
+Under the sharded engine (``shards``, its LeafShard tree) each scalar is
+the whole tensor's: the absmax a maximum over the ranks, the saturated
+fraction a count summed over them, and a split gradient is gathered whole
+for the fallback tiles.
+
 On the host, ``qh_items`` and ``summarize_rms`` turn a flush's fetched
 metrics into the ``train_step`` event's floats (the App.-D ratio per
 group from StableAdamW's RMS_t), with no device work.
@@ -29,8 +34,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed import sharding as S
 from repro_torch.kernels.fp8_matmul.ref import block_absmax, fallback_mask
-from repro_torch.models.params import tree_paths
+from repro_torch.models.params import tree_map, tree_paths
 
 #: ordered group patterns; the first substring match of the leaf path wins
 GROUPS = ("embed", "attn", "mlp")
@@ -43,15 +49,17 @@ def group_of(path: str) -> str:
     return "other"
 
 
-def _grouped_leaves(tree, min_ndim: int = 2):
-    """{group: [leaf, ...]} for float leaves with ndim >= min_ndim (norm
-    gains and biases are vectors and are not quantized; stacked over the
-    layer groups they are matrices and land in "other", as in JAX)."""
+def _grouped_leaves(tree, shards=None, min_ndim: int = 2):
+    """{group: [(leaf, its LeafShard or None), ...]} for float leaves with
+    ndim >= min_ndim (norm gains and biases are vectors and are not
+    quantized; stacked over the layer groups they are matrices and land in
+    "other", as in JAX)."""
+    sh = dict(tree_paths(tree_map(lambda _, s: s, tree, shards))) if shards is not None else {}
     out: Dict[str, list] = {}
     for path, leaf in tree_paths(tree):
         if leaf.dim() < min_ndim or not leaf.is_floating_point():
             continue
-        out.setdefault(group_of(path), []).append(leaf)
+        out.setdefault(group_of(path), []).append((leaf, sh.get(path)))
     return out
 
 
@@ -63,7 +71,7 @@ def _block_absmax(x: torch.Tensor, br: int, bc: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def quant_health(params, grads, train_cfg) -> Dict[str, torch.Tensor]:
+def quant_health(params, grads, train_cfg, shards=None) -> Dict[str, torch.Tensor]:
     """Device-side health scalars keyed ``qh/<group>/<metric>``; empty when
     ``train_cfg.quant_health_metrics`` is off or the mode is bf16.
     Independent reductions: they cannot change the update."""
@@ -72,21 +80,23 @@ def quant_health(params, grads, train_cfg) -> Dict[str, torch.Tensor]:
         return {}
     out: Dict[str, torch.Tensor] = {}
     int8 = mode.startswith("int8")
-    for group, leaves in sorted(_grouped_leaves(params).items()):
-        absmaxes = [torch.max(torch.abs(w.float())) for w in leaves]
+    for group, items in sorted(_grouped_leaves(params, shards).items()):
+        leaves, shs = [w for w, _ in items], [s for _, s in items]
+        absmaxes = S.reduce_scalars([torch.max(torch.abs(w.float())) for w in leaves], shs, "max")
         out[f"qh/{group}/w_absmax"] = torch.max(torch.stack(absmaxes))
         if int8:
             # tensor-quantize clip fraction: elements whose |w| rounds to
             # the top int8 code under scale absmax/127
-            fracs = [torch.mean((torch.abs(w.float()) > a * (126.5 / 127.0)).float())
-                     for w, a in zip(leaves, absmaxes)]
+            fracs = S.tree_mean([(torch.abs(w.float()) > a * (126.5 / 127.0)).float()
+                                 for w, a in zip(leaves, absmaxes)], shs)
             out[f"qh/{group}/int8_sat_frac"] = torch.mean(torch.stack(fracs))
     if mode == "fp8_mixed":
         br, bc = train_cfg.fp8_block_rows, train_cfg.fp8_block_cols
         ratio = train_cfg.fp8_fallback_ratio
-        for group, leaves in sorted(_grouped_leaves(grads).items()):
-            fracs = [torch.mean(fallback_mask(_block_absmax(g, br, bc), ratio))
-                     for g in leaves]
+        for group, items in sorted(_grouped_leaves(grads, shards).items()):
+            fracs = [torch.mean(fallback_mask(_block_absmax(g if s is None else s.gather(g),
+                                                            br, bc), ratio))
+                     for g, s in items]
             out[f"qh/{group}/fp8_fallback_frac"] = torch.mean(torch.stack(fracs))
     return out
 

@@ -204,8 +204,8 @@ class FaultyCheckpointManager(CheckpointManager):
     ``corrupt_ckpt``/``truncate_ckpt`` damages the finished directory."""
 
     def __init__(self, directory: str, keep_last: int = 3, *,
-                 plan: Optional[FaultPlan] = None):
-        super().__init__(directory, keep_last)
+                 plan: Optional[FaultPlan] = None, shardings=None):
+        super().__init__(directory, keep_last, shardings)
         self.plan = plan
 
     def _write(self, step: int, host_tree, extra):
@@ -217,11 +217,11 @@ class FaultyCheckpointManager(CheckpointManager):
             self.plan.corrupt_checkpoint_dir(self.directory, step)
 
 
-def make_checkpoint_manager(directory: str, keep_last: int,
-                            plan: Optional[FaultPlan]) -> CheckpointManager:
+def make_checkpoint_manager(directory: str, keep_last: int, plan: Optional[FaultPlan],
+                            shardings=None) -> CheckpointManager:
     if plan is None:
-        return CheckpointManager(directory, keep_last)
-    return FaultyCheckpointManager(directory, keep_last, plan=plan)
+        return CheckpointManager(directory, keep_last, shardings)
+    return FaultyCheckpointManager(directory, keep_last, plan=plan, shardings=shardings)
 
 
 def _is_float(v) -> bool:

@@ -1,6 +1,6 @@
 """TrainSupervisor: online anomaly detection → rewind-and-skip recovery.
-The port of ``repro/train/supervisor.py`` on one device: the same
-detection, rewind ladder, skip, escalation and report.
+The port of ``repro/train/supervisor.py``: the same detection, rewind
+ladder, skip, escalation and report.
 
 The paper's stability analysis (§3.4 / App. D) shows loss spikes are
 *predictable and recoverable*: they strike 1–8 iterations after the AdamW
@@ -74,9 +74,12 @@ class TrainSupervisor:
     ``data_fn(j)`` must be a pure function of the data index ``j`` (the
     repo-wide pipeline contract); the supervisor owns the step→data-index
     mapping ``j = step + data_offset`` and grows the offset on recovery.
-    The JAX package builds it through the sharded engine
-    (``TrainEngine.make_supervisor``); on one device it is built directly
-    over the train step.
+    As in the JAX package it is built through the sharded engine
+    (``TrainEngine.make_supervisor``, which passes ``state_shardings``),
+    or directly over a train step. Under the engine every rank runs one:
+    detection reads the global metrics (the loss and grad norm the step
+    reduced over the ranks, equal on every rank), so every rank rewinds
+    and skips together.
     """
 
     def __init__(self, step_fn: Callable, state: TrainState,
@@ -86,6 +89,7 @@ class TrainSupervisor:
                  fault_plan=None,
                  hooks: Optional[TrainerHooks] = None,
                  watch_layers=("patch_embed", "embed"),
+                 state_shardings=None,
                  telemetry=None):
         self.config = cfg = config or SupervisorConfig()
         if not checkpoint_dir or cfg.checkpoint_every <= 0:
@@ -102,6 +106,7 @@ class TrainSupervisor:
             keep_checkpoints=cfg.keep_checkpoints,
             watch_layers=watch_layers, log_every=cfg.log_every,
             fault_plan=fault_plan,
+            state_shardings=state_shardings,
             telemetry=telemetry,
             hooks=TrainerHooks(on_step=self._on_step,
                                on_checkpoint=self._user_hooks.on_checkpoint,

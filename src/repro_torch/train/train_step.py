@@ -21,6 +21,14 @@ The gradient comes from ``torch.autograd.grad`` through leaves that share
 the master weights' storage; the optimizer then returns new tensors under
 ``torch.no_grad()``. Every metric stays a device tensor: the step never
 waits for the card, the trainer fetches them at its flush points.
+
+``dist`` (the sharded engine's, ``train/engine.py``) makes the collectives
+that GSPMD inserts in the JAX step explicit: ``dist.prepare`` gathers the
+sharded leaves the loss reads whole, ``dist.reduce`` sums the gradients
+and the metrics over the batch's ranks and takes their mean, and
+``dist.shards`` makes the scaler's skip decisions, the global norm, the
+optimizer's whole-tensor reductions and the quant-health scalars the
+whole tensors'. Without it the step is the one-device step.
 """
 from __future__ import annotations
 
@@ -75,15 +83,19 @@ def _split_microbatches(batch: Dict, n: int) -> list:
 
 
 def loss_and_grads(bundle, policy: QuantPolicy, parallel: ParallelConfig, params,
-                   batch: Dict, scale: Callable = lambda loss: loss, **loss_kw):
+                   batch: Dict, scale: Callable = lambda loss: loss, prepare=None,
+                   **loss_kw):
     """(gradient tree of ``scale(loss)``, loss, metrics) for one batch, by
     autograd through leaves that share the parameters' storage; the
-    gradients of f32 master weights are f32. ``loss_kw`` goes to the
-    bundle's loss (``patch_keep`` for CLIP)."""
+    gradients of f32 master weights are f32. ``prepare`` (the sharded
+    engine's) maps the tree of those leaves to the tree the loss reads,
+    inside the gradient. ``loss_kw`` goes to the bundle's loss
+    (``patch_keep`` for CLIP)."""
     paths = [p for p, _ in tree_paths(params)]
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     with torch.enable_grad():
-        loss, metrics = bundle.loss_fn(tree_unflatten(params, dict(zip(paths, leaves))),
+        tree = tree_unflatten(params, dict(zip(paths, leaves)))
+        loss, metrics = bundle.loss_fn(tree if prepare is None else prepare(tree),
                                        batch, policy, parallel, **loss_kw)
         grads = torch.autograd.grad(scale(loss), leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
@@ -92,8 +104,9 @@ def loss_and_grads(bundle, policy: QuantPolicy, parallel: ParallelConfig, params
 
 
 def make_train_step(bundle, policy: QuantPolicy, parallel: ParallelConfig,
-                    train_cfg: TrainConfig, opt, scaler) -> Callable:
-    """Returns train_step(state, batch) -> (state, metrics)."""
+                    train_cfg: TrainConfig, opt, scaler, dist=None) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics). ``dist``: the
+    sharded engine's collectives (see the module docstring), else None."""
     if parallel.attn_block_q or parallel.attn_block_k:
         raise NotImplementedError(
             "attn_block_q/attn_block_k are the TPU kernels' tile sizes; the card's "
@@ -103,7 +116,8 @@ def make_train_step(bundle, policy: QuantPolicy, parallel: ParallelConfig,
     def grads_of(state, mb):
         kw = {} if bundle.patch_keep is None else {"patch_keep": bundle.patch_keep(state.rng)}
         return loss_and_grads(bundle, policy, parallel, state.params, mb,
-                              scale=lambda loss: scaler.scale(loss, state.scaler_state), **kw)
+                              scale=lambda loss: scaler.scale(loss, state.scaler_state),
+                              prepare=None if dist is None else dist.prepare, **kw)
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: Dict):
@@ -126,18 +140,23 @@ def make_train_step(bundle, policy: QuantPolicy, parallel: ParallelConfig,
                            if mb_metrics[-1][k].is_floating_point() else mb_metrics[-1][k])
                        for k in mb_metrics[-1]}
 
-        grads, skip_mask, scaler_state, sstats = scaler.unscale(grads, state.scaler_state)
-        gnorm = global_norm(grads)
+        shards = None
+        if dist is not None:
+            grads, loss, metrics = dist.reduce(grads, loss, metrics)
+            shards = dist.shards
+        grads, skip_mask, scaler_state, sstats = scaler.unscale(grads, state.scaler_state,
+                                                                shards=shards)
+        gnorm = global_norm(grads, shards)
         if train_cfg.grad_clip_norm > 0:
-            grads, _ = clip_by_global_norm(grads, train_cfg.grad_clip_norm)
+            grads, _ = clip_by_global_norm(grads, train_cfg.grad_clip_norm, shards)
 
         params, opt_state, aux = opt.update(state.params, state.opt_state, grads,
-                                            skip_mask=skip_mask)
+                                            skip_mask=skip_mask, shards=shards)
         out = {**metrics, "loss": loss, "grad_norm": gnorm,
                "lr": aux.get("lr", torch.zeros(())),
                "n_skipped_tensors": sstats["n_skipped_tensors"],
                "loss_scale": sstats["loss_scale"]}
-        out.update(health.quant_health(state.params, grads, train_cfg))
+        out.update(health.quant_health(state.params, grads, train_cfg, shards))
         if "rms" in aux:                       # per-tensor RMS_t (Fig. 9)
             out["rms"] = aux["rms"]
         return TrainState(params, opt_state, scaler_state, state.step + 1, state.rng), out

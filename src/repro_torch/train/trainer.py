@@ -1,5 +1,5 @@
 """Host training loop with the fault-tolerance story: the port of
-``repro/train/trainer.py`` on one device.
+``repro/train/trainer.py``.
 
 ``Trainer.run`` steps the train step over a batch source, keeps the
 metrics on the device between flush points and fetches a window of them
@@ -25,6 +25,13 @@ history, the hooks and the flight recorder's events. Around it:
     profiler window, built from values the flush already fetched.
 
 ``stability_report`` gives the App.-D RMS-spike -> loss-spike analysis.
+
+With ``state_shardings`` (the sharded engine's) each rank runs its own
+Trainer over its slice of the state: checkpoints hold whole leaves
+(``checkpoint/manager.py``), a restore keeps this rank's slices, and the
+one host decision that reads a rank's own clock, the straggler
+watchdog's early checkpoint (a collective save), is taken when any rank
+wants it, at the flush every rank makes at the same step.
 """
 from __future__ import annotations
 
@@ -87,12 +94,15 @@ class Trainer:
                  log_every: int = 10,
                  fault_plan=None,
                  early_checkpoint_on_slow: bool = True,
+                 state_shardings=None,
                  telemetry=None):
         self.step_fn = train_step_fn
         self.telemetry = as_telemetry(telemetry)
         self.state = state
+        self.state_shardings = state_shardings
         self.fault_plan = fault_plan
-        self.ckpt = (make_checkpoint_manager(checkpoint_dir, keep_checkpoints, fault_plan)
+        self.ckpt = (make_checkpoint_manager(checkpoint_dir, keep_checkpoints, fault_plan,
+                                             state_shardings)
                      if checkpoint_dir else None)
         self.checkpoint_every = checkpoint_every
         self.watchdog = StragglerWatchdog()
@@ -119,7 +129,8 @@ class Trainer:
     def restore_checkpoint(self, step: Optional[int] = None) -> int:
         """Load checkpoint ``step`` (default newest valid) into
         ``self.state`` on the state's device, the generator's state
-        included; returns the restored step."""
+        included (this rank's slices under ``state_shardings``); returns
+        the restored step."""
         self.state, step, _ = self.ckpt.restore(step, like=self.state,
                                                 device=self.state.step.device)
         return step
@@ -175,6 +186,8 @@ class Trainer:
                        step=pending[-1][0], n_steps=len(pending))
         tele.emit("flush", step=pending[-1][0], n_steps=len(pending))
         pending.clear()
+        if self.state_shardings is not None:
+            self._early_ckpt_wanted = self.state_shardings.any(self._early_ckpt_wanted)
         self._window_t0 = time.monotonic()
 
     def _save(self, step: int) -> None:

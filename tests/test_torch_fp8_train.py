@@ -390,14 +390,16 @@ def test_fp8_fallback_frac_gauge_matches_jax(ratio):
 
 def test_train_cli_fp8_flags_reach_the_policy(monkeypatch, capsys):
     from repro_torch.launch import train as CLI
+    from repro_torch.train import engine
     seen = {}
-    real = CLI.make_train_step
+    real = engine.make_train_step
 
-    def spy(bundle, policy, parallel, tc, opt, scaler):
+    def spy(bundle, policy, parallel, tc, opt, scaler, **kw):
         seen.update(policy=policy, tc=tc)
-        return real(bundle, policy, parallel, tc, opt, scaler)
+        return real(bundle, policy, parallel, tc, opt, scaler, **kw)
 
-    monkeypatch.setattr(CLI, "make_train_step", spy)
+    # the launcher trains through the engine, which builds the step
+    monkeypatch.setattr(engine, "make_train_step", spy)
     CLI.main(["--arch", ARCH, "--device", "cpu", "--steps", "1", "--batch", "4",
               "--quant-mode", "fp8_mixed", "--fp8-block", "16", "32",
               "--fp8-fallback-ratio", "3.5"])

@@ -50,9 +50,12 @@ def _modules():
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
 
 
-# the fp8 oracle, the op entry points' modules and the self-healing and
-# flight-recorder modules: the walk must reach them
-NAMED = ("repro_torch.core.fp8", "repro_torch.kernels.fp8_cast.ops",
+# the sharded engine's modules, the fp8 oracle, the op entry points'
+# modules and the self-healing and flight-recorder modules: the walk must
+# reach them
+NAMED = ("repro_torch.distributed.sharding", "repro_torch.distributed.compression",
+         "repro_torch.launch.mesh", "repro_torch.train.engine",
+         "repro_torch.core.fp8", "repro_torch.kernels.fp8_cast.ops",
          "repro_torch.kernels.fp8_cast.ref", "repro_torch.kernels.fp8_cast.build",
          "repro_torch.kernels.switchback.ops", "repro_torch.checkpoint",
          "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
@@ -276,9 +279,16 @@ def test_training_needs_remat_none(remat):
     assert bool(torch.isfinite(m["loss"])) and int(state.step) == 1
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "test"], ["--devices", "8"], ["--fsdp"],
-                                  ["--pure-dp"], ["--kernel-backend", "pallas"]])
+@pytest.mark.parametrize("flag", [["--mesh", "test", "--devices", "4"],
+                                  ["--mesh", "single", "--devices", "4"],
+                                  ["--mesh", "multi", "--devices", "8"],
+                                  ["--mesh", "test", "--devices", "4", "--fsdp"],
+                                  ["--kernel-backend", "pallas"]])
 def test_unported_train_flags_raise(flag):
+    """The sharding flags train on the data axes; a mesh whose ``model``
+    axis is above 1 without ``--pure-dp`` (tensor parallelism, ROADMAP.md
+    Queue 1 #13) raises before any rank starts, and so does
+    ``--kernel-backend``."""
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError):
         train.main(["--device", "cpu", "--steps", "1", *flag])

@@ -169,14 +169,16 @@ def test_train_cli_trains_with_block_remat(monkeypatch):
     """``launch/train.py`` builds its step with ``remat="block"``, the JAX
     CLI's choice."""
     from repro_torch.launch import train
+    from repro_torch.train import engine
     seen = []
-    real = train.make_train_step
+    real = engine.make_train_step
 
-    def spy(bundle, policy, parallel, *a):
+    def spy(bundle, policy, parallel, *a, **kw):
         seen.append(parallel.remat)
-        return real(bundle, policy, parallel, *a)
+        return real(bundle, policy, parallel, *a, **kw)
 
-    monkeypatch.setattr(train, "make_train_step", spy)
+    # the launcher trains through the engine, which builds the step
+    monkeypatch.setattr(engine, "make_train_step", spy)
     train.main(["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8"])
     assert seen == ["block"]
 
