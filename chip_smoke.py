@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31):
+24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31, 32):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the four product flags ``full_precision_products``
@@ -108,15 +108,18 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     inside the last block's span and at a span's edge, negative, ties, an
     all-zero tensor) bit-equal and twice the same bits, the control fault
     (the absmax's block's partial left out) outside in every case with more
-    than one block; phase 15 also fails a mode whose profile reads no time
-    under a quantizer group it runs;
+    than one block; phase 15 also fails a mode whose profile groups (the
+    quantizers it runs) match none of their wrapper's kernels, by name,
+    read exactly from the nodes of a CUDA graph of one call;
 14. the flash kernels at CLIP's attention shapes, vision (32, 129, 16, 80)
     with no mask and text (32, 77, 16, 64) causal, forward and both
     backward kernels, bf16 and f32, within the tolerances of phase 3; the
     control faults (lanes past 64 dropped at hd 80, the mask dropped at
     hd 64) at least 10x outside;
-15. CLIP train (the paper's own model): full-width ViT-H/14 (0.99 B
-    parameters, random weights from a seeded torch.Generator) through
+15. CLIP train (the paper's own model): ViT-H/14 at full width and
+    CLIP_TRAIN_LAYERS (16 + 12) of its 32 + 24 layers (the depth cut to
+    keep the script inside its time; random weights from a seeded
+    torch.Generator) through
     ``make_train_setup``, ``make_train_step`` and ``Trainer`` in each of
     ``int8_switchback`` (zero-init layer-scale), ``int8_switchback_m``,
     ``int8_switchback_q`` and ``int8_llm``: SyntheticCLIP batches of 32
@@ -125,7 +128,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     just after, each exactly the count worked out from the layer shapes
     (``clip_launches_per_step``); every loss finite; peak memory; one
     step profiled, ``tensor_quantize``'s CUDA kernels no more than its
-    wrapper calls (337 a step in ``int8_switchback`` and ``_m``);
+    wrapper calls (169 a step in ``int8_switchback`` and ``_m`` at 16 + 12
+    layers);
 16. one CLIP train step at 2 + 2 layers and full width, kernels vs plain,
     in each int8 mode: under flash_scan from three seeds within stated
     tolerances, the control fault (the positional embedding read one row
@@ -169,8 +173,9 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     every launch counter (the seven fp8 kernel forms and transpose_bytes
     included) exactly its worked-out count (transpose_bytes 0: the fold
     gives the forward's W); the fp8 ``tensor_quantize``'s CUDA kernels (the
-    fold's) no more than its wrapper calls (337 a step in ``fp8`` and
-    ``fp8_mixed``), the transpose_bytes profile group empty;
+    fold's) no more than its wrapper calls (169 a step in ``fp8`` and
+    ``fp8_mixed`` at phase 15's depth), the transpose_bytes profile group
+    empty;
 21. one CLIP step at 2 + 2 layers and full width, kernels vs plain, in
     ``fp8`` and ``fp8_mixed`` from three seeds (as phase 16), under
     flash_scan and under dense (the tensor cores' sums are not the plain
@@ -203,17 +208,19 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     of o printed (the tensor cores' sums). Then each kernel timed
     at served shapes beside its bound, its plain version and SDPA over the
     gathered cache (the gather timed beside it);
-25. paged serve (the paged main path): full-width smollm-360m through the
+25. paged serve (the paged main path): smollm-360m at full width and
+    PAGED_LAYERS (16) of its 32 layers (the depth cut to keep the script
+    inside its time) through the
     ``ServeEngine`` with ``cache_mode="paged"``, ``int8_switchback``, 8
     slots of 1,024 cells in blocks of 16, ``prefill_chunk_tokens=256``: a
     warm-up, then 32 requests sharing a 256-token system prompt with a
     32-512-token suffix each, 64 new tokens, greedy; every launch counter
-    exactly its worked-out count (paged_decode 32 per decode step,
-    paged_prefill 32 per prefill or verify call, the SwitchBack kernels as
+    exactly its worked-out count (paged_decode 16 per decode step,
+    paged_prefill 16 per prefill or verify call, the SwitchBack kernels as
     phase 4 counts them, the flash kernels 0); the stats row. The served
     model's logits (prefill + 3 decode steps, three seeds) kernels vs plain
     within PAGED_MODEL_TOL, the control fault (KV heads tiled) outside;
-26. the paged features at full width: a tight pool with
+26. the paged features at phase 25's width and depth: a tight pool with
     ``preemption="recompute"`` preempts and gives every request the roomy
     pool's tokens; ``spec_mode="ngram"`` on repetitive prompts accepts
     drafts and gives spec off's tokens; launch counts exact; a verify
@@ -307,7 +314,9 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     gradient with the kernels against the plain versions within
     FP32_STEP_TOL; (d) ``int8_switchback`` under ``remat="block"`` against
     ``"none"``: losses and every parameter bit-equal, peak GiB, device ms,
-    wall ms and launches a step of each, then batch 128 under ``"block"``;
+    wall ms and launches a step of each, then batch 128 under ``"block"``,
+    at REMAT_LAYERS (16 + 12) layers (the depth cut to keep the script
+    inside its time);
     (e) AdaFactor: 3 finite steps, its state's bytes beside StableAdamW's,
     its state through ``CheckpointManager`` bit for bit; (f) App. C's
     measured and predicted variance of the Eq. 3 product on the card's
@@ -327,6 +336,32 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     (d) device ms and CUDA launches a step of each (torch.profiler), NCCL's
     kernels apart, peak memory, and the per-rank state bytes predicted
     from the leaf sizes at world 4 under fsdp (full depth).
+
+32. the mixture-of-experts family and fp16/fp32 serving (last; each part
+    prints its seconds): (a) the three expert-batched SwitchBack forms
+    (``tensor_quantize_batched``, ``fused_switchback_fwd_batched``,
+    ``fused_switchback_dgrad_batched``) at qwen3-moe-30b-a3b's expert
+    shapes (128 experts, 2,048 -> 768 and 768 -> 2,048) at decode's C = 4
+    and train's C = 160, bf16 and f32, bit-equal to their plain versions
+    and to the 2-D kernels looped over the experts, twice the same bits,
+    one wrapper launch a call; their times at one layer's three expert
+    linears beside the bound, the plain version and a ``torch._int_mm``
+    loop over the experts (a hint: no single PyTorch call runs a batched
+    int8 GEMM); (b) qwen3-moe-30b-a3b at full width and 4 layers,
+    ``int8_switchback``, the ring and the paged engine: 8 prompts of
+    32-128 tokens, 32 new tokens, every launch counter exact (the experts
+    on the batched forms only), the tokens equal to the same engine's with
+    the SwitchBack plain versions swapped in, a decode step's device ms
+    and CUDA kernels (the nodes of a CUDA graph of it); (c) qwen3 at full
+    width and 2 layers through ``make_engine`` on a world-1 NCCL group, 3
+    steps of 8 x 256 tokens: launches exact, losses and ``moe_aux`` finite,
+    peak memory, device ms; the reduced qwen3 card vs CPU over three seeds
+    (phase 11's readings) within MOE_CARD_CPU_TOL, a control fault (the
+    router's top k taken from the bottom, on the CPU) outside; (d)
+    minitron-8b at full width and 2 layers, ``int8_switchback``, and
+    smollm-360m at full width and 8 layers in ``bf16``, ``fp16`` and
+    ``fp32`` on both caches: launches exact, served ``fp16`` bf16's tokens
+    bit for bit.
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -1776,38 +1811,13 @@ def compare_tensor_quantizer_edges(torch, M, dev, seed, families):
 
 def graph_kernels(torch, fn):
     """CUDA kernels one ``fn()`` launches: the kernel nodes of a CUDA graph
-    that captures it, read through the driver (``cuGraphGetNodes``,
+    that captures it (``kernels/build.graph_kernels``: ``cuGraphGetNodes``,
     ``cuGraphNodeGetType``). Exact, where torch.profiler's CUPTI records
     can go missing (one window of an H100 read 10 of 11, and a run read
     none in three windows), and blind to kernel names: a torch kernel the
-    wrapper launched beside its own would count. ``fn`` runs once on the
-    capture stream first, so that its per-stream workspace (the grid
-    barrier) is made outside the capture."""
-    import ctypes
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    side.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, stream=side):
-        fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    err = cu.cuGraphGetNodes(raw, None, ctypes.byref(n))
-    check(err == 0, f"cuGraphGetNodes: CUresult {err}")
-    nodes = (ctypes.c_void_p * n.value)()
-    err = cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
-    check(err == 0, f"cuGraphGetNodes: CUresult {err}")
-    kernels = 0
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        err = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
-        check(err == 0, f"cuGraphNodeGetType: CUresult {err}")
-        kernels += kind.value == 0                  # CU_GRAPH_NODE_TYPE_KERNEL
-    graph.reset()
-    return kernels
+    wrapper launched beside its own would count."""
+    from repro_torch.kernels import build as KBUILD
+    return len(KBUILD.graph_kernels(fn))
 
 
 def tq_kernels_a_call(torch, quant, dev):
@@ -2567,8 +2577,7 @@ def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="t
     dev_ms = sum(v[0] for v in by_kernel.values())
     groups = {}
     for key, (ms, cnt) in by_kernel.items():
-        g = next((name for pat, flag, name in TRAIN_KERNEL_GROUPS
-                  if pat in key and flag in key), None)
+        g = kernel_group(key)
         if g is None:
             low = key.lower()
             g = next((name for pats, name in TORCH_KERNEL_GROUPS
@@ -2764,6 +2773,9 @@ CLIP_MODES = ("int8_switchback", "int8_switchback_m", "int8_switchback_q", "int8
 # 224 px, patch dropout 0.5 (129 vision tokens with the CLS), 77 text tokens
 CLIP_BATCH = 32
 CLIP_STEPS = 3            # timed steps per mode, after one warm-up step
+# phases 15 and 20's depth, vision + text: half of ViT-H/14's 32 + 24, to
+# keep the script inside its time (their checks are exact at any depth)
+CLIP_TRAIN_LAYERS = (16, 12)
 # the 2 + 2 layer comparisons of phases 16 and 17: batch (pairs)
 CHECK_BATCH, CPU_BATCH = 8, 4
 
@@ -2905,6 +2917,7 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
     from repro_torch.models import params as PRM
     from repro_torch.train import Trainer, init_train_state, loss_and_grads
     res, counts_by_mode = {}, {}
+    probes = group_probes(torch, M, dev)
     for mode in modes:
         c = dataclasses.replace(cfg, layer_scale_init=0.0) if mode in ZERO_INIT_MODES else cfg
         bundle, policy, parallel, tc, step, opt, scaler = train_parts(torch, c, dev, mode=mode,
@@ -2943,10 +2956,7 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
                   f"{per * CLIP_STEPS} ({per} per step)")
         prof = train_profile(torch, M, trainer, batches[1:], n_steps=1, rows=CLIP_BATCH,
                              tag=f"clip profile {mode}")
-        for g in PROFILE_GROUPS.get(mode, ()) if prof["device_ms_per_step"] else ():
-            check(prof["groups"].get(g, {}).get("ms", 0.0) > 0,
-                  f"CLIP {mode}: the profile's group {g!r} read no device time (its pattern "
-                  "matches no kernel name)")
+        groups = check_profile_groups(torch, M, dev, mode, probes)
         for g in PROFILE_IDLE_GROUPS.get(mode, ()):
             check(g not in prof["groups"], f"CLIP {mode}: the profile's group {g!r} ran on the "
                   f"path: {prof['groups'].get(g)}")
@@ -2968,6 +2978,7 @@ def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
                          grad_norms=[h["grad_norm"] for h in trainer.history],
                          peak_memory_gib=peak, fwd_bwd_peak_gib_above_state=fwd_bwd,
                          launches_per_step={k: v / CLIP_STEPS for k, v in counts.items()},
+                         profile_group_kernels=groups,
                          profile={k: prof[k] for k in ("step_ms", "device_ms_per_step",
                                                        "device_idle_share",
                                                        "cuda_launches_per_step", "groups")})
@@ -4180,6 +4191,10 @@ def time_fp8_kernels(torch, M, cfg, dev, seed):
 # ---------------------------------------------------------------------------
 
 PAGED_BS, PAGED_NB, PAGED_MAX_LEN = 16, 64, 1024
+# the paged serve phases' depth: 16 of smollm's 32 layers, to keep the
+# script inside its time (PAGED_MODEL_TOL's control fault reads 4.6x its
+# limit at 32 layers)
+PAGED_LAYERS = 16
 # phase 25's workload: 32 requests, a shared 256-token system prompt and a
 # 32-512-token suffix each, 64 new tokens, greedy, 8 slots of 1,024 cells,
 # 256 tokens per engine step
@@ -4408,12 +4423,18 @@ def time_paged(torch, M, cfg, dev, seed):
     return out
 
 
+def paged_cfg():
+    """Phases 24-26's model: smollm-360m at full width and PAGED_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smollm-360m"), n_layers=PAGED_LAYERS)
+
+
 def paged_engine(torch, dev, **kw):
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve import make_serve_engine
     scfg = ServeConfig(max_batch=8, max_len=PAGED_MAX_LEN, quant_mode="int8_switchback",
                        cache_mode="paged", block_size=PAGED_BS, **kw)
-    return make_serve_engine("smollm-360m", scfg, device=dev)
+    return make_serve_engine(paged_cfg(), scfg, device=dev)
 
 
 def expected_paged_launches(cfg, stats) -> dict:
@@ -5526,6 +5547,9 @@ FP32_STEP_TOL = {"bfloat16": dict(loss_rel_err=1e-5, grad_max_rel_err=8e-2,
 STEP_SKIP = ("['bk']", "['logit_scale']")
 REMAT_STEPS = 3
 REMAT_BIG_BATCH = 128
+# (d)'s depth, vision + text: half of CLIP ViT-H/14's, to keep the script
+# inside its time (the checks are bit equalities at any depth)
+REMAT_LAYERS = (16, 12)
 ADAFACTOR_STEPS = 3
 # (f) App. C: k at the two CLIP widths and the paper's weight-gradient k
 # (App. C.3: batch x sequence, about 65,536), b = m = 256; the reference's
@@ -5906,7 +5930,9 @@ def training_options(torch, M, cfg, smollm_cfg, dev, seed):
     res["a"] = part("a f16 kernels", kernels_a)
     res["b"], res["f16_counts"] = part("b fp16", lambda: fp16_runs(torch, M, cfg, dev, seed))
     res["c"] = part("c fp32", lambda: fp32_runs(torch, M, cfg, dev, seed))
-    res["d"] = part("d remat", lambda: remat_checks(torch, M, cfg, dev, seed))
+    res["d"] = part("d remat", lambda: remat_checks(
+        torch, M, dataclasses.replace(cfg, vision_layers=REMAT_LAYERS[0],
+                                      text_layers=REMAT_LAYERS[1]), dev, seed))
     res["e"] = part("e adafactor", lambda: adafactor_run(torch, M, cfg, dev, seed))
     res["f"] = part("f appendix C", lambda: appendix_c(torch, M, dev, seed))
     res["seconds"] = secs
@@ -6065,6 +6091,505 @@ def sharded_engine(torch, M, cfg, dev, seed):
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# phase 32: the mixture-of-experts family and fp16/fp32 serving
+# ---------------------------------------------------------------------------
+
+# the expert-batched SwitchBack forms (kernels/switchback/ops.py), on the
+# int8_switchback expert path of a mixture-of-experts layer
+BATCHED_KERNELS = ("tensor_quantize_batched", "fused_switchback_fwd_batched",
+                   "fused_switchback_dgrad_batched")
+MOE_PY = "src/repro/models/moe.py:41"
+SOURCE.update(dict.fromkeys(BATCHED_KERNELS, SB_SOURCE))
+REPLACES.update({
+    "tensor_quantize_batched": REPLACES["tensor_quantize"] + " under jax.vmap (" + MOE_PY + ")",
+    "fused_switchback_fwd_batched": REPLACES["fused_switchback_fwd"] + " under jax.vmap ("
+    + MOE_PY + ")",
+    "fused_switchback_dgrad_batched": REPLACES["fused_switchback_dgrad"] + " under jax.vmap ("
+    + MOE_PY + ")"})
+# qwen3-moe-30b-a3b's experts: 128 of d_model 2,048 and d_ff 768; C = 4 at
+# decode (8 slots x top 8 / 128 experts, the capacity floor) and 160 at
+# train (8 x 256 tokens x 8 / 128 x 1.25)
+MOE_E, MOE_D, MOE_FF = 128, 2048, 768
+MOE_DECODE_C, MOE_TRAIN_C = 4, 160
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MINITRON_LAYERS = 4, 2, 2
+# smollm-360m's fp16/fp32 serving: full width, 8 of its 32 layers (depth cut
+# to keep the script inside its time)
+SMOLLM_PRECISION_LAYERS = 8
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 8, 256, 3
+# launches per layer per model call of an all-MoE attention stack in
+# int8_switchback at qwen3's widths: wq (K 2,048), wk, wv fused; wo (K
+# 4,096) row_quantize + the int8 matmul; the experts' three linears batched
+MOE_PER_LAYER = {"tensor_quantize": 4, "fused_switchback_fwd": 3, "row_quantize": 1,
+                 "int8_matmul_dequant": 1, "tensor_quantize_batched": 3,
+                 "fused_switchback_fwd_batched": 3}
+# and per layer of a train step (remat "none"): the forward's, then the
+# dgrads: wk, wv (output 512) and wo (2,048) fused, wq (4,096) row_quantize
+# + the transposed matmul, the experts' three batched; the flash kernels
+MOE_TRAIN_PER_LAYER = {"tensor_quantize": 4, "fused_switchback_fwd": 3, "row_quantize": 2,
+                       "int8_matmul_dequant": 1, "int8_matmul_dequant_t": 1,
+                       "fused_switchback_dgrad": 3, "tensor_quantize_batched": 3,
+                       "fused_switchback_fwd_batched": 3, "fused_switchback_dgrad_batched": 3,
+                       "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+# minitron-8b (d 4,096, d_ff 16,384), serving: every linear's forward
+# contracts over 4,096 or 16,384 > 2,048, so all seven take the two-step path
+MINITRON_PER_LAYER = {"tensor_quantize": 7, "row_quantize": 7, "int8_matmul_dequant": 7}
+# the reduced qwen3-moe on the card (kernels) against the CPU (plain), 3
+# steps, phase 11's readings and rule: each limit the geometric mean of the
+# worst sound reading and the smallest control-fault reading over three
+# seeds on an H100, rounded to one digit: loss 2.1e-3 (a third step that
+# moves a near-tie's expert; the first two steps read 3.5e-4 at most)
+# against 6.2e-3, the parameters' mean 4.1e-4 against 5.4e-3 (PERF.md)
+MOE_CARD_CPU_TOL = {"loss_rel_err": 4e-3, "param_mean_rel_err": 2e-3}
+
+
+def batched_inputs(torch, gen, E, C, K, M, dev, dtype=None):
+    """x (E, C, K) with an all-zero row (an empty slot) and a row of exact
+    ties, W (E, K, M) bf16 with a scale per expert, g (E, C, M)."""
+    dtype = dtype or torch.bfloat16
+    x = torch.randn((E, C, K), generator=gen, device=dev) * 3
+    x[0, 0] = 0.0
+    if C > 1:
+        x[1, 1] = (torch.arange(K, device=dev) % 8) - 3.5
+        x[1, 1, 0] = 127.0
+    scale = torch.linspace(0.5, 2.0, E, device=dev)[:, None, None]
+    w = (torch.randn((E, K, M), generator=gen, device=dev) * scale).to(torch.bfloat16)
+    g = torch.randn((E, C, M), generator=gen, device=dev)
+    return x.to(dtype), w, g.to(dtype)
+
+
+def compare_batched(torch, M, dev, seed):
+    """Phase 32 (a): the three expert-batched forms at qwen3's expert
+    shapes (up/gate 2,048 -> 768, down 768 -> 2,048) at decode's C = 4 and
+    train's C = 160, bf16 and f32 activations, bit-equal to their plain
+    versions and to the 2-D kernels looped over the experts, twice the same
+    bits, one wrapper launch a call, the K-split workspace left zero.
+    Returns the largest |kernel - plain| (0) and the comparisons made."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 3201)
+    worst, n = dict.fromkeys(BATCHED_KERNELS, 0.0), 0
+    for C in (MOE_DECODE_C, MOE_TRAIN_C):
+        for K, N in ((MOE_D, MOE_FF), (MOE_FF, MOE_D)):
+            for dt in (torch.bfloat16, torch.float32):
+                x, w, g = batched_inputs(torch, gen, MOE_E, C, K, N, dev, dt)
+                KOPS.reset_launch_counts()
+                w_q, s_w = KOPS.tensor_quantize_batched(w)
+                y = KOPS.fused_switchback_fwd_batched(x, w_q, s_w)
+                dx = KOPS.fused_switchback_dgrad_batched(g, w_q, s_w)
+                c = KOPS.launch_counts()
+                check(all(c[k] == 1 for k in BATCHED_KERNELS), f"batched forms: launches {c}")
+                rq, rs = REF.tensor_quantize_batched(w)
+                plain = {"tensor_quantize_batched": (w_q, rq),
+                         "fused_switchback_fwd_batched": (y, REF.fused_switchback_fwd_batched(
+                             x, w_q, s_w)),
+                         "fused_switchback_dgrad_batched": (dx, REF.fused_switchback_dgrad_batched(
+                             g, w_q, s_w))}
+                check(torch.equal(s_w, rs), f"tensor_quantize_batched: states differ at C={C}")
+                loop = (torch.stack([KOPS.tensor_quantize(w[e])[0] for e in range(MOE_E)]),
+                        torch.stack([KOPS.fused_switchback_fwd(x[e], w_q[e], s_w[e])
+                                     for e in range(MOE_E)]),
+                        torch.stack([KOPS.fused_switchback_dgrad(g[e], w_q[e], s_w[e])
+                                     for e in range(MOE_E)]))
+                again = (KOPS.tensor_quantize_batched(w)[0],
+                         KOPS.fused_switchback_fwd_batched(x, w_q, s_w),
+                         KOPS.fused_switchback_dgrad_batched(g, w_q, s_w))
+                for (name, (got, want)), lp, ag in zip(plain.items(), loop, again):
+                    where = f"{name} at E={MOE_E} C={C} K={K} M={N} {dt}"
+                    worst[name] = max(worst[name], max_abs_diff(torch, got, want))
+                    check(torch.equal(got, want), f"{where}: kernel != plain")
+                    check(torch.equal(got, lp), f"{where}: kernel != the 2-D kernels' loop")
+                    check(torch.equal(got, ag), f"{where}: two launches differ")
+                    n += 1
+                check(not any(bool(b.any()) for b in KOPS._SPLIT.values()),
+                      "batched forms: the K-split workspace was left non-zero")
+    return worst, n
+
+
+def int_mm_loop(torch, x_q, w_q):
+    """The library hint beside the batched GEMMs: torch._int_mm an expert
+    (x_q (E, C, K), w_q (E, K, M); rows padded to 32, _int_mm's least)."""
+    rows = x_q.shape[1]
+    pad = max(0, 32 - rows)
+    xp = torch.nn.functional.pad(x_q, (0, 0, 0, pad)) if pad else x_q
+    return [torch._int_mm(xp[e], w_q[e]) for e in range(x_q.shape[0])]
+
+
+def time_batched(torch, M, dev, seed):
+    """Phase 32 (a)'s times: each batched form at qwen3's layer (the three
+    expert linears: two 2,048 -> 768, one 768 -> 2,048) at decode C = 4 and
+    train C = 160, by CUDA-graph replay over two input sets; its plain
+    version; the bound (bytes: x and W's codes read once, y written; the
+    quantizer W's bf16 read and its codes written; operations 2 E C K M at
+    the int8 peak); no single PyTorch call runs a batched int8 GEMM, so the
+    library time is null and a torch._int_mm loop over the experts (the
+    GEMM alone, no quantize or scale) stands beside as a hint."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 3203)
+    linears = ((MOE_D, MOE_FF), (MOE_D, MOE_FF), (MOE_FF, MOE_D))
+    out = {}
+    for C in (MOE_DECODE_C, MOE_TRAIN_C):
+        sets = []
+        for _ in range(2):
+            layer = []
+            for K, N in linears:
+                x, w, g = batched_inputs(torch, gen, MOE_E, C, K, N, dev)
+                w_q, s_w = KOPS.tensor_quantize_batched(w)
+                x_q = x.to(torch.int8)
+                layer.append((x, w, g, w_q, s_w, x_q))
+            sets.append(layer)
+        E = MOE_E
+        qbytes = sum(E * K * N * 3 + E * 4 for K, N in linears)
+        fbytes = sum(E * C * K * 2 + E * K * N + E * C * N * 2 for K, N in linears)
+        dbytes = sum(E * C * N * 2 + E * K * N + E * C * K * 2 for K, N in linears)
+        ops = sum(2.0 * E * C * K * N for K, N in linears)
+        forms = {
+            "tensor_quantize_batched": (lambda s, O: [O.tensor_quantize_batched(t[1]) for t in s],
+                                        qbytes, 0.0),
+            "fused_switchback_fwd_batched": (
+                lambda s, O: [O.fused_switchback_fwd_batched(t[0], t[3], t[4]) for t in s],
+                fbytes, ops),
+            "fused_switchback_dgrad_batched": (
+                lambda s, O: [O.fused_switchback_dgrad_batched(t[2], t[3], t[4]) for t in s],
+                dbytes, ops)}
+        for name, (call, bytes_, i8) in forms.items():
+            r = dict(ms=graph_ms(torch, lambda i: call(sets[i], KOPS), len(sets), reps=10),
+                     plain_ms=graph_ms(torch, lambda i: call(sets[i], REF), len(sets), reps=2),
+                     library_ms=None, bound=bound(bytes_, int8_ops=i8), calls=3,
+                     work=f"one qwen3 layer's 3 expert linears, E={E}, C={C}")
+            if i8:
+                r["tops"] = i8 / (r["ms"] * 1e-3) / 1e12
+                r["bound_share"] = r["bound"][0] / r["ms"]
+                r["int_mm_loop_ms"] = graph_ms(
+                    torch, lambda i: [int_mm_loop(torch, t[5], t[3]) for t in sets[i]],
+                    len(sets), reps=5)
+            out.setdefault(name, {})[f"C{C}"] = r
+    print("[moe timing] " + json.dumps(out))
+    return out
+
+
+def qwen3_cfg(layers):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=layers)
+
+
+def moe_prompts(rng, n, vocab, lo=32, hi=128):
+    return [rng.integers(0, vocab, size=int(k)).tolist() for k in rng.integers(lo, hi + 1, n)]
+
+
+def expected_lm_launches(cfg, per_layer, stats, paged):
+    """Each wrapper's launches for a generate of an LM whose linears launch
+    ``per_layer`` per layer per model call, its attention on the ring
+    (flash_fwd a prefill call, decode_fwd a decode step) or the paged
+    kernels, everything else 0."""
+    L = cfg.n_layers
+    calls = stats["prefill_calls"] + stats["decode_steps"]
+    want = {k: per * L * calls for k, per in per_layer.items()}
+    if paged:
+        want.update(paged_decode_fwd=L * stats["decode_steps"],
+                    paged_prefill_fwd=L * stats["prefill_calls"])
+    else:
+        want.update(flash_fwd=L * stats["prefill_calls"], decode_fwd=L * stats["decode_steps"])
+    return want
+
+
+def decode_step_reading(torch, eng, params, tokens):
+    """One decode step of ``eng`` on a copy of a filled cache: its CUDA
+    kernels (the nodes of a CUDA graph that captures it) and its device ms
+    (the graph replayed)."""
+    from repro_torch.kernels import build as KBUILD
+    from repro_torch.models import transformer as TF
+    cache = eng.init_cache()
+    lens = torch.full((eng.serve_cfg.max_batch,), 64, dtype=torch.int32, device=eng.device)
+    for st in cache.values():
+        st.length.copy_(lens[None].expand_as(st.length))
+    paged = eng.serve_cfg.cache_mode == "paged"
+    nb = -(-eng.serve_cfg.max_len // eng.serve_cfg.block_size) if paged else 0
+    tables = (torch.arange(eng.serve_cfg.max_batch * nb, device=eng.device, dtype=torch.int32)
+              .reshape(eng.serve_cfg.max_batch, nb) % eng.num_blocks) if paged else None
+    rc = eng._rope_rows(lens[:, None])
+
+    def step():
+        with torch.inference_mode():
+            if paged:
+                TF.paged_decode_step(params, cache, tables, tokens, eng.cfg, eng.policy,
+                                     eng.parallel, rope_cache=rc)
+            else:
+                TF.decode_step(params, cache, tokens, eng.cfg, eng.policy, eng.parallel,
+                               rope_cache=rc)
+
+    kernels = len(KBUILD.graph_kernels(step))
+    ms = graph_ms(torch, lambda i: step(), 1, reps=10)
+    return dict(cuda_kernels_per_step=kernels, device_ms_per_step=ms)
+
+
+def moe_serve(torch, M, dev, seed):
+    """Phase 32 (b): qwen3-moe-30b-a3b at full width and MOE_SERVE_LAYERS
+    layers, int8_switchback, the ring and the paged engine: 8 prompts of
+    32-128 tokens, 32 new tokens, greedy, after a warm-up; every wrapper's
+    launches exactly the generate's calls times MOE_PER_LAYER (no 2-D
+    SwitchBack kernel runs an expert); the tokens equal to the same
+    engine's with the SwitchBack plain versions swapped in on the card
+    (bit-equal kernels: the same tokens); a decode step's device ms and
+    CUDA kernels (graph nodes)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import make_serve_engine
+    cfg = qwen3_cfg(MOE_SERVE_LAYERS)
+    rng = np.random.default_rng(seed + 3205)
+    prompts = moe_prompts(rng, 8, cfg.vocab_size)
+    res, params = {}, None
+    for cache in ("ring", "paged"):
+        eng = make_serve_engine(cfg, ServeConfig(max_batch=8, max_len=256, cache_mode=cache,
+                                                 quant_mode="int8_switchback"), device=dev)
+        if params is None:
+            params = eng.init_params(seed)
+        eng.generate(params, prompts[:2], max_new_tokens=2)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(M)
+        gens, stats = eng.generate(params, prompts, max_new_tokens=32)
+        counts = launch_counts(M)
+        check(all(len(g) == 32 for g in gens) and all(0 <= t < cfg.vocab_size
+                                                      for g in gens for t in g),
+              f"qwen3 serve ({cache}): {[len(g) for g in gens]} tokens")
+        check_launches(counts, expected_lm_launches(cfg, MOE_PER_LAYER, stats, cache == "paged"),
+                       f"qwen3 serve ({cache})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with swapped([(M.KOPS, k, getattr(M.REF, k)) for k in SB_KERNELS + BATCHED_KERNELS]):
+            plain, _ = eng.generate(params, prompts, max_new_tokens=32)
+        check(plain == gens, f"qwen3 serve ({cache}): kernel tokens != plain-version tokens")
+        toks = torch.zeros((8, 1), dtype=torch.long, device=dev)
+        res[cache] = dict(stats={k: stats[k] for k in (
+            "tokens_per_s", "decode_tokens_per_s", "ttft_p50_s", "itl_p50_s", "itl_p95_s",
+            "decode_steps", "prefill_calls", "new_tokens")}, peak_memory_gib=peak,
+            counts={k: v for k, v in counts.items() if v}, tokens_equal_plain=True,
+            **decode_step_reading(torch, eng, params, toks))
+        del eng
+    print("[moe serve] " + json.dumps(res))
+    return res, params
+
+
+def moe_check_path(torch, M):
+    """Phase 32 (c)'s card-vs-CPU path: the reduced qwen3-moe (2 layers ...
+    as the config has them), int8_switchback, BigramLM batches of 4 x 64
+    over its 512 ids; the control fault the router's top k taken from the
+    bottom (on the CPU)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import BigramLM
+    from repro_torch.models import moe as MOE
+    cfg = get_reduced_config("qwen3-moe-30b-a3b")
+
+    def batches(n, where, s):
+        data = BigramLM(cfg.vocab_size, seed=s, temperature=0.3)
+        return [{k: torch.from_numpy(v).to(device=where, dtype=torch.long)
+                 for k, v in data.batch(4, 64).items()} for _ in range(n)]
+
+    def bottom_k(probs, k):
+        v, i = torch.sort(probs, dim=-1, descending=False, stable=True)
+        return v[..., :k], i[..., :k]
+
+    return types.SimpleNamespace(
+        tag="moe card vs cpu", small=cfg, modes=("int8_switchback",), seed_offset=37,
+        tol=MOE_CARD_CPU_TOL, opt={}, batches=batches, keeps=lambda n, s: None,
+        faults={"top k from the bottom (CPU)": control_fault(
+            "cpu", lambda: swapped([(MOE, "stable_top_k", bottom_k)]))})
+
+
+def moe_train(torch, M, dev, seed):
+    """Phase 32 (c): qwen3-moe-30b-a3b at full width and MOE_TRAIN_LAYERS
+    layers, int8_switchback, StableAdamW, MOE_TRAIN_STEPS steps of 8 x 256
+    tokens through ``make_engine`` on a world-1 NCCL group: every wrapper's
+    launches exactly MOE_TRAIN_PER_LAYER times the layers and steps, the
+    losses finite, moe_aux positive and finite, the peak memory; one step's
+    device ms (torch.profiler). Then the reduced config card vs CPU."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import BigramLM
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    from repro_torch.train import make_engine
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    started = init_distributed("cuda")
+    try:
+        cfg = qwen3_cfg(MOE_TRAIN_LAYERS)
+        bundle, policy, _, tc, _, _, _ = train_parts(torch, cfg, dev, mode="int8_switchback")
+        data = BigramLM(DATA_VOCAB, seed=seed + 3207, temperature=0.2)
+        batches = [{k: torch.from_numpy(v).to(device=dev, dtype=torch.long)
+                    for k, v in data.batch(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ).items()}
+                   for _ in range(MOE_TRAIN_STEPS + 1)]
+        par = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"), remat="none",
+                             attn_impl="flash_scan")
+        eng = make_engine(bundle, tc, par, make_test_mesh((1, 1)), batches[0], policy=policy)
+        state = eng.init_state(seed)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(M)
+        t = time.perf_counter()
+        losses, aux = [], []
+        for b in batches[:MOE_TRAIN_STEPS]:
+            state, m = eng.step(state, eng.shard_batch(b))
+            losses.append(float(m["loss"]))
+            aux.append(float(m["moe_aux"]))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / MOE_TRAIN_STEPS
+        counts = launch_counts(M)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(x) for x in losses + aux) and all(a > 0 for a in aux),
+              f"qwen3 train: losses {losses}, moe_aux {aux}")
+        check_launches(counts, {k: v * cfg.n_layers * MOE_TRAIN_STEPS
+                                for k, v in MOE_TRAIN_PER_LAYER.items()}, "qwen3 train")
+        by_kernel = kernel_times(torch, lambda: eng.step(state, eng.shard_batch(
+            batches[MOE_TRAIN_STEPS])), 1)
+        del eng, state
+    finally:
+        if started:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(layers=MOE_TRAIN_LAYERS, tokens=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, losses=losses,
+               moe_aux=aux, step_ms=wall * 1e3, tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / wall,
+               peak_memory_gib=peak,
+               device_ms_per_step=sum(v[0] for v in by_kernel.values()),
+               cuda_launches_per_step_profiled=sum(v[1] for v in by_kernel.values()),
+               counts={k: v for k, v in counts.items() if v})
+    print("[moe train] " + json.dumps(res))
+    res["card_vs_cpu"] = card_vs_cpu(torch, M, moe_check_path(torch, M), dev, seed)
+    return res
+
+
+def lm_serve(torch, M, dev, seed, arch, layers, mode, per_layer, prompts, cache="ring"):
+    """One generate of ``arch`` at full width and ``layers`` layers in
+    ``mode`` (8 slots, 32 new tokens) after a warm-up, its launches exact.
+    Returns (tokens, stats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import make_serve_engine
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    eng = make_serve_engine(cfg, ServeConfig(max_batch=8, max_len=256, cache_mode=cache,
+                                             quant_mode=mode), device=dev)
+    params = eng.init_params(seed)
+    eng.generate(params, prompts[:2], max_new_tokens=2)
+    reset_launch_counts(M)
+    gens, stats = eng.generate(params, prompts, max_new_tokens=32)
+    check_launches(launch_counts(M), expected_lm_launches(cfg, per_layer, stats, cache == "paged"),
+                   f"{arch} serve ({mode}, {cache})")
+    check(all(len(g) == 32 for g in gens), f"{arch} serve ({mode}): {[len(g) for g in gens]}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gens, {k: stats[k] for k in ("tokens_per_s", "itl_p50_s", "decode_steps",
+                                        "prefill_calls")}
+
+
+def serve_precisions(torch, M, dev, seed):
+    """Phase 32 (d): minitron-8b at full width and MINITRON_LAYERS layers in
+    int8_switchback (the two-step paths at d 4,096 and d_ff 16,384); then
+    smollm-360m at full width and SMOLLM_PRECISION_LAYERS layers in bf16,
+    fp16 and fp32 on the ring and the paged cache: served fp16 gives
+    bf16's tokens bit for bit (both bf16 compute, as the JAX engine builds
+    the policy), every run's launches exact (the plain modes launch no
+    SwitchBack kernel)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(seed + 3209)
+    res = {}
+    mini = get_config("minitron-8b")
+    _, res["minitron_int8_switchback"] = lm_serve(
+        torch, M, dev, seed, "minitron-8b", MINITRON_LAYERS, "int8_switchback",
+        MINITRON_PER_LAYER, moe_prompts(rng, 8, mini.vocab_size))
+    smol = get_config("smollm-360m")
+    prompts = moe_prompts(rng, 8, smol.vocab_size)
+    for cache in ("ring", "paged"):
+        gens = {}
+        for mode in ("bf16", "fp16", "fp32"):
+            gens[mode], res[f"smollm_{mode}_{cache}"] = lm_serve(
+                torch, M, dev, seed, "smollm-360m", SMOLLM_PRECISION_LAYERS, mode, {}, prompts,
+                cache)
+        check(gens["fp16"] == gens["bf16"], f"smollm {cache}: fp16 tokens != bf16 tokens")
+        res[f"fp32_tokens_equal_bf16_{cache}"] = gens["fp32"] == gens["bf16"]
+    print("[serve precisions] " + json.dumps(res))
+    return res
+
+
+def moe_phase(torch, M, dev, seed):
+    """Phase 32: (a) the batched forms, (b) qwen3 serving, (c) qwen3
+    training, (d) minitron and fp16/fp32 serving; each part's seconds."""
+    out, secs = {}, {}
+    for part, fn in (("a", lambda: (compare_batched(torch, M, dev, seed),
+                                    time_batched(torch, M, dev, seed))),
+                     ("b", lambda: moe_serve(torch, M, dev, seed)[0]),
+                     ("c", lambda: moe_train(torch, M, dev, seed)),
+                     ("d", lambda: serve_precisions(torch, M, dev, seed))):
+        t = time.perf_counter()
+        out[part] = fn()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t
+        print(f"[time] 32{part}: {secs[part]:.1f} s", flush=True)
+    (worst, n), times = out["a"]
+    print(f"[kernels] {n} expert-batched comparisons bit-equal to plain and to the 2-D "
+          "kernels' loop, twice the same bits: " + json.dumps(worst))
+    out.update(worst=worst, times=times, seconds=secs)
+    return out
+
+
+def demangled(names) -> list:
+    """C++ kernel names as the profiler prints them (``c++filt``)."""
+    out = subprocess.run(["c++filt"], input="\n".join(n or "" for n in names),
+                         capture_output=True, text=True, check=True).stdout
+    return out.splitlines()
+
+
+def kernel_group(name: str):
+    """The TRAIN_KERNEL_GROUPS group a kernel name lands in (the profile's
+    rule: the first whose pattern and flag it holds), or None."""
+    return next((g for pat, flag, g in TRAIN_KERNEL_GROUPS if pat in name and flag in name),
+                None)
+
+
+def group_probes(torch, M, dev):
+    """One call of the wrapper behind each group of PROFILE_GROUPS, at a
+    CLIP vision layer's shapes (4,128 x 1,280 -> 1,280)."""
+    gen = torch.Generator(device=dev).manual_seed(3211)
+    x = torch.randn((4128, 1280), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((1280, 1280), generator=gen, device=dev).to(torch.bfloat16)
+    x_q, s_x = M.F8.row_quantize(x, "e4m3")
+    w_q, s_w, w_k = M.F8.tensor_quantize_kt(w, "e4m3")
+    return {
+        "tensor_quantize": lambda: M.KOPS.tensor_quantize(w),
+        "row_quantize": lambda: M.KOPS.row_quantize(x),
+        "col_quantize": lambda: M.KOPS.col_quantize(w),
+        "fp8_tensor_quantize": lambda: M.F8.tensor_quantize_kt(w, "e4m3"),
+        "fp8_row_quantize": lambda: M.F8.row_quantize(x, "e4m3"),
+        "fp8_block_quantize": lambda: M.F8.block_quantize(x, "e4m3"),
+        "fp8_matmul_dequant and _t (one wgmma kernel)": lambda: M.F8.fp8_matmul_dequant(
+            x_q, w_q, s_x * s_w, w_k=w_k),
+        "fp8_mixed_matmul and _t (one wgmma kernel)": lambda: M.F8.mixed(x, w_q, s_w,
+                                                                         w_k=w_k)}
+
+
+def check_profile_groups(torch, M, dev, mode, probes):
+    """Each group a mode's profile reads (PROFILE_GROUPS) holds the kernels
+    its wrapper launches: their names, read exactly from the nodes of a
+    CUDA graph of one call (``graph_kernels``; torch.profiler's records can
+    go missing), land in that group by the profile's own rule. Returns
+    {group: the kernel names}."""
+    from repro_torch.kernels import build as KBUILD
+    out = {}
+    for g in PROFILE_GROUPS.get(mode, ()):
+        names = demangled(KBUILD.graph_kernels(probes[g]))
+        check(names and any(kernel_group(n) == g for n in names),
+              f"CLIP {mode}: the profile's group {g!r} matches none of its wrapper's kernels "
+              f"{names}")
+        out[g] = sorted({n.split("<")[0].split("::")[-1] for n in names
+                         if kernel_group(n) == g})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6191,16 +6716,17 @@ def main(argv=None) -> int:
         print("[timing] paged:", json.dumps(paged_t))
     # 25. paged serve (the paged main path) and its served model kernels vs plain
     with timed("25 paged serve"):
-        p_eng, p_params, p_stats, p_counts = paged_serve(torch, M, cfg, dev, args.seed)
-        paged_whole_model(torch, M, p_eng, p_params, cfg, args.seed)
+        p_eng, p_params, p_stats, p_counts = paged_serve(torch, M, paged_cfg(), dev,
+                                                         args.seed)
+        paged_whole_model(torch, M, p_eng, p_params, paged_cfg(), args.seed)
     # 26. the paged features at full width: preemption, n-gram drafts
     with timed("26 paged features"):
-        paged_features(torch, M, cfg, dev, args.seed, p_params)
+        paged_features(torch, M, paged_cfg(), dev, args.seed, p_params)
     # 29. self-healing CLIP training and the flight recorder (serving
     # through phase 25's engine)
     with timed("29 self-healing and the flight recorder"):
-        heal = selfheal(torch, M, get_config("clip-vit-huge"), cfg, dev, args.seed, p_eng,
-                        p_params)
+        heal = selfheal(torch, M, get_config("clip-vit-huge"), paged_cfg(), dev, args.seed,
+                        p_eng, p_params)
     print(smi)
     print("[selfheal] " + json.dumps(heal))
     del p_eng, p_params
@@ -6226,6 +6752,8 @@ def main(argv=None) -> int:
 
     # 13-17. CLIP ViT-H/14 (the paper's own model) in the four int8 modes
     clip_cfg = get_config("clip-vit-huge")
+    clip_train_cfg = dataclasses.replace(clip_cfg, vision_layers=CLIP_TRAIN_LAYERS[0],
+                                         text_layers=CLIP_TRAIN_LAYERS[1])
     with timed("13-14 CLIP kernels vs plain"):
         clip_worst, n_clip = compare_linear_kernels(torch, M, clip_shapes(clip_cfg), dev,
                                                     args.seed + 23)
@@ -6256,7 +6784,7 @@ def main(argv=None) -> int:
               f"{json.dumps(FLASH_O_TOL)}, backward {json.dumps(FLASH_BWD_TOL)}; control fault "
               f">= {FAULT_MARGIN:g}x the tolerance: " + json.dumps(clip_flash))
     with timed("15 CLIP train"):
-        clip_res, clip_counts = clip_train(torch, M, clip_cfg, dev, args.seed)
+        clip_res, clip_counts = clip_train(torch, M, clip_train_cfg, dev, args.seed)
     with timed("16 CLIP whole step"):
         clip_whole_step(torch, M, clip_cfg, dev, args.seed)
     with timed("17 CLIP card vs cpu"):
@@ -6292,7 +6820,8 @@ def main(argv=None) -> int:
               f"control faults caught in {n_fault8} of {n_fault8} cases; max |kernel - plain| "
               + json.dumps(edge_worst8))
     with timed("20 CLIP fp8 train"):
-        fp8_res, fp8_counts = clip_train(torch, M, clip_cfg, dev, args.seed, CLIP_FP8_MODES,
+        fp8_res, fp8_counts = clip_train(torch, M, clip_train_cfg, dev, args.seed,
+                                         CLIP_FP8_MODES,
                                          tag="clip fp8 train")
     torch.cuda.empty_cache()
 
@@ -6342,6 +6871,11 @@ def main(argv=None) -> int:
     # world-1 NCCL group (CLIP at full width, ENGINE_LAYERS deep)
     with timed("31 sharded engine"):
         sharded_engine(torch, M, clip_cfg, dev, args.seed)
+    torch.cuda.empty_cache()
+    # 32. the mixture-of-experts family (qwen3-moe-30b-a3b at full width),
+    # minitron-8b, fp16/fp32 serving
+    with timed("32 moe and serve precisions"):
+        moe = moe_phase(torch, M, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
@@ -6578,11 +7112,39 @@ def main(argv=None) -> int:
                                     | {"bound_ms": v["bound"][0]} for t, v in times.items()})
 
     f16_entries = [f16_entry(k) for k in F16_KERNELS]
+
+    def batched_entry(name):
+        """An expert-batched form: ``launches`` from phase 32's qwen3 runs
+        (the ring serve run; the dgrad from the train run), the paged serve
+        and train runs beside; its times at decode's C (the dgrad at
+        train's), the other C beside."""
+        t = moe["times"][name]
+        at = "C160" if name == "fused_switchback_dgrad_batched" else "C4"
+        r = t[at]
+        b_ms, b_by = r["bound"]
+        serve_counts = {c: moe["b"][c]["counts"].get(name, 0) for c in ("ring", "paged")}
+        train_n = moe["c"]["counts"].get(name, 0)
+        return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+                    launches=train_n if at == "C160" else serve_counts["ring"],
+                    launches_serve=serve_counts, launches_train=train_n,
+                    launches_per_train_step=train_n / MOE_TRAIN_STEPS,
+                    max_abs_err=moe["worst"][name], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    library="none: no single PyTorch call runs a batched int8 GEMM; "
+                            "int_mm_loop_ms is a torch._int_mm loop over the experts",
+                    calls_timed=r["calls"], work=r["work"],
+                    **{k: r[k] for k in ("tops", "bound_share", "int_mm_loop_ms") if k in r},
+                    other_shapes={c: {k: v[k] for k in ("ms", "plain_ms", "tops", "bound_share",
+                                                         "int_mm_loop_ms") if k in v}
+                                  | {"bound_ms": v["bound"][0]} for c, v in t.items() if c != at})
+
+    batched_entries = [batched_entry(k) for k in BATCHED_KERNELS]
+    print("[moe] " + json.dumps({k: moe[k] for k in ("b", "d", "seconds")}))
     print("[training options] " + json.dumps({k: opts[k] for k in ("b", "c", "d", "e", "f",
                                                                     "seconds")}))
     print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
                       + clip_entries + fp8_entries + paged_entries + op_entries
-                      + f16_entries}))
+                      + f16_entries + batched_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

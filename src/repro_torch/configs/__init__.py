@@ -1,8 +1,9 @@
 """Architecture registry of the port. ``get_config(name)`` returns the
 full-size config, ``get_reduced_config(name)`` the shrunken one the CPU
-tests use. Ported so far: smollm-360m and the paper's own CLIP ViT-H/14;
-the JAX package's other architectures join as their model families are
-ported."""
+tests use. Ported so far: the dense smollm-360m and minitron-8b, the
+mixture-of-experts qwen3-moe-30b-a3b and arctic-480b, and the paper's own
+CLIP ViT-H/14; the JAX package's other architectures join as their model
+families are ported."""
 from __future__ import annotations
 
 import importlib
@@ -11,10 +12,13 @@ from repro_torch.configs.base import (CLIPConfig, ModelConfig,  # noqa: F401
                                       ParallelConfig, ServeConfig, TrainConfig)
 
 PAPER_ARCH = "clip-vit-huge"
-ALL_ARCHS = ("smollm-360m", PAPER_ARCH)
+ALL_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b", "smollm-360m", "minitron-8b", PAPER_ARCH)
 
 _MODULES = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "arctic-480b": "arctic_480b",
     "smollm-360m": "smollm_360m",
+    "minitron-8b": "minitron_8b",
     "clip-vit-huge": "clip_vit_huge",
 }
 

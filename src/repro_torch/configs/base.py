@@ -3,9 +3,10 @@
 Copies of the JAX package's ``repro/configs/base.py`` (the port imports
 nothing of ``repro``), cut to what the port reads:
 
-* ``ModelConfig`` — the whole dataclass, so the configs read the same;
-  the mixture-of-experts, SSM, enc-dec and frontend fields are carried but
-  their model families are not ported yet (``models.model_zoo`` raises).
+* ``ModelConfig`` — the whole dataclass, so the configs read the same,
+  with ``layer_kind`` and ``layer_is_moe``; the SSM, enc-dec and frontend
+  fields are carried but their model families are not ported yet
+  (``models.transformer.require_ported`` raises).
 * ``CLIPConfig`` — the whole dataclass (the paper's own two-tower model).
 * ``ParallelConfig`` — the JAX fields and defaults; the mesh fields act
   through the sharded ``TrainEngine`` on the data axes (``train/engine.py``),
@@ -30,9 +31,9 @@ class MoEConfig:
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
-    every_n_layers: int = 1
-    dense_residual: bool = False
-    dense_residual_ff: int = 0
+    every_n_layers: int = 1          # MoE MLP every N layers (1 = all)
+    dense_residual: bool = False     # arctic: dense FFN in parallel with the MoE
+    dense_residual_ff: int = 0       # width of the parallel dense FFN
     router_dtype: str = "float32"
 
 
@@ -66,6 +67,20 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' | 'mamba' | 'rwkv': the sequence mixer of layer i."""
+        if self.rwkv is not None:
+            return "rwkv"
+        if self.attn_layer_period:
+            return ("attn" if i % self.attn_layer_period == self.attn_layer_offset
+                    else "mamba")
+        return "attn"
+
+    def layer_is_moe(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        return i % self.moe.every_n_layers == (self.moe.every_n_layers - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +140,10 @@ class ParallelConfig:
     the engine (tensor parallelism, ROADMAP.md Queue 1 #13).
     ``grad_compression`` is carried and read by no train step, as in the
     JAX package (``distributed/compression.py`` is a library).
-    ``sequence_parallel`` (#13) and ``moe_grouped`` (the MoE family, #9)
-    raise on any value but their default.
+    ``sequence_parallel`` (#13) raises on any value but its default.
+    ``moe_grouped`` (``models/moe.py``): at world 1 both settings are one
+    computation; ``False`` at a world above 1 is the JAX package's one
+    global sort over every rank's tokens, which the engine refuses (#13).
 
     ``attn_impl="flash_scan"`` (the default here and in the JAX package)
     runs the flash-attention kernels, as the JAX package does on its Pallas
@@ -145,7 +162,7 @@ class ParallelConfig:
     fsdp_gather_weights: bool = False  # explicit weight all-gather at use
     gather_wire: str = "bf16"        # bf16|int8: the weights' wire format
     pure_dp: bool = False            # fold the model axis into data parallelism
-    moe_grouped: bool = True         # grouped MoE dispatch (the MoE family, #9)
+    moe_grouped: bool = True         # grouped MoE dispatch: a group per data shard
     shard_kv_heads: bool = True      # False: replicate K/V projections
     scan_layers: bool = True
     remat: str = "block"             # none|block|full
@@ -165,8 +182,6 @@ class ParallelConfig:
                              "('none', 'int8_rowwise')")
         _only_defaults(self, ("sequence_parallel",),
                        "sequence parallelism is ROADMAP.md Queue 1 #13")
-        _only_defaults(self, ("moe_grouped",),
-                       "the MoE family is ROADMAP.md Queue 1 #9")
 
     @property
     def data_axes(self) -> Tuple[str, ...]:

@@ -61,6 +61,11 @@ _SB_VARIANT = {
 }
 
 
+def variant_for_mode(mode: str) -> str:
+    """The SwitchBack variant of a quantized mode (``core/switchback.VARIANTS``)."""
+    return _SB_VARIANT[mode]
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
     """Precision policy for linear layers + compute dtypes.

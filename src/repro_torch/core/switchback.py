@@ -282,6 +282,59 @@ class SwitchBackMatmul(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
+def wgrad_16bit_batched(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``wgrad_16bit`` an expert: Ẇ_e = X_eᵀ Ẏ_e, x (E, b, n), g (E, b, m)
+    -> (E, n, m) f32 (the JAX package's vmapped ``dot_general``): on the
+    card one batched bf16 GEMM with f32 outputs, on the CPU f32 products of
+    the bf16-rounded inputs."""
+    xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    if xb.is_cuda:
+        return torch.bmm(xb.transpose(1, 2), gb, out_dtype=torch.float32)
+    return xb.float().transpose(1, 2) @ gb.float()
+
+
+class SwitchBackExpertMatmul(torch.autograd.Function):
+    """``switchback`` (Alg. 1) on every expert at once, ``f(x, w, cd) -> y``:
+    x (E, b, n) in the compute dtype, w (E, n, m). Per expert the 2-D
+    ``SwitchBackMatmul``'s arithmetic: W quantized tensor-wise (one absmax
+    an expert), x and Ẏ row-wise, Ẋ by the fused dgrad against the
+    forward's int8 W, Ẇ in 16 bits with f32 sums. On the card three
+    expert-batched kernels (``kernels/switchback/ops.*_batched``), one
+    wrapper launch each for all E experts; residuals (x, w_q, s_w)."""
+
+    @staticmethod
+    def forward(ctx, x, w, compute_dtype):
+        w_q, s_w = KOPS.tensor_quantize_batched(w.to(compute_dtype).contiguous())
+        ctx.save_for_backward(x, w_q, s_w)
+        return KOPS.fused_switchback_fwd_batched(x, w_q, s_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        x, w_q, s_w = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        dx = KOPS.fused_switchback_dgrad_batched(g, w_q, s_w) if need_dx else None
+        dw = wgrad_16bit_batched(x, g) if need_dw else None
+        return dx, dw, None
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor, *, compute_dtype: torch.dtype,
+                  variant: str = "switchback", fp8: FP8Config = FP8_DEFAULT) -> torch.Tensor:
+    """SwitchBack on expert-batched operands: x (E, b, n) in the compute
+    dtype, w (E, n, m) -> (E, b, m), Ẇ in w's dtype. The JAX package vmaps
+    its custom VJP over E (``repro/models/moe.py:expert_linear``): each
+    expert quantizes on its own. ``switchback`` runs the expert-batched
+    kernels; the other variants run the 2-D ``SwitchBackMatmul`` one expert
+    at a time (the vmap's semantics; their batched forms are ROADMAP.md
+    Queue 2)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown SwitchBack variant {variant!r}; expected one of {VARIANTS}")
+    if variant == "switchback":
+        return SwitchBackExpertMatmul.apply(x, w, compute_dtype)
+    return torch.stack([SwitchBackMatmul.apply(x[e], w[e], compute_dtype, variant, fp8)
+                        for e in range(x.shape[0])])
+
+
 def switchback_linear(x: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor | None = None, *,
                       variant: str = "switchback",

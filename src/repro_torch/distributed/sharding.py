@@ -220,6 +220,22 @@ class Gather(torch.autograd.Function):
         return scatter_dim(g, ctx.dim, ctx.group, ctx.n), None, None, None
 
 
+class AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over ``group``, forward; backward, the gradient's
+    sum over the group: each rank's loss reads the same sum, so a rank's
+    part of it carries every rank's gradient (the MoE aux loss's global
+    means)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
 def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place over ``group``; returns ``x``."""
     dist.all_reduce(x, op=op, group=group)

@@ -180,3 +180,53 @@ def plan(entry, x: torch.Tensor) -> dict:
     launch(entry, x.data_ptr(), int(x.dtype == torch.bfloat16), None, x.numel(),
            ctypes.addressof(out))
     return dict(zip(("blocks", "rounds", "granule", "resident", "block_values"), out))
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2``'s head: the function, then the fields
+    the readers here do not use (room for the rest of the struct)."""
+    _fields_ = [("func", ctypes.c_void_p), ("rest", ctypes.c_byte * 256)]
+
+
+def graph_kernels(fn) -> list:
+    """The CUDA kernels one ``fn()`` launches, in node order: the kernel
+    nodes of a CUDA graph that captures it, read through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``), each by its name
+    (``cuGraphKernelNodeGetParams`` and ``cuFuncGetName``; None where
+    libcuda gives none). Exact where torch.profiler's records can go
+    missing, and blind to which code launched a kernel. ``fn`` runs once
+    on the capture stream first, so that per-stream workspaces (the grid
+    barrier) are made outside the capture. Card only."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        err = getattr(cu, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUresult {err}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        ok = (cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)) == 0
+              and params.func and cu.cuFuncGetName(ctypes.byref(name),
+                                                   ctypes.c_void_p(params.func)) == 0)
+        names.append(name.value.decode() if ok and name.value else None)
+    graph.reset()
+    return names

@@ -305,14 +305,18 @@ __device__ __forceinline__ float reduce_partials(const float* partial, int block
 }
 
 // The kernel body: MODE kOne (the one launch), kMax or kCast (the two
-// passes). Codec::cast<MODE, G>(absmax, v, w) encodes and stores.
+// passes). Codec::cast<MODE, G>(absmax, v, w) encodes and stores. The
+// batched form (E tensors of n values one after another, a state and
+// p.blocks partials each) runs the two passes on a grid E deep: block (b,
+// e) is block b of tensor e (e = 0 in the one-tensor forms).
 template <typename T, int G, int MODE, class Codec>
 __device__ __forceinline__ void quantize(const T* __restrict__ x, uint8_t* __restrict__ q,
                                          float* __restrict__ s, float* __restrict__ partial,
                                          unsigned* __restrict__ bar, const Plan& p) {
   constexpr int K = max_chunks<T>();
   __shared__ float red[32];
-  const int64_t b = blockIdx.x;
+  const int64_t b = blockIdx.x, e = blockIdx.y;
+  x += e * p.n, q += e * p.n, s += e, partial += e * p.blocks;
   Work<T> w;
   w.x = x, w.q = q;
   w.first = b * p.chunks / p.blocks + threadIdx.x;
@@ -595,12 +599,13 @@ Plan make_plan(int64_t n, int G, int resident, int drop) {
   return p;
 }
 
-// a launch of `kernel` over `blocks` blocks on st, cooperative or not
+// a launch of `kernel` over `blocks` x `tensors` blocks on st, cooperative
+// or not
 template <typename... P, typename... A>
-cudaError_t launch(void (*kernel)(P...), int blocks, bool cooperative, cudaStream_t st,
-                   A&&... args) {
+cudaError_t launch(void (*kernel)(P...), int blocks, int tensors, bool cooperative,
+                   cudaStream_t st, A&&... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.gridDim = dim3(blocks, tensors, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
@@ -633,13 +638,13 @@ int run_at(const T* x, uint8_t* q, float* s, float* partial, unsigned* bar, int6
   const Plan p = make_plan<T>(n, G, r, drop);
   cudaError_t err;
   if (p.rounds == 0) {
-    err = launch(Family::template kernel<T, G, kOne>(fmt), p.blocks, true, st, x, q, s, partial,
+    err = launch(Family::template kernel<T, G, kOne>(fmt), p.blocks, 1, true, st, x, q, s, partial,
                  bar, p);
   } else {
-    err = launch(Family::template kernel<T, G, kMax>(fmt), p.blocks, false, st, x, q, s, partial,
+    err = launch(Family::template kernel<T, G, kMax>(fmt), p.blocks, 1, false, st, x, q, s, partial,
                  bar, p);
     if (err == cudaSuccess)
-      err = launch(Family::template kernel<T, G, kCast>(fmt), p.blocks, false, st, x, q, s,
+      err = launch(Family::template kernel<T, G, kCast>(fmt), p.blocks, 1, false, st, x, q, s,
                    partial, bar, p);
   }
   const cudaError_t last = cudaGetLastError();               // cleared either way
@@ -661,6 +666,63 @@ int run(const void* x, void* q, void* s, void* partial, void* bar, int64_t n, in
     case 4: return run_at<T, 4, Family>(xp, qp, sp, pp, bp, n, fmt, drop, st);
     case 2: return run_at<T, 2, Family>(xp, qp, sp, pp, bp, n, fmt, drop, st);
     default: return run_at<T, 1, Family>(xp, qp, sp, pp, bp, n, fmt, drop, st);
+  }
+}
+
+// The batched form: E tensors of n values each (the experts' weights), one
+// absmax and state each. Their blocks cannot all meet at one grid barrier
+// (128 experts' weights are far past the registers), so it always takes the
+// two passes, kMax then kCast, on a grid E deep (block (b, e): block b of
+// tensor e), each tensor over ceil(resident / E) blocks (at most
+// kBatchedPartials): the grid fills the card whatever E is.
+constexpr int kBatchedPartials = 64;   // partials a tensor: the wrapper's E x 64 floats
+
+template <typename T>
+Plan make_batched_plan(int64_t n, int G, int resident, int E) {
+  Plan p;
+  p.n = n, p.G = G, p.drop = -1;
+  p.chunks = (n + kChunk - 1) / kChunk;
+  const int64_t per_block = static_cast<int64_t>(kThreads) * max_chunks<T>();
+  const int64_t want = std::max<int64_t>(1, (p.chunks + kThreads - 1) / kThreads);
+  const int64_t fill = std::max(1, (resident + E - 1) / E);
+  p.blocks = static_cast<int>(std::min<int64_t>(want, std::min<int64_t>(fill, kBatchedPartials)));
+  const int64_t span = (p.chunks + p.blocks - 1) / p.blocks;
+  p.rounds = static_cast<int>(std::max<int64_t>(1, (span + per_block - 1) / per_block));
+  return p;
+}
+
+template <typename T, int G, class Family>
+int run_batched_at(const T* x, uint8_t* q, float* s, float* partial, int64_t n, int E, int fmt,
+                   cudaStream_t st) {
+  const int r = resident<T, G, Family>();
+  if (r <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Plan p = make_batched_plan<T>(n, G, r, E);
+  cudaError_t err = launch(Family::template kernel<T, G, kMax>(fmt), p.blocks, E, false, st, x,
+                           q, s, partial, static_cast<unsigned*>(nullptr), p);
+  if (err == cudaSuccess)
+    err = launch(Family::template kernel<T, G, kCast>(fmt), p.blocks, E, false, st, x, q, s,
+                 partial, static_cast<unsigned*>(nullptr), p);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// x (E, n) in T -> q (E, n) bytes, s (E,); partial: E x kBatchedPartials
+// floats. The granule also divides n, so that every tensor starts on one.
+template <typename T, class Family>
+int run_batched(const void* x, void* q, void* s, void* partial, int64_t n, int E, int fmt,
+                cudaStream_t st) {
+  if (n <= 0 || E <= 0) return static_cast<int>(cudaGetLastError());
+  const T* xp = static_cast<const T*>(x);
+  uint8_t* qp = static_cast<uint8_t*>(q);
+  float* sp = static_cast<float*>(s);
+  float* pp = static_cast<float*>(partial);
+  int G = granule(x, q, sizeof(T));
+  while (G > 1 && n % G) G >>= 1;
+  switch (G) {
+    case 8: return run_batched_at<T, 8, Family>(xp, qp, sp, pp, n, E, fmt, st);
+    case 4: return run_batched_at<T, 4, Family>(xp, qp, sp, pp, n, E, fmt, st);
+    case 2: return run_batched_at<T, 2, Family>(xp, qp, sp, pp, n, E, fmt, st);
+    default: return run_batched_at<T, 1, Family>(xp, qp, sp, pp, n, E, fmt, st);
   }
 }
 
@@ -752,13 +814,13 @@ int run_kt_at(const T* x, uint8_t* q, uint8_t* qk, float* s, float* partial, uns
   const TilePlan p = make_tile_plan<T>(R, C, G, r, drop, skip, kw);
   cudaError_t err;
   if (p.rounds == 0) {
-    err = launch(Family::template kernel_kt<T, G, kOne>(fmt), p.blocks, true, st, x, q, qk, s,
+    err = launch(Family::template kernel_kt<T, G, kOne>(fmt), p.blocks, 1, true, st, x, q, qk, s,
                  partial, bar, p);
   } else {
-    err = launch(Family::template kernel_kt<T, G, kMax>(fmt), p.blocks, false, st, x, q, qk, s,
+    err = launch(Family::template kernel_kt<T, G, kMax>(fmt), p.blocks, 1, false, st, x, q, qk, s,
                  partial, bar, p);
     if (err == cudaSuccess)
-      err = launch(Family::template kernel_kt<T, G, kCast>(fmt), p.blocks, false, st, x, q, qk,
+      err = launch(Family::template kernel_kt<T, G, kCast>(fmt), p.blocks, 1, false, st, x, q, qk,
                    s, partial, bar, p);
   }
   const cudaError_t last = cudaGetLastError();

@@ -86,6 +86,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the box at (c0 innermost, c1, c2) of a 3-D `map` (a stack of matrices,
+// c2 the matrix) into `dst`, completing on `bar`; outside the tensor, zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled (libcuda's), looked up through the runtime so that
 // nothing more is linked
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -119,6 +130,26 @@ inline bool tma_map_2d(CUtensorMap* m, const void* p, CUtensorMapDataType type, 
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
   return enc(m, type, 2, const_cast<void*>(p), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the TMA map of `mats` row-major (rows, cols) matrices one after the
+// other, boxes as tma_map_2d's, one matrix deep; false when
+// cuTensorMapEncodeTiled refuses it (pitches multiples of 16 bytes, p
+// 16-byte aligned)
+inline bool tma_map_3d(CUtensorMap* m, const void* p, CUtensorMapDataType type, int elem,
+                       int mats, int rows, int cols, int box_cols, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t pitch = static_cast<cuuint64_t>(cols) * elem;
+  const cuuint64_t strides[2] = {pitch, pitch * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return enc(m, type, 3, const_cast<void*>(p), dims, strides, box, steps,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -23,6 +23,9 @@ SIGNATURES = (
     ("sb_fused_switchback_dgrad", (P, I, P, P, P, P, P, P, I, I, I, P)),
     ("sb_int8_matmul_dequant_t", (P, P, P, P, P, I, I, I, I, P)),
     ("sb_wgrad_bf16", (P, P, P, I, I, I, P)),
+    ("sb_tensor_quantize_batched", (P, I, I64, I, P, P, P, P)),
+    ("sb_fused_switchback_fwd_batched", (P, I, P, P, P, P, P, P, I, I, I, I, P)),
+    ("sb_fused_switchback_dgrad_batched", (P, I, P, P, P, P, P, P, I, I, I, I, P)),
 )
 
 

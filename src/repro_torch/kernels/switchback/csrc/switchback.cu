@@ -2,7 +2,7 @@
 // bound through a plain C interface (loaded with ctypes by
 // kernels/switchback/build.py).
 //
-// Eight entry points, each replacing one Pallas TPU kernel (or one form of
+// Eleven entry points, each replacing one Pallas TPU kernel (or one form of
 // it) of the JAX package:
 //
 //   row_quantize            <- repro/kernels/switchback/switchback.py:row_quantize
@@ -17,6 +17,9 @@
 //                              either epilogue (the two-step dgrad of layers
 //                              whose output width is above 2048, and the
 //                              dgrad of the column-wise variants)
+//   tensor_quantize_batched,  the same three under jax.vmap over experts
+//   fused_switchback_fwd_batched,  (repro/models/moe.py:expert_linear): the
+//   fused_switchback_dgrad_batched  kernels above on a grid one expert deep
 //   wgrad_bf16              <- repro/kernels/switchback/switchback.py:wgrad_bf16
 //                              (the 16-bit weight gradient, on bf16 wgmma; see
 //                              its section: its numerics and its bound are its
@@ -711,6 +714,25 @@ struct I8Gemm {
                              // ranges of `per` (blockIdx.y), else 1 and all of them
 };
 
+// The expert-batched forms (E matrices one after another: x (E, B, K), W
+// (E, K, M) or, TW, (E, M, K), y (E, B, M), s_w (E,), the workspaces E
+// deep) run the same kernels on a grid one expert deep (blockIdx.z): a
+// block works on its expert's slices, which these give (expert 0 in the
+// 2-D forms), and its TMA boxes take the expert as their outermost
+// coordinate (expert_z) in 3-D maps of the stacked matrices.
+__device__ __forceinline__ size_t expert() { return blockIdx.z; }
+__device__ __forceinline__ int expert_z() { return static_cast<int>(blockIdx.z); }
+__device__ __forceinline__ const int8_t* expert_x(const I8Gemm& g) {
+  return g.x + expert() * g.B * g.K;
+}
+__device__ __forceinline__ const int8_t* expert_w(const I8Gemm& g) {
+  return g.w + expert() * g.K * g.M;
+}
+template <typename T>
+__device__ __forceinline__ const T* expert_xf(const I8Gemm& g) {
+  return static_cast<const T*>(g.xf) + expert() * g.B * g.K;
+}
+
 size_t i8_smem_bytes(int stages, int raws) {
   return 1024 + (2 * static_cast<size_t>(stages) + raws) * kI8Tile +
          (2 * kI8MaxStages + kI8MaxRaws) * sizeof(uint64_t) + 2 * kI8SwapRows * sizeof(float) +
@@ -788,8 +810,8 @@ __device__ void i8_produce(const I8Gemm& g, const CUtensorMap* tm_x, const CUten
     for (int kb = 0; kb < nk; ++kb) {
       mbar_wait(&empty[s], ph ^ 1u);
       mbar_expect_tx(&full[s], kXRows * 128 + kI8Tile);
-      tma_load_2d(xs + s * kI8Tile, tm_x, &full[s], 128 * kb, row0);
-      tma_load_2d(ws + s * kI8Tile, tm_w, &full[s], 128 * kb, col0);
+      tma_load_3d(xs + s * kI8Tile, tm_x, &full[s], 128 * kb, row0, expert_z());
+      tma_load_3d(ws + s * kI8Tile, tm_w, &full[s], 128 * kb, col0, expert_z());
       if (++s == g.stages) {
         s = 0;
         ph ^= 1u;
@@ -802,14 +824,14 @@ __device__ void i8_produce(const I8Gemm& g, const CUtensorMap* tm_x, const CUten
     if (t == 0)
       for (int kb = 0; kb < min(g.raws, nk); ++kb) {
         mbar_expect_tx(&rawfull[kb], kI8Tile);
-        tma_load_2d(raw + kb * kI8Tile, tm_w, &rawfull[kb], col0, 128 * kb);
+        tma_load_3d(raw + kb * kI8Tile, tm_w, &rawfull[kb], col0, 128 * kb, expert_z());
       }
     for (int kb = 0; kb < nk; ++kb) {
       const int r = kb % g.raws;
       mbar_wait(&empty[s], ph ^ 1u);
       if (t == 0) {
         mbar_expect_tx(&full[s], kXRows * 128);
-        tma_load_2d(xs + s * kI8Tile, tm_x, &full[s], 128 * kb, row0);
+        tma_load_3d(xs + s * kI8Tile, tm_x, &full[s], 128 * kb, row0, expert_z());
       }
       mbar_wait(&rawfull[r], (kb / g.raws) & 1u);
       transpose_tile(ws + s * kI8Tile, raw + r * kI8Tile, t);
@@ -819,7 +841,7 @@ __device__ void i8_produce(const I8Gemm& g, const CUtensorMap* tm_x, const CUten
       if (t == 0 && kb + g.raws < nk) {
         fence_proxy_async();
         mbar_expect_tx(&rawfull[r], kI8Tile);
-        tma_load_2d(raw + r * kI8Tile, tm_w, &rawfull[r], col0, 128 * (kb + g.raws));
+        tma_load_3d(raw + r * kI8Tile, tm_w, &rawfull[r], col0, 128 * (kb + g.raws), expert_z());
       }
       if (++s == g.stages) {
         s = 0;
@@ -832,11 +854,11 @@ __device__ void i8_produce(const I8Gemm& g, const CUtensorMap* tm_x, const CUten
   for (int kb = 0; kb < nk; ++kb) {
     const int k0 = 128 * kb;
     mbar_wait(&empty[s], ph ^ 1u);
-    load_tile(xs + s * kI8Tile, g.x, g.B, g.K, row0, k0, kXRows, t);
+    load_tile(xs + s * kI8Tile, expert_x(g), g.B, g.K, row0, k0, kXRows, t);
     if (TW) {
-      load_tile(ws + s * kI8Tile, g.w, g.M, g.K, col0, k0, 128, t);
+      load_tile(ws + s * kI8Tile, expert_w(g), g.M, g.K, col0, k0, 128, t);
     } else {
-      load_tile(raw, g.w, g.K, g.M, k0, col0, 128, t);
+      load_tile(raw, expert_w(g), g.K, g.M, k0, col0, 128, t);
       named_sync(1, 128);
       transpose_tile(ws + s * kI8Tile, raw, t);
     }
@@ -882,7 +904,7 @@ __device__ __forceinline__ void load8(const T* __restrict__ row, int c, int K, b
 // time) and its 127 / absmax; rows past B get the floor (never stored)
 template <typename T>
 __device__ void swap_absmax(const I8Gemm& g, float* samax, float* sinv) {
-  const T* x = static_cast<const T*>(g.xf);
+  const T* x = expert_xf<T>(g);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < kI8SwapRows; r += kI8Threads / 32) {
     float m = 0.f;
@@ -913,7 +935,7 @@ __device__ __forceinline__ void quantize_stage(uint8_t* dst, const I8Gemm& g, co
   const int r = t >> 3, ch = t & 7, k = k0 + 16 * ch;
   uint32_t q[4] = {0u, 0u, 0u, 0u};
   if (r < g.B && k < g.K) {
-    const T* row = static_cast<const T*>(g.xf) + static_cast<size_t>(r) * g.K;
+    const T* row = expert_xf<T>(g) + static_cast<size_t>(r) * g.K;
     const float inv = sinv[r];
     float v[2][8];
     load8<T>(row, k, g.K, g.xvec, v[0]);
@@ -936,12 +958,12 @@ __device__ void i8_prefetch_w(const I8Gemm& g, const CUtensorMap* tm_w, uint8_t*
   if (TW) {
     for (int i = 0; i < min(g.stages, n); ++i) {
       mbar_expect_tx(&full[i], kI8Tile);
-      tma_load_2d(ws + i * kI8Tile, tm_w, &full[i], 128 * (kb0 + i), col0);
+      tma_load_3d(ws + i * kI8Tile, tm_w, &full[i], 128 * (kb0 + i), col0, expert_z());
     }
   } else {
     for (int i = 0; i < min(g.raws, n); ++i) {
       mbar_expect_tx(&rawfull[i], kI8Tile);
-      tma_load_2d(raw + i * kI8Tile, tm_w, &rawfull[i], col0, 128 * (kb0 + i));
+      tma_load_3d(raw + i * kI8Tile, tm_w, &rawfull[i], col0, 128 * (kb0 + i), expert_z());
     }
   }
 }
@@ -962,17 +984,17 @@ __device__ void i8_produce_qx(const I8Gemm& g, const CUtensorMap* tm_w, uint8_t*
     mbar_wait(&empty[s], ph ^ 1u);
     if (TW && g.tma && i >= g.stages && t == 0) {
       mbar_expect_tx(&full[s], kI8Tile);
-      tma_load_2d(ws + s * kI8Tile, tm_w, &full[s], k0, col0);
+      tma_load_3d(ws + s * kI8Tile, tm_w, &full[s], k0, col0, expert_z());
     }
     quantize_stage<T>(xs + s * kI8Tile, g, sinv, k0, t);
     if (TW) {
-      if (!g.tma) load_tile(ws + s * kI8Tile, g.w, g.M, g.K, col0, k0, 128, t);
+      if (!g.tma) load_tile(ws + s * kI8Tile, expert_w(g), g.M, g.K, col0, k0, 128, t);
     } else if (g.tma) {
       const int r = i % g.raws;
       mbar_wait(&rawfull[r], (i / g.raws) & 1u);
       transpose_tile(ws + s * kI8Tile, raw + r * kI8Tile, t);
     } else {
-      load_tile(raw, g.w, g.K, g.M, k0, col0, 128, t);
+      load_tile(raw, expert_w(g), g.K, g.M, k0, col0, 128, t);
       named_sync(1, 128);
       transpose_tile(ws + s * kI8Tile, raw, t);
     }
@@ -984,7 +1006,7 @@ __device__ void i8_produce_qx(const I8Gemm& g, const CUtensorMap* tm_w, uint8_t*
       if (g.tma && t == 0 && i + g.raws < n) {
         fence_proxy_async();
         mbar_expect_tx(&rawfull[r], kI8Tile);
-        tma_load_2d(raw + r * kI8Tile, tm_w, &rawfull[r], col0, k0 + 128 * g.raws);
+        tma_load_3d(raw + r * kI8Tile, tm_w, &rawfull[r], col0, k0 + 128 * g.raws, expert_z());
       }
     }
     if (++s == g.stages) {
@@ -1063,7 +1085,7 @@ __device__ void i8_consume(const I8Gemm& g, const uint8_t* xs, const uint8_t* ws
     if (g.splits > 1) {
       // (QX is the swapped form: fragment rows are output columns m, its
       // columns the x rows)
-      int* sums = g.split;
+      int* sums = g.split + expert() * (kI8SwapRows * g.M + gridDim.x);
       int* ticket = sums + kI8SwapRows * g.M + blockIdx.x;
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) {
@@ -1085,10 +1107,10 @@ __device__ void i8_consume(const I8Gemm& g, const uint8_t* xs, const uint8_t* ws
     }
   }
   if (!live) return;
-  T* y = static_cast<T*>(g.y);
-  const float sw = g.s_w ? __fdiv_rn(g.s_w[0], kQmax2) : 0.f;
+  T* y = static_cast<T*>(g.y) + expert() * g.B * g.M;
+  const float sw = g.s_w ? __fdiv_rn(g.s_w[expert()], kQmax2) : 0.f;
   auto row_scale = [&](int b) {
-    const float rs = QX ? samax[b] : g.row_scale[b];
+    const float rs = QX ? samax[b] : g.row_scale[expert() * g.B + b];
     return g.s_w ? __fmul_rn(rs, sw) : rs;
   };
   if (SWAP) {
@@ -1191,7 +1213,7 @@ fused_switchback_kernel(__grid_constant__ const CUtensorMap tm_x,
 // FUSED: launch fused_switchback_kernel (g.s_w set; SWAP: g.xf, else g.x
 // and g.row_scale the workspace), else int8_matmul_kernel
 template <typename T, bool TW, bool SWAP, bool FUSED>
-int launch_i8(I8Gemm g, cudaStream_t st) {
+int launch_i8(I8Gemm g, int E, cudaStream_t st) {
   constexpr bool QX = FUSED && SWAP;
   // the TMA path: 16-byte row pitches and base addresses (QX: W's alone)
   const bool w_ok = (TW ? g.K % 16 == 0 : g.M % 16 == 0) && aligned16(g.w);
@@ -1210,7 +1232,7 @@ int launch_i8(I8Gemm g, cudaStream_t st) {
       cudaGetDevice(&dev);
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
-    const int want = std::max(1, std::min(nk, sms / tiles));
+    const int want = std::max(1, std::min(nk, sms / (tiles * E)));
     g.per = std::max(1, (nk + want - 1) / want);
     g.splits = std::max(1, (nk + g.per - 1) / g.per);
   }
@@ -1218,10 +1240,10 @@ int launch_i8(I8Gemm g, cudaStream_t st) {
   memset(&mx, 0, sizeof(mx));
   memset(&mw, 0, sizeof(mw));
   if (g.tma &&
-      !((QX || tma_map_2d(&mx, g.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.B, g.K, 128,
+      !((QX || tma_map_3d(&mx, g.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, g.B, g.K, 128,
                           SWAP ? kI8SwapRows : 128)) &&
-        (TW ? tma_map_2d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.M, g.K, 128, 128)
-            : tma_map_2d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.M, 128, 128))))
+        (TW ? tma_map_3d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, g.M, g.K, 128, 128)
+            : tma_map_3d(&mw, g.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, g.K, g.M, 128, 128))))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = i8_smem_bytes(g.stages, g.raws);
   const int most = static_cast<int>(i8_smem_bytes(g.stages, TW ? 0 : kI8MaxRaws));
@@ -1237,7 +1259,7 @@ int launch_i8(I8Gemm g, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = true;
   }
-  const dim3 grid(tiles, SWAP ? g.splits : (g.B + 127) / 128);
+  const dim3 grid(tiles, SWAP ? g.splits : (g.B + 127) / 128, E);
   if constexpr (FUSED)
     fused_switchback_kernel<T, TW, SWAP><<<grid, kI8Threads, bytes, st>>>(mx, mw, g);
   else
@@ -1259,17 +1281,18 @@ int launch_matmul(const void* x_q, const void* w_q, const void* row_scale, const
   g.B = B;
   g.K = K;
   g.M = M;
-  return B <= kI8SwapRows ? launch_i8<T, TW, true, false>(g, st)
-                          : launch_i8<T, TW, false, false>(g, st);
+  return B <= kI8SwapRows ? launch_i8<T, TW, true, false>(g, 1, st)
+                          : launch_i8<T, TW, false, false>(g, 1, st);
 }
 
-// the fused pair: at <= kI8SwapRows rows one launch (x quantized in the
-// block; with `split`, K split over the blocks of a column tile); above,
-// fused_quantize_kernel (launch_rows) into the workspace x_q (B, K) int8
-// and absmax (B,) f32, then the GEMM on them
+// the fused pair on E experts (E = 1: the 2-D form): at <= kI8SwapRows rows
+// an expert one launch (x quantized in the block; with `split`, K split over
+// the blocks of a column tile); above, fused_quantize_kernel (launch_rows,
+// over all E B rows) into the workspace x_q (E, B, K) int8 and absmax (E, B)
+// f32, then the GEMM on them
 template <typename T, bool TW>
 int launch_fused(const void* x, const void* w_q, const void* s_w, void* y, void* x_q,
-                 void* absmax, void* split, int B, int K, int M, cudaStream_t st) {
+                 void* absmax, void* split, int E, int B, int K, int M, cudaStream_t st) {
   I8Gemm g;
   memset(&g, 0, sizeof(g));
   g.w = static_cast<const int8_t*>(w_q);
@@ -1281,14 +1304,14 @@ int launch_fused(const void* x, const void* w_q, const void* s_w, void* y, void*
   if (B <= kI8SwapRows) {
     g.xf = x;
     g.split = static_cast<int*>(split);
-    return launch_i8<T, TW, true, true>(g, st);
+    return launch_i8<T, TW, true, true>(g, E, st);
   }
   if (!x_q || !absmax) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_rows<T>(TW ? kFusedDgrad : kFusedFwd, x, x_q, absmax, B, K, st);
+  const int err = launch_rows<T>(TW ? kFusedDgrad : kFusedFwd, x, x_q, absmax, E * B, K, st);
   if (err != cudaSuccess) return err;
   g.x = static_cast<const int8_t*>(x_q);
   g.row_scale = static_cast<const float*>(absmax);
-  return launch_i8<T, TW, false, true>(g, st);
+  return launch_i8<T, TW, false, true>(g, E, st);
 }
 
 
@@ -1538,6 +1561,16 @@ int sb_tensor_quantize_drop(const void* x, int bf16, int64_t n, void* partial, v
               : tq::run<float, Int8Kernels>(x, q, s, partial, bar, n, 0, drop, st);
 }
 
+// the expert-batched form: x (E, n) -> q (E, n) int8, s (E,) f32, one
+// absmax an expert, in two passes; partial: E x tq::kBatchedPartials floats
+// of scratch (see tensor_absmax.cuh)
+int sb_tensor_quantize_batched(const void* x, int bf16, int64_t n, int E, void* partial, void* q,
+                               void* s, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? tq::run_batched<__nv_bfloat16, Int8Kernels>(x, q, s, partial, n, E, 0, st)
+              : tq::run_batched<float, Int8Kernels>(x, q, s, partial, n, E, 0, st);
+}
+
 // out (5,) host ints: the plan tensor_quantize takes for these pointers and n
 int sb_tensor_quantize_plan(const void* x, int bf16, const void* q, int64_t n, int* out) {
   return bf16 ? tq::plan<__nv_bfloat16, Int8Kernels>(x, q, n, out)
@@ -1553,8 +1586,8 @@ int sb_fused_switchback_fwd(const void* x, int bf16, const void* w_q, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
   return bf16
-             ? launch_fused<__nv_bfloat16, false>(x, w_q, s_w, y, x_q, absmax, split, B, K, M, st)
-             : launch_fused<float, false>(x, w_q, s_w, y, x_q, absmax, split, B, K, M, st);
+             ? launch_fused<__nv_bfloat16, false>(x, w_q, s_w, y, x_q, absmax, split, 1, B, K, M, st)
+             : launch_fused<float, false>(x, w_q, s_w, y, x_q, absmax, split, 1, B, K, M, st);
 }
 
 // col_scale (M,) f32, or null for the row-scale epilogue alone; on int8
@@ -1578,8 +1611,32 @@ int sb_fused_switchback_dgrad(const void* g, int bf16, const void* w_q, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   return bf16
-             ? launch_fused<__nv_bfloat16, true>(g, w_q, s_w, dx, g_q, absmax, split, B, K, N, st)
-             : launch_fused<float, true>(g, w_q, s_w, dx, g_q, absmax, split, B, K, N, st);
+             ? launch_fused<__nv_bfloat16, true>(g, w_q, s_w, dx, g_q, absmax, split, 1, B, K, N, st)
+             : launch_fused<float, true>(g, w_q, s_w, dx, g_q, absmax, split, 1, B, K, N, st);
+}
+
+// The expert-batched fused pair: E experts' 2-D calls in one wrapper
+// launch, each expert's operands one after another: x (E, B, K), w_q (E, K,
+// M) (the dgrad's (E, M, K)), s_w (E,), y (E, B, M); the workspaces E deep
+// (x_q (E, B, K), absmax (E, B); split E x (16 M + ceil(M / 128))).
+int sb_fused_switchback_fwd_batched(const void* x, int bf16, const void* w_q, const void* s_w,
+                                    void* y, void* x_q, void* absmax, void* split, int E, int B,
+                                    int K, int M, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E <= 0 || B <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16
+             ? launch_fused<__nv_bfloat16, false>(x, w_q, s_w, y, x_q, absmax, split, E, B, K, M, st)
+             : launch_fused<float, false>(x, w_q, s_w, y, x_q, absmax, split, E, B, K, M, st);
+}
+
+int sb_fused_switchback_dgrad_batched(const void* g, int bf16, const void* w_q, const void* s_w,
+                                      void* dx, void* g_q, void* absmax, void* split, int E, int B,
+                                      int K, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E <= 0 || B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16
+             ? launch_fused<__nv_bfloat16, true>(g, w_q, s_w, dx, g_q, absmax, split, E, B, K, N, st)
+             : launch_fused<float, true>(g, w_q, s_w, dx, g_q, absmax, split, E, B, K, N, st);
 }
 
 // x_q (B, K) int8, w_q (M, K) int8, row_scale (B,) f32, col_scale (M,) f32

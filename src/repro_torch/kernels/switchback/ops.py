@@ -18,6 +18,14 @@ The fused forward and dgrad count one launch a call: at ``SWAP_ROWS`` rows
 or fewer that is one CUDA kernel, above it two (x's row-quantize pass into
 the wrapper's workspace, then the int8 GEMM).
 
+The ``*_batched`` wrappers are the expert-batched forms of
+``tensor_quantize`` and the fused pair (the JAX package's kernels under
+``jax.vmap`` over experts, ``repro/models/moe.py``'s ``expert_linear``):
+one wrapper launch for all E experts, each expert's arithmetic its 2-D
+call's, so they are bit-equal to a loop of the 2-D wrappers. The fused
+pair's batched form takes any contraction (the JAX split at
+``FUSED_MAX_CONTRACT`` picks between two computations with the same bits).
+
 ``wgrad_bf16`` is the JAX package's op entry point of the same name; no
 serve or train path calls it (the training path's Ẇ is one cuBLAS GEMM,
 ``core/switchback.wgrad_16bit``, as the JAX package's is XLA's
@@ -47,10 +55,17 @@ _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 MAX_PARTIALS = 1024
 
 
+# the batched tensor quantizer's partial maxima, one a block: the most
+# blocks it gives one expert (kBatchedPartials, kernels/csrc/tensor_absmax.cuh)
+BATCHED_PARTIALS = 64
+
+
 LAUNCHES = dict.fromkeys((
     "tensor_quantize", "fused_switchback_fwd", "row_quantize", "col_quantize",
     "int8_matmul_dequant", "int8_matmul_dequant_colscale", "fused_switchback_dgrad",
-    "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t", "wgrad_bf16"), 0)
+    "int8_matmul_dequant_t", "int8_matmul_dequant_colscale_t", "wgrad_bf16",
+    "tensor_quantize_batched", "fused_switchback_fwd_batched",
+    "fused_switchback_dgrad_batched"), 0)
 
 
 def _lib():
@@ -136,39 +151,44 @@ def _check_weight(w_q: torch.Tensor, K: int):
         raise ValueError(f"w_q {tuple(w_q.shape)} does not contract with K={K}")
 
 
-_SPLIT: dict = {}         # (device index, M) -> the one-launch fused form's int32 sums
+_SPLIT: dict = {}         # (device index, M, E) -> the one-launch fused form's int32 sums
 
 
-def _split_sums(device: torch.device, M: int) -> torch.Tensor:
+def _split_sums(device: torch.device, M: int, E: int = 1) -> torch.Tensor:
     """The fused pair's K-split workspace at SWAP_ROWS rows or fewer for
-    an output width M: int32 s32 sums (SWAP_ROWS, M), then one ticket per
-    128-column tile. Zero when made, and every launch leaves it zero (the
-    last block of a tile takes the sums back out), so one buffer serves
-    every launch in stream order, CUDA-graph replays included. Kept for the
-    process's life, since a captured graph holds its address."""
-    key = (device.index, M)
+    an output width M, E experts deep: per expert int32 s32 sums
+    (SWAP_ROWS, M), then one ticket per 128-column tile. Zero when made,
+    and every launch leaves it zero (the last block of a tile takes the
+    sums back out), so one buffer serves every launch in stream order,
+    CUDA-graph replays included. Kept for the process's life, since a
+    captured graph holds its address."""
+    key = (device.index, M, E)
     if key not in _SPLIT:
-        _SPLIT[key] = torch.zeros(SWAP_ROWS * M + -(-M // 128), dtype=torch.int32, device=device)
+        _SPLIT[key] = torch.zeros(E * (SWAP_ROWS * M + -(-M // 128)), dtype=torch.int32,
+                                  device=device)
     return _SPLIT[key]
 
 
 def _fused(entry, name, x, w_q, s_w, M):
-    """Launch one of the two fused entry points on x (B, K) and count it
-    once under ``name``. Above SWAP_ROWS rows the kernels first quantize x
-    into a workspace allocated here (int8 (B, K) and the f32 absmax (B,));
-    at SWAP_ROWS or fewer they split K over blocks into ``_split_sums``."""
-    B, K = x.shape
-    y = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    """Launch one of the fused entry points on x (B, K), or on x (E, B, K)
+    for the batched ones, and count it once under ``name``. Above
+    SWAP_ROWS rows (an expert) the kernels first quantize x into a
+    workspace allocated here (int8 x.shape and the f32 absmax a row); at
+    SWAP_ROWS or fewer they split K over blocks into ``_split_sums``."""
+    batched = x.dim() == 3
+    E, B, K = x.shape if batched else (1, *x.shape)
+    y = torch.empty(x.shape[:-1] + (M,), dtype=x.dtype, device=x.device)
     # held until the launch is queued: a workspace freed before it could be
     # handed out again, in part, to the other
     if B > SWAP_ROWS:
-        work = (torch.empty((B, K), dtype=torch.int8, device=x.device),
-                torch.empty((B,), dtype=torch.float32, device=x.device))
+        work = (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+                torch.empty((E * B,), dtype=torch.float32, device=x.device))
         ptrs = [t.data_ptr() for t in work] + [None]
     else:
-        ptrs = [None, None, _split_sums(x.device, M).data_ptr()]
+        ptrs = [None, None, _split_sums(x.device, M, E).data_ptr()]
+    dims = (E, B, K, M) if batched else (B, K, M)
     _b.launch(entry, x.data_ptr(), int(x.dtype == torch.bfloat16), w_q.data_ptr(),
-              s_w.data_ptr(), y.data_ptr(), *ptrs, B, K, M, _b.stream(x))
+              s_w.data_ptr(), y.data_ptr(), *ptrs, *dims, _b.stream(x))
     LAUNCHES[name] += 1
     return y
 
@@ -301,8 +321,63 @@ def wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
+def tensor_quantize_batched(x: torch.Tensor):
+    """x (E, R, C) f32/bf16 -> (q int8 (E, R, C), state f32 (E, 1, 1)): one
+    absmax and scale per expert (Eq. 2 an expert). On the card one wrapper
+    launch (the two passes of ``kernels/csrc/tensor_absmax.cuh`` on a grid
+    one expert deep)."""
+    _b.need(x, "x", _FLOAT_TYPES, 3)
+    if _b.on_cpu(x):
+        return _ref.tensor_quantize_batched(x)
+    E = x.shape[0]
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((E, 1, 1), dtype=torch.float32, device=x.device)
+    partial = torch.empty((E * BATCHED_PARTIALS,), dtype=torch.float32, device=x.device)
+    _b.launch(_lib().sb_tensor_quantize_batched, x.data_ptr(), int(x.dtype == torch.bfloat16),
+              x[0].numel(), E, partial.data_ptr(), q.data_ptr(), s.data_ptr(), _b.stream(x))
+    LAUNCHES["tensor_quantize_batched"] += 1
+    return q, s
+
+
+def _check_batched(x, w_q, s_w, contract_dim: int):
+    """x (E, B, K) against w_q (E, ., .) contracted over its ``contract_dim``
+    and s_w (E, 1, 1)."""
+    _b.need(x, "x", _FLOAT_TYPES, 3)
+    _b.need(w_q, "w_q", (torch.int8,), 3)
+    _b.need(s_w, "s_w", (torch.float32,), 3)
+    E = x.shape[0]
+    if w_q.shape[0] != E or w_q.shape[contract_dim] != x.shape[2]:
+        raise ValueError(f"w_q {tuple(w_q.shape)} does not contract with x {tuple(x.shape)}")
+    if tuple(s_w.shape) != (E, 1, 1):
+        raise ValueError(f"s_w {tuple(s_w.shape)} != {(E, 1, 1)}")
+
+
+def fused_switchback_fwd_batched(x: torch.Tensor, w_q: torch.Tensor,
+                                 s_w: torch.Tensor) -> torch.Tensor:
+    """``fused_switchback_fwd`` an expert: x (E, B, K) f32/bf16, w_q (E, K,
+    M) int8, s_w (E, 1, 1) f32 -> (E, B, M) in x's dtype."""
+    _check_batched(x, w_q, s_w, 1)
+    if _b.on_cpu(x, w_q, s_w):
+        return _ref.fused_switchback_fwd_batched(x, w_q, s_w)
+    return _fused(_lib().sb_fused_switchback_fwd_batched, "fused_switchback_fwd_batched",
+                  x, w_q, s_w, w_q.shape[2])
+
+
+def fused_switchback_dgrad_batched(g: torch.Tensor, w_q: torch.Tensor,
+                                   s_w: torch.Tensor) -> torch.Tensor:
+    """``fused_switchback_dgrad`` an expert: g (E, B, M) f32/bf16, w_q (E, N,
+    M) int8 as the forward quantized it, s_w (E, 1, 1) f32 -> dx (E, B, N)
+    in g's dtype, contracted over w_q's last dim."""
+    _check_batched(g, w_q, s_w, 2)
+    if _b.on_cpu(g, w_q, s_w):
+        return _ref.fused_switchback_dgrad_batched(g, w_q, s_w)
+    return _fused(_lib().sb_fused_switchback_dgrad_batched, "fused_switchback_dgrad_batched",
+                  g, w_q, s_w, w_q.shape[1])
+
+
 KERNELS = (tensor_quantize, fused_switchback_fwd, row_quantize, col_quantize,
-           int8_matmul_dequant, fused_switchback_dgrad, int8_matmul_dequant_t, wgrad_bf16)
+           int8_matmul_dequant, fused_switchback_dgrad, int8_matmul_dequant_t, wgrad_bf16,
+           tensor_quantize_batched, fused_switchback_fwd_batched, fused_switchback_dgrad_batched)
 
 
 def launch_counts() -> dict:

@@ -76,6 +76,30 @@ def fused_switchback_dgrad(g: torch.Tensor, w_q: torch.Tensor,
     return int8_matmul_dequant_t(g_q, w_q, scale, out_dtype=g.dtype)
 
 
+# The expert-batched forms: the 2-D plain versions above, one expert at a
+# time (``jax.vmap`` of the TPU kernels over the leading expert dim). Each
+# expert's arithmetic is its 2-D call's, so a batched kernel agrees bit for
+# bit with these and with a loop of the 2-D kernels.
+
+def tensor_quantize_batched(x: torch.Tensor):
+    """x (E, R, C) -> (q int8 (E, R, C), state f32 (E, 1, 1)): one absmax
+    per expert."""
+    qs, ss = zip(*(tensor_quantize(xe) for xe in x))
+    return torch.stack(qs), torch.stack(ss)
+
+
+def fused_switchback_fwd_batched(x: torch.Tensor, w_q: torch.Tensor,
+                                 s_w: torch.Tensor) -> torch.Tensor:
+    """x (E, B, K), w_q (E, K, M) int8, s_w (E, 1, 1) -> (E, B, M) in x's dtype."""
+    return torch.stack([fused_switchback_fwd(xe, we, se) for xe, we, se in zip(x, w_q, s_w)])
+
+
+def fused_switchback_dgrad_batched(g: torch.Tensor, w_q: torch.Tensor,
+                                   s_w: torch.Tensor) -> torch.Tensor:
+    """g (E, B, M), w_q (E, N, M) int8, s_w (E, 1, 1) -> (E, B, N) in g's dtype."""
+    return torch.stack([fused_switchback_dgrad(ge, we, se) for ge, we, se in zip(g, w_q, s_w)])
+
+
 def wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Ẇ = xᵀ g: x (B, K) and g (B, M) rounded to bf16, (K, M) in f32, each
     output the sum of its B products in order b = 0, 1, ..., B-1. A bf16

@@ -14,6 +14,11 @@ Chrome trace under ``--profile-dir``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --quant-mode int8_switchback --max-batch 4 --n-requests 8 --new-tokens 16
+    # the mixture of experts (reduced qwen3-moe-30b-a3b); fp16 serves the
+    # bf16 computation (bf16 compute, as the JAX launcher builds the policy),
+    # fp32 f32 linears on the bf16-rounded weights
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --quant-mode fp32 --device cpu
     # the paged cache, chunked prefill, preemption, n-gram drafts
     PYTHONPATH=src python -m repro_torch.launch.serve --cache-mode paged \
         --prefill-chunk-tokens 8 --preemption recompute --spec-mode ngram

@@ -37,6 +37,10 @@ device of its tensors).
         --steps 20 --quant-mode int8_switchback --device cuda
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 3 --device cpu --devices 4 --pure-dp --fsdp
+    # the mixture of experts (the reduced qwen3-moe-30b-a3b; each rank's
+    # tokens its dispatch group, the aux loss's means global)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
+        --steps 3 --device cpu --devices 2 --fsdp
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch clip-vit-huge --steps 5 --batch 32 --fsdp
     PYTHONPATH=src python -m repro_torch.launch.train --arch clip-vit-huge \

@@ -1,8 +1,8 @@
 """Single dispatch point: config -> (param_specs, loss function).
 
-The PyTorch counterpart of ``repro/models/model_zoo.py`` for the dense
-decoder family and CLIP (the paper's own model); enc-dec, MoE and SSM
-families join with their own slices.
+The PyTorch counterpart of ``repro/models/model_zoo.py`` for the dense and
+mixture-of-experts decoder families and CLIP (the paper's own model);
+enc-dec, SSM, hybrid and multimodal families join with their own slices.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def build(cfg) -> ModelBundle:
             cfg=cfg, param_specs=CL.param_specs(cfg),
             loss_fn=lambda p, b, pol, par, **kw: CL.clip_loss(p, b, cfg, pol, par, **kw),
             patch_keep=CL.patch_keep_sampler(cfg))
-    TF.require_dense(cfg, "model_zoo.build")
+    TF.require_ported(cfg, "model_zoo.build")
     return ModelBundle(
         cfg=cfg, param_specs=TF.param_specs(cfg),
         loss_fn=lambda p, b, pol, par, **kw: TF.loss_fn(p, b, cfg, pol, par))

@@ -235,12 +235,13 @@ def nofsdp_rules(rules: dict, data_axes) -> dict:
 # the sharded step's context: activation constraints and ZeRO-3 gathers
 # ---------------------------------------------------------------------------
 
-#: the leaves the port's layers hand to ``use_weight`` (attention, MLP, the
-#: patch embedding and an untied head): a sharded one reaches the layer as
-#: its local slice and is gathered there, in the compute dtype; the engine
-#: gathers every other sharded leaf whole before the loss
+#: the leaves the port's layers hand to ``use_weight`` (attention, MLP and
+#: the experts' stacked MLP, the router, the patch embedding and an untied
+#: head): a sharded one reaches the layer as its local slice and is gathered
+#: there, in the compute dtype; the engine gathers every other sharded leaf
+#: whole before the loss
 USE_WEIGHT_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
-                               "patch_embed", "head"})
+                               "w_router", "patch_embed", "head"})
 
 
 class ShardCtx:

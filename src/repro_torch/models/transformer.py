@@ -1,8 +1,10 @@
 """Decoder-only LM: parameter specs, training forward and loss, prefill
 and decode.
 
-The PyTorch counterpart of ``repro/models/transformer.py`` for dense
-all-attention stacks (smollm-360m). The parameter tree keeps the JAX
+The PyTorch counterpart of ``repro/models/transformer.py`` for
+all-attention stacks, dense (smollm-360m, minitron-8b) or with
+mixture-of-experts MLPs (qwen3-moe-30b-a3b, arctic-480b with its parallel
+dense residual MLP; ``models/moe.py``). The parameter tree keeps the JAX
 package's layout: ``blocks["pos{i}"]`` holds each position-in-period's
 parameters stacked over the ``n_groups`` dimension. Where the JAX package
 scans over that dimension, the port runs a Python loop and takes group
@@ -17,8 +19,9 @@ object.
 Training recomputes activations as the JAX package does: under
 ``remat="block"`` or ``"full"`` (the same in both packages) each layer
 group runs under ``torch.utils.checkpoint`` (non-reentrant), so only the
-groups' inputs are kept for the backward (``maybe_remat``). MoE, SSM,
-hybrid and multimodal stacks come with their own slices.
+groups' inputs are kept for the backward (``maybe_remat``). SSM, hybrid,
+multimodal and enc-dec stacks come with their own slices
+(``require_ported``).
 """
 from __future__ import annotations
 
@@ -36,18 +39,21 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import params as PRM
 from repro_torch.models.common import apply_norm, cross_entropy_loss, embed_tokens
 from repro_torch.models.mlp import mlp_block
+from repro_torch.models.moe import moe_block
 from repro_torch.models.params import ParamSpec
 
 
-def require_dense(cfg: ModelConfig, what: str = "the port"):
-    """Raise for the model families this slice does not serve."""
-    if (cfg.family not in ("dense",) or cfg.moe is not None
-            or cfg.attn_layer_period or cfg.rwkv is not None
-            or cfg.mamba is not None or cfg.encdec is not None
-            or cfg.frontend is not None):
+def require_ported(cfg: ModelConfig, what: str = "the port"):
+    """Raise for the model families not ported yet: SSM and hybrid stacks,
+    vision-language and audio frontends, encoder-decoders (ROADMAP.md
+    Queue 1 #9). Dense and mixture-of-experts all-attention decoders
+    pass."""
+    if (cfg.family not in ("dense", "moe") or cfg.attn_layer_period
+            or cfg.rwkv is not None or cfg.mamba is not None
+            or cfg.encdec is not None or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{what}: {cfg.name} ({cfg.family}) is not ported yet; this slice "
-            "serves dense all-attention decoders (ROADMAP.md Queue 1)")
+            f"{what}: {cfg.name} ({cfg.family}) is not ported yet: the SSM, hybrid, "
+            "multimodal and enc-dec families are ROADMAP.md Queue 1 #9")
 
 
 def period(cfg: ModelConfig) -> int:
@@ -85,8 +91,8 @@ def _attn_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def _mlp_specs(cfg) -> Dict[str, ParamSpec]:
-    D, FF = cfg.d_model, cfg.d_ff
+def _mlp_specs(cfg, d_ff=None) -> Dict[str, ParamSpec]:
+    D, FF = cfg.d_model, d_ff or cfg.d_ff
     s = {
         "w_up": ParamSpec((D, FF), ("embed", "mlp"), "fan_in", 1.0),
         "w_down": ParamSpec((FF, D), ("mlp", "embed"), "fan_in", 1.0),
@@ -96,10 +102,28 @@ def _mlp_specs(cfg) -> Dict[str, ParamSpec]:
     return s
 
 
+def _moe_specs(cfg) -> Dict[str, ParamSpec]:
+    D, FF, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    s = {
+        "w_router": ParamSpec((D, E), ("embed", None), "fan_in", 1.0),
+        "w_up": ParamSpec((E, D, FF), ("experts", "embed", "mlp"), "fan_in", 1.0),
+        "w_down": ParamSpec((E, FF, D), ("experts", "mlp", "embed"), "fan_in", 1.0),
+    }
+    if cfg.act == "swiglu":
+        s["w_gate"] = ParamSpec((E, D, FF), ("experts", "embed", "mlp"), "fan_in", 1.0)
+    return s
+
+
 def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
-    require_dense(cfg, "layer_specs")
+    require_ported(cfg, "layer_specs")
     specs: Dict[str, Any] = {"norm1": _norm_spec(cfg), "norm2": _norm_spec(cfg),
-                             "attn": _attn_specs(cfg), "mlp": _mlp_specs(cfg)}
+                             "attn": _attn_specs(cfg)}
+    if cfg.layer_is_moe(layer_idx):
+        specs["moe"] = _moe_specs(cfg)
+        if cfg.moe.dense_residual:
+            specs["dense_mlp"] = _mlp_specs(cfg, cfg.moe.dense_residual_ff)
+    else:
+        specs["mlp"] = _mlp_specs(cfg)
     if cfg.layer_scale_init is not None:
         init = "zeros" if cfg.layer_scale_init == 0.0 else "constant"
         specs["gamma1"] = ParamSpec((cfg.d_model,), ("embed",), init,
@@ -116,7 +140,7 @@ def _stack_specs(specs, n: int):
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    require_dense(cfg, "param_specs")
+    require_ported(cfg, "param_specs")
     P, G = period(cfg), n_groups(cfg)
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
@@ -135,8 +159,20 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # layers
 # ---------------------------------------------------------------------------
 
+def _ffn(h2: torch.Tensor, lp: Dict, cfg: ModelConfig, policy: QuantPolicy, layer_idx: int):
+    """The layer's MLP: (out, aux loss). A mixture-of-experts layer adds its
+    dense residual MLP when it has one (arctic); a dense layer's aux is None
+    (the JAX package's zero)."""
+    if cfg.layer_is_moe(layer_idx):
+        m, aux = moe_block(h2, lp["moe"], cfg, policy)
+        if cfg.moe.dense_residual:
+            m = m + mlp_block(h2, lp["dense_mlp"], cfg, policy)
+        return m, aux
+    return mlp_block(h2, lp["mlp"], cfg, policy), None
+
+
 def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
-                 policy: QuantPolicy, parallel: ParallelConfig, *,
+                 policy: QuantPolicy, parallel: ParallelConfig, layer_idx: int, *,
                  state, prefill=None, rope_cache=None, paged=None):
     """One serving layer on its cache ``state`` (updated in place).
 
@@ -170,21 +206,22 @@ def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
                                       rope_cache=rope_cache, impl=impl)
     x = x + apply_layer_scale(lp.get("gamma1"), a)
     h2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
-    m = mlp_block(h2, lp["mlp"], cfg, policy)
+    m, _ = _ffn(h2, lp, cfg, policy, layer_idx)
     return x + apply_layer_scale(lp.get("gamma2"), m)
 
 
 def _train_layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
-                       policy: QuantPolicy, parallel: ParallelConfig, *,
-                       positions: torch.Tensor) -> torch.Tensor:
-    """One layer with no cache (the JAX ``_layer_apply`` with state None)."""
+                       policy: QuantPolicy, parallel: ParallelConfig, layer_idx: int, *,
+                       positions: torch.Tensor):
+    """One layer with no cache (the JAX ``_layer_apply`` with state None):
+    (x, aux loss or None)."""
     h = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     a = ATT.attention_block(h, lp["attn"], cfg, policy, positions=positions,
                             impl=parallel.attn_impl)
     x = x + apply_layer_scale(lp.get("gamma1"), a)
     h2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
-    m = mlp_block(h2, lp["mlp"], cfg, policy)
-    return x + apply_layer_scale(lp.get("gamma2"), m)
+    m, aux = _ffn(h2, lp, cfg, policy, layer_idx)
+    return x + apply_layer_scale(lp.get("gamma2"), m), aux
 
 
 def maybe_remat(fn, parallel: ParallelConfig):
@@ -201,25 +238,34 @@ def maybe_remat(fn, parallel: ParallelConfig):
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             policy: QuantPolicy, parallel: ParallelConfig):
     """Training forward over the whole sequence: tokens (B, S) ->
-    (logits (B, S, V), aux loss, a zero for dense stacks). The unit of
-    recomputation is a layer group, as in the JAX package."""
-    require_dense(cfg, "forward")
+    (logits (B, S, V), aux loss: the MoE layers' sum, in the JAX package's
+    order — a group's layers from zero, the groups onto a running zero —
+    and a zero for dense stacks). The unit of recomputation is a layer
+    group, as in the JAX package."""
+    require_ported(cfg, "forward")
     x = embed_input(params, tokens, cfg, policy)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = {key: PRM.tree_map(lambda t: t.unbind(0), blk)
               for key, blk in params["blocks"].items()}
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group_fwd(x, gp):
+        aux = zero
         for i in range(period(cfg)):
-            x = _train_layer_apply(x, gp[f"pos{i}"], cfg, policy, parallel,
-                                   positions=positions)
-        return x
+            x, a = _train_layer_apply(x, gp[f"pos{i}"], cfg, policy, parallel, i,
+                                      positions=positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     blk = maybe_remat(group_fwd, parallel)
+    aux = zero
     for g in range(n_groups(cfg)):
-        x = blk(x, {key: PRM.tree_map(lambda views: views[g], lv) for key, lv in layers.items()})
+        x, a = blk(x, {key: PRM.tree_map(lambda views: views[g], lv)
+                       for key, lv in layers.items()})
+        aux = aux + a
     logits = lm_head(params, x, cfg, policy)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -261,7 +307,7 @@ def init_serve_state(cfg: ModelConfig, max_batch: int, max_len: int,
     """Per-slot KV caches stacked over groups: per position-in-period a
     ``KVCache`` with k/v (G, max_batch, max_len, n_kv_heads, hd) and
     lengths (G, max_batch) int32, all zero (every slot empty)."""
-    require_dense(cfg, "init_serve_state")
+    require_ported(cfg, "init_serve_state")
     P, G = period(cfg), n_groups(cfg)
     shape = (G, max_batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {f"pos{i}": ATT.KVCache(
@@ -284,7 +330,7 @@ def _run_layers(params, states, x, cfg, policy, parallel, **kw):
         gp = _group(params["blocks"], g)
         for i in range(period(cfg)):
             key = f"pos{i}"
-            x = _layer_apply(x, gp[key], cfg, policy, parallel,
+            x = _layer_apply(x, gp[key], cfg, policy, parallel, i,
                              state=_group(states[key], g), **kw)
     return x
 
@@ -301,7 +347,7 @@ def serve_prefill(params, states, tokens: torch.Tensor,
     (logits (B, S, V), states) — or (B, 1, V) with ``last_only``, each
     slot's last valid prompt position gathered before the head. Logits at
     pad positions and for non-admitted slots are garbage."""
-    require_dense(cfg, "serve_prefill")
+    require_ported(cfg, "serve_prefill")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     prefill=(admit, prompt_lens), rope_cache=rope_cache)
@@ -317,7 +363,7 @@ def decode_step(params, states, tokens: torch.Tensor, cfg: ModelConfig,
     """One-token decode for every slot (in place). tokens: (B, 1).
     Returns (logits (B, 1, V), states). ``rope_cache=(cos, sin)``: this
     step's RoPE rows, (B, 1, hd/2)."""
-    require_dense(cfg, "decode_step")
+    require_ported(cfg, "decode_step")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     rope_cache=rope_cache)
@@ -332,7 +378,7 @@ def init_paged_serve_state(cfg: ModelConfig, num_blocks: int, block_size: int,
     block — and per-slot lengths (G, max_batch) int32, all zero. The
     footprint scales with ``num_blocks`` (live tokens), not max_batch ×
     max_len; which slot owns which block is the host-side block table."""
-    require_dense(cfg, "init_paged_serve_state")
+    require_ported(cfg, "init_paged_serve_state")
     P, G = period(cfg), n_groups(cfg)
     shape = (G, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
     return {f"pos{i}": ATT.PagedKVCache(
@@ -366,7 +412,7 @@ def paged_prefill(params, states, tables: torch.Tensor, tokens: torch.Tensor,
     bool; tables (B, n_blocks_per_slot) int32. Returns (logits, states):
     logits (B, S, V), or (B, 1, V) with ``last_only`` (each slot's last
     valid suffix position, gathered before the head)."""
-    require_dense(cfg, "paged_prefill")
+    require_ported(cfg, "paged_prefill")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     prefill=(admit, prompt_lens), rope_cache=rope_cache,
@@ -384,7 +430,7 @@ def paged_decode_step(params, states, tables: torch.Tensor, tokens: torch.Tensor
     """One-token decode over the block-pool cache (in place). tokens (B, 1);
     tables (B, n_blocks_per_slot) int32. Returns (logits (B, 1, V),
     states); every slot's length advances by one, as in ``decode_step``."""
-    require_dense(cfg, "paged_decode_step")
+    require_ported(cfg, "paged_decode_step")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     rope_cache=rope_cache, paged=(tables, None))

@@ -789,10 +789,15 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
                       device="cuda") -> ServeEngine:
     """Assemble the serving stack for ``model`` on ``device``.
 
-    ``model`` is an arch name, a ModelConfig or a ModelBundle (dense
-    decoder-only LMs). ``device`` defaults to the card; on a host without
-    one this raises unless ``device="cpu"`` is asked for. ``policy``
-    defaults to ``serve_cfg.quant_mode``.
+    ``model`` is an arch name, a ModelConfig or a ModelBundle (dense and
+    mixture-of-experts decoder-only LMs). ``device`` defaults to the card;
+    on a host without one this raises unless ``device="cpu"`` is asked for.
+    ``policy`` defaults to ``QuantPolicy(serve_cfg.quant_mode)``, as the JAX
+    engine builds it: bf16 compute in every mode, so ``fp16`` serves the
+    ``bf16`` computation bit for bit and ``fp32`` runs each linear in f32 on
+    the bf16-rounded weights (q, k and v in f32 over the bf16 cache, which
+    the decode and paged kernels take). An explicit policy whose compute
+    dtype is f16 raises: its decode kernels are ROADMAP.md Queue 1 #14.
 
     ``parallel`` defaults to ``ParallelConfig(remat="none")``, whose
     ``attn_impl="flash_scan"`` runs the flash-attention kernels (ring) or
@@ -807,7 +812,10 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
         from repro_torch.configs import get_config
         model = get_config(model)
     bundle = model if hasattr(model, "param_specs") else build(model)
-    TF.require_dense(bundle.cfg, "make_serve_engine")   # CLIP trains only, as in JAX
+    if getattr(bundle.cfg, "family", "") in ("clip", "encdec"):
+        raise NotImplementedError(
+            "ServeEngine serves decoder-only LMs; CLIP scores pairs via models/clip.py")
+    TF.require_ported(bundle.cfg, "make_serve_engine")
     parallel = parallel or ParallelConfig(remat="none")
     flash_tiles = ("the TPU flash kernels' tile sizes: the card's flash kernels "
                    "choose their own tiles")
@@ -817,8 +825,8 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
         raise ValueError(f"attn_impl {parallel.attn_impl!r} not in {ATTN_IMPLS}")
     _check_serve_config(serve_cfg)
     policy = policy or QuantPolicy(serve_cfg.quant_mode)
-    if policy.mode in ("fp16", "fp32"):
+    if policy.compute_dtype == torch.float16:
         raise NotImplementedError(
-            f"serving quant mode {policy.mode!r} is not ported yet: decode_fwd and the "
-            "paged kernels take f32 and bf16 (ROADMAP.md Queue 1 #12)")
+            "serving with an f16 compute dtype (an explicit FP16 policy) needs f16 forms "
+            "of decode_fwd and the paged kernels: ROADMAP.md Queue 1 #14")
     return ServeEngine(bundle, serve_cfg, parallel, policy, device)

@@ -1161,9 +1161,10 @@ def test_cuda_tensor_quantizers_capture_and_replay(family):
 @pytest.mark.cuda
 def test_cuda_tensor_quantizers_one_kernel_a_call():
     """Every path weight in bf16 takes one CUDA kernel a call (the one
-    launch), as torch.profiler reads the card's activity, and the wrappers
-    count one launch a call."""
-    from torch.profiler import ProfilerActivity, profile
+    launch), counted exactly as the kernel nodes of a CUDA graph that
+    captures the calls (``build.graph_kernels``; torch.profiler's records
+    can go missing), and the wrappers count one launch a call."""
+    from repro_torch.kernels import build as KB
     dev = _card()
     ws = [torch.randn(s, device=dev).to(torch.bfloat16) for s in TQ_PATH]
     calls = [lambda w: TOPS.tensor_quantize(w), lambda w: F8.tensor_quantize(w, "e4m3"),
@@ -1173,19 +1174,89 @@ def test_cuda_tensor_quantizers_one_kernel_a_call():
     torch.cuda.synchronize()
     TOPS.reset_launch_counts()
     F8.reset_launch_counts()
-    fp8, int8 = [], []
-    for _ in range(3):        # the profiler may drop a record, never add one: the most counts
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for call in calls:
-                for w in ws:
-                    call(w)
-            torch.cuda.synchronize()
-        kernels = {e.key: e.count for e in prof.key_averages() if "tensor_quantize" in e.key}
-        fp8.append(sum(c for k, c in kernels.items() if "fp8_tensor_quantize" in k))
-        int8.append(sum(c for k, c in kernels.items() if "fp8_tensor_quantize" not in k))
-    assert max(fp8) == 2 * len(ws) and max(int8) == len(ws), (fp8, int8)
-    assert TOPS.launch_counts()["tensor_quantize"] == 3 * len(ws)
-    assert F8.launch_counts()["fp8_tensor_quantize"] == 6 * len(ws)
+    fp8 = len(KB.graph_kernels(lambda: [calls[i](w) for i in (1, 2) for w in ws]))
+    int8 = len(KB.graph_kernels(lambda: [calls[0](w) for w in ws]))
+    assert fp8 == 2 * len(ws) and int8 == len(ws), (fp8, int8)
+    # graph_kernels runs each call twice (once to warm the capture stream)
+    assert TOPS.launch_counts()["tensor_quantize"] == 2 * len(ws)
+    assert F8.launch_counts()["fp8_tensor_quantize"] == 4 * len(ws)
+
+
+# the expert-batched forms at qwen3-moe-30b-a3b's expert shapes (E = 128,
+# d_model 2,048, expert d_ff 768) at decode's C = 4 and a train-size C =
+# 160, and small ragged ones (C either side of 16, K off 16 bytes)
+BATCHED_CASES = [(128, 4, 2048, 768), (128, 160, 2048, 768), (128, 4, 768, 2048),
+                 (128, 160, 768, 2048), (8, 16, 130, 70), (8, 17, 130, 70), (3, 1, 96, 128),
+                 (5, 300, 256, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,M", BATCHED_CASES)
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_batched_switchback_matches_plain_and_the_2d_loop(E, C, K, M, dt):
+    """The three expert-batched forms (``tensor_quantize_batched``,
+    ``fused_switchback_fwd_batched``, ``fused_switchback_dgrad_batched``)
+    bit-equal to their plain versions and to a loop of the 2-D kernels over
+    the experts, twice the same bits, one wrapper launch a call, the
+    K-split workspace left zero."""
+    dev = _card()
+    rng = np.random.default_rng(E * C + K + M)
+    x = torch.from_numpy(rng.standard_normal((E, C, K)).astype(np.float32) * 3).to(dev, dt)
+    x[0, 0] = 0.0                                      # an all-zero row (an empty slot)
+    w = torch.from_numpy(rng.standard_normal((E, K, M)).astype(np.float32)
+                         * np.linspace(0.5, 2.0, E, dtype=np.float32)[:, None, None]
+                         ).to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((E, C, M)).astype(np.float32)).to(dev, dt)
+    TOPS.reset_launch_counts()
+    w_q, s_w = TOPS.tensor_quantize_batched(w)
+    fwd = TOPS.fused_switchback_fwd_batched(x, w_q, s_w)
+    dgr = TOPS.fused_switchback_dgrad_batched(g, w_q, s_w)
+    assert TOPS.launch_counts()["tensor_quantize_batched"] == 1
+    assert TOPS.launch_counts()["fused_switchback_fwd_batched"] == 1
+    assert TOPS.launch_counts()["fused_switchback_dgrad_batched"] == 1
+    rq, rs = TREF.tensor_quantize_batched(w)
+    assert torch.equal(w_q, rq) and torch.equal(s_w, rs)
+    assert torch.equal(fwd, TREF.fused_switchback_fwd_batched(x, w_q, s_w))
+    assert torch.equal(dgr, TREF.fused_switchback_dgrad_batched(g, w_q, s_w))
+    for e in range(E):
+        q2, s2 = TOPS.tensor_quantize(w[e])
+        assert torch.equal(q2, w_q[e]) and torch.equal(s2, s_w[e])
+        assert torch.equal(TOPS.fused_switchback_fwd(x[e], w_q[e], s_w[e]), fwd[e])
+        assert torch.equal(TOPS.fused_switchback_dgrad(g[e], w_q[e], s_w[e]), dgr[e])
+    assert torch.equal(TOPS.fused_switchback_fwd_batched(x, w_q, s_w), fwd)       # rerun
+    assert torch.equal(TOPS.fused_switchback_dgrad_batched(g, w_q, s_w), dgr)
+    assert not any(bool(b.any()) for b in TOPS._SPLIT.values())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_expert_matmul_launches_the_batched_kernels():
+    """``int8_switchback``'s expert matmul (forward and backward) runs the
+    three batched kernels once each and no 2-D SwitchBack kernel: no
+    Python loop over experts launches a kernel; its outputs and Ẋ equal
+    the 2-D ``SwitchBackMatmul`` looped over experts, Ẇ within the f32
+    sum order of cuBLAS's batched and 2-D GEMMs."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    E, C, K, M = 128, 160, 2048, 768
+    x = torch.from_numpy(rng.standard_normal((E, C, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, K, M)).astype(np.float32) * 0.02).to(dev)
+    g = torch.from_numpy(rng.standard_normal((E, C, M)).astype(np.float32)).to(dev, torch.bfloat16)
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    TOPS.reset_launch_counts()
+    y = SB.expert_matmul(xa, wa, compute_dtype=torch.bfloat16)
+    y.backward(g)
+    counts = TOPS.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "tensor_quantize_batched": 1, "fused_switchback_fwd_batched": 1,
+        "fused_switchback_dgrad_batched": 1}, counts
+    for e in (0, 77, E - 1):
+        xe, we = x[e].clone().requires_grad_(True), w[e].clone().requires_grad_(True)
+        ye = SB.SwitchBackMatmul.apply(xe, we, torch.bfloat16, "switchback")
+        ye.backward(g[e])
+        assert torch.equal(ye, y[e]) and torch.equal(xe.grad, xa.grad[e])
+        tol = 1e-5 * float(we.grad.abs().max())
+        assert float((we.grad - wa.grad[e]).abs().max()) <= tol
 
 
 @pytest.mark.cuda

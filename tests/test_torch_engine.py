@@ -406,10 +406,25 @@ def test_cli_mesh_test_without_pure_dp_raises_queue_13():
 
 
 @pytest.mark.parametrize("field,value,item", [("sequence_parallel", True, "#13"),
-                                              ("moe_grouped", False, "#9")])
+                                              ("moe_grouped", False, "#13")])
 def test_parallel_config_refuses_unported_fields(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ParallelConfig(**{field: value})
+    """``moe_grouped=False`` is a config the port takes (at world 1 it is
+    the grouped computation); the JAX package's global sort it asks for at
+    a world above 1 raises where it would run (models/moe.py)."""
+    if field == "moe_grouped":
+        from repro_torch.models import moe as MOE
+
+        class TwoRanks:
+            def size(self, axes):
+                return 2
+
+        par = ParallelConfig(**{field: value})
+        with PRM.ShardCtx(TwoRanks(), {}, moe_grouped=par.moe_grouped, batch=("data",)):
+            with pytest.raises(NotImplementedError, match=item):
+                MOE.require_local_groups(64, 8)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            ParallelConfig(**{field: value})
     # a library flag no step reads, as in the JAX package
     assert ParallelConfig(grad_compression="int8_rowwise").grad_compression == "int8_rowwise"
 

@@ -149,16 +149,22 @@ def test_kernel_wrappers_have_no_backend_switch():
     dict(parallel=ParallelConfig(attn_block_k=128)),
     dict(parallel=ParallelConfig(attn_impl="dense", attn_block_q=64)),
     dict(serve=dict(attn_block_k=128)),
-    dict(policy="fp16"),
-    dict(policy="fp32"),
+    dict(policy=("fp16", torch.float16)),
+    dict(policy=("fp32", torch.float16)),
 ])
 def test_unported_paths_raise(bad):
+    """Served ``fp16`` and ``fp32`` are ported (bf16 compute, as the JAX
+    engine builds the policy); an explicit f16-compute policy, whatever its
+    mode, still raises (ROADMAP.md Queue 1 #14)."""
     cfg = get_reduced_config("smollm-360m")
     scfg = ServeConfig(max_batch=2, max_len=16, quant_mode="int8_switchback",
                        **bad.get("serve", {}))
+    policy = None
+    if "policy" in bad:
+        mode, cd = bad["policy"]
+        policy = QuantPolicy(mode, compute_dtype=cd)
     with pytest.raises(NotImplementedError):
-        make_serve_engine(build(cfg), scfg, parallel=bad.get("parallel"),
-                          policy=QuantPolicy(bad["policy"]) if "policy" in bad else None,
+        make_serve_engine(build(cfg), scfg, parallel=bad.get("parallel"), policy=policy,
                           device="cpu")
 
 
@@ -249,9 +255,8 @@ def test_fp8_serve_engine_matches_jax(mode):
 
 
 def test_unported_model_families_raise():
-    from repro_torch.configs.base import MoEConfig
-    cfg = dataclasses.replace(get_reduced_config("smollm-360m"), family="moe",
-                              moe=MoEConfig(n_experts=4, top_k=2))
+    """The mixture-of-experts family is ported; an SSM stack still raises."""
+    cfg = dataclasses.replace(get_reduced_config("smollm-360m"), family="ssm", rwkv=object())
     with pytest.raises(NotImplementedError):
         build(cfg)
 

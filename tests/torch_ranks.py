@@ -76,13 +76,15 @@ class Case:
     """One engine run: ``arch``'s reduced config on a mesh of ``shape``
     with the ParallelConfig fields ``par``, ``mode`` (bf16 under the JAX
     engine tests' policy, f32 compute), ``optimizer``, ``micro``
-    microbatches."""
+    microbatches, and for a mixture of experts ``moe_cf`` its capacity
+    factor."""
     arch: str
     shape: tuple
     par: tuple = ()
     optimizer: str = "stable_adamw"
     micro: int = 1
     mode: str = "bf16"
+    moe_cf: float = 0.0              # the MoE capacity factor, when set (0: the config's)
 
     def at(self, shape) -> "Case":
         return dataclasses.replace(self, shape=shape)
@@ -93,7 +95,11 @@ def _parts(case: Case, keeps=None):
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.core.precision import QuantPolicy
     from repro_torch.models import build
-    bundle = build(get_reduced_config(case.arch))
+    cfg = get_reduced_config(case.arch)
+    if case.moe_cf:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=case.moe_cf))
+    bundle = build(cfg)
     if keeps is not None:
         it = iter(keeps)
         bundle = dataclasses.replace(bundle, patch_keep=lambda gen: torch.as_tensor(next(it)))
