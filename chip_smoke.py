@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31, 32):
+24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31, 32, 33):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the four product flags ``full_precision_products``
@@ -117,7 +117,7 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     control faults (lanes past 64 dropped at hd 80, the mask dropped at
     hd 64) at least 10x outside;
 15. CLIP train (the paper's own model): ViT-H/14 at full width and
-    CLIP_TRAIN_LAYERS (16 + 12) of its 32 + 24 layers (the depth cut to
+    CLIP_TRAIN_LAYERS (8 + 6) of its 32 + 24 layers (the depth cut to
     keep the script inside its time; random weights from a seeded
     torch.Generator) through
     ``make_train_setup``, ``make_train_step`` and ``Trainer`` in each of
@@ -128,7 +128,7 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     just after, each exactly the count worked out from the layer shapes
     (``clip_launches_per_step``); every loss finite; peak memory; one
     step profiled, ``tensor_quantize``'s CUDA kernels no more than its
-    wrapper calls (169 a step in ``int8_switchback`` and ``_m`` at 16 + 12
+    wrapper calls (85 a step in ``int8_switchback`` and ``_m`` at 8 + 6
     layers);
 16. one CLIP train step at 2 + 2 layers and full width, kernels vs plain,
     in each int8 mode: under flash_scan from three seeds within stated
@@ -315,7 +315,7 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     FP32_STEP_TOL; (d) ``int8_switchback`` under ``remat="block"`` against
     ``"none"``: losses and every parameter bit-equal, peak GiB, device ms,
     wall ms and launches a step of each, then batch 128 under ``"block"``,
-    at REMAT_LAYERS (16 + 12) layers (the depth cut to keep the script
+    at REMAT_LAYERS (8 + 6) layers (the depth cut to keep the script
     inside its time);
     (e) AdaFactor: 3 finite steps, its state's bytes beside StableAdamW's,
     its state through ``CheckpointManager`` bit for bit; (f) App. C's
@@ -362,6 +362,32 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     smollm-360m at full width and 8 layers in ``bf16``, ``fp16`` and
     ``fp32`` on both caches: launches exact, served ``fp16`` bf16's tokens
     bit for bit.
+
+33. the SSM and hybrid families (last; each part prints its seconds):
+    first every SwitchBack kernel at the new paths' shapes bit-equal to its
+    plain version (``ssm_linear_shapes``: rwkv6's 2,048 x 2,048 and 2,048 x
+    7,168 at decode and train rows, jamba's linears with w_x_proj's 8,192
+    -> 288, the reduced configs' with the reduced w_x_proj's 24 outputs),
+    and the expert-batched forward at jamba's expert shapes; (a)
+    rwkv6-1.6b at full width and depth (24 layers) and (b) jamba-v0.1-52b
+    at full width and one period (8 layers: 7 Mamba, 1 attention, 4 MoE),
+    random weights from the seed, each refused by ``make_serve_engine``
+    and served by ``launch/serve.decode_step_fallback`` (8 rows, a prompt
+    of 32, 32 new tokens) in ``int8_switchback`` (every launch counter
+    exactly RWKV_DECODE_PER_LAYER x 24 or JAMBA_DECODE_PER_PERIOD a step,
+    tokens equal to the loop's with the SwitchBack plain versions swapped
+    in) and ``bf16`` (no SwitchBack launch); a decode step's device ms and
+    CUDA kernels (a CUDA graph of it) and the plain recurrences' share of
+    both; the peak (jamba's under 80 GB); (c) rwkv6 at full width and depth
+    through ``make_engine`` on a world-1 NCCL group, 3 StableAdamW steps of
+    8 x 256 tokens (the chunked form): launches exact, losses finite, the
+    peak under RWKV_TRAIN_PEAK_GIB, device ms; (d) both reduced configs
+    card vs CPU over three seeds, 2 steps, within SSM_CARD_CPU_TOL, a
+    control fault on the CPU (rwkv6's token shift dropped; jamba's conv
+    taps reversed) outside. jamba at full width does not train on one
+    card (one period's 13.3 B parameters with StableAdamW's state are
+    ~213 GB): its training is the reduced config's here and the CPU
+    tests'.
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -2773,9 +2799,9 @@ CLIP_MODES = ("int8_switchback", "int8_switchback_m", "int8_switchback_q", "int8
 # 224 px, patch dropout 0.5 (129 vision tokens with the CLS), 77 text tokens
 CLIP_BATCH = 32
 CLIP_STEPS = 3            # timed steps per mode, after one warm-up step
-# phases 15 and 20's depth, vision + text: half of ViT-H/14's 32 + 24, to
-# keep the script inside its time (their checks are exact at any depth)
-CLIP_TRAIN_LAYERS = (16, 12)
+# phases 15 and 20's depth, vision + text: a quarter of ViT-H/14's 32 + 24,
+# to keep the script inside its time (their checks are exact at any depth)
+CLIP_TRAIN_LAYERS = (8, 6)
 # the 2 + 2 layer comparisons of phases 16 and 17: batch (pairs)
 CHECK_BATCH, CPU_BATCH = 8, 4
 
@@ -5547,9 +5573,9 @@ FP32_STEP_TOL = {"bfloat16": dict(loss_rel_err=1e-5, grad_max_rel_err=8e-2,
 STEP_SKIP = ("['bk']", "['logit_scale']")
 REMAT_STEPS = 3
 REMAT_BIG_BATCH = 128
-# (d)'s depth, vision + text: half of CLIP ViT-H/14's, to keep the script
-# inside its time (the checks are bit equalities at any depth)
-REMAT_LAYERS = (16, 12)
+# (d)'s depth, vision + text: a quarter of CLIP ViT-H/14's, to keep the
+# script inside its time (the checks are bit equalities at any depth)
+REMAT_LAYERS = (8, 6)
 ADAFACTOR_STEPS = 3
 # (f) App. C: k at the two CLIP widths and the paper's weight-gradient k
 # (App. C.3: batch x sequence, about 65,536), b = m = 256; the reference's
@@ -6537,6 +6563,456 @@ def moe_phase(torch, M, dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the SSM and hybrid families (rwkv6-1.6b, jamba-v0.1-52b)
+# ---------------------------------------------------------------------------
+
+# the decode_step loop (launch/serve.decode_step_fallback): 8 rows, a prompt
+# of 32 tokens fed one a step, 32 greedy tokens (63 decode steps)
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 8, 32, 32
+SSM_STEPS = SSM_PROMPT + SSM_NEW - 1
+# jamba at full width and one period (8 layers: attention at 4, Mamba at the
+# other seven, MoE MLPs at 1, 3, 5, 7): a period is the least depth the
+# config takes (``period()`` asserts n_layers % 8)
+JAMBA_LAYERS = 8
+# rwkv6 training at full width and depth: 8 x 256 tokens (S % 64 == 0: the
+# chunked form), StableAdamW, the TrainEngine at world 1; the depth would be
+# cut if a step's peak passed RWKV_TRAIN_PEAK_GIB
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 24, 8, 256, 3
+RWKV_TRAIN_PEAK_GIB = 70.0
+JAMBA_PEAK_GIB = 80.0
+# launches a decode step in int8_switchback. rwkv6 (d 2,048, d_ff 7,168), a
+# layer: wr, wk, wv, wg, wo, w_key, w_receptance contract over 2,048
+# (fused), w_value over 7,168 (row_quantize + the int8 matmul); every linear
+# quantizes its weight
+RWKV_DECODE_PER_LAYER = {"tensor_quantize": 8, "fused_switchback_fwd": 7, "row_quantize": 1,
+                         "int8_matmul_dequant": 1}
+# jamba (d 4,096, d_inner 8,192, d_ff 14,336), a period: every 2-D linear
+# contracts over more than 2,048 (two-step): 7 Mamba layers' w_in, w_x_proj,
+# w_out (21), the attention's wq, wk, wv, wo (4), 4 dense MLPs' w_up, w_gate,
+# w_down (12); 4 MoE layers' three expert linears batched (12); decode_fwd
+# once
+JAMBA_DECODE_PER_PERIOD = {"tensor_quantize": 37, "row_quantize": 37, "int8_matmul_dequant": 37,
+                           "tensor_quantize_batched": 12, "fused_switchback_fwd_batched": 12,
+                           "decode_fwd": 1}
+# rwkv6, a layer of a train step (remat "none"): the forward's, then the
+# dgrads: every output width 2,048 (fused) but w_key's 7,168
+# (row_quantize + the transposed int8 matmul)
+RWKV_TRAIN_PER_LAYER = {"tensor_quantize": 8, "fused_switchback_fwd": 7, "row_quantize": 2,
+                        "int8_matmul_dequant": 1, "fused_switchback_dgrad": 7,
+                        "int8_matmul_dequant_t": 1}
+# the reduced configs on the card (kernels) against the CPU (plain), 2 steps
+# of 4 x 64 tokens (rwkv6: the chunked form) and 4 x 32 (jamba), phase 11's
+# rule: each limit the geometric mean of the worst sound reading and the
+# smallest control-fault reading over three seeds on an H100, rounded to
+# one digit. rwkv6: loss 1.2e-5 against 7.1e-3, the parameters' mean
+# 1.9e-5 against 1.8e-3; jamba: loss 4.1e-5 against 7.1e-3, mean 8.7e-5
+# against 6.0e-3 (PERF.md)
+SSM_CARD_CPU_TOL = {"rwkv6-1.6b": {"loss_rel_err": 3e-4, "param_mean_rel_err": 2e-4},
+                    "jamba-v0.1-52b": {"loss_rel_err": 5e-4, "param_mean_rel_err": 7e-4}}
+SSM_CHECK_SEQ = {"rwkv6-1.6b": 64, "jamba-v0.1-52b": 32}
+
+
+def ssm_cfg(arch, layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def ssm_linear_shapes(rwkv, jamba):
+    """Phase 33's table for ``compare_linear_kernels``: the linears of the
+    rwkv6 decode step (8 rows, ties) and train step (2,048 rows), of the
+    jamba decode step (8 rows, forward only: jamba trains on the CPU and
+    in (d) reduced), and of both reduced configs at (d)'s rows (bf16 and
+    f32): w_x_proj's 8,192 -> 288 and the reduced 256 -> 24, whose 24
+    outputs fall off the TMA path."""
+    from repro_torch.configs import get_reduced_config
+    D, F = rwkv.d_model, rwkv.d_ff
+    r = {"wr/wk/wv/wg/wo/w_receptance": (D, D, True), "w_key": (D, F, True),
+         "w_value": (F, D, True)}
+
+    def mamba(c, dx):
+        d_in = c.mamba.expand * c.d_model
+        xp = (c.mamba.dt_rank or -(-c.d_model // 16)) + 2 * c.mamba.d_state
+        return {"w_in": (c.d_model, 2 * d_in, dx), "w_x_proj": (d_in, xp, dx),
+                "w_out": (d_in, c.d_model, dx)}
+
+    d, kv = jamba.d_model, jamba.n_kv_heads * jamba.hd
+    j = {**mamba(jamba, False), "wq/wo": (d, d, False), "wk/wv": (d, kv, False),
+         "w_up/w_gate": (d, jamba.d_ff, False), "w_down": (jamba.d_ff, d, False)}
+    rs, js = get_reduced_config("rwkv6-1.6b"), get_reduced_config("jamba-v0.1-52b")
+    small_r = {"wr": (rs.d_model, rs.d_model, True), "w_key": (rs.d_model, rs.d_ff, True),
+               "w_value": (rs.d_ff, rs.d_model, True)}
+    dts = ("bfloat16", "float32")
+    return [("rwkv6 decode", SSM_BATCH, ("bfloat16",), True, False, r),
+            ("rwkv6 train", RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ, ("bfloat16",), False, False, r),
+            ("jamba decode", SSM_BATCH, ("bfloat16",), True, False, j),
+            ("rwkv6 reduced", 4 * SSM_CHECK_SEQ["rwkv6-1.6b"], dts, False, False, small_r),
+            ("jamba reduced", 4 * SSM_CHECK_SEQ["jamba-v0.1-52b"], dts, False, False,
+             mamba(js, True))]
+
+
+def compare_jamba_batched(torch, M, jamba, dev, seed):
+    """The expert-batched forward at jamba's expert shapes (16 experts,
+    4,096 -> 14,336 and 14,336 -> 4,096) at decode's C = 4: bit-equal to
+    its plain version, twice the same bits. Returns the largest |kernel -
+    plain| per form and the comparisons made."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 3301)
+    E, worst, n = jamba.moe.n_experts, dict.fromkeys(BATCHED_KERNELS[:2], 0.0), 0
+    for K, N in ((jamba.d_model, jamba.d_ff), (jamba.d_ff, jamba.d_model)):
+        x, w, _ = batched_inputs(torch, gen, E, 4, K, N, dev)
+        w_q, s_w = KOPS.tensor_quantize_batched(w)
+        rq, rs = REF.tensor_quantize_batched(w)
+        y = KOPS.fused_switchback_fwd_batched(x, w_q, s_w)
+        for name, got, want, again in (
+                ("tensor_quantize_batched", w_q, rq, KOPS.tensor_quantize_batched(w)[0]),
+                ("fused_switchback_fwd_batched", y, REF.fused_switchback_fwd_batched(x, w_q, s_w),
+                 KOPS.fused_switchback_fwd_batched(x, w_q, s_w))):
+            worst[name] = max(worst[name], max_abs_diff(torch, got, want))
+            check(torch.equal(got, want), f"{name} at jamba's E={E} K={K} M={N}: kernel != plain")
+            check(torch.equal(got, again), f"{name} at jamba's E={E} K={K} M={N}: reruns differ")
+            n += 1
+        check(torch.equal(s_w, rs), f"tensor_quantize_batched at jamba's K={K}: states differ")
+    return worst, n
+
+
+def ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, per_step, what):
+    """The serve CLI's path for an SSM or hybrid stack: ``make_serve_engine``
+    refuses it, ``decode_step_fallback`` serves it (SSM_BATCH rows,
+    SSM_PROMPT prompt tokens, SSM_NEW new). Every launch counter exactly
+    ``per_step`` times the decode steps; then the same loop with the
+    SwitchBack plain versions swapped in (the kernels are bit-equal: the
+    same tokens; a mode that launches none has nothing to swap).
+    ``decode_fwd`` is not bit-equal to its plain version: ``ssm_serve``
+    holds it to that within its tolerance at this loop's shapes. Returns
+    the loop's result, its counts and wall s."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.serve import decode_step_fallback
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import make_serve_engine
+    try:
+        make_serve_engine(cfg, ServeConfig(max_batch=SSM_BATCH, max_len=256, quant_mode=mode),
+                          device=dev)
+        reason = None
+    except TF.NotAllAttention as e:
+        reason = str(e)
+    check(reason is not None and "all-attention" in reason,
+          f"{what}: make_serve_engine did not refuse an SSM stack ({reason})")
+    args = argparse.Namespace(arch=cfg.name, device=str(dev), quant_mode=mode,
+                              max_batch=SSM_BATCH, prompt_len=SSM_PROMPT, new_tokens=SSM_NEW,
+                              seed=seed)
+    reset_launch_counts(M)
+    t = time.perf_counter()
+    res = decode_step_fallback(cfg, args, reason=reason, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launch_counts(M)
+    check_launches(counts, {k: v * SSM_STEPS for k, v in per_step.items()}, what)
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (SSM_BATCH, SSM_NEW) and bool((toks >= 0).all())
+          and bool((toks < cfg.vocab_size).all()), f"{what}: tokens {tuple(toks.shape)}")
+    if any(counts[k] for k in SB_KERNELS + BATCHED_KERNELS):
+        with swapped([(M.KOPS, k, getattr(M.REF, k)) for k in SB_KERNELS + BATCHED_KERNELS]):
+            plain = decode_step_fallback(cfg, args, reason=reason, params=params)
+        check(torch.equal(plain["tokens"], toks), f"{what}: kernel tokens != plain-version tokens")
+    return res, counts, wall
+
+
+def compare_ssm_decode(torch, M, cfg, dev, seed, modes):
+    """``decode_fwd`` against its plain version at the decode loop's shapes
+    for ``cfg`` (jamba: 32 query heads over 8 KV heads, hd 128): SSM_BATCH
+    rows over a bf16 cache of SSM_PROMPT + SSM_NEW cells, every length the
+    loop attends over (1 .. SSM_STEPS, all rows equal, as its slots advance
+    together) and one ragged set, q in each mode's compute dtype, within
+    FLASH_O_TOL of max|o|; the control fault (query head h on KV head
+    h % KV) must read FAULT_MARGIN x outside. Returns the largest |kernel -
+    plain|, the largest relative error, the smallest fault/tolerance ratio
+    and the comparisons made."""
+    from repro_torch.core.precision import QuantPolicy
+    gen = torch.Generator(device=dev).manual_seed(seed + 3304)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S, scale = SSM_BATCH, SSM_PROMPT + SSM_NEW, M.FA.softmax_scale(hd)
+    r = dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf, comparisons=0)
+
+    def rand(*shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    k, v = rand(B, S, KV, hd, dt=torch.bfloat16), rand(B, S, KV, hd, dt=torch.bfloat16)
+    fk, fv = kv_heads_by_modulo(k, H), kv_heads_by_modulo(v, H)
+    lens_sets = [[L] * B for L in range(1, SSM_STEPS + 1)] + [[1, 2, 15, 16, 17, 33, 62, 63]]
+    for dt in dict.fromkeys(QuantPolicy(m).compute_dtype for m in modes):
+        tol = FLASH_O_TOL[str(dt).replace("torch.", "")]
+        for lens in lens_sets:
+            what = f"decode_fwd at {cfg.name}'s H{H}/KV{KV}/hd{hd} S_max{S} lens {lens} q {dt}"
+            lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = rand(B, 1, H, hd, dt=dt)
+            o = M.FA.decode_attention(q, k, v, lens)
+            ro = M.FREF.decode_fwd(q, k, v, lens, scale=scale)
+            fo = M.FREF.decode_fwd(q, fk, fv, lens, scale=scale)
+            check(o.dtype == ro.dtype and o.shape == ro.shape
+                  and bool(torch.isfinite(o).all()), f"{what}: bad output")
+            err, f = rel_err(torch, o, ro), rel_err(torch, o, fo) / tol
+            check(err <= tol, f"{what}: kernel vs plain {err:g} > {tol:g}")
+            check(f >= FAULT_MARGIN, f"{what}: the control fault reads only {f:g} x the "
+                  "tolerance, which so could barely see it")
+            r.update(max_abs_err=max(r["max_abs_err"], max_abs_diff(torch, o, ro)),
+                     max_rel_err=max(r["max_rel_err"], err),
+                     fault_over_tol=min(r["fault_over_tol"], f),
+                     comparisons=r["comparisons"] + 1)
+    return r
+
+
+def ssm_step_reading(torch, cfg, params, mode, dev):
+    """One decode step on a state 32 tokens in: its CUDA kernels (the nodes
+    of a CUDA graph that captures it) and device ms (the graph replayed);
+    then the same for the plain recurrences alone (the causal conv and the
+    selective scan, RWKV's one-token update), replayed on the inputs they
+    took in that step: their share of the step's kernels and device time."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.precision import QuantPolicy
+    from repro_torch.kernels import build as KBUILD
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.ssm import mamba as TM
+    from repro_torch.models.ssm import rwkv6 as TR
+    pol, par = QuantPolicy(mode), ParallelConfig(remat="none")
+    state = TF.init_decode_state(cfg, SSM_BATCH, SSM_PROMPT + SSM_NEW, device=dev)
+    for st in state.values():
+        if hasattr(st, "length"):
+            st.length.fill_(SSM_PROMPT)
+    tok = torch.zeros((SSM_BATCH, 1), dtype=torch.long, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            TF.decode_step(params, state, tok, cfg, pol, par)
+
+    calls = []
+
+    def recorded(fn):
+        def run(*a, **kw):
+            calls.append((fn, tuple(t.clone() if torch.is_tensor(t) else t for t in a), kw))
+            return fn(*a, **kw)
+        return run
+
+    with swapped([(TM, "_conv1d_causal", recorded(TM._conv1d_causal)),
+                  (TM, "selective_scan", recorded(TM.selective_scan)),
+                  (TR, "rwkv6_step", recorded(TR.rwkv6_step))]):
+        step()
+
+    def recurrences():
+        with torch.inference_mode():
+            for fn, a, kw in calls:
+                fn(*a, **kw)
+
+    kernels = len(KBUILD.graph_kernels(step))
+    ms = graph_ms(torch, lambda i: step(), 1, reps=10)
+    rec_kernels = len(KBUILD.graph_kernels(recurrences))
+    rec_ms = graph_ms(torch, lambda i: recurrences(), 1, reps=10)
+    return dict(cuda_kernels_per_step=kernels, device_ms_per_step=ms,
+                recurrence_calls_per_step=len(calls), recurrence_cuda_kernels=rec_kernels,
+                recurrence_device_ms=rec_ms, recurrence_kernel_share=rec_kernels / kernels,
+                recurrence_time_share=rec_ms / ms)
+
+
+def ssm_serve(torch, M, dev, seed, arch, layers, per_step, peak_limit=None):
+    """Phase 33 (a) and (b): ``arch`` at full width and ``layers`` layers,
+    random weights from the seed, through the decode_step loop under
+    ``int8_switchback`` (launches exact, tokens equal to the plain
+    versions') and ``bf16`` (no SwitchBack launch; the attention's
+    ``decode_fwd`` as in int8); where the stack attends, ``decode_fwd``
+    against its plain version at the loop's shapes in both modes
+    (``compare_ssm_decode``); a decode step's device ms and the
+    recurrences' share in both modes; the peak memory."""
+    from repro_torch.models import build
+    from repro_torch.models import params as PRM
+    cfg = ssm_cfg(arch, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = PRM.init_params(build(cfg).param_specs, seed, device=dev)
+    n_params = sum(t.numel() for t in PRM.tree_leaves(params))
+    res = dict(layers=cfg.n_layers, params=n_params)
+    for mode, want in (("int8_switchback", per_step),
+                       ("bf16", {k: v for k, v in per_step.items() if k == "decode_fwd"})):
+        out, counts, wall = ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, want,
+                                            f"{arch} decode ({mode})")
+        res[mode] = dict(tokens_per_s=out["tokens_per_s"], decode_s=out["decode_s"],
+                         loop_wall_s=wall, steps=SSM_STEPS,
+                         plain_versions_swapped_in=any(counts[k] for k in SB_KERNELS
+                                                       + BATCHED_KERNELS),
+                         counts={k: v for k, v in counts.items() if v},
+                         **ssm_step_reading(torch, cfg, params, mode, dev))
+    if "decode_fwd" in per_step:
+        res["decode_fwd_check"] = compare_ssm_decode(torch, M, cfg, dev, seed,
+                                                     ("int8_switchback", "bf16"))
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if peak_limit:
+        check(res["peak_memory_gib"] < peak_limit,
+              f"{arch}: peak {res['peak_memory_gib']:.2f} GiB at {layers} layers, full width")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ssm serve] {arch} " + json.dumps(res))
+    return res
+
+
+def rwkv_train(torch, M, dev, seed):
+    """Phase 33 (c): rwkv6-1.6b at full width and RWKV_TRAIN_LAYERS layers,
+    int8_switchback, StableAdamW, RWKV_TRAIN_STEPS steps of 8 x 256 tokens
+    through ``make_engine`` on a world-1 NCCL group: launches exactly
+    RWKV_TRAIN_PER_LAYER times the layers and steps, the losses finite, the
+    peak under RWKV_TRAIN_PEAK_GIB; one step's device ms (torch.profiler)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    from repro_torch.train import make_engine
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    started = init_distributed("cuda")
+    try:
+        cfg = ssm_cfg("rwkv6-1.6b", RWKV_TRAIN_LAYERS)
+        bundle, policy, _, tc, _, _, _ = train_parts(torch, cfg, dev, mode="int8_switchback")
+        batches = bigram_batches(torch, RWKV_TRAIN_STEPS + 1, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ,
+                                 dev, seed + 3303)
+        par = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"), remat="none")
+        eng = make_engine(bundle, tc, par, make_test_mesh((1, 1)), batches[0], policy=policy)
+        state = eng.init_state(seed)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(M)
+        t = time.perf_counter()
+        losses = []
+        for b in batches[:RWKV_TRAIN_STEPS]:
+            state, m = eng.step(state, eng.shard_batch(b))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / RWKV_TRAIN_STEPS
+        counts = launch_counts(M)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(x) for x in losses), f"rwkv6 train: losses {losses}")
+        check(peak < RWKV_TRAIN_PEAK_GIB, f"rwkv6 train: peak {peak:.2f} GiB at "
+              f"{RWKV_TRAIN_LAYERS} layers")
+        check_launches(counts, {k: v * cfg.n_layers * RWKV_TRAIN_STEPS
+                                for k, v in RWKV_TRAIN_PER_LAYER.items()}, "rwkv6 train")
+        by_kernel = kernel_times(torch, lambda: eng.step(state, eng.shard_batch(
+            batches[RWKV_TRAIN_STEPS])), 1)
+        del eng, state
+    finally:
+        if started:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ
+    res = dict(layers=RWKV_TRAIN_LAYERS, tokens=tokens, losses=losses, step_ms=wall * 1e3,
+               tokens_per_s=tokens / wall, peak_memory_gib=peak,
+               device_ms_per_step=sum(v[0] for v in by_kernel.values()),
+               cuda_launches_per_step_profiled=sum(v[1] for v in by_kernel.values()),
+               counts={k: v for k, v in counts.items() if v})
+    print("[ssm train] rwkv6-1.6b " + json.dumps(res))
+    return res
+
+
+def no_token_shift(x, x_prev):
+    """rwkv6's control fault: the token shift dropped (each mix reads the
+    token itself), a plausible slip of the DDLerp."""
+    return x
+
+
+def ssm_check_path(torch, arch):
+    """Phase 33 (d)'s card-vs-CPU path: ``arch``'s reduced config as it
+    stands, int8_switchback, BigramLM batches of 4 x SSM_CHECK_SEQ over its
+    512 ids; the control fault on the CPU: rwkv6's token shift dropped,
+    jamba's causal conv taps reversed."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import BigramLM
+    from repro_torch.models.ssm import mamba as TM
+    from repro_torch.models.ssm import rwkv6 as TR
+    cfg = get_reduced_config(arch)
+    seq = SSM_CHECK_SEQ[arch]
+
+    def batches(n, where, s):
+        data = BigramLM(cfg.vocab_size, seed=s, temperature=0.3)
+        return [{k: torch.from_numpy(v).to(device=where, dtype=torch.long)
+                 for k, v in data.batch(4, seq).items()} for _ in range(n)]
+
+    conv = TM._conv1d_causal
+    if arch == "rwkv6-1.6b":
+        fault = {"token shift dropped (CPU)": control_fault(
+            "cpu", lambda: swapped([(TR, "_token_shift", no_token_shift)]))}
+    else:
+        fault = {"conv taps reversed (CPU)": control_fault(
+            "cpu", lambda: swapped([(TM, "_conv1d_causal",
+                                     lambda x, k, b, p=None: conv(x, k.flip(0), b, p))]))}
+    return types.SimpleNamespace(
+        tag=f"{arch} card vs cpu", small=cfg, modes=("int8_switchback",),
+        seed_offset=41 if arch == "rwkv6-1.6b" else 43, tol=SSM_CARD_CPU_TOL[arch], opt={},
+        batches=batches, keeps=lambda n, s: None, faults=fault)
+
+
+def add_ssm_launches(kernel_entries, ssm):
+    """Each kernel entry with its launches a phase 33 step beside its own
+    path's: an rwkv6 and a jamba decode step (``int8_switchback``), an
+    rwkv6 train step."""
+    runs = {"rwkv6_decode_step": (ssm["a"]["int8_switchback"]["counts"], SSM_STEPS),
+            "jamba_decode_step": (ssm["b"]["int8_switchback"]["counts"], SSM_STEPS),
+            "rwkv6_train_step": (ssm["c"]["counts"], RWKV_TRAIN_STEPS)}
+    for e in kernel_entries:
+        e["launches_ssm"] = {run: c.get(e["name"], 0) / n for run, (c, n) in runs.items()}
+    return kernel_entries
+
+
+def ssm_report(ssm) -> dict:
+    """Phase 33's readings without the raw launch counts (those go to the
+    kernel entries)."""
+    def serve(r):
+        return {k: ({kk: vv for kk, vv in v.items() if kk != "counts"} if isinstance(v, dict)
+                    else v) for k, v in r.items()}
+    return {"seconds": ssm["seconds"], "a": serve(ssm["a"]), "b": serve(ssm["b"]),
+            "c": {k: v for k, v in ssm["c"].items() if k != "counts"}}
+
+
+def ssm_phase(torch, M, dev, seed):
+    """Phase 33: (a) rwkv6-1.6b served at full width and depth, (b)
+    jamba-v0.1-52b served at full width and one period, (c) rwkv6 trained
+    at full width, (d) both reduced configs card vs CPU; the kernels at the
+    new shapes against their plain versions first. Each part's seconds."""
+    out, secs = {}, {}
+    rwkv, jamba = ssm_cfg("rwkv6-1.6b"), ssm_cfg("jamba-v0.1-52b", JAMBA_LAYERS)
+    for part, fn in (
+            ("kernels", lambda: (compare_linear_kernels(torch, M, ssm_linear_shapes(rwkv, jamba),
+                                                        dev, seed + 3300),
+                                 compare_jamba_batched(torch, M, jamba, dev, seed))),
+            ("a", lambda: ssm_serve(torch, M, dev, seed, "rwkv6-1.6b", rwkv.n_layers,
+                                    {k: v * rwkv.n_layers
+                                     for k, v in RWKV_DECODE_PER_LAYER.items()})),
+            ("b", lambda: ssm_serve(torch, M, dev, seed, "jamba-v0.1-52b", JAMBA_LAYERS,
+                                    JAMBA_DECODE_PER_PERIOD, JAMBA_PEAK_GIB)),
+            ("c", lambda: rwkv_train(torch, M, dev, seed)),
+            ("d", lambda: {a: card_vs_cpu(torch, M, ssm_check_path(torch, a), dev, seed,
+                                          steps=2)
+                           for a in ("rwkv6-1.6b", "jamba-v0.1-52b")})):
+        t = time.perf_counter()
+        out[part] = fn()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t
+        print(f"[time] 33{part}: {secs[part]:.1f} s", flush=True)
+    (worst, n), (bworst, bn) = out["kernels"]
+    print(f"[kernels] {n} SwitchBack and {bn} expert-batched comparisons at the SSM paths' "
+          "shapes bit-equal to plain, twice the same bits: "
+          + json.dumps({k: v for k, v in {**worst, **bworst}.items()}))
+    dec = out["b"]["decode_fwd_check"]
+    print(f"[kernels] {dec['comparisons']} decode_fwd comparisons at jamba's decode loop "
+          f"shapes within o {FLASH_O_TOL['bfloat16']:g} of max|o|; control fault >= "
+          f"{FAULT_MARGIN:g}x the tolerance: " + json.dumps(dec))
+    out.update(worst={**{k: max(worst.get(k, 0.0), bworst.get(k, 0.0))
+                         for k in set(worst) | set(bworst)},
+                      "decode_fwd": dec["max_abs_err"]}, seconds=secs)
+    return out
+
+
 def demangled(names) -> list:
     """C++ kernel names as the profiler prints them (``c++filt``)."""
     out = subprocess.run(["c++filt"], input="\n".join(n or "" for n in names),
@@ -6876,6 +7352,11 @@ def main(argv=None) -> int:
     # minitron-8b, fp16/fp32 serving
     with timed("32 moe and serve precisions"):
         moe = moe_phase(torch, M, dev, args.seed)
+    torch.cuda.empty_cache()
+    # 33. the SSM and hybrid families: rwkv6-1.6b and jamba-v0.1-52b served
+    # through the decode_step loop, rwkv6 trained, both reduced card vs CPU
+    with timed("33 ssm and hybrid"):
+        ssm = ssm_phase(torch, M, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
@@ -6883,6 +7364,8 @@ def main(argv=None) -> int:
                 *({k: v["max_abs_err"] for k, v in d.items()}
                   for d in (flash_worst, bwd_worst, clip_flash)))
     max_err = {k: max(d.get(k, 0.0) for d in readings) for k in SOURCE}
+    for k, v in ssm["worst"].items():
+        max_err[k] = max(max_err[k], v)
 
     def entry(name, r, err):
         """A serve-path kernel: ``launches`` from the serve run; its train
@@ -7139,12 +7622,14 @@ def main(argv=None) -> int:
                                   | {"bound_ms": v["bound"][0]} for c, v in t.items() if c != at})
 
     batched_entries = [batched_entry(k) for k in BATCHED_KERNELS]
+    kernel_entries = add_ssm_launches(
+        entries(DECODE_ROWS) + flash_entries + train_entries + clip_entries + fp8_entries
+        + paged_entries + op_entries + f16_entries + batched_entries, ssm)
     print("[moe] " + json.dumps({k: moe[k] for k in ("b", "d", "seconds")}))
+    print("[ssm] " + json.dumps(ssm_report(ssm)))
     print("[training options] " + json.dumps({k: opts[k] for k in ("b", "c", "d", "e", "f",
                                                                     "seconds")}))
-    print(json.dumps({"kernels": entries(DECODE_ROWS) + flash_entries + train_entries
-                      + clip_entries + fp8_entries + paged_entries + op_entries
-                      + f16_entries + batched_entries}))
+    print(json.dumps({"kernels": kernel_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

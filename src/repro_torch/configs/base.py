@@ -3,10 +3,11 @@
 Copies of the JAX package's ``repro/configs/base.py`` (the port imports
 nothing of ``repro``), cut to what the port reads:
 
+* ``MoEConfig``, ``MambaConfig``, ``RWKVConfig`` — whole.
 * ``ModelConfig`` — the whole dataclass, so the configs read the same,
-  with ``layer_kind`` and ``layer_is_moe``; the SSM, enc-dec and frontend
-  fields are carried but their model families are not ported yet
-  (``models.transformer.require_ported`` raises).
+  with ``layer_kind``, ``layer_is_moe`` and ``supports_long_context``; the
+  enc-dec and frontend fields are carried but their model families are
+  not ported yet (``models.transformer.require_ported`` raises).
 * ``CLIPConfig`` — the whole dataclass (the paper's own two-tower model).
 * ``ParallelConfig`` — the JAX fields and defaults; the mesh fields act
   through the sharded ``TrainEngine`` on the data axes (``train/engine.py``),
@@ -38,6 +39,21 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 => ceil(d_model/16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64             # LoRA rank of the data-dependent decay
+    mix_lora: int = 32               # LoRA rank of the token-shift mixes
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense|moe|ssm|hybrid|encdec|vlm|audio|clip
@@ -49,8 +65,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                # 0 => d_model // n_heads
     moe: Optional[MoEConfig] = None
-    mamba: Optional[object] = None
-    rwkv: Optional[object] = None
+    mamba: Optional[MambaConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     encdec: Optional[object] = None
     attn_layer_period: int = 0       # jamba: 1 attn layer per this many
     attn_layer_offset: int = 4
@@ -67,6 +83,11 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing: the long_500k shape applies."""
+        return self.family in ("ssm", "hybrid")
 
     def layer_kind(self, i: int) -> str:
         """'attn' | 'mamba' | 'rwkv': the sequence mixer of layer i."""

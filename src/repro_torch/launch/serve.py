@@ -3,7 +3,9 @@
 The PyTorch counterpart of ``repro/launch/serve.py``: the same flags and
 summary lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels). Like the JAX launcher it serves the
-arch's reduced config with random weights. ``--kernel-backend``,
+arch's reduced config with random weights, and an arch the engine cannot
+serve (SSM and hybrid stacks: recurrent state, not a KV cache) through
+``decode_step_fallback``, a batched greedy ``decode_step`` loop. ``--kernel-backend``,
 ``--mesh`` and ``--devices`` are not here: the port dispatches on the
 device of its tensors and runs on one card. Before it builds anything it
 turns off TF32 and the reduced-precision reductions of 16-bit GEMMs
@@ -22,6 +24,9 @@ Chrome trace under ``--profile-dir``.
     # the paged cache, chunked prefill, preemption, n-gram drafts
     PYTHONPATH=src python -m repro_torch.launch.serve --cache-mode paged \
         --prefill-chunk-tokens 8 --preemption recompute --spec-mode ngram
+    # SSM and hybrid stacks (no engine path): the batched decode_step loop
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --quant-mode int8_switchback --max-batch 4 --prompt-len 8 --device cpu
     # the flight recorder: events, then the summary
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --telemetry /tmp/serve.jsonl --profile-steps 2:3
@@ -30,15 +35,71 @@ Chrome trace under ``--profile-dir``.
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ALL_ARCHS, get_reduced_config
-from repro_torch.configs.base import ServeConfig
-from repro_torch.core.precision import full_precision_products
+from repro_torch.configs.base import ParallelConfig, ServeConfig
+from repro_torch.core.precision import QuantPolicy, full_precision_products
 from repro_torch.models import build
+from repro_torch.models import params as PRM
+from repro_torch.models import transformer as TF
 from repro_torch.serve import make_serve_engine
 from repro_torch.telemetry import Telemetry, parse_profile_steps
+
+
+def decode_step_fallback(cfg, args, *, reason: str, params=None):
+    """Batched greedy decode through ``decode_step`` for archs the
+    ServeEngine cannot serve (recurrent state instead of a KV cache), as
+    the JAX launcher's fallback: one fixed batch of ``args.max_batch``
+    seeded prompts of ``args.prompt_len`` tokens fed one token a step,
+    then ``args.new_tokens`` greedy tokens a row; no continuous batching.
+    The prompts come from numpy's generator seeded ``args.seed + 1`` (the
+    JAX launcher draws from its own PRNG), the weights from
+    ``init_params(args.seed)`` unless ``params`` are given. Returns
+    {"tokens": (B, new_tokens) int64, "prompts", "tokens_per_s",
+    "decode_s", "new_tokens"}."""
+    if getattr(cfg, "family", "") in ("clip", "encdec"):
+        raise SystemExit(f"--arch {args.arch}: {reason}")
+    print(f"[serve] {args.arch}: no engine path ({reason}); "
+          "falling back to the decode_step loop")
+    dev = PRM.resolve_device(args.device)
+    pol = QuantPolicy(args.quant_mode)
+    par = ParallelConfig(remat="none")
+    if params is None:
+        params = PRM.init_params(build(cfg).param_specs, args.seed, device=dev)
+    B = args.max_batch
+    state = TF.init_decode_state(cfg, B, args.prompt_len + args.new_tokens, device=dev)
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, args.prompt_len))).to(dev)
+
+    def step(tok):
+        return TF.decode_step(params, state, tok, cfg, pol, par)[0]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with torch.inference_mode():
+        logits = None
+        for t in range(args.prompt_len):                # stepwise "prefill"
+            logits = step(prompts[:, t:t + 1])
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        toks = [tok]
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(args.new_tokens - 1):
+            tok = torch.argmax(step(tok)[:, -1], -1)[:, None]
+            toks.append(tok)
+        sync()
+        dt = time.perf_counter() - t0
+    n = B * (args.new_tokens - 1)
+    print(f"[serve] {n} new tokens in {dt:.2f}s ({n / max(dt, 1e-9):.0f} "
+          f"tok/s, {args.quant_mode}, batch {B}, no continuous batching)")
+    return {"tokens": torch.cat(toks, dim=1), "prompts": prompts,
+            "tokens_per_s": n / max(dt, 1e-9), "decode_s": dt, "new_tokens": n}
 
 
 def main(argv=None):
@@ -111,7 +172,13 @@ def main(argv=None):
                        spec_mode=args.spec_mode, spec_k=args.spec_k,
                        spec_ngram=args.spec_ngram,
                        spec_min_ngram=args.spec_min_ngram, seed=args.seed)
-    engine = make_serve_engine(build(cfg), scfg, device=args.device)
+    try:
+        engine = make_serve_engine(build(cfg), scfg, device=args.device)
+    except TF.NotAllAttention as e:
+        # SSM and hybrid archs have no engine path; they serve through the
+        # one-token decode_step loop, as in the JAX launcher. The port's
+        # other refusals (flags it does not take) still raise.
+        return decode_step_fallback(cfg, args, reason=str(e))
     params = engine.init_params(args.seed)
     cache_desc = (f"{engine.num_blocks}x{scfg.block_size} paged blocks"
                   if scfg.cache_mode == "paged"

@@ -50,6 +50,18 @@ def apply_norm(x: torch.Tensor, p: dict, kind: str, eps: float) -> torch.Tensor:
     return layer_norm(x, p["scale"], p.get("bias"), eps)
 
 
+def group_norm_heads(x: torch.Tensor, gain: torch.Tensor, n_heads: int,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm (RWKV's ``ln_x``). x: (..., n_heads * hd). The
+    variance is the population one, as ``jnp.var`` takes it."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], n_heads, -1)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out.reshape(shape) * gain.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Decoder-only LM: parameter specs, training forward and loss, prefill
 and decode.
 
-The PyTorch counterpart of ``repro/models/transformer.py`` for
-all-attention stacks, dense (smollm-360m, minitron-8b) or with
+The PyTorch counterpart of ``repro/models/transformer.py`` for decoder
+stacks: all-attention, dense (smollm-360m, minitron-8b) or with
 mixture-of-experts MLPs (qwen3-moe-30b-a3b, arctic-480b with its parallel
-dense residual MLP; ``models/moe.py``). The parameter tree keeps the JAX
+dense residual MLP; ``models/moe.py``); attention-free RWKV-6 (rwkv6-1.6b,
+``models/ssm/rwkv6.py``, its channel mix in place of the MLP); and the
+Mamba + attention hybrid with MoE every second layer (jamba-v0.1-52b,
+``models/ssm/mamba.py``). The parameter tree keeps the JAX
 package's layout: ``blocks["pos{i}"]`` holds each position-in-period's
 parameters stacked over the ``n_groups`` dimension. Where the JAX package
 scans over that dimension, the port runs a Python loop and takes group
@@ -14,14 +17,20 @@ scans over that dimension, the port runs a Python loop and takes group
 Serve states are updated in place: ``serve_prefill``, ``decode_step``,
 ``paged_prefill`` and ``paged_decode_step`` write keys, values and
 lengths into the cache tensors they are given and return the same state
-object.
+object. ``decode_step`` also takes ``init_decode_state``'s tree, whose
+SSM layers hold recurrent states (``MambaState``, ``RWKVState``): the
+blocks compute a new state JAX style and the layer copies it into group
+g's slice of the stacked state tensors, so those advance in place too.
+The continuous-batching engine (``init_serve_state``, the prefills, the
+paged functions) serves all-attention stacks only, as the JAX engine does
+(``_require_all_attention``); SSM and hybrid stacks decode through
+``decode_step`` one token at a time (``launch/serve.decode_step_fallback``).
 
 Training recomputes activations as the JAX package does: under
 ``remat="block"`` or ``"full"`` (the same in both packages) each layer
 group runs under ``torch.utils.checkpoint`` (non-reentrant), so only the
-groups' inputs are kept for the backward (``maybe_remat``). SSM, hybrid,
-multimodal and enc-dec stacks come with their own slices
-(``require_ported``).
+groups' inputs are kept for the backward (``maybe_remat``). Multimodal
+and enc-dec stacks come with their own slices (``require_ported``).
 """
 from __future__ import annotations
 
@@ -41,19 +50,38 @@ from repro_torch.models.common import apply_norm, cross_entropy_loss, embed_toke
 from repro_torch.models.mlp import mlp_block
 from repro_torch.models.moe import moe_block
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.ssm.mamba import MambaState, mamba_block
+from repro_torch.models.ssm.rwkv6 import RWKVState, rwkv6_block, rwkv_channel_mix
 
 
 def require_ported(cfg: ModelConfig, what: str = "the port"):
-    """Raise for the model families not ported yet: SSM and hybrid stacks,
-    vision-language and audio frontends, encoder-decoders (ROADMAP.md
-    Queue 1 #9). Dense and mixture-of-experts all-attention decoders
-    pass."""
-    if (cfg.family not in ("dense", "moe") or cfg.attn_layer_period
-            or cfg.rwkv is not None or cfg.mamba is not None
-            or cfg.encdec is not None or cfg.frontend is not None):
+    """Raise for the model families not ported yet: vision-language and
+    audio frontends, encoder-decoders (ROADMAP.md Queue 1 #9). Dense,
+    mixture-of-experts, SSM and hybrid decoders pass."""
+    if cfg.encdec is not None or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{what}: {cfg.name} ({cfg.family}) is not ported yet: the SSM, hybrid, "
-            "multimodal and enc-dec families are ROADMAP.md Queue 1 #9")
+            f"{what}: {cfg.name} ({cfg.family}) is not ported yet: the multimodal and "
+            "enc-dec families are ROADMAP.md Queue 1 #9")
+
+
+class NotAllAttention(NotImplementedError):
+    """A serving entry point's refusal of an SSM or hybrid stack, apart
+    from the port's other refusals: the serve CLI falls back to the
+    ``decode_step`` loop on this one only."""
+
+
+def _require_all_attention(cfg: ModelConfig, what: str):
+    """The JAX package's guard of its serving engine: all-attention stacks
+    only (SSM and hybrid stacks decode through ``decode_step``)."""
+    kinds = {cfg.layer_kind(i) for i in range(period(cfg))}
+    if kinds != {"attn"}:
+        raise NotAllAttention(
+            f"{what} supports all-attention stacks only (got layer kinds "
+            f"{sorted(kinds)} for {cfg.name}); ssm/hybrid archs decode "
+            "through decode_step one token at a time")
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"{what}: multimodal frontends are a "
+                                  "training-path feature")
 
 
 def period(cfg: ModelConfig) -> int:
@@ -114,16 +142,70 @@ def _moe_specs(cfg) -> Dict[str, ParamSpec]:
     return s
 
 
+def _mamba_specs(cfg) -> Dict[str, ParamSpec]:
+    mc = cfg.mamba
+    D = cfg.d_model
+    d_in = mc.expand * D
+    dt_rank = mc.dt_rank or -(-D // 16)
+    N = mc.d_state
+    return {
+        "w_in": ParamSpec((D, 2 * d_in), ("embed", "mlp"), "fan_in", 1.0),
+        "conv_w": ParamSpec((mc.d_conv, d_in), ("conv", "mlp"), "normal", 0.02),
+        "conv_b": ParamSpec((d_in,), ("mlp",), "zeros"),
+        "w_x_proj": ParamSpec((d_in, dt_rank + 2 * N), ("mlp", None), "fan_in", 1.0),
+        "w_dt": ParamSpec((dt_rank, d_in), ("lora", "mlp"), "fan_in", 1.0),
+        "dt_bias": ParamSpec((d_in,), ("mlp",), "zeros"),
+        "A_log": ParamSpec((d_in, N), ("mlp", "state"), "constant", 0.0),
+        "D": ParamSpec((d_in,), ("mlp",), "ones"),
+        "w_out": ParamSpec((d_in, D), ("mlp", "embed"), "fan_in", 1.0),
+    }
+
+
+def _rwkv_specs(cfg) -> Dict[str, ParamSpec]:
+    rc = cfg.rwkv
+    D = cfg.d_model
+    lr, dr = rc.mix_lora, rc.decay_lora
+    mixes = {}
+    for nm in ("r", "k", "v", "w", "g", "ck", "cr"):
+        mixes[f"mu_{nm}"] = ParamSpec((D,), ("embed",), "constant", 0.5)
+        mixes[f"mix_lora_b_{nm}"] = ParamSpec((lr, D), ("lora", "embed"), "zeros")
+    return {
+        **mixes,
+        "mix_lora_a": ParamSpec((D, lr), ("embed", "lora"), "fan_in", 1.0),
+        "w0": ParamSpec((D,), ("embed",), "constant", -6.0),
+        "w_lora_a": ParamSpec((D, dr), ("embed", "lora"), "fan_in", 1.0),
+        "w_lora_b": ParamSpec((dr, D), ("lora", "embed"), "zeros"),
+        "u": ParamSpec((D,), ("embed",), "normal", 0.5),
+        "wr": ParamSpec((D, D), ("embed", "heads"), "fan_in", 1.0),
+        "wk": ParamSpec((D, D), ("embed", "heads"), "fan_in", 1.0),
+        "wv": ParamSpec((D, D), ("embed", "heads"), "fan_in", 1.0),
+        "wg": ParamSpec((D, D), ("embed", "heads"), "fan_in", 1.0),
+        "wo": ParamSpec((D, D), ("heads", "embed"), "fan_in", 1.0),
+        "ln_x": ParamSpec((D,), ("embed",), "ones"),
+        # the channel mix
+        "w_key": ParamSpec((D, cfg.d_ff), ("embed", "mlp"), "fan_in", 1.0),
+        "w_value": ParamSpec((cfg.d_ff, D), ("mlp", "embed"), "fan_in", 1.0),
+        "w_receptance": ParamSpec((D, D), ("embed", "heads"), "fan_in", 1.0),
+    }
+
+
 def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
     require_ported(cfg, "layer_specs")
-    specs: Dict[str, Any] = {"norm1": _norm_spec(cfg), "norm2": _norm_spec(cfg),
-                             "attn": _attn_specs(cfg)}
-    if cfg.layer_is_moe(layer_idx):
-        specs["moe"] = _moe_specs(cfg)
-        if cfg.moe.dense_residual:
-            specs["dense_mlp"] = _mlp_specs(cfg, cfg.moe.dense_residual_ff)
+    kind = cfg.layer_kind(layer_idx)
+    specs: Dict[str, Any] = {"norm1": _norm_spec(cfg), "norm2": _norm_spec(cfg)}
+    if kind == "attn":
+        specs["attn"] = _attn_specs(cfg)
+    elif kind == "mamba":
+        specs["mamba"] = _mamba_specs(cfg)
     else:
-        specs["mlp"] = _mlp_specs(cfg)
+        specs["rwkv"] = _rwkv_specs(cfg)
+    if kind != "rwkv":   # RWKV's channel-mix leaves live in its rwkv dict
+        if cfg.layer_is_moe(layer_idx):
+            specs["moe"] = _moe_specs(cfg)
+            if cfg.moe.dense_residual:
+                specs["dense_mlp"] = _mlp_specs(cfg, cfg.moe.dense_residual_ff)
+        else:
+            specs["mlp"] = _mlp_specs(cfg)
     if cfg.layer_scale_init is not None:
         init = "zeros" if cfg.layer_scale_init == 0.0 else "constant"
         specs["gamma1"] = ParamSpec((cfg.d_model,), ("embed",), init,
@@ -171,10 +253,22 @@ def _ffn(h2: torch.Tensor, lp: Dict, cfg: ModelConfig, policy: QuantPolicy, laye
     return mlp_block(h2, lp["mlp"], cfg, policy), None
 
 
+def _write_state(state, new) -> None:
+    """Copy a recurrent state's new tensors into ``state``'s (group g's
+    views of the stacked decode state)."""
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+
+
 def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
                  policy: QuantPolicy, parallel: ParallelConfig, layer_idx: int, *,
                  state, prefill=None, rope_cache=None, paged=None):
     """One serving layer on its cache ``state`` (updated in place).
+
+    An SSM layer (``MambaState`` or ``RWKVState``) takes one decode step of
+    its block and writes the new recurrent state into ``state``; the RWKV
+    channel mix's last input becomes its ``cm_x_prev``, as in the JAX
+    ``_layer_apply``.
 
     ``prefill=(admit, prompt_lens)``: the attention runs
     ``attention_prefill`` and admitted slots' lengths reset to their prompt
@@ -185,7 +279,12 @@ def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
     (suffix only, the resident prefix read through the table), decode
     appends through the table; ``pref_lens`` is read in prefill only."""
     impl = parallel.attn_impl
+    kind = cfg.layer_kind(layer_idx)
     h = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
+    if kind != "attn":
+        x, new, _ = _ssm_layer_apply(x, h, lp, cfg, policy, layer_idx, kind, state)
+        _write_state(state, new)
+        return x
     if prefill is not None:
         admit, prompt_lens = prefill
         if paged is not None:
@@ -210,12 +309,34 @@ def _layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
     return x + apply_layer_scale(lp.get("gamma2"), m)
 
 
+def _ssm_layer_apply(x, h, lp, cfg, policy, layer_idx, kind, state):
+    """An SSM layer from its normed input ``h``, from ``state`` (None in
+    training): (x, the new recurrent state, aux loss or None)."""
+    if kind == "mamba":
+        a, new = mamba_block(h, lp["mamba"], cfg, policy, state=state)
+    else:
+        a, new = rwkv6_block(h, lp["rwkv"], cfg, policy, state=state)
+    x = x + apply_layer_scale(lp.get("gamma1"), a)
+    h2 = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
+    if kind == "rwkv":
+        m, cm_last = rwkv_channel_mix(h2, lp["rwkv"], cfg, policy,
+                                      x_prev=state.cm_x_prev if state is not None else None)
+        new, aux = new._replace(cm_x_prev=cm_last), None
+    else:
+        m, aux = _ffn(h2, lp, cfg, policy, layer_idx)
+    return x + apply_layer_scale(lp.get("gamma2"), m), new, aux
+
+
 def _train_layer_apply(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
                        policy: QuantPolicy, parallel: ParallelConfig, layer_idx: int, *,
                        positions: torch.Tensor):
     """One layer with no cache (the JAX ``_layer_apply`` with state None):
     (x, aux loss or None)."""
+    kind = cfg.layer_kind(layer_idx)
     h = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
+    if kind != "attn":
+        x, _, aux = _ssm_layer_apply(x, h, lp, cfg, policy, layer_idx, kind, None)
+        return x, aux
     a = ATT.attention_block(h, lp["attn"], cfg, policy, positions=positions,
                             impl=parallel.attn_impl)
     x = x + apply_layer_scale(lp.get("gamma1"), a)
@@ -302,12 +423,64 @@ def lm_head(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy):
 # serving (continuous batching: per-slot KV caches)
 # ---------------------------------------------------------------------------
 
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, device="cuda"):
+    """The recurrent state of every position-in-period, stacked over groups,
+    all zero, in the JAX package's layout: an attention layer a ``KVCache``
+    (k/v (G, batch, max_len, n_kv_heads, hd); lengths (G, batch) int32,
+    where the JAX package keeps one length a group: every slot advances
+    together, so each row holds that length), a Mamba layer a
+    ``MambaState`` (conv window in ``dtype``, h in f32), an RWKV layer an
+    ``RWKVState`` (wkv in f32, the shifted inputs in ``dtype``)."""
+    require_ported(cfg, "init_decode_state")
+    device = PRM.resolve_device(device)
+    P, G = period(cfg), n_groups(cfg)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def one(i):
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            shape = (G, batch, max_len, cfg.n_kv_heads, cfg.hd)
+            return ATT.KVCache(zeros(shape, dtype), zeros(shape, dtype),
+                               zeros((G, batch), torch.int32))
+        if kind == "mamba":
+            d_in = cfg.mamba.expand * cfg.d_model
+            return MambaState(zeros((G, batch, cfg.mamba.d_conv - 1, d_in), dtype),
+                              zeros((G, batch, d_in, cfg.mamba.d_state), torch.float32))
+        hd = cfg.rwkv.head_dim
+        return RWKVState(zeros((G, batch, cfg.d_model // hd, hd, hd), torch.float32),
+                         zeros((G, batch, cfg.d_model), dtype),
+                         zeros((G, batch, cfg.d_model), dtype))
+
+    return {f"pos{i}": one(i) for i in range(P)}
+
+
+def decode_state_logical_axes(cfg: ModelConfig):
+    """Logical axes of ``init_decode_state``'s tree (the JAX package's;
+    an attention layer's lengths keep JAX's one axis)."""
+    def one(i):
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            ax = ("layers", "batch", "cache_seq", "kv_heads", None)
+            return ATT.KVCache(ax, ax, ("layers",))
+        if kind == "mamba":
+            return MambaState(("layers", "batch", None, "mlp"),
+                              ("layers", "batch", "mlp", None))
+        return RWKVState(("layers", "batch", "heads", None, None),
+                         ("layers", "batch", "embed"), ("layers", "batch", "embed"))
+
+    return {f"pos{i}": one(i) for i in range(period(cfg))}
+
+
 def init_serve_state(cfg: ModelConfig, max_batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda"):
     """Per-slot KV caches stacked over groups: per position-in-period a
     ``KVCache`` with k/v (G, max_batch, max_len, n_kv_heads, hd) and
     lengths (G, max_batch) int32, all zero (every slot empty)."""
     require_ported(cfg, "init_serve_state")
+    _require_all_attention(cfg, "init_serve_state")
     P, G = period(cfg), n_groups(cfg)
     shape = (G, max_batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {f"pos{i}": ATT.KVCache(
@@ -320,8 +493,8 @@ def init_serve_state(cfg: ModelConfig, max_batch: int, max_len: int,
 def _group(tree, g: int):
     """Group ``g``'s slice of a stacked parameter tree or serve state
     (views: writes land in the stacked tensors)."""
-    if isinstance(tree, (ATT.KVCache, ATT.PagedKVCache)):
-        return type(tree)(tree.k[g], tree.v[g], tree.length[g])
+    if isinstance(tree, (ATT.KVCache, ATT.PagedKVCache, MambaState, RWKVState)):
+        return type(tree)(*(t[g] for t in tree))
     return PRM.tree_map(lambda t: t[g], tree)
 
 
@@ -348,6 +521,7 @@ def serve_prefill(params, states, tokens: torch.Tensor,
     slot's last valid prompt position gathered before the head. Logits at
     pad positions and for non-admitted slots are garbage."""
     require_ported(cfg, "serve_prefill")
+    _require_all_attention(cfg, "serve_prefill")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     prefill=(admit, prompt_lens), rope_cache=rope_cache)
@@ -360,9 +534,11 @@ def serve_prefill(params, states, tokens: torch.Tensor,
 def decode_step(params, states, tokens: torch.Tensor, cfg: ModelConfig,
                 policy: QuantPolicy, parallel: ParallelConfig, *,
                 rope_cache=None):
-    """One-token decode for every slot (in place). tokens: (B, 1).
-    Returns (logits (B, 1, V), states). ``rope_cache=(cos, sin)``: this
-    step's RoPE rows, (B, 1, hd/2)."""
+    """One-token decode for every slot (in place). tokens: (B, 1);
+    ``states`` from ``init_serve_state`` or, for any stack,
+    ``init_decode_state``. Returns (logits (B, 1, V), states): the same
+    state object, its caches and recurrent states advanced in place.
+    ``rope_cache=(cos, sin)``: this step's RoPE rows, (B, 1, hd/2)."""
     require_ported(cfg, "decode_step")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
@@ -379,6 +555,7 @@ def init_paged_serve_state(cfg: ModelConfig, num_blocks: int, block_size: int,
     footprint scales with ``num_blocks`` (live tokens), not max_batch ×
     max_len; which slot owns which block is the host-side block table."""
     require_ported(cfg, "init_paged_serve_state")
+    _require_all_attention(cfg, "init_paged_serve_state")
     P, G = period(cfg), n_groups(cfg)
     shape = (G, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
     return {f"pos{i}": ATT.PagedKVCache(
@@ -413,6 +590,7 @@ def paged_prefill(params, states, tables: torch.Tensor, tokens: torch.Tensor,
     logits (B, S, V), or (B, 1, V) with ``last_only`` (each slot's last
     valid suffix position, gathered before the head)."""
     require_ported(cfg, "paged_prefill")
+    _require_all_attention(cfg, "paged_prefill")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     prefill=(admit, prompt_lens), rope_cache=rope_cache,
@@ -431,6 +609,7 @@ def paged_decode_step(params, states, tables: torch.Tensor, tokens: torch.Tensor
     tables (B, n_blocks_per_slot) int32. Returns (logits (B, 1, V),
     states); every slot's length advances by one, as in ``decode_step``."""
     require_ported(cfg, "paged_decode_step")
+    _require_all_attention(cfg, "paged_decode_step")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     rope_cache=rope_cache, paged=(tables, None))

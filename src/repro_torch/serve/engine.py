@@ -790,7 +790,10 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
     """Assemble the serving stack for ``model`` on ``device``.
 
     ``model`` is an arch name, a ModelConfig or a ModelBundle (dense and
-    mixture-of-experts decoder-only LMs). ``device`` defaults to the card;
+    mixture-of-experts decoder-only LMs; SSM and hybrid stacks raise the
+    JAX engine's ``NotImplementedError`` as its subclass
+    ``models.transformer.NotAllAttention``, and the serve CLI falls back to
+    ``decode_step_fallback``, as the JAX CLI does). ``device`` defaults to the card;
     on a host without one this raises unless ``device="cpu"`` is asked for.
     ``policy`` defaults to ``QuantPolicy(serve_cfg.quant_mode)``, as the JAX
     engine builds it: bf16 compute in every mode, so ``fp16`` serves the
@@ -816,6 +819,7 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
         raise NotImplementedError(
             "ServeEngine serves decoder-only LMs; CLIP scores pairs via models/clip.py")
     TF.require_ported(bundle.cfg, "make_serve_engine")
+    TF._require_all_attention(bundle.cfg, "make_serve_engine")
     parallel = parallel or ParallelConfig(remat="none")
     flash_tiles = ("the TPU flash kernels' tile sizes: the card's flash kernels "
                    "choose their own tiles")

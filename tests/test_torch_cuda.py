@@ -190,6 +190,29 @@ def test_cuda_dgrad_kernels_match_plain(B, M, N, dt):
     torch.cuda.synchronize()
 
 
+# the SSM and hybrid paths' linears (K, M) at their rows: rwkv6-1.6b's
+# 2,048 x 2,048 (wr, wk, wv, wg, wo, w_receptance) and 2,048 x 7,168 (w_key,
+# w_value) at decode (8) and train (2,048) rows; jamba-v0.1-52b's w_in
+# (4,096 -> 16,384), w_x_proj (8,192 -> 288) and w_out (8,192 -> 4,096) at
+# decode; the reduced jamba's w_in (128 -> 512) and w_x_proj (256 -> 24,
+# whose 24 outputs fall off the TMA path) at 17 and 128 rows
+SSM_LINEARS = [(8, 2048, 2048), (8, 2048, 7168), (8, 7168, 2048), (2048, 2048, 2048),
+               (2048, 2048, 7168), (2048, 7168, 2048), (8, 4096, 16384), (8, 8192, 288),
+               (8, 8192, 4096), (128, 128, 512), (128, 256, 24), (17, 256, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", SSM_LINEARS)
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_ssm_linears_match_plain(B, K, M, dt):
+    """Each SSM linear's forward kernels (the fused pair, ``row_quantize`` +
+    ``int8_matmul_dequant``, ``tensor_quantize``) and input-gradient
+    kernels (the fused dgrad, the transposed matmul) bit-equal to their
+    plain versions, as the serve and train paths' shapes above."""
+    test_cuda_kernels_match_plain(B, K, M, dt)
+    test_cuda_dgrad_kernels_match_plain(B, M, K, dt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,C", [(1280, 1280), (588, 1280), (5120, 1280), (1024, 4096),
                                  (37, 70)])

@@ -255,8 +255,10 @@ def test_fp8_serve_engine_matches_jax(mode):
 
 
 def test_unported_model_families_raise():
-    """The mixture-of-experts family is ported; an SSM stack still raises."""
-    cfg = dataclasses.replace(get_reduced_config("smollm-360m"), family="ssm", rwkv=object())
+    """The mixture-of-experts, SSM and hybrid families are ported; a
+    multimodal stack still raises."""
+    cfg = dataclasses.replace(get_reduced_config("smollm-360m"), family="vlm",
+                              frontend="vision_stub")
     with pytest.raises(NotImplementedError):
         build(cfg)
 

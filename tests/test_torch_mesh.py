@@ -36,7 +36,7 @@ from repro_torch.optim import adafactor, adamw, stable_adamw
 
 torch.set_num_threads(1)
 
-ARCHS = ("smollm-360m", "clip-vit-huge")
+ARCHS = ("smollm-360m", "clip-vit-huge", "rwkv6-1.6b", "jamba-v0.1-52b")
 MESHES = {"1x1": ((1, 1), ("data", "model")), "2x1": ((2, 1), ("data", "model")),
           "4x1": ((4, 1), ("data", "model")), "2x2": ((2, 2), ("data", "model")),
           "2x4": ((2, 4), ("data", "model")),

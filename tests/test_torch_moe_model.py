@@ -305,16 +305,25 @@ def test_quant_health_reads_expert_weights_as_jax():
 
 
 def test_unported_families_still_raise_citing_queue_9():
-    from repro_torch.configs.base import MoEConfig
+    """The multimodal and enc-dec families still raise, citing #9; the
+    mixture of experts builds, and so do the SSM and hybrid stacks since
+    their slice (tests/test_torch_ssm_model.py)."""
+    from repro_torch.configs.base import MambaConfig, MoEConfig, RWKVConfig
     base = get_reduced_config("smollm-360m")
-    for cfg in (dataclasses.replace(base, family="ssm", rwkv=object()),
-                dataclasses.replace(base, family="hybrid", attn_layer_period=2,
-                                    attn_layer_offset=1),
-                dataclasses.replace(base, family="vlm", frontend="vision_stub")):
+    for cfg in (dataclasses.replace(base, family="vlm", frontend="vision_stub"),
+                dataclasses.replace(base, family="audio", frontend="audio_stub"),
+                dataclasses.replace(base, family="encdec", encdec=object())):
         with pytest.raises(NotImplementedError, match="Queue 1 #9"):
             build(cfg)
     moe = dataclasses.replace(base, family="moe", moe=MoEConfig(n_experts=4, top_k=2))
     assert "moe" in build(moe).param_specs["blocks"]["pos0"]
+    ssm = dataclasses.replace(base, family="ssm", rwkv=RWKVConfig(head_dim=32, decay_lora=8,
+                                                                  mix_lora=8))
+    assert "rwkv" in build(ssm).param_specs["blocks"]["pos0"]
+    hybrid = dataclasses.replace(base, family="hybrid", attn_layer_period=2,
+                                 attn_layer_offset=1, mamba=MambaConfig(d_state=4))
+    blocks = build(hybrid).param_specs["blocks"]
+    assert "mamba" in blocks["pos0"] and "attn" in blocks["pos1"]
 
 
 @pytest.mark.parametrize("cli", ["serve", "train"])
