@@ -290,8 +290,8 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     serves 8 requests with telemetry on and (c)'s supervisor as
     ``stability_source``: the telemetry-off run's tokens, every request's
     submitted and finished events, prefill and decode wave spans, launches
-    exact, the stats row's ``supervisor_*`` (c)'s counters; (h) the
-    full-depth state (0.99 B parameters), one step, then ``save_async``,
+    exact, the stats row's ``supervisor_*`` (c)'s counters; (h) the state
+    at ROUND_TRIP_LAYERS (8 + 6) layers, one step, then ``save_async``,
     ``wait``, ``verify`` and ``restore`` into a fresh state: every leaf and
     the generator's state bit-equal; bytes, free disk (too little fails
     the phase) and seconds of each part.
@@ -315,7 +315,7 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     FP32_STEP_TOL; (d) ``int8_switchback`` under ``remat="block"`` against
     ``"none"``: losses and every parameter bit-equal, peak GiB, device ms,
     wall ms and launches a step of each, then batch 128 under ``"block"``,
-    at REMAT_LAYERS (8 + 6) layers (the depth cut to keep the script
+    at REMAT_LAYERS (4 + 3) layers (the depth cut to keep the script
     inside its time);
     (e) AdaFactor: 3 finite steps, its state's bytes beside StableAdamW's,
     its state through ``CheckpointManager`` bit for bit; (f) App. C's
@@ -326,7 +326,7 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
 
 31. data-parallel and ZeRO-3 training through the ``TrainEngine``
     (``make_engine``) on a world-1 NCCL group, CLIP ViT-H/14 at full width
-    and ENGINE_LAYERS (4 + 4) layers, ``int8_switchback``, batch 32,
+    and ENGINE_LAYERS (2 + 2) layers, ``int8_switchback``, batch 32,
     ENGINE_STEPS steps a run (last): (a) without fsdp, the losses, final
     state and launch counts of the direct ``make_train_step`` exactly; (b)
     fsdp with the explicit weight gather and pure_dp (bf16 wire): (a)'s
@@ -347,7 +347,7 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     one wrapper launch a call; their times at one layer's three expert
     linears beside the bound, the plain version and a ``torch._int_mm``
     loop over the experts (a hint: no single PyTorch call runs a batched
-    int8 GEMM); (b) qwen3-moe-30b-a3b at full width and 4 layers,
+    int8 GEMM); (b) qwen3-moe-30b-a3b at full width and 2 layers,
     ``int8_switchback``, the ring and the paged engine: 8 prompts of
     32-128 tokens, 32 new tokens, every launch counter exact (the experts
     on the batched forms only), the tokens equal to the same engine's with
@@ -369,12 +369,13 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     7,168 at decode and train rows, jamba's linears with w_x_proj's 8,192
     -> 288, the reduced configs' with the reduced w_x_proj's 24 outputs),
     and the expert-batched forward at jamba's expert shapes; (a)
-    rwkv6-1.6b at full width and depth (24 layers) and (b) jamba-v0.1-52b
-    at full width and one period (8 layers: 7 Mamba, 1 attention, 4 MoE),
+    rwkv6-1.6b at full width and RWKV_SERVE_LAYERS (12 of 24) layers and
+    (b) jamba-v0.1-52b at full width and one period (8 layers: 7 Mamba, 1
+    attention, 4 MoE),
     random weights from the seed, each refused by ``make_serve_engine``
     and served by ``launch/serve.decode_step_fallback`` (8 rows, a prompt
     of 32, 32 new tokens) in ``int8_switchback`` (every launch counter
-    exactly RWKV_DECODE_PER_LAYER x 24 or JAMBA_DECODE_PER_PERIOD a step,
+    exactly RWKV_DECODE_PER_LAYER x 12 or JAMBA_DECODE_PER_PERIOD a step,
     tokens equal to the loop's with the SwitchBack plain versions swapped
     in) and ``bf16`` (no SwitchBack launch); a decode step's device ms and
     CUDA kernels (a CUDA graph of it) and the plain recurrences' share of
@@ -388,6 +389,35 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     card (one period's 13.3 B parameters with StableAdamW's state are
     ~213 GB): its training is the reduced config's here and the CPU
     tests'.
+
+34. the multimodal and enc-dec group (last; each part prints its
+    seconds): (a) every SwitchBack kernel at internvl2-76b's and
+    seamless-m4t-large-v2's linear shapes bit-equal to its plain version
+    (``mm_linear_shapes``: decode, frontend and train rows, both reduced
+    configs; seamless's f32 frontend_proj quantized from its f32 values),
+    the flash kernels at the new attention shapes (``mm_flash_cases``:
+    seamless's 4,096-frame encoder, its cross attention at 64 and 1
+    queries over 4,096 frames, internvl2's causal 320 over 64/8 heads of
+    128, the reduced shapes; forward and both backward kernels, bf16 and
+    f32, each case a control fault FAULT_MARGIN x out), ``decode_fwd`` at
+    query groups 8 and 1; their times beside the bound, the plain version
+    and the library call (``time_mm_kernels``); (b) internvl2 at full width
+    and 8 layers refused by ``make_serve_engine`` (a frontend) and served
+    by ``decode_step_fallback`` (text only) as phase 33 serves an SSM
+    stack; (c) seamless at full width and depth: 8 rows of 4,096 frames
+    through ``init_decode_state``, 32 greedy tokens by ``decode_step``; in
+    (b) and (c) ``int8_switchback`` (launches exact, tokens equal to the
+    plain versions') and ``bf16`` (the attention kernels only), a step's
+    device ms and CUDA kernels by graph replay; (d) seamless (full depth,
+    2 x 4,096 frames and 64 targets, StableAdamW) and internvl2 (1 layer,
+    8 x (256 + 64), AdaFactor: StableAdamW's out-of-place update does not
+    fit one card at its 3.02 B parameters) trained through ``make_engine``
+    on a world-1 NCCL group: launches exact (``mm_launches``), losses
+    finite, peaks under MM_PEAK_GIB; (e)
+    both reduced configs card vs CPU over three seeds, 2 steps, within
+    MM_CARD_CPU_TOL, a control fault on the CPU outside (seamless's cross
+    attention fed the decoder's own states; internvl2's frontend tokens
+    appended instead of prepended).
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -973,11 +1003,6 @@ def time_flash(torch, M, cfg, dev, seed, served_lens):
                                               v.transpose(1, 2), is_causal=True,
                                               enable_gqa=True).transpose(1, 2)
 
-    def sdpa_decode(q, k, v, mask):
-        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask,
-                                              enable_gqa=True).transpose(1, 2)
-
     def timed(fn, plain, library, sets, bytes_, flops, work):
         n = len(sets)
         return dict(ms=graph_ms(torch, lambda i: fn(*sets[i]), n),
@@ -1003,25 +1028,47 @@ def time_flash(torch, M, cfg, dev, seed, served_lens):
     out["flash_fwd"]["sdpa_rel_err"] = sdpa_err
 
     S_max = 256
-    plain_dec = plain_decode(M)
     for tag, lens in (("full", [S_max] * B), ("served", served_lens)):
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        mask = (torch.arange(S_max, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
-        dec_sets = sets_for(2 * B * S_max * KV * hd * 2, lambda: (
-            rand(B, 1, H, hd), rand(B, S_max, KV, hd), rand(B, S_max, KV, hd)))
-        live = sum(lens)
-        r = timed(lambda q, k, v: M.FA.decode_attention(q, k, v, lens_t),
-                  lambda q, k, v: plain_dec(q, k, v, lens_t),
-                  lambda q, k, v: sdpa_decode(q, k, v, mask), dec_sets,
-                  2 * B * H * hd * 2 + live * KV * hd * 2 * 2 + B * 4,
-                  4.0 * live * H * hd,
-                  f"one decode step per layer: {B} slots, S_max {S_max}, lengths {lens}")
-        r["sdpa_rel_err"] = rel_err(torch, sdpa_decode(*dec_sets[0], mask),
-                                    M.FA.decode_attention(*dec_sets[0], lens_t))
-        check(r["sdpa_rel_err"] <= 2e-2,
-              f"SDPA yardstick disagrees with decode_fwd ({r['sdpa_rel_err']:g})")
-        out[f"decode_fwd_{tag}"] = r
+        out[f"decode_fwd_{tag}"] = time_decode(torch, M, gen, dev, S_max, H, KV, hd, lens)
     return out
+
+
+def time_decode(torch, M, gen, dev, S_max, H, KV, hd, lens):
+    """``decode_fwd`` at one decode step's call per layer: len(lens) slots
+    of a bf16 cache of ``S_max`` cells at lengths ``lens``, bf16 q. The
+    kernel, its plain version, its eager time, SDPA with GQA and a boolean
+    key mask, and the bound: bytes (q and o once, the live cache cells
+    only) against the live pairs' matmul operations at the bf16 peak."""
+    import torch.nn.functional as F
+    bf, B = torch.bfloat16, len(lens)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def sdpa_decode(q, k, v, mask):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True).transpose(1, 2)
+
+    plain_dec = plain_decode(M)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S_max, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
+    sets = [(rand(B, 1, H, hd), rand(B, S_max, KV, hd), rand(B, S_max, KV, hd))
+            for _ in range(max(2, int(120e6 // (2 * B * S_max * KV * hd * 2)) + 1))]
+    live, n = sum(lens), len(sets)
+    r = dict(ms=graph_ms(torch, lambda i: M.FA.decode_attention(*sets[i], lens_t), n),
+             plain_ms=graph_ms(torch, lambda i: plain_dec(*sets[i], lens_t), n),
+             library_ms=graph_ms(torch, lambda i: sdpa_decode(*sets[i], mask), n),
+             eager_ms=eager_ms(torch, lambda i: M.FA.decode_attention(*sets[i], lens_t), n),
+             bound=bound(2 * B * H * hd * 2 + live * KV * hd * 2 * 2 + B * 4,
+                         bf16_ops=4.0 * live * H * hd),
+             work=f"one decode step per layer: {B} slots, S_max {S_max}, ({H}/{KV}, {hd}), "
+                  f"lengths {lens}", calls=1)
+    r["sdpa_rel_err"] = rel_err(torch, sdpa_decode(*sets[0], mask),
+                                M.FA.decode_attention(*sets[0], lens_t))
+    check(r["sdpa_rel_err"] <= 2e-2,
+          f"SDPA yardstick disagrees with decode_fwd ({r['sdpa_rel_err']:g})")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -2103,19 +2150,20 @@ def mask_fault(q, k, v, causal):
 
 
 def smollm_flash_cases(cfg):
-    """Phase 3c's table: (tower, B, Sq, kv_valid, H, KV, hd, causal, fault):
-    8 sequences of 64, 200 and 256 tokens, causal and full, and 256 with
-    kv_valid 200; smollm's 15 query heads over 5 KV heads of 64."""
+    """Phase 3c's table: (tower, B, Sq, Sk, kv_valid, H, KV, hd, causal,
+    fault): 8 sequences of 64, 200 and 256 tokens, causal and full, and 256
+    with kv_valid 200; smollm's 15 query heads over 5 KV heads of 64."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     fault = gqa_fault(H, KV)
     cases = [(S, S, c) for S in (64, 200, TRAIN_SEQ) for c in (True, False)]
     cases += [(TRAIN_SEQ, 200, c) for c in (True, False)]
-    return [("smollm", TRAIN_BATCH, S, kv, H, KV, hd, c, fault) for S, kv, c in cases]
+    return [("smollm", TRAIN_BATCH, S, S, kv, H, KV, hd, c, fault) for S, kv, c in cases]
 
 
 def compare_flash_train(torch, M, cases, dev, seed, dtypes=None):
     """The flash kernels a training path runs against their plain versions
-    at its attention shapes (``cases``, see ``smollm_flash_cases``), bf16
+    at its attention shapes (``cases``, see ``smollm_flash_cases``; Sq and
+    Sk apart for cross attention), bf16
     and f32: ``flash_fwd`` (o within FLASH_O_TOL of max|o|, lse within
     FLASH_LSE_TOL), ``flash_bwd_dq`` / ``flash_bwd_dkv`` (f32, within
     FLASH_BWD_TOL of max|grad|, from the kernel forward's o and lse against
@@ -2151,12 +2199,13 @@ def compare_flash_train(torch, M, cases, dev, seed, dtypes=None):
 
     for dt in dtypes or (torch.bfloat16, torch.float32):
         key = str(dt).replace("torch.", "")
-        for tower, B, S, kv_valid, H, KV, hd, causal, fault in cases:
+        for tower, B, S, Sk, kv_valid, H, KV, hd, causal, fault in cases:
             scale = M.FA.softmax_scale(hd)
             q, do = rand(B, S, H, hd, dt=dt), rand(B, S, H, hd, dt=dt)
-            k, v = rand(B, S, KV, hd, dt=dt), rand(B, S, KV, hd, dt=dt)
+            k, v = rand(B, Sk, KV, hd, dt=dt), rand(B, Sk, KV, hd, dt=dt)
             kw = dict(causal=causal, kv_valid=kv_valid)
-            what = f"{tower} B{B} S{S} kv_valid{kv_valid} H{H}/{KV} hd{hd} causal={causal} {dt}"
+            what = (f"{tower} B{B} Sq{S} Sk{Sk} kv_valid{kv_valid} H{H}/{KV} hd{hd} "
+                    f"causal={causal} {dt}")
             o, lse = M.FA.flash_fwd_lse(q, k, v, **kw)
             ro, rlse = M.FREF.mha_fwd(q, k, v, scale=scale, **kw)
             fq, fk, fv, fcausal, back = fault(q, k, v, causal)
@@ -2496,25 +2545,42 @@ def run_errs(a, b, p0):
                 param_max_rel_err=mx, param_mean_rel_err=mean, worst_mean_leaf=leaf)
 
 
-def card_vs_cpu(torch, M, path, dev, seed, steps=3):
+def cpu_half(torch, path, seed, steps=3):
+    """``card_vs_cpu``'s CPU runs, which need no kernel: for each of its
+    seeds the mode, the parameters, batches and kept patches, the plain run
+    and the runs under the faults that run on the CPU. ``main`` runs phase
+    22's while the kernels build."""
+    from repro_torch.models import params as PRM
+    out = []
+    for j, s in enumerate(check_seeds(seed, path.seed_offset)):
+        mode = path.modes[j % len(path.modes)]
+        p_cpu = PRM.init_params(param_specs_of(path.small), s, device="cpu")
+        batches, keeps = path.batches(steps, "cpu", s), path.keeps(steps, s)
+        out.append(dict(seed=s, mode=mode, p_cpu=p_cpu, batches=batches, keeps=keeps,
+                        cpu=path_run(torch, path, "cpu", mode, p_cpu, batches, keeps),
+                        faults={name: path_run(torch, path, "cpu", mode, p_cpu, batches, keeps, f)
+                                for name, f in path.faults.items() if f.where == "cpu"}))
+    return out
+
+
+def card_vs_cpu(torch, M, path, dev, seed, steps=3, cpu_runs=None):
     """The same ``steps`` train steps at full width and reduced depth on the
     card and on the CPU from the same parameters, batches and (CLIP) kept
     patches, from CHECK_SEEDS seeds, the seeds taking ``path.modes`` in
     turn (readings: ``run_errs``); each control fault of ``path.faults``
     (name -> ``control_fault``) must land outside the tolerance against the
-    CPU on every key of it, at every seed. Every reading is printed before
-    any is checked."""
-    from repro_torch.models import params as PRM
+    CPU on every key of it, at every seed. The CPU's runs are ``cpu_runs``
+    where ``cpu_half`` made them before, else made here. Every reading is
+    printed before any is checked."""
     res = {}
-    for j, s in enumerate(check_seeds(seed, path.seed_offset)):
-        mode = path.modes[j % len(path.modes)]
-        p_cpu = PRM.init_params(param_specs_of(path.small), s, device="cpu")
-        batches, keeps = path.batches(steps, "cpu", s), path.keeps(steps, s)
+    for r in cpu_runs or cpu_half(torch, path, seed, steps):
+        s, mode, p_cpu, batches, keeps, cpu = (r[k] for k in ("seed", "mode", "p_cpu", "batches",
+                                                               "keeps", "cpu"))
         card = path_run(torch, path, dev, mode, p_cpu, batches, keeps)
-        cpu = path_run(torch, path, "cpu", mode, p_cpu, batches, keeps)
         faults = {}
         for name, f in path.faults.items():
-            run = path_run(torch, path, f.where or dev, mode, p_cpu, batches, keeps, f)
+            run = r["faults"][name] if f.where == "cpu" else path_run(
+                torch, path, f.where or dev, mode, p_cpu, batches, keeps, f)
             faults[name] = dict(losses=run[0], **run_errs(run, cpu, p_cpu))
         res[f"{mode}_seed{s}"] = dict(losses_card=card[0], losses_cpu=cpu[0],
                                       **run_errs(card, cpu, p_cpu), faults=faults)
@@ -2625,9 +2691,10 @@ def train_profile(torch, M, trainer, batches, n_steps=3, rows=TRAIN_ROWS, tag="t
     return res
 
 
-def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt=None):
+def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt=None, Sk=None):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` at one layer's attention
-    shape, in ``dt`` (default bf16): each kernel, its plain version, SDPA's whole backward (dq,
+    shape (``S`` queries over ``Sk`` keys, default S), in ``dt`` (default
+    bf16): each kernel, its plain version, SDPA's whole backward (dq,
     dk and dv together: the library yardstick of both) by CUDA-graph replay
     over the same input sets (its eager time beside, ``library_eager_ms``)
     and the bound (bytes against the live pairs' matmul operations at the
@@ -2635,16 +2702,17 @@ def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt=None):
     di)."""
     import torch.nn.functional as F
     bf = dt or torch.bfloat16
+    Sk = Sk or S
 
     def attn_set():
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
-                       ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
+                       ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd), (B, S, H, hd)))
         o, lse = M.FA.flash_fwd_lse(q, k, v, causal=causal)
         return q, k, v, do, lse, M.FREF.attention_di(o, do)
 
-    per = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + 2 * B * H * S * 4
+    per = (2 * B * S * H * hd + 2 * B * Sk * KV * hd) * 2 + 2 * B * H * S * 4
     asets = [attn_set() for _ in range(max(2, int(120e6 // per) + 1))]
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)   # live pairs
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * Sk)   # live pairs
     plain = {k: plain_flash_bwd(M, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")}
 
     # the library yardstick: SDPA's backward (dq, dk, dv together) on every
@@ -2671,7 +2739,7 @@ def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt=None):
     sdpa_ms = graph_ms(torch, sdpa_bwd, len(asets), stream=side)
     sdpa_eager_ms = eager_ms(torch, sdpa_bwd, len(asets))
     del sdpa_sets
-    dkv_bytes = per + 2 * B * S * KV * hd * 4
+    dkv_bytes = per + 2 * B * Sk * KV * hd * 4
     dq_bytes = per + B * S * H * hd * 4
     out = {}
     for name, bytes_, flops in (("flash_bwd_dq", dq_bytes, 6.0 * pairs * hd),
@@ -2685,8 +2753,8 @@ def time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt=None):
             library="SDPA backward (dq, dk, dv together)", sdpa_rel_err=sdpa_err,
             eager_ms=eager_ms(torch, lambda i: fn(*asets[i], causal=causal), len(asets)),
             bound=bound(bytes_, bf16_ops=flops), calls=1,
-            work=f"one layer's call: ({B}, {S}, {H}/{KV}, {hd}), "
-                 f"{'causal' if causal else 'no mask'}, {str(bf).replace('torch.', '')}")
+            work=f"one layer's call: ({B}, {S}{'' if Sk == S else f' x {Sk}'}, {H}/{KV}, "
+                 f"{hd}), {'causal' if causal else 'no mask'}, {str(bf).replace('torch.', '')}")
     return out, asets
 
 
@@ -2924,10 +2992,10 @@ def clip_flash_cases(cfg):
     dropped, and the text tower's (32, 77, 16, 64) causal, its fault the
     mask dropped; no GQA."""
     from repro_torch.models.clip import n_kept_patches
-    Sv, Hv, Ht = n_kept_patches(cfg) + 1, cfg.vision_heads, cfg.text_heads
-    return [("vision", CLIP_BATCH, Sv, Sv, Hv, Hv, cfg.vision_width // Hv, False, lanes_fault),
-            ("text", CLIP_BATCH, cfg.text_ctx, cfg.text_ctx, Ht, Ht, cfg.text_width // Ht, True,
-             mask_fault)]
+    Sv, Hv, Ht, St = n_kept_patches(cfg) + 1, cfg.vision_heads, cfg.text_heads, cfg.text_ctx
+    return [("vision", CLIP_BATCH, Sv, Sv, Sv, Hv, Hv, cfg.vision_width // Hv, False,
+             lanes_fault),
+            ("text", CLIP_BATCH, St, St, St, Ht, Ht, cfg.text_width // Ht, True, mask_fault)]
 
 
 def clip_train(torch, M, cfg, dev, seed, modes=CLIP_MODES, tag="clip train"):
@@ -3289,30 +3357,37 @@ def time_clip_flash(torch, M, cfg, dev, seed, dt=None):
     """The flash kernels at CLIP's two attention shapes of phase 14, one
     layer's call each, in ``dt`` (default bf16, as the int8 and fp8 paths
     run; f16 under the FP16 policy): the vision tower's (32, 129, 16, 80)
-    with no mask and the text tower's (32, 77, 16, 64) causal.
-    ``flash_fwd``: the kernel, its plain version, SDPA and the bound (bytes
-    against the live pairs' matmul operations at the bf16 peak); the
-    backward pair as ``time_flash_bwd``. Returns {kernel: {tower: ...}}."""
+    with no mask and the text tower's (32, 77, 16, 64) causal
+    (``time_flash_cases``). Returns {kernel: {tower: ...}}."""
+    return time_flash_cases(torch, M, clip_flash_cases(cfg), dev, seed, dt)
+
+
+def time_flash_cases(torch, M, cases, dev, seed, dt=None, backward=True):
+    """The flash kernels at ``cases`` (``compare_flash_train``'s form), one
+    layer's call each, in ``dt`` (default bf16). ``flash_fwd``: the kernel,
+    its plain version, SDPA and the bound (bytes against the live pairs'
+    matmul operations at the bf16 peak); with ``backward`` the backward
+    pair as ``time_flash_bwd``. Returns {kernel: {tower: ...}}."""
     import torch.nn.functional as F
     dt = dt or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
     plain = plain_flash_fwd(M)
     out = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
-    for tower, B, S, _, H, KV, hd, causal, _ in clip_flash_cases(cfg):
+    for tower, B, S, Sk, _, H, KV, hd, causal, _ in cases:
         def make():
             return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
-                         for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+                         for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
 
         def sdpa(q, k, v):
             return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                  v.transpose(1, 2),
-                                                  is_causal=causal).transpose(1, 2)
+                                                  v.transpose(1, 2), is_causal=causal,
+                                                  enable_gqa=H != KV).transpose(1, 2)
 
-        qkv_bytes = (B * S * H * hd + 2 * B * S * KV * hd) * 2
+        qkv_bytes = (B * S * H * hd + 2 * B * Sk * KV * hd) * 2
         sets = [make() for _ in range(max(2, int(120e6 // qkv_bytes) + 1))]
         err = rel_err(torch, sdpa(*sets[0]), M.FA.flash_fwd_lse(*sets[0], causal=causal)[0])
-        check(err <= 2e-2, f"SDPA yardstick disagrees with flash_fwd at CLIP {tower} ({err:g})")
-        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        check(err <= 2e-2, f"SDPA yardstick disagrees with flash_fwd at {tower} ({err:g})")
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * Sk)
         n = len(sets)
         out["flash_fwd"][tower] = dict(
             ms=graph_ms(torch, lambda i: M.FA.flash_fwd_lse(*sets[i], causal=causal), n),
@@ -3322,13 +3397,15 @@ def time_clip_flash(torch, M, cfg, dev, seed, dt=None):
             bound=bound(qkv_bytes + B * S * H * hd * 2 + B * H * S * 4,
                         bf16_ops=4.0 * pairs * hd),
             sdpa_rel_err=err, calls=1,
-            work=f"one {tower} layer's call: ({B}, {S}, {H}, {hd}), "
-                 f"{'causal' if causal else 'no mask'}, {str(dt).replace('torch.', '')}")
+            work=f"one {tower} layer's call: ({B}, {S}{'' if Sk == S else f' x {Sk}'}, "
+                 f"{H}/{KV}, {hd}), {'causal' if causal else 'no mask'}, "
+                 f"{str(dt).replace('torch.', '')}")
         del sets
-        bwd, asets = time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt)
-        del asets
-        for name, r in bwd.items():
-            out[name][tower] = r
+        if backward:
+            bwd, asets = time_flash_bwd(torch, M, gen, dev, B, S, H, KV, hd, causal, dt, Sk)
+            del asets
+            for name, r in bwd.items():
+                out[name][tower] = r
     return out
 
 
@@ -5454,8 +5531,14 @@ def selfheal_serve(torch, M, cfg, eng, params, sup, root, seed):
             "supervisor": got}
 
 
+# (h)'s depth, vision + text: a quarter of CLIP ViT-H/14's (full depth, an
+# 11.8 GB checkpoint, until the script took phase 34; the round trip is a
+# bit equality at any depth)
+ROUND_TRIP_LAYERS = (8, 6)
+
+
 def selfheal_full_depth(torch, cfg, dev, seed, root, batch=CLIP_BATCH):
-    """Phase 29 (h): the full-depth CLIP state, one step, then save_async,
+    """Phase 29 (h): the CLIP state at ``cfg``'s depth, one step, then save_async,
     wait, verify and restore into a fresh state (keep_last=1): every leaf
     and the generator's state bit-equal; bytes, free disk and seconds."""
     import shutil
@@ -5527,7 +5610,9 @@ def selfheal(torch, M, clip_cfg, cfg, dev, seed, eng, params):
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        res["full_depth"] = selfheal_full_depth(torch, clip_cfg, dev, seed, root)
+        res["full_depth"] = selfheal_full_depth(
+            torch, dataclasses.replace(clip_cfg, vision_layers=ROUND_TRIP_LAYERS[0],
+                                       text_layers=ROUND_TRIP_LAYERS[1]), dev, seed, root)
         res["full_depth_s"] = time.perf_counter() - t
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5573,9 +5658,10 @@ FP32_STEP_TOL = {"bfloat16": dict(loss_rel_err=1e-5, grad_max_rel_err=8e-2,
 STEP_SKIP = ("['bk']", "['logit_scale']")
 REMAT_STEPS = 3
 REMAT_BIG_BATCH = 128
-# (d)'s depth, vision + text: a quarter of CLIP ViT-H/14's, to keep the
-# script inside its time (the checks are bit equalities at any depth)
-REMAT_LAYERS = (8, 6)
+# (d)'s depth, vision + text: an eighth of CLIP ViT-H/14's, to keep the
+# script inside its time (8 + 6 until the script took phase 34; the checks
+# are bit equalities at any depth)
+REMAT_LAYERS = (4, 3)
 ADAFACTOR_STEPS = 3
 # (f) App. C: k at the two CLIP widths and the paper's weight-gradient k
 # (App. C.3: batch x sequence, about 65,536), b = m = 256; the reference's
@@ -5591,9 +5677,9 @@ def f16_clip_cases(cfg):
     from repro_torch.models.clip import n_kept_patches
     Sv, Hv, Ht = n_kept_patches(cfg) + 1, cfg.vision_heads, cfg.text_heads
     hv, ht = cfg.vision_width // Hv, cfg.text_width // Ht
-    return ([("vision", CLIP_BATCH, Sv, Sv, Hv, Hv, hv, c, lanes_fault) for c in (False, True)]
-            + [("text", CLIP_BATCH, cfg.text_ctx, cfg.text_ctx, Ht, Ht, ht, c, mask_fault)
-               for c in (True, False)])
+    St = cfg.text_ctx
+    return ([("vision", CLIP_BATCH, Sv, Sv, Sv, Hv, Hv, hv, c, lanes_fault) for c in (False, True)]
+            + [("text", CLIP_BATCH, St, St, St, Ht, Ht, ht, c, mask_fault) for c in (True, False)])
 
 
 def f16_faults(torch, M, cfg, dev, seed):
@@ -5607,7 +5693,7 @@ def f16_faults(torch, M, cfg, dev, seed):
     h16 = torch.float16
     o_tol, b_tol = FLASH_O_TOL["float16"], FLASH_BWD_TOL["float16"]
     worst = {"o through bf16": math.inf, "one-term split": math.inf}
-    for tower, B, S, kv_valid, H, KV, hd, causal, _ in f16_clip_cases(cfg):
+    for tower, B, S, _, kv_valid, H, KV, hd, causal, _ in f16_clip_cases(cfg):
         q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(h16) for _ in range(2))
         k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(h16) for _ in range(2))
         scale = M.FA.softmax_scale(hd)
@@ -5970,8 +6056,10 @@ def training_options(torch, M, cfg, smollm_cfg, dev, seed):
 # world-1 NCCL group: CLIP ViT-H/14 at full width in int8_switchback
 # ---------------------------------------------------------------------------
 
-# vision, text layers: the depth cut so the phase's six runs fit ~60 s
-ENGINE_LAYERS = (4, 4)
+# vision, text layers: the depth cut so the phase's six runs fit ~60 s (4 +
+# 4 until the script took phase 34; the checks are bit equalities at any
+# depth)
+ENGINE_LAYERS = (2, 2)
 ENGINE_STEPS = 3
 # the world whose per-rank state the phase predicts under fsdp
 ENGINE_PREDICT_WORLD = 4
@@ -6139,7 +6227,9 @@ REPLACES.update({
 # train (8 x 256 tokens x 8 / 128 x 1.25)
 MOE_E, MOE_D, MOE_FF = 128, 2048, 768
 MOE_DECODE_C, MOE_TRAIN_C = 4, 160
-MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MINITRON_LAYERS = 4, 2, 2
+# serving at 2 layers (4 until the script took phase 34: a depth cut to
+# keep it inside its time; widths, prompts and checks kept)
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MINITRON_LAYERS = 2, 2, 2
 # smollm-360m's fp16/fp32 serving: full width, 8 of its 32 layers (depth cut
 # to keep the script inside its time)
 SMOLLM_PRECISION_LAYERS = 8
@@ -6575,6 +6665,9 @@ SSM_STEPS = SSM_PROMPT + SSM_NEW - 1
 # other seven, MoE MLPs at 1, 3, 5, 7): a period is the least depth the
 # config takes (``period()`` asserts n_layers % 8)
 JAMBA_LAYERS = 8
+# rwkv6 served at full width and 12 of its 24 layers (24 until the script
+# took phase 34: a depth cut for its time; the checks are per layer)
+RWKV_SERVE_LAYERS = 12
 # rwkv6 training at full width and depth: 8 x 256 tokens (S % 64 == 0: the
 # chunked form), StableAdamW, the TrainEngine at world 1; the depth would be
 # cut if a step's peak passed RWKV_TRAIN_PEAK_GIB
@@ -6613,7 +6706,8 @@ SSM_CARD_CPU_TOL = {"rwkv6-1.6b": {"loss_rel_err": 3e-4, "param_mean_rel_err": 2
 SSM_CHECK_SEQ = {"rwkv6-1.6b": 64, "jamba-v0.1-52b": 32}
 
 
-def ssm_cfg(arch, layers=None):
+def arch_cfg(arch, layers=None):
+    """``arch``'s full config, cut to ``layers`` layers when given."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
@@ -6677,9 +6771,11 @@ def compare_jamba_batched(torch, M, jamba, dev, seed):
     return worst, n
 
 
-def ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, per_step, what):
-    """The serve CLI's path for an SSM or hybrid stack: ``make_serve_engine``
-    refuses it, ``decode_step_fallback`` serves it (SSM_BATCH rows,
+def ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, per_step, what,
+                    refusal="all-attention"):
+    """The serve CLI's path for an SSM or hybrid stack (or a frontend
+    stack's text): ``make_serve_engine`` refuses it with ``refusal``,
+    ``decode_step_fallback`` serves it (SSM_BATCH rows,
     SSM_PROMPT prompt tokens, SSM_NEW new). Every launch counter exactly
     ``per_step`` times the decode steps; then the same loop with the
     SwitchBack plain versions swapped in (the kernels are bit-equal: the
@@ -6695,10 +6791,10 @@ def ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, per_step, what):
         make_serve_engine(cfg, ServeConfig(max_batch=SSM_BATCH, max_len=256, quant_mode=mode),
                           device=dev)
         reason = None
-    except TF.NotAllAttention as e:
+    except TF.NoEnginePath as e:
         reason = str(e)
-    check(reason is not None and "all-attention" in reason,
-          f"{what}: make_serve_engine did not refuse an SSM stack ({reason})")
+    check(reason is not None and refusal in reason,
+          f"{what}: make_serve_engine did not refuse {cfg.name} ({reason})")
     args = argparse.Namespace(arch=cfg.name, device=str(dev), quant_mode=mode,
                               max_batch=SSM_BATCH, prompt_len=SSM_PROMPT, new_tokens=SSM_NEW,
                               seed=seed)
@@ -6719,28 +6815,38 @@ def ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, per_step, what):
     return res, counts, wall
 
 
-def compare_ssm_decode(torch, M, cfg, dev, seed, modes):
-    """``decode_fwd`` against its plain version at the decode loop's shapes
-    for ``cfg`` (jamba: 32 query heads over 8 KV heads, hd 128): SSM_BATCH
-    rows over a bf16 cache of SSM_PROMPT + SSM_NEW cells, every length the
-    loop attends over (1 .. SSM_STEPS, all rows equal, as its slots advance
-    together) and one ragged set, q in each mode's compute dtype, within
-    FLASH_O_TOL of max|o|; the control fault (query head h on KV head
-    h % KV) must read FAULT_MARGIN x outside. Returns the largest |kernel -
-    plain|, the largest relative error, the smallest fault/tolerance ratio
-    and the comparisons made."""
+def slots_crossed(k, v):
+    """A control fault of ``decode_fwd`` at any query group: each slot
+    reads the next slot's cache (a wrong slot stride)."""
+    return k.roll(1, 0), v.roll(1, 0)
+
+
+def compare_ssm_decode(torch, M, cfg, dev, seed, modes, fault=None, B=SSM_BATCH,
+                       S=SSM_PROMPT + SSM_NEW, steps=SSM_STEPS,
+                       ragged=(1, 2, 15, 16, 17, 33, 62, 63)):
+    """``decode_fwd`` against its plain version at a decode loop's shapes
+    for ``cfg`` (by default the SSM loop's; jamba: 32 query heads over 8 KV
+    heads, hd 128): B rows over a bf16 cache of S cells, every length the
+    loop attends over (1 .. steps, all rows equal, as its slots advance
+    together) and the ``ragged`` set, q in each mode's compute dtype,
+    within FLASH_O_TOL of max|o|; the control fault (by default query head
+    h on KV head h % KV; ``fault(k, v)`` gives another cache, e.g. at a
+    query group of 1) must read FAULT_MARGIN x outside. Returns the largest
+    |kernel - plain|, the largest relative error, the smallest
+    fault/tolerance ratio and the comparisons made."""
     from repro_torch.core.precision import QuantPolicy
     gen = torch.Generator(device=dev).manual_seed(seed + 3304)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    B, S, scale = SSM_BATCH, SSM_PROMPT + SSM_NEW, M.FA.softmax_scale(hd)
+    scale = M.FA.softmax_scale(hd)
+    check(len(ragged) == B and max(ragged) <= S, f"ragged lengths {ragged} for {B} x {S}")
     r = dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf, comparisons=0)
 
     def rand(*shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
     k, v = rand(B, S, KV, hd, dt=torch.bfloat16), rand(B, S, KV, hd, dt=torch.bfloat16)
-    fk, fv = kv_heads_by_modulo(k, H), kv_heads_by_modulo(v, H)
-    lens_sets = [[L] * B for L in range(1, SSM_STEPS + 1)] + [[1, 2, 15, 16, 17, 33, 62, 63]]
+    fk, fv = fault(k, v) if fault else (kv_heads_by_modulo(k, H), kv_heads_by_modulo(v, H))
+    lens_sets = [[L] * B for L in range(1, steps + 1)] + [list(ragged)]
     for dt in dict.fromkeys(QuantPolicy(m).compute_dtype for m in modes):
         tol = FLASH_O_TOL[str(dt).replace("torch.", "")]
         for lens in lens_sets:
@@ -6804,19 +6910,30 @@ def ssm_step_reading(torch, cfg, params, mode, dev):
             for fn, a, kw in calls:
                 fn(*a, **kw)
 
-    kernels = len(KBUILD.graph_kernels(step))
-    ms = graph_ms(torch, lambda i: step(), 1, reps=10)
-    rec_kernels = len(KBUILD.graph_kernels(recurrences))
-    rec_ms = graph_ms(torch, lambda i: recurrences(), 1, reps=10)
-    return dict(cuda_kernels_per_step=kernels, device_ms_per_step=ms,
-                recurrence_calls_per_step=len(calls), recurrence_cuda_kernels=rec_kernels,
-                recurrence_device_ms=rec_ms, recurrence_kernel_share=rec_kernels / kernels,
-                recurrence_time_share=rec_ms / ms)
+    out = graph_step_reading(torch, step)
+    if calls:
+        rec_kernels = len(KBUILD.graph_kernels(recurrences))
+        rec_ms = graph_ms(torch, lambda i: recurrences(), 1, reps=10)
+        out.update(recurrence_calls_per_step=len(calls), recurrence_cuda_kernels=rec_kernels,
+                   recurrence_device_ms=rec_ms,
+                   recurrence_kernel_share=rec_kernels / out["cuda_kernels_per_step"],
+                   recurrence_time_share=rec_ms / out["device_ms_per_step"])
+    return out
 
 
-def ssm_serve(torch, M, dev, seed, arch, layers, per_step, peak_limit=None):
-    """Phase 33 (a) and (b): ``arch`` at full width and ``layers`` layers,
-    random weights from the seed, through the decode_step loop under
+def graph_step_reading(torch, step):
+    """A decode step's CUDA kernels (the nodes of a CUDA graph that captures
+    ``step()``) and device ms (the graph replayed)."""
+    from repro_torch.kernels import build as KBUILD
+    return dict(cuda_kernels_per_step=len(KBUILD.graph_kernels(step)),
+                device_ms_per_step=graph_ms(torch, lambda i: step(), 1, reps=10))
+
+
+def ssm_serve(torch, M, dev, seed, arch, layers, per_step, peak_limit=None,
+              refusal="all-attention"):
+    """Phase 33 (a) and (b), and phase 34 (b): ``arch`` at full width and
+    ``layers`` layers, random weights from the seed, refused by the engine
+    with ``refusal``, through the decode_step loop under
     ``int8_switchback`` (launches exact, tokens equal to the plain
     versions') and ``bf16`` (no SwitchBack launch; the attention's
     ``decode_fwd`` as in int8); where the stack attends, ``decode_fwd``
@@ -6825,7 +6942,7 @@ def ssm_serve(torch, M, dev, seed, arch, layers, per_step, peak_limit=None):
     recurrences' share in both modes; the peak memory."""
     from repro_torch.models import build
     from repro_torch.models import params as PRM
-    cfg = ssm_cfg(arch, layers)
+    cfg = arch_cfg(arch, layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6835,7 +6952,7 @@ def ssm_serve(torch, M, dev, seed, arch, layers, per_step, peak_limit=None):
     for mode, want in (("int8_switchback", per_step),
                        ("bf16", {k: v for k, v in per_step.items() if k == "decode_fwd"})):
         out, counts, wall = ssm_decode_loop(torch, M, cfg, dev, seed, params, mode, want,
-                                            f"{arch} decode ({mode})")
+                                            f"{arch} decode ({mode})", refusal)
         res[mode] = dict(tokens_per_s=out["tokens_per_s"], decode_s=out["decode_s"],
                          loop_wall_s=wall, steps=SSM_STEPS,
                          plain_versions_swapped_in=any(counts[k] for k in SB_KERNELS
@@ -6859,21 +6976,34 @@ def ssm_serve(torch, M, dev, seed, arch, layers, per_step, peak_limit=None):
 def rwkv_train(torch, M, dev, seed):
     """Phase 33 (c): rwkv6-1.6b at full width and RWKV_TRAIN_LAYERS layers,
     int8_switchback, StableAdamW, RWKV_TRAIN_STEPS steps of 8 x 256 tokens
-    through ``make_engine`` on a world-1 NCCL group: launches exactly
-    RWKV_TRAIN_PER_LAYER times the layers and steps, the losses finite, the
-    peak under RWKV_TRAIN_PEAK_GIB; one step's device ms (torch.profiler)."""
+    through ``make_engine`` on a world-1 NCCL group (``engine_train``)."""
+    cfg = arch_cfg("rwkv6-1.6b", RWKV_TRAIN_LAYERS)
+    batches = bigram_batches(torch, RWKV_TRAIN_STEPS + 1, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ,
+                             dev, seed + 3303)
+    want = {k: v * cfg.n_layers for k, v in RWKV_TRAIN_PER_LAYER.items()}
+    return engine_train(torch, M, dev, seed, cfg, batches, want, RWKV_TRAIN_PEAK_GIB,
+                        "ssm train", RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ)
+
+
+def engine_train(torch, M, dev, seed, cfg, batches, want, peak_limit, tag, tokens,
+                 optimizer="stable_adamw"):
+    """``cfg`` in int8_switchback with ``optimizer``, remat "none", through
+    ``make_engine`` on a world-1 NCCL group: ``len(batches) - 1`` steps with
+    the launch counters zeroed just before, each wrapper's launches exactly
+    ``want`` a step, the losses finite, the peak under ``peak_limit`` GiB;
+    then one step profiled (torch.profiler, the last batch): its device ms
+    and CUDA launches. ``tokens`` a step give tokens/s."""
     import torch.distributed as dist
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.launch.mesh import init_distributed, make_test_mesh
     from repro_torch.train import make_engine
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    steps = len(batches) - 1
     started = init_distributed("cuda")
     try:
-        cfg = ssm_cfg("rwkv6-1.6b", RWKV_TRAIN_LAYERS)
-        bundle, policy, _, tc, _, _, _ = train_parts(torch, cfg, dev, mode="int8_switchback")
-        batches = bigram_batches(torch, RWKV_TRAIN_STEPS + 1, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ,
-                                 dev, seed + 3303)
+        bundle, policy, _, tc, _, _, _ = train_parts(torch, cfg, dev, mode="int8_switchback",
+                                                     optimizer=optimizer)
         par = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"), remat="none")
         eng = make_engine(bundle, tc, par, make_test_mesh((1, 1)), batches[0], policy=policy)
         state = eng.init_state(seed)
@@ -6883,33 +7013,31 @@ def rwkv_train(torch, M, dev, seed):
         reset_launch_counts(M)
         t = time.perf_counter()
         losses = []
-        for b in batches[:RWKV_TRAIN_STEPS]:
+        for b in batches[:steps]:
             state, m = eng.step(state, eng.shard_batch(b))
             losses.append(float(m["loss"]))
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) / RWKV_TRAIN_STEPS
+        wall = (time.perf_counter() - t) / steps
         counts = launch_counts(M)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        check(all(math.isfinite(x) for x in losses), f"rwkv6 train: losses {losses}")
-        check(peak < RWKV_TRAIN_PEAK_GIB, f"rwkv6 train: peak {peak:.2f} GiB at "
-              f"{RWKV_TRAIN_LAYERS} layers")
-        check_launches(counts, {k: v * cfg.n_layers * RWKV_TRAIN_STEPS
-                                for k, v in RWKV_TRAIN_PER_LAYER.items()}, "rwkv6 train")
-        by_kernel = kernel_times(torch, lambda: eng.step(state, eng.shard_batch(
-            batches[RWKV_TRAIN_STEPS])), 1)
+        check(all(math.isfinite(x) for x in losses), f"{cfg.name} train: losses {losses}")
+        check(peak < peak_limit, f"{cfg.name} train: peak {peak:.2f} GiB at {cfg.n_layers} "
+              "layers")
+        check_launches(counts, {k: v * steps for k, v in want.items()}, f"{cfg.name} train")
+        by_kernel = kernel_times(torch, lambda: eng.step(state, eng.shard_batch(batches[-1])), 1)
         del eng, state
     finally:
         if started:
             dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    tokens = RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ
-    res = dict(layers=RWKV_TRAIN_LAYERS, tokens=tokens, losses=losses, step_ms=wall * 1e3,
+    res = dict(layers=cfg.n_layers, optimizer=optimizer, tokens=tokens, losses=losses,
+               step_ms=wall * 1e3,
                tokens_per_s=tokens / wall, peak_memory_gib=peak,
                device_ms_per_step=sum(v[0] for v in by_kernel.values()),
                cuda_launches_per_step_profiled=sum(v[1] for v in by_kernel.values()),
                counts={k: v for k, v in counts.items() if v})
-    print("[ssm train] rwkv6-1.6b " + json.dumps(res))
+    print(f"[{tag}] {cfg.name} " + json.dumps(res))
     return res
 
 
@@ -6973,12 +7101,13 @@ def ssm_report(ssm) -> dict:
 
 
 def ssm_phase(torch, M, dev, seed):
-    """Phase 33: (a) rwkv6-1.6b served at full width and depth, (b)
+    """Phase 33: (a) rwkv6-1.6b served at full width and 12 layers, (b)
     jamba-v0.1-52b served at full width and one period, (c) rwkv6 trained
     at full width, (d) both reduced configs card vs CPU; the kernels at the
     new shapes against their plain versions first. Each part's seconds."""
     out, secs = {}, {}
-    rwkv, jamba = ssm_cfg("rwkv6-1.6b"), ssm_cfg("jamba-v0.1-52b", JAMBA_LAYERS)
+    rwkv = arch_cfg("rwkv6-1.6b", RWKV_SERVE_LAYERS)
+    jamba = arch_cfg("jamba-v0.1-52b", JAMBA_LAYERS)
     for part, fn in (
             ("kernels", lambda: (compare_linear_kernels(torch, M, ssm_linear_shapes(rwkv, jamba),
                                                         dev, seed + 3300),
@@ -7011,6 +7140,558 @@ def ssm_phase(torch, M, dev, seed):
                          for k in set(worst) | set(bworst)},
                       "decode_fwd": dec["max_abs_err"]}, seconds=secs)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 34: the multimodal and enc-dec group (internvl2-76b, seamless-m4t-large-v2)
+# ---------------------------------------------------------------------------
+
+VLM, ENCDEC = "internvl2-76b", "seamless-m4t-large-v2"
+# internvl2-76b at full width (d 8,192, 64 heads over 8 KV heads of 128,
+# d_ff 28,672, vocab 128,256): a layer holds 855.6 M parameters, embedding
+# and head 2,101.3 M, frontend_proj 67.1 M. Served through the serve CLI's
+# decode_step loop (phase 33's 8 rows, prompt 32, 32 new tokens) at 8 of
+# its 80 layers (9.01 B f32 parameters, 33.6 GiB); trained at 1 layer
+# (StableAdamW's 16 bytes a parameter: 45.1 GiB; 2 layers 57.8 GiB before
+# activations and the out-of-place update)
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 8, 1
+# seamless-m4t-large-v2 at full width and depth (24 encoder + 24 decoder
+# layers, d 1,024, 16 heads of 64, d_ff 8,192, vocab 256,206, 1.633 B
+# parameters): 8 rows of 4,096 frames encoded once, a start token, 32
+# greedy tokens from init_decode_state / decode_step
+ENCDEC_BATCH, ENCDEC_NEW = 8, 32
+# training through make_engine (world 1, remat "none"), 2 steps and a
+# profiled third: seamless 2 x (4,096 frames, 64 target tokens) with
+# StableAdamW: 24.3 GiB of state and ~0.8 GB of saved activations an
+# encoder layer a row (the tanh-GELU's f32 input the largest), so 2 rows
+# stay under the limit where 4 would not; internvl2 8 x (256 frontend + 64
+# text tokens) with AdaFactor: StableAdamW's out-of-place update holds the
+# parameters, gradients, old and new moments and new parameters at once,
+# 7 x 12.1 GB for one layer's 3.02 B parameters, past the card's 80 GB
+# (ROADMAP.md H2); AdaFactor's factored state is 0.2% of the parameters'
+ENCDEC_TRAIN_BATCH, VLM_TRAIN_BATCH, MM_TRAIN_SEQ, MM_TRAIN_STEPS = 2, 8, 64, 2
+MM_TRAIN_OPTIMIZER = {ENCDEC: "stable_adamw", VLM: "adafactor"}
+MM_PEAK_GIB = 70.0
+# the reduced configs on the card (kernels) against the CPU (plain), 2
+# steps, phase 11's rule: each limit the geometric mean of the worst sound
+# reading and the smallest control-fault reading over three seeds on an
+# H100, rounded to one digit. internvl2: loss 2.6e-4 against 2.6e-2, the
+# parameters' mean 2.4e-5 against 1.3e-3 (the frontend's int8 rounding
+# flips lead); seamless: loss 6.2e-6 against 1.7e-2, mean 4.4e-6 against
+# 1.3e-3 (PERF.md)
+MM_CARD_CPU_TOL = {VLM: {"loss_rel_err": 3e-3, "param_mean_rel_err": 2e-4},
+                   ENCDEC: {"loss_rel_err": 3e-4, "param_mean_rel_err": 8e-5}}
+MM_CHECK_BATCH, MM_CHECK_SEQ = 4, 16
+
+
+def mm_linears(cfg):
+    """(K, M) of one layer's linears in call order: an LM layer's seven
+    (``path_shapes``); an enc-dec decoder layer's attention four (wq, wk,
+    wv, wo), the cross attention's four (wq and wo on the decoder's rows,
+    wk and wv on the encoder's) and the MLP's two (GELU)."""
+    D, FF = cfg.d_model, cfg.d_ff
+    if cfg.family != "encdec":
+        return path_shapes(cfg)
+    return {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D),
+            "x_wq": (D, D), "x_wk": (D, D), "x_wv": (D, D), "x_wo": (D, D),
+            "w_up": (D, FF), "w_down": (FF, D)}
+
+
+def linear_launches(shapes, fused_max, backward=False, no_dx=()):
+    """Each SwitchBack wrapper's launches for the linears ``shapes`` (K, M)
+    in int8_switchback: ``tensor_quantize`` each; the forward fused where K
+    fits ``fused_max``, else ``row_quantize`` + ``int8_matmul_dequant``;
+    with ``backward`` the dgrad (but of the linears in ``no_dx``, whose
+    input is data) fused where M fits, else ``row_quantize`` +
+    ``int8_matmul_dequant_t`` (core/switchback)."""
+    n = dict.fromkeys(("tensor_quantize", "fused_switchback_fwd", "row_quantize",
+                       "int8_matmul_dequant", "fused_switchback_dgrad",
+                       "int8_matmul_dequant_t"), 0)
+    for name, (K, Mw) in shapes.items():
+        n["tensor_quantize"] += 1
+        if K <= fused_max:
+            n["fused_switchback_fwd"] += 1
+        else:
+            n["row_quantize"] += 1
+            n["int8_matmul_dequant"] += 1
+        if backward and name not in no_dx:
+            if Mw <= fused_max:
+                n["fused_switchback_dgrad"] += 1
+            else:
+                n["row_quantize"] += 1
+                n["int8_matmul_dequant_t"] += 1
+    return n
+
+
+def add_counts(*parts):
+    out = {}
+    for times, part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + times * v
+    return out
+
+
+def mm_launches(cfg, run, fused_max, mode="int8_switchback"):
+    """Each wrapper's launches of one ``run`` of ``cfg``: "decode_step" (an
+    LM's text decode step, or an enc-dec decoder step), "encode" (the
+    enc-dec encoder over the frames, once in init_decode_state), "train"
+    (a train step, remat "none"); bf16 launches the attention kernels
+    only."""
+    L = cfg.n_layers
+    lin = mm_linears(cfg)
+    sb = mode == "int8_switchback"
+
+    def linears(shapes, **kw):
+        return linear_launches(shapes, fused_max, **kw) if sb else {}
+    if run == "decode_step":
+        if cfg.family == "encdec":      # self attention on the cache, cross by flash_fwd
+            return add_counts((L, linears(lin)), (L, {"decode_fwd": 1, "flash_fwd": 1}))
+        return add_counts((L, linears(lin)), (L, {"decode_fwd": 1}))
+    D = cfg.d_model
+    front = linears({"frontend_proj": (D, D)})
+    if run == "encode":
+        enc = {k: v for k, v in lin.items() if not k.startswith("x_")}
+        return add_counts((1, front), (cfg.encdec.n_encoder_layers, linears(enc)),
+                          (cfg.encdec.n_encoder_layers, {"flash_fwd": 1}))
+    flash = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    if cfg.family == "encdec":
+        enc = {k: v for k, v in lin.items() if not k.startswith("x_")}
+        n_enc = cfg.encdec.n_encoder_layers
+        return add_counts((1, front), (n_enc, linears(enc, backward=True)), (n_enc, flash),
+                          (L, linears(lin, backward=True)), (2 * L, flash))
+    return add_counts((1, front), (L, linears(lin, backward=True)), (L, flash))
+
+
+def mm_linear_shapes(vlm, s2s):
+    """Phase 34's table for ``compare_linear_kernels``: internvl2's linears
+    at its decode rows (8; every K past FUSED_MAX_CONTRACT, so the two-step
+    forms), frontend_proj at 8 x 256 frontend rows and the seven at the
+    train step's 8 x 320 rows (forward and dgrad); seamless's at its
+    decode rows (8), at the encoder's 8 x 4,096 rows (the cross K/V and
+    frontend_proj, forward) and at its train rows (2 x 4,096 encoder, 2 x
+    64 decoder, forward and dgrad); both reduced configs at (e)'s rows,
+    bf16 and f32."""
+    from repro_torch.configs import get_reduced_config
+    bf, both = ("bfloat16",), ("bfloat16", "float32")
+
+    def table(cfg, dx):
+        return {f"{K}x{Mw}": (K, Mw, dx) for K, Mw in mm_linears(cfg).values()}
+    D, Ds = vlm.d_model, s2s.d_model
+    rv, rs = get_reduced_config(VLM), get_reduced_config(ENCDEC)
+    rows = MM_CHECK_BATCH * MM_CHECK_SEQ
+    return [("internvl2 decode", SSM_BATCH, bf, True, False, table(vlm, False)),
+            ("internvl2 frontend_proj", VLM_TRAIN_BATCH * vlm.frontend_tokens, bf, False, False,
+             {"frontend_proj": (D, D, False)}),
+            ("internvl2 train", VLM_TRAIN_BATCH * (vlm.frontend_tokens + MM_TRAIN_SEQ), bf,
+             False, False, table(vlm, True)),
+            ("seamless decode", ENCDEC_BATCH, bf, True, False, table(s2s, False)),
+            ("seamless encoder rows", ENCDEC_BATCH * s2s.frontend_tokens, bf, False, False,
+             {"frontend_proj/x_wk/x_wv": (Ds, Ds, False)}),
+            ("seamless train encoder", ENCDEC_TRAIN_BATCH * s2s.frontend_tokens, bf, False,
+             False, table(s2s, True)),
+            ("seamless train decoder", ENCDEC_TRAIN_BATCH * MM_TRAIN_SEQ, bf, False, False,
+             table(s2s, True)),
+            ("internvl2 reduced", MM_CHECK_BATCH * (rv.frontend_tokens + MM_CHECK_SEQ), both,
+             False, False, table(rv, True)),
+            ("seamless reduced decoder", rows, both, False, False, table(rs, True)),
+            ("seamless reduced encoder", MM_CHECK_BATCH * rs.frontend_tokens, both, False, False,
+             table(rs, True))]
+
+
+def mm_flash_cases(vlm, s2s):
+    """Phase 34's flash table (``compare_flash_train``'s form): seamless's
+    encoder (one row's 4,096 x 4,096, no mask), its cross attention at
+    train (2 x 64 queries over 4,096 frames) and at decode (8 x 1 over
+    4,096), their control fault the causal mask added (cross attention
+    called as self-attention is); internvl2's causal 8 x (256 + 64) over
+    64 heads and 8 KV heads of 128, its fault the KV heads tiled; both
+    reduced configs' shapes (seamless's 16 queries over 32 frames)."""
+    from repro_torch.configs import get_reduced_config
+    S, H, hd = s2s.frontend_tokens, s2s.n_heads, s2s.hd
+    Sv, Hv, KVv = vlm.frontend_tokens + MM_TRAIN_SEQ, vlm.n_heads, vlm.n_kv_heads
+    rv, rs = get_reduced_config(VLM), get_reduced_config(ENCDEC)
+    Sr = rv.frontend_tokens + MM_CHECK_SEQ
+    return [("seamless encoder", 1, S, S, S, H, H, hd, False, mask_fault),
+            ("seamless cross train", ENCDEC_TRAIN_BATCH, MM_TRAIN_SEQ, S, S, H, H, hd, False,
+             mask_fault),
+            ("seamless cross decode", ENCDEC_BATCH, 1, S, S, H, H, hd, False, mask_fault),
+            ("internvl2", VLM_TRAIN_BATCH, Sv, Sv, Sv, Hv, KVv, vlm.hd, True,
+             gqa_fault(Hv, KVv)),
+            ("seamless reduced cross", MM_CHECK_BATCH, MM_CHECK_SEQ, rs.frontend_tokens,
+             rs.frontend_tokens, rs.n_heads, rs.n_kv_heads, rs.hd, False, mask_fault),
+            ("internvl2 reduced", MM_CHECK_BATCH, Sr, Sr, Sr, rv.n_heads, rv.n_kv_heads, rv.hd,
+             True, gqa_fault(rv.n_heads, rv.n_kv_heads))]
+
+
+def compare_f32_weight(torch, M, s2s, dev, seed):
+    """seamless's frontend_proj reaches the quantizer as its f32 master (the
+    JAX layer hands it over uncast): ``tensor_quantize`` of an f32 (1,024,
+    1,024) weight, not bf16-valued, bit-equal to its plain version twice,
+    and the fused forward on its codes at the encoder's 8 x 4,096 rows.
+    Returns the largest |kernel - plain| per kernel and the comparisons."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = s2s.d_model
+    w = torch.randn((D, D), generator=gen, device=dev) / D ** 0.5
+    check(not torch.equal(w, w.to(torch.bfloat16).float()), "the f32 weight is bf16-valued")
+    w_q, s_w = KOPS.tensor_quantize(w)
+    r_q, r_s = REF.tensor_quantize(w)
+    again = KOPS.tensor_quantize(w)
+    check(torch.equal(w_q, r_q) and torch.equal(s_w, r_s) and torch.equal(again[0], w_q),
+          "tensor_quantize of seamless's f32 frontend_proj: kernel != plain")
+    x = activations(torch, gen, ENCDEC_BATCH * s2s.frontend_tokens, D, dev)
+    y, ry = KOPS.fused_switchback_fwd(x, w_q, s_w), REF.fused_switchback_fwd(x, w_q, s_w)
+    check(torch.equal(y, ry), "fused_switchback_fwd on the f32 frontend_proj's codes: "
+          "kernel != plain")
+    return {"tensor_quantize": max_abs_diff(torch, w_q, r_q),
+            "fused_switchback_fwd": max_abs_diff(torch, y, ry)}, 2
+
+
+def mm_kernels(torch, M, dev, seed):
+    """Phase 34 (a): every SwitchBack kernel at both models' linear shapes
+    bit-equal to its plain version (``mm_linear_shapes``; seamless's f32
+    frontend_proj apart), the flash kernels at the new attention shapes,
+    Sq != Sk included (``mm_flash_cases``, bf16 and f32), ``decode_fwd`` at
+    internvl2's query group 8 (hd 128) and seamless's group 1 (hd 64, its
+    control fault the slots crossed), each at its own decode loop's cache
+    (internvl2's 64 cells, seamless's 1 + ENCDEC_NEW = 33, not a multiple
+    of the kernel's 16-key parts). Returns the readings."""
+    vlm, s2s = arch_cfg(VLM), arch_cfg(ENCDEC)
+    sb, n_sb = compare_linear_kernels(torch, M, mm_linear_shapes(vlm, s2s), dev, seed + 3400)
+    f32w, n_f32 = compare_f32_weight(torch, M, s2s, dev, seed + 3401)
+    flash, n_flash = compare_flash_train(torch, M, mm_flash_cases(vlm, s2s), dev, seed + 3402)
+    dec = {VLM: compare_ssm_decode(torch, M, vlm, dev, seed + 3403, ("int8_switchback", "bf16")),
+           ENCDEC: compare_ssm_decode(torch, M, s2s, dev, seed + 3404,
+                                      ("int8_switchback", "bf16"), fault=slots_crossed,
+                                      B=ENCDEC_BATCH, S=1 + ENCDEC_NEW, steps=ENCDEC_NEW,
+                                      ragged=(1, 2, 15, 16, 17, 31, 32, 33))}
+    worst = {k: max(sb.get(k, 0.0), f32w.get(k, 0.0)) for k in set(sb) | set(f32w)}
+    worst.update({k: v["max_abs_err"] for k, v in flash.items()})
+    worst["decode_fwd"] = max(d["max_abs_err"] for d in dec.values())
+    print(f"[kernels] {n_sb + n_f32} SwitchBack comparisons at internvl2's and seamless's "
+          "shapes (f32 frontend_proj too) bit-equal, twice the same bits; "
+          f"{n_flash} flash comparisons (Sq != Sk included) within o {json.dumps(FLASH_O_TOL)}, "
+          f"backward {json.dumps(FLASH_BWD_TOL)}, control fault >= {FAULT_MARGIN:g}x: "
+          + json.dumps(flash) + "; decode_fwd at groups 8 and 1: " + json.dumps(dec))
+    return dict(worst=worst, flash=flash, decode=dec, comparisons=n_sb + n_f32 + n_flash
+                + sum(d["comparisons"] for d in dec.values()))
+
+
+def time_mm_kernels(torch, M, dev, seed):
+    """Phase 34 (a)'s times, each beside its plain version, a library call
+    where one exists and the bound: the flash kernels at seamless's encoder
+    (one row), its cross attention (train and decode; the decode call the
+    forward only) and internvl2's attention (``time_flash_cases``);
+    ``decode_fwd`` at both decode loops' step 16 (``time_decode``);
+    ``tensor_quantize`` of internvl2's largest weight (8,192 x 28,672 bf16)
+    and seamless's f32 frontend_proj; the fused pair at seamless's train
+    encoder rows (2 x 4,096, 1,024 -> 1,024: frontend_proj, the cross K/V,
+    the attention); ``row_quantize`` + ``int8_matmul_dequant`` at
+    internvl2's w_down in a decode step (8 rows, 28,672 -> 8,192)."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 3410)
+    vlm, s2s = arch_cfg(VLM), arch_cfg(ENCDEC)
+    cases = mm_flash_cases(vlm, s2s)
+    out = time_flash_cases(torch, M, [c for c in cases[:4] if c[2] > 1], dev, seed + 3411)
+    fwd1 = time_flash_cases(torch, M, [cases[2]], dev, seed + 3412, backward=False)
+    out["flash_fwd"].update(fwd1["flash_fwd"])
+    lens = [16] * SSM_BATCH
+    out["decode_fwd"] = {
+        VLM: time_decode(torch, M, gen, dev, SSM_PROMPT + SSM_NEW, vlm.n_heads, vlm.n_kv_heads,
+                         vlm.hd, lens),
+        ENCDEC: time_decode(torch, M, gen, dev, 1 + ENCDEC_NEW, s2s.n_heads, s2s.n_kv_heads,
+                            s2s.hd, [16] * ENCDEC_BATCH)}
+    # tensor_quantize: (shape, dtype) -> readings
+    tq = {}
+    for K, N, dt in ((vlm.d_model, vlm.d_ff, torch.bfloat16),
+                     (s2s.d_model, s2s.d_model, torch.float32)):
+        n = K * N
+        sets = [(torch.randn((K, N), generator=gen, device=dev) / K ** 0.5).to(dt)
+                for _ in range(max(2, int(120e6 // (n * 2)) + 1))]
+        size = torch.empty((), dtype=dt).element_size()
+        tq[f"{K}x{N} {str(dt).replace('torch.', '')}"] = time_work(
+            torch, KOPS, REF, sets, {"tensor_quantize": (
+                1, lambda s, op: op.tensor_quantize(s), None, n * size + n + 4, 0, 4 * n)},
+            lambda c: f"one weight {K} x {N}")["tensor_quantize"]
+        del sets
+    out["tensor_quantize"] = tq
+    D = s2s.d_model
+    for k, v in time_fused(torch, M, gen, dev, ENCDEC_TRAIN_BATCH * s2s.frontend_tokens,
+                           [(D, D)], [(D, D)], lambda c: f"one 1,024 x 1,024 call at "
+                           f"{ENCDEC_TRAIN_BATCH} x {s2s.frontend_tokens} rows").items():
+        out[k] = {"seamless train encoder rows": v}
+    K, N, R = vlm.d_ff, vlm.d_model, SSM_BATCH
+    sets = []
+    for _ in range(2):
+        w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, K, N, dev))
+        x = activations(torch, gen, R, K, dev)
+        x_q, s_x = KOPS.row_quantize(x)
+        sets.append(dict(x=x, w_q=w_q, x_q=x_q, scale=s_x * REF.div(s_w, 127.0 * 127.0)))
+
+    def int_mm(s):                        # torch._int_mm wants more than 16 rows
+        xq = torch.cat([s["x_q"], s["x_q"].new_zeros((32 - R, K))])
+        return (torch._int_mm(xq, s["w_q"])[:R].float() * s["scale"]).to(torch.bfloat16)
+    check(torch.equal(int_mm(sets[0]), KOPS.int8_matmul_dequant(sets[0]["x_q"], sets[0]["w_q"],
+                                                                 sets[0]["scale"])),
+          "torch._int_mm yardstick disagrees with int8_matmul_dequant")
+    work = {"row_quantize": (1, lambda s, op: op.row_quantize(s["x"]), None,
+                             R * K * 2 + R * K + R * 4, 0, 4 * R * K),
+            "int8_matmul_dequant": (
+                1, lambda s, op: op.int8_matmul_dequant(s["x_q"], s["w_q"], s["scale"]), int_mm,
+                R * K + K * N + R * 4 + R * N * 2, 2 * R * K * N, 0)}
+    for k, v in time_work(torch, KOPS, REF, sets, work,
+                          lambda c: f"internvl2's w_down at {R} rows ({K} -> {N})").items():
+        out[k] = {"internvl2 w_down decode": v}
+    return out
+
+
+def mm_step_reading(torch, step):
+    """``graph_step_reading`` under inference mode."""
+    def run():
+        with torch.inference_mode():
+            step()
+    return graph_step_reading(torch, run)
+
+
+def encdec_serve(torch, M, dev, seed):
+    """Phase 34 (c): seamless at full width and depth, random weights from
+    the seed, refused by the engine (JAX's reason); ENCDEC_BATCH rows of
+    SyntheticSeq2Seq frames (4,096 each) encoded once by
+    ``init_decode_state``, a start token, ENCDEC_NEW greedy tokens by
+    ``decode_step``, in int8_switchback (every launch counter exactly the
+    encoder's and then the ENCDEC_NEW decoder steps', each zeroed just
+    before and read just after its part; tokens equal to the loop's
+    with the SwitchBack plain versions swapped in) and bf16 (the attention
+    kernels only); a decoder step's device ms and CUDA kernels (a CUDA
+    graph of it), the peak."""
+    import numpy as np
+    from repro_torch.configs.base import ParallelConfig, ServeConfig
+    from repro_torch.core.precision import QuantPolicy
+    from repro_torch.data import SyntheticSeq2Seq
+    from repro_torch.models import build
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import params as PRM
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import make_serve_engine
+    cfg = arch_cfg(ENCDEC)
+    try:
+        make_serve_engine(cfg, ServeConfig(max_batch=ENCDEC_BATCH), device=dev)
+        reason = None
+    except TF.NoEnginePath as e:
+        reason = str(e)
+    check(reason is not None and "enc-dec decodes via models/encdec.py" in reason,
+          f"seamless: make_serve_engine did not refuse enc-dec ({reason})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = PRM.init_params(build(cfg).param_specs, seed, device=dev)
+    data = SyntheticSeq2Seq(cfg.d_model, cfg.vocab_size, seed=seed + 3420)
+    frames = torch.from_numpy(data.batch(ENCDEC_BATCH, cfg.frontend_tokens, 1)["frames"]).to(dev)
+    start = torch.from_numpy(np.random.default_rng(seed + 3421).integers(
+        0, cfg.vocab_size, (ENCDEC_BATCH, 1))).to(dev)
+    par = ParallelConfig(remat="none")
+
+    def loop(mode):
+        """The tokens, the state, the policy and the launch counts of the
+        encode and of the ENCDEC_NEW decoder steps, each read apart."""
+        pol, counts = QuantPolicy(mode), {}
+        with torch.inference_mode():
+            reset_launch_counts(M)
+            st = ED.init_decode_state(params, frames, cfg, pol, par, ENCDEC_BATCH,
+                                      1 + ENCDEC_NEW)
+            counts["encode"] = launch_counts(M)
+            reset_launch_counts(M)
+            tok, toks = start, []
+            for _ in range(ENCDEC_NEW):
+                lg, _ = ED.decode_step(params, st, tok, cfg, pol, par)
+                tok = torch.argmax(lg[:, -1], -1)[:, None]
+                toks.append(tok)
+            counts["decode_steps"] = launch_counts(M)
+        return torch.cat(toks, 1), st, pol, counts
+
+    res = dict(layers=(cfg.encdec.n_encoder_layers, cfg.n_layers),
+               params=sum(t.numel() for t in PRM.tree_leaves(params)))
+    for mode in ("int8_switchback", "bf16"):
+        t = time.perf_counter()
+        toks, st, pol, counts = loop(mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        fused_max = M.KOPS.FUSED_MAX_CONTRACT
+        check_launches(counts["encode"], mm_launches(cfg, "encode", fused_max, mode),
+                       f"seamless encode ({mode})")
+        check_launches(counts["decode_steps"], add_counts(
+            (ENCDEC_NEW, mm_launches(cfg, "decode_step", fused_max, mode))),
+            f"seamless decode steps ({mode})")
+        check(tuple(toks.shape) == (ENCDEC_BATCH, ENCDEC_NEW) and bool((toks >= 0).all())
+              and bool((toks < cfg.vocab_size).all()), f"seamless ({mode}): tokens")
+        if mode == "int8_switchback":
+            with swapped([(M.KOPS, k, getattr(M.REF, k)) for k in SB_KERNELS]):
+                plain = loop(mode)[0]
+            check(torch.equal(plain, toks), "seamless decode: kernel tokens != plain-version "
+                  "tokens")
+        tok = toks[:, -1:]
+        res[mode] = dict(loop_wall_s=wall, new_tokens=ENCDEC_BATCH * ENCDEC_NEW,
+                         tokens_per_s_with_encode=ENCDEC_BATCH * ENCDEC_NEW / wall,
+                         counts={run: {k: v for k, v in c.items() if v}
+                                 for run, c in counts.items()},
+                         **mm_step_reading(torch, lambda: ED.decode_step(
+                             params, st, tok, cfg, pol, par)))
+        del st
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[mm serve] seamless-m4t-large-v2 " + json.dumps(res))
+    return res
+
+
+def mm_train(torch, M, dev, seed, arch):
+    """Phase 34 (d): ``arch`` at full width in int8_switchback through
+    ``engine_train`` (world 1) with MM_TRAIN_OPTIMIZER's optimizer:
+    seamless at full depth on ENCDEC_TRAIN_BATCH x (4,096 frames,
+    MM_TRAIN_SEQ targets) of SyntheticSeq2Seq, internvl2 at
+    VLM_TRAIN_LAYERS on VLM_TRAIN_BATCH x MM_TRAIN_SEQ BigramLM tokens with
+    256 bf16 frontend features a row; launches exactly ``mm_launches``'
+    train step's, the peak under MM_PEAK_GIB."""
+    import numpy as np
+    from repro_torch.data import SyntheticSeq2Seq
+    from repro_torch.models.frontends import synthetic_frontend_batch
+    n = MM_TRAIN_STEPS + 1
+    if arch == ENCDEC:
+        cfg = arch_cfg(ENCDEC)
+        data = SyntheticSeq2Seq(cfg.d_model, cfg.vocab_size, seed=seed + 3430)
+        batches = [{k: torch.from_numpy(v).to(device=dev, dtype=torch.long if v.dtype.kind in
+                                             "iu" else None) for k, v in data.batch(
+            ENCDEC_TRAIN_BATCH, cfg.frontend_tokens, MM_TRAIN_SEQ).items()} for _ in range(n)]
+        tokens = ENCDEC_TRAIN_BATCH * (cfg.frontend_tokens + MM_TRAIN_SEQ)
+    else:
+        cfg = arch_cfg(VLM, VLM_TRAIN_LAYERS)
+        rng = np.random.default_rng(seed + 3431)
+        batches = bigram_batches(torch, n, VLM_TRAIN_BATCH, MM_TRAIN_SEQ, dev, seed + 3432)
+        for b in batches:
+            b["extra_embeds"] = synthetic_frontend_batch(rng, cfg, VLM_TRAIN_BATCH, device=dev)
+        tokens = VLM_TRAIN_BATCH * (cfg.frontend_tokens + MM_TRAIN_SEQ)
+    want = mm_launches(cfg, "train", M.KOPS.FUSED_MAX_CONTRACT)
+    return engine_train(torch, M, dev, seed, cfg, batches, want, MM_PEAK_GIB, "mm train",
+                        tokens, MM_TRAIN_OPTIMIZER[arch])
+
+
+def mm_check_path(torch, arch):
+    """Phase 34 (e)'s card-vs-CPU path: ``arch``'s reduced config as it
+    stands, int8_switchback, MM_CHECK_BATCH rows of MM_CHECK_SEQ targets
+    (seamless: SyntheticSeq2Seq frames; internvl2: BigramLM tokens over its
+    512 ids with seeded frontend features); the control fault on the CPU:
+    seamless's cross attention fed the decoder's own states, internvl2's
+    frontend tokens appended instead of prepended."""
+    import numpy as np
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.precision import quant_linear
+    from repro_torch.data import BigramLM, SyntheticSeq2Seq
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import params as PRM
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.frontends import synthetic_frontend_batch
+    cfg = get_reduced_config(arch)
+
+    def batches(n, where, s):
+        if arch == ENCDEC:
+            data = SyntheticSeq2Seq(cfg.d_model, cfg.vocab_size, seed=s)
+            return [{k: torch.from_numpy(v).to(device=where, dtype=torch.long if v.dtype.kind in
+                                               "iu" else None) for k, v in data.batch(
+                MM_CHECK_BATCH, cfg.frontend_tokens, MM_CHECK_SEQ).items()} for _ in range(n)]
+        data, rng = BigramLM(cfg.vocab_size, seed=s, temperature=0.3), np.random.default_rng(s)
+        out = []
+        for _ in range(n):
+            b = {k: torch.from_numpy(v).to(device=where, dtype=torch.long)
+                 for k, v in data.batch(MM_CHECK_BATCH, MM_CHECK_SEQ).items()}
+            b["extra_embeds"] = synthetic_frontend_batch(rng, cfg, MM_CHECK_BATCH, device=where)
+            out.append(b)
+        return out
+
+    if arch == ENCDEC:
+        cross, encode = ATT.cross_attention, ATT.encode_cross_kv
+        fault = {"cross attention fed the decoder (CPU)": control_fault("cpu", lambda: swapped(
+            [(ATT, "cross_attention", lambda x, kv, p, c, pol, impl="flash_scan": cross(
+                x, encode(x, p, c, pol), p, c, pol, impl=impl))]))}
+    else:
+        embed = TF.embed_input
+
+        def appended(params, tokens, c, policy, extra_embeds=None):
+            x = embed(params, tokens, c, policy)
+            if extra_embeds is None:
+                return x
+            cd = policy.compute_dtype
+            fe = quant_linear(extra_embeds.to(cd), PRM.use_weight(
+                params["frontend_proj"], ("embed", "embed"), cd), policy=policy)
+            return torch.cat([x, fe], dim=1)
+        fault = {"frontend appended (CPU)": control_fault(
+            "cpu", lambda: swapped([(TF, "embed_input", appended)]))}
+    return types.SimpleNamespace(
+        tag=f"{arch} card vs cpu", small=cfg, modes=("int8_switchback",),
+        seed_offset=47 if arch == VLM else 53, tol=MM_CARD_CPU_TOL[arch], opt={},
+        batches=batches, keeps=lambda n, s: None, faults=fault)
+
+
+def add_mm_launches(kernel_entries, mm, times):
+    """Each kernel entry with its launches a phase 34 run's step beside its
+    own path's (internvl2's and seamless's decode steps, seamless's encode,
+    both train steps, int8_switchback; each counted in its own run), and
+    its times at the new shapes."""
+    dec_v, dec_s = mm["b"]["int8_switchback"]["counts"], mm["c"]["int8_switchback"]["counts"]
+    runs = {"internvl2_decode_step": (dec_v, SSM_STEPS),
+            "seamless_decode_step": (dec_s["decode_steps"], ENCDEC_NEW),
+            "seamless_encode": (dec_s["encode"], 1),
+            "seamless_train_step": (mm["d"][ENCDEC]["counts"], MM_TRAIN_STEPS),
+            "internvl2_train_step": (mm["d"][VLM]["counts"], MM_TRAIN_STEPS)}
+    for e in kernel_entries:
+        e["launches_mm"] = {run: c.get(e["name"], 0) / n for run, (c, n) in runs.items()}
+        if e["name"] in times:
+            e["at_mm_shapes"] = {k: {x: r[x] for x in ("ms", "plain_ms", "library_ms", "eager_ms",
+                                                        "work", "tops", "bound_share",
+                                                        "two_step_ms") if x in r}
+                                 | {"bound_ms": r["bound"][0]}
+                                 for k, r in times[e["name"]].items()}
+    return kernel_entries
+
+
+def mm_phase(torch, M, dev, seed):
+    """Phase 34: (a) the kernels at the new shapes against their plain
+    versions, and their times; (b) internvl2 served at full width and 8
+    layers through the decode_step loop; (c) seamless served at full width
+    and depth; (d) both trained at world 1; (e) both reduced configs card
+    vs CPU. Each part's seconds."""
+    out, secs = {}, {}
+    for part, fn in (
+            ("a", lambda: (mm_kernels(torch, M, dev, seed), time_mm_kernels(torch, M, dev, seed))),
+            ("b", lambda: ssm_serve(torch, M, dev, seed, VLM, VLM_SERVE_LAYERS,
+                                    mm_launches(arch_cfg(VLM, VLM_SERVE_LAYERS), "decode_step",
+                                                M.KOPS.FUSED_MAX_CONTRACT),
+                                    80.0, refusal="multimodal frontends are a training-path")),
+            ("c", lambda: encdec_serve(torch, M, dev, seed)),
+            ("d", lambda: {a: mm_train(torch, M, dev, seed, a) for a in (ENCDEC, VLM)}),
+            ("e", lambda: {a: card_vs_cpu(torch, M, mm_check_path(torch, a), dev, seed, steps=2)
+                           for a in (VLM, ENCDEC)})):
+        t = time.perf_counter()
+        out[part] = fn()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t
+        print(f"[time] 34{part}: {secs[part]:.1f} s", flush=True)
+    out["a"], out["times"] = out["a"]
+    print("[timing] multimodal and enc-dec shapes: " + json.dumps(out["times"]))
+    out.update(worst=out["a"]["worst"], seconds=secs)
+    return out
+
+
+def mm_report(mm) -> dict:
+    """Phase 34's readings without the raw launch counts and times (those go
+    to the kernel entries)."""
+    def strip(r):
+        return {k: (strip(v) if isinstance(v, dict) else v) for k, v in r.items()
+                if k != "counts"}
+    return {"seconds": mm["seconds"], "b": strip(mm["b"]), "c": strip(mm["c"]),
+            "d": strip(mm["d"])}
 
 
 def demangled(names) -> list:
@@ -7123,14 +7804,33 @@ def main(argv=None) -> int:
         secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
         print(f"[time] {name}: {secs[name]:.1f} s", flush=True)
 
-    with timed("2 build"):
+    # phase 22's CPU half needs no kernel: it runs on the cores the
+    # compilers leave, while they build
+    clip_cfg = get_config("clip-vit-huge")
+    fp8_check = clip_check_path(torch, M, clip_cfg, FP8_KERNEL_MODES, tol=CLIP_FP8_CARD_CPU_TOL,
+                                tag="clip fp8 card vs cpu", seed_offset=13,
+                                faults=CLIP_FP8_FAULTS)
+    build_secs = {}
+
+    def timed_build(lib, mod):
+        t0 = time.perf_counter()
+        out = mod.build()
+        build_secs[lib] = time.perf_counter() - t0
+        return out
+
+    with timed("2 build, and phase 22's CPU half beside it"):
         libs = (("switchback", KB), ("flash_attention", FB), ("fp8_matmul", F8B),
                 ("paged_attention", PAB), ("fp8_cast", FCB))
         with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-            builds = {lib: pool.submit(mod.build) for lib, mod in libs}
+            builds = {lib: pool.submit(timed_build, lib, mod) for lib, mod in libs}
+            t0 = time.perf_counter()
+            fp8_cpu = cpu_half(torch, fp8_check, args.seed)
+            secs["22 CPU half"] = time.perf_counter() - t0
             built = {lib: f.result() for lib, f in builds.items()}
         for _, mod in libs:
             mod.load()
+    print(f"[time] 22 CPU half: {secs['22 CPU half']:.1f} s; each build (s): "
+          + json.dumps({k: round(v, 1) for k, v in build_secs.items()}), flush=True)
     for lib, (lib_path, log) in built.items():
         print(f"[build] {os.path.relpath(lib_path, ROOT)}")
         for line in log.splitlines():
@@ -7227,7 +7927,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 13-17. CLIP ViT-H/14 (the paper's own model) in the four int8 modes
-    clip_cfg = get_config("clip-vit-huge")
     clip_train_cfg = dataclasses.replace(clip_cfg, vision_layers=CLIP_TRAIN_LAYERS[0],
                                          text_layers=CLIP_TRAIN_LAYERS[1])
     with timed("13-14 CLIP kernels vs plain"):
@@ -7330,12 +8029,9 @@ def main(argv=None) -> int:
     with timed("21 CLIP fp8 whole step"):
         clip_whole_step(torch, M, clip_cfg, dev, args.seed, FP8_KERNEL_MODES, CLIP_FP8_STEP_TOL,
                         tag="clip fp8 whole step")
-    with timed("22 CLIP fp8 card vs cpu"):
-        card_vs_cpu(torch, M, clip_check_path(torch, M, clip_cfg, FP8_KERNEL_MODES,
-                                              tol=CLIP_FP8_CARD_CPU_TOL,
-                                              tag="clip fp8 card vs cpu", seed_offset=13,
-                                              faults=CLIP_FP8_FAULTS),
-                    dev, args.seed)
+    with timed("22 CLIP fp8 card vs cpu (the card's half)"):
+        card_vs_cpu(torch, M, fp8_check, dev, args.seed, cpu_runs=fp8_cpu)
+    del fp8_cpu
     torch.cuda.empty_cache()
     # 30. the paper's remaining training options on CLIP at full width: the
     # f16 flash forms, fp16 with loss scaling, fp32, recomputation,
@@ -7357,6 +8053,11 @@ def main(argv=None) -> int:
     # through the decode_step loop, rwkv6 trained, both reduced card vs CPU
     with timed("33 ssm and hybrid"):
         ssm = ssm_phase(torch, M, dev, args.seed)
+    torch.cuda.empty_cache()
+    # 34. the multimodal and enc-dec group: internvl2-76b and
+    # seamless-m4t-large-v2 served and trained, the kernels at their shapes
+    with timed("34 multimodal and enc-dec"):
+        mm = mm_phase(torch, M, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
@@ -7364,7 +8065,7 @@ def main(argv=None) -> int:
                 *({k: v["max_abs_err"] for k, v in d.items()}
                   for d in (flash_worst, bwd_worst, clip_flash)))
     max_err = {k: max(d.get(k, 0.0) for d in readings) for k in SOURCE}
-    for k, v in ssm["worst"].items():
+    for k, v in (*ssm["worst"].items(), *mm["worst"].items()):
         max_err[k] = max(max_err[k], v)
 
     def entry(name, r, err):
@@ -7622,11 +8323,12 @@ def main(argv=None) -> int:
                                   | {"bound_ms": v["bound"][0]} for c, v in t.items() if c != at})
 
     batched_entries = [batched_entry(k) for k in BATCHED_KERNELS]
-    kernel_entries = add_ssm_launches(
+    kernel_entries = add_mm_launches(add_ssm_launches(
         entries(DECODE_ROWS) + flash_entries + train_entries + clip_entries + fp8_entries
-        + paged_entries + op_entries + f16_entries + batched_entries, ssm)
+        + paged_entries + op_entries + f16_entries + batched_entries, ssm), mm, mm["times"])
     print("[moe] " + json.dumps({k: moe[k] for k in ("b", "d", "seconds")}))
     print("[ssm] " + json.dumps(ssm_report(ssm)))
+    print("[mm] " + json.dumps(mm_report(mm)))
     print("[training options] " + json.dumps({k: opts[k] for k in ("b", "c", "d", "e", "f",
                                                                     "seconds")}))
     print(json.dumps({"kernels": kernel_entries}))

@@ -3,11 +3,9 @@
 Copies of the JAX package's ``repro/configs/base.py`` (the port imports
 nothing of ``repro``), cut to what the port reads:
 
-* ``MoEConfig``, ``MambaConfig``, ``RWKVConfig`` — whole.
+* ``MoEConfig``, ``MambaConfig``, ``RWKVConfig``, ``EncDecConfig`` — whole.
 * ``ModelConfig`` — the whole dataclass, so the configs read the same,
-  with ``layer_kind``, ``layer_is_moe`` and ``supports_long_context``; the
-  enc-dec and frontend fields are carried but their model families are
-  not ported yet (``models.transformer.require_ported`` raises).
+  with ``layer_kind``, ``layer_is_moe`` and ``supports_long_context``.
 * ``CLIPConfig`` — the whole dataclass (the paper's own two-tower model).
 * ``ParallelConfig`` — the JAX fields and defaults; the mesh fields act
   through the sharded ``TrainEngine`` on the data axes (``train/engine.py``),
@@ -54,6 +52,12 @@ class RWKVConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    n_encoder_layers: int = 24
+    encoder_is_causal: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense|moe|ssm|hybrid|encdec|vlm|audio|clip
@@ -67,11 +71,11 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
-    encdec: Optional[object] = None
+    encdec: Optional[EncDecConfig] = None
     attn_layer_period: int = 0       # jamba: 1 attn layer per this many
     attn_layer_offset: int = 4
     frontend: Optional[str] = None   # "vision_stub" | "audio_stub"
-    frontend_tokens: int = 256
+    frontend_tokens: int = 256       # patches / frames the stub provides
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     act: str = "swiglu"              # "swiglu" | "gelu"

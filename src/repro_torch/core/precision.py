@@ -175,7 +175,8 @@ def quant_linear(x: torch.Tensor, w: torch.Tensor,
     Ẇ comes back in w's dtype. The JAX package widens the weight to f32
     before the quantized modes quantize it; the widening is exact, so the
     kernels quantize the compute-dtype weight directly and see the same
-    values.
+    values, and an f32 weight (the enc-dec ``frontend_proj``, which the
+    JAX layer hands over uncast) is quantized from its f32 values.
     """
     cd = policy.compute_dtype
     n = x.shape[-1]

@@ -51,11 +51,13 @@ The two simulated variants are plain products, as the JAX package leaves
 them to ``dot_general`` (on the card they need TF32 off).
 
 ``SwitchBackMatmul`` is the custom VJP as a ``torch.autograd.Function``.
-It takes the weight as the layer hands it over and casts it to the
-compute dtype inside ``forward`` (a no-op when the layer's ``use_weight``
-already cast it, as the model's layers do); the weight gradient it
-returns is f32, and torch casts it to the dtype of the weight it was
-given.
+It takes the weight as the layer hands it over: a 16-bit weight is cast
+to the compute dtype inside ``forward`` (a no-op when the layer's
+``use_weight`` already cast it, as the model's layers do), an f32 weight
+is quantized from its f32 values, as the JAX package widens every weight
+to f32 before it quantizes it (the enc-dec ``frontend_proj`` reaches it
+so); the weight gradient it returns is f32, and torch casts it to the
+dtype of the weight it was given.
 
 W is stored (n_in, m_out), as in the JAX package.
 """
@@ -231,7 +233,7 @@ class SwitchBackMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, compute_dtype, variant, fp8=FP8_DEFAULT):
         ctx.variant, ctx.fp8 = variant, fp8
-        wc = w.to(compute_dtype)
+        wc = w if w.dtype == torch.float32 else w.to(compute_dtype)
         if variant.startswith("fp8"):
             return _fp8_forward(ctx, x, wc, variant, fp8)
         if variant == "switchback":
@@ -342,9 +344,10 @@ def switchback_linear(x: torch.Tensor, w: torch.Tensor,
                       fp8: FP8Config = FP8_DEFAULT) -> torch.Tensor:
     """SwitchBack linear on ``x`` (..., n) with ``w`` (n, m): leading dims
     flatten into rows (one row-wise scale per token) and are restored.
-    ``w`` is cast to ``compute_dtype`` (default: x's dtype) inside the
-    autograd function; Ẇ comes back in w's dtype. The output has x's
-    dtype. ``fp8`` holds the fp8 variants' formats and tile knobs."""
+    A 16-bit ``w`` is cast to ``compute_dtype`` (default: x's dtype) inside
+    the autograd function, an f32 ``w`` quantized as it is; Ẇ comes back in
+    w's dtype. The output has x's dtype. ``fp8`` holds the fp8 variants'
+    formats and tile knobs."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown SwitchBack variant {variant!r}; expected one of {VARIANTS}")
     n = x.shape[-1]

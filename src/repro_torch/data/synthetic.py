@@ -1,7 +1,7 @@
-"""Synthetic data with learnable structure: copies of ``BigramLM`` and
-``SyntheticCLIP`` from ``repro/data/synthetic.py`` (numpy only; the port
-imports nothing of ``repro``), so both packages draw the same batches for
-a seed.
+"""Synthetic data with learnable structure: copies of ``BigramLM``,
+``SyntheticCLIP`` and ``SyntheticSeq2Seq`` from ``repro/data/synthetic.py``
+(numpy only; the port imports nothing of ``repro``), so both packages draw
+the same batches for a seed.
 
 * ``BigramLM``: a token stream from a fixed random bigram chain. A model
   that learns drives the loss well below the unigram entropy, so optimizer
@@ -9,8 +9,9 @@ a seed.
 * ``SyntheticCLIP``: image-text pairs from K latent classes (a noisy
   class prototype image, the class's token string with a few tokens
   corrupted), so contrastive accuracy rises as CLIP learns.
-
-The sequence-to-sequence generator comes with its model family.
+* ``SyntheticSeq2Seq``: encoder frames and decoder targets, the targets a
+  fixed function of a latent id hidden in the frames (the enc-dec
+  family's stream).
 """
 from __future__ import annotations
 
@@ -76,3 +77,26 @@ class SyntheticCLIP:
         """One clean (image, text) per class — for zero-shot eval."""
         return {"images": self.protos.copy(), "texts": self.texts.copy(),
                 "class_ids": np.arange(self.n_classes)}
+
+
+class SyntheticSeq2Seq:
+    """Frames + target tokens where targets are a deterministic function of
+    a latent id embedded in the frames (enc-dec smoke/bench data)."""
+
+    def __init__(self, d_model: int, vocab_size: int, n_programs: int = 16,
+                 seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.keys = rng.randn(n_programs, d_model).astype(np.float32)
+        self.progs = rng.randint(2, vocab_size, (n_programs, 512)) \
+            .astype(np.int32)
+        self.n_programs = n_programs
+        self._rng = np.random.RandomState(seed + 1)
+
+    def batch(self, batch_size: int, n_frames: int, seq_len: int):
+        pid = self._rng.randint(0, self.n_programs, batch_size)
+        frames = (self.keys[pid][:, None, :]
+                  + 0.3 * self._rng.randn(batch_size, n_frames,
+                                          self.keys.shape[1]).astype(np.float32))
+        toks = self.progs[pid][:, :seq_len + 1]
+        return {"frames": frames.astype(np.float32),
+                "tokens": toks[:, :-1], "labels": toks[:, 1:]}

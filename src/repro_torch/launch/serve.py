@@ -4,9 +4,12 @@ The PyTorch counterpart of ``repro/launch/serve.py``: the same flags and
 summary lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels). Like the JAX launcher it serves the
 arch's reduced config with random weights, and an arch the engine cannot
-serve (SSM and hybrid stacks: recurrent state, not a KV cache) through
-``decode_step_fallback``, a batched greedy ``decode_step`` loop. ``--kernel-backend``,
-``--mesh`` and ``--devices`` are not here: the port dispatches on the
+serve (SSM and hybrid stacks: recurrent state, not a KV cache; a
+multimodal frontend, whose text it decodes) through
+``decode_step_fallback``, a batched greedy ``decode_step`` loop; an
+enc-dec or CLIP arch exits non-zero with the engine's reason, as in the
+JAX launcher. ``--kernel-backend``, ``--mesh`` and ``--devices`` are not
+here: the port dispatches on the
 device of its tensors and runs on one card. Before it builds anything it
 turns off TF32 and the reduced-precision reductions of 16-bit GEMMs
 (``core/precision.full_precision_products``). ``--telemetry`` records the
@@ -24,9 +27,11 @@ Chrome trace under ``--profile-dir``.
     # the paged cache, chunked prefill, preemption, n-gram drafts
     PYTHONPATH=src python -m repro_torch.launch.serve --cache-mode paged \
         --prefill-chunk-tokens 8 --preemption recompute --spec-mode ngram
-    # SSM and hybrid stacks (no engine path): the batched decode_step loop
+    # SSM and hybrid stacks and a vision-language backbone (no engine
+    # path): the batched decode_step loop, text only for the latter
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --quant-mode int8_switchback --max-batch 4 --prompt-len 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --device cpu
     # the flight recorder: events, then the summary
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --telemetry /tmp/serve.jsonl --profile-steps 2:3
@@ -52,10 +57,12 @@ from repro_torch.telemetry import Telemetry, parse_profile_steps
 
 def decode_step_fallback(cfg, args, *, reason: str, params=None):
     """Batched greedy decode through ``decode_step`` for archs the
-    ServeEngine cannot serve (recurrent state instead of a KV cache), as
-    the JAX launcher's fallback: one fixed batch of ``args.max_batch``
-    seeded prompts of ``args.prompt_len`` tokens fed one token a step,
-    then ``args.new_tokens`` greedy tokens a row; no continuous batching.
+    ServeEngine cannot serve (recurrent state instead of a KV cache; a
+    frontend stack, of which it decodes the text), as the JAX launcher's
+    fallback (an enc-dec or CLIP arch exits with ``reason``): one fixed
+    batch of ``args.max_batch`` seeded prompts of ``args.prompt_len``
+    tokens fed one token a step, then ``args.new_tokens`` greedy tokens a
+    row; no continuous batching.
     The prompts come from numpy's generator seeded ``args.seed + 1`` (the
     JAX launcher draws from its own PRNG), the weights from
     ``init_params(args.seed)`` unless ``params`` are given. Returns
@@ -174,10 +181,11 @@ def main(argv=None):
                        spec_min_ngram=args.spec_min_ngram, seed=args.seed)
     try:
         engine = make_serve_engine(build(cfg), scfg, device=args.device)
-    except TF.NotAllAttention as e:
-        # SSM and hybrid archs have no engine path; they serve through the
-        # one-token decode_step loop, as in the JAX launcher. The port's
-        # other refusals (flags it does not take) still raise.
+    except TF.NoEnginePath as e:
+        # SSM, hybrid and frontend archs have no engine path; they serve
+        # through the one-token decode_step loop, and enc-dec and CLIP exit
+        # with the reason, as in the JAX launcher. The port's other
+        # refusals (flags it does not take) still raise.
         return decode_step_fallback(cfg, args, reason=str(e))
     params = engine.init_params(args.seed)
     cache_desc = (f"{engine.num_blocks}x{scfg.block_size} paged blocks"

@@ -3,7 +3,9 @@ goes through the sharded ``TrainEngine``, as in the JAX launcher; one
 process is a world of one (a degenerate (1, 1) mesh).
 
 Like the JAX launcher it trains the arch's reduced config on synthetic
-batches (``BigramLM``; ``SyntheticCLIP`` for ``--arch clip-vit-huge``),
+batches (``BigramLM``; ``SyntheticCLIP`` for ``--arch clip-vit-huge``;
+``SyntheticSeq2Seq`` frames and targets for an enc-dec arch; a frontend
+arch's tokens with its stub features, ``extra_embeds``),
 with random weights, through ``make_engine`` and ``Trainer``, and prints
 the mesh line, the per-step log, the final loss and the stability report
 (rank 0 only). ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
@@ -58,6 +60,7 @@ import contextlib
 import math
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -65,11 +68,12 @@ from repro_torch.configs import ALL_ARCHS, get_reduced_config
 from repro_torch.configs.base import (CLIPConfig, ParallelConfig, SupervisorConfig,
                                       TelemetryConfig, TrainConfig)
 from repro_torch.core.precision import QuantPolicy, full_precision_products
-from repro_torch.data import BigramLM, SyntheticCLIP
+from repro_torch.data import BigramLM, SyntheticCLIP, SyntheticSeq2Seq
 from repro_torch.launch.mesh import cli_mesh_shape, init_distributed, make_cli_mesh, \
     spawn_cpu_ranks
 from repro_torch.models import build
 from repro_torch.models import params as PRM
+from repro_torch.models.frontends import synthetic_frontend_batch
 from repro_torch.telemetry import Telemetry, parse_profile_steps
 from repro_torch.train import FaultPlan, Trainer, make_engine
 from repro_torch.train.engine import n_partitioned, require_data_axes
@@ -80,23 +84,43 @@ UNPORTED = {
 }
 
 
-def make_data(cfg, batch: int, seq: int, device):
-    """Step -> batch on ``device``, the same stream as the JAX launcher's
-    for the same config: SyntheticCLIP image-text pairs (32 classes, no
-    class ids) for a CLIPConfig, else BigramLM tokens."""
+def _on(device, b: dict) -> dict:
+    """A numpy batch as tensors on ``device``: integer entries as int64
+    (token ids), float ones as they are."""
+    return {k: torch.from_numpy(v).to(device=device,
+                                      dtype=torch.long if v.dtype.kind in "iu" else None)
+            for k, v in b.items()}
+
+
+def make_data(cfg, batch: int, seq: int, device, seed: int = 0):
+    """Step -> batch on ``device``. For a CLIPConfig SyntheticCLIP
+    image-text pairs (32 classes, no class ids); for an enc-dec config
+    SyntheticSeq2Seq's frames (``cfg.frontend_tokens`` of them), tokens
+    and labels; else BigramLM tokens, with a frontend config's
+    ``extra_embeds`` (B, frontend_tokens, d_model) bf16 beside them. The
+    same streams as the JAX launcher's for the same config, but for the
+    frontend features: the JAX launcher draws them with
+    ``jax.random.normal(PRNGKey(i))``, which torch cannot replay; here
+    numpy's generator seeded ``(seed, i)`` draws them
+    (``models/frontends.synthetic_frontend_batch``)."""
     if isinstance(cfg, CLIPConfig):
         c = SyntheticCLIP(cfg.image_size, cfg.text_ctx, cfg.text_vocab, n_classes=32)
 
         def clip_fn(i):
             b = c.batch(batch)
-            return {"images": torch.from_numpy(b["images"]).to(device),
-                    "texts": torch.from_numpy(b["texts"]).to(device=device, dtype=torch.long)}
+            return _on(device, {k: b[k] for k in ("images", "texts")})
         return clip_fn
+    if cfg.family == "encdec":
+        s2s = SyntheticSeq2Seq(cfg.d_model, cfg.vocab_size)
+        return lambda i: _on(device, s2s.batch(batch, cfg.frontend_tokens, seq))
     d = BigramLM(cfg.vocab_size, temperature=0.2)
 
     def fn(i):
-        return {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
-                for k, v in d.batch(batch, seq).items()}
+        b = _on(device, d.batch(batch, seq))
+        if cfg.frontend:
+            b["extra_embeds"] = synthetic_frontend_batch(np.random.default_rng((seed, i)), cfg,
+                                                         batch, device=device)
+        return b
     return fn
 
 
@@ -215,7 +239,7 @@ def _train(args, rank0: bool):
                      fp8_fallback_ratio=args.fp8_fallback_ratio,
                      microbatch_steps=args.microbatch)
     policy = QuantPolicy.from_train_config(tc)
-    data_fn = make_data(cfg, args.batch, args.seq, dev)
+    data_fn = make_data(cfg, args.batch, args.seq, dev, args.seed)
     # the batch spec is the stream's first batch, as the JAX launcher takes it
     engine = make_engine(bundle, tc, par, mesh, data_fn(0), policy=policy)
     state = engine.init_state(seed=args.seed)

@@ -21,6 +21,12 @@ and serve paths. Two implementations, selected by ``attn_impl``:
 All projections route through ``quant_linear``, so SwitchBack applies to
 Q/K/V/out.
 
+Encoder-decoder cross attention (``encode_cross_kv``, ``cross_attention``):
+the decoder's queries against the encoder output's keys and values, no
+RoPE, no mask, through the same ``_core_attention`` (under ``flash_scan``
+the flash kernels with Sq != Sk: the target length, or one row a decode
+step, against the encoder's frames).
+
 Paged serving (``PagedKVCache``) runs the block-table kernels of
 ``kernels/paged_attention`` under ``flash_scan`` (``paged_prefill_fwd`` for
 prefill chunks and the speculative verify pass, ``paged_decode_fwd`` for
@@ -358,3 +364,32 @@ def attention_paged_decode_step(x: torch.Tensor, cache: PagedKVCache,
         o = _paged_dense_decode(q, cache, tables, valid, cfg.n_heads)
     cache.length.add_(1)
     return _out_proj(o, p, cfg, policy)
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder cross attention
+# ---------------------------------------------------------------------------
+
+def cross_attention(x: torch.Tensor, enc_kv, p: dict, cfg, policy: QuantPolicy, *,
+                    impl: str = "flash_scan") -> torch.Tensor:
+    """Encoder-decoder cross attention: x (B, S, D) the decoder's states,
+    ``enc_kv`` the encoder's (k, v), each (B, Se, KV, hd), from
+    ``encode_cross_kv``. Non-causal, no RoPE; returns (B, S, D)."""
+    B, S, _ = x.shape
+    wq = PRM.use_weight(p["wq"], ("embed", "heads"), policy.compute_dtype)
+    q = quant_linear(x, wq, policy=policy).reshape(B, S, cfg.n_heads, cfg.hd)
+    k, v = enc_kv
+    o = _core_attention(q, k, v, causal=False, impl=impl)
+    return _out_proj(o, p, cfg, policy)
+
+
+def encode_cross_kv(enc_out: torch.Tensor, p: dict, cfg, policy: QuantPolicy):
+    """The cross attention's keys and values from the encoder output
+    (B, Se, D): (k, v), each (B, Se, KV, hd)."""
+    B, Se, _ = enc_out.shape
+    cd = policy.compute_dtype
+    wk = PRM.use_weight(p["wk"], ("embed", "kv_heads"), cd)
+    wv = PRM.use_weight(p["wv"], ("embed", "kv_heads"), cd)
+    k = quant_linear(enc_out, wk, policy=policy).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    v = quant_linear(enc_out, wv, policy=policy).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    return k, v

@@ -1,8 +1,11 @@
 """Single dispatch point: config -> (param_specs, loss function).
 
-The PyTorch counterpart of ``repro/models/model_zoo.py`` for the dense and
-mixture-of-experts decoder families and CLIP (the paper's own model);
-enc-dec, SSM, hybrid and multimodal families join with their own slices.
+The PyTorch counterpart of ``repro/models/model_zoo.py``. Families:
+
+* LM (dense, mixture of experts, SSM, hybrid, vision-language):
+  ``models/transformer.py``
+* enc-dec (seamless-m4t-large-v2): ``models/encdec.py``
+* CLIP (the paper's own model): ``models/clip.py``
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Any, Callable, Dict, Optional
 
 from repro_torch.configs.base import CLIPConfig
 from repro_torch.models import clip as CL
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 
 
@@ -35,7 +39,10 @@ def build(cfg) -> ModelBundle:
             cfg=cfg, param_specs=CL.param_specs(cfg),
             loss_fn=lambda p, b, pol, par, **kw: CL.clip_loss(p, b, cfg, pol, par, **kw),
             patch_keep=CL.patch_keep_sampler(cfg))
-    TF.require_ported(cfg, "model_zoo.build")
+    if cfg.family == "encdec" or cfg.encdec is not None:
+        return ModelBundle(
+            cfg=cfg, param_specs=ED.param_specs(cfg),
+            loss_fn=lambda p, b, pol, par, **kw: ED.loss_fn(p, b, cfg, pol, par))
     return ModelBundle(
         cfg=cfg, param_specs=TF.param_specs(cfg),
         loss_fn=lambda p, b, pol, par, **kw: TF.loss_fn(p, b, cfg, pol, par))

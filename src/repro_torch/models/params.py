@@ -237,12 +237,13 @@ def nofsdp_rules(rules: dict, data_axes) -> dict:
 
 #: the leaves the port's layers hand to ``use_weight`` (attention, MLP and
 #: the experts' stacked MLP, the router, the patch embedding, an untied
-#: head, Mamba's three projections, RWKV's time-mix and channel-mix
-#: projections): a sharded one reaches the layer as its local slice and is
-#: gathered there, in the compute dtype; the engine gathers every other
-#: sharded leaf (the LoRAs, the mixes, the conv) whole before the loss
+#: head, a frontend's projection, Mamba's three projections, RWKV's
+#: time-mix and channel-mix projections): a sharded one reaches the layer
+#: as its local slice and is gathered there, in the dtype the layer asks
+#: for; the engine gathers every other sharded leaf (the LoRAs, the mixes,
+#: the conv) whole before the loss
 USE_WEIGHT_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
-                               "w_router", "patch_embed", "head",
+                               "w_router", "patch_embed", "head", "frontend_proj",
                                "w_in", "w_x_proj", "w_out",
                                "wr", "wg", "w_key", "w_value", "w_receptance"})
 

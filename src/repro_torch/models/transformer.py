@@ -5,10 +5,14 @@ The PyTorch counterpart of ``repro/models/transformer.py`` for decoder
 stacks: all-attention, dense (smollm-360m, minitron-8b) or with
 mixture-of-experts MLPs (qwen3-moe-30b-a3b, arctic-480b with its parallel
 dense residual MLP; ``models/moe.py``); attention-free RWKV-6 (rwkv6-1.6b,
-``models/ssm/rwkv6.py``, its channel mix in place of the MLP); and the
+``models/ssm/rwkv6.py``, its channel mix in place of the MLP); the
 Mamba + attention hybrid with MoE every second layer (jamba-v0.1-52b,
-``models/ssm/mamba.py``). The parameter tree keeps the JAX
-package's layout: ``blocks["pos{i}"]`` holds each position-in-period's
+``models/ssm/mamba.py``); and the vision-language backbone
+(internvl2-76b): a dense decoder whose ``frontend_proj`` projects the stub
+frontend's precomputed patch embeddings (``extra_embeds``), which
+``embed_input`` puts in front of the text and ``loss_fn`` slices off
+before the cross-entropy. Encoder-decoders are ``models/encdec.py``. The
+parameter tree keeps the JAX package's layout: ``blocks["pos{i}"]`` holds each position-in-period's
 parameters stacked over the ``n_groups`` dimension. Where the JAX package
 scans over that dimension, the port runs a Python loop and takes group
 ``g``'s parameters and cache as views (``tree[g]``; in training one
@@ -23,14 +27,15 @@ blocks compute a new state JAX style and the layer copies it into group
 g's slice of the stacked state tensors, so those advance in place too.
 The continuous-batching engine (``init_serve_state``, the prefills, the
 paged functions) serves all-attention stacks only, as the JAX engine does
-(``_require_all_attention``); SSM and hybrid stacks decode through
-``decode_step`` one token at a time (``launch/serve.decode_step_fallback``).
+(``_require_all_attention``, which also refuses a frontend: it is a
+training-path feature); SSM and hybrid stacks decode through
+``decode_step`` one token at a time, and a frontend stack decodes its text
+the same way (``launch/serve.decode_step_fallback``).
 
 Training recomputes activations as the JAX package does: under
 ``remat="block"`` or ``"full"`` (the same in both packages) each layer
 group runs under ``torch.utils.checkpoint`` (non-reentrant), so only the
-groups' inputs are kept for the backward (``maybe_remat``). Multimodal
-and enc-dec stacks come with their own slices (``require_ported``).
+groups' inputs are kept for the backward (``maybe_remat``).
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.layer_scale import apply_layer_scale
-from repro_torch.core.precision import QuantPolicy
+from repro_torch.core.precision import QuantPolicy, quant_linear
 from repro_torch.models import attention as ATT
 from repro_torch.models import params as PRM
 from repro_torch.models.common import apply_norm, cross_entropy_loss, embed_tokens
@@ -54,34 +59,28 @@ from repro_torch.models.ssm.mamba import MambaState, mamba_block
 from repro_torch.models.ssm.rwkv6 import RWKVState, rwkv6_block, rwkv_channel_mix
 
 
-def require_ported(cfg: ModelConfig, what: str = "the port"):
-    """Raise for the model families not ported yet: vision-language and
-    audio frontends, encoder-decoders (ROADMAP.md Queue 1 #9). Dense,
-    mixture-of-experts, SSM and hybrid decoders pass."""
-    if cfg.encdec is not None or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{what}: {cfg.name} ({cfg.family}) is not ported yet: the multimodal and "
-            "enc-dec families are ROADMAP.md Queue 1 #9")
-
-
-class NotAllAttention(NotImplementedError):
-    """A serving entry point's refusal of an SSM or hybrid stack, apart
-    from the port's other refusals: the serve CLI falls back to the
-    ``decode_step`` loop on this one only."""
+class NoEnginePath(NotImplementedError):
+    """A serving entry point's refusal of a model the continuous-batching
+    engine does not serve (SSM and hybrid stacks, multimodal frontends,
+    enc-dec and CLIP), apart from the port's other refusals: the serve CLI
+    falls back to ``decode_step_fallback`` on this one only, which decodes
+    a decoder stack one token at a time and exits with the reason for the
+    rest, as the JAX CLI does on the JAX engine's refusal."""
 
 
 def _require_all_attention(cfg: ModelConfig, what: str):
     """The JAX package's guard of its serving engine: all-attention stacks
-    only (SSM and hybrid stacks decode through ``decode_step``)."""
+    without a frontend only (SSM and hybrid stacks, and a frontend stack's
+    text, decode through ``decode_step``)."""
     kinds = {cfg.layer_kind(i) for i in range(period(cfg))}
     if kinds != {"attn"}:
-        raise NotAllAttention(
+        raise NoEnginePath(
             f"{what} supports all-attention stacks only (got layer kinds "
             f"{sorted(kinds)} for {cfg.name}); ssm/hybrid archs decode "
             "through decode_step one token at a time")
     if cfg.frontend is not None:
-        raise NotImplementedError(f"{what}: multimodal frontends are a "
-                                  "training-path feature")
+        raise NoEnginePath(f"{what}: multimodal frontends are a "
+                           "training-path feature")
 
 
 def period(cfg: ModelConfig) -> int:
@@ -190,7 +189,6 @@ def _rwkv_specs(cfg) -> Dict[str, ParamSpec]:
 
 
 def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
-    require_ported(cfg, "layer_specs")
     kind = cfg.layer_kind(layer_idx)
     specs: Dict[str, Any] = {"norm1": _norm_spec(cfg), "norm2": _norm_spec(cfg)}
     if kind == "attn":
@@ -222,7 +220,6 @@ def _stack_specs(specs, n: int):
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    require_ported(cfg, "param_specs")
     P, G = period(cfg), n_groups(cfg)
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
@@ -234,6 +231,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                   ("embed", "vocab"), "fan_in", 1.0)
+    if cfg.frontend is not None:
+        # learned projection from the stub frontend features into d_model
+        specs["frontend_proj"] = ParamSpec(
+            (cfg.d_model, cfg.d_model), ("embed", "embed"), "fan_in", 1.0)
     return specs
 
 
@@ -357,14 +358,15 @@ def maybe_remat(fn, parallel: ParallelConfig):
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            policy: QuantPolicy, parallel: ParallelConfig):
+            policy: QuantPolicy, parallel: ParallelConfig,
+            extra_embeds: torch.Tensor | None = None):
     """Training forward over the whole sequence: tokens (B, S) ->
     (logits (B, S, V), aux loss: the MoE layers' sum, in the JAX package's
     order — a group's layers from zero, the groups onto a running zero —
-    and a zero for dense stacks). The unit of recomputation is a layer
-    group, as in the JAX package."""
-    require_ported(cfg, "forward")
-    x = embed_input(params, tokens, cfg, policy)
+    and a zero for dense stacks). ``extra_embeds`` (B, F, D), a frontend's
+    features, make the logits (B, F + S, V) (``embed_input``). The unit of
+    recomputation is a layer group, as in the JAX package."""
+    x = embed_input(params, tokens, cfg, policy, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = {key: PRM.tree_map(lambda t: t.unbind(0), blk)
               for key, blk in params["blocks"].items()}
@@ -393,15 +395,31 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             policy: QuantPolicy, parallel: ParallelConfig,
             aux_weight: float = 0.01):
     """(loss, {"ce", "moe_aux"}): mean next-token cross-entropy of
-    ``batch["tokens"]`` against ``batch["labels"]``, both (B, S)."""
-    logits, aux = forward(params, batch["tokens"], cfg, policy, parallel)
+    ``batch["tokens"]`` against ``batch["labels"]``, both (B, S). With
+    ``batch["extra_embeds"]`` the frontend's positions, prepended, carry no
+    target: the first F of the logits are sliced off."""
+    logits, aux = forward(params, batch["tokens"], cfg, policy, parallel,
+                          extra_embeds=batch.get("extra_embeds"))
+    n_front = logits.shape[1] - batch["labels"].shape[1]
+    if n_front:
+        logits = logits[:, n_front:]
     ce = cross_entropy_loss(logits, batch["labels"], cfg.logit_softcap)
     return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 def embed_input(params, tokens: torch.Tensor, cfg: ModelConfig,
-                policy: QuantPolicy) -> torch.Tensor:
-    return embed_tokens(params["embed"], tokens, policy.compute_dtype)
+                policy: QuantPolicy, extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The tokens' embeddings (B, S, D) in the compute dtype; with
+    ``extra_embeds`` (B, F, D) their projection through ``frontend_proj``
+    (a ``quant_linear``) in front: (B, F + S, D)."""
+    cd = policy.compute_dtype
+    x = embed_tokens(params["embed"], tokens, cd)
+    if extra_embeds is not None:
+        fe = quant_linear(extra_embeds.to(cd),
+                          PRM.use_weight(params["frontend_proj"], ("embed", "embed"), cd),
+                          policy=policy)
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def lm_head(params, x: torch.Tensor, cfg: ModelConfig, policy: QuantPolicy):
@@ -432,7 +450,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     together, so each row holds that length), a Mamba layer a
     ``MambaState`` (conv window in ``dtype``, h in f32), an RWKV layer an
     ``RWKVState`` (wkv in f32, the shifted inputs in ``dtype``)."""
-    require_ported(cfg, "init_decode_state")
     device = PRM.resolve_device(device)
     P, G = period(cfg), n_groups(cfg)
 
@@ -479,7 +496,6 @@ def init_serve_state(cfg: ModelConfig, max_batch: int, max_len: int,
     """Per-slot KV caches stacked over groups: per position-in-period a
     ``KVCache`` with k/v (G, max_batch, max_len, n_kv_heads, hd) and
     lengths (G, max_batch) int32, all zero (every slot empty)."""
-    require_ported(cfg, "init_serve_state")
     _require_all_attention(cfg, "init_serve_state")
     P, G = period(cfg), n_groups(cfg)
     shape = (G, max_batch, max_len, cfg.n_kv_heads, cfg.hd)
@@ -520,7 +536,6 @@ def serve_prefill(params, states, tokens: torch.Tensor,
     (logits (B, S, V), states) — or (B, 1, V) with ``last_only``, each
     slot's last valid prompt position gathered before the head. Logits at
     pad positions and for non-admitted slots are garbage."""
-    require_ported(cfg, "serve_prefill")
     _require_all_attention(cfg, "serve_prefill")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
@@ -539,7 +554,6 @@ def decode_step(params, states, tokens: torch.Tensor, cfg: ModelConfig,
     ``init_decode_state``. Returns (logits (B, 1, V), states): the same
     state object, its caches and recurrent states advanced in place.
     ``rope_cache=(cos, sin)``: this step's RoPE rows, (B, 1, hd/2)."""
-    require_ported(cfg, "decode_step")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
                     rope_cache=rope_cache)
@@ -554,7 +568,6 @@ def init_paged_serve_state(cfg: ModelConfig, num_blocks: int, block_size: int,
     block — and per-slot lengths (G, max_batch) int32, all zero. The
     footprint scales with ``num_blocks`` (live tokens), not max_batch ×
     max_len; which slot owns which block is the host-side block table."""
-    require_ported(cfg, "init_paged_serve_state")
     _require_all_attention(cfg, "init_paged_serve_state")
     P, G = period(cfg), n_groups(cfg)
     shape = (G, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
@@ -589,7 +602,6 @@ def paged_prefill(params, states, tables: torch.Tensor, tokens: torch.Tensor,
     bool; tables (B, n_blocks_per_slot) int32. Returns (logits, states):
     logits (B, S, V), or (B, 1, V) with ``last_only`` (each slot's last
     valid suffix position, gathered before the head)."""
-    require_ported(cfg, "paged_prefill")
     _require_all_attention(cfg, "paged_prefill")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,
@@ -608,7 +620,6 @@ def paged_decode_step(params, states, tables: torch.Tensor, tokens: torch.Tensor
     """One-token decode over the block-pool cache (in place). tokens (B, 1);
     tables (B, n_blocks_per_slot) int32. Returns (logits (B, 1, V),
     states); every slot's length advances by one, as in ``decode_step``."""
-    require_ported(cfg, "paged_decode_step")
     _require_all_attention(cfg, "paged_decode_step")
     x = embed_input(params, tokens, cfg, policy)
     x = _run_layers(params, states, x, cfg, policy, parallel,

@@ -790,9 +790,10 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
     """Assemble the serving stack for ``model`` on ``device``.
 
     ``model`` is an arch name, a ModelConfig or a ModelBundle (dense and
-    mixture-of-experts decoder-only LMs; SSM and hybrid stacks raise the
-    JAX engine's ``NotImplementedError`` as its subclass
-    ``models.transformer.NotAllAttention``, and the serve CLI falls back to
+    mixture-of-experts decoder-only LMs; SSM and hybrid stacks, a
+    frontend, enc-dec and CLIP raise the JAX engine's
+    ``NotImplementedError`` as its subclass
+    ``models.transformer.NoEnginePath``, and the serve CLI falls back to
     ``decode_step_fallback``, as the JAX CLI does). ``device`` defaults to the card;
     on a host without one this raises unless ``device="cpu"`` is asked for.
     ``policy`` defaults to ``QuantPolicy(serve_cfg.quant_mode)``, as the JAX
@@ -816,9 +817,9 @@ def make_serve_engine(model, serve_cfg: ServeConfig, *,
         model = get_config(model)
     bundle = model if hasattr(model, "param_specs") else build(model)
     if getattr(bundle.cfg, "family", "") in ("clip", "encdec"):
-        raise NotImplementedError(
-            "ServeEngine serves decoder-only LMs; CLIP scores pairs via models/clip.py")
-    TF.require_ported(bundle.cfg, "make_serve_engine")
+        raise TF.NoEnginePath(
+            "ServeEngine serves decoder-only LMs; CLIP scores pairs via "
+            "models/clip.py and enc-dec decodes via models/encdec.py")
     TF._require_all_attention(bundle.cfg, "make_serve_engine")
     parallel = parallel or ParallelConfig(remat="none")
     flash_tiles = ("the TPU flash kernels' tile sizes: the card's flash kernels "

@@ -41,7 +41,9 @@ through one tile step (mma.sync, operands split into bf16 terms, every k16
 step a fresh fragment); a paged prefill row's bits equal the decode's at
 every row for Sq 5 and 128. ``flash_fwd`` also at CLIP's hd 64 and 80 and
 Sq off the multiples of 16 and 64, and with both backward kernels at
-smollm's and CLIP's full attention shapes, twice the same bits;
+smollm's, CLIP's, internvl2's and seamless's attention shapes (cross
+attention's Sq != Sk: 64 and 1 queries over 4,096 frames), twice the same
+bits;
 ``decode_fwd`` (split-key) at every dtype pair, groups up to 8, hd 64, 80
 and 128, S_max off its part and kv_len 0, twice the same bits.
 ``int8_matmul_dequant`` (int8 wgmma) in all four forms (row or column
@@ -211,6 +213,49 @@ def test_cuda_ssm_linears_match_plain(B, K, M, dt):
     plain versions, as the serve and train paths' shapes above."""
     test_cuda_kernels_match_plain(B, K, M, dt)
     test_cuda_dgrad_kernels_match_plain(B, M, K, dt)
+
+
+# the multimodal and enc-dec paths' linears (K, M) at their rows:
+# internvl2-76b's 8,192 x 8,192 (wq, wo, frontend_proj), 8,192 x 1,024 (wk,
+# wv), 8,192 x 28,672 (w_up, w_gate) and 28,672 x 8,192 (w_down) at decode
+# (8) and train (8 x 320) rows, frontend_proj at 8 x 256; seamless-m4t-large-
+# v2's 1,024 x 1,024 (attention, cross attention, frontend_proj), 1,024 x
+# 8,192 and 8,192 x 1,024 at decode (8), the encoder's 8 x 4,096 rows, the
+# train encoder's 2 x 4,096 and the train decoder's 2 x 64
+MM_LINEARS = [(8, 8192, 8192), (8, 8192, 1024), (8, 8192, 28672), (8, 28672, 8192),
+              (2048, 8192, 8192), (2560, 8192, 28672), (2560, 28672, 8192), (8, 1024, 1024),
+              (8, 1024, 8192), (8, 8192, 1024), (32768, 1024, 1024), (8192, 1024, 8192),
+              (8192, 8192, 1024), (128, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,M", MM_LINEARS)
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_multimodal_linears_match_plain(B, K, M, dt):
+    """Each multimodal and enc-dec linear's forward and input-gradient
+    kernels bit-equal to their plain versions, as the SSM linears above."""
+    test_cuda_kernels_match_plain(B, K, M, dt)
+    test_cuda_dgrad_kernels_match_plain(B, M, K, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_weight_quantizes_as_plain():
+    """seamless's frontend_proj reaches the quantizer as its f32 master: the
+    kernel's codes and state of an f32 (1,024, 1,024) weight that is not
+    bf16-valued equal its plain version's, twice, and the fused forward on
+    them at the encoder's 8 x 4,096 rows."""
+    dev = _card()
+    rng = np.random.default_rng(1024)
+    w = torch.from_numpy(rng.standard_normal((1024, 1024)).astype(np.float32) / 32).to(dev)
+    assert not torch.equal(w, w.bfloat16().float())
+    w_q, s_w = TOPS.tensor_quantize(w)
+    rq, rs = TREF.tensor_quantize(w)
+    assert torch.equal(w_q, rq) and torch.equal(s_w, rs)
+    assert torch.equal(TOPS.tensor_quantize(w)[0], w_q)
+    x = _activations(rng, 32768, 1024).to(dev)
+    assert torch.equal(TOPS.fused_switchback_fwd(x, w_q, s_w),
+                       TREF.fused_switchback_fwd(x, w_q, s_w))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -452,10 +497,12 @@ def test_cuda_flash_fwd_clip_and_ragged_shapes(B, Sq, Sk, kv_valid, H, KV, hd, c
 @pytest.mark.parametrize("S,H,KV,hd,cache", [
     (96, 15, 5, 64, "bf16"), (256, 15, 5, 64, "bf16"), (256, 15, 5, 64, "f32"),
     (100, 16, 2, 64, "bf16"), (200, 8, 1, 80, "f32"), (131, 12, 3, 128, "bf16"),
-    (1500, 15, 5, 64, "bf16"), (96, 6, 2, 48, "f32"), (64, 4, 2, 36, "bf16")])
+    (1500, 15, 5, 64, "bf16"), (96, 6, 2, 48, "f32"), (64, 4, 2, 36, "bf16"),
+    (64, 64, 8, 128, "bf16"), (33, 16, 16, 64, "bf16")])
 def test_cuda_decode_matches_plain(S, H, KV, hd, cache, dt):
     """decode_fwd (split-key, ops.decode_split) within O_TOL of its plain
-    version: q bf16 or f32 over a bf16 or f32 cache, groups 3, 4 and 8, hd
+    version: q bf16 or f32 over a bf16 or f32 cache, groups 1 (seamless's
+    decoder), 3, 4 and 8 (internvl2's, hd 128 over 8 KV heads), hd
     36 and 48 (padded to 64; 36 staged by plain loads), 64, 80 and 128,
     S_max off the part (100, 131) and past 64 parts of 16 keys (1,500:
     32-key parts), slots at kv_len 0 (o = 0) to S_max; two launches the
@@ -564,6 +611,42 @@ def test_cuda_flash_tensor_core_kernels_at_path_shapes(B, S, H, KV, hd, causal, 
     assert _rel(dk, rdk) <= BWD_TOL[dt] and _rel(dv, rdv) <= BWD_TOL[dt]
     assert all(torch.equal(a, b) for a, b in zip(FA.flash_bwd_dkv(q, k, v, do, lse, di,
                                                                   causal=causal), (dk, dv)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (1, 4096, 4096, 16, 16, 64, False), (2, 64, 4096, 16, 16, 64, False),
+    (8, 1, 4096, 16, 16, 64, False), (8, 320, 320, 64, 8, 128, True),
+    (4, 16, 32, 4, 4, 32, False)],
+    ids=["seamless_encoder", "seamless_cross_train", "seamless_cross_decode", "internvl2",
+         "seamless_reduced_cross"])
+def test_cuda_flash_kernels_at_multimodal_shapes(B, Sq, Sk, H, KV, hd, causal, dt):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at the multimodal and
+    enc-dec paths' attention shapes, cross attention's Sq != Sk included:
+    within O_TOL / LSE_TOL and BWD_TOL of their plain versions, two launches
+    the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(B * Sq + Sk + hd)
+    q, do = (torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+    scale = FA.softmax_scale(hd)
+    kw = dict(causal=causal, kv_valid=Sk)
+    o, lse = FA.flash_fwd_lse(q, k, v, **kw)
+    ro, rlse = FREF.mha_fwd(q, k, v, scale=scale, **kw)
+    assert _rel(o, ro) <= O_TOL[dt] and float((lse - rlse).abs().max()) <= LSE_TOL
+    assert all(torch.equal(a, b) for a, b in zip(FA.flash_fwd_lse(q, k, v, **kw), (o, lse)))
+    di = FREF.attention_di(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+    rdq = FREF.flash_bwd_dq(q, k, v, do, lse, di, scale=scale, **kw)
+    assert dq.dtype == torch.float32 and _rel(dq, rdq) <= BWD_TOL[dt]
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, di, **kw), dq)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+    rdk, rdv = FREF.flash_bwd_dkv(q, k, v, do, lse, di, scale=scale, **kw)
+    assert _rel(dk, rdk) <= BWD_TOL[dt] and _rel(dv, rdv) <= BWD_TOL[dt]
+    assert all(torch.equal(a, b) for a, b in zip(FA.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+                                                 (dk, dv)))
     torch.cuda.synchronize()
 
 

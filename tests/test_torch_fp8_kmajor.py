@@ -136,13 +136,15 @@ def test_w_k_is_refused_where_it_does_not_fit():
 def test_switchback_fp8_forward_through_the_fold(variant, dt):
     """The fp8 modes' forward (the fold, w_k handed to the GEMM) gives the
     bits of the same forward through ``tensor_quantize`` and the GEMM's own
-    K-major copy; the backward reads the row-major w_q it saved."""
+    K-major copy; the backward reads the row-major w_q it saved. The f32
+    weight is quantized from its f32 values, as the JAX package quantizes
+    every weight it is handed (widened to f32)."""
     rng = np.random.default_rng(11)
     f = SB.FP8Config(block_rows=16, block_cols=16)
     x = _x(rng, 48, 96, dt, outliers=True).requires_grad_(True)
     w = _x(rng, 96, 40, "f32").requires_grad_(True)
     y = SB.switchback_linear(x, w, variant=variant, fp8=f)
-    w_q, s_w = F8.tensor_quantize(w.detach().to(DTYPES[dt]), f.fwd_fmt)
+    w_q, s_w = F8.tensor_quantize(w.detach(), f.fwd_fmt)
     if variant == "fp8":
         x_q, s_x = F8.row_quantize(x.detach(), f.fwd_fmt)
         want = F8.fp8_matmul_dequant(x_q, w_q, s_x * s_w, out_dtype=x.dtype)

@@ -53,7 +53,8 @@ def _modules():
 # the sharded engine's modules, the fp8 oracle, the op entry points'
 # modules and the self-healing and flight-recorder modules: the walk must
 # reach them
-NAMED = ("repro_torch.distributed.sharding", "repro_torch.distributed.compression",
+NAMED = ("repro_torch.models.encdec", "repro_torch.models.frontends",
+         "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
          "repro_torch.launch.mesh", "repro_torch.train.engine",
          "repro_torch.core.fp8", "repro_torch.kernels.fp8_cast.ops",
          "repro_torch.kernels.fp8_cast.ref", "repro_torch.kernels.fp8_cast.build",
@@ -255,12 +256,20 @@ def test_fp8_serve_engine_matches_jax(mode):
 
 
 def test_unported_model_families_raise():
-    """The mixture-of-experts, SSM and hybrid families are ported; a
-    multimodal stack still raises."""
+    """Every model family is ported since the multimodal and enc-dec slice
+    (a multimodal stack builds, with its ``frontend_proj``); the archs
+    still to port, granite-20b and starcoder2-3b, raise in the registry,
+    citing Queue 1 #9, and the decode kernel refuses a query group past
+    its 8."""
     cfg = dataclasses.replace(get_reduced_config("smollm-360m"), family="vlm",
                               frontend="vision_stub")
-    with pytest.raises(NotImplementedError):
-        build(cfg)
+    assert "frontend_proj" in build(cfg).param_specs
+    for arch in ("granite-20b", "starcoder2-3b"):
+        with pytest.raises(KeyError, match="Queue 1 #9"):
+            get_reduced_config(arch)
+    q, k = torch.zeros((1, 1, 12, 8)), torch.zeros((1, 4, 1, 8))
+    with pytest.raises(ValueError, match="query group 12 > 8"):
+        FA.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
 
 
 def _train_parts(cfg):

@@ -305,16 +305,23 @@ def test_quant_health_reads_expert_weights_as_jax():
 
 
 def test_unported_families_still_raise_citing_queue_9():
-    """The multimodal and enc-dec families still raise, citing #9; the
-    mixture of experts builds, and so do the SSM and hybrid stacks since
-    their slice (tests/test_torch_ssm_model.py)."""
-    from repro_torch.configs.base import MambaConfig, MoEConfig, RWKVConfig
+    """What #9 still lists raises, citing it: granite-20b and starcoder2-3b
+    are not in the registry. Every family builds: the multimodal and
+    enc-dec stacks since their slice (tests/test_torch_vlm.py,
+    tests/test_torch_encdec.py), the mixture of experts, and the SSM and
+    hybrid stacks (tests/test_torch_ssm_model.py)."""
+    from repro_torch.configs.base import EncDecConfig, MambaConfig, MoEConfig, RWKVConfig
+    for arch in ("granite-20b", "starcoder2-3b"):
+        with pytest.raises(KeyError, match="Queue 1 #9"):
+            get_reduced_config(arch)
     base = get_reduced_config("smollm-360m")
     for cfg in (dataclasses.replace(base, family="vlm", frontend="vision_stub"),
-                dataclasses.replace(base, family="audio", frontend="audio_stub"),
-                dataclasses.replace(base, family="encdec", encdec=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-            build(cfg)
+                dataclasses.replace(base, family="audio", frontend="audio_stub")):
+        assert build(cfg).param_specs["frontend_proj"].logical == ("embed", "embed")
+    enc = build(dataclasses.replace(base, family="encdec",
+                                    encdec=EncDecConfig(n_encoder_layers=2))).param_specs
+    assert enc["frontend_proj"].logical == ("embed", "mlp")
+    assert "xattn" in enc["dec_blocks"] and enc["enc_blocks"]["attn"]["wq"].shape[0] == 2
     moe = dataclasses.replace(base, family="moe", moe=MoEConfig(n_experts=4, top_k=2))
     assert "moe" in build(moe).param_specs["blocks"]["pos0"]
     ssm = dataclasses.replace(base, family="ssm", rwkv=RWKVConfig(head_dim=32, decay_lora=8,

@@ -290,7 +290,7 @@ def test_serving_engine_refuses_ssm_stacks(arch):
     cfg = get_reduced_config(arch)
     tp = PRM.init_params(build(cfg).param_specs, 0, device="cpu")
     for cache in ("ring", "paged"):
-        with pytest.raises(TTF.NotAllAttention, match="make_serve_engine supports all-attention"):
+        with pytest.raises(TTF.NoEnginePath, match="make_serve_engine supports all-attention"):
             make_serve_engine(build(cfg), ServeConfig(max_batch=2, max_len=16, cache_mode=cache),
                               device="cpu")
     with pytest.raises(NotImplementedError, match="init_serve_state supports all-attention"):
@@ -320,15 +320,28 @@ def test_clis_take_the_ssm_archs(cli, arch):
 
 @pytest.mark.parametrize("flags,refusal", [
     (["--attn-block-q", "64"], "tile sizes"),
-    (["--spec-mode", "ngram"], "spec_mode='ngram' verifies drafts")])
+    (["--spec-mode", "ngram"], "spec_mode='ngram' verifies drafts"),
+    pytest.param(["--arch", "internvl2-76b"], "multimodal frontends are a training-path feature",
+                 id="vlm-falls-back"),
+    pytest.param(["--arch", "seamless-m4t-large-v2"], "enc-dec decodes via models/encdec.py",
+                 id="encdec-exits")])
 def test_serve_cli_falls_back_only_for_ssm_stacks(flags, refusal):
     """An all-attention arch with a flag the port refuses still exits
     non-zero with its refusal: the decode_step loop is entered on the
-    all-attention guard alone."""
+    engine's no-path refusal alone. That refusal also takes the
+    vision-language arch (a frontend), whose text the loop decodes, and
+    the enc-dec arch, which then exits non-zero with the JAX engine's
+    reason before any decoding, as the JAX CLI does."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                          "smollm-360m", "--device", "cpu", *flags], capture_output=True,
+                          "smollm-360m", "--device", "cpu", *flags, "--max-batch", "2",
+                          "--prompt-len", "4", "--new-tokens", "3"], capture_output=True,
                          text=True, env=env, timeout=300)
+    if "internvl2-76b" in flags:
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "falling back to the decode_step loop" in out.stdout and refusal in out.stdout
+        assert "tok/s, bf16, batch 2, no continuous batching" in out.stdout
+        return
     assert out.returncode != 0, out.stdout[-3000:]
     assert "falling back" not in out.stdout
     assert refusal in out.stderr, out.stderr[-3000:]
