@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which exits non-zero on failure (run in the order 1-7,
-24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31, 32, 33):
+24-26, 29, 9-17, 28, 19, 20, 8, 18, 23, 27, 21, 22, 30, 31, 32, 33, 34, 35):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, the four product flags ``full_precision_products``
@@ -390,34 +390,60 @@ Phases, each of which exits non-zero on failure (run in the order 1-7,
     ~213 GB): its training is the reduced config's here and the CPU
     tests'.
 
-34. the multimodal and enc-dec group (last; each part prints its
-    seconds): (a) every SwitchBack kernel at internvl2-76b's and
-    seamless-m4t-large-v2's linear shapes bit-equal to its plain version
-    (``mm_linear_shapes``: decode, frontend and train rows, both reduced
-    configs; seamless's f32 frontend_proj quantized from its f32 values),
-    the flash kernels at the new attention shapes (``mm_flash_cases``:
-    seamless's 4,096-frame encoder, its cross attention at 64 and 1
-    queries over 4,096 frames, internvl2's causal 320 over 64/8 heads of
-    128, the reduced shapes; forward and both backward kernels, bf16 and
-    f32, each case a control fault FAULT_MARGIN x out), ``decode_fwd`` at
-    query groups 8 and 1; their times beside the bound, the plain version
-    and the library call (``time_mm_kernels``); (b) internvl2 at full width
-    and 8 layers refused by ``make_serve_engine`` (a frontend) and served
-    by ``decode_step_fallback`` (text only) as phase 33 serves an SSM
-    stack; (c) seamless at full width and depth: 8 rows of 4,096 frames
-    through ``init_decode_state``, 32 greedy tokens by ``decode_step``; in
-    (b) and (c) ``int8_switchback`` (launches exact, tokens equal to the
-    plain versions') and ``bf16`` (the attention kernels only), a step's
-    device ms and CUDA kernels by graph replay; (d) seamless (full depth,
-    2 x 4,096 frames and 64 targets, StableAdamW) and internvl2 (1 layer,
-    8 x (256 + 64), AdaFactor: StableAdamW's out-of-place update does not
-    fit one card at its 3.02 B parameters) trained through ``make_engine``
-    on a world-1 NCCL group: launches exact (``mm_launches``), losses
-    finite, peaks under MM_PEAK_GIB; (e)
-    both reduced configs card vs CPU over three seeds, 2 steps, within
-    MM_CARD_CPU_TOL, a control fault on the CPU outside (seamless's cross
-    attention fed the decoder's own states; internvl2's frontend tokens
-    appended instead of prepended).
+34. the multimodal and enc-dec group (each part prints its seconds): (a)
+    every SwitchBack kernel at internvl2-76b's and seamless-m4t-large-v2's
+    linear shapes bit-equal to its plain version (``mm_linear_shapes``:
+    decode, frontend and train rows, both reduced configs; seamless's f32
+    frontend_proj quantized from its f32 values), the flash kernels at the
+    new attention shapes (``mm_flash_cases``: seamless's 4,096-frame
+    encoder, its cross attention at 64 and 1 queries over 4,096 frames,
+    internvl2's causal 320 over 64/8 heads of 128, the reduced shapes;
+    forward and both backward kernels, bf16 and f32, each case a control
+    fault FAULT_MARGIN x out), ``decode_fwd`` at query groups 8 and 1; their
+    times beside the bound, the plain version and the library call
+    (``time_mm_kernels``); (b) internvl2 at full width and 8 layers refused
+    by ``make_serve_engine`` (a frontend) and served by
+    ``decode_step_fallback`` (text only) as phase 33 serves an SSM stack;
+    (c) seamless at full width and depth: 8 rows of 4,096 frames through
+    ``init_decode_state``, 32 greedy tokens by ``decode_step``; in (b) and
+    (c) ``int8_switchback`` (launches exact, tokens equal to the plain
+    versions') and ``bf16`` (the attention kernels only), a step's device ms
+    and CUDA kernels by graph replay; (d) seamless (full depth, 2 x 4,096
+    frames and 64 targets, StableAdamW) and internvl2 (1 layer, 8 x (256 +
+    64), AdaFactor: StableAdamW's out-of-place update does not fit one card
+    at its 3.02 B parameters) trained through ``make_engine`` on a world-1
+    NCCL group: launches exact (``mm_launches``), losses finite, peaks under
+    MM_PEAK_GIB; (e) both reduced configs card vs CPU over three seeds, 2
+    steps, within MM_CARD_CPU_TOL, a control fault on the CPU outside
+    (seamless's cross attention fed the decoder's own states; internvl2's
+    frontend tokens appended instead of prepended).
+
+35. the code models granite-20b (48 query heads over one KV head of 128)
+    and starcoder2-3b (24 over 2) on the wide-group forms of ``decode_fwd``
+    and the paged template (last; each part prints its seconds): (a) every
+    SwitchBack kernel at both models' linears bit-equal to its plain
+    version (``code_linear_shapes``: decode, prefill and train rows, both
+    reduced configs), the flash kernels at their causal 8 x 256 training
+    shapes (``code_flash_cases``), ``decode_fwd`` at groups 48 and 12 over
+    the served 256-cell ring at every length and a ragged set, q bf16 and
+    f32 (``compare_wide_decode``), both paged kernels at the same groups
+    (``compare_wide_paged``: phase 24's checks with the prefill-row =
+    decode-row bits), each wide launch bit for bit the launches of the
+    same heads in groups of 8 (ring) and 16 (paged), and the wide control
+    fault (heads from 16 on written one head off) FAULT_MARGIN x out; the
+    narrow groups' output digests (``narrow_digests``); times beside the
+    bound, the plain version and SDPA (``time_code_kernels``); (b)
+    granite-20b at full width and 8 of 52 layers and (c) starcoder2-3b at
+    full width and depth through the ring and the paged ``ServeEngine`` in
+    ``int8_switchback`` (launches exact, tokens equal to the plain
+    versions') and ``bf16``: 8 prompts of 32, 32 new; tokens/s, TTFT, ITL,
+    a decode step's device ms and CUDA kernels, the peak; (d) granite at 2
+    layers and starcoder2 at 12 trained through ``make_engine`` on a
+    world-1 NCCL group (StableAdamW, 8 x 256): launches exact
+    (``mm_launches``), losses finite, peaks under CODE_PEAK_GIB; (e) both
+    reduced configs card vs CPU over three seeds, 2 steps, within
+    CODE_CARD_CPU_TOL, a control fault on the CPU outside (granite's
+    LayerNorm uncentred; starcoder2's KV heads tiled).
 
 Each phase prints its seconds (``[time]``), and all of them together
 before the result. The line before the last holds ``{"kernels": [...]}``;
@@ -565,11 +591,13 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def path_shapes(cfg):
-    """The (K, M) of every linear of one layer, in call order."""
+    """The (K, M) of every linear of one layer, in call order (a GELU MLP
+    has no w_gate)."""
     D, FF = cfg.d_model, cfg.d_ff
     Hd, KVd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    gate = {"w_gate": (D, FF)} if cfg.act == "swiglu" else {}
     return {"wq": (D, Hd), "wk": (D, KVd), "wv": (D, KVd), "wo": (Hd, D),
-            "w_up": (D, FF), "w_gate": (D, FF), "w_down": (FF, D)}
+            "w_up": (D, FF), **gate, "w_down": (FF, D)}
 
 
 def activations(torch, gen, R, K, dev, dtype=None):
@@ -6630,22 +6658,30 @@ def serve_precisions(torch, M, dev, seed):
     return res
 
 
-def moe_phase(torch, M, dev, seed):
-    """Phase 32: (a) the batched forms, (b) qwen3 serving, (c) qwen3
-    training, (d) minitron and fp16/fp32 serving; each part's seconds."""
+def timed_parts(torch, phase, parts):
+    """Run each (part, fn) of ``phase`` in turn, the card synchronised and
+    its cache emptied after each; print and return each part's seconds.
+    Returns ({part: fn()}, {part: seconds})."""
     out, secs = {}, {}
-    for part, fn in (("a", lambda: (compare_batched(torch, M, dev, seed),
-                                    time_batched(torch, M, dev, seed))),
-                     ("b", lambda: moe_serve(torch, M, dev, seed)[0]),
-                     ("c", lambda: moe_train(torch, M, dev, seed)),
-                     ("d", lambda: serve_precisions(torch, M, dev, seed))):
+    for part, fn in parts:
         t = time.perf_counter()
         out[part] = fn()
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
         secs[part] = time.perf_counter() - t
-        print(f"[time] 32{part}: {secs[part]:.1f} s", flush=True)
+        print(f"[time] {phase}{part}: {secs[part]:.1f} s", flush=True)
+    return out, secs
+
+
+def moe_phase(torch, M, dev, seed):
+    """Phase 32: (a) the batched forms, (b) qwen3 serving, (c) qwen3
+    training, (d) minitron and fp16/fp32 serving; each part's seconds."""
+    out, secs = timed_parts(torch, "32", (
+        ("a", lambda: (compare_batched(torch, M, dev, seed), time_batched(torch, M, dev, seed))),
+        ("b", lambda: moe_serve(torch, M, dev, seed)[0]),
+        ("c", lambda: moe_train(torch, M, dev, seed)),
+        ("d", lambda: serve_precisions(torch, M, dev, seed))))
     (worst, n), times = out["a"]
     print(f"[kernels] {n} expert-batched comparisons bit-equal to plain and to the 2-D "
           "kernels' loop, twice the same bits: " + json.dumps(worst))
@@ -7105,10 +7141,9 @@ def ssm_phase(torch, M, dev, seed):
     jamba-v0.1-52b served at full width and one period, (c) rwkv6 trained
     at full width, (d) both reduced configs card vs CPU; the kernels at the
     new shapes against their plain versions first. Each part's seconds."""
-    out, secs = {}, {}
     rwkv = arch_cfg("rwkv6-1.6b", RWKV_SERVE_LAYERS)
     jamba = arch_cfg("jamba-v0.1-52b", JAMBA_LAYERS)
-    for part, fn in (
+    out, secs = timed_parts(torch, "33", (
             ("kernels", lambda: (compare_linear_kernels(torch, M, ssm_linear_shapes(rwkv, jamba),
                                                         dev, seed + 3300),
                                  compare_jamba_batched(torch, M, jamba, dev, seed))),
@@ -7120,14 +7155,7 @@ def ssm_phase(torch, M, dev, seed):
             ("c", lambda: rwkv_train(torch, M, dev, seed)),
             ("d", lambda: {a: card_vs_cpu(torch, M, ssm_check_path(torch, a), dev, seed,
                                           steps=2)
-                           for a in ("rwkv6-1.6b", "jamba-v0.1-52b")})):
-        t = time.perf_counter()
-        out[part] = fn()
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        secs[part] = time.perf_counter() - t
-        print(f"[time] 33{part}: {secs[part]:.1f} s", flush=True)
+                           for a in ("rwkv6-1.6b", "jamba-v0.1-52b")})))
     (worst, n), (bworst, bn) = out["kernels"]
     print(f"[kernels] {n} SwitchBack and {bn} expert-batched comparisons at the SSM paths' "
           "shapes bit-equal to plain, twice the same bits: "
@@ -7235,8 +7263,8 @@ def mm_launches(cfg, run, fused_max, mode="int8_switchback"):
     """Each wrapper's launches of one ``run`` of ``cfg``: "decode_step" (an
     LM's text decode step, or an enc-dec decoder step), "encode" (the
     enc-dec encoder over the frames, once in init_decode_state), "train"
-    (a train step, remat "none"); bf16 launches the attention kernels
-    only."""
+    (a train step, remat "none"; ``frontend_proj`` where the config has a
+    frontend); bf16 launches the attention kernels only."""
     L = cfg.n_layers
     lin = mm_linears(cfg)
     sb = mode == "int8_switchback"
@@ -7248,7 +7276,7 @@ def mm_launches(cfg, run, fused_max, mode="int8_switchback"):
             return add_counts((L, linears(lin)), (L, {"decode_fwd": 1, "flash_fwd": 1}))
         return add_counts((L, linears(lin)), (L, {"decode_fwd": 1}))
     D = cfg.d_model
-    front = linears({"frontend_proj": (D, D)})
+    front = linears({"frontend_proj": (D, D)}) if cfg.frontend else {}
     if run == "encode":
         enc = {k: v for k, v in lin.items() if not k.startswith("x_")}
         return add_counts((1, front), (cfg.encdec.n_encoder_layers, linears(enc)),
@@ -7660,8 +7688,7 @@ def mm_phase(torch, M, dev, seed):
     layers through the decode_step loop; (c) seamless served at full width
     and depth; (d) both trained at world 1; (e) both reduced configs card
     vs CPU. Each part's seconds."""
-    out, secs = {}, {}
-    for part, fn in (
+    out, secs = timed_parts(torch, "34", (
             ("a", lambda: (mm_kernels(torch, M, dev, seed), time_mm_kernels(torch, M, dev, seed))),
             ("b", lambda: ssm_serve(torch, M, dev, seed, VLM, VLM_SERVE_LAYERS,
                                     mm_launches(arch_cfg(VLM, VLM_SERVE_LAYERS), "decode_step",
@@ -7670,14 +7697,7 @@ def mm_phase(torch, M, dev, seed):
             ("c", lambda: encdec_serve(torch, M, dev, seed)),
             ("d", lambda: {a: mm_train(torch, M, dev, seed, a) for a in (ENCDEC, VLM)}),
             ("e", lambda: {a: card_vs_cpu(torch, M, mm_check_path(torch, a), dev, seed, steps=2)
-                           for a in (VLM, ENCDEC)})):
-        t = time.perf_counter()
-        out[part] = fn()
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        secs[part] = time.perf_counter() - t
-        print(f"[time] 34{part}: {secs[part]:.1f} s", flush=True)
+                           for a in (VLM, ENCDEC)})))
     out["a"], out["times"] = out["a"]
     print("[timing] multimodal and enc-dec shapes: " + json.dumps(out["times"]))
     out.update(worst=out["a"]["worst"], seconds=secs)
@@ -7692,6 +7712,504 @@ def mm_report(mm) -> dict:
                 if k != "counts"}
     return {"seconds": mm["seconds"], "b": strip(mm["b"]), "c": strip(mm["c"]),
             "d": strip(mm["d"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 35: the code models granite-20b and starcoder2-3b, on the wide-group
+# forms of decode_fwd and the paged template
+# ---------------------------------------------------------------------------
+
+GRANITE, STARCODER = "granite-20b", "starcoder2-3b"
+CODE_ARCHS = (GRANITE, STARCODER)
+# serving through the ServeEngine (ring, and paged in blocks of PAGED_BS):
+# granite-20b at full width (d 6,144, 48 query heads over one KV head of
+# 128, d_ff 24,576, vocab 49,152) and 8 of its 52 layers (3.64 B
+# parameters, 14.5 GB of f32 masters; 52 layers would hold 20.3 B, 81 GB),
+# starcoder2-3b at full width and depth (30 x 3,072, 24 heads over 2, d_ff
+# 12,288; 3.18 B, 12.7 GB); 8 prompts of CODE_PROMPT tokens, CODE_NEW new,
+# greedy, a cache of CODE_MAX_LEN cells a slot
+CODE_SERVE_LAYERS = {GRANITE: 8, STARCODER: 30}
+CODE_PROMPT, CODE_NEW, CODE_MAX_LEN = 32, 32, 256
+# training through the TrainEngine at world 1, int8_switchback, StableAdamW,
+# 8 x 256 tokens: StableAdamW's out-of-place update caps one card near 2.5 B
+# parameters (PERF.md), so granite at 2 layers (1.36 B) and starcoder2 at
+# 12 (1.45 B)
+CODE_TRAIN_LAYERS = {GRANITE: 2, STARCODER: 12}
+CODE_TRAIN_STEPS = 2
+CODE_PEAK_GIB = 70.0
+# decode_fwd's checks at the served ring cache: every length 1 .. S_max
+# (all slots alike, as they advance together) and this ragged set
+CODE_RAGGED = (0, 1, 15, 16, 17, 100, 255, 256)
+# the reduced configs on the card (kernels) against the CPU (plain), 2 steps
+# of BigramLM 4 x 64 over their 512 ids, phase 11's rule: each limit the
+# geometric mean of the worst sound reading and the smallest control-fault
+# reading over three seeds on an H100, rounded to one digit. granite: loss
+# 6.2e-5 against 2.1e-3, the parameters' mean 1.9e-5 against 4.0e-4 (the
+# LayerNorm uncentred); starcoder2: loss 6.4e-5 against 2.3e-2, mean 1.6e-5
+# against 1.5e-3 (the KV heads tiled) (PERF.md)
+CODE_CHECK_BATCH, CODE_CHECK_SEQ = 4, 64
+CODE_CARD_CPU_TOL = {GRANITE: {"loss_rel_err": 4e-4, "param_mean_rel_err": 9e-5},
+                     STARCODER: {"loss_rel_err": 1e-3, "param_mean_rel_err": 2e-4}}
+# narrow launches: decode_fwd took groups of at most 8 before its wide form,
+# the paged decode at most 16
+NARROW = {"ring": 8, "paged": 16}
+
+
+def heads_one_off(o):
+    """The wide forms' control fault on an output (B, S, H, hd): the heads
+    from 16 on (the row tiles past the first) written one head off."""
+    f = o.clone()
+    f[:, :, 16:] = o[:, :, 15:-1]
+    return f
+
+
+def narrow_launches(torch, fn, q, k, v, *rest, width):
+    """``fn`` (a decode or prefill wrapper taking q (B, S, H, hd) and K/V
+    with the KV heads on dim 2) as launches of at most ``width`` query
+    heads of one KV head each, stitched back into (B, S, H, hd)."""
+    H, KV = q.shape[2], k.shape[2]
+    group, parts = H // KV, []
+    for h in range(KV):
+        kh, vh = k[:, :, h:h + 1].contiguous(), v[:, :, h:h + 1].contiguous()
+        for g0 in range(0, group, width):
+            heads = slice(h * group + g0, h * group + min(group, g0 + width))
+            parts.append(fn(q[:, :, heads].contiguous(), kh, vh, *rest))
+    return torch.cat(parts, dim=2)
+
+
+def compare_wide_decode(torch, M, cfg, dev, seed):
+    """``decode_fwd`` at ``cfg``'s query group (hd 128) over a bf16 ring
+    cache of CODE_MAX_LEN cells, 8 slots at every length 1 .. S_max and at
+    CODE_RAGGED (one slot at kv_len 0), q bf16 and f32: within FLASH_O_TOL
+    of max|o| of its plain version; bit for bit the same heads run as
+    launches of at most NARROW["ring"] heads; two launches the same bits;
+    the control fault (``heads_one_off``) FAULT_MARGIN x outside wherever
+    it changes the output (with every slot at length 1 all heads of a KV
+    head read the same one value: there the slots crossed stand in).
+    Returns the readings."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3501)
+    H, KV, hd, S, B = cfg.n_heads, cfg.n_kv_heads, cfg.hd, CODE_MAX_LEN, len(CODE_RAGGED)
+    plain = plain_decode(M)
+    r = dict(max_abs_err=0.0, max_rel_err=0.0, fault_over_tol=math.inf, comparisons=0)
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        tol = FLASH_O_TOL[str(dt).replace("torch.", "")]
+        for lens in [[n] * B for n in range(1, S + 1)] + [list(CODE_RAGGED)]:
+            what = f"decode_fwd at {cfg.name}'s H{H}/KV{KV}/hd{hd} S_max{S} lens {lens} q {dt}"
+            lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dt)
+            o = M.FA.decode_attention(q, k, v, lens)
+            ro = plain(q, k, v, lens)
+            check(o.dtype == ro.dtype and o.shape == ro.shape and bool(torch.isfinite(o).all()),
+                  f"{what}: bad output")
+            check(torch.equal(o, M.FA.decode_attention(q, k, v, lens)),
+                  f"{what}: two launches differ")
+            narrow = narrow_launches(torch, M.FA.decode_attention, q, k, v, lens,
+                                     width=NARROW["ring"])
+            check(torch.equal(narrow, o), f"{what}: the wide launch differs from launches of "
+                  f"{NARROW['ring']} heads")
+            err = rel_err(torch, o, ro)
+            check(err <= tol, f"{what}: kernel vs plain {err:g} > {tol:g}")
+            one_value = int(lens.max()) == 1
+            fo = plain(q, *slots_crossed(k, v), lens) if one_value else heads_one_off(ro)
+            f = rel_err(torch, o, fo) / tol
+            check(f >= FAULT_MARGIN, f"{what}: the control fault reads only {f:g} x the "
+                  "tolerance")
+            r.update(max_abs_err=max(r["max_abs_err"], max_abs_diff(torch, o, ro)),
+                     max_rel_err=max(r["max_rel_err"], err),
+                     fault_over_tol=min(r["fault_over_tol"], f),
+                     comparisons=r["comparisons"] + 1)
+    torch.cuda.synchronize()
+    return r
+
+
+def compare_wide_paged(torch, M, cfg, dev, seed):
+    """Both paged kernels at ``cfg``'s query group: phase 24's comparisons
+    (``compare_paged``: within FLASH_O_TOL, dry slots zero, the rotated
+    tables' fault, every prefill row bit-equal to the decode at its
+    position); then the decode and a 5-row prefill at served lengths, q bf16
+    and f32, bit for bit the same heads run as launches of at most
+    NARROW["paged"] heads, and the wide control fault (``heads_one_off``)
+    FAULT_MARGIN x outside. Returns the readings."""
+    readings, n, rows = compare_paged(torch, M, cfg, dev, seed + 3502)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3503)
+    k, v, tables = paged_inputs(torch, gen, dev, cfg, 8)
+    plain = plain_paged(M)
+    kv_len = torch.tensor([0, 1, 15, 16, 17, 300, 1000, 1024], dtype=torch.int32, device=dev)
+    t = dead_entries(torch, tables, kv_len)
+    q_off = (kv_len - 5).clamp(min=0).to(torch.int32)
+    n_narrow = 0
+    for dt in (torch.bfloat16, torch.float32):
+        tol = FLASH_O_TOL[str(dt).replace("torch.", "")]
+        for name, Sq in (("paged_decode_fwd", 1), ("paged_prefill_fwd", 5)):
+            q = torch.randn((8, Sq, cfg.n_heads, cfg.hd), generator=gen, device=dev).to(dt)
+            if Sq == 1:
+                fn, rest = M.PA.paged_decode_attention, (t, kv_len)
+                ro = plain["paged_decode_attention"](q, k, v, t, kv_len)
+            else:
+                fn, rest = M.PA.paged_prefill_attention, (t, q_off, kv_len)
+                ro = plain["paged_prefill_attention"](q, k, v, t, q_off, kv_len)
+            o = fn(q, k, v, *rest)
+            what = f"{name} at {cfg.name}'s group, Sq {Sq}, q {dt}"
+            check(torch.equal(narrow_launches(torch, fn, q, k, v, *rest,
+                                              width=NARROW["paged"]), o),
+                  f"{what}: the wide launch differs from launches of {NARROW['paged']} heads")
+            err = rel_err(torch, o, ro)
+            check(err <= tol, f"{what}: kernel vs plain {err:g} > {tol:g}")
+            f = rel_err(torch, o, heads_one_off(ro)) / tol
+            check(f >= FAULT_MARGIN, f"{what}: the wide control fault reads only {f:g} x the "
+                  "tolerance")
+            readings[name]["wide_fault_over_tol"] = min(
+                readings[name].get("wide_fault_over_tol", math.inf), f)
+            n_narrow += 1
+    torch.cuda.synchronize()
+    return dict(readings=readings, comparisons=n + n_narrow, rows_bit_equal=rows,
+                narrow_bit_equal=n_narrow)
+
+
+def narrow_digests(torch, M, dev, seed):
+    """SHA-256 of the decode kernels' outputs at the groups they took before
+    their wide forms (``decode_fwd`` 1-8, the paged decode 1-16, the paged
+    prefill's rows at those groups), hd 64 and 128, q bf16 and f32 over a
+    bf16 cache, from fixed seeds: two checkouts whose kernels give these
+    groups the same bits print the same digests (``tools/ab_attention.py``
+    reads them for an older commit)."""
+    import hashlib
+    out = {}
+    for name in ("decode_fwd", "paged_decode_fwd", "paged_prefill_fwd"):
+        h = hashlib.sha256()
+        gen = torch.Generator(device=dev).manual_seed(seed + 3504)
+        groups = range(1, 9) if name == "decode_fwd" else range(1, 17)
+        for group in groups:
+            for KV, hd in ((1, 128), (2, 64)):
+                for dt in (torch.bfloat16, torch.float32):
+                    cfg = types.SimpleNamespace(n_heads=group * KV, n_kv_heads=KV, hd=hd)
+                    if name == "decode_fwd":
+                        lens = torch.tensor([1, 16, 17, 100, 200, 0], dtype=torch.int32,
+                                            device=dev)
+                        q = torch.randn((6, 1, group * KV, hd), generator=gen, device=dev)
+                        k, v = (torch.randn((6, 200, KV, hd), generator=gen, device=dev)
+                                .to(torch.bfloat16) for _ in range(2))
+                        o = M.FA.decode_attention(q.to(dt), k, v, lens)
+                    else:
+                        k, v, tables = paged_inputs(torch, gen, dev, cfg, 4, nb=16)
+                        kv_len = torch.tensor([0, 1, 17, 250], dtype=torch.int32, device=dev)
+                        t = dead_entries(torch, tables, kv_len)
+                        Sq = 1 if name == "paged_decode_fwd" else 3
+                        q = torch.randn((4, Sq, group * KV, hd), generator=gen,
+                                        device=dev).to(dt)
+                        o = (M.PA.paged_decode_attention(q, k, v, t, kv_len) if Sq == 1 else
+                             M.PA.paged_prefill_attention(q, k, v, t, (kv_len - 3).clamp(min=0)
+                                                          .to(torch.int32), kv_len))
+                    h.update(o.float().cpu().numpy().tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
+def code_linear_shapes(granite, star):
+    """Phase 35's table for ``compare_linear_kernels``: each model's six
+    linears (wq, wk, wv, wo and the GELU MLP's w_up, w_down; every K past
+    FUSED_MAX_CONTRACT, so the two-step forms; granite's wk/wv 6,144 -> 128
+    one N tile, its w_down K = 24,576; starcoder2's wk/wv 3,072 -> 256) at
+    decode's 8 rows (ties), the ring prefill's 8 x 32 rows and the train
+    step's 8 x 256 (forward and dgrad); both reduced configs at (e)'s rows,
+    bf16 and f32."""
+    from repro_torch.configs import get_reduced_config
+    bf, both = ("bfloat16",), ("bfloat16", "float32")
+
+    def table(cfg, dx):
+        return {f"{K}x{Mw}": (K, Mw, dx) for K, Mw in path_shapes(cfg).values()}
+    out = []
+    for cfg in (granite, star):
+        name = cfg.name.split("-")[0]
+        out += [(f"{name} decode", 8, bf, True, False, table(cfg, False)),
+                (f"{name} prefill", 8 * CODE_PROMPT, bf, False, False, table(cfg, False)),
+                (f"{name} train", TRAIN_ROWS, bf, False, False, table(cfg, True))]
+    for arch in CODE_ARCHS:
+        out.append((f"{arch} reduced", CODE_CHECK_BATCH * CODE_CHECK_SEQ, both, False, False,
+                    table(get_reduced_config(arch), True)))
+    return out
+
+
+def code_flash_cases(granite, star):
+    """Phase 35's flash table (``compare_flash_train``'s form): each model's
+    causal 8 x 256 training attention (granite 48 query heads over one KV
+    head of 128: its fault the causal mask dropped, since a KV-head mix-up
+    cannot show with one KV head; starcoder2 24 over 2: the KV heads tiled)
+    and both reduced configs' 4 x 64."""
+    from repro_torch.configs import get_reduced_config
+    rg, rs = get_reduced_config(GRANITE), get_reduced_config(STARCODER)
+    S, Sr = TRAIN_SEQ, CODE_CHECK_SEQ
+    return [("granite", TRAIN_BATCH, S, S, S, granite.n_heads, 1, granite.hd, True, mask_fault),
+            ("starcoder2", TRAIN_BATCH, S, S, S, star.n_heads, star.n_kv_heads, star.hd, True,
+             gqa_fault(star.n_heads, star.n_kv_heads)),
+            ("granite reduced", CODE_CHECK_BATCH, Sr, Sr, Sr, rg.n_heads, rg.n_kv_heads, rg.hd,
+             True, mask_fault),
+            ("starcoder2 reduced", CODE_CHECK_BATCH, Sr, Sr, Sr, rs.n_heads, rs.n_kv_heads,
+             rs.hd, True, gqa_fault(rs.n_heads, rs.n_kv_heads))]
+
+
+def code_kernels(torch, M, dev, seed):
+    """Phase 35 (a): the SwitchBack kernels at both models' linears
+    bit-equal (``code_linear_shapes``), the flash kernels at their training
+    shapes (``code_flash_cases``), ``decode_fwd`` (``compare_wide_decode``)
+    and the paged kernels (``compare_wide_paged``) at groups 48 and 12, and
+    the narrow groups' digests. Returns the readings."""
+    granite, star = arch_cfg(GRANITE), arch_cfg(STARCODER)
+    sb, n_sb = compare_linear_kernels(torch, M, code_linear_shapes(granite, star), dev,
+                                      seed + 3505)
+    flash, n_flash = compare_flash_train(torch, M, code_flash_cases(granite, star), dev,
+                                         seed + 3506)
+    dec = {a: compare_wide_decode(torch, M, c, dev, seed) for a, c in
+           ((GRANITE, granite), (STARCODER, star))}
+    paged = {a: compare_wide_paged(torch, M, c, dev, seed) for a, c in
+             ((GRANITE, granite), (STARCODER, star))}
+    digests = narrow_digests(torch, M, dev, seed)
+    worst = dict(sb)
+    worst.update({k: v["max_abs_err"] for k, v in flash.items()})
+    worst["decode_fwd"] = max(d["max_abs_err"] for d in dec.values())
+    for k in ("paged_decode_fwd", "paged_prefill_fwd"):
+        worst[k] = max(p["readings"][k]["max_abs_err"] for p in paged.values())
+    n = (n_sb + n_flash + sum(d["comparisons"] for d in dec.values())
+         + sum(p["comparisons"] for p in paged.values()))
+    print(f"[kernels] {n_sb} SwitchBack comparisons at granite's and starcoder2's shapes "
+          f"bit-equal, twice the same bits; {n_flash} flash comparisons within o "
+          f"{json.dumps(FLASH_O_TOL)}, backward {json.dumps(FLASH_BWD_TOL)}, control fault >= "
+          f"{FAULT_MARGIN:g}x: " + json.dumps(flash) + "; decode_fwd at groups 48 and 12 "
+          f"(bit-equal to launches of {NARROW['ring']} heads): " + json.dumps(dec)
+          + f"; the paged kernels at groups 48 and 12 (bit-equal to launches of "
+          f"{NARROW['paged']} heads): " + json.dumps(paged) + "; the narrow groups' digests: "
+          + json.dumps(digests))
+    return dict(worst=worst, flash=flash, decode=dec, paged=paged, digests=digests,
+                comparisons=n)
+
+
+def time_code_kernels(torch, M, dev, seed):
+    """Phase 35 (a)'s times, each beside its plain version, SDPA and the
+    bound: ``decode_fwd`` at both models' decode step 16 (8 slots of the
+    256-cell ring at 48 cells, ``time_decode``); the paged kernels at phase
+    24's served shapes with each model's heads (``time_paged``); the flash
+    kernels at both training shapes (``time_flash_cases``); ``row_quantize``
+    + ``int8_matmul_dequant`` at granite's w_down in a decode step (8 rows,
+    24,576 -> 6,144)."""
+    KOPS, REF = M.KOPS, M.REF
+    gen = torch.Generator(device=dev).manual_seed(seed + 3510)
+    granite, star = arch_cfg(GRANITE), arch_cfg(STARCODER)
+    out = time_flash_cases(torch, M, code_flash_cases(granite, star)[:2], dev, seed + 3511)
+    lens = [CODE_PROMPT + CODE_NEW // 2] * 8
+    out["decode_fwd"] = {a: time_decode(torch, M, gen, dev, CODE_MAX_LEN, c.n_heads,
+                                        c.n_kv_heads, c.hd, lens)
+                         for a, c in ((GRANITE, granite), (STARCODER, star))}
+    for a, c in ((GRANITE, granite), (STARCODER, star)):
+        for case, r in time_paged(torch, M, c, dev, seed + 3512).items():
+            name = "paged_decode_fwd" if case == "decode" else "paged_prefill_fwd"
+            out.setdefault(name, {})[f"{a} {case}"] = r
+    K, N, R = granite.d_ff, granite.d_model, 8
+    sets = []
+    for _ in range(2):
+        w_q, s_w = KOPS.tensor_quantize(weight(torch, gen, K, N, dev))
+        x = activations(torch, gen, R, K, dev)
+        x_q, s_x = KOPS.row_quantize(x)
+        sets.append(dict(x=x, w_q=w_q, x_q=x_q, scale=s_x * REF.div(s_w, 127.0 * 127.0)))
+
+    def int_mm(s):                        # torch._int_mm wants more than 16 rows
+        xq = torch.cat([s["x_q"], s["x_q"].new_zeros((32 - R, K))])
+        return (torch._int_mm(xq, s["w_q"])[:R].float() * s["scale"]).to(torch.bfloat16)
+    check(torch.equal(int_mm(sets[0]), KOPS.int8_matmul_dequant(sets[0]["x_q"], sets[0]["w_q"],
+                                                                 sets[0]["scale"])),
+          "torch._int_mm yardstick disagrees with int8_matmul_dequant")
+    work = {"row_quantize": (1, lambda s, op: op.row_quantize(s["x"]), None,
+                             R * K * 2 + R * K + R * 4, 0, 4 * R * K),
+            "int8_matmul_dequant": (
+                1, lambda s, op: op.int8_matmul_dequant(s["x_q"], s["w_q"], s["scale"]), int_mm,
+                R * K + K * N + R * 4 + R * N * 2, 2 * R * K * N, 0)}
+    for k, v in time_work(torch, KOPS, REF, sets, work,
+                          lambda c: f"granite's w_down at {R} rows ({K} -> {N})").items():
+        out[k] = {"granite w_down decode": v}
+    return out
+
+
+def code_generate_launches(cfg, stats, cache, mode, fused_max):
+    """Each wrapper's launches of a generate of an LM (``mm_launches``'
+    linears at every model call, prefill or decode step: the forward only;
+    bf16 none) on the ring (flash_fwd a prefill call, decode_fwd a decode
+    step) or the paged cache (the paged kernels), every layer."""
+    per_layer = (linear_launches(path_shapes(cfg), fused_max) if mode == "int8_switchback"
+                 else {})
+    return expected_lm_launches(cfg, per_layer, stats, cache == "paged")
+
+
+def code_serve(torch, M, dev, seed, arch):
+    """Phase 35 (b) and (c): ``arch`` at full width and CODE_SERVE_LAYERS
+    layers, random weights from the seed, through the ring and the paged
+    ``ServeEngine`` in int8_switchback and bf16: 8 prompts of CODE_PROMPT
+    tokens, CODE_NEW greedy new tokens, after a warm-up; every launch
+    counter exactly ``code_generate_launches``' (zeroed just before the
+    generate, read just after); in int8_switchback the tokens equal to the
+    same engine's with the SwitchBack plain versions swapped in (bf16
+    launches only the attention kernels, which are not bit-equal to theirs:
+    ``code_kernels`` holds them within tolerance); tokens/s, TTFT and ITL,
+    a decode step's device ms and CUDA kernels (graph nodes); the peak."""
+    import numpy as np
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import params as PRM
+    from repro_torch.serve import make_serve_engine
+    cfg = arch_cfg(arch, CODE_SERVE_LAYERS[arch])
+    prompts = [np.random.default_rng(seed + 3520 + i).integers(0, cfg.vocab_size,
+                                                              CODE_PROMPT).tolist()
+               for i in range(8)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, params, fused_max = dict(layers=cfg.n_layers), None, M.KOPS.FUSED_MAX_CONTRACT
+    for cache in ("ring", "paged"):
+        for mode in ("int8_switchback", "bf16"):
+            eng = make_serve_engine(cfg, ServeConfig(
+                max_batch=8, max_len=CODE_MAX_LEN, cache_mode=cache, quant_mode=mode,
+                block_size=PAGED_BS), device=dev)
+            if params is None:
+                params = eng.init_params(seed)
+                res["params"] = sum(t.numel() for t in PRM.tree_leaves(params))
+            eng.generate(params, prompts[:2], max_new_tokens=2)              # warm-up
+            torch.cuda.synchronize()
+            reset_launch_counts(M)
+            gens, stats = eng.generate(params, prompts, max_new_tokens=CODE_NEW)
+            counts = launch_counts(M)
+            what = f"{arch} serve ({cache}, {mode})"
+            check(all(len(g) == CODE_NEW for g in gens) and all(
+                0 <= t < cfg.vocab_size for g in gens for t in g), f"{what}: tokens "
+                f"{[len(g) for g in gens]}")
+            check_launches(counts, code_generate_launches(cfg, stats, cache, mode, fused_max),
+                           what)
+            if mode == "int8_switchback":
+                with swapped([(M.KOPS, k, getattr(M.REF, k)) for k in SB_KERNELS]):
+                    plain, _ = eng.generate(params, prompts, max_new_tokens=CODE_NEW)
+                check(plain == gens, f"{what}: kernel tokens != plain-version tokens")
+            toks = torch.zeros((8, 1), dtype=torch.long, device=dev)
+            res[f"{cache} {mode}"] = dict(
+                stats={k: stats[k] for k in ("tokens_per_s", "decode_tokens_per_s",
+                                             "ttft_p50_s", "ttft_p95_s", "itl_p50_s",
+                                             "itl_p95_s", "decode_steps", "prefill_calls",
+                                             "new_tokens")},
+                counts={k: v for k, v in counts.items() if v},
+                plain_versions_swapped_in=mode == "int8_switchback",
+                **decode_step_reading(torch, eng, params, toks))
+            del eng
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(res["peak_memory_gib"] < CODE_PEAK_GIB, f"{arch} serve: peak "
+          f"{res['peak_memory_gib']:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[code serve] {arch} " + json.dumps(res))
+    return res
+
+
+def code_train(torch, M, dev, seed, arch):
+    """Phase 35 (d): ``arch`` at full width and CODE_TRAIN_LAYERS layers in
+    int8_switchback with StableAdamW through ``engine_train`` (world 1) on
+    TRAIN_BATCH x TRAIN_SEQ BigramLM tokens, CODE_TRAIN_STEPS steps and a
+    profiled one: launches exactly ``mm_launches``' train step's, the
+    losses finite, the peak under CODE_PEAK_GIB."""
+    cfg = arch_cfg(arch, CODE_TRAIN_LAYERS[arch])
+    batches = bigram_batches(torch, CODE_TRAIN_STEPS + 1, TRAIN_BATCH, TRAIN_SEQ, dev,
+                             seed + 3530)
+    want = mm_launches(cfg, "train", M.KOPS.FUSED_MAX_CONTRACT)
+    return engine_train(torch, M, dev, seed, cfg, batches, want, CODE_PEAK_GIB, "code train",
+                        TRAIN_BATCH * TRAIN_SEQ)
+
+
+def layer_norm_uncentred(x, gain, bias=None, eps=1e-5):
+    """granite's control fault on the CPU: the LayerNorm's mean left out
+    (an RMS norm with a bias), a plausible slip in the one norm these
+    models add."""
+    import torch
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps) * gain.float()
+    return (out if bias is None else out + bias.float()).to(x.dtype)
+
+
+def code_check_path(torch, M, arch):
+    """Phase 35 (e)'s card-vs-CPU path: ``arch``'s reduced config as it
+    stands, int8_switchback, BigramLM batches of CODE_CHECK_BATCH x
+    CODE_CHECK_SEQ over its 512 ids; the control fault on the CPU:
+    starcoder2's KV heads tiled (``tiled_kv_heads``), granite's LayerNorm
+    uncentred (with one KV head the tiling cannot show)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import BigramLM
+    from repro_torch.models import common as COMMON
+    cfg = get_reduced_config(arch)
+
+    def batches(n, where, s):
+        data = BigramLM(cfg.vocab_size, seed=s, temperature=0.3)
+        return [{k: torch.from_numpy(v).to(device=where, dtype=torch.long)
+                 for k, v in data.batch(CODE_CHECK_BATCH, CODE_CHECK_SEQ).items()}
+                for _ in range(n)]
+    if arch == GRANITE:
+        fault = {"LayerNorm uncentred (CPU)": control_fault("cpu", lambda: swapped(
+            [(COMMON, "layer_norm", layer_norm_uncentred)]))}
+    else:
+        fault = {"KV heads tiled (CPU)": control_fault("cpu", lambda: tiled_kv_heads(M))}
+    return types.SimpleNamespace(
+        tag=f"{arch} card vs cpu", small=cfg, modes=("int8_switchback",),
+        seed_offset=59 if arch == GRANITE else 61, tol=CODE_CARD_CPU_TOL[arch], opt={},
+        batches=batches, keeps=lambda n, s: None, faults=fault)
+
+
+def add_code_launches(kernel_entries, code, times):
+    """Each kernel entry with its launches per model call of phase 35's
+    int8_switchback runs (each model's ring and paged generate: per prefill
+    call and decode step, as counted; its train step), and its times at the
+    new shapes."""
+    runs = {}
+    for arch in CODE_ARCHS:
+        name = arch.split("-")[0]
+        for cache in ("ring", "paged"):
+            r = code["serve"][arch][f"{cache} int8_switchback"]
+            calls = r["stats"]["decode_steps"] + r["stats"]["prefill_calls"]
+            runs[f"{name}_{cache}_generate_per_model_call"] = (r["counts"], calls)
+        runs[f"{name}_train_step"] = (code["d"][arch]["counts"], CODE_TRAIN_STEPS)
+    for e in kernel_entries:
+        e["launches_code"] = {run: c.get(e["name"], 0) / n for run, (c, n) in runs.items()}
+        if e["name"] in times:
+            e["at_code_shapes"] = {k: {x: r[x] for x in ("ms", "plain_ms", "library_ms",
+                                                          "gather_ms", "eager_ms", "work",
+                                                          "tops", "bound_share", "two_step_ms")
+                                       if x in r} | {"bound_ms": r["bound"][0]}
+                                   for k, r in times[e["name"]].items()}
+    return kernel_entries
+
+
+def code_phase(torch, M, dev, seed):
+    """Phase 35: (a) the kernels at the new shapes against their plain
+    versions, and their times; (b) granite-20b served at full width and
+    CODE_SERVE_LAYERS layers; (c) starcoder2-3b at full width and depth;
+    (d) both trained at world 1; (e) both reduced configs card vs CPU. Each
+    part's seconds."""
+    out, secs = timed_parts(torch, "35", (
+            ("a", lambda: (code_kernels(torch, M, dev, seed),
+                           time_code_kernels(torch, M, dev, seed))),
+            ("b", lambda: code_serve(torch, M, dev, seed, GRANITE)),
+            ("c", lambda: code_serve(torch, M, dev, seed, STARCODER)),
+            ("d", lambda: {a: code_train(torch, M, dev, seed, a) for a in CODE_ARCHS}),
+            ("e", lambda: {a: card_vs_cpu(torch, M, code_check_path(torch, M, a), dev, seed,
+                                          steps=2) for a in CODE_ARCHS})))
+    out["a"], out["times"] = out["a"]
+    print("[timing] code models' shapes: " + json.dumps(out["times"]))
+    out.update(worst=out["a"]["worst"], seconds=secs,
+               serve={GRANITE: out["b"], STARCODER: out["c"]})
+    return out
+
+
+def code_report(code) -> dict:
+    """Phase 35's readings without the raw launch counts and times (those go
+    to the kernel entries)."""
+    def strip(r):
+        return {k: (strip(v) if isinstance(v, dict) else v) for k, v in r.items()
+                if k != "counts"}
+    return {"seconds": code["seconds"], "b": strip(code["b"]), "c": strip(code["c"]),
+            "d": strip(code["d"]), "digests": code["a"]["digests"]}
 
 
 def demangled(names) -> list:
@@ -8058,14 +8576,19 @@ def main(argv=None) -> int:
     # seamless-m4t-large-v2 served and trained, the kernels at their shapes
     with timed("34 multimodal and enc-dec"):
         mm = mm_phase(torch, M, dev, args.seed)
+    torch.cuda.empty_cache()
+    # 35. the code models: granite-20b and starcoder2-3b served and trained,
+    # the wide-group forms of decode_fwd and the paged template
+    with timed("35 code models, wide groups"):
+        code = code_phase(torch, M, dev, args.seed)
     calls = stats["decode_steps"] + stats["prefill_calls"]
     per_train_step = train_res["launches_per_step"]
     # each kernel's largest |kernel - plain| over every phase that held it
     readings = (worst, train_worst, clip_worst, edge_worst, quant_worst,
                 *({k: v["max_abs_err"] for k, v in d.items()}
-                  for d in (flash_worst, bwd_worst, clip_flash)))
+                  for d in (flash_worst, bwd_worst, clip_flash, paged_worst)))
     max_err = {k: max(d.get(k, 0.0) for d in readings) for k in SOURCE}
-    for k, v in (*ssm["worst"].items(), *mm["worst"].items()):
+    for k, v in (*ssm["worst"].items(), *mm["worst"].items(), *code["worst"].items()):
         max_err[k] = max(max_err[k], v)
 
     def entry(name, r, err):
@@ -8217,7 +8740,7 @@ def main(argv=None) -> int:
                   and (c == "decode") == (case == "decode")}
         return dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
                     launches=p_counts[name], **per_call,
-                    max_abs_err=paged_worst[name]["max_abs_err"], ms=r["ms"],
+                    max_abs_err=max_err[name], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                     library_ms=r["library_ms"], gather_ms=r["gather_ms"],
                     library="scaled_dot_product_attention(attn_mask, enable_gqa) over the "
@@ -8323,12 +8846,14 @@ def main(argv=None) -> int:
                                   | {"bound_ms": v["bound"][0]} for c, v in t.items() if c != at})
 
     batched_entries = [batched_entry(k) for k in BATCHED_KERNELS]
-    kernel_entries = add_mm_launches(add_ssm_launches(
+    kernel_entries = add_code_launches(add_mm_launches(add_ssm_launches(
         entries(DECODE_ROWS) + flash_entries + train_entries + clip_entries + fp8_entries
-        + paged_entries + op_entries + f16_entries + batched_entries, ssm), mm, mm["times"])
+        + paged_entries + op_entries + f16_entries + batched_entries, ssm), mm, mm["times"]),
+        code, code["times"])
     print("[moe] " + json.dumps({k: moe[k] for k in ("b", "d", "seconds")}))
     print("[ssm] " + json.dumps(ssm_report(ssm)))
     print("[mm] " + json.dumps(mm_report(mm)))
+    print("[code] " + json.dumps(code_report(code)))
     print("[training options] " + json.dumps({k: opts[k] for k in ("b", "c", "d", "e", "f",
                                                                     "seconds")}))
     print(json.dumps({"kernels": kernel_entries}))

@@ -81,16 +81,25 @@
 //     dP = do V^T from fresh fragments, dS = P (dP - di) on them, and
 //     dQ += dS K (see its kernel).
 //   * decode_fwd: a split-key decode. Each slot's live keys are split into
-//     parts of `part_keys` (16 while S_max <= 1,024), one warp a part, four
-//     warps a block, grid (KV, B, parts / 4): at smollm's 8 slots x 5 KV
-//     heads and S_max 256, 160 blocks of 64 keys. A warp stages its part's
-//     keys as bf16 (16-byte cp.async, or an f32 cache split into three
-//     planes) and walks them with tile_chunk, the group's <= 8 query rows
-//     as its 16-row tile; parts past a slot's kv_len are neither loaded nor
-//     computed. Each part writes its (m, l, acc) to a workspace the wrapper
-//     allocates; the last block of a (slot, KV head) to arrive on an
-//     integer ticket merges the live parts in part-index order by one
-//     formula, in the same launch. The cache's S_max need not be a
+//     parts of `part_keys` (16 while S_max <= 1,024), and the KV head's query
+//     group into row tiles of 16 (T = ceil(group / 16): one up to
+//     starcoder2's 12, three at granite's MQA 48); one warp a (part, row
+//     tile), four warps a block, grid (KV, B, ceil(parts / 4) x T): at
+//     smollm's 8 slots x 5 KV heads and S_max 256, 160 blocks of 64 keys. A
+//     warp stages its part's keys as bf16 (16-byte cp.async, or an f32 cache
+//     split into three planes) and walks them with tile_chunk, its row tile's
+//     <= 16 query heads as the mma rows; parts past a slot's kv_len are
+//     neither loaded nor computed. Each of the T warps of a part reads the
+//     part's keys again (from L2 after the first). Each (part, row) writes
+//     its (m, l, acc) to a workspace the wrapper allocates; the last block of
+//     a (slot, KV head, row tile) to arrive on an integer ticket merges the
+//     tile's live parts in part-index order by one formula per row, in the
+//     same launch: the T tiles merge in parallel, each thread four output
+//     elements at once (a first form that merged a slot's whole group in one
+//     block, an element a thread at a time, read 50.8 us for granite's 48
+//     rows at 8 slots). A row's arithmetic is its own (an mma output row
+//     reads only its row of A), so a query head's output has the same bits at
+//     any group that shares its launch. The cache's S_max need not be a
 //     multiple of the part: the ragged part is masked.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
@@ -126,7 +135,7 @@ enum DtypeCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 constexpr int kDecWarps = 4;       // decode_fwd: warps (parts) per block
 constexpr int kMaxParts = 64;      // decode_fwd: parts a slot's keys split into, at most
-constexpr int kMaxGroup = 8;       // decode_fwd: query heads per KV head
+constexpr int kMaxGroup = 128;     // decode_fwd: query heads per KV head, at most
 constexpr int kMmaWarps = 4;       // warps per block of flash_fwd and the backward (at most)
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kFwdRows = kMmaWarps * kTile;   // flash_fwd: flattened q rows per block
@@ -374,29 +383,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// decode_fwd: grid (KV, B, ceil(parts / 4)), 128 threads. q, o (B, 1, H,
-// hd); the cache k, v (B, S, KV, hd); kv_len (B,) int32 live cells per
-// slot. Warp w of block z takes part p = 4 z + w, the keys p * part_keys ..
-// up to (p + 1) * part_keys and the slot's live count, and walks them in
-// chunks of 16 with tile_chunk: rows 0 .. group - 1 of its tile are the KV
-// head's query group (q * scale as A fragments), the other rows dead. It
-// writes the part's (m, l, acc) per query row to `work`: stats
-// [B][KV][parts][group][2] (m, l), then acc [B][KV][parts][group][hd]. A
-// part with no live key is neither loaded nor computed. Each block then
-// takes an integer ticket of its (slot, KV head); the last of its
-// ceil(parts / 4) blocks to arrive resets the ticket to 0 (ready for the
-// next launch or graph replay) and merges the live parts: their (m, l)
-// staged in shared memory; per query row, the parts p = 0, 1, ... in
-// order, M = max m_p, c_p = e^(m_p - M), L = sum l_p c_p; per output
+// decode_fwd: grid (KV, B, ceil(parts / 4) x T), 128 threads, T =
+// ceil(group / 16) row tiles. q, o (B, 1, H, hd); the cache k, v (B, S,
+// KV, hd); kv_len (B,) int32 live cells per slot. Block z takes row tile
+// t = z / ceil(parts / 4), and its warp w part p = 4 (z % ceil(parts / 4))
+// + w: the keys p * part_keys .. up to (p + 1) * part_keys and the slot's
+// live count, walked in chunks of 16 with tile_chunk. Tile row i is the
+// group's row 16 t + i, query head hk * group + 16 t + i (q * scale as A
+// fragments); rows past the group are dead. It writes the part's (m, l,
+// acc) per query row to `work`: stats [B][KV][parts][group][2] (m, l),
+// then acc [B][KV][parts][group][hd]. A part with no live key is neither
+// loaded nor computed. Each block then takes an integer ticket of its
+// (slot, KV head, row tile); the last of its ceil(parts / 4) blocks to
+// arrive resets the ticket to 0 (ready for the next launch or graph
+// replay) and merges the tile's rows' live parts in the dynamic shared
+// memory the chunks were staged in (the T tiles merge in parallel): their
+// (m, l) staged; per query row, the parts p = 0, 1, ...
+// in order, M = max m_p, c_p = e^(m_p - M), L = sum l_p c_p; per output
 // element A = sum acc_p c_p (each sum an fma in part order), o = A / L
 // (L = 1 where it is 0: kv_len 0 gives o = 0). The order is fixed whichever
-// block merges, so two launches give the same bits.
+// block merges, so two launches give the same bits, and a row's result
+// does not depend on the other rows of its group.
 // ---------------------------------------------------------------------------
 template <typename TC, int HD>
 constexpr size_t decode_smem() {
   constexpr int NT = n_terms<TC>();
   // per warp K and V of one chunk, NT planes each
   return sizeof(__nv_bfloat16) * kDecWarps * 2 * NT * static_cast<size_t>(kChunk) * row_pitch<HD>();
+}
+
+// a row tile's merge arrays in the same dynamic shared memory: the live
+// parts' (m, l) [parts][16][2], their weights c [parts][16], L [16]
+__host__ __device__ constexpr size_t decode_merge_smem(int parts) {
+  return sizeof(float) * (3 * static_cast<size_t>(parts) * kTile + kTile);
 }
 
 template <typename TQ, typename TC, int HD, int NQ>
@@ -409,13 +428,12 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
   constexpr int P = row_pitch<HD>();
   constexpr int kPlane = kChunk * P;                           // elements of one plane
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  __shared__ float st_s[kMaxParts * kMaxGroup * 2];            // the merge: live parts' (m, l)
-  __shared__ float c_s[kMaxParts * kMaxGroup];                 // their weights e^(m_p - M)
-  __shared__ float l_s[kMaxGroup];                             // L, 1 where it is 0
   __shared__ int last;
   const int group = H / KV, hk = blockIdx.x, b = blockIdx.y, B = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-  const int part = blockIdx.z * kDecWarps + warp;
+  const int part_blocks = (parts + kDecWarps - 1) / kDecWarps;
+  const int part = (blockIdx.z % part_blocks) * kDecWarps + warp;
+  const int row0 = (blockIdx.z / part_blocks) * kTile;         // the row tile's first group row
   const int n_live = max(0, min(kv_len[b], S));
   const int j0 = part * part_keys;
   const long long slot = static_cast<long long>(b) * KV + hk;
@@ -472,13 +490,15 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
     };
     stage(j0, min(kChunk, j1 - j0));                           // in flight while q is read
 
-    // q * scale of the group's rows (tile rows g < group <= 8, query head
-    // hk * group + g; rows g + 8 and past the group are zero) as NQ bf16
-    // terms, A fragments
-    const TQ* qrow[2] = {g < group ? q + (slot * group + g) * hd : nullptr, nullptr};
+    // q * scale of the tile's rows (group rows row0 + g and row0 + g + 8,
+    // query heads hk * group + those; rows past the group are zero) as NQ
+    // bf16 terms, A fragments
+    const int rows[2] = {row0 + g, row0 + g + 8};
+    const TQ* qrow[2] = {rows[0] < group ? q + (slot * group + rows[0]) * hd : nullptr,
+                         rows[1] < group ? q + (slot * group + rows[1]) * hd : nullptr};
     uint32_t qa[NQ][HD / 16][4];
     row_fragments<NQ, HD>(qa, qrow, hd, scale);
-    const int lim[2] = {g < group ? j1 : 0, 0};
+    const int lim[2] = {rows[0] < group ? j1 : 0, rows[1] < group ? j1 : 0};
     float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[HD / 8][4];
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
@@ -493,13 +513,16 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
       tile_chunk<HD, NQ, NT>(qa, k_s, v_s, kPlane, n, c0, lim, m, l, acc);
     }
 
-    // the part's (m, l, acc) of rows g < group: lane holds dims 8 nt + 2 q4
-    // and the next of row g
-    if (g < group) {
-      const long long at = (slot * parts + part) * group + g;
+    // the part's (m, l, acc) of the tile's rows in the group: lane holds
+    // dims 8 nt + 2 q4 and the next of rows[0] (acc[nt][0, 1]) and rows[1]
+    // (acc[nt][2, 3])
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= group) continue;
+      const long long at = (slot * parts + part) * group + rows[h];
       if (q4 == 0) {
-        work[2 * at] = m[0];
-        work[2 * at + 1] = l[0];
+        work[2 * at] = m[h];
+        work[2 * at + 1] = l[h];
       }
       float* wa = work + acc0 + at * hd;
 #pragma unroll
@@ -507,48 +530,79 @@ decode_fwd_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* 
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int d = 8 * nt + 2 * q4 + e;
-          if (d < hd) wa[d] = acc[nt][e];
+          if (d < hd) wa[d] = acc[nt][2 * h + e];
         }
     }
   }
 
-  // the ticket: this block's parts written and visible before it arrives
+  // the ticket of this row tile: this block's parts written and visible
+  // before it arrives
+  const int tiles = gridDim.z / part_blocks;
+  int* ticket = tickets + slot * tiles + row0 / kTile;
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    last = atomicAdd(tickets + slot, 1) == static_cast<int>(gridDim.z) - 1;
-    if (last) tickets[slot] = 0;                               // for the next launch
+    last = atomicAdd(ticket, 1) == part_blocks - 1;
+    if (last) *ticket = 0;                                     // for the next launch
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
 
-  // the last block merges the live parts (loads from L2: other blocks wrote them)
+  // the last block of the row tile merges its rows' live parts (loads from
+  // L2: other blocks wrote them), in the shared memory its chunks were
+  // staged in (every warp is past its last chunk: no copy is in flight)
   const int n_parts = (n_live + part_keys - 1) / part_keys;
+  const int t_rows = min(kTile, group - row0);                 // the tile's rows in the group
   const float* stats = work + 2 * slot * parts * group;        // [parts][group][2]
   const float* accs = work + acc0 + slot * parts * group * hd;  // [parts][group][hd]
-  for (int i = tid; i < 2 * n_parts * group; i += blockDim.x) st_s[i] = __ldcg(stats + i);
-  __syncthreads();
-  if (tid < group) {                                           // one thread a row, parts in order
-    float mx = kMask;
-    for (int p = 0; p < n_parts; ++p) mx = fmaxf(mx, st_s[2 * (p * group + tid)]);
-    float sum_l = 0.f;
-    for (int p = 0; p < n_parts; ++p) {
-      const float c = expf(__fsub_rn(st_s[2 * (p * group + tid)], mx));
-      c_s[p * group + tid] = c;
-      sum_l = __fmaf_rn(st_s[2 * (p * group + tid) + 1], c, sum_l);
-    }
-    l_s[tid] = sum_l == 0.f ? 1.f : sum_l;
+  float* st_s = reinterpret_cast<float*>(tc_smem);             // [parts][t_rows][2]: (m, l)
+  float* c_s = st_s + 2 * parts * kTile;                       // [parts][t_rows]: e^(m_p - M)
+  float* l_s = c_s + parts * kTile;                            // [t_rows]: L, 1 where it is 0
+  for (int i = tid; i < 2 * n_parts * t_rows; i += blockDim.x) {
+    const int p = i / (2 * t_rows);
+    st_s[i] = __ldcg(stats + 2 * (p * group + row0) + (i - 2 * p * t_rows));
   }
   __syncthreads();
-  for (int e = tid; e < group * hd; e += blockDim.x) {
-    const int r = e / hd, d = e - r * hd;
-    float sum_a = 0.f;
-#pragma unroll 8
+  for (int i = tid; i < t_rows; i += blockDim.x) {             // one thread a row, parts in order
+    float mx = kMask;
+    for (int p = 0; p < n_parts; ++p) mx = fmaxf(mx, st_s[2 * (p * t_rows + i)]);
+    float sum_l = 0.f;
+    for (int p = 0; p < n_parts; ++p) {
+      const float c = expf(__fsub_rn(st_s[2 * (p * t_rows + i)], mx));
+      c_s[p * t_rows + i] = c;
+      sum_l = __fmaf_rn(st_s[2 * (p * t_rows + i) + 1], c, sum_l);
+    }
+    l_s[i] = sum_l == 0.f ? 1.f : sum_l;
+  }
+  __syncthreads();
+  // A = sum_p acc_p c_p per output element, four elements a thread at once
+  // so that each part's four loads are in flight together; each element's
+  // sum still runs over the parts in order
+  constexpr int kPer = 4;
+  const int n_out = t_rows * hd;
+  for (int e0 = tid; e0 < n_out; e0 += kPer * blockDim.x) {
+    int ri[kPer], di[kPer];
+    float sum_a[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int e = min(e0 + j * static_cast<int>(blockDim.x), n_out - 1);
+      ri[j] = e / hd;
+      di[j] = e - ri[j] * hd;
+      sum_a[j] = 0.f;
+    }
+#pragma unroll 4
     for (int p = 0; p < n_parts; ++p)
-      sum_a = __fmaf_rn(__ldcg(accs + (static_cast<long long>(p) * group + r) * hd + d),
-                        c_s[p * group + r], sum_a);
-    o[(slot * group + r) * hd + d] = from_f32<TQ>(__fdiv_rn(sum_a, l_s[r]));
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        sum_a[j] = __fmaf_rn(
+            __ldcg(accs + (static_cast<long long>(p) * group + row0 + ri[j]) * hd + di[j]),
+            c_s[p * t_rows + ri[j]], sum_a[j]);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (e0 + j * static_cast<int>(blockDim.x) < n_out)
+        o[(slot * group + row0 + ri[j]) * hd + di[j]] =
+            from_f32<TQ>(__fdiv_rn(sum_a[j], l_s[ri[j]]));
   }
 }
 
@@ -1157,8 +1211,12 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
   static int max_smem = 0;
   const cudaError_t err = opt_in(decode_fwd_kernel<TQ, TC, HD, NQ>, max_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(KV, B, (parts + kDecWarps - 1) / kDecWarps);
-  decode_fwd_kernel<TQ, TC, HD, NQ><<<grid, kDecWarps * 32, decode_smem<TC, HD>(), st>>>(
+  const int group = H / KV;
+  const size_t smem = decode_smem<TC, HD>() > decode_merge_smem(parts)
+                          ? decode_smem<TC, HD>() : decode_merge_smem(parts);
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  const dim3 grid(KV, B, (parts + kDecWarps - 1) / kDecWarps * ((group + kTile - 1) / kTile));
+  decode_fwd_kernel<TQ, TC, HD, NQ><<<grid, kDecWarps * 32, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), kv_len,
       static_cast<TQ*>(o), work, tickets, S, H, KV, hd, parts, part_keys, scale);
   return cudaGetLastError();
@@ -1262,17 +1320,19 @@ int fa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
 // q, o (B, 1, H, hd) bf16 (q_bf16 != 0) or f32; the cache k, v
 // (B, S, KV, hd) bf16 (c_bf16 != 0) or f32; kv_len (B,) int32; work f32,
 // at least B * KV * parts * (H / KV) * (hd + 2) elements; tickets int32,
-// B * KV elements, all 0 before the first launch (each launch leaves them
+// B * KV * ceil(H / KV / 16) elements (one a row tile), all 0 before the
+// first launch (each launch leaves them
 // 0: one buffer serves launches in stream order, not two at once). Keys
 // split into `parts` <= 64 parts of `part_keys` (a multiple of 16, parts *
-// part_keys >= S); other values are refused with cudaErrorInvalidValue.
-// 1 <= hd <= 128, H % KV == 0, H / KV <= 8 (checked by the wrapper).
+// part_keys >= S) and a query group H / KV past 128 are refused with
+// cudaErrorInvalidValue. 1 <= hd <= 128 (checked by the wrapper).
 int fa_decode_fwd(const void* q, const void* k, const void* v, const void* kv_len, void* o,
                   void* work, void* tickets, int q_bf16, int c_bf16, int B, int S, int H, int KV,
                   int hd, int parts, int part_keys, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (parts < 1 || parts > kMaxParts || part_keys % kChunk != 0 ||
-      static_cast<long long>(parts) * part_keys < S)
+      static_cast<long long>(parts) * part_keys < S || KV < 1 || H % KV != 0 ||
+      H / KV > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const int* lens = static_cast<const int*>(kv_len);

@@ -36,7 +36,7 @@ _DECODE_TYPES = (torch.float32, torch.bfloat16)
 # the C interface's dtype code of q, k, v (and do)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 128       # the kernels pad the head dim to 64, 80 or 128
-MAX_GROUP = 8            # decode's query group: rows 0-7 of a warp's 16-row tile
+MAX_GROUP = 128          # decode's query group: row tiles of 16 (= kMaxGroup in the .cu)
 DECODE_MAX_PARTS = 64    # decode's parts a slot's keys split into, at most (= kMaxParts in the .cu)
 
 
@@ -106,15 +106,16 @@ def decode_split(S: int) -> tuple[int, int]:
     return part_keys, max(1, -(-S // part_keys))
 
 
-_TICKETS: dict = {}      # (device index, B * KV) -> decode_fwd's int32 tickets
+_TICKETS: dict = {}      # (device index, count) -> decode_fwd's int32 tickets
 
 
 def _decode_tickets(device: torch.device, n: int) -> torch.Tensor:
-    """decode_fwd's ticket counters for n = B * KV (slot, KV head) pairs:
-    zero when made, and every launch leaves them zero (the last block of a
-    pair resets its own), so one buffer serves every launch in stream
-    order, CUDA-graph replays included. Kept for the process's life, since
-    a captured graph holds its address."""
+    """decode_fwd's ticket counters for n = B * KV * ceil(group / 16)
+    (slot, KV head, row tile) triples: zero when made, and every launch
+    leaves them zero (the last block of a triple resets its own), so one
+    buffer serves every launch in stream order, CUDA-graph replays
+    included. Kept for the process's life, since a captured graph holds
+    its address."""
     key = (device.index, n)
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
@@ -132,7 +133,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (f32 compute over a bf16 cache). Returns (B, 1, H, hd) in q's dtype.
     On the card the keys are split into parts (``decode_split``) whose
     partial softmax states go to a workspace allocated here and are merged
-    in part order in the same launch; only a slot's live parts are read."""
+    in part order in the same launch; only a slot's live parts are read.
+    The query group (H / KV, at most MAX_GROUP) is split into row tiles of
+    16, a warp each per part; a query head's output does not depend on the
+    group it is launched in."""
     _b.need(q, "q", _DECODE_TYPES, 4)
     _b.need(k, "k", _DECODE_TYPES, 4)
     _b.need(v, "v", _DECODE_TYPES, 4)
@@ -147,7 +151,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len.shape[0] != B:
         raise ValueError(f"kv_len {tuple(kv_len.shape)} != ({B},)")
     if H // KV > MAX_GROUP:
-        raise ValueError(f"query group {H // KV} > {MAX_GROUP}")
+        raise ValueError(f"query group {H // KV} > MAX_GROUP = {MAX_GROUP}")
     scale = softmax_scale(hd)
     if _b.on_cpu(q, k, v, kv_len):
         return _ref.decode_fwd(q, k, v, kv_len, scale=scale)
@@ -157,7 +161,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device)
     _b.launch(_lib().fa_decode_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
               kv_len.data_ptr(), o.data_ptr(), work.data_ptr(),
-              _decode_tickets(q.device, B * KV).data_ptr(), int(q.dtype == torch.bfloat16),
+              _decode_tickets(q.device, B * KV * -(-(H // KV) // 16)).data_ptr(),
+              int(q.dtype == torch.bfloat16),
               int(k.dtype == torch.bfloat16), B, S, H, KV, hd, parts, part_keys, scale,
               _b.stream(q))
     decode_attention.launches += 1

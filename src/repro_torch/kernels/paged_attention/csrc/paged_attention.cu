@@ -38,19 +38,22 @@
 // 3.35 TB/s. The real cost is instruction issue and latency, so the
 // products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out),
 // a warp per 16-row tile, not as f32 FMA chains a warp per query row.
-// Decode, one tile per (slot, KV head), is bound by that tile's chain of
-// dependent steps per chunk (40 blocks for 132 SMs); splitting the key
-// axis across blocks is later work. The design:
-//   * A block owns one (slot, KV head) and 4 warps: for prefill 64 rows of
-//     the flattened (position, head-in-group) row space, 16 a warp; for
-//     decode the group's query heads are warp 0's tile (the other warps
-//     help stage). It reads its own block table and kv_len (no scalar
-//     prefetch on this card) and walks logical blocks j < cdiv(live, bs)
-//     only, where live is kv_len and, for prefill, also the tile's causal
-//     horizon q_off + last row + 1. Blocks past that are neither read nor
-//     computed, and their table entries are never read (with kv_len == 0
-//     not even tables[b, 0], which the TPU kernel's index map reads). Live
-//     ids are clamped into the pool, as JAX's gather clamps them.
+// Decode, one block per (slot, KV head) up to a group of 64, is bound by
+// its tiles' chains of dependent steps per chunk (40 blocks for 132 SMs at
+// smollm's 5 KV heads); splitting the key axis across blocks is later
+// work. The design:
+//   * A block owns one (slot, KV head) and 4 warps, and 64 rows of the
+//     flattened (position, head-in-group) row space, 16 a warp; decode is the
+//     same at S = 1: its rows are the group's query heads (one tile up to a
+//     group of 16, granite-20b's MQA 48 warps 0-2, past 64 more blocks; a
+//     warp without rows helps stage). It reads its own block table and kv_len
+//     (no scalar prefetch on this card) and walks logical blocks j <
+//     cdiv(live, bs) only, where live is kv_len and, for prefill, also the
+//     tile's causal horizon q_off + last row + 1. Blocks past that are
+//     neither read nor computed, and their table entries are never read (with
+//     kv_len == 0 not even tables[b, 0], which the TPU kernel's index map
+//     reads). Live ids are clamped into the pool, as JAX's gather clamps
+//     them.
 //   * Whole blocks, up to 64 keys a round, are staged in shared memory as
 //     bf16, double-buffered: the next round's cp.async copies (16 bytes
 //     each; a thread keeps one 16-byte column and walks the keys, no
@@ -172,10 +175,10 @@ __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) /
 constexpr int kBufs = 2;
 
 // ---------------------------------------------------------------------------
-// grid (tiles, KV, B), kWarps warps a block. Decode: one tile, the `group`
-// rows of one KV head at the slot's one position, warp 0's. Prefill: tiles
-// of kWarps x 16 rows of the flattened (position, head-in-group) space (row
-// r is position r / group, head hk * group + r % group), 16 a warp. Shared
+// grid (tiles, KV, B), kWarps warps a block: tiles of kWarps x 16 rows of
+// the flattened (position, head-in-group) space (row r is position r /
+// group, head hk * group + r % group), 16 a warp; decode is S = 1 with
+// every row's limit kv_len (no q_off), any group. Shared
 // memory: the block's live table entries, then K and V of kBufs rounds as
 // NT bf16 planes each.
 // ---------------------------------------------------------------------------
@@ -189,7 +192,7 @@ paged_attn_kernel(const TQ* __restrict__ q, const TC* __restrict__ kp, const TC*
   constexpr int kPitch = row_pitch<HD>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int group = H / KV;
-  const int rows_cta = DECODE ? group : kWarps * kTile;
+  constexpr int rows_cta = kWarps * kTile;
   const int bpr = bs >= kRoundKeys ? 1 : kRoundKeys / bs;      // blocks per round
   const int round_keys = bpr * bs;
   const int plane = plane_rows(bs) * kPitch;                   // elements of one plane
@@ -224,10 +227,11 @@ paged_attn_kernel(const TQ* __restrict__ q, const TC* __restrict__ kp, const TC*
     for (int i = tid; i < n16; i += kThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
 
-  // this warp's tile: rows wr0 .. wr0 + 15 (decode: warp 0's, the group);
-  // lane's rows g and g + 8, their positions and live-key limits
-  const int wr0 = DECODE ? 0 : r0 + kTile * warp;
-  const bool active = DECODE ? warp == 0 : wr0 < n_rows;
+  // this warp's tile: rows wr0 .. wr0 + 15 (decode: S = 1, the group's
+  // query heads); lane's rows g and g + 8, their positions and live-key
+  // limits
+  const int wr0 = r0 + kTile * warp;
+  const bool active = wr0 < n_rows;
   const int g = lane >> 2, q4 = lane & 3;
   int lim[2];
 #pragma unroll
@@ -367,7 +371,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
     max_smem = optin;
   }
   const int group = H / KV;
-  const dim3 grid(DECODE ? 1 : (S * group + kWarps * kTile - 1) / (kWarps * kTile), KV, B);
+  const dim3 grid((S * group + kWarps * kTile - 1) / (kWarps * kTile), KV, B);
   paged_attn_kernel<TQ, TC, HD, NQ, DECODE><<<grid, kThreads, smem_bytes<TC, HD>(bs, nb), st>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), tables,
       q_off, kv_len, static_cast<TQ*>(o), S, H, KV, hd, n_pool, bs, nb, scale);
@@ -413,7 +417,7 @@ extern "C" {
 
 // q, o (B, 1, H, hd) bf16 (q_bf16 != 0) or f32; the pools k, v (n_pool, bs,
 // KV, hd) bf16 (c_bf16 != 0) or f32; tables (B, nb) int32; kv_len (B,)
-// int32. 1 <= hd <= 128, 1 <= bs <= 64, H % KV == 0, H / KV <= 16 (checked
+// int32. 1 <= hd <= 128, 1 <= bs <= 64, H % KV == 0, any H / KV (checked
 // by the wrapper).
 int pa_paged_decode_fwd(const void* q, const void* k, const void* v, const void* tables,
                         const void* kv_len, void* o, int q_bf16, int c_bf16, int B, int H,
@@ -425,8 +429,7 @@ int pa_paged_decode_fwd(const void* q, const void* k, const void* v, const void*
                                         1, H, KV, hd, n_pool, bs, nb, scale, st));
 }
 
-// q, o (B, S, H, hd); q_off (B,) int32; otherwise as pa_paged_decode_fwd,
-// with any H / KV.
+// q, o (B, S, H, hd); q_off (B,) int32; otherwise as pa_paged_decode_fwd.
 int pa_paged_prefill_fwd(const void* q, const void* k, const void* v, const void* tables,
                          const void* q_off, const void* kv_len, void* o, int q_bf16, int c_bf16,
                          int B, int S, int H, int KV, int hd, int n_pool, int bs, int nb,

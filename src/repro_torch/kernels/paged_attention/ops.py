@@ -31,7 +31,6 @@ from repro_torch.kernels.paged_attention import ref as _ref
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128       # the kernels pad hd to 64 or 128 for their mma tiles
-MAX_GROUP = 16           # decode: a group's query heads are one 16-row mma tile
 MAX_BLOCK_SIZE = 64      # whole blocks are staged in shared memory
 
 
@@ -75,9 +74,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     B, one, H, hd = q.shape
     if one != 1:
         raise ValueError(f"decode takes one query per slot, got q {tuple(q.shape)}")
-    KV = k_pool.shape[2]
-    if H // KV > MAX_GROUP:
-        raise ValueError(f"query group {H // KV} > {MAX_GROUP}")
     scale = softmax_scale(hd)
     if _b.on_cpu(q, k_pool, v_pool, tables, kv_len):
         return _ref.paged_decode_fwd(q, k_pool, v_pool, tables, kv_len, scale=scale)
@@ -85,8 +81,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     _b.launch(_lib().pa_paged_decode_fwd, q.data_ptr(), k_pool.data_ptr(),
               v_pool.data_ptr(), tables.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
               int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
-              B, H, KV, hd, k_pool.shape[0], k_pool.shape[1], tables.shape[1], scale,
-              _b.stream(q))
+              B, H, k_pool.shape[2], hd, k_pool.shape[0], k_pool.shape[1], tables.shape[1],
+              scale, _b.stream(q))
     paged_decode_attention.launches += 1
     return o
 

@@ -498,11 +498,17 @@ def test_cuda_flash_fwd_clip_and_ragged_shapes(B, Sq, Sk, kv_valid, H, KV, hd, c
     (96, 15, 5, 64, "bf16"), (256, 15, 5, 64, "bf16"), (256, 15, 5, 64, "f32"),
     (100, 16, 2, 64, "bf16"), (200, 8, 1, 80, "f32"), (131, 12, 3, 128, "bf16"),
     (1500, 15, 5, 64, "bf16"), (96, 6, 2, 48, "f32"), (64, 4, 2, 36, "bf16"),
-    (64, 64, 8, 128, "bf16"), (33, 16, 16, 64, "bf16")])
+    (64, 64, 8, 128, "bf16"), (33, 16, 16, 64, "bf16"),
+    (256, 24, 2, 128, "bf16"), (256, 16, 1, 128, "bf16"), (131, 17, 1, 128, "f32"),
+    (256, 48, 1, 128, "bf16"), (1500, 48, 1, 128, "bf16"), (64, 128, 2, 128, "bf16"),
+    (96, 64, 1, 128, "f32")])
 def test_cuda_decode_matches_plain(S, H, KV, hd, cache, dt):
     """decode_fwd (split-key, ops.decode_split) within O_TOL of its plain
     version: q bf16 or f32 over a bf16 or f32 cache, groups 1 (seamless's
-    decoder), 3, 4 and 8 (internvl2's, hd 128 over 8 KV heads), hd
+    decoder), 3, 4 and 8 (internvl2's, hd 128 over 8 KV heads), the wide
+    groups in row tiles of 16 (12: starcoder2's 24 over 2; 16, one tile; 17,
+    a second tile of one row; 48: granite's MQA, 3 tiles; 64, also over an
+    f32 cache), hd
     36 and 48 (padded to 64; 36 staged by plain loads), 64, 80 and 128,
     S_max off the part (100, 131) and past 64 parts of 16 keys (1,500:
     32-key parts), slots at kv_len 0 (o = 0) to S_max; two launches the
@@ -959,14 +965,14 @@ def test_cuda_row_sum_and_rms_norm_are_row_count_invariant():
         assert torch.equal(rms_norm(x.bfloat16(), gain)[:, R // 2], want_n), R
 
 
-def _paged_inputs(dev, dt, B, nb, bs=16, seed=0):
-    """Pools of B * nb blocks (+ the trash block) at smollm-360m's heads,
-    tables a permutation of them; the plain versions clamp dead ids, the
-    kernels never read them."""
+def _paged_inputs(dev, dt, B, nb, bs=16, seed=0, KV=5, hd=64):
+    """Pools of B * nb blocks (+ the trash block) at smollm-360m's heads (or
+    KV heads of hd), tables a permutation of them; the plain versions clamp
+    dead ids, the kernels never read them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     N = B * nb
-    k = torch.randn((N + 1, bs, 5, 64), generator=gen, device=dev).to(dt)
-    v = torch.randn((N + 1, bs, 5, 64), generator=gen, device=dev).to(dt)
+    k = torch.randn((N + 1, bs, KV, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((N + 1, bs, KV, hd), generator=gen, device=dev).to(dt)
     perm = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
     return gen, k, v, perm.reshape(B, nb)
 
@@ -978,16 +984,23 @@ def _kill_dead(tables, kv_len, bs):
     return torch.where(j < live[:, None], tables, 10 ** 6).contiguous()
 
 
+# (H, KV, hd) of the paged cases: smollm-360m's heads, and the wide query
+# groups (12: starcoder2's 24 over 2; 16; 17; 48: granite's MQA; 64) at hd 128
+PAGED_HEADS = [(15, 5, 64), (24, 2, 128), (16, 1, 128), (17, 1, 128), (48, 1, 128),
+               (64, 1, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_cuda_paged_decode_matches_plain(dt):
+@pytest.mark.parametrize("H,KV,hd", PAGED_HEADS)
+def test_cuda_paged_decode_matches_plain(H, KV, hd, dt):
     dev = _card()
-    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 8, 64)
+    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 8, 64, KV=KV, hd=hd)
     kv_len = torch.tensor([0, 1, 15, 16, 17, 300, 1000, 1024], dtype=torch.int32, device=dev)
     tables = _kill_dead(tables, kv_len, 16)
-    q = torch.randn((8, 1, 15, 64), generator=gen, device=dev).to(dt)
+    q = torch.randn((8, 1, H, hd), generator=gen, device=dev).to(dt)
     o = PA.paged_decode_attention(q, k, v, tables, kv_len)
-    ro = PREF.paged_decode_fwd(q, k, v, tables, kv_len, scale=FA.softmax_scale(64))
+    ro = PREF.paged_decode_fwd(q, k, v, tables, kv_len, scale=FA.softmax_scale(hd))
     torch.cuda.synchronize()
     assert o.dtype == dt and bool(torch.isfinite(o).all()) and _rel(o, ro) <= O_TOL[dt]
     assert float(o[0].abs().max()) == 0.0                  # kv_len 0: exact zeros
@@ -997,18 +1010,19 @@ def test_cuda_paged_decode_matches_plain(dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("Sq", [1, 5, 128, 300])
-def test_cuda_paged_prefill_matches_plain_and_decode(Sq, dt):
+@pytest.mark.parametrize("H,KV,hd", PAGED_HEADS)
+def test_cuda_paged_prefill_matches_plain_and_decode(H, KV, hd, Sq, dt):
     """Ragged offsets off block edges and a dry slot; then every row
     bit-equal to the decode kernel at kv_len = its position + 1."""
     dev = _card()
-    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 8, 64, seed=Sq)
+    gen, k, v, tables = _paged_inputs(dev, torch.bfloat16, 8, 64, seed=Sq, KV=KV, hd=hd)
     q_off = torch.tensor([0, 3, 16, 100, 257, 500, 700, 0], dtype=torch.int32, device=dev)
     kv_len = (q_off + Sq).clamp(max=1024).to(torch.int32)
     kv_len[7] = 0                                          # not admitted: dry
     tables = _kill_dead(tables, kv_len, 16)
-    q = torch.randn((8, Sq, 15, 64), generator=gen, device=dev).to(dt)
+    q = torch.randn((8, Sq, H, hd), generator=gen, device=dev).to(dt)
     o = PA.paged_prefill_attention(q, k, v, tables, q_off, kv_len)
-    ro = PREF.paged_prefill_fwd(q, k, v, tables, q_off, kv_len, scale=FA.softmax_scale(64))
+    ro = PREF.paged_prefill_fwd(q, k, v, tables, q_off, kv_len, scale=FA.softmax_scale(hd))
     torch.cuda.synchronize()
     live = kv_len > 0
     assert o.dtype == dt and bool(torch.isfinite(o).all())
@@ -1020,6 +1034,48 @@ def test_cuda_paged_prefill_matches_plain_and_decode(Sq, dt):
         rows = (q_off + r < kv_len) & live
         d = PA.paged_decode_attention(q[:, r:r + 1].contiguous(), k, v, tables, lens)
         assert torch.equal(d[rows], o[:, r:r + 1][rows]), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("group,KV", [(12, 2), (48, 1), (64, 1)])
+def test_cuda_wide_group_equals_narrow(group, KV, dt):
+    """A query head's output does not depend on the group it is launched
+    in: decode_fwd and the paged decode at a wide group (and the paged
+    prefill at S = 3) give, head for head, the bits of launches of groups
+    of 8 (ring) and 16 (paged) over the same KV head's cache."""
+    dev = _card()
+    B, S, hd = 8, 200, 128
+    gen = torch.Generator(device=dev).manual_seed(group * 7 + KV)
+    lens = torch.tensor([1, 16, 17, 64, 100, 150, 200, 0], dtype=torch.int32, device=dev)
+    H = group * KV
+    q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(torch.bfloat16)
+    wide = FA.decode_attention(q, k, v, lens)
+    for h in range(KV):
+        for g0 in range(0, group, 8):
+            n = min(8, group - g0)
+            heads = slice(h * group + g0, h * group + g0 + n)
+            narrow = FA.decode_attention(q[:, :, heads].contiguous(), k[:, :, h:h + 1].contiguous(),
+                                         v[:, :, h:h + 1].contiguous(), lens)
+            assert torch.equal(narrow, wide[:, :, heads]), (h, g0)
+    _, kp, vp, tables = _paged_inputs(dev, torch.bfloat16, B, 16, KV=KV, hd=hd, seed=group)
+    q3 = torch.randn((B, 3, H, hd), generator=gen, device=dev).to(dt)
+    q_off = (lens - 3).clamp(min=0)
+    pw = PA.paged_decode_attention(q, kp, vp, tables, lens)
+    fw = PA.paged_prefill_attention(q3, kp, vp, tables, q_off, lens)
+    for h in range(KV):
+        for g0 in range(0, group, 16):
+            n = min(16, group - g0)
+            heads = slice(h * group + g0, h * group + g0 + n)
+            kh, vh = kp[:, :, h:h + 1].contiguous(), vp[:, :, h:h + 1].contiguous()
+            assert torch.equal(PA.paged_decode_attention(q[:, :, heads].contiguous(), kh, vh,
+                                                         tables, lens), pw[:, :, heads])
+            assert torch.equal(PA.paged_prefill_attention(q3[:, :, heads].contiguous(), kh, vh,
+                                                          tables, q_off, lens),
+                               fw[:, :, heads])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -256,19 +256,23 @@ def test_fp8_serve_engine_matches_jax(mode):
 
 
 def test_unported_model_families_raise():
-    """Every model family is ported since the multimodal and enc-dec slice
-    (a multimodal stack builds, with its ``frontend_proj``); the archs
-    still to port, granite-20b and starcoder2-3b, raise in the registry,
-    citing Queue 1 #9, and the decode kernel refuses a query group past
-    its 8."""
+    """Nothing is left unported: every model family builds (a multimodal
+    stack with its ``frontend_proj``), the code models granite-20b and
+    starcoder2-3b are in the registry, no refusal cites Queue 1 #9, and an
+    unknown name still raises. The ring decode takes starcoder2's query
+    group of 12 and refuses one past its limit of 128."""
     cfg = dataclasses.replace(get_reduced_config("smollm-360m"), family="vlm",
                               frontend="vision_stub")
     assert "frontend_proj" in build(cfg).param_specs
     for arch in ("granite-20b", "starcoder2-3b"):
-        with pytest.raises(KeyError, match="Queue 1 #9"):
-            get_reduced_config(arch)
+        assert "attn" in build(get_reduced_config(arch)).param_specs["blocks"]["pos0"]
+    with pytest.raises(KeyError) as err:
+        get_reduced_config("no-such-arch")
+    assert "#9" not in str(err.value) and "granite-20b" in str(err.value)
     q, k = torch.zeros((1, 1, 12, 8)), torch.zeros((1, 4, 1, 8))
-    with pytest.raises(ValueError, match="query group 12 > 8"):
+    assert FA.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32)).shape == q.shape
+    q = torch.zeros((1, 1, 129, 8))
+    with pytest.raises(ValueError, match="query group 129 > MAX_GROUP = 128"):
         FA.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
 
 

@@ -28,8 +28,8 @@ jitted with XLA's excess precision off (``tests/test_torch_train.py``).
   decode logits within FP32_TOL and its greedy tokens; an explicit
   f16-compute policy raises, citing ROADMAP.md Queue 1 #14.
 * The quant-health scalars read the 3-D expert weights as the JAX package
-  does; the unported families still raise, citing #9; both CLIs take the
-  new archs.
+  does; every family builds and #9's code models are in the registry;
+  both CLIs take the new archs.
 """
 from __future__ import annotations
 
@@ -305,15 +305,20 @@ def test_quant_health_reads_expert_weights_as_jax():
 
 
 def test_unported_families_still_raise_citing_queue_9():
-    """What #9 still lists raises, citing it: granite-20b and starcoder2-3b
-    are not in the registry. Every family builds: the multimodal and
-    enc-dec stacks since their slice (tests/test_torch_vlm.py,
-    tests/test_torch_encdec.py), the mixture of experts, and the SSM and
-    hybrid stacks (tests/test_torch_ssm_model.py)."""
+    """#9 is done: granite-20b and starcoder2-3b build from the registry
+    (tests/test_torch_code_lms.py) and an unknown name's KeyError cites no
+    queue item. Every family builds: the multimodal and enc-dec stacks since
+    their slice (tests/test_torch_vlm.py, tests/test_torch_encdec.py), the
+    mixture of experts, and the SSM and hybrid stacks
+    (tests/test_torch_ssm_model.py)."""
     from repro_torch.configs.base import EncDecConfig, MambaConfig, MoEConfig, RWKVConfig
     for arch in ("granite-20b", "starcoder2-3b"):
-        with pytest.raises(KeyError, match="Queue 1 #9"):
-            get_reduced_config(arch)
+        cfg = get_reduced_config(arch)
+        assert cfg.act == "gelu" and cfg.norm == "layernorm"
+        assert "w_gate" not in build(cfg).param_specs["blocks"]["pos0"]["mlp"]
+    with pytest.raises(KeyError) as err:
+        get_reduced_config("granite-20b-xl")
+    assert "Queue" not in str(err.value)
     base = get_reduced_config("smollm-360m")
     for cfg in (dataclasses.replace(base, family="vlm", frontend="vision_stub"),
                 dataclasses.replace(base, family="audio", frontend="audio_stub")):

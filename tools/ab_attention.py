@@ -18,6 +18,10 @@ checkout, so that two commits are read by the same code on the same card:
 * phases 3 and 14 (``compare_flash_train``): ``flash_fwd`` and the two
   backward kernels against their plain versions at smollm's and CLIP's
   training shapes, with ``flash_fwd``'s mean signed error of o and lse;
+* ``narrow_digests``: SHA-256 of ``decode_fwd``'s outputs at query groups
+  1-8 and the paged kernels' at 1-16 (the groups both took before their
+  wide forms): two checkouts that print the same digests give those
+  groups the same bits;
 * the flash kernels' times: ``flash_fwd`` at the 1,024-row prefill and
   ``decode_fwd`` at 8 slots of a 256-cell cache, full and at 200 each
   (``time_flash``), ``flash_fwd`` at 8 x 256, the backward pair at 8 x
@@ -94,6 +98,7 @@ def main(argv=None) -> int:
             flash[name], _ = C.compare_flash_train(torch, M, cases, dev, args.seed + off)
         res["flash"] = flash
         res["ring"], _ = C.compare_flash(torch, M, cfg, dev, args.seed)
+        res["digests"] = C.narrow_digests(torch, M, dev, args.seed)
         gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         bwd, asets = C.time_flash_bwd(torch, M, gen, dev, C.TRAIN_BATCH, C.TRAIN_SEQ, H, KV, hd,
@@ -123,7 +128,7 @@ def main(argv=None) -> int:
         paged_ms={k: r["ms"] for k, r in res["paged"]["times"].items()},
         flash={t: {k: {x: r[x] for x in ("max_rel_err", "mean_signed_err") if x in r}
                    for k, r in f.items()} for t, f in flash.items()},
-        ring={k: r["max_rel_err"] for k, r in res["ring"].items()},
+        ring={k: r["max_rel_err"] for k, r in res["ring"].items()}, digests=res["digests"],
         seconds=res["seconds"])))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as fh:
